@@ -15,7 +15,19 @@ nothing falls back to the CPU):
    warm, run(100) timed: MLUPS, launch counts, overflow, finiteness,
    mass conservation, disk motion;
 5. slice vs CPU: 16 steps of a 256^2 column collapse on the card against
-   the same run on CPU tensors (the plain versions).
+   the same run on CPU tensors (the plain versions);
+6. fluid kernels: K4 (one pure-fluid step) and K5 (k steps per pass)
+   against their plain versions on the card, over the lattice-option
+   matrix at 256x64 (and two domains smaller than a tile), f32 and
+   shifted-bf16 storage, then at 4096^2 with CUDA-event times;
+7. fluid slice: Simulation(SimConfig(nx=4096, ny=4096, tau=0.8,
+   gx=1e-6), device="cuda") for f32 and bf16 storage, run(400) to warm,
+   run(400) timed: MLUPS, launch counts (K5 100, K4 0; then run(19): K5
+   4, K4 3), finiteness, mass;
+8. Poiseuille on the card (models.poiseuille, 64^2, 20 ny^2 steps)
+   against the analytic parabola;
+9. fluid vs CPU: a 256x64 Zou/He channel and a 128^2 lid-driven cavity,
+   19 steps each, on the card against CPU tensors.
 
 The second-to-last line holds the per-kernel JSON record, the line
 before it the card's name and power limit; the last line is the
@@ -199,20 +211,23 @@ def kernel_checks(cfg, disks, label: str, timed: bool, seed: int = 0):
     return out
 
 
-def launch_counts():
-    from lbmdem_tpu_torch.ops import fused_lbm, slab_dem, stamp
+def _wrappers():
+    from lbmdem_tpu_torch.ops import fused_fluid, fused_lbm, slab_dem, stamp
 
-    return {"K1": stamp.stamp_fields.launches,
-            "K2": fused_lbm.fused_step_imb_reduce.launches,
-            "K3": slab_dem.subcycle_slabs.launches}
+    return {"K1": stamp.stamp_fields,
+            "K2": fused_lbm.fused_step_imb_reduce,
+            "K3": slab_dem.subcycle_slabs,
+            "K4": fused_fluid.fused_step_fluid,
+            "K5": fused_fluid.fused_step_fluid_multi}
+
+
+def launch_counts():
+    return {k: fn.launches for k, fn in _wrappers().items()}
 
 
 def reset_counts() -> None:
-    from lbmdem_tpu_torch.ops import fused_lbm, slab_dem, stamp
-
-    stamp.stamp_fields.launches = 0
-    fused_lbm.fused_step_imb_reduce.launches = 0
-    slab_dem.subcycle_slabs.launches = 0
+    for fn in _wrappers().values():
+        fn.launches = 0
 
 
 def slice_run(smi: str):
@@ -240,8 +255,10 @@ def slice_run(smi: str):
         f"n_contacts {int(st.n_contacts)}; finite {finite}; "
         f"|sum f/(nx ny) - 1| {mass_err:.3e}; max disk displacement {disp:.4e}")
     assert steps == 200, steps
-    for k, c in counts.items():
-        assert c == steps, f"{k} launched {c} times in {steps} steps"
+    for k in ("K1", "K2", "K3"):
+        assert counts[k] == steps, f"{k} launched {counts[k]} times in " \
+            f"{steps} steps"
+    assert counts["K4"] == counts["K5"] == 0, counts
     assert int(st.overflow) == 0, f"overflow {int(st.overflow)}"
     assert finite, "non-finite f"
     assert mass_err < 1e-5, f"mass drift {mass_err}"
@@ -266,6 +283,222 @@ def slice_vs_cpu() -> None:
     assert ef <= 1e-5 and ex <= 1e-4
 
 
+# the lattice-option matrix of the JAX package's fluid-kernel tests
+# (tests/test_pallas.py), Zou/He channels (wall and periodic y), bf16
+# storage, and two domains smaller than one 16 x 32 tile; at 256x64
+# unless overridden
+FLUID_MATRIX = [
+    ("periodic-x", {}),
+    ("walls", dict(bc_west="wall", bc_east="wall")),
+    ("periodic", dict(bc_south="periodic", bc_north="periodic")),
+    ("forcing", dict(gx=1e-5, gy=-2e-5)),
+    ("les", dict(smagorinsky=0.16, gx=2e-5)),
+    ("lid", dict(bc_west="wall", bc_east="wall", uw_north=0.08)),
+    ("trt", dict(collision="trt")),
+    ("trt-les", dict(collision="trt", smagorinsky=0.16, gx=1e-5)),
+    ("zou-he", dict(bc_west="inlet", bc_east="outlet", u_inlet=0.06,
+                    inlet_profile="poiseuille")),
+    ("zou-he-periodic-y", dict(bc_west="inlet", bc_east="outlet",
+                               u_inlet=0.06, inlet_profile="poiseuille",
+                               bc_south="periodic", bc_north="periodic")),
+    ("bf16-forcing", dict(f_storage="bfloat16", gx=1e-5, gy=-1e-5)),
+    ("bf16-zou-he", dict(f_storage="bfloat16", bc_west="inlet",
+                         bc_east="outlet", u_inlet=0.06)),
+    ("bf16-trt-les-lid", dict(f_storage="bfloat16", collision="trt",
+                              smagorinsky=0.16, bc_west="wall",
+                              bc_east="wall", uw_north=0.08)),
+    ("small-channel", dict(nx=4, ny=32, gx=1e-5)),
+    ("small-cavity", dict(nx=24, ny=6, bc_west="wall", bc_east="wall",
+                          uw_north=0.05)),
+]
+
+
+def fluid_bar(cfg, k: int):
+    """(atol, rtol) of K4/K5 against the plain version, the JAX package's
+    bars: K4 1e-7/1e-6, K5 5e-7/1e-5 (2e-6 with Zou/He), bf16 3e-4."""
+    if cfg.f_storage == "bfloat16":
+        return 3e-4, 0.0
+    if k == 1:
+        return 1e-7, 1e-6
+    return (2e-6 if cfg.bc_west == "inlet" else 5e-7), 1e-5
+
+
+def fluid_check(cfg, k: int, seed: int, label: str, timed: bool = False,
+                amp: float = 0.05):
+    """K4 (k == 1) or K5 (k steps) against its plain version on the same
+    card input, f = w_i (1 + amp N(0, 1)). Returns (max_abs_err, ms,
+    plain_ms)."""
+    from lbmdem_tpu_torch import lattice
+    from lbmdem_tpu_torch.ops import fused_fluid, lbm
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    w = torch.as_tensor(lattice.W, dtype=torch.float32, device="cuda")
+    f = lbm.to_storage(w[:, None, None] * (1.0 + amp * torch.randn(
+        (9, cfg.ny, cfg.nx), generator=g, device="cuda")), cfg)
+    a, b = torch.empty_like(f), torch.empty_like(f)
+    if k == 1:
+        wrapper = fused_fluid.fused_step_fluid
+        run = lambda: wrapper(f, cfg, a)  # noqa: E731
+        plain = lambda: fused_fluid.fused_step_fluid_plain(f, cfg, b)  # noqa
+    else:
+        wrapper = fused_fluid.fused_step_fluid_multi
+        run = lambda: wrapper(f, cfg, k, a)  # noqa: E731
+        plain = lambda: fused_fluid.fused_step_fluid_multi_plain(  # noqa
+            f, cfg, k, b)
+    n0 = wrapper.launches
+    run()
+    assert wrapper.launches == n0 + 1, "the kernel did not launch"
+    plain()
+    torch.cuda.synchronize()
+    ka, pb = a.float(), b.float()
+    err = float((ka - pb).abs().max())
+    atol, rtol = fluid_bar(cfg, k)
+    excess = float(((ka - pb).abs() - rtol * pb.abs()).max())
+    moved = float((pb - f.float()).abs().max())
+    name = "K4" if k == 1 else f"K5 k={k}"
+    log("fluid", f"{label} {name}: max err {err:.3e} (bar atol {atol:g} + "
+        f"rtol {rtol:g}); max |step| {moved:.3e}")
+    assert bool(torch.isfinite(ka).all()), f"{label} {name}: non-finite"
+    assert excess <= atol, f"{label} {name}: err {err} over the bar"
+    assert moved > 0.0, f"{label} {name}: the step changed nothing"
+    if not timed:
+        return err, None, None
+    return err, cuda_ms(run, 20), cuda_ms(plain, 2)
+
+
+def fluid_kernels(n: int = 4096):
+    """K4/K5 against the plain versions over FLUID_MATRIX, then at n^2
+    with CUDA-event times. Returns {kernel: (err, ms, plain_ms)} of the
+    f32 n^2 checks. At n^2 the input amplitude is 0.02: with 0.05 some
+    of the 151 M shifted bf16 values exceed |g| = 1/16, where one bf16
+    ulp (4.9e-4) is over the 3e-4 bar, and a value on a rounding
+    boundary flips between the shifted kernel and the unshifted plain
+    version."""
+    from lbmdem_tpu_torch import SimConfig
+
+    for i, (label, kw) in enumerate(FLUID_MATRIX):
+        cfg = SimConfig(**{"nx": 256, "ny": 64, "tau": 0.8,
+                           "dtype": "float32", **kw})
+        ks = (1, 4, 8, 16) if cfg.f_storage == "bfloat16" else (1, 4, 8)
+        for k in ks:
+            fluid_check(cfg, k, 100 + i, f"{label} {cfg.nx}x{cfg.ny}")
+    out = {}
+    for storage in ("float32", "bfloat16"):
+        cfg = SimConfig(nx=n, ny=n, tau=0.8, gx=1e-6, dtype="float32",
+                        f_storage=storage)
+        for k, key in ((1, "K4"), (4, "K5")):
+            err, ms, pms = fluid_check(cfg, k, 7, f"{n}x{n} {storage}",
+                                       timed=True, amp=0.02)
+            log("fluid", f"{n}x{n} {storage} {key} (k={k}): kernel "
+                f"{ms:.4f} ms per call ({ms / k:.4f} ms per step), plain "
+                f"{pms:.4f} ms (CUDA events)")
+            if storage == "float32":
+                out[key] = (err, ms, pms)
+    return out
+
+
+def fluid_slice(smi: str, storage: str, n: int = 4096):
+    """The pure-fluid path through Simulation at n^2 (bench.py's
+    fluid/4096 stages): run(400) to warm, run(400) timed, run(19), the
+    checks on that 819-step state, then two more timed run(400) for the
+    spread, then K5's CUDA-event time on the run's own state for the
+    kernel share of the runs (the f32 kernel is slower on the smooth
+    state of the run than on a random one). Returns (launch counts of
+    the first timed run(400) + run(19), median MLUPS)."""
+    from lbmdem_tpu_torch.ops import fused_fluid
+    from lbmdem_tpu_torch import SimConfig, Simulation
+    from lbmdem_tpu_torch.ops import lbm
+
+    cfg = SimConfig(nx=n, ny=n, tau=0.8, gx=1e-6, dtype="float32",
+                    out_interval=10**9, f_storage=storage)
+    sim = Simulation(cfg, device="cuda")
+    sim.run(400)
+    reset_counts()
+    rates = [sim.run(400)]
+    c400 = launch_counts()
+    sim.run(19)
+    counts = launch_counts()
+    steps = int(sim.state.step)
+    f = lbm.from_storage(sim.state.f, cfg)
+    finite = bool(torch.isfinite(f).all())
+    mass_err = abs(float(f.double().sum()) / (cfg.nx * cfg.ny) - 1.0)
+    ux = float(lbm.moments(f, cfg.gx, cfg.gy)[1].double().mean())
+    bar = 1e-5 if storage == "float32" else 1e-4
+    for _ in range(2):
+        reset_counts()
+        rates.append(sim.run(400))
+        assert launch_counts() == {**c400, "K5": 100}, launch_counts()
+    mlups = float(np.median(rates))
+    k5_ms = cuda_ms(lambda: fused_fluid.fused_step_fluid_multi(
+        sim.state.f, cfg, 4, sim._f_spare), 10)
+    # 100 K5 launches per run(400): their device time over the wall time
+    share = [100 * 100 * k5_ms * 1e-3 / (cfg.nx * cfg.ny * 400 / (r * 1e6))
+             for r in rates]
+    log("fluid-slice", f"{cfg.nx}x{cfg.ny} {storage}, tau 0.8, gx 1e-6: "
+        f"{mlups:.1f} MLUPS median of 3 timed run(400) "
+        f"({', '.join(f'{r:.1f}' for r in rates)}; wall clock; "
+        f"{1e3 * cfg.nx * cfg.ny / (mlups * 1e6):.4f} ms per step) on {smi}; "
+        f"K5 on this state {k5_ms:.4f} ms per call; 100 x K5 / run time "
+        f"{', '.join(f'{x:.1f}' for x in share)} %")
+    log("fluid-slice", f"launches run(400) {c400}; after run(19) {counts}; "
+        f"steps {steps}; finite {finite}; |sum f/(nx ny) - 1| "
+        f"{mass_err:.3e} (bar {bar:g}); mean ux {ux:.4e}")
+    assert (counts["K5"] - 100, counts["K4"]) == (4, 3), counts
+    assert all(counts[k] == 0 for k in ("K1", "K2", "K3")), counts
+    assert steps == 819
+    assert finite, "non-finite f"
+    assert mass_err < bar, f"mass drift {mass_err}"
+    assert ux > 0.0, "the body force drove no flow"
+    return counts, mlups
+
+
+def poiseuille_check() -> None:
+    """models.poiseuille (64^2, tau 0.9, g 1e-6, 20 ny^2 steps, f32) on
+    the card against the analytic parabola. Bar: max |u - analytic| <=
+    1 % of u_max. The f64 bars of test_lbm.py (rtol 2e-3, atol 3e-7)
+    hold in f64 (the same run on CPU tensors: 1.4e-7); in f32 the
+    rounding of the collide leaves a steady offset of 0.48 % of u_max,
+    on the card and on CPU tensors alike."""
+    from lbmdem_tpu_torch import Simulation
+    from lbmdem_tpu_torch.models import poiseuille
+
+    cfg, _ = poiseuille()
+    sim = Simulation(cfg, device="cuda")
+    t0 = time.perf_counter()
+    sim.run(cfg.steps)
+    secs = time.perf_counter() - t0
+    _, ux, _ = sim.macroscopic()
+    prof = ux.mean(axis=1).astype(np.float64)
+    y = np.arange(cfg.ny) + 0.5
+    analytic = cfg.gx / (2.0 * cfg.nu) * y * (cfg.ny - y)
+    err = np.abs(prof - analytic)
+    umax = analytic.max()
+    log("poiseuille", f"{cfg.nx}x{cfg.ny}, {cfg.steps} steps in {secs:.2f} s:"
+        f" max |u - analytic| {err.max():.3e} of u_max {umax:.4e} "
+        f"({100 * err.max() / umax:.3f} %; bar 1 %)")
+    assert err.max() <= 1e-2 * umax, "Poiseuille profile off"
+
+
+def fluid_vs_cpu() -> None:
+    """19 steps (4 K5 passes + 3 K4 steps) on the card against the same
+    run on CPU tensors (the plain versions)."""
+    from lbmdem_tpu_torch import SimConfig, Simulation
+    from lbmdem_tpu_torch.models import cavity
+
+    chan = SimConfig(nx=256, ny=64, tau=0.7, dtype="float32",
+                     bc_west="inlet", bc_east="outlet", u_inlet=0.05,
+                     inlet_profile="poiseuille")
+    for label, cfg in (("Zou/He channel", chan), ("cavity", cavity()[0])):
+        g = Simulation(cfg, device="cuda")
+        c = Simulation(cfg, device="cpu")
+        g.run(19)
+        c.run(19)
+        err = float((g.state.f.cpu() - c.state.f).abs().max())
+        log("fluid-vs-cpu", f"{label} {cfg.nx}x{cfg.ny}, 19 steps: f max err "
+            f"{err:.3e} (bar 1e-5)")
+        assert err <= 1e-5
+
+
 def main() -> int:
     smi = probe()
     build()
@@ -279,6 +512,12 @@ def main() -> int:
                         f"{cfg.nx}x{cfg.ny}/{len(disks)} disks", timed=True)
     counts, _ = slice_run(smi)
     slice_vs_cpu()
+    res.update(fluid_kernels())
+    fcounts, _ = fluid_slice(smi, "float32")
+    fluid_slice(smi, "bfloat16")
+    poiseuille_check()
+    fluid_vs_cpu()
+    counts.update({k: fcounts[k] for k in ("K4", "K5")})
     meta = {
         "K1": ("stamp", "lbmdem_tpu_torch/csrc/stamp.cu",
                "lbmdem_tpu/ops/pallas_stamp.py:270"),
@@ -286,12 +525,16 @@ def main() -> int:
                "lbmdem_tpu/ops/pallas_lbm.py:1048"),
         "K3": ("slab_dem", "lbmdem_tpu_torch/csrc/slab_dem.cu",
                "lbmdem_tpu/ops/pallas_dem.py:313"),
+        "K4": ("fluid_step", "lbmdem_tpu_torch/csrc/fluid.cu",
+               "lbmdem_tpu/ops/pallas_lbm.py:585"),
+        "K5": ("fluid_multi", "lbmdem_tpu_torch/csrc/fluid.cu",
+               "lbmdem_tpu/ops/pallas_lbm.py:780"),
     }
     record = {"kernels": [
         {"name": meta[k][0], "route": "cuda", "source": meta[k][1],
          "replaces": meta[k][2], "launches": counts[k],
          "max_abs_err": res[k][0], "ms": res[k][1], "plain_ms": res[k][2]}
-        for k in ("K1", "K2", "K3")]}
+        for k in ("K1", "K2", "K3", "K4", "K5")]}
     print(json.dumps(record), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

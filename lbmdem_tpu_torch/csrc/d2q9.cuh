@@ -1,0 +1,231 @@
+// D2Q9 lattice device code shared by the fused IMB step (K2,
+// imb_reduce.cu) and the pure-fluid steps (K4/K5, fluid.cu).
+//
+// Every helper mirrors a function of the plain PyTorch version
+// (ops/lbm.py) operation by operation, in its evaluation order and with
+// round-to-nearest intrinsics, so that under --fmad=false a kernel
+// rounds like the plain version. Where the plain version divides a
+// Python scalar by a tensor, PyTorch computes reciprocal(t) * scalar
+// (Tensor.__rtruediv__); the helpers do the same.
+#pragma once
+
+#include <cuda_runtime.h>
+
+// D2Q9 tables (lattice.py) as constexpr functions: inside the unrolled
+// population loops they fold to constants, so the per-cell arrays stay
+// in registers (a table in __constant__ memory would make fc[opp(i)] a
+// dynamic index and move the arrays to local memory)
+__host__ __device__ constexpr int ex(int i) {
+  return i == 1 || i == 5 || i == 8 ? 1 : (i == 3 || i == 6 || i == 7 ? -1 : 0);
+}
+__host__ __device__ constexpr int ey(int i) {
+  return i == 2 || i == 5 || i == 6 ? 1 : (i == 4 || i == 7 || i == 8 ? -1 : 0);
+}
+__host__ __device__ constexpr int opp(int i) {
+  return i == 0 ? 0 : (i < 5 ? (i + 1) % 4 + 1 : (i - 3) % 4 + 5);
+}
+
+// lattice weights exactly as float64 -> float32 (numpy's rounding)
+__device__ __forceinline__ float weight(int i) {
+  return i == 0 ? (float)(4.0 / 9.0)
+                : (i < 5 ? (float)(1.0 / 9.0) : (float)(1.0 / 36.0));
+}
+
+// f_eq_i = w_i rho (1 + 3 eu + 4.5 eu^2 - 1.5 usq) for a given e_i . u,
+// in the evaluation order of the plain version (ops/lbm.equilibrium)
+__device__ __forceinline__ float feq_eu(int i, float rho, float eu,
+                                        float usq) {
+  const float a = __fadd_rn(1.0f, __fmul_rn(3.0f, eu));
+  const float b = __fadd_rn(a, __fmul_rn(__fmul_rn(4.5f, eu), eu));
+  const float c = __fsub_rn(b, __fmul_rn(1.5f, usq));
+  return __fmul_rn(__fmul_rn(weight(i), rho), c);
+}
+
+__device__ __forceinline__ float feq(int i, float rho, float ux, float uy,
+                                     float usq) {
+  const float eu = __fadd_rn(__fmul_rn((float)ex(i), ux),
+                             __fmul_rn((float)ey(i), uy));
+  return feq_eu(i, rho, eu, usq);
+}
+
+// moving-wall bounce-back term 6 w_i rho0 (e_i . u_w), in float64 as
+// lattice.wall_corr computes it, then rounded
+__device__ __forceinline__ float wall_corr(int i, double uwx, double uwy,
+                                           double rho0) {
+  const double w = i == 0 ? 4.0 / 9.0 : (i < 5 ? 1.0 / 9.0 : 1.0 / 36.0);
+  return (float)(6.0 * w * rho0 * ((double)ex(i) * uwx + (double)ey(i) * uwy));
+}
+
+// e_i . u with the products by a zero component dropped (they only add a
+// signed zero): the same value as ex*ux + ey*uy in the plain version
+__device__ __forceinline__ float edot(int i, float ux, float uy) {
+  if (ex(i) == 0 && ey(i) == 0) return 0.0f;
+  if (ex(i) == 0) return ey(i) > 0 ? uy : -uy;
+  const float a = ex(i) > 0 ? ux : -ux;
+  if (ey(i) == 0) return a;
+  return __fadd_rn(a, ey(i) > 0 ? uy : -uy);
+}
+
+// Shifted-storage equilibrium g_eq_i = f_eq_i - w_i rho0 on populations
+// g = f - w rho0: the "1" of f_eq multiplies rho_b = sum g, the rest
+// rho = rho_b + rho0. A fluid at rest is g = 0 and stays exactly 0.
+__device__ __forceinline__ float geq_eu(int i, float rho_b, float rho,
+                                        float eu, float usq) {
+  const float a = __fadd_rn(__fmul_rn(3.0f, eu),
+                            __fmul_rn(__fmul_rn(4.5f, eu), eu));
+  const float c = __fsub_rn(a, __fmul_rn(1.5f, usq));
+  return __fmul_rn(weight(i), __fadd_rn(rho_b, __fmul_rn(rho, c)));
+}
+
+// Scalars of the pure-fluid step (K4/K5); mirrored field for field by
+// kernels.FluidParams. Scalars the plain version computes in float64
+// from Python floats arrive here already rounded to float32.
+struct FluidParams {
+  float tau;        // BGK relaxation time (TRT: tau+)
+  float tau_sq;     // tau * tau (LES closure)
+  float half_gx;    // 0.5 * gx (velocity shift of the Guo scheme)
+  float half_gy;
+  float gx, gy;     // fluid body force
+  float guo_pref;   // 1 - 1/(2 tau) (BGK without LES)
+  float trt_magic;  // TRT magic parameter Lambda
+  float trt_hp;     // 1/(2 tau+)          (TRT without LES)
+  float trt_hm;     // 1/(2 tau-)
+  float trt_pe;     // (1 - 1/(2 tau+)) / 2
+  float trt_po;     // (1 - 1/(2 tau-)) / 2
+  float les_c;      // 18 sqrt(2) Cs^2
+  float rho0;       // storage shift of bf16 f, and the Zou/He shift
+  float rho_out;    // Zou/He outlet density
+  float bb[12];     // wall terms [south 2,5,6; north 4,7,8; west 1,5,8;
+                    // east 3,6,7] (lattice.wall_corr)
+  int forced;       // gx != 0 or gy != 0
+  int trt;          // collision == "trt"
+  int les;          // smagorinsky > 0
+  int walls;        // bit 0 south, 1 north, 2 west, 3 east
+  int open;         // west Zou/He inlet + east Zou/He outlet
+};
+
+// w_i [3 (e_i - u) . g + 9 (e_i . u)(e_i . g)] (ops/lbm._guo_proj)
+__device__ __forceinline__ float guo_proj(int i, float ux, float uy, float eu,
+                                          float gx, float gy) {
+  const float exf = (float)ex(i), eyf = (float)ey(i);
+  const float t1 = __fmul_rn(
+      3.0f, __fadd_rn(__fmul_rn(__fsub_rn(exf, ux), gx),
+                      __fmul_rn(__fsub_rn(eyf, uy), gy)));
+  const float eg = __fadd_rn(__fmul_rn(exf, gx), __fmul_rn(eyf, gy));
+  const float t2 = __fmul_rn(__fmul_rn(9.0f, eu), eg);
+  return __fmul_rn(weight(i), __fadd_rn(t1, t2));
+}
+
+// Pure-fluid collision of one cell in place (plain version:
+// ops/lbm.collide): moments with the Guo half-force shift, BGK or TRT,
+// optional Smagorinsky tau_eff, Guo forcing. SHIFT: f holds the shifted
+// populations g = f - w rho0 (bf16 storage); the update keeps its form
+// with f_eq -> g_eq, since BGK, TRT and Guo are linear in (f - f_eq).
+template <bool SHIFT>
+__device__ __forceinline__ void fluid_collide(float* f, const FluidParams& p) {
+  float rs = 0.f, jx = 0.f, jy = 0.f;
+#pragma unroll
+  for (int i = 0; i < 9; ++i) rs = __fadd_rn(rs, f[i]);
+#pragma unroll
+  for (int i = 0; i < 9; ++i)
+    if (ex(i) != 0) jx = __fadd_rn(jx, ex(i) > 0 ? f[i] : -f[i]);
+#pragma unroll
+  for (int i = 0; i < 9; ++i)
+    if (ey(i) != 0) jy = __fadd_rn(jy, ey(i) > 0 ? f[i] : -f[i]);
+  const float rho = SHIFT ? __fadd_rn(rs, p.rho0) : rs;
+  const float inv_rho = __frcp_rn(rho);
+  const float ux = __fmul_rn(__fadd_rn(jx, p.half_gx), inv_rho);
+  const float uy = __fmul_rn(__fadd_rn(jy, p.half_gy), inv_rho);
+  const float usq = __fadd_rn(__fmul_rn(ux, ux), __fmul_rn(uy, uy));
+  float eu[9], fe[9];
+#pragma unroll
+  for (int i = 0; i < 9; ++i) {
+    eu[i] = edot(i, ux, uy);
+    fe[i] = SHIFT ? geq_eu(i, rs, rho, eu[i], usq) : feq_eu(i, rho, eu[i], usq);
+  }
+  float tau = p.tau;
+  if (p.les) {  // ops/lbm.smagorinsky_tau
+    float pxx = 0.f, pyy = 0.f, pxy = 0.f;
+#pragma unroll
+    for (int i = 0; i < 9; ++i) {
+      const float ne = __fsub_rn(f[i], fe[i]);
+      if (ex(i) != 0) pxx = __fadd_rn(pxx, ne);
+      if (ey(i) != 0) pyy = __fadd_rn(pyy, ne);
+      if (ex(i) * ey(i) != 0) pxy = __fadd_rn(pxy, ex(i) * ey(i) > 0 ? ne : -ne);
+    }
+    const float pn = __fsqrt_rn(
+        __fadd_rn(__fadd_rn(__fmul_rn(pxx, pxx), __fmul_rn(pyy, pyy)),
+                  __fmul_rn(__fmul_rn(2.0f, pxy), pxy)));
+    tau = __fmul_rn(0.5f, __fadd_rn(p.tau, __fsqrt_rn(__fadd_rn(
+        p.tau_sq, __fdiv_rn(__fmul_rn(p.les_c, pn), rho)))));
+  }
+  float S[9];
+  if (p.forced) {
+#pragma unroll
+    for (int i = 0; i < 9; ++i) S[i] = guo_proj(i, ux, uy, eu[i], p.gx, p.gy);
+  }
+  if (!p.trt) {
+    const float pref = p.les ? __fsub_rn(1.0f, __fmul_rn(__frcp_rn(tau), 0.5f))
+                             : p.guo_pref;
+#pragma unroll
+    for (int i = 0; i < 9; ++i) {
+      float v = __fsub_rn(f[i], __fdiv_rn(__fsub_rn(f[i], fe[i]), tau));
+      if (p.forced) v = __fadd_rn(v, __fmul_rn(pref, S[i]));
+      f[i] = v;
+    }
+    return;
+  }
+  float hp = p.trt_hp, hm = p.trt_hm, pe = p.trt_pe, po = p.trt_po;
+  if (p.les) {  // ops/lbm.trt_tau_minus on the per-cell tau
+    hp = __fmul_rn(__frcp_rn(tau), 0.5f);
+    const float tm = __fadd_rn(
+        __fmul_rn(__frcp_rn(__fsub_rn(tau, 0.5f)), p.trt_magic), 0.5f);
+    hm = __fmul_rn(__frcp_rn(tm), 0.5f);
+    pe = __fmul_rn(__fsub_rn(1.0f, hp), 0.5f);
+    po = __fmul_rn(__fsub_rn(1.0f, hm), 0.5f);
+  }
+  float ne[9];
+#pragma unroll
+  for (int i = 0; i < 9; ++i) ne[i] = __fsub_rn(f[i], fe[i]);
+#pragma unroll
+  for (int i = 0; i < 9; ++i) {
+    const int o = opp(i);
+    float v = __fsub_rn(__fsub_rn(f[i], __fmul_rn(hp, __fadd_rn(ne[i], ne[o]))),
+                        __fmul_rn(hm, __fsub_rn(ne[i], ne[o])));
+    if (p.forced) {
+      v = __fadd_rn(__fadd_rn(v, __fmul_rn(pe, __fadd_rn(S[i], S[o]))),
+                    __fmul_rn(po, __fsub_rn(S[i], S[o])));
+    }
+    f[i] = v;
+  }
+}
+
+// Zou/He west-inlet closure (ops/lbm.zou_he_inlet): the unknown
+// populations 1, 5, 8 of a cell with prescribed u = (uw, 0), from its
+// post-stream knowns. shift != 0: shifted-storage populations.
+__device__ __forceinline__ void zou_he_inlet(float* v, float uw, float shift) {
+  float kn = __fadd_rn(__fadd_rn(__fadd_rn(v[0], v[2]), v[4]),
+                       __fmul_rn(2.0f, __fadd_rn(__fadd_rn(v[3], v[6]), v[7])));
+  if (shift != 0.0f) kn = __fadd_rn(kn, shift);
+  const float rho_w = __fdiv_rn(kn, __fsub_rn(1.0f, uw));
+  const float d24 = __fmul_rn(0.5f, __fsub_rn(v[2], v[4]));
+  const float ru = __fmul_rn(rho_w, uw);
+  v[1] = __fadd_rn(v[3], __fmul_rn((float)(2.0 / 3.0), ru));
+  v[5] = __fadd_rn(__fsub_rn(v[7], d24), __fmul_rn((float)(1.0 / 6.0), ru));
+  v[8] = __fadd_rn(__fadd_rn(v[6], d24), __fmul_rn((float)(1.0 / 6.0), ru));
+}
+
+// Zou/He east-outlet closure (ops/lbm.zou_he_outlet): prescribed
+// rho = rho_o, v = 0; the populations 3, 7, 6.
+__device__ __forceinline__ void zou_he_outlet(float* v, float rho_o,
+                                              float shift) {
+  float kn = __fadd_rn(__fadd_rn(__fadd_rn(v[0], v[2]), v[4]),
+                       __fmul_rn(2.0f, __fadd_rn(__fadd_rn(v[1], v[5]), v[8])));
+  if (shift != 0.0f) kn = __fadd_rn(kn, shift);
+  const float ue = __fadd_rn(__fdiv_rn(kn, rho_o), -1.0f);
+  const float d24 = __fmul_rn(0.5f, __fsub_rn(v[2], v[4]));
+  const float rue = __fmul_rn(rho_o, ue);
+  v[3] = __fsub_rn(v[1], __fmul_rn((float)(2.0 / 3.0), rue));
+  v[7] = __fsub_rn(__fadd_rn(v[5], d24), __fmul_rn((float)(1.0 / 6.0), rue));
+  v[6] = __fsub_rn(__fsub_rn(v[8], d24), __fmul_rn((float)(1.0 / 6.0), rue));
+}

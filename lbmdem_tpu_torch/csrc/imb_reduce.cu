@@ -28,6 +28,7 @@
 #include <cuda_runtime.h>
 
 #include "coverage.cuh"
+#include "d2q9.cuh"
 
 struct LbmParams {
   float tau;       // BGK relaxation time
@@ -48,46 +49,6 @@ constexpr int kBX = 32;
 constexpr int kBY = 16;
 constexpr int kHX = kBX + 2;
 constexpr int kHY = kBY + 2;
-
-// D2Q9 tables (lattice.py) as constexpr functions: inside the unrolled
-// population loops they fold to constants, so the per-cell arrays stay
-// in registers (a table in __constant__ memory would make fc[opp(i)] a
-// dynamic index and move the arrays to local memory)
-__host__ __device__ constexpr int ex(int i) {
-  return i == 1 || i == 5 || i == 8 ? 1 : (i == 3 || i == 6 || i == 7 ? -1 : 0);
-}
-__host__ __device__ constexpr int ey(int i) {
-  return i == 2 || i == 5 || i == 6 ? 1 : (i == 4 || i == 7 || i == 8 ? -1 : 0);
-}
-__host__ __device__ constexpr int opp(int i) {
-  return i == 0 ? 0 : (i < 5 ? (i + 1) % 4 + 1 : (i - 3) % 4 + 5);
-}
-
-// lattice weights exactly as float64 -> float32 (numpy's rounding)
-__device__ __forceinline__ float weight(int i) {
-  return i == 0 ? (float)(4.0 / 9.0)
-                : (i < 5 ? (float)(1.0 / 9.0) : (float)(1.0 / 36.0));
-}
-
-// f_eq_i = w_i rho (1 + 3 eu + 4.5 eu^2 - 1.5 usq), in the evaluation
-// order of the plain version (ops/lbm.equilibrium)
-__device__ __forceinline__ float feq(int i, float rho, float ux, float uy,
-                                     float usq) {
-  const float eu = __fadd_rn(__fmul_rn((float)ex(i), ux),
-                             __fmul_rn((float)ey(i), uy));
-  const float a = __fadd_rn(1.0f, __fmul_rn(3.0f, eu));
-  const float b = __fadd_rn(a, __fmul_rn(__fmul_rn(4.5f, eu), eu));
-  const float c = __fsub_rn(b, __fmul_rn(1.5f, usq));
-  return __fmul_rn(__fmul_rn(weight(i), rho), c);
-}
-
-// moving-wall bounce-back term 6 w_i rho0 (e_i . u_w), in float64 as
-// lattice.wall_corr computes it, then rounded
-__device__ __forceinline__ float wall_corr(int i, double uwx, double uwy,
-                                           double rho0) {
-  const double w = i == 0 ? 4.0 / 9.0 : (i < 5 ? 1.0 / 9.0 : 1.0 / 36.0);
-  return (float)(6.0 * w * rho0 * ((double)ex(i) * uwx + (double)ey(i) * uwy));
-}
 
 // NT-blended collision of one cell (plain version: imb.collide_imb).
 // fp[9] receives the post-collision populations; returns phi.

@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels of `csrc/`.
 
-The sources are compiled with nvcc into one shared library with a plain
-C interface (no PyTorch headers, so a build takes seconds), cached in
+Each source is compiled by its own nvcc process, all started together,
+and the objects are linked into one shared library with a plain C
+interface (no PyTorch headers, so a build takes seconds), cached in
 `lbmdem_tpu_torch/_build/` under a hash of the sources and flags, and
 loaded with ctypes at first use. Every C entry point launches on the
 stream it is given and returns `cudaGetLastError()`; `check` raises on
@@ -28,11 +29,11 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent / "_build"
-SOURCES = ("stamp.cu", "imb_reduce.cu", "slab_dem.cu")
-HEADERS = ("coverage.cuh",)
+SOURCES = ("stamp.cu", "imb_reduce.cu", "slab_dem.cu", "fluid.cu")
+HEADERS = ("coverage.cuh", "d2q9.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+    "--fmad=false", "-Xcompiler", "-fPIC",
 )
 
 _P = ctypes.c_void_p
@@ -65,6 +66,20 @@ class DemParams(ctypes.Structure):
     ]
 
 
+class FluidParams(ctypes.Structure):
+    """Scalars of the pure-fluid steps (K4/K5); mirrors `struct
+    FluidParams` in csrc/d2q9.cuh field for field."""
+
+    _fields_ = [
+        ("tau", _F), ("tau_sq", _F), ("half_gx", _F), ("half_gy", _F),
+        ("gx", _F), ("gy", _F), ("guo_pref", _F), ("trt_magic", _F),
+        ("trt_hp", _F), ("trt_hm", _F), ("trt_pe", _F), ("trt_po", _F),
+        ("les_c", _F), ("rho0", _F), ("rho_out", _F), ("bb", _F * 12),
+        ("forced", _I), ("trt", _I), ("les", _I), ("walls", _I),
+        ("open", _I),
+    ]
+
+
 # C signatures: (name, argtypes)
 _SIGNATURES = {
     "lbm_stamp": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P],
@@ -72,6 +87,8 @@ _SIGNATURES = {
                      _I, _I, _I, _F, LbmParams, _P],
     "lbm_dem_subcycle": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                          _I, DemParams, _P],
+    "lbm_fluid_step": [_P, _P, _P, _I, _I, _I, FluidParams, _P],
+    "lbm_fluid_multi": [_P, _P, _P, _I, _I, _I, _I, FluidParams, _P],
 }
 
 
@@ -108,14 +125,22 @@ def library() -> ctypes.CDLL:
     t0 = time.perf_counter()
     built = 0.0
     if not so.exists():
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-               *[str(CSRC / s) for s in SOURCES]]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
-                f"{res.stdout}\n{res.stderr}")
+        tag = f"{os.getpid()}.tmp"
+        objs = [BUILD / f"{Path(src).stem}.{tag}.o" for src in SOURCES]
+        jobs = [_run([nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o",
+                      str(obj), str(CSRC / src)])
+                for src, obj in zip(SOURCES, objs)]
+        try:
+            for cmd, proc in jobs:
+                _wait(cmd, proc)
+        finally:
+            for _, proc in jobs:
+                proc.kill()
+        tmp = so.with_suffix(f".{tag}")
+        _wait(*_run([nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                     *map(str, objs)]))
+        for obj in objs:
+            obj.unlink()
         os.replace(tmp, so)
         built = time.perf_counter() - t0
     lib = ctypes.CDLL(str(so))
@@ -125,6 +150,18 @@ def library() -> ctypes.CDLL:
         fn.restype = _I
     lib.build_seconds = built
     return lib
+
+
+def _run(cmd):
+    return cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True)
+
+
+def _wait(cmd, proc) -> None:
+    out, err = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{out}\n{err}")
 
 
 def check(code: int, what: str) -> None:

@@ -1,4 +1,4 @@
-"""Simulation state + driver: the coupled main path.
+"""Simulation state + driver: the coupled main path and pure fluid.
 
 Counterpart of the JAX package's `lbmdem_tpu/simulation.py` for the
 configuration it was benchmarked on (`Simulation(cfg, disks,
@@ -14,7 +14,12 @@ and `run` drives it in Verlet-cadence chunks: the stamp tile lists are
 rebuilt every BIN_CADENCE steps with BIN_MARGIN cells of slack, and
 travel beyond the margin is counted into `state.overflow`.
 
-On CUDA tensors the three kernels run as hand-written CUDA; on CPU
+Without disks (`max_disks == 0`) the step is pure fluid: `step()` is one
+K4 launch, and `run` drives each chunk of n steps as n // TEMPORAL_K
+K5 passes of TEMPORAL_K steps each, then n % TEMPORAL_K K4 steps, on
+any lattice option and on f32 or shifted-bf16 storage.
+
+On CUDA tensors the kernels run as hand-written CUDA; on CPU
 tensors every kernel takes its plain PyTorch version (float32 or
 float64). Everything outside this slice raises NotImplementedError
 naming the ROADMAP.md item that will port it.
@@ -32,13 +37,18 @@ from typing import Callable, NamedTuple, Optional, Sequence
 import torch
 
 from lbmdem_tpu_torch.config import DiskSpec, SimConfig, window_for_radius
-from lbmdem_tpu_torch.ops import fused_lbm, imb, lbm, not_ported, slab_dem
+from lbmdem_tpu_torch.ops import (fused_fluid, fused_lbm, imb, lbm,
+                                  not_ported, slab_dem)
 from lbmdem_tpu_torch.ops import stamp
 from lbmdem_tpu_torch.ops.dem import DemGrid, DiskState, make_disk_state
 
 # Verlet-style cadence for the stamp tile lists (as the JAX driver)
 BIN_CADENCE = 8
 BIN_MARGIN = 2
+
+# Pure-fluid temporal blocking: steps per K5 pass (the JAX driver's
+# choice, kept so both packages split a run alike)
+TEMPORAL_K = 4
 
 
 class SimState(NamedTuple):
@@ -59,19 +69,19 @@ def check_slice(cfg: SimConfig, disks: Sequence[DiskSpec], device,
     ported main path, naming the ROADMAP.md item that will port it."""
     if mesh is not None:
         raise not_ported("a device mesh (multi-GPU)", 12)
+    if cfg.paranoia:
+        raise not_ported("paranoid mode", 11)
+    if cfg.dtype == "float64" and torch.device(device).type == "cuda":
+        raise not_ported("dtype='float64' on the card", 9)
     if cfg.max_disks == 0 and not disks:
-        raise not_ported("pure-fluid scenes (max_disks == 0; kernels K4/K5)",
-                         9)
+        fused_fluid.check_fluid_cfg(cfg)
+        return
     if not disks:
         raise not_ported("coupled scenes without disks", 9)
     if cfg.coupling_k > 1:
         raise not_ported("coupling_k > 1 (kernels K3w/K6)", 10)
     if all(d.fixed for d in disks):
         raise not_ported("all-fixed scenes (drift mode; static hoist K7)", 10)
-    if cfg.paranoia:
-        raise not_ported("paranoid mode", 11)
-    if cfg.dtype == "float64" and torch.device(device).type == "cuda":
-        raise not_ported("dtype='float64' on the card", 9)
     fused_lbm.check_step_cfg(cfg)
     slab_dem.check_dem_cfg(cfg)
 
@@ -80,9 +90,13 @@ def _zero_i32(device, value: int = 0) -> torch.Tensor:
     return torch.full((), value, dtype=torch.int32, device=device)
 
 
-def make_step_fn(cfg: SimConfig, grid: DemGrid, tile_lists=None,
-                 dem_axis: str = "y") -> Callable:
-    """The coupled coupling_k=1 step: step(state, f_out) -> SimState.
+def make_step_fn(cfg: SimConfig, grid: Optional[DemGrid], tile_lists=None,
+                 dem_axis: str = "y", temporal_k: int = 1) -> Callable:
+    """The step: step(state, f_out) -> SimState.
+
+    grid None (no disks): the pure-fluid step, temporal_k steps in one
+    kernel pass (K4 when 1, K5 above). Otherwise the coupled
+    coupling_k=1 step.
 
     `f_out` is the second, dead f buffer: K2 writes the new populations
     into it (never into state.f), and the caller swaps the two buffers.
@@ -91,6 +105,14 @@ def make_step_fn(cfg: SimConfig, grid: DemGrid, tile_lists=None,
     built at x_bin with BIN_MARGIN slack (Verlet cadence); per-step
     travel beyond the margin is counted into state.overflow. Without it
     every step bins afresh (margin 0)."""
+    if grid is None:
+
+        def fluid_step(state: SimState, f_out: torch.Tensor) -> SimState:
+            fnew = fused_fluid.fused_step_fluid_multi(state.f, cfg, temporal_k,
+                                                      f_out)
+            return state._replace(f=fnew, step=state.step + temporal_k)
+
+        return fluid_step
 
     def coupling_inputs(d: DiskState):
         if tile_lists is not None:
@@ -131,22 +153,13 @@ class Simulation:
         disks = list(disks)
         self.device = torch.device(device)
         check_slice(cfg, disks, self.device, mesh)
-        r_max = max(d.r for d in disks)
-        if cfg.window <= 0:
-            cfg = cfg.replace(window=window_for_radius(r_max))
-        if cfg.max_disks < len(disks):
-            cfg = cfg.replace(max_disks=len(disks))
-        self.grid = DemGrid.build(cfg, r_max)
-        if cfg.tile_cap <= 0:
-            th, tw = stamp.tile_dims(cfg)
-            r_min = min(d.r for d in disks)
-            cfg = cfg.replace(tile_cap=stamp.default_tile_cap(
-                th, tw, r_min, cfg.window + 2 * BIN_MARGIN))
+        if disks:
+            cfg = self._derive_coupled(cfg, disks)
+        else:
+            self.grid = None
+            self.dem_axis = "y"
+            self._kstep = make_step_fn(cfg, None, temporal_k=TEMPORAL_K)
         self.cfg = cfg
-        self.dem_axis = slab_dem.choose_axis(disks, cfg)
-        if not slab_dem.slab_supported(self.grid, self.dem_axis):
-            raise not_ported("DEM grids beyond the slab gate (the cell-list "
-                             "dem_subcycle)", 9)
         f = lbm.to_storage(lbm.init_equilibrium(cfg, self.device), cfg)
         self.state = SimState(
             f=f, disks=make_disk_state(disks, cfg, device=self.device),
@@ -159,6 +172,26 @@ class Simulation:
         self._step = make_step_fn(cfg, self.grid, dem_axis=self.dem_axis)
         self.mlups_last = 0.0
 
+    def _derive_coupled(self, cfg: SimConfig, disks) -> SimConfig:
+        """The coupled path's derived config (window, capacity, tile
+        cap), its DEM grid and slab axis."""
+        r_max = max(d.r for d in disks)
+        if cfg.window <= 0:
+            cfg = cfg.replace(window=window_for_radius(r_max))
+        if cfg.max_disks < len(disks):
+            cfg = cfg.replace(max_disks=len(disks))
+        self.grid = DemGrid.build(cfg, r_max)
+        if cfg.tile_cap <= 0:
+            th, tw = stamp.tile_dims(cfg)
+            r_min = min(d.r for d in disks)
+            cfg = cfg.replace(tile_cap=stamp.default_tile_cap(
+                th, tw, r_min, cfg.window + 2 * BIN_MARGIN))
+        self.dem_axis = slab_dem.choose_axis(disks, cfg)
+        if not slab_dem.slab_supported(self.grid, self.dem_axis):
+            raise not_ported("DEM grids beyond the slab gate (the cell-list "
+                             "dem_subcycle)", 9)
+        return cfg
+
     # --- stepping ---
     def _advance(self, stepfn: Callable) -> None:
         old_f = self.state.f
@@ -166,13 +199,22 @@ class Simulation:
         self._f_spare = old_f
 
     def step(self) -> None:
-        """One step with a fresh binning (no cadence)."""
+        """One step (coupled: with a fresh binning, no cadence)."""
         self._advance(self._step)
 
     def _run_chunk(self, n: int) -> None:
         """n steps as Verlet-cadence blocks of BIN_CADENCE steps (the JAX
         single-device coupled chunk): each block rebuilds the tile lists
-        with BIN_MARGIN slack and counts their overflow."""
+        with BIN_MARGIN slack and counts their overflow. Pure fluid: n //
+        TEMPORAL_K K5 passes, then n % TEMPORAL_K K4 steps (the JAX
+        pure-fluid chunk)."""
+        if self.grid is None:
+            passes, singles = divmod(n, TEMPORAL_K)
+            for _ in range(passes):
+                self._advance(self._kstep)
+            for _ in range(singles):
+                self._advance(self._step)
+            return
         cfg = self.cfg
         done = 0
         while done < n:
@@ -219,7 +261,13 @@ class Simulation:
         `interop.state_to_numpy` (e.g. converted from the JAX package)."""
         from lbmdem_tpu_torch.interop import state_from_numpy
 
-        self.state = state_from_numpy(d, self.device)
+        state = state_from_numpy(d, self.device)
+        want = fused_fluid.storage_dtype(self.cfg)
+        if state.f.dtype != want:
+            raise ValueError(f"load_state: f is {state.f.dtype}, but "
+                             f"f_storage={self.cfg.f_storage!r} and dtype="
+                             f"{self.cfg.dtype!r} store it as {want}")
+        self.state = state
         self._f_spare = torch.empty_like(self.state.f)
 
     # --- observation ---
@@ -236,9 +284,12 @@ class Simulation:
     def hydro_forces(self):
         """(F (N, 2), T (N,)) per disk from one evaluation of the plain
         IMB functions on the CURRENT state (observation only; the steps
-        compute theirs in the kernels)."""
+        compute theirs in the kernels). Zeros for a pure-fluid scene."""
         cfg = self.cfg
         d = self.state.disks
+        if self.grid is None:
+            return (torch.zeros_like(d.x).cpu().numpy(),
+                    torch.zeros_like(d.r).cpu().numpy())
         eps, usx, usy = imb.stamp_solid_fraction(d.x, d.v, d.omega, d.r,
                                                  d.active, cfg)
         f_phys = lbm.from_storage(self.state.f, cfg)

@@ -6,16 +6,19 @@ one. The file imports no JAX, so it also runs where JAX is absent:
 
 Bars (the JAX package's own): K1 fields 1e-6; K2 f' 5e-6 and per-disk
 forces 1e-6 relative to the largest |F|; K3 x/v/omega 2e-5 with equal
-contact counts; a whole run 1e-5 on f and 1e-4 on disk positions."""
+contact counts; a whole run 1e-5 on f and 1e-4 on disk positions; K4
+rtol 1e-6 / atol 1e-7, K5 rtol 1e-5 / atol 5e-7 (2e-6 with Zou/He),
+bf16 storage atol 3e-4."""
 
 import numpy as np
 import pytest
 import torch
 
-from lbmdem_tpu_torch import Simulation
-from lbmdem_tpu_torch.config import DiskSpec
+from lbmdem_tpu_torch import Simulation, lattice
+from lbmdem_tpu_torch.config import DiskSpec, SimConfig
 from lbmdem_tpu_torch.models import column_collapse
-from lbmdem_tpu_torch.ops import dem, fused_lbm, lbm, slab_dem, stamp
+from lbmdem_tpu_torch.ops import (dem, fused_fluid, fused_lbm, lbm, slab_dem,
+                                  stamp)
 
 pytestmark = pytest.mark.cuda
 torch.set_num_threads(2)  # tier-1 runs several xdist workers
@@ -119,3 +122,83 @@ def test_kernels_reject_float64_on_card(dev):
     cfg, disks = column_collapse(nx=256, ny=256, n_disks=60)
     with pytest.raises(NotImplementedError, match="float64"):
         Simulation(cfg.replace(dtype="float64"), disks, device=dev)
+
+
+def _fluid_f(cfg, dev, seed):
+    rng = np.random.default_rng(seed)
+    f = lattice.W[:, None, None] * (
+        1.0 + 0.05 * rng.standard_normal((9, cfg.ny, cfg.nx)))
+    return lbm.to_storage(torch.as_tensor(f, dtype=torch.float32, device=dev),
+                          cfg)
+
+
+@pytest.mark.parametrize("k", [1, 4, 8])
+@pytest.mark.parametrize("kw", [
+    dict(gx=1e-5, gy=-2e-5),
+    dict(bc_west="wall", bc_east="wall", uw_north=0.08),
+    dict(collision="trt", smagorinsky=0.16, gx=1e-5,
+         bc_south="periodic", bc_north="periodic"),
+    dict(bc_west="inlet", bc_east="outlet", u_inlet=0.06,
+         inlet_profile="poiseuille", bc_south="periodic",
+         bc_north="periodic"),
+    dict(f_storage="bfloat16", gx=1e-5),
+    dict(f_storage="bfloat16", bc_west="inlet", bc_east="outlet",
+         u_inlet=0.06)],
+    ids=["forcing", "lid", "trt-les-periodic", "zou-he-periodic-y", "bf16",
+         "bf16-zou-he"])
+def test_fluid_kernels_match_plain(dev, kw, k):
+    cfg = SimConfig(nx=256, ny=64, tau=0.8, dtype="float32", **kw)
+    f = _fluid_f(cfg, dev, 3)
+    a, b = torch.empty_like(f), torch.empty_like(f)
+    w = fused_fluid.fused_step_fluid if k == 1 else \
+        fused_fluid.fused_step_fluid_multi
+    n0 = w.launches
+    fused_fluid.fused_step_fluid_multi(f, cfg, k, a)
+    assert w.launches == n0 + 1
+    fused_fluid.fused_step_fluid_multi_plain(f, cfg, k, b)
+    a, b = a.float(), b.float()
+    if cfg.f_storage == "bfloat16":
+        atol, rtol = 3e-4, 0.0
+    elif k == 1:
+        atol, rtol = 1e-7, 1e-6
+    else:
+        atol, rtol = (2e-6 if cfg.bc_west == "inlet" else 5e-7), 1e-5
+    assert float(((a - b).abs() - rtol * b.abs()).max()) <= atol
+
+
+def test_fluid_bf16_rest_state_exact(dev):
+    cfg = SimConfig(nx=128, ny=32, tau=0.8, dtype="float32",
+                    f_storage="bfloat16")
+    g = lbm.to_storage(lbm.init_equilibrium(cfg, dev), cfg)
+    assert g.dtype == torch.bfloat16 and not g.float().any()
+    out = torch.empty_like(g)
+    assert not fused_fluid.fused_step_fluid(g, cfg, out).float().any()
+    for k in (4, 16):
+        assert not fused_fluid.fused_step_fluid_multi(g, cfg, k,
+                                                      out).float().any()
+
+
+def test_fluid_simulation_on_card_matches_cpu(dev):
+    cfg = SimConfig(nx=256, ny=64, tau=0.7, dtype="float32", bc_west="inlet",
+                    bc_east="outlet", u_inlet=0.05, inlet_profile="poiseuille")
+    g = Simulation(cfg, device=dev)
+    c = Simulation(cfg, device="cpu")
+    n4, n5 = (fused_fluid.fused_step_fluid.launches,
+              fused_fluid.fused_step_fluid_multi.launches)
+    g.run(19)
+    c.run(19)
+    assert (fused_fluid.fused_step_fluid.launches - n4,
+            fused_fluid.fused_step_fluid_multi.launches - n5) == (3, 4)
+    assert float((g.state.f.cpu() - c.state.f).abs().max()) <= 1e-5
+
+
+def test_fluid_kernels_reject_prehalo_and_float64(dev):
+    cfg = SimConfig(nx=128, ny=32, tau=0.8, dtype="float32")
+    f = lbm.init_equilibrium(cfg, dev)
+    out = torch.empty_like(f)
+    with pytest.raises(NotImplementedError, match="item 12"):
+        fused_fluid.fused_step_fluid(f, cfg, out, prehalo=True)
+    with pytest.raises(NotImplementedError, match="item 12"):
+        fused_fluid.fused_step_fluid_multi(f, cfg, 4, out, prehalo=True)
+    with pytest.raises(NotImplementedError, match="float64"):
+        Simulation(cfg.replace(dtype="float64"), device=dev)

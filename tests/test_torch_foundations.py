@@ -136,9 +136,11 @@ def test_particle_file_roundtrip(tmp_path):
 
 
 _C_TYPES = {"float*": ctypes.c_void_p, "int*": ctypes.c_void_p,
+            "void*": ctypes.c_void_p,
             "cudaStream_t": ctypes.c_void_p, "int": ctypes.c_int,
             "float": ctypes.c_float, "LbmParams": tkernels.LbmParams,
-            "DemParams": tkernels.DemParams}
+            "DemParams": tkernels.DemParams,
+            "FluidParams": tkernels.FluidParams}
 
 
 def _c_type(param: str):
@@ -160,6 +162,7 @@ def test_kernel_bindings_match_c_declarations():
     assert found == tkernels._SIGNATURES
     assert ctypes.sizeof(tkernels.LbmParams) == 8 * 4 + 2 * 4 + 5 * 8
     assert ctypes.sizeof(tkernels.DemParams) == 6 * 4 + 4 * 4 + 4 * 4
+    assert ctypes.sizeof(tkernels.FluidParams) == 15 * 4 + 12 * 4 + 5 * 4
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():

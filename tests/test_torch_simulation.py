@@ -172,7 +172,9 @@ def _out_of_slice():
     fixed = [JDisk(d.x, d.y, d.r, fixed=True) for d in disks]
     return [
         ("mesh", cfg, disks, dict(mesh=object())),
-        ("pure-fluid", cfg.replace(max_disks=0), [], {}),
+        ("coupled without disks", cfg.replace(max_disks=10), [], {}),
+        ("pure-fluid float64", cfg.replace(max_disks=0, dtype="float64"), [],
+         dict(device="cuda")),
         ("coupling_k", cfg.replace(coupling_k=2), disks, {}),
         ("bfloat16", cfg.replace(f_storage="bfloat16"), disks, {}),
         ("all-fixed", cfg, fixed, {}),
