@@ -7,15 +7,22 @@ nothing falls back to the CPU):
 
 1. probe: the card, its power limit, nvcc, CUDA_HOME, triton;
 2. build: compile lbmdem_tpu_torch/csrc/*.cu into lbmdem_tpu_torch/_build/;
-3. kernels: K1 stamp, K2 fused IMB step + reduce, K3 slab DEM, each
-   against its plain PyTorch version on the card, on a small scene and
-   at the slice's shapes (column_collapse: 4096^2, 10k disks), with
-   CUDA-event times of kernel and plain version at the slice's shapes;
+3. kernels: K1 stamp, K2 fused IMB step + reduce, K3 slab DEM, K6
+   coupled temporal block (k = 2, 4, 8) and K3w window slab DEM (4
+   chained calls), each against its plain PyTorch version (K6: on CPU
+   copies of the inputs) on a small scene and at the slice's shapes
+   (column_collapse: 4096^2, 10k disks), with CUDA-event times of kernel
+   and plain version (on the card) at the slice's shapes;
 4. slice: Simulation(*column_collapse(), device="cuda"), run(100) to
    warm, run(100) timed: MLUPS, launch counts, overflow, finiteness,
    mass conservation, disk motion;
 5. slice vs CPU: 16 steps of a 256^2 column collapse on the card against
    the same run on CPU tensors (the plain versions);
+5w. window slice: phase 4 with coupling_k=4 (K1 + K6 once per window,
+   K3w per inner step), its MLUPS beside phase 4's; the 256^2 window
+   run (19 steps) against CPU tensors; the couplingk settling leg of
+   tools/validate_tpu.py (128x192, f32, 3000 steps, vy within 1 % of the
+   f64 golden over the second half);
 6. fluid kernels: K4 (one pure-fluid step) and K5 (k steps per pass)
    against their plain versions on the card, over the lattice-option
    matrix at 256x64 (and two domains smaller than a tile), f32 and
@@ -204,6 +211,76 @@ def kernel_checks(cfg, disks, label: str, timed: bool, seed: int = 0):
     log("kernels", f"{label} K3 slab DEM: x/v/omega max err {e3:.3e} (bar "
         f"2e-5); contacts {int(nc_k)} == {int(nc_p)}; kmax {int(kmax)}, "
         f"occupied bands {int(n_occ)}")
+
+    # K6 coupled temporal block, k = 2, 4, 8: against the plain version
+    # on CPU copies of the same inputs. The kernel divides as the CPU
+    # does; the plain version on the card multiplies by 1/tau (PyTorch's
+    # CUDA scalar division), a 1-ulp change of f that moves the later
+    # inner steps' forces by ~1e-6 of the largest |F|. Bars: f' 5e-6,
+    # each inner step's forces 1e-6 relative to the largest |F| (K2's).
+    torch.set_num_threads(min(8, os.cpu_count() or 1))
+    cpu_in = [a.cpu() for a in (f, solid, tile_data, counts)]
+    es_cpu = entry_slots.cpu()
+    for k in (2, 4, 8):
+        _, pk = fused_lbm.fused_step_imb_reduce_multi(f, solid, tile_data,
+                                                      counts, cfg, k, fa)
+        fp_cpu, pp = fused_lbm.fused_step_imb_reduce_multi_plain(
+            *cpu_in, cfg, k, torch.empty_like(cpu_in[0]))
+        e6 = float((fa.cpu() - fp_cpu).abs().max())
+        e6f = 0.0
+        for s in range(k):
+            Fk, _ = stamp.gather_partials(pk[s].cpu(), es_cpu, torch.float32)
+            Fp, _ = stamp.gather_partials(pp[s], es_cpu, torch.float32)
+            e6f = max(e6f, float((Fk - Fp).abs().max())
+                      / max(float(Fp.abs().max()), 1e-30))
+        assert e6 <= 5e-6, f"K6 k={k} {label}: f' max err {e6} > 5e-6"
+        assert e6f <= 1e-6, f"K6 k={k} {label}: force err {e6f} > 1e-6 " \
+            "relative"
+        t = (cuda_ms(lambda: fused_lbm.fused_step_imb_reduce_multi(
+                f, solid, tile_data, counts, cfg, k, fa), 10),
+             cuda_ms(lambda: fused_lbm.fused_step_imb_reduce_multi_plain(
+                 f, solid, tile_data, counts, cfg, k, fb), 1)
+             ) if timed else (None, None)
+        out[f"K6 k={k}"] = (e6,) + t
+        log("kernels", f"{label} K6 k={k} coupled block: f' max err {e6:.3e}"
+            f" (bar 5e-6); worst inner-step force err {e6f:.3e} of max|F| "
+            f"(bar 1e-6 relative; plain version on CPU tensors)")
+        if k == 4:
+            forces4 = [stamp.gather_partials(pk[s], entry_slots, torch.float32)
+                       for s in range(k)]
+
+    # K3w: the window's 4 chained subcycles on one slim slab build, each
+    # with its own inner step's forces (K6 k = 4's): x/v/omega atol 2e-5,
+    # contacts equal at every inner step
+    slabs_w, slot_w, sovf, kmax_w, nocc_w, bands_w = slab_dem.build_slabs(
+        d, None, None, body, grid, axis, bake_forces=False)
+    assert int(sovf) == 0, f"slab overflow {int(sovf)}"
+    f3 = slab_dem._force_planes_window(slot_w, forces4, body, slabs_w.shape)
+    ncl = slab_dem.slab_dims(grid, axis)[1]
+    s_k, s_p = slabs_w.clone(), slabs_w
+    for s in range(4):
+        s_k, nc_k = slab_dem.subcycle_slabs_window(
+            s_k, f3[s], kmax_w, nocc_w, bands_w, grid, cfg, axis)
+        s_p, nc_p = slab_dem.subcycle_slabs_plain(s_p, kmax_w, cfg, ncl,
+                                                  f3[s])
+        assert int(nc_k) == int(nc_p), f"K3w {label} inner step {s}: " \
+            f"contacts {int(nc_k)} != {int(nc_p)}"
+    dk = slab_dem._unslab(s_k, slot_w, d)
+    dp = slab_dem._unslab(s_p, slot_w, d)
+    e3w = max(float((dk.x - dp.x).abs().max()),
+              float((dk.v - dp.v).abs().max()),
+              float((dk.omega - dp.omega).abs().max()))
+    assert e3w <= 2e-5, f"K3w {label}: x/v/omega max err {e3w} > 2e-5"
+    scratch = slabs_w.clone()
+    t = (cuda_ms(lambda: slab_dem.subcycle_slabs_window(
+            scratch, f3[0], kmax_w, nocc_w, bands_w, grid, cfg, axis), 20),
+         cuda_ms(lambda: slab_dem.subcycle_slabs_plain(
+             slabs_w, kmax_w, cfg, ncl, f3[0]), 2)
+         ) if timed else (None, None)
+    out["K3w"] = (e3w,) + t
+    log("kernels", f"{label} K3w window slab DEM, 4 chained calls: x/v/omega"
+        f" max err {e3w:.3e} (bar 2e-5); contacts {int(nc_k)} == "
+        f"{int(nc_p)} at the last")
     if timed:
         for k, (_, ms, pms) in out.items():
             log("kernels", f"{label} {k}: kernel {ms:.4f} ms, plain "
@@ -218,7 +295,9 @@ def _wrappers():
             "K2": fused_lbm.fused_step_imb_reduce,
             "K3": slab_dem.subcycle_slabs,
             "K4": fused_fluid.fused_step_fluid,
-            "K5": fused_fluid.fused_step_fluid_multi}
+            "K5": fused_fluid.fused_step_fluid_multi,
+            "K6": fused_lbm.fused_step_imb_reduce_multi,
+            "K3w": slab_dem.subcycle_slabs_window}
 
 
 def launch_counts():
@@ -230,11 +309,28 @@ def reset_counts() -> None:
         fn.launches = 0
 
 
-def slice_run(smi: str):
+# launches of run(100) twice per coupled slice: coupling_k = 1 takes K1,
+# K2 and K3 every step; coupling_k = 4 takes each cadence block of 8
+# steps (and the last block of 4) as windows: K1 and K6 once per window,
+# K3w once per inner step
+SLICE_COUNTS = {
+    1: {"K1": 200, "K2": 200, "K3": 200, "K4": 0, "K5": 0, "K6": 0,
+        "K3w": 0},
+    4: {"K1": 50, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 50, "K3w": 200},
+}
+
+
+def slice_run(smi: str, coupling_k: int = 1):
+    """The coupled slice through Simulation(*column_collapse(),
+    device="cuda") with cfg.coupling_k: run(100) to warm, run(100) timed;
+    the launch counts of both runs, overflow, finiteness, mass, motion.
+    Returns (launch counts, MLUPS)."""
     from lbmdem_tpu_torch import Simulation
     from lbmdem_tpu_torch.models import column_collapse
 
     cfg, disks = column_collapse()
+    cfg = cfg.replace(coupling_k=coupling_k)
+    tag = "slice" if coupling_k == 1 else f"window-slice k={coupling_k}"
     sim = Simulation(cfg, disks, device="cuda")
     x0 = sim.state.disks.x.clone()
     reset_counts()
@@ -248,17 +344,15 @@ def slice_run(smi: str):
     finite = bool(torch.isfinite(f).all())
     mass_err = abs(float(f.double().sum()) / (cfg.nx * cfg.ny) - 1.0)
     disp = float((st.disks.x - x0).abs().max())
-    log("slice", f"column_collapse {cfg.nx}x{cfg.ny}, {len(disks)} disks, "
-        f"{steps} steps: {mlups:.1f} MLUPS (timed run(100), wall clock) on "
-        f"{smi}; peak mem {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    log("slice", f"launches {counts}; overflow {int(st.overflow)}; "
+    log(tag, f"column_collapse {cfg.nx}x{cfg.ny}, {len(disks)} disks, "
+        f"coupling_k={coupling_k}, {steps} steps: {mlups:.1f} MLUPS (timed "
+        f"run(100), wall clock) on {smi}; peak mem "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(tag, f"launches {counts}; overflow {int(st.overflow)}; "
         f"n_contacts {int(st.n_contacts)}; finite {finite}; "
         f"|sum f/(nx ny) - 1| {mass_err:.3e}; max disk displacement {disp:.4e}")
     assert steps == 200, steps
-    for k in ("K1", "K2", "K3"):
-        assert counts[k] == steps, f"{k} launched {counts[k]} times in " \
-            f"{steps} steps"
-    assert counts["K4"] == counts["K5"] == 0, counts
+    assert counts == SLICE_COUNTS[coupling_k], counts
     assert int(st.overflow) == 0, f"overflow {int(st.overflow)}"
     assert finite, "non-finite f"
     assert mass_err < 1e-5, f"mass drift {mass_err}"
@@ -266,21 +360,57 @@ def slice_run(smi: str):
     return counts, mlups
 
 
-def slice_vs_cpu() -> None:
+def slice_vs_cpu(coupling_k: int = 1, steps: int = 16) -> None:
+    """`steps` steps of a 256^2 column collapse on the card against the
+    same run on CPU tensors (the plain versions)."""
     from lbmdem_tpu_torch import Simulation
     from lbmdem_tpu_torch.models import column_collapse
 
     torch.set_num_threads(min(8, os.cpu_count() or 1))
     cfg, disks = column_collapse(nx=256, ny=256, n_disks=60)
+    cfg = cfg.replace(coupling_k=coupling_k)
     g = Simulation(cfg, disks, device="cuda")
     c = Simulation(cfg, disks, device="cpu")
-    g.run(16)
-    c.run(16)
+    g.run(steps)
+    c.run(steps)
     ef = float((g.state.f.cpu() - c.state.f).abs().max())
     ex = float((g.state.disks.x.cpu() - c.state.disks.x).abs().max())
-    log("vs-cpu", f"256x256, {len(disks)} disks, 16 steps: f max err {ef:.3e}"
-        f" (bar 1e-5), disk x max err {ex:.3e} (bar 1e-4)")
+    log("vs-cpu", f"256x256, {len(disks)} disks, coupling_k={coupling_k}, "
+        f"{steps} steps: f max err {ef:.3e} (bar 1e-5), disk x max err "
+        f"{ex:.3e} (bar 1e-4)")
+    assert int(g.state.overflow) == 0
     assert ef <= 1e-5 and ex <= 1e-4
+
+
+def coupling_k_settling(ck: int = 4) -> None:
+    """tools/validate_tpu.py's couplingk leg on the card: one disk
+    settling in a closed 128x192 channel, f32, coupling_k=4, 3000 steps;
+    over the second half of the rows (every 100 steps), max |vy -
+    vy_gold| / max |vy_gold| < 1 % against the f64 per-step golden."""
+    from lbmdem_tpu_torch import DiskSpec, SimConfig, Simulation
+
+    gold = np.loadtxt(os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tests", "golden", "settling_r5_nx128_f64.csv"),
+        delimiter=",", skiprows=1)
+    cfg = SimConfig(nx=128, ny=192, tau=0.65, dtype="float32", g_py=-2e-5,
+                    rho_s=1.5, kn=0.5, gamma_n=1.0, n_sub=10, buoyancy=True,
+                    bc_west="wall", bc_east="wall", coupling_k=ck,
+                    out_interval=100)
+    sim = Simulation(cfg, [DiskSpec(64.3, 150.0, 5.0)], device="cuda")
+    vy = []
+    t0 = time.perf_counter()
+    sim.run(100 * gold.shape[0], callback=lambda s: vy.append(
+        float(s.state.disks.v[0, 1])))
+    secs = time.perf_counter() - t0
+    half = len(vy) // 2
+    vy_t, vy_g = np.asarray(vy[half:]), gold[half:, 4]
+    err = np.abs(vy_t - vy_g).max() / np.abs(vy_g).max()
+    log("couplingk", f"settling 128x192 f32 coupling_k={ck}, {len(vy) * 100} "
+        f"steps in {secs:.2f} s: vy {vy_t[-1]:.6e} vs golden {vy_g[-1]:.6e};"
+        f" max |dvy| / max |vy_gold| over the second half {100 * err:.4f} % "
+        f"(bar 1 %); overflow {int(sim.state.overflow)}")
+    assert int(sim.state.overflow) == 0
+    assert err < 0.01, f"coupling_k settling off by {100 * err:.4f} %"
 
 
 # the lattice-option matrix of the JAX package's fluid-kernel tests
@@ -444,7 +574,8 @@ def fluid_slice(smi: str, storage: str, n: int = 4096):
         f"steps {steps}; finite {finite}; |sum f/(nx ny) - 1| "
         f"{mass_err:.3e} (bar {bar:g}); mean ux {ux:.4e}")
     assert (counts["K5"] - 100, counts["K4"]) == (4, 3), counts
-    assert all(counts[k] == 0 for k in ("K1", "K2", "K3")), counts
+    assert all(counts[k] == 0 for k in ("K1", "K2", "K3", "K6", "K3w")), \
+        counts
     assert steps == 819
     assert finite, "non-finite f"
     assert mass_err < bar, f"mass drift {mass_err}"
@@ -510,14 +641,21 @@ def main() -> int:
     cfg, disks = column_collapse()
     res = kernel_checks(cfg, compressed(disks, 0.94),
                         f"{cfg.nx}x{cfg.ny}/{len(disks)} disks", timed=True)
-    counts, _ = slice_run(smi)
+    counts, mlups1 = slice_run(smi)
     slice_vs_cpu()
+    wcounts, mlups4 = slice_run(smi, coupling_k=4)
+    log("window-slice", f"coupling_k=4 {mlups4:.1f} MLUPS vs coupling_k=1 "
+        f"{mlups1:.1f} MLUPS in this call ({mlups4 / mlups1:.3f}x)")
+    slice_vs_cpu(coupling_k=4, steps=19)
+    coupling_k_settling()
     res.update(fluid_kernels())
     fcounts, _ = fluid_slice(smi, "float32")
     fluid_slice(smi, "bfloat16")
     poiseuille_check()
     fluid_vs_cpu()
     counts.update({k: fcounts[k] for k in ("K4", "K5")})
+    counts.update({k: wcounts[k] for k in ("K6", "K3w")})
+    res["K6"] = res["K6 k=4"]
     meta = {
         "K1": ("stamp", "lbmdem_tpu_torch/csrc/stamp.cu",
                "lbmdem_tpu/ops/pallas_stamp.py:270"),
@@ -529,12 +667,16 @@ def main() -> int:
                "lbmdem_tpu/ops/pallas_lbm.py:585"),
         "K5": ("fluid_multi", "lbmdem_tpu_torch/csrc/fluid.cu",
                "lbmdem_tpu/ops/pallas_lbm.py:780"),
+        "K6": ("imb_reduce_multi", "lbmdem_tpu_torch/csrc/imb_multi.cu",
+               "lbmdem_tpu/ops/pallas_lbm.py:1257"),
+        "K3w": ("slab_dem_window", "lbmdem_tpu_torch/csrc/slab_dem.cu",
+                "lbmdem_tpu/ops/pallas_dem.py:313"),
     }
     record = {"kernels": [
         {"name": meta[k][0], "route": "cuda", "source": meta[k][1],
          "replaces": meta[k][2], "launches": counts[k],
          "max_abs_err": res[k][0], "ms": res[k][1], "plain_ms": res[k][2]}
-        for k in ("K1", "K2", "K3", "K4", "K5")]}
+        for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K3w")]}
     print(json.dumps(record), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,5 @@
-// D2Q9 lattice device code shared by the fused IMB step (K2,
-// imb_reduce.cu) and the pure-fluid steps (K4/K5, fluid.cu).
+// D2Q9 lattice device code shared by the coupled steps (K2, K6, through
+// imb.cuh) and the pure-fluid steps (K4/K5, fluid.cu).
 //
 // Every helper mirrors a function of the plain PyTorch version
 // (ops/lbm.py) operation by operation, in its evaluation order and with
@@ -23,6 +23,13 @@ __host__ __device__ constexpr int ey(int i) {
 }
 __host__ __device__ constexpr int opp(int i) {
   return i == 0 ? 0 : (i < 5 ? (i + 1) % 4 + 1 : (i - 3) % 4 + 5);
+}
+
+// g mod n in [0, n): the periodic image of an unwrapped window coordinate
+__device__ __forceinline__ int wrap(int g, int n) {
+  if (g >= 0 && g < n) return g;
+  g %= n;
+  return g < 0 ? g + n : g;
 }
 
 // lattice weights exactly as float64 -> float32 (numpy's rounding)

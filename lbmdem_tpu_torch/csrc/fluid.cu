@@ -63,12 +63,6 @@ __device__ __forceinline__ void store_f(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
-__device__ __forceinline__ int wrap(int g, int n) {
-  if (g >= 0 && g < n) return g;
-  g %= n;
-  return g < 0 ? g + n : g;
-}
-
 // Pull of window cell c (global unwrapped coordinate gy, gx) from the
 // post-collision window `post` (9 planes of n floats, w per row), then
 // half-way bounce-back at the global walls in the order south, north,

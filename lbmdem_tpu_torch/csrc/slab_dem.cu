@@ -1,13 +1,23 @@
-// K3: the DEM subcycle over slab planes - n_sub velocity-Verlet
+// K3 and K3w: the DEM subcycle over slab planes - n_sub velocity-Verlet
 // substeps of spring-dashpot contacts (normal spring-dashpot,
 // tangential dashpot with Coulomb cap), wall mirror contacts and the
-// baked hydro + body forces.
+// hydro + body forces.
 //
 // Replaces the TPU kernel lbmdem_tpu/ops/pallas_dem.py:_dem_kernel
-// (entry dem_subcycle -> _kernel_call), for the per-step flavour
-// (baked force channels, kt = 0, walls).
+// (kt = 0, walls) in its two flavours, one body here with two C entry
+// points:
+//  - K3, lbm_dem_subcycle (entry dem_subcycle -> _kernel_call): the
+//    per-step slabs (11 channels), hydro + body forces baked into
+//    channels 7-9, 1/mass in channel 10;
+//  - K3w, lbm_dem_subcycle_window (entry dem_subcycle_window ->
+//    _kernel_call(forces3=..., slim=True)): the slim window slabs (8
+//    channels, 1/mass in channel 7), forces from a separate (3, K, R, C)
+//    plane stack per inner step, so the k chained calls of a coupling_k
+//    window share one slab build.
+// The force source (a pointer to 3 planes of K * R * C floats) and the
+// 1/mass channel are launch parameters of the one body.
 //
-// Slab layout (ops/slab_dem.build_slabs): channels (11, K, R, C), slot
+// Slab layout (ops/slab_dem.build_slabs): channels (11 or 8, K, R, C), slot
 // (k, s, l) = rank k of broadphase cell (s - 8, l); rows [0, 8) and
 // [R - 8, R) are empty guard rows; empty slots hold r = 0 and every
 // pair and wall test masks on r > 0. A disk's possible partners are the
@@ -39,12 +49,13 @@ struct DemParams {
 namespace {
 
 constexpr int kX = 0, kY = 1, kVX = 2, kVY = 3, kOM = 4, kTH = 5, kR = 6,
-              kFHX = 7, kFHY = 8, kTHQ = 9, kMINV = 10;
+              kFHX = 7, kMINV = 10, kMINV_SLIM = 7;
 constexpr int kLanes = 32;  // threads along the lane (C) axis
 constexpr int kBand = 8;    // rows per band = threads along the row axis
 
 struct Geom {
   int K, R, C, ncl;
+  int minv;      // channel of 1/mass: kMINV, or kMINV_SLIM (window slabs)
   size_t plane;  // R * C
   __device__ size_t at(int ch, int k, int s, int l) const {
     return ((size_t)ch * K + k) * plane + (size_t)s * C + l;
@@ -98,7 +109,8 @@ __device__ __forceinline__ bool slot_of_thread(const int* n_occ,
 }
 
 __global__ void __launch_bounds__(kLanes * kBand)
-    force_kernel(const float* __restrict__ sl, float* __restrict__ fscr,
+    force_kernel(const float* __restrict__ sl, const float* __restrict__ hyd,
+                 float* __restrict__ fscr,
                  int* __restrict__ counter, const int* __restrict__ kmax_p,
                  const int* __restrict__ n_occ,
                  const int* __restrict__ band_offs, Geom g, DemParams p) {
@@ -140,9 +152,9 @@ __global__ void __launch_bounds__(kLanes * kBand)
     const float act = ri > 0.0f ? 1.0f : 0.0f;
     const size_t pl3 = (size_t)g.K * g.plane;
     const size_t o = (size_t)k * g.plane + (size_t)s * g.C + l;
-    fscr[o] = __fmul_rn(__fadd_rn(fx, sl[g.at(kFHX, k, s, l)]), act);
-    fscr[pl3 + o] = __fmul_rn(__fadd_rn(fy, sl[g.at(kFHY, k, s, l)]), act);
-    fscr[2 * pl3 + o] = __fmul_rn(__fadd_rn(tq, sl[g.at(kTHQ, k, s, l)]), act);
+    fscr[o] = __fmul_rn(__fadd_rn(fx, hyd[o]), act);
+    fscr[pl3 + o] = __fmul_rn(__fadd_rn(fy, hyd[pl3 + o]), act);
+    fscr[2 * pl3 + o] = __fmul_rn(__fadd_rn(tq, hyd[2 * pl3 + o]), act);
   }
   // directed contact count of this evaluation
   const int w = __reduce_add_sync(0xffffffffu, nc);
@@ -160,7 +172,7 @@ __global__ void __launch_bounds__(kLanes * kBand)
   const size_t pl3 = (size_t)g.K * g.plane;
   const size_t o = (size_t)k * g.plane + (size_t)s * g.C + l;
   const float r = sl[g.at(kR, k, s, l)];
-  const float minv = sl[g.at(kMINV, k, s, l)];
+  const float minv = sl[g.at(g.minv, k, s, l)];
   const float inv_i = __fmul_rn(minv, 2.0f) / fmaxf(__fmul_rn(r, r), 1e-12f);
   const float a = r > 0.0f ? 1.0f : 0.0f;
   const float vxh = __fadd_rn(sl[g.at(kVX, k, s, l)],
@@ -187,7 +199,7 @@ __global__ void __launch_bounds__(kLanes * kBand)
   const size_t pl3 = (size_t)g.K * g.plane;
   const size_t o = (size_t)k * g.plane + (size_t)s * g.C + l;
   const float r = sl[g.at(kR, k, s, l)];
-  const float minv = sl[g.at(kMINV, k, s, l)];
+  const float minv = sl[g.at(g.minv, k, s, l)];
   const float inv_i = __fmul_rn(minv, 2.0f) / fmaxf(__fmul_rn(r, r), 1e-12f);
   const float a = r > 0.0f ? 1.0f : 0.0f;
   sl[g.at(kVX, k, s, l)] = __fmul_rn(
@@ -198,9 +210,35 @@ __global__ void __launch_bounds__(kLanes * kBand)
       __fadd_rn(sl[g.at(kOM, k, s, l)], __fmul_rn(__fmul_rn(p.half_h, fscr[2 * pl3 + o]), inv_i)), a);
 }
 
+// The 1 + 3 n_sub launches of one subcycle: hyd is the (3, K, R, C)
+// hydro + body force source, minv the 1/mass channel.
+int subcycle(float* slabs, const float* hyd, float* fscr, int* counters,
+             const int* kmax, const int* n_occ, const int* band_offs, int nb,
+             int K, int R, int C, int ncl, int minv, int n_sub,
+             const DemParams& p, cudaStream_t stream) {
+  if (nb == 0) return 0;
+  const Geom g{K, R, C, ncl, minv, (size_t)R * C};
+  const dim3 grid((C + kLanes - 1) / kLanes, nb, K);
+  const dim3 block(kLanes, kBand);
+  force_kernel<<<grid, block, 0, stream>>>(slabs, hyd, fscr, counters, kmax,
+                                           n_occ, band_offs, g, p);
+  cudaError_t err = cudaGetLastError();
+  for (int t = 0; t < n_sub && err == cudaSuccess; ++t) {
+    kickdrift_kernel<<<grid, block, 0, stream>>>(slabs, fscr, n_occ, band_offs,
+                                                 g, p);
+    force_kernel<<<grid, block, 0, stream>>>(slabs, hyd, fscr,
+                                             counters + t + 1, kmax, n_occ,
+                                             band_offs, g, p);
+    kick_kernel<<<grid, block, 0, stream>>>(slabs, fscr, n_occ, band_offs, g,
+                                            p);
+    err = cudaGetLastError();
+  }
+  return (int)err;
+}
+
 }  // namespace
 
-// slabs: (11, K, R, C) f32, updated in place; fscr: (3, K, R, C) f32
+// K3. slabs: (11, K, R, C) f32, updated in place; fscr: (3, K, R, C) f32
 // scratch; counters: (n_sub + 1,) i32, zeroed by the caller (one per
 // force evaluation); kmax, n_occ: (1,) i32; band_offs: (nb,) i32 plane-
 // row offsets of the occupied 8-row bands (first n_occ entries).
@@ -209,21 +247,20 @@ extern "C" int lbm_dem_subcycle(float* slabs, float* fscr, int* counters,
                                 const int* band_offs, int nb, int K, int R,
                                 int C, int ncl, int n_sub, DemParams p,
                                 cudaStream_t stream) {
-  if (nb == 0) return 0;
-  Geom g{K, R, C, ncl, (size_t)R * C};
-  dim3 grid((C + kLanes - 1) / kLanes, nb, K);
-  dim3 block(kLanes, kBand);
-  force_kernel<<<grid, block, 0, stream>>>(slabs, fscr, counters, kmax, n_occ,
-                                           band_offs, g, p);
-  cudaError_t err = cudaGetLastError();
-  for (int t = 0; t < n_sub && err == cudaSuccess; ++t) {
-    kickdrift_kernel<<<grid, block, 0, stream>>>(slabs, fscr, n_occ, band_offs,
-                                                 g, p);
-    force_kernel<<<grid, block, 0, stream>>>(slabs, fscr, counters + t + 1,
-                                             kmax, n_occ, band_offs, g, p);
-    kick_kernel<<<grid, block, 0, stream>>>(slabs, fscr, n_occ, band_offs, g,
-                                            p);
-    err = cudaGetLastError();
-  }
-  return (int)err;
+  return subcycle(slabs, slabs + (size_t)kFHX * K * R * C, fscr, counters,
+                  kmax, n_occ, band_offs, nb, K, R, C, ncl, kMINV, n_sub, p,
+                  stream);
+}
+
+// K3w. slabs: the slim (8, K, R, C) f32 window slabs, updated in place;
+// forces3: (3, K, R, C) f32 hydro + body forces of this inner step; the
+// rest as K3.
+extern "C" int lbm_dem_subcycle_window(float* slabs, const float* forces3,
+                                       float* fscr, int* counters,
+                                       const int* kmax, const int* n_occ,
+                                       const int* band_offs, int nb, int K,
+                                       int R, int C, int ncl, int n_sub,
+                                       DemParams p, cudaStream_t stream) {
+  return subcycle(slabs, forces3, fscr, counters, kmax, n_occ, band_offs, nb,
+                  K, R, C, ncl, kMINV_SLIM, n_sub, p, stream);
 }

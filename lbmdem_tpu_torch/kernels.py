@@ -29,8 +29,9 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent / "_build"
-SOURCES = ("stamp.cu", "imb_reduce.cu", "slab_dem.cu", "fluid.cu")
-HEADERS = ("coverage.cuh", "d2q9.cuh")
+SOURCES = ("stamp.cu", "imb_reduce.cu", "imb_multi.cu", "slab_dem.cu",
+           "fluid.cu")
+HEADERS = ("coverage.cuh", "d2q9.cuh", "imb.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-Xcompiler", "-fPIC",
@@ -43,8 +44,8 @@ _D = ctypes.c_double
 
 
 class LbmParams(ctypes.Structure):
-    """Scalars of the coupled collide-stream step (K2); mirrors
-    `struct LbmParams` in csrc/imb_reduce.cu field for field."""
+    """Scalars of the coupled collide-stream steps (K2, K6); mirrors
+    `struct LbmParams` in csrc/imb.cuh field for field."""
 
     _fields_ = [
         ("tau", _F), ("tm", _F), ("half_gx", _F), ("half_gy", _F),
@@ -56,7 +57,7 @@ class LbmParams(ctypes.Structure):
 
 
 class DemParams(ctypes.Structure):
-    """Scalars of the slab DEM subcycle (K3); mirrors `struct
+    """Scalars of the slab DEM subcycle (K3, K3w); mirrors `struct
     DemParams` in csrc/slab_dem.cu field for field."""
 
     _fields_ = [
@@ -85,8 +86,12 @@ _SIGNATURES = {
     "lbm_stamp": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P],
     "lbm_imb_step": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                      _I, _I, _I, _F, LbmParams, _P],
+    "lbm_imb_multi": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                      _I, _I, _I, _F, _I, LbmParams, _P],
     "lbm_dem_subcycle": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                          _I, DemParams, _P],
+    "lbm_dem_subcycle_window": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                _I, _I, DemParams, _P],
     "lbm_fluid_step": [_P, _P, _P, _I, _I, _I, FluidParams, _P],
     "lbm_fluid_multi": [_P, _P, _P, _I, _I, _I, _I, FluidParams, _P],
 }

@@ -1,4 +1,5 @@
-"""The coupled LBM step with the hydro-force reduce fused in (K2).
+"""The coupled LBM step with the hydro-force reduce fused in (K2), and
+its temporal block over a frozen solid stack (K6).
 
 Counterpart of `fused_step_imb_reduce` in the JAX package's
 `lbmdem_tpu/ops/pallas_lbm.py`: one step of NT-blended BGK collide
@@ -7,9 +8,15 @@ moving walls), plus the per-(stamp tile, slot) partials [fx, fy, tq, 0]
 of cov * phi / max(eps_raw, eps_min) that `stamp.gather_partials`
 turns into per-disk forces.
 
-`fused_step_imb_reduce` takes the plain version for CPU tensors and the
-CUDA kernel `csrc/imb_reduce.cu` for CUDA tensors. Both write the new
-populations into the caller's second f buffer `out`, never into `f`.
+`fused_step_imb_reduce_multi` (K6, the coupling_k window) runs k such
+steps over the window-start solid stack and binning, with the reduce
+after every inner collide: the counterpart of the JAX
+`fused_step_imb_reduce_multi`.
+
+Each wrapper takes its plain version for CPU tensors and its CUDA
+kernel (`csrc/imb_reduce.cu`, `csrc/imb_multi.cu`) for CUDA tensors.
+Both write the new populations into the caller's second f buffer `out`,
+never into `f`.
 """
 
 from __future__ import annotations
@@ -22,6 +29,10 @@ from lbmdem_tpu_torch.config import SimConfig, WALL
 from lbmdem_tpu_torch.ops import imb, lbm, not_ported
 from lbmdem_tpu_torch.ops.stamp import (_PLAIN_TILES, check_stamp_cfg,
                                         cov_field, tile_dims, tile_windows)
+
+# K6's largest temporal block: cfg.coupling_k's range (the JAX kernel's
+# 8-row solid halo; here the shared-memory windows, 129 KB at k = 8)
+MAX_K = 8
 
 
 def check_step_cfg(cfg: SimConfig) -> None:
@@ -68,12 +79,27 @@ def fused_step_imb_reduce_plain(f, solid, tile_data, counts, cfg: SimConfig,
     """Plain version of K2: imb.collide_imb -> lbm.stream ->
     lbm.apply_bounce_back into `out`, plus the plain per-(tile, slot)
     reduce. Returns (out, partials)."""
+    out, partials = fused_step_imb_reduce_multi_plain(f, solid, tile_data,
+                                                      counts, cfg, 1, out)
+    return out, partials[0]
+
+
+def fused_step_imb_reduce_multi_plain(f, solid, tile_data, counts,
+                                      cfg: SimConfig, k: int, out):
+    """Plain version of K6: k x (imb.collide_imb -> lbm.stream ->
+    lbm.apply_bounce_back) over the one solid stack, with the plain
+    reduce after every collide. Returns (out, partials (k, n_tiles * cap,
+    4))."""
     eps, usx, usy = solid[0], solid[1], solid[2]
-    fpost, phix, phiy = imb.collide_imb(f, eps, usx, usy, cfg)
-    out.copy_(lbm.apply_bounce_back(lbm.stream(fpost), fpost, cfg))
     share_den = 1.0 / torch.clamp(eps, min=imb._EPS_MIN)
-    w = torch.stack([phix * share_den, phiy * share_den])
-    return out, reduce_partials_plain(w, tile_data, counts, cfg)
+    parts = []
+    for _ in range(k):
+        fpost, phix, phiy = imb.collide_imb(f, eps, usx, usy, cfg)
+        f = lbm.apply_bounce_back(lbm.stream(fpost), fpost, cfg)
+        w = torch.stack([phix * share_den, phiy * share_den])
+        parts.append(reduce_partials_plain(w, tile_data, counts, cfg))
+    out.copy_(f)
+    return out, torch.stack(parts)
 
 
 def _params(cfg: SimConfig) -> kernels.LbmParams:
@@ -90,6 +116,40 @@ def _params(cfg: SimConfig) -> kernels.LbmParams:
     )
 
 
+def _check_args(f, out, what: str) -> None:
+    if out.shape != f.shape or out.data_ptr() == f.data_ptr():
+        raise ValueError(f"{what}: `out` must be a second f-shaped buffer")
+
+
+def _launch(f, solid, tile_data, counts, cfg: SimConfig, k: int, out,
+            what: str):
+    """Launch K2 (k None) or K6 (k steps); returns the partials
+    (k or 1, n_tiles * cap, 4)."""
+    kernels.require_cuda_f32(what, f, solid, tile_data, counts, out)
+    if f.dtype != torch.float32 or counts.dtype != torch.int32:
+        raise ValueError(f"{what}: f32 fields, i32 counts")
+    th, tw = tile_dims(cfg)
+    n_tiles = tile_data.shape[0]
+    cap = tile_data.shape[2] // 8
+    nk = k or 1
+    w = torch.empty((nk, 2, cfg.ny, cfg.nx), dtype=torch.float32,
+                    device=f.device)
+    partials = torch.empty((nk, n_tiles * cap, 4), dtype=torch.float32,
+                           device=f.device)
+    args = (f.data_ptr(), solid.data_ptr(), tile_data.data_ptr(),
+            counts.data_ptr(), out.data_ptr(), w.data_ptr(),
+            partials.data_ptr(), cfg.ny, cfg.nx, th, tw, cfg.nx // tw,
+            n_tiles, cap, cfg.window, cfg.eps_samples,
+            float(cfg.eps_r_shift))
+    lib = kernels.library()
+    if k is None:
+        code = lib.lbm_imb_step(*args, _params(cfg), kernels.stream())
+    else:
+        code = lib.lbm_imb_multi(*args, k, _params(cfg), kernels.stream())
+    kernels.check(code, what)
+    return partials
+
+
 def fused_step_imb_reduce(f, solid, tile_data, counts, cfg: SimConfig, out):
     """K2: one coupled step of f (9, ny, nx) over the solid stack
     (3, ny, nx) [eps_raw, us_x, us_y], written into `out` (the other f
@@ -99,31 +159,40 @@ def fused_step_imb_reduce(f, solid, tile_data, counts, cfg: SimConfig, out):
     CPU tensors take the plain version; CUDA tensors take the kernel
     csrc/imb_reduce.cu (two launches: collide-stream-BB, then reduce)."""
     check_step_cfg(cfg)
-    if out.shape != f.shape or out.data_ptr() == f.data_ptr():
-        raise ValueError("fused_step_imb_reduce: `out` must be a second "
-                         "f-shaped buffer")
+    _check_args(f, out, "fused_step_imb_reduce")
     if f.device.type == "cpu":
         return fused_step_imb_reduce_plain(f, solid, tile_data, counts, cfg,
                                            out)
-    kernels.require_cuda_f32("fused_step_imb_reduce", f, solid, tile_data,
-                             counts, out)
-    if f.dtype != torch.float32 or counts.dtype != torch.int32:
-        raise ValueError("fused_step_imb_reduce: f32 fields, i32 counts")
-    th, tw = tile_dims(cfg)
-    n_tiles = tile_data.shape[0]
-    cap = tile_data.shape[2] // 8
-    w = torch.empty((2, cfg.ny, cfg.nx), dtype=torch.float32, device=f.device)
-    partials = torch.empty((n_tiles * cap, 4), dtype=torch.float32,
-                           device=f.device)
-    code = kernels.library().lbm_imb_step(
-        f.data_ptr(), solid.data_ptr(), tile_data.data_ptr(),
-        counts.data_ptr(), out.data_ptr(), w.data_ptr(), partials.data_ptr(),
-        cfg.ny, cfg.nx, th, tw, cfg.nx // tw, n_tiles, cap, cfg.window,
-        cfg.eps_samples, float(cfg.eps_r_shift), _params(cfg),
-        kernels.stream())
-    kernels.check(code, "fused IMB step kernel (K2)")
+    partials = _launch(f, solid, tile_data, counts, cfg, None, out,
+                       "fused IMB step kernel (K2)")
     fused_step_imb_reduce.launches += 1
+    return out, partials[0]
+
+
+def fused_step_imb_reduce_multi(f, solid, tile_data, counts, cfg: SimConfig,
+                                k: int, out):
+    """K6: k coupled steps of f over ONE solid stack and binning (the
+    window-start ones of a coupling_k window), written into `out`, with
+    the hydro partials of every inner step: (out, partials (k, n_tiles *
+    cap, 4)). partials[t] keeps K2's slot numbering tile * cap + rank,
+    so stamp.gather_partials(partials[t], ...) gives inner step t's
+    forces.
+
+    CPU tensors take the plain version; CUDA tensors take the kernel
+    csrc/imb_multi.cu (two launches: k collide-stream-BB steps in
+    shared memory, then the reduce of every inner step)."""
+    check_step_cfg(cfg)
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"coupled temporal block k={k} outside 1..{MAX_K}")
+    _check_args(f, out, "fused_step_imb_reduce_multi")
+    if f.device.type == "cpu":
+        return fused_step_imb_reduce_multi_plain(f, solid, tile_data, counts,
+                                                 cfg, k, out)
+    partials = _launch(f, solid, tile_data, counts, cfg, k, out,
+                       "coupled temporal-block kernel (K6)")
+    fused_step_imb_reduce_multi.launches += 1
     return out, partials
 
 
 fused_step_imb_reduce.launches = 0
+fused_step_imb_reduce_multi.launches = 0

@@ -1,26 +1,32 @@
-"""DEM subcycle over slab planes (K3) and the glue around it.
+"""DEM subcycle over slab planes (K3, K3w) and the glue around it.
 
-Counterpart of the JAX package's `lbmdem_tpu/ops/pallas_dem.py`, per-step
-flavour (baked hydro + body force channels, kt = 0, wall axes):
+Counterpart of the JAX package's `lbmdem_tpu/ops/pallas_dem.py` (kt = 0,
+wall axes), in two flavours:
 
-- `build_slabs` slots each active disk into a dense (K, R, C) grid of
-  broadphase cells (rank-major planes, 8-row empty guard bands) and
-  packs the 11 state channels (NCH, K, R, C), with `slot_of_disk`,
-  `kmax` and the occupancy band table (`n_occ`, `band_offs`);
-- `subcycle_slabs` is K3: the CUDA kernel `csrc/slab_dem.cu` for CUDA
-  tensors, `subcycle_slabs_plain` (the same phases on whole planes,
-  partners by `torch.roll`) for CPU tensors;
-- `_unslab` gathers the integrated channels back to disk order and
-  `_leftover_fallback` integrates, contact-free, the active disks the
-  slab could not slot (rank >= SLAB_K).
+- per step (`dem_subcycle`): `build_slabs` slots each active disk into
+  a dense (K, R, C) grid of broadphase cells (rank-major planes, 8-row
+  empty guard bands) and packs the 11 state channels (NCH, K, R, C),
+  hydro + body forces baked in, with `slot_of_disk`, `kmax` and the
+  occupancy band table (`n_occ`, `band_offs`); `subcycle_slabs` is K3:
+  the CUDA kernel `csrc/slab_dem.cu` for CUDA tensors,
+  `subcycle_slabs_plain` (the same phases on whole planes, partners by
+  `torch.roll`) for CPU tensors;
+- per coupling_k window (`dem_subcycle_window`): ONE slim 8-channel
+  build (`bake_forces=False`, _MINV at channel 7), all k inner steps'
+  force planes in one scatter (`_force_planes_window`), k chained K3w
+  subcycles (`subcycle_slabs_window`, each reading its own (3, K, R, C)
+  force planes), ONE unslab and the slot-staleness detector.
+
+`_unslab` gathers the integrated channels 0-5 (the same in both
+layouts) back to disk order and `_leftover_fallback` integrates,
+contact-free, the active disks the slab could not slot (rank >= SLAB_K).
 
 Cell ranks come from `torch.sort(stable=True)`: within one cell the
 slots follow disk order, where the JAX package's unstable sort may
 order them otherwise (the cells' sets agree).
 
-The history-spring channels (kt > 0), periodic axes and the slim window
-flavour of the kernel (K3w, coupling_k > 1) are not ported yet
-(ROADMAP.md, modules to port, items 9 and 10).
+The history-spring channels (kt > 0) and periodic axes are not ported
+yet (ROADMAP.md, modules to port, item 9).
 """
 
 from __future__ import annotations
@@ -43,6 +49,9 @@ SLAB_K = 4  # slots per broadphase cell
 # state plane channels; _MINV is 1/mass, 0 for fixed and empty slots
 _X, _Y, _VX, _VY, _OM, _TH, _R, _FHX, _FHY, _THQ, _MINV = range(11)
 _NCH = 11
+# the slim window layout: no baked force channels, _MINV at channel 7
+_MINV_SLIM = 7
+_NCH_SLIM = 8
 
 
 def slab_dims(grid: DemGrid, axis: str) -> Tuple[int, int, int, int, int]:
@@ -81,12 +90,15 @@ def slab_supported(grid: DemGrid, axis: str = "y") -> bool:
 
 
 def build_slabs(disks: DiskState, f_hydro, t_hydro, body_f, grid: DemGrid,
-                axis: str = "y"):
+                axis: str = "y", bake_forces: bool = True):
     """(slabs (NCH, K, R, C), slot_of_disk (N,) i32 (-1 = not slotted),
     overflow () i32, kmax () i32 - max occupied rank + 1, n_occ () i32,
     band_offs (nb,) i32 - the plane-row offsets of the occupied 8-row
     bands, ascending, then R). The slabs keep the disks' dtype; empty
-    slots hold all-zero rows (r = 0)."""
+    slots hold all-zero rows (r = 0).
+
+    bake_forces=False: the slim window layout (_NCH_SLIM channels, no
+    hydro + body channels; f_hydro and t_hydro are not read)."""
     n = disks.x.shape[0]
     dev = disks.x.device
     dt = disks.x.dtype
@@ -117,23 +129,48 @@ def build_slabs(disks: DiskState, f_hydro, t_hydro, body_f, grid: DemGrid,
     band_offs = torch.sort(torch.where(occ, bids * 8 + 8, torch.full_like(
         bids, R))).values.to(torch.int32)
 
-    f_hydro = f_hydro.expand(n, 2)
-    t_hydro = t_hydro.expand(n)
-    body_f = body_f.expand(n, 2)
-    fields = torch.stack([
+    fields = [
         disks.x[:, 0], disks.x[:, 1], disks.v[:, 0], disks.v[:, 1],
         disks.omega, disks.theta,
         torch.where(disks.active, disks.r, torch.zeros_like(disks.r)),
-        (f_hydro[:, 0] + body_f[:, 0]).to(dt),
-        (f_hydro[:, 1] + body_f[:, 1]).to(dt),
-        t_hydro.to(dt),
-        torch.where(disks.mobile & disks.active, 1.0 / disks.mass,
-                    torch.zeros_like(disks.mass)),
-    ])[:, order]  # (NCH, N), slot-ordered
-    dense = torch.zeros((_NCH, nslots + 1), dtype=dt, device=dev)
-    dense[:, slot] = fields
-    slabs = dense[:, :nslots].reshape(_NCH, SLAB_K, R, C).contiguous()
+    ]
+    if bake_forces:
+        f_hydro = f_hydro.expand(n, 2)
+        t_hydro = t_hydro.expand(n)
+        body_f = body_f.expand(n, 2)
+        fields += [(f_hydro[:, 0] + body_f[:, 0]).to(dt),
+                   (f_hydro[:, 1] + body_f[:, 1]).to(dt), t_hydro.to(dt)]
+    fields.append(torch.where(disks.mobile & disks.active, 1.0 / disks.mass,
+                              torch.zeros_like(disks.mass)))
+    nch = len(fields)
+    packed = torch.stack(fields)[:, order]  # (nch, N), slot-ordered
+    dense = torch.zeros((nch, nslots + 1), dtype=dt, device=dev)
+    dense[:, slot] = packed
+    slabs = dense[:, :nslots].reshape(nch, SLAB_K, R, C).contiguous()
     return slabs, slot_of_disk, overflow, kmax, n_occ, band_offs
+
+
+def _force_planes_window(slot_of_disk, forces, body_f, slab_shape):
+    """(k, 3, K, R, C) hydro + body force planes of ALL k inner steps of
+    a window in one column scatter into zeros. forces = [(f_hydro (N, 2),
+    t_hydro (N,)), ...] per inner step; slot -1 (not slotted) goes to a
+    dropped column, never wrapped to the last slot."""
+    n = slot_of_disk.shape[0]
+    body_f = body_f.expand(n, 2)
+    dt = forces[0][0].dtype
+    rows = []
+    for f_hydro, t_hydro in forces:
+        f_hydro = f_hydro.expand(n, 2)
+        rows += [f_hydro[:, 0] + body_f[:, 0], f_hydro[:, 1] + body_f[:, 1],
+                 t_hydro.expand(n)]
+    K, R, C = slab_shape[1:]
+    nslots = K * R * C
+    tgt = torch.where(slot_of_disk >= 0, slot_of_disk.to(torch.int64),
+                      torch.full_like(slot_of_disk, nslots, dtype=torch.int64))
+    dense = torch.zeros((len(rows), nslots + 1), dtype=dt,
+                        device=slot_of_disk.device)
+    dense[:, tgt] = torch.stack(rows).to(dt)
+    return dense[:, :nslots].reshape(len(forces), 3, K, R, C).contiguous()
 
 
 def _walls(cfg: SimConfig):
@@ -174,9 +211,10 @@ def _pair(xi, yi, vxi, vyi, omi, ri, xj, yj, vxj, vyj, omj, rj, ok,
     return (fn * nx_ + ft * tx_, fn * ny_ + ft * ty_, -li * ft, touching)
 
 
-def _force_plain(s, kmax: int, ncl: int, cfg: SimConfig):
-    """One force evaluation on whole planes: ((3, K, R, C) forces,
-    directed touching count)."""
+def _force_plain(s, hyd, kmax: int, ncl: int, cfg: SimConfig):
+    """One force evaluation on whole planes, plus the hydro + body
+    planes `hyd` (3, K, R, C): ((3, K, R, C) forces, directed touching
+    count)."""
     K, R, C = s.shape[1:]
     col = torch.arange(C, device=s.device)[None, :]
     lane_ok = {dc: (col + dc >= 0) & (col + dc < ncl) for dc in (-1, 0, 1)}
@@ -214,30 +252,37 @@ def _force_plain(s, kmax: int, ncl: int, cfg: SimConfig):
                                      cfg)
             fx, fy, tq = fx + dfx, fy + dfy, tq + dtq
         act = (mine[5] > 0).to(s.dtype)
-        F[0, k] = (fx + s[_FHX, k]) * act
-        F[1, k] = (fy + s[_FHY, k]) * act
-        F[2, k] = (tq + s[_THQ, k]) * act
+        F[0, k] = (fx + hyd[0, k]) * act
+        F[1, k] = (fy + hyd[1, k]) * act
+        F[2, k] = (tq + hyd[2, k]) * act
     return F, nc
 
 
-def subcycle_slabs_plain(slabs, kmax, cfg: SimConfig, ncl: int):
-    """Plain version of K3: force(h = 0), then n_sub x (kick-drift,
-    force, kick) on whole planes. Returns (new slabs, n_contacts () i32:
-    max over evaluations of the directed count, halved)."""
+def subcycle_slabs_plain(slabs, kmax, cfg: SimConfig, ncl: int,
+                         forces3=None):
+    """Plain version of K3 (forces3 None: baked force channels) and of
+    K3w (slim slabs, hydro + body forces from the (3, K, R, C) planes
+    `forces3`): force(h = 0), then n_sub x (kick-drift, force, kick) on
+    whole planes. Returns (new slabs, n_contacts () i32: max over
+    evaluations of the directed count, halved)."""
     out = slabs.clone()
     R = out.shape[2]
     # every slot outside the real cells (rows [8, R - 8), lanes [0, ncl))
     # is empty and no phase changes it: work on a view of the real cells
     # plus one empty guard row on each side
     s = out[:, :, 7:R - 7, :ncl]
+    if forces3 is None:
+        hyd, ch_minv = s[_FHX:_THQ + 1], _MINV
+    else:
+        hyd, ch_minv = forces3[:, :, 7:R - 7, :ncl], _MINV_SLIM
     km = int(kmax)
     h = float(np.float32(1.0 / cfg.n_sub)) if s.dtype == torch.float32 \
         else 1.0 / cfg.n_sub
     half_h = 0.5 * h
-    F, nc = _force_plain(s, km, ncl, cfg)
+    F, nc = _force_plain(s, hyd, km, ncl, cfg)
     nc_max = nc
     for _ in range(cfg.n_sub):
-        r, minv = s[_R], s[_MINV]
+        r, minv = s[_R], s[ch_minv]
         inv_i = minv * 2.0 / torch.clamp(r * r, min=1e-12)
         a = (r > 0).to(s.dtype)
         vxh = s[_VX] + half_h * F[0] * minv
@@ -247,7 +292,7 @@ def subcycle_slabs_plain(slabs, kmax, cfg: SimConfig, ncl: int):
         s[_Y] = s[_Y] + h * vyh * a
         s[_TH] = s[_TH] + h * omh * a
         s[_VX], s[_VY], s[_OM] = vxh, vyh, omh
-        F, nc = _force_plain(s, km, ncl, cfg)
+        F, nc = _force_plain(s, hyd, km, ncl, cfg)
         nc_max = torch.maximum(nc_max, nc)
         s[_VX] = (s[_VX] + half_h * F[0] * minv) * a
         s[_VY] = (s[_VY] + half_h * F[1] * minv) * a
@@ -275,6 +320,42 @@ def check_dem_cfg(cfg: SimConfig) -> None:
         raise not_ported("periodic disks (periodic slab DEM and ghosts)", 9)
 
 
+def _launch(slabs, forces3, kmax, n_occ, band_offs, grid: DemGrid,
+            cfg: SimConfig, axis: str, what: str):
+    """Launch K3 (forces3 None) or K3w on CUDA slabs, in place; returns
+    n_contacts () i32."""
+    ncs, ncl, R, C, nb = slab_dims(grid, axis)
+    kmax = kmax.reshape(1)
+    n_occ = n_occ.reshape(1)
+    extra = () if forces3 is None else (forces3,)
+    kernels.require_cuda_f32(what, slabs, kmax, n_occ, band_offs, *extra)
+    if slabs.dtype != torch.float32:
+        raise ValueError(f"{what}: the CUDA kernel takes float32")
+    fscr = torch.empty((3, SLAB_K, R, C), dtype=torch.float32,
+                       device=slabs.device)
+    counters = torch.zeros((cfg.n_sub + 1,), dtype=torch.int32,
+                           device=slabs.device)
+    lib = kernels.library()
+    args = (fscr.data_ptr(), counters.data_ptr(), kmax.data_ptr(),
+            n_occ.data_ptr(), band_offs.data_ptr(), nb, SLAB_K, R, C, ncl,
+            cfg.n_sub, _dem_params(cfg), kernels.stream())
+    if forces3 is None:
+        code = lib.lbm_dem_subcycle(slabs.data_ptr(), *args)
+    else:
+        code = lib.lbm_dem_subcycle_window(slabs.data_ptr(),
+                                           forces3.data_ptr(), *args)
+    kernels.check(code, what)
+    return (torch.max(counters) // 2).to(torch.int32)
+
+
+def _check_slabs(slabs, nch: int, grid: DemGrid, axis: str, what: str):
+    ncs, ncl, R, C, nb = slab_dims(grid, axis)
+    if tuple(slabs.shape) != (nch, SLAB_K, R, C):
+        raise ValueError(f"{what}: slabs {tuple(slabs.shape)} != "
+                         f"{(nch, SLAB_K, R, C)}")
+    return ncl
+
+
 def subcycle_slabs(slabs, kmax, n_occ, band_offs, grid: DemGrid,
                    cfg: SimConfig, axis: str):
     """K3: the n_sub-substep subcycle of the slab planes. Returns (slabs
@@ -284,31 +365,40 @@ def subcycle_slabs(slabs, kmax, n_occ, band_offs, grid: DemGrid,
     the kernel csrc/slab_dem.cu, which updates `slabs` IN PLACE (the
     caller's tensor is returned) and keeps kmax/n_occ on the device."""
     check_dem_cfg(cfg)
-    ncs, ncl, R, C, nb = slab_dims(grid, axis)
-    if tuple(slabs.shape) != (_NCH, SLAB_K, R, C):
-        raise ValueError(f"subcycle_slabs: slabs {tuple(slabs.shape)} != "
-                         f"{(_NCH, SLAB_K, R, C)}")
+    ncl = _check_slabs(slabs, _NCH, grid, axis, "subcycle_slabs")
     if slabs.device.type == "cpu":
         return subcycle_slabs_plain(slabs, kmax, cfg, ncl)
-    kmax = kmax.reshape(1)
-    n_occ = n_occ.reshape(1)
-    kernels.require_cuda_f32("subcycle_slabs", slabs, kmax, n_occ, band_offs)
-    if slabs.dtype != torch.float32:
-        raise ValueError("subcycle_slabs: the CUDA kernel takes float32")
-    fscr = torch.empty((3, SLAB_K, R, C), dtype=torch.float32,
-                       device=slabs.device)
-    counters = torch.zeros((cfg.n_sub + 1,), dtype=torch.int32,
-                           device=slabs.device)
-    code = kernels.library().lbm_dem_subcycle(
-        slabs.data_ptr(), fscr.data_ptr(), counters.data_ptr(),
-        kmax.data_ptr(), n_occ.data_ptr(), band_offs.data_ptr(), nb, SLAB_K,
-        R, C, ncl, cfg.n_sub, _dem_params(cfg), kernels.stream())
-    kernels.check(code, "slab DEM kernel (K3)")
+    nc = _launch(slabs, None, kmax, n_occ, band_offs, grid, cfg, axis,
+                 "slab DEM kernel (K3)")
     subcycle_slabs.launches += 1
-    return slabs, (torch.max(counters) // 2).to(torch.int32)
+    return slabs, nc
+
+
+def subcycle_slabs_window(slabs, forces3, kmax, n_occ, band_offs,
+                          grid: DemGrid, cfg: SimConfig, axis: str):
+    """K3w: one inner step's subcycle of the slim window slabs (8, K, R,
+    C), with that step's hydro + body forces from the planes `forces3`
+    (3, K, R, C). Returns (slabs after the subcycle, n_contacts () i32).
+
+    CPU tensors take the plain version (a new tensor); CUDA tensors take
+    the kernel csrc/slab_dem.cu (lbm_dem_subcycle_window), which updates
+    `slabs` IN PLACE."""
+    check_dem_cfg(cfg)
+    ncl = _check_slabs(slabs, _NCH_SLIM, grid, axis, "subcycle_slabs_window")
+    if tuple(forces3.shape) != (3,) + tuple(slabs.shape[1:]):
+        raise ValueError(f"subcycle_slabs_window: forces3 "
+                         f"{tuple(forces3.shape)} != "
+                         f"{(3,) + tuple(slabs.shape[1:])}")
+    if slabs.device.type == "cpu":
+        return subcycle_slabs_plain(slabs, kmax, cfg, ncl, forces3)
+    nc = _launch(slabs, forces3, kmax, n_occ, band_offs, grid, cfg, axis,
+                 "window slab DEM kernel (K3w)")
+    subcycle_slabs_window.launches += 1
+    return slabs, nc
 
 
 subcycle_slabs.launches = 0
+subcycle_slabs_window.launches = 0
 
 
 def _unslab(out, slot, disks: DiskState):
@@ -330,14 +420,21 @@ def _unslab(out, slot, disks: DiskState):
     )
 
 
-def _leftover_fallback(new, disks, leftover, overflow, f_hydro, t_hydro,
-                       body_f, cfg: SimConfig):
-    """Velocity-Verlet without disk-disk contacts (hydro + body + walls)
-    for the active disks the slab could not slot. The check of
-    `overflow` reads one scalar from the device each step; with no
-    overflow nothing else runs."""
-    if int(overflow) == 0:
-        return new
+def _merge(mask, src: DiskState, dst: DiskState) -> DiskState:
+    """dst with the integrated fields of the disks in `mask` from src."""
+    m2 = mask[:, None]
+    return dst._replace(
+        x=torch.where(m2, src.x, dst.x), v=torch.where(m2, src.v, dst.v),
+        omega=torch.where(mask, src.omega, dst.omega),
+        theta=torch.where(mask, src.theta, dst.theta),
+    )
+
+
+def _fallback_integrate(disks, leftover, f_hydro, t_hydro, body_f,
+                        cfg: SimConfig) -> DiskState:
+    """n_sub velocity-Verlet substeps without disk-disk contacts (hydro
+    + body + walls) of the disks in `leftover`; the others keep their
+    state."""
     h = 1.0 / cfg.n_sub
     inv_m = torch.where(leftover & disks.mobile, 1.0 / disks.mass,
                         torch.zeros_like(disks.mass))
@@ -361,11 +458,19 @@ def _leftover_fallback(new, disks, leftover, overflow, f_hydro, t_hydro,
             v=torch.where(lo2, vh + (0.5 * h) * F * inv_m[:, None], d.v),
             omega=torch.where(leftover, omh + (0.5 * h) * T * inv_i, d.omega),
         )
-    return new._replace(
-        x=torch.where(lo2, d.x, new.x), v=torch.where(lo2, d.v, new.v),
-        omega=torch.where(leftover, d.omega, new.omega),
-        theta=torch.where(leftover, d.theta, new.theta),
-    )
+    return d
+
+
+def _leftover_fallback(new, disks, leftover, overflow, f_hydro, t_hydro,
+                       body_f, cfg: SimConfig):
+    """Velocity-Verlet without disk-disk contacts (hydro + body + walls)
+    for the active disks the slab could not slot. The check of
+    `overflow` reads one scalar from the device each step; with no
+    overflow nothing else runs."""
+    if int(overflow) == 0:
+        return new
+    return _merge(leftover, _fallback_integrate(
+        disks, leftover, f_hydro, t_hydro, body_f, cfg), new)
 
 
 def dem_subcycle(disks: DiskState, f_hydro, t_hydro, grid: DemGrid,
@@ -382,3 +487,40 @@ def dem_subcycle(disks: DiskState, f_hydro, t_hydro, grid: DemGrid,
     new = _leftover_fallback(new, disks, leftover, overflow, f_hydro,
                              t_hydro, body_f, cfg)
     return new, overflow, nc
+
+
+def dem_subcycle_window(disks: DiskState, forces, grid: DemGrid,
+                        cfg: SimConfig, axis: str = "y"):
+    """len(forces) chained DEM subcycles, one per inner step of a
+    coupling_k window (forces = [(f_hydro, t_hydro), ...] per inner
+    step), with ONE slim slab build and ONE unslab for the window.
+    Returns (new disks, overflow () i32, n_contacts () i32 of the last
+    inner step).
+
+    Slot assignments stay frozen at the window-start positions: the
+    adjacency holds while a disk travels less than grid.skin / 2 over
+    the window. The staleness detector counts the active disks that
+    travelled further into `overflow` after the fact (the window has
+    already integrated with the frozen contact set; a run whose overflow
+    trips should be re-run with a smaller coupling_k). The leftover
+    fallback reads `overflow` once per window (one host sync) and, when
+    some disk was not slotted, integrates it per inner step."""
+    body_f = dem_ops.body_forces(disks, cfg)
+    slabs, slot, overflow, kmax, n_occ, band_offs = build_slabs(
+        disks, None, None, body_f, grid, axis, bake_forces=False)
+    f3all = _force_planes_window(slot, forces, body_f, slabs.shape)
+    for t in range(len(forces)):
+        slabs, nc = subcycle_slabs_window(slabs, f3all[t], kmax, n_occ,
+                                          band_offs, grid, cfg, axis)
+    new = _unslab(slabs, slot, disks)
+    if int(overflow) != 0:
+        leftover = disks.active & (slot < 0)
+        d_fb = disks
+        for f_hydro, t_hydro in forces:
+            d_fb = _fallback_integrate(d_fb, leftover, f_hydro, t_hydro,
+                                       body_f, cfg)
+        new = _merge(leftover, d_fb, new)
+    trav2 = torch.where(disks.active, torch.sum((new.x - disks.x) ** 2, -1),
+                        torch.zeros_like(disks.r))
+    stale = torch.sum(trav2 > (0.5 * float(grid.skin)) ** 2).to(torch.int32)
+    return new, torch.maximum(overflow, stale), nc

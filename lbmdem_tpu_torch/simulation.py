@@ -1,9 +1,10 @@
-"""Simulation state + driver: the coupled main path and pure fluid.
+"""Simulation state + driver: the coupled main path, its coupling_k
+windows, and pure fluid.
 
 Counterpart of the JAX package's `lbmdem_tpu/simulation.py` for the
-configuration it was benchmarked on (`Simulation(cfg, disks,
+configurations it was benchmarked on (`Simulation(cfg, disks,
 use_pallas=True).run(n)`): f32 storage, BGK, eps_method="sample",
-coupling_k=1, walls, one device. Each step (`make_step_fn`) runs
+walls, one device. Each coupled step (`make_step_fn`) runs
 
     coupling inputs (binning + travel check) -> gather_tile_data ->
     K1 stamp -> K2 fused IMB collide/stream/BB + reduce ->
@@ -13,6 +14,15 @@ coupling_k=1, walls, one device. Each step (`make_step_fn`) runs
 and `run` drives it in Verlet-cadence chunks: the stamp tile lists are
 rebuilt every BIN_CADENCE steps with BIN_MARGIN cells of slack, and
 travel beyond the margin is counted into `state.overflow`.
+
+With cfg.coupling_k = k > 1, `run` splits each cadence block of b steps
+into b // k windows and then b % k such per-step steps. A window
+(`make_step_fn(..., coupling_k=k)`) stamps once from the window-start
+positions, runs k coupled steps in one K6 pass over that frozen solid
+stack and binning (a force reduce after every inner collide), then
+k chained K3w DEM subcycles on one slim slab build, each with its own
+inner step's forces, and counts disks that travelled past the slab
+skin into `overflow`. `step()` stays exact per-step coupling (K2, K3).
 
 Without disks (`max_disks == 0`) the step is pure fluid: `step()` is one
 K4 launch, and `run` drives each chunk of n steps as n // TEMPORAL_K
@@ -78,8 +88,6 @@ def check_slice(cfg: SimConfig, disks: Sequence[DiskSpec], device,
         return
     if not disks:
         raise not_ported("coupled scenes without disks", 9)
-    if cfg.coupling_k > 1:
-        raise not_ported("coupling_k > 1 (kernels K3w/K6)", 10)
     if all(d.fixed for d in disks):
         raise not_ported("all-fixed scenes (drift mode; static hoist K7)", 10)
     fused_lbm.check_step_cfg(cfg)
@@ -91,12 +99,14 @@ def _zero_i32(device, value: int = 0) -> torch.Tensor:
 
 
 def make_step_fn(cfg: SimConfig, grid: Optional[DemGrid], tile_lists=None,
-                 dem_axis: str = "y", temporal_k: int = 1) -> Callable:
+                 dem_axis: str = "y", temporal_k: int = 1,
+                 coupling_k: int = 1) -> Callable:
     """The step: step(state, f_out) -> SimState.
 
     grid None (no disks): the pure-fluid step, temporal_k steps in one
-    kernel pass (K4 when 1, K5 above). Otherwise the coupled
-    coupling_k=1 step.
+    kernel pass (K4 when 1, K5 above). Otherwise the coupled step: one
+    step (K1, K2, K3) when coupling_k is 1, else a window of coupling_k
+    steps (K1 once, K6, coupling_k x K3w).
 
     `f_out` is the second, dead f buffer: K2 writes the new populations
     into it (never into state.f), and the caller swaps the two buffers.
@@ -126,6 +136,28 @@ def make_step_fn(cfg: SimConfig, grid: Optional[DemGrid], tile_lists=None,
         tile_data = stamp.gather_tile_data(lists, d.x, d.v, d.omega, d.r,
                                            d.active)
         return tile_data, counts, entry_slots, bovf
+
+    if coupling_k > 1:
+
+        def window_step(state: SimState, f_out: torch.Tensor) -> SimState:
+            d = state.disks
+            # window-start coupling inputs, frozen for the k inner steps
+            tile_data, counts, entry_slots, bovf = coupling_inputs(d)
+            solid = stamp.stamp_fields(tile_data, counts, cfg)
+            fnew, parts = fused_lbm.fused_step_imb_reduce_multi(
+                state.f, solid, tile_data, counts, cfg, coupling_k, f_out)
+            forces = [stamp.gather_partials(parts[t], entry_slots, d.x.dtype)
+                      for t in range(coupling_k)]
+            disks, ovf, nc = slab_dem.dem_subcycle_window(d, forces, grid,
+                                                          cfg, dem_axis)
+            return SimState(
+                f=fnew, disks=disks, step=state.step + coupling_k,
+                overflow=torch.maximum(state.overflow,
+                                       torch.maximum(ovf, bovf)),
+                n_contacts=nc, fail_step=state.fail_step,
+            )
+
+        return window_step
 
     def step(state: SimState, f_out: torch.Tensor) -> SimState:
         d = state.disks
@@ -205,9 +237,10 @@ class Simulation:
     def _run_chunk(self, n: int) -> None:
         """n steps as Verlet-cadence blocks of BIN_CADENCE steps (the JAX
         single-device coupled chunk): each block rebuilds the tile lists
-        with BIN_MARGIN slack and counts their overflow. Pure fluid: n //
-        TEMPORAL_K K5 passes, then n % TEMPORAL_K K4 steps (the JAX
-        pure-fluid chunk)."""
+        with BIN_MARGIN slack and counts their overflow, then takes its b
+        steps as b // coupling_k windows and b % coupling_k single steps.
+        Pure fluid: n // TEMPORAL_K K5 passes, then n % TEMPORAL_K K4
+        steps (the JAX pure-fluid chunk)."""
         if self.grid is None:
             passes, singles = divmod(n, TEMPORAL_K)
             for _ in range(passes):
@@ -224,11 +257,18 @@ class Simulation:
                 d.x, d.active, cfg, margin=BIN_MARGIN)
             self.state = self.state._replace(
                 overflow=torch.maximum(self.state.overflow, bovf))
-            stepfn = make_step_fn(cfg, self.grid,
-                                  (lists, counts, entry_slots, d.x),
-                                  self.dem_axis)
-            for _ in range(k):
-                self._advance(stepfn)
+            tl = (lists, counts, entry_slots, d.x)
+            ck = cfg.coupling_k
+            nwin, rem = divmod(k, ck)
+            if nwin:
+                wstep = make_step_fn(cfg, self.grid, tl, self.dem_axis,
+                                     coupling_k=ck)
+                for _ in range(nwin):
+                    self._advance(wstep)
+            if rem:
+                stepfn = make_step_fn(cfg, self.grid, tl, self.dem_axis)
+                for _ in range(rem):
+                    self._advance(stepfn)
             done += k
 
     def run(self, steps: Optional[int] = None,

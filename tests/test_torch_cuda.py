@@ -8,7 +8,8 @@ Bars (the JAX package's own): K1 fields 1e-6; K2 f' 5e-6 and per-disk
 forces 1e-6 relative to the largest |F|; K3 x/v/omega 2e-5 with equal
 contact counts; a whole run 1e-5 on f and 1e-4 on disk positions; K4
 rtol 1e-6 / atol 1e-7, K5 rtol 1e-5 / atol 5e-7 (2e-6 with Zou/He),
-bf16 storage atol 3e-4."""
+bf16 storage atol 3e-4; K6 as K2 (f' 5e-6, forces 1e-6 relative, each
+inner step); K3w as K3."""
 
 import numpy as np
 import pytest
@@ -105,6 +106,86 @@ def test_slab_kernel_matches_plain(dev):
     a, b = slab_dem._unslab(sk, slot, d), slab_dem._unslab(sp, slot, d)
     for k in ("x", "v", "omega", "theta"):
         assert float((getattr(a, k) - getattr(b, k)).abs().max()) <= 2e-5, k
+
+
+@pytest.mark.parametrize("k", [2, 4, 8])
+def test_window_fluid_kernel_matches_plain(dev, k):
+    """K6 against its plain version on CPU copies of the same inputs. The
+    kernel divides as the CPU does; the plain version on the card
+    multiplies by 1/tau (PyTorch's CUDA scalar division), and that
+    1-ulp change of f after inner step 0 moved inner step 1's forces by
+    1.2e-6 of the largest |F| on this scene, over K2's 1e-6 bar."""
+    sim, d = _scene(dev, uw_north=0.02)
+    cfg = sim.cfg
+    td, cnt, es, _ = stamp.bin_disks_to_tiles(d.x, d.v, d.omega, d.r,
+                                              d.active, cfg)
+    solid = stamp.stamp_fields(td, cnt, cfg)
+    g = torch.Generator().manual_seed(3)
+    f = (lbm.init_equilibrium(cfg, dev)
+         * (1.0 + 0.02 * torch.randn((9, cfg.ny, cfg.nx), generator=g)
+            .to(dev)))
+    fa = torch.empty_like(f)
+    n0 = fused_lbm.fused_step_imb_reduce_multi.launches
+    _, pk = fused_lbm.fused_step_imb_reduce_multi(f, solid, td, cnt, cfg, k,
+                                                  fa)
+    assert fused_lbm.fused_step_imb_reduce_multi.launches == n0 + 1
+    fb, pp = fused_lbm.fused_step_imb_reduce_multi_plain(
+        f.cpu(), solid.cpu(), td.cpu(), cnt.cpu(), cfg, k,
+        torch.empty_like(f, device="cpu"))
+    assert pk.shape == pp.shape == (k,) + tuple(pp.shape[1:])
+    assert float((fa.cpu() - fb).abs().max()) <= 5e-6
+    for t in range(k):
+        F, _ = stamp.gather_partials(pk[t].cpu(), es.cpu(), torch.float32)
+        Fp, _ = stamp.gather_partials(pp[t], es.cpu(), torch.float32)
+        scale = float(Fp.abs().max())
+        assert scale > 0
+        assert float((F - Fp).abs().max()) <= 1e-6 * scale, t
+
+
+def test_window_slab_kernel_matches_plain(dev):
+    sim, d = _scene(dev)
+    cfg, grid, axis = sim.cfg, sim.grid, sim.dem_axis
+    g = torch.Generator().manual_seed(4)
+    n = d.x.shape[0]
+    forces = [((1e-3 * torch.randn((n, 2), generator=g)).to(dev),
+               (1e-4 * torch.randn((n,), generator=g)).to(dev))
+              for _ in range(4)]
+    body = dem.body_forces(d, cfg)
+    slabs, slot, ovf, kmax, n_occ, bands = slab_dem.build_slabs(
+        d, None, None, body, grid, axis, bake_forces=False)
+    assert int(ovf) == 0 and slabs.shape[0] == 8
+    f3 = slab_dem._force_planes_window(slot, forces, body, slabs.shape)
+    sk, sp = slabs.clone(), slabs
+    ncl = slab_dem.slab_dims(grid, axis)[1]
+    n0 = slab_dem.subcycle_slabs_window.launches
+    for t in range(4):
+        sk, nck = slab_dem.subcycle_slabs_window(sk, f3[t], kmax, n_occ,
+                                                 bands, grid, cfg, axis)
+        sp, ncp = slab_dem.subcycle_slabs_plain(sp, kmax, cfg, ncl, f3[t])
+        assert int(nck) == int(ncp) > 0
+    assert slab_dem.subcycle_slabs_window.launches == n0 + 4
+    a, b = slab_dem._unslab(sk, slot, d), slab_dem._unslab(sp, slot, d)
+    for k in ("x", "v", "omega", "theta"):
+        assert float((getattr(a, k) - getattr(b, k)).abs().max()) <= 2e-5, k
+
+
+def test_window_simulation_on_card_matches_cpu(dev):
+    """run(19) at coupling_k=4: 2 cadence blocks of 2 windows, then 3
+    single steps; the launch counts of that split, and the CPU run."""
+    cfg, disks = column_collapse(nx=256, ny=256, n_disks=60)
+    cfg = cfg.replace(coupling_k=4)
+    g = Simulation(cfg, disks, device=dev)
+    c = Simulation(cfg, disks, device="cpu")
+    wrappers = (fused_lbm.fused_step_imb_reduce_multi,
+                fused_lbm.fused_step_imb_reduce, stamp.stamp_fields,
+                slab_dem.subcycle_slabs_window, slab_dem.subcycle_slabs)
+    n0 = [w.launches for w in wrappers]
+    g.run(19)
+    c.run(19)
+    assert [w.launches - n for w, n in zip(wrappers, n0)] == [4, 3, 7, 16, 3]
+    assert int(g.state.overflow) == 0 and int(g.state.step) == 19
+    assert float((g.state.f.cpu() - c.state.f).abs().max()) <= 1e-5
+    assert float((g.state.disks.x.cpu() - c.state.disks.x).abs().max()) <= 1e-4
 
 
 def test_simulation_on_card_matches_cpu(dev):

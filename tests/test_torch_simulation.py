@@ -175,7 +175,8 @@ def _out_of_slice():
         ("coupled without disks", cfg.replace(max_disks=10), [], {}),
         ("pure-fluid float64", cfg.replace(max_disks=0, dtype="float64"), [],
          dict(device="cuda")),
-        ("coupling_k", cfg.replace(coupling_k=2), disks, {}),
+        ("coupling_k", cfg.replace(coupling_k=4, f_storage="bfloat16"),
+         disks, {}),
         ("bfloat16", cfg.replace(f_storage="bfloat16"), disks, {}),
         ("all-fixed", cfg, fixed, {}),
         ("paranoid", cfg.replace(paranoia="chunk"), disks, {}),
