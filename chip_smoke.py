@@ -6,7 +6,8 @@ Phases (each prints a line; any failure raises and exits non-zero, and
 nothing falls back to the CPU):
 
 1. probe: the card, its power limit, nvcc, CUDA_HOME, triton;
-2. build: compile lbmdem_tpu_torch/csrc/*.cu into lbmdem_tpu_torch/_build/;
+2. build: compile lbmdem_tpu_torch/csrc/*.cu into lbmdem_tpu_torch/_build/
+   and print each kernel entry's registers and spills (ptxas);
 3. kernels: K1 stamp, K2 fused IMB step + reduce, K3 slab DEM, K6
    coupled temporal block (k = 2, 4, 8) and K3w window slab DEM (4
    chained calls), each against its plain PyTorch version (K6: on CPU
@@ -34,11 +35,31 @@ nothing falls back to the CPU):
 8. Poiseuille on the card (models.poiseuille, 64^2, 20 ny^2 steps)
    against the analytic parabola;
 9. fluid vs CPU: a 256x64 Zou/He channel and a 128^2 lid-driven cavity,
-   19 steps each, on the card against CPU tensors.
+   19 steps each, on the card against CPU tensors;
+10. static kernel: K7 (k coupled steps over a constant solid stack)
+   against its plain version on CPU copies of the inputs over the
+   lattice-option matrix at 256x64 (k = 1, 4, 8; f32 and bf16), then at
+   4096^2 on the static scene (k = 4) with CUDA-event times of the
+   kernel and of the plain version on the card, beside the pass's
+   memory floor;
+11. static slice: Simulation(*static_bed(), device="cuda") - bench.py's
+   static/4096 scene, 4096 fixed disks at rest - for f32 and bf16
+   storage: run(400) to warm, run(400) timed: MLUPS, launch counts (K1
+   once over the run's life, then K7 100 per run(400) and nothing
+   else), mass, finiteness, overflow, and torch.profiler's device time
+   per step and idle share;
+12. periodic ghosts: a 256^2 porous bed offset by half a pitch (disks on
+   the seams and corners, fully periodic): its ghost count, run(40) on
+   the card against the CPU run, hydro_forces() against the CPU's;
+13. drift: a 256^2 periodic-x channel with a fixed disk at rest and one
+   moving at vx = 0.01, run(19) on the card against the CPU run, the
+   moving disk at x0 + 19 vx, launches K1 + K2 per step and no K7.
 
-The second-to-last line holds the per-kernel JSON record, the line
-before it the card's name and power limit; the last line is the
-contract line {"ok": true, "device": {...}}.
+The second-to-last line holds the per-kernel JSON record (with each
+kernel's bound: the larger of its bytes over 3.35 TB/s and its f32
+operations over 67 TFLOP/s), the line before it the card's name and
+power limit; the last line is the contract line
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -53,8 +74,38 @@ import numpy as np
 import torch
 
 
+# the H100 SXM's published peaks: HBM3 bytes/s and f32 FLOP/s outside
+# the tensor cores (the kernels here use no tensor cores)
+HBM_BPS = 3.35e12
+F32_FLOPS = 67e12
+# f32 operations per cell and step, counted from the plain versions'
+# arithmetic (moments, 9 or 18 equilibria, relaxation, Guo forcing):
+# the pure-fluid collide and the NT-blended collide
+FLOPS_FLUID = 200
+FLOPS_NT = 350
+
+
 def log(phase: str, msg: str) -> None:
     print(f"[{phase}] {msg}", flush=True)
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def work(err, ms, pms, moved: int, flops: float) -> dict:
+    """A kernel's measured numbers and the work its bound is made of."""
+    return {"err": err, "ms": ms, "plain_ms": pms, "bytes": moved,
+            "flops": flops}
+
+
+def bound(w: dict):
+    """(bound_ms, bound_by): the least time the card could take for the
+    work, the larger of bytes over HBM_BPS and operations over
+    F32_FLOPS."""
+    tb = w["bytes"] / HBM_BPS * 1e3
+    tf = w["flops"] / F32_FLOPS * 1e3
+    return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
 def run_cmd(cmd) -> str:
@@ -96,6 +147,12 @@ def build() -> None:
     lib = kernels.library()
     log("build", f"{len(kernels.SOURCES)} sources -> {kernels.BUILD} in "
         f"{time.perf_counter() - t0:.2f} s (nvcc {lib.build_seconds:.2f} s)")
+    for src, entry, regs, st, ld in kernels.resources():
+        name = entry.replace("(anonymous namespace)::", "").removeprefix(
+            "void ")
+        name = name.split(">(")[0] + ">" if ">(" in name else name.split("(")[0]
+        log("build", f"{src} {name}: {regs} registers, spills {st} B stored "
+            f"/ {ld} B loaded")
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -123,7 +180,7 @@ def compressed(disks, s: float):
 
 def kernel_checks(cfg, disks, label: str, timed: bool, seed: int = 0):
     """Each kernel against its plain version on the same card inputs.
-    Returns {kernel: (max_abs_err, ms, plain_ms)}."""
+    Returns {kernel: work(max_abs_err, ms, plain_ms, bytes, flops)}."""
     from lbmdem_tpu_torch import Simulation
     from lbmdem_tpu_torch.ops import dem, fused_lbm, lbm, slab_dem, stamp
 
@@ -142,6 +199,11 @@ def kernel_checks(cfg, disks, label: str, timed: bool, seed: int = 0):
         d.x, d.v, d.omega, d.r, d.active, cfg)
     assert int(ovf) == 0, f"binning overflow {int(ovf)}"
     out = {}
+    cells = cfg.nx * cfg.ny
+    # the coverage of every binned (tile, slot) window: ns^2 sample tests
+    # of ~6 operations per cell, and ~12 to weight and sum a force
+    cov_flops = (int(counts.sum()) * cfg.window ** 2
+                 * (6 * cfg.eps_samples ** 2 + 12))
 
     # K1 stamp: atol 1e-6 (the JAX stamp-vs-oracle bar)
     solid = stamp.stamp_fields(tile_data, counts, cfg)
@@ -151,7 +213,7 @@ def kernel_checks(cfg, disks, label: str, timed: bool, seed: int = 0):
     t = (cuda_ms(lambda: stamp.stamp_fields(tile_data, counts, cfg), 20),
          cuda_ms(lambda: stamp.stamp_fields_plain(tile_data, counts, cfg), 2)
          ) if timed else (None, None)
-    out["K1"] = (e1,) + t
+    out["K1"] = work(e1, *t, nbytes(tile_data, counts, solid), cov_flops)
     log("kernels", f"{label} K1 stamp: max err {e1:.3e} (bar 1e-6); "
         f"eps sum {float(solid[0].sum()):.6e}")
 
@@ -179,7 +241,8 @@ def kernel_checks(cfg, disks, label: str, timed: bool, seed: int = 0):
          cuda_ms(lambda: fused_lbm.fused_step_imb_reduce_plain(
              f, solid, tile_data, counts, cfg, fb), 2)
          ) if timed else (None, None)
-    out["K2"] = (e2,) + t
+    out["K2"] = work(e2, *t, nbytes(f, solid, tile_data, counts, fa, parts),
+                     FLOPS_NT * cells + cov_flops)
     log("kernels", f"{label} K2 fused step: f' max err {e2:.3e} (bar 5e-6); "
         f"force err {e2f:.3e} vs max|F| {fmax:.3e} (bar 1e-6 relative); "
         f"torque err {float((T - Tp).abs().max()):.3e}")
@@ -207,7 +270,10 @@ def kernel_checks(cfg, disks, label: str, timed: bool, seed: int = 0):
          cuda_ms(lambda: slab_dem.subcycle_slabs_plain(
              slabs, kmax, cfg, slab_dem.slab_dims(grid, axis)[1]), 2)
          ) if timed else (None, None)
-    out["K3"] = (e3,) + t
+    # per substep each active disk tests the 9 neighbour cells' kmax
+    # slots with a ~60-operation pair law
+    dem_flops = (cfg.n_sub * int(d.active.sum()) * 9 * int(kmax) * 60)
+    out["K3"] = work(e3, *t, 2 * nbytes(slabs), dem_flops)
     log("kernels", f"{label} K3 slab DEM: x/v/omega max err {e3:.3e} (bar "
         f"2e-5); contacts {int(nc_k)} == {int(nc_p)}; kmax {int(kmax)}, "
         f"occupied bands {int(n_occ)}")
@@ -241,7 +307,9 @@ def kernel_checks(cfg, disks, label: str, timed: bool, seed: int = 0):
              cuda_ms(lambda: fused_lbm.fused_step_imb_reduce_multi_plain(
                  f, solid, tile_data, counts, cfg, k, fb), 1)
              ) if timed else (None, None)
-        out[f"K6 k={k}"] = (e6,) + t
+        out[f"K6 k={k}"] = work(
+            e6, *t, nbytes(f, solid, tile_data, counts, fa, pk),
+            k * (FLOPS_NT * cells + cov_flops))
         log("kernels", f"{label} K6 k={k} coupled block: f' max err {e6:.3e}"
             f" (bar 5e-6); worst inner-step force err {e6f:.3e} of max|F| "
             f"(bar 1e-6 relative; plain version on CPU tensors)")
@@ -277,19 +345,24 @@ def kernel_checks(cfg, disks, label: str, timed: bool, seed: int = 0):
          cuda_ms(lambda: slab_dem.subcycle_slabs_plain(
              slabs_w, kmax_w, cfg, ncl, f3[0]), 2)
          ) if timed else (None, None)
-    out["K3w"] = (e3w,) + t
+    out["K3w"] = work(e3w, *t, 2 * nbytes(slabs_w) + nbytes(f3[0]),
+                      cfg.n_sub * int(d.active.sum()) * 9 * int(kmax_w) * 60)
     log("kernels", f"{label} K3w window slab DEM, 4 chained calls: x/v/omega"
         f" max err {e3w:.3e} (bar 2e-5); contacts {int(nc_k)} == "
         f"{int(nc_p)} at the last")
     if timed:
-        for k, (_, ms, pms) in out.items():
-            log("kernels", f"{label} {k}: kernel {ms:.4f} ms, plain "
-                f"{pms:.4f} ms (CUDA events)")
+        for k, w in out.items():
+            bms, by = bound(w)
+            log("kernels", f"{label} {k}: kernel {w['ms']:.4f} ms, plain "
+                f"{w['plain_ms']:.4f} ms (CUDA events); bound {bms:.4f} ms "
+                f"by {by} ({w['bytes'] / 1e9:.4f} GB, "
+                f"{w['flops'] / 1e9:.3f} GFLOP)")
     return out
 
 
 def _wrappers():
-    from lbmdem_tpu_torch.ops import fused_fluid, fused_lbm, slab_dem, stamp
+    from lbmdem_tpu_torch.ops import (fused_fluid, fused_lbm, fused_static,
+                                      slab_dem, stamp)
 
     return {"K1": stamp.stamp_fields,
             "K2": fused_lbm.fused_step_imb_reduce,
@@ -297,7 +370,8 @@ def _wrappers():
             "K4": fused_fluid.fused_step_fluid,
             "K5": fused_fluid.fused_step_fluid_multi,
             "K6": fused_lbm.fused_step_imb_reduce_multi,
-            "K3w": slab_dem.subcycle_slabs_window}
+            "K3w": slab_dem.subcycle_slabs_window,
+            "K7": fused_static.fused_step_imb_static_multi}
 
 
 def launch_counts():
@@ -315,8 +389,9 @@ def reset_counts() -> None:
 # K3w once per inner step
 SLICE_COUNTS = {
     1: {"K1": 200, "K2": 200, "K3": 200, "K4": 0, "K5": 0, "K6": 0,
-        "K3w": 0},
-    4: {"K1": 50, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 50, "K3w": 200},
+        "K3w": 0, "K7": 0},
+    4: {"K1": 50, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 50, "K3w": 200,
+        "K7": 0},
 }
 
 
@@ -456,8 +531,8 @@ def fluid_bar(cfg, k: int):
 def fluid_check(cfg, k: int, seed: int, label: str, timed: bool = False,
                 amp: float = 0.05):
     """K4 (k == 1) or K5 (k steps) against its plain version on the same
-    card input, f = w_i (1 + amp N(0, 1)). Returns (max_abs_err, ms,
-    plain_ms)."""
+    card input, f = w_i (1 + amp N(0, 1)). Returns work(max_abs_err, ms,
+    plain_ms, bytes, flops)."""
     from lbmdem_tpu_torch import lattice
     from lbmdem_tpu_torch.ops import fused_fluid, lbm
 
@@ -491,14 +566,14 @@ def fluid_check(cfg, k: int, seed: int, label: str, timed: bool = False,
     assert bool(torch.isfinite(ka).all()), f"{label} {name}: non-finite"
     assert excess <= atol, f"{label} {name}: err {err} over the bar"
     assert moved > 0.0, f"{label} {name}: the step changed nothing"
-    if not timed:
-        return err, None, None
-    return err, cuda_ms(run, 20), cuda_ms(plain, 2)
+    t = (cuda_ms(run, 20), cuda_ms(plain, 2)) if timed else (None, None)
+    return work(err, *t, 2 * nbytes(f),
+                k * FLOPS_FLUID * cfg.nx * cfg.ny)
 
 
 def fluid_kernels(n: int = 4096):
     """K4/K5 against the plain versions over FLUID_MATRIX, then at n^2
-    with CUDA-event times. Returns {kernel: (err, ms, plain_ms)} of the
+    with CUDA-event times. Returns {kernel: work(...)} of the
     f32 n^2 checks. At n^2 the input amplitude is 0.02: with 0.05 some
     of the 151 M shifted bf16 values exceed |g| = 1/16, where one bf16
     ulp (4.9e-4) is over the 3e-4 bar, and a value on a rounding
@@ -517,13 +592,16 @@ def fluid_kernels(n: int = 4096):
         cfg = SimConfig(nx=n, ny=n, tau=0.8, gx=1e-6, dtype="float32",
                         f_storage=storage)
         for k, key in ((1, "K4"), (4, "K5")):
-            err, ms, pms = fluid_check(cfg, k, 7, f"{n}x{n} {storage}",
-                                       timed=True, amp=0.02)
+            w = fluid_check(cfg, k, 7, f"{n}x{n} {storage}", timed=True,
+                            amp=0.02)
+            ms = w["ms"]
+            bms, by = bound(w)
             log("fluid", f"{n}x{n} {storage} {key} (k={k}): kernel "
                 f"{ms:.4f} ms per call ({ms / k:.4f} ms per step), plain "
-                f"{pms:.4f} ms (CUDA events)")
+                f"{w['plain_ms']:.4f} ms (CUDA events); bound {bms:.4f} ms "
+                f"by {by}")
             if storage == "float32":
-                out[key] = (err, ms, pms)
+                out[key] = w
     return out
 
 
@@ -574,8 +652,8 @@ def fluid_slice(smi: str, storage: str, n: int = 4096):
         f"steps {steps}; finite {finite}; |sum f/(nx ny) - 1| "
         f"{mass_err:.3e} (bar {bar:g}); mean ux {ux:.4e}")
     assert (counts["K5"] - 100, counts["K4"]) == (4, 3), counts
-    assert all(counts[k] == 0 for k in ("K1", "K2", "K3", "K6", "K3w")), \
-        counts
+    assert all(counts[k] == 0 for k in ("K1", "K2", "K3", "K6", "K3w",
+                                        "K7")), counts
     assert steps == 819
     assert finite, "non-finite f"
     assert mass_err < bar, f"mass drift {mass_err}"
@@ -630,6 +708,287 @@ def fluid_vs_cpu() -> None:
         assert err <= 1e-5
 
 
+# the lattice-option matrix of K7 at 256x64: walls with forcing, the
+# Zou/He channel with the Poiseuille inlet, TRT, LES, the lambda blend
+# (with LES: the per-cell form), a moving north wall, periodic on both
+# axes
+STATIC_MATRIX = [
+    ("walls-gx", dict(bc_west="wall", bc_east="wall", gx=1e-5)),
+    ("zou-he", dict(bc_west="inlet", bc_east="outlet", u_inlet=0.06,
+                    inlet_profile="poiseuille")),
+    ("trt", dict(collision="trt", gx=1e-5)),
+    ("les", dict(smagorinsky=0.16, gx=2e-5)),
+    ("lambda", dict(nt_mode="lambda", gx=1e-5)),
+    ("trt-les-lambda", dict(collision="trt", smagorinsky=0.16,
+                            nt_mode="lambda", gx=1e-5)),
+    ("lid", dict(bc_west="wall", bc_east="wall", uw_north=0.08)),
+    ("periodic", dict(bc_south="periodic", bc_north="periodic", gy=-1e-5)),
+]
+
+
+def static_bed(n: int = 4096, n_disks: int = 4096, storage="float32"):
+    """bench.py's static scene (`_run_static`): n_disks fixed disks of
+    r = 4 at rest on a jittered square grid from default_rng(0), tau 0.8,
+    gx 1e-6, periodic x, walls in y. The same code, without importing
+    bench.py."""
+    from lbmdem_tpu_torch.config import DiskSpec, SimConfig
+
+    rng = np.random.default_rng(0)
+    r = 4.0
+    side = int(np.ceil(np.sqrt(n_disks)))
+    pitch = (n - 40.0) / side
+    disks = []
+    for i in range(n_disks):
+        gy, gx = divmod(i, side)
+        disks.append(DiskSpec(
+            20.0 + (gx + 0.5) * pitch + rng.uniform(-2, 2),
+            20.0 + (gy + 0.5) * pitch + rng.uniform(-2, 2),
+            r, fixed=True,
+        ))
+    cfg = SimConfig(nx=n, ny=n, tau=0.8, gx=1e-6, dtype="float32",
+                    max_disks=n_disks, out_interval=10**9, f_storage=storage)
+    return cfg, disks
+
+
+def static_check(cfg, solid, k: int, seed: int, label: str,
+                 timed: bool = False, amp: float = 0.05):
+    """K7 against its plain version on CPU copies of the same card
+    inputs (the plain version on the card multiplies by 1/tau where the
+    kernel divides), f = w_i (1 + amp N(0, 1)) in storage form. Bars:
+    f32 rtol 1e-5 + atol 2e-6 (tests/test_pallas.py's static-kernel
+    bar), bf16 3e-4. Returns work(max_abs_err, ms, plain_ms, bytes,
+    flops); timed: the plain version's time on the card."""
+    from lbmdem_tpu_torch import lattice
+    from lbmdem_tpu_torch.ops import fused_static, lbm
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    w = torch.as_tensor(lattice.W, dtype=torch.float32, device="cuda")
+    f = lbm.to_storage(w[:, None, None] * (1.0 + amp * torch.randn(
+        (9, cfg.ny, cfg.nx), generator=g, device="cuda")), cfg)
+    a = torch.empty_like(f)
+    wrapper = fused_static.fused_step_imb_static_multi
+    n0 = wrapper.launches
+    wrapper(f, solid, cfg, k, a)
+    assert wrapper.launches == n0 + 1, "the kernel did not launch"
+    fc = f.cpu()
+    b = fused_static.fused_step_imb_static_multi_plain(
+        fc, solid.cpu(), cfg, k, torch.empty_like(fc))
+    ka, pb = a.float().cpu(), b.float()
+    err = float((ka - pb).abs().max())
+    atol, rtol = (3e-4, 0.0) if cfg.f_storage == "bfloat16" else (2e-6, 1e-5)
+    excess = float(((ka - pb).abs() - rtol * pb.abs()).max())
+    moved = float((pb - fc.float()).abs().max())
+    log("static", f"{label} K7 k={k}: max err {err:.3e} (bar atol {atol:g} "
+        f"+ rtol {rtol:g}; plain version on CPU tensors); max |step| "
+        f"{moved:.3e}")
+    assert bool(torch.isfinite(ka).all()), f"{label} K7 k={k}: non-finite"
+    assert excess <= atol, f"{label} K7 k={k}: err {err} over the bar"
+    assert moved > 0.0, f"{label} K7 k={k}: the pass changed nothing"
+    t = (None, None)
+    if timed:
+        pc = torch.empty_like(f)
+        t = (cuda_ms(lambda: wrapper(f, solid, cfg, k, a), 20),
+             cuda_ms(lambda: fused_static.fused_step_imb_static_multi_plain(
+                 f, solid, cfg, k, pc), 2))
+    return work(err, *t, 2 * nbytes(f) + nbytes(solid),
+                k * FLOPS_NT * cfg.nx * cfg.ny)
+
+
+def static_kernels():
+    """K7 over STATIC_MATRIX at 256x64 (k = 1, 4, 8; f32 and bf16) on a
+    stamped row of obstacles, some across the periodic seams; then k = 4
+    at 4096^2 on the static scene's solid stack, timed. Returns the
+    4096^2 f32 work record."""
+    from lbmdem_tpu_torch import DiskSpec, SimConfig, Simulation
+
+    torch.set_num_threads(min(8, os.cpu_count() or 1))
+    obstacles = [DiskSpec(x, y, r, fixed=True) for x, y, r in (
+        (1.2, 20.3, 4.0), (64.3, 32.1, 4.0), (128.0, 40.0, 3.0),
+        (200.5, 60.2, 5.0), (240.0, 12.7, 3.5))]
+    for i, (label, kw) in enumerate(STATIC_MATRIX):
+        for storage in ("float32", "bfloat16"):
+            cfg = SimConfig(**{"nx": 256, "ny": 64, "tau": 0.8,
+                               "dtype": "float32", "f_storage": storage,
+                               **kw})
+            sim = Simulation(cfg, obstacles, device="cuda")
+            solid = sim._static_solid_operands()
+            for k in (1, 4, 8):
+                static_check(sim.cfg, solid, k, 200 + i,
+                             f"{label} {storage} 256x64")
+    out = {}
+    for storage in ("float32", "bfloat16"):
+        sim = Simulation(*static_bed(storage=storage), device="cuda")
+        solid = sim._static_solid_operands()
+        cfg = sim.cfg
+        w = static_check(cfg, solid, 4, 9, f"4096x4096 {storage}",
+                         timed=True, amp=0.02)
+        bms, by = bound(w)
+        log("static", f"4096x4096 {storage} K7 (k=4): kernel {w['ms']:.4f} "
+            f"ms per pass ({w['ms'] / 4:.4f} ms per step), plain version on "
+            f"the card {w['plain_ms']:.4f} ms (CUDA events); memory floor "
+            f"{w['bytes'] / 1e9:.4f} GB = {w['bytes'] / HBM_BPS * 1e3:.4f} "
+            f"ms, bound {bms:.4f} ms by {by}: kernel at "
+            f"{100 * bms / w['ms']:.1f} % of it")
+        if storage == "float32":
+            out["K7"] = w
+        del sim, solid
+    return out
+
+
+def device_profile(sim, steps: int = 40):
+    """torch.profiler over run(steps): (device ms per step, wall ms per
+    step of the profiled run, top kernels by device time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sim.run(steps)
+        wall = time.perf_counter() - t0
+    kern = [(a.key, a.self_device_time_total) for a in prof.key_averages()
+            if a.device_type == DeviceType.CUDA]
+    dev_us = sum(t for _, t in kern)
+    top = sorted(kern, key=lambda x: -x[1])[:3]
+    return dev_us / 1e3 / steps, wall * 1e3 / steps, top
+
+
+def static_slice(smi: str, storage: str):
+    """The static hoist through Simulation(*static_bed(), device="cuda"):
+    run(400) to warm (K1 once, then K7), run(400) timed, the checks,
+    then the profiler over run(40). Returns (launch counts of the warm
+    run, MLUPS)."""
+    from lbmdem_tpu_torch import Simulation
+    from lbmdem_tpu_torch.ops import lbm
+
+    cfg, disks = static_bed(storage=storage)
+    sim = Simulation(cfg, disks, device="cuda")
+    assert sim.static_solid and sim.dem_mode == "drift"
+    reset_counts()
+    sim.run(400)
+    first = launch_counts()
+    reset_counts()
+    mlups = sim.run(400)
+    timed = launch_counts()
+    cfg = sim.cfg
+    f = lbm.from_storage(sim.state.f, cfg)
+    finite = bool(torch.isfinite(f).all())
+    mass_err = abs(float(f.double().sum()) / (cfg.nx * cfg.ny) - 1.0)
+    ux = float(lbm.moments(f, cfg.gx, cfg.gy)[1].double().mean())
+    bar = 1e-5 if storage == "float32" else 1e-4
+    eps = float(sim._static_solid_operands()[0].double().sum())
+    dev_ms, prof_ms, top = device_profile(sim)
+    wall_ms = 1e3 * cfg.nx * cfg.ny / (mlups * 1e6)
+    log("static-slice", f"{cfg.nx}x{cfg.ny} {storage}, {len(disks)} fixed "
+        f"disks r=4 at rest, tau 0.8, gx 1e-6: {mlups:.1f} MLUPS (timed "
+        f"run(400), wall clock; {wall_ms:.4f} ms per step) on {smi}; solid "
+        f"fraction {eps / (cfg.nx * cfg.ny):.5f}")
+    log("static-slice", f"launches warm run(400) {first}; timed run(400) "
+        f"{timed}; steps {int(sim.state.step)}; overflow "
+        f"{int(sim.state.overflow)}; finite {finite}; |sum f/(nx ny) - 1| "
+        f"{mass_err:.3e} (bar {bar:g}); mean ux {ux:.4e}")
+    log("static-slice", f"profiler run(40): device {dev_ms:.4f} ms per step"
+        f" against {prof_ms:.4f} ms wall per step (profiled) and "
+        f"{wall_ms:.4f} ms (timed run): idle share "
+        f"{100 * max(0.0, 1 - dev_ms / wall_ms):.1f} % of the timed run; "
+        f"top kernels {[(k[:40], round(t / 1e3, 3)) for k, t in top]} ms")
+    zero = {k: 0 for k in first}
+    assert first == {**zero, "K1": 1, "K7": 100}, first
+    assert timed == {**zero, "K7": 100}, timed
+    assert int(sim.state.step) == 840
+    assert int(sim.state.overflow) == 0
+    assert finite, "non-finite f"
+    assert mass_err < bar, f"mass drift {mass_err}"
+    assert ux > 0.0, "the body force drove no flow"
+    return first, mlups
+
+
+def offset_porous_bed(n: int = 256, pitch: int = 32):
+    """models.porous_bed (fully periodic, r 6) shifted by half a pitch so
+    that every disk sits on a seam or a corner; gx 1e-5 for a visible
+    drag."""
+    from lbmdem_tpu_torch.config import DiskSpec
+    from lbmdem_tpu_torch.models import porous_bed
+
+    cfg, disks = porous_bed(nx=n, ny=n, pitch=pitch)
+    return cfg.replace(gx=1e-5), [
+        DiskSpec(d.x - pitch / 2, d.y - pitch / 2, d.r, fixed=True)
+        for d in disks]
+
+
+def ghosts_vs_cpu() -> None:
+    """The offset porous bed: its periodic ghost count, run(40) (10 K7
+    passes after K1) on the card against the CPU run (f within 1e-5) and
+    hydro_forces() on the card against the CPU's (1e-4 of max |F|)."""
+    from lbmdem_tpu_torch import Simulation
+    from lbmdem_tpu_torch.ops import imb
+
+    cfg, disks = offset_porous_bed()
+    g = Simulation(cfg, disks, device="cuda")
+    c = Simulation(cfg, disks, device="cpu")
+    d = g.state.disks
+    _, _, parent, _, govf = imb.periodic_ghosts(d.x, d.v, d.omega, d.r,
+                                                d.active, g.cfg)
+    n_ghosts = int((parent >= 0).sum())
+    reset_counts()
+    g.run(40)
+    counts = launch_counts()
+    c.run(40)
+    ef = float((g.state.f.cpu() - c.state.f).abs().max())
+    Fg, Tg = g.hydro_forces()
+    Fc, Tc = c.hydro_forces()
+    scale = float(np.abs(Fc).max())
+    eF = float(np.abs(Fg - Fc).max())
+    log("ghosts", f"offset porous bed {cfg.nx}x{cfg.ny}, {len(disks)} fixed "
+        f"disks on the seams, fully periodic: {n_ghosts} ghosts (cap "
+        f"{g.cfg.ghost_cap} per block, overflow {int(govf)}); run(40) "
+        f"launches {counts}; f max err {ef:.3e} (bar 1e-5); hydro_forces "
+        f"max err {eF:.3e} of max |F| {scale:.3e} (bar 1e-4 relative); "
+        f"torque err {float(np.abs(Tg - Tc).max()):.3e}")
+    assert n_ghosts > 0 and int(govf) == 0
+    assert counts["K7"] == 10 and counts["K1"] == 1, counts
+    assert int(g.state.overflow) == 0
+    assert ef <= 1e-5
+    assert scale > 0 and eF <= 1e-4 * scale
+
+
+def drift_vs_cpu() -> None:
+    """Prescribed motion: a 256^2 periodic-x channel (gx 1e-5) with a
+    fixed disk at rest and one moving at vx = 0.01; run(19) on the card
+    (K1 + K2 per step, no K7, no DEM) against the CPU run."""
+    from lbmdem_tpu_torch import DiskSpec, SimConfig, Simulation
+
+    cfg = SimConfig(nx=256, ny=256, tau=0.8, gx=1e-5, dtype="float32",
+                    out_interval=10**9)
+    disks = [DiskSpec(64.0, 128.0, 6.0, fixed=True),
+             DiskSpec(160.3, 120.0, 6.0, vx=0.01, fixed=True)]
+    g = Simulation(cfg, disks, device="cuda")
+    c = Simulation(cfg, disks, device="cpu")
+    assert g.dem_mode == "drift" and not g.static_solid
+    x0 = float(g.state.disks.x[1, 0])
+    want = np.float32(x0)  # x0 + 19 vx, one f32 addition per step
+    for _ in range(19):
+        want = np.float32(want + np.float32(0.01))
+    reset_counts()
+    g.run(19)
+    counts = launch_counts()
+    c.run(19)
+    ef = float((g.state.f.cpu() - c.state.f).abs().max())
+    xg, xc = g.state.disks.x.cpu(), c.state.disks.x
+    log("drift", f"{cfg.nx}x{cfg.ny} periodic x, one fixed disk at rest and "
+        f"one at vx 0.01, 19 steps: launches {counts}; f max err {ef:.3e} "
+        f"(bar 1e-5); moving disk x {float(xg[1, 0]):.6f} (x0 + 19 vx in "
+        f"f32 steps {float(want):.6f}; CPU {float(xc[1, 0]):.6f})")
+    zero = {k: 0 for k in counts}
+    assert counts == {**zero, "K1": 19, "K2": 19}, counts
+    assert int(g.state.overflow) == 0
+    assert ef <= 1e-5
+    assert torch.equal(xg, xc), "card and CPU positions differ"
+    assert float(xg[1, 0]) == float(want), (float(xg[1, 0]), float(want))
+    assert float(xg[0, 0]) == 64.0
+
+
 def main() -> int:
     smi = probe()
     build()
@@ -653,8 +1012,14 @@ def main() -> int:
     fluid_slice(smi, "bfloat16")
     poiseuille_check()
     fluid_vs_cpu()
+    res.update(static_kernels())
+    scounts, _ = static_slice(smi, "float32")
+    static_slice(smi, "bfloat16")
+    ghosts_vs_cpu()
+    drift_vs_cpu()
     counts.update({k: fcounts[k] for k in ("K4", "K5")})
     counts.update({k: wcounts[k] for k in ("K6", "K3w")})
+    counts["K7"] = scounts["K7"]
     res["K6"] = res["K6 k=4"]
     meta = {
         "K1": ("stamp", "lbmdem_tpu_torch/csrc/stamp.cu",
@@ -671,13 +1036,20 @@ def main() -> int:
                "lbmdem_tpu/ops/pallas_lbm.py:1257"),
         "K3w": ("slab_dem_window", "lbmdem_tpu_torch/csrc/slab_dem.cu",
                 "lbmdem_tpu/ops/pallas_dem.py:313"),
+        "K7": ("imb_static_multi", "lbmdem_tpu_torch/csrc/imb_static.cu",
+               "lbmdem_tpu/ops/pallas_lbm.py:911"),
     }
-    record = {"kernels": [
-        {"name": meta[k][0], "route": "cuda", "source": meta[k][1],
-         "replaces": meta[k][2], "launches": counts[k],
-         "max_abs_err": res[k][0], "ms": res[k][1], "plain_ms": res[k][2]}
-        for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K3w")]}
-    print(json.dumps(record), flush=True)
+    kernels = []
+    for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K3w", "K7"):
+        w = res[k]
+        bms, by = bound(w)
+        # no single PyTorch call computes any of these functions
+        kernels.append({
+            "name": meta[k][0], "route": "cuda", "source": meta[k][1],
+            "replaces": meta[k][2], "launches": counts[k],
+            "max_abs_err": w["err"], "ms": w["ms"], "plain_ms": w["plain_ms"],
+            "bound_ms": bms, "bound_by": by, "library_ms": None})
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -54,54 +54,6 @@ constexpr int kTX = 32;
 constexpr int kTY = 16;
 constexpr int kThreads = kTX * kTY;
 
-__device__ __forceinline__ float load_f(const float* p) { return *p; }
-__device__ __forceinline__ float load_f(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ void store_f(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_f(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
-
-// Pull of window cell c (global unwrapped coordinate gy, gx) from the
-// post-collision window `post` (9 planes of n floats, w per row), then
-// half-way bounce-back at the global walls in the order south, north,
-// west, east (the x-wall rule wins at corners; plain version:
-// lbm.apply_bounce_back) and the Zou/He closures
-// (lbm.apply_open_boundaries).
-__device__ __forceinline__ void stream_cell(const float* post, int n, int w,
-                                            int c, int gy, int gx, int ny,
-                                            int nx, const float* u_in,
-                                            const FluidParams& p, float shift,
-                                            float* v) {
-#pragma unroll
-  for (int i = 0; i < 9; ++i) v[i] = post[i * n + c - ey(i) * w - ex(i)];
-  if ((p.walls & 1) && gy == 0) {  // ey = +1 populations 2, 5, 6
-    v[2] = __fadd_rn(post[4 * n + c], p.bb[0]);
-    v[5] = __fadd_rn(post[7 * n + c], p.bb[1]);
-    v[6] = __fadd_rn(post[8 * n + c], p.bb[2]);
-  }
-  if ((p.walls & 2) && gy == ny - 1) {  // ey = -1 populations 4, 7, 8
-    v[4] = __fadd_rn(post[2 * n + c], p.bb[3]);
-    v[7] = __fadd_rn(post[5 * n + c], p.bb[4]);
-    v[8] = __fadd_rn(post[6 * n + c], p.bb[5]);
-  }
-  if ((p.walls & 4) && gx == 0) {  // ex = +1 populations 1, 5, 8
-    v[1] = __fadd_rn(post[3 * n + c], p.bb[6]);
-    v[5] = __fadd_rn(post[7 * n + c], p.bb[7]);
-    v[8] = __fadd_rn(post[6 * n + c], p.bb[8]);
-  }
-  if ((p.walls & 8) && gx == nx - 1) {  // ex = -1 populations 3, 6, 7
-    v[3] = __fadd_rn(post[1 * n + c], p.bb[9]);
-    v[6] = __fadd_rn(post[8 * n + c], p.bb[10]);
-    v[7] = __fadd_rn(post[5 * n + c], p.bb[11]);
-  }
-  if (p.open) {
-    if (gx == 0) zou_he_inlet(v, u_in[wrap(gy, ny)], shift);
-    if (gx == nx - 1) zou_he_outlet(v, p.rho_out, shift);
-  }
-}
-
 template <typename S>
 __global__ void __launch_bounds__(kThreads)
     fluid_kernel(const S* __restrict__ f, S* __restrict__ out,

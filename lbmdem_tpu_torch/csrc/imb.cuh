@@ -1,8 +1,9 @@
 // Coupled-step device code shared by the fused IMB step (K2,
-// imb_reduce.cu) and its temporal block over a frozen solid stack (K6,
-// imb_multi.cu): the scalars, the NT-blended collide of one cell, the
-// pull + half-way bounce-back of one cell, and the per-(stamp tile,
-// slot) hydro-force reduce.
+// imb_reduce.cu), its temporal block over a frozen solid stack (K6,
+// imb_multi.cu) and the static-solid temporal block (K7, imb_static.cu):
+// the scalars, the NT-blended collide of one cell (with K7's options as
+// template flags), the pull + half-way bounce-back of one cell, and the
+// per-(stamp tile, slot) hydro-force reduce.
 //
 // The arithmetic mirrors the plain version (ops/imb.collide_imb,
 // ops/lbm.stream + apply_bounce_back, ops/fused_lbm.reduce_partials_plain)
@@ -31,53 +32,134 @@ struct LbmParams {
 
 namespace {
 
-// NT-blended collision of one cell (plain version: imb.collide_imb).
-// fp[9] receives the post-collision populations; returns phi.
+// e_i . u in the plain version's full form ex*ux + ey*uy
+__device__ __forceinline__ float edot_full(int i, float ux, float uy) {
+  return __fadd_rn(__fmul_rn((float)ex(i), ux), __fmul_rn((float)ey(i), uy));
+}
+
+// Equilibrium of population i at (rho, u): f_eq, or with SHIFT the
+// shifted g_eq = f_eq - w_i rho0 (rho_b = sum of the shifted g)
+template <bool SHIFT>
+__device__ __forceinline__ float feq_nt(int i, float rho_b, float rho,
+                                        float ux, float uy, float usq) {
+  const float eu = edot_full(i, ux, uy);
+  return SHIFT ? geq_eu(i, rho_b, rho, eu, usq) : feq_eu(i, rho, eu, usq);
+}
+
+// NT-blended collision of one cell (plain version: imb.collide_imb,
+// operation by operation). fp[9] receives the post-collision
+// populations; returns phi. P is LbmParams (K2, K6) or FluidParams (K7);
+// tm is the NT blend's tau - 1/2, or 3/16 / (tau - 1/2) under
+// nt_mode="lambda", rounded from float64 as the plain version's Python
+// scalar is. The options are compile-time flags:
+//   SHIFT  fc holds g = f - w rho0 (bf16 storage); BGK, TRT, Guo and the
+//          NT operator are linear in f - f_eq, so the update keeps its
+//          form with g_eq for f_eq;
+//   TRT    the two-relaxation-time split of collide_imb;
+//   LES    Smagorinsky tau_eff per cell (lbm.smagorinsky_tau); B, the
+//          Guo prefactor and the TRT rates follow from it;
+//   LAMBDA with LES: tm = 3/16 / (tau_eff - 1/2) per cell.
+// The all-false instantiation is K2's and K6's collide.
+template <bool SHIFT = false, bool TRT = false, bool LES = false,
+          bool LAMBDA = false, class P>
 __device__ __forceinline__ void collide_cell(const float* fc, float eps_raw,
-                                             float usx, float usy,
-                                             const LbmParams& p, float* fp,
-                                             float* phix, float* phiy) {
-  float rho = 0.f, jx = 0.f, jy = 0.f;
+                                             float usx, float usy, const P& p,
+                                             float tm, float* fp, float* phix,
+                                             float* phiy) {
+  float rs = 0.f, jx = 0.f, jy = 0.f;
 #pragma unroll
-  for (int i = 0; i < 9; ++i) rho = __fadd_rn(rho, fc[i]);
+  for (int i = 0; i < 9; ++i) rs = __fadd_rn(rs, fc[i]);
 #pragma unroll
   for (int i = 0; i < 9; ++i) jx = __fadd_rn(jx, __fmul_rn(fc[i], (float)ex(i)));
 #pragma unroll
   for (int i = 0; i < 9; ++i) jy = __fadd_rn(jy, __fmul_rn(fc[i], (float)ey(i)));
+  float rho = rs;
+  if constexpr (SHIFT) rho = __fadd_rn(rs, p.rho0);
   const float inv_rho = 1.0f / rho;
   const float ux = __fmul_rn(__fadd_rn(jx, p.half_gx), inv_rho);
   const float uy = __fmul_rn(__fadd_rn(jy, p.half_gy), inv_rho);
   const float usq = __fadd_rn(__fmul_rn(ux, ux), __fmul_rn(uy, uy));
   const float ssq = __fadd_rn(__fmul_rn(usx, usx), __fmul_rn(usy, usy));
-  const float eps = fminf(fmaxf(eps_raw, 0.0f), 1.0f);
-  const float B = __fmul_rn(eps, p.tm) / __fadd_rn(__fsub_rn(1.0f, eps), p.tm);
-  const float omb = __fsub_rn(1.0f, B);
   float fe[9];
 #pragma unroll
-  for (int i = 0; i < 9; ++i) fe[i] = feq(i, rho, ux, uy, usq);
-  float px = 0.f, py = 0.f;
+  for (int i = 0; i < 9; ++i) fe[i] = feq_nt<SHIFT>(i, rs, rho, ux, uy, usq);
+  float tau = p.tau;
+  if constexpr (LES) {  // ops/lbm.smagorinsky_tau, as K5's fluid_collide
+    float pxx = 0.f, pyy = 0.f, pxy = 0.f;
 #pragma unroll
-  for (int i = 0; i < 9; ++i) {
-    const int o = opp(i);
-    const float fes = feq(i, rho, usx, usy, ssq);
-    const float om = __fsub_rn(__fadd_rn(__fsub_rn(fc[o], fc[i]), fes), fe[o]);
-    float v = __fsub_rn(fc[i], __fmul_rn(omb, __fsub_rn(fc[i], fe[i])) / p.tau);
-    const float bom = __fmul_rn(B, om);
-    v = __fadd_rn(v, bom);
-    if (p.forced) {
-      const float exf = (float)ex(i), eyf = (float)ey(i);
-      const float eu = __fadd_rn(__fmul_rn(exf, ux), __fmul_rn(eyf, uy));
-      const float t1 = __fmul_rn(
-          3.0f, __fadd_rn(__fmul_rn(__fsub_rn(exf, ux), p.gx),
-                          __fmul_rn(__fsub_rn(eyf, uy), p.gy)));
-      const float eg = __fadd_rn(__fmul_rn(exf, p.gx), __fmul_rn(eyf, p.gy));
-      const float t2 = __fmul_rn(__fmul_rn(9.0f, eu), eg);
-      const float proj = __fmul_rn(weight(i), __fadd_rn(t1, t2));
-      v = __fadd_rn(v, __fmul_rn(omb, __fmul_rn(p.guo_pref, proj)));
+    for (int i = 0; i < 9; ++i) {
+      const float ne = __fsub_rn(fc[i], fe[i]);
+      if (ex(i) != 0) pxx = __fadd_rn(pxx, ne);
+      if (ey(i) != 0) pyy = __fadd_rn(pyy, ne);
+      if (ex(i) * ey(i) != 0) pxy = __fadd_rn(pxy, ex(i) * ey(i) > 0 ? ne : -ne);
     }
-    fp[i] = v;
-    px = __fadd_rn(px, __fmul_rn(bom, (float)ex(i)));
-    py = __fadd_rn(py, __fmul_rn(bom, (float)ey(i)));
+    const float pn = __fsqrt_rn(
+        __fadd_rn(__fadd_rn(__fmul_rn(pxx, pxx), __fmul_rn(pyy, pyy)),
+                  __fmul_rn(__fmul_rn(2.0f, pxy), pxy)));
+    tau = __fmul_rn(0.5f, __fadd_rn(p.tau, __fsqrt_rn(__fadd_rn(
+        p.tau_sq, __fdiv_rn(__fmul_rn(p.les_c, pn), rho)))));
+    tm = __fsub_rn(tau, 0.5f);  // imb.nt_weight on the per-cell tau
+    if constexpr (LAMBDA) tm = __fmul_rn(__frcp_rn(tm), 0.1875f);
+  }
+  const float eps = fminf(fmaxf(eps_raw, 0.0f), 1.0f);
+  const float B = __fmul_rn(eps, tm) / __fadd_rn(__fsub_rn(1.0f, eps), tm);
+  const float omb = __fsub_rn(1.0f, B);
+  float px = 0.f, py = 0.f;
+  if constexpr (!TRT) {
+    float pref = p.guo_pref;
+    if constexpr (LES) pref = __fsub_rn(1.0f, __fmul_rn(__frcp_rn(tau), 0.5f));
+#pragma unroll
+    for (int i = 0; i < 9; ++i) {
+      const int o = opp(i);
+      const float fes = feq_nt<SHIFT>(i, rs, rho, usx, usy, ssq);
+      const float om = __fsub_rn(__fadd_rn(__fsub_rn(fc[o], fc[i]), fes), fe[o]);
+      float v = __fsub_rn(fc[i], __fmul_rn(omb, __fsub_rn(fc[i], fe[i])) / tau);
+      const float bom = __fmul_rn(B, om);
+      v = __fadd_rn(v, bom);
+      if (p.forced) {
+        const float proj = guo_proj(i, ux, uy, edot_full(i, ux, uy), p.gx, p.gy);
+        v = __fadd_rn(v, __fmul_rn(omb, __fmul_rn(pref, proj)));
+      }
+      fp[i] = v;
+      px = __fadd_rn(px, __fmul_rn(bom, (float)ex(i)));
+      py = __fadd_rn(py, __fmul_rn(bom, (float)ey(i)));
+    }
+  } else {
+    float hp = p.trt_hp, hm = p.trt_hm, pe = p.trt_pe, po = p.trt_po;
+    if constexpr (LES) {  // ops/lbm.trt_tau_minus on the per-cell tau
+      hp = __fmul_rn(__frcp_rn(tau), 0.5f);
+      const float tmin = __fadd_rn(
+          __fmul_rn(__frcp_rn(__fsub_rn(tau, 0.5f)), p.trt_magic), 0.5f);
+      hm = __fmul_rn(__frcp_rn(tmin), 0.5f);
+      pe = __fmul_rn(__fsub_rn(1.0f, hp), 0.5f);
+      po = __fmul_rn(__fsub_rn(1.0f, hm), 0.5f);
+    }
+    float ne[9], S[9];
+#pragma unroll
+    for (int i = 0; i < 9; ++i) {
+      ne[i] = __fsub_rn(fc[i], fe[i]);
+      S[i] = p.forced ? guo_proj(i, ux, uy, edot_full(i, ux, uy), p.gx, p.gy)
+                      : 0.0f;
+    }
+#pragma unroll
+    for (int i = 0; i < 9; ++i) {
+      const int o = opp(i);
+      const float fes = feq_nt<SHIFT>(i, rs, rho, usx, usy, ssq);
+      const float om = __fsub_rn(__fadd_rn(__fsub_rn(fc[o], fc[i]), fes), fe[o]);
+      const float relax = __fadd_rn(__fmul_rn(hp, __fadd_rn(ne[i], ne[o])),
+                                    __fmul_rn(hm, __fsub_rn(ne[i], ne[o])));
+      float v = __fsub_rn(fc[i], __fmul_rn(omb, relax));
+      const float bom = __fmul_rn(B, om);
+      v = __fadd_rn(v, bom);
+      if (p.forced) {
+        const float src = __fadd_rn(__fmul_rn(pe, __fadd_rn(S[i], S[o])),
+                                    __fmul_rn(po, __fsub_rn(S[i], S[o])));
+        v = __fadd_rn(v, __fmul_rn(omb, src));
+      }
+      fp[i] = v;
+      px = __fadd_rn(px, __fmul_rn(bom, (float)ex(i)));
+      py = __fadd_rn(py, __fmul_rn(bom, (float)ey(i)));
+    }
   }
   *phix = -px;
   *phiy = -py;

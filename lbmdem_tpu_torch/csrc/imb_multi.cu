@@ -84,7 +84,7 @@ __global__ void __launch_bounds__(kThreads)
     sol[c] = eps_raw;
     sol[n + c] = usx;
     sol[2 * n + c] = usy;
-    collide_cell(fc, eps_raw, usx, usy, p, fp, &phix, &phiy);
+    collide_cell(fc, eps_raw, usx, usy, p, p.tm, fp, &phix, &phiy);
 #pragma unroll
     for (int i = 0; i < 9; ++i) cur[i * n + c] = fp[i];
     write_w(w, plane, ly, lx, k, gy0 + ly, gx0 + lx, ny, nx, eps_raw, phix,
@@ -103,8 +103,8 @@ __global__ void __launch_bounds__(kThreads)
       float v[9], fp[9], phix, phiy;
       imb_stream_cell(cur, n, ww, wc, gy, gx, ny, nx, p, v);
       const float eps_raw = sol[wc];
-      collide_cell(v, eps_raw, sol[n + wc], sol[2 * n + wc], p, fp, &phix,
-                   &phiy);
+      collide_cell(v, eps_raw, sol[n + wc], sol[2 * n + wc], p, p.tm, fp,
+                   &phix, &phiy);
 #pragma unroll
       for (int i = 0; i < 9; ++i) nxt[i * n + wc] = fp[i];
       write_w(ws, plane, ly, lx, k, gy, gx, ny, nx, eps_raw, phix, phiy, p);

@@ -58,7 +58,7 @@ __global__ void __launch_bounds__(kBX * kBY)
     for (int i = 0; i < 9; ++i) fc[i] = f[i * plane + cell];
     const float eps_raw = solid[cell];
     collide_cell(fc, eps_raw, solid[plane + cell], solid[2 * plane + cell], p,
-                 fp, &phix, &phiy);
+                 p.tm, fp, &phix, &phiy);
 #pragma unroll
     for (int i = 0; i < 9; ++i) post[i][ly][lx] = fp[i];
     const bool interior = ly >= 1 && ly <= kBY && lx >= 1 && lx <= kBX &&

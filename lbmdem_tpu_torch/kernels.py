@@ -20,6 +20,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -30,7 +31,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent / "_build"
 SOURCES = ("stamp.cu", "imb_reduce.cu", "imb_multi.cu", "slab_dem.cu",
-           "fluid.cu")
+           "fluid.cu", "imb_static.cu")
 HEADERS = ("coverage.cuh", "d2q9.cuh", "imb.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -68,7 +69,8 @@ class DemParams(ctypes.Structure):
 
 
 class FluidParams(ctypes.Structure):
-    """Scalars of the pure-fluid steps (K4/K5); mirrors `struct
+    """Scalars of the pure-fluid steps (K4/K5) and of the static-solid
+    block (K7, with the NT constant beside it); mirrors `struct
     FluidParams` in csrc/d2q9.cuh field for field."""
 
     _fields_ = [
@@ -94,6 +96,8 @@ _SIGNATURES = {
                                 _I, _I, DemParams, _P],
     "lbm_fluid_step": [_P, _P, _P, _I, _I, _I, FluidParams, _P],
     "lbm_fluid_multi": [_P, _P, _P, _I, _I, _I, _I, FluidParams, _P],
+    "lbm_imb_static_multi": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                             FluidParams, _F, _P],
 }
 
 
@@ -132,15 +136,17 @@ def library() -> ctypes.CDLL:
     if not so.exists():
         tag = f"{os.getpid()}.tmp"
         objs = [BUILD / f"{Path(src).stem}.{tag}.o" for src in SOURCES]
-        jobs = [_run([nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o",
-                      str(obj), str(CSRC / src)])
+        # -Xptxas -v only reports each entry's registers and spills
+        jobs = [_run([nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-I", str(CSRC),
+                      "-c", "-o", str(obj), str(CSRC / src)])
                 for src, obj in zip(SOURCES, objs)]
         try:
-            for cmd, proc in jobs:
-                _wait(cmd, proc)
+            report = "".join(f"# {src}\n{_wait(cmd, proc)}"
+                             for src, (cmd, proc) in zip(SOURCES, jobs))
         finally:
             for _, proc in jobs:
                 proc.kill()
+        so.with_suffix(".ptxas.txt").write_text(report)
         tmp = so.with_suffix(f".{tag}")
         _wait(*_run([nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp),
                      *map(str, objs)]))
@@ -162,11 +168,39 @@ def _run(cmd):
                                  stderr=subprocess.PIPE, text=True)
 
 
-def _wait(cmd, proc) -> None:
+def _wait(cmd, proc) -> str:
+    """Wait for an nvcc process; return its stderr (the ptxas report)."""
     out, err = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
                            f"{' '.join(cmd)}\n{out}\n{err}")
+    return err
+
+
+def resources() -> list:
+    """Registers and spills of every kernel entry, from the ptxas report
+    saved when the loaded library was built: [(source, entry, registers,
+    spill store bytes, spill load bytes)], entries demangled when
+    c++filt is on PATH."""
+    report = BUILD / f"liblbmdem_kernels_{_digest()}.ptxas.txt"
+    rows, src, entry, spills = [], None, None, (0, 0)
+    for line in report.read_text().splitlines():
+        if line.startswith("# "):
+            src = line[2:]
+        elif m := re.search(r"Compiling entry function '(\S+)'", line):
+            entry = m.group(1)
+        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                            r"loads", line):
+            spills = (int(m.group(1)), int(m.group(2)))
+        elif (m := re.search(r"Used (\d+) registers", line)) and entry:
+            rows.append((src, entry, int(m.group(1)), *spills))
+            entry = None
+    filt = shutil.which("c++filt")
+    if filt and rows:
+        names = subprocess.run([filt], input="\n".join(r[1] for r in rows),
+                               capture_output=True, text=True).stdout.split("\n")
+        rows = [(r[0], n or r[1], *r[2:]) for r, n in zip(rows, names)]
+    return rows
 
 
 def check(code: int, what: str) -> None:

@@ -1,11 +1,10 @@
 """Noble-Torczynski immersed-moving-boundary (IMB) coupling, plain
 PyTorch.
 
-Counterpart of the main-path half of the JAX package's
-`lbmdem_tpu/ops/imb.py`: coverage (C9), the NT-blended collision with
-its momentum-exchange field (C10) and the per-disk force/torque gather
-(C12). The periodic ghost functions are not ported yet (ROADMAP.md,
-modules to port, item 9).
+Counterpart of the JAX package's `lbmdem_tpu/ops/imb.py`: coverage
+(C9), the periodic ghost disks, the NT-blended collision with its
+momentum-exchange field (C10) and the per-disk force/torque gather
+(C12).
 
 Sign convention: phi = -B sum_i Omega_i e_i is the force per cell on
 the solid phase.
@@ -149,12 +148,160 @@ def mask_open_columns(eps, usx, usy):
     return tuple(out)
 
 
-def nt_weight(eps, tau, mode: str = "nt"):
-    """Noble-Torczynski blending B(eps, tau) = eps tm / ((1-eps) + tm),
-    tm = tau - 1/2 ("nt") or 3/16 / (tau - 1/2) ("lambda")."""
+# --- periodic ghost disks -------------------------------------------
+#
+# The stamp and reduce work in absolute cell coordinates, so a disk whose
+# window crosses a periodic edge also gets a "ghost": a min-image shifted
+# copy appended to the arrays fed to binning, stamping and reduction. The
+# ghosts' hydro forces fold back into their parents afterwards.
+
+
+def default_ghost_cap(n: int, cfg: SimConfig, margin: int = 0) -> int:
+    """Per-block ghost capacity: the expected near-edge disk count for a
+    uniform spatial distribution, with 4x headroom (overflow is
+    counted, never silent)."""
+    t = cfg.window // 2 + margin + 2
+    frac = 0.0
+    if cfg.wrap_lx:
+        frac = max(frac, 2.0 * t / cfg.wrap_lx)
+    if cfg.wrap_ly:
+        frac = max(frac, 2.0 * t / cfg.wrap_ly)
+    cap = int(4.0 * n * frac) + 8
+    return min((cap + 7) & ~7, max(n, 8))
+
+
+def ghost_selection(x, active, cfg: SimConfig, margin: int = 0):
+    """Fixed-capacity selection of the disks that need a periodic ghost.
+
+    Returns (parent (G,) i32 with -1 = empty slot, axes (G, 2) i32 with
+    1 where the ghost shifts on that axis, overflow () i32). G is
+    cfg.ghost_cap slots per block (x edge, y edge, corner); no periodic
+    axis gives G == 0. `margin` widens the near-edge test so that a
+    selection stays valid while disks travel < margin cells (the
+    Verlet cadence). Within a block the parents are in disk order, as
+    jax.lax.top_k lists the tied flags."""
+    lx, ly = cfg.wrap_lx, cfg.wrap_ly
+    dev = x.device
+    i32 = torch.int32
+    if not (lx or ly):
+        return (torch.zeros((0,), dtype=i32, device=dev),
+                torch.zeros((0, 2), dtype=i32, device=dev),
+                torch.zeros((), dtype=i32, device=dev))
+    cap = cfg.ghost_cap
+    if cap <= 0:
+        raise ValueError("cfg.ghost_cap must be set (Simulation derives it)")
+    t = cfg.window // 2 + margin + 2
+    kk = min(cap, x.shape[0])
+    pad = torch.full((cap - kk,), -1, dtype=i32, device=dev)
+
+    def pack(flag):
+        # a stable descending sort puts the flagged rows first, in order
+        order = torch.sort(flag.to(torch.uint8), descending=True,
+                           stable=True).indices[:kk]
+        hit = flag[order]
+        parent = torch.where(hit, order.to(i32), -1)
+        ovf = torch.sum(flag, dtype=i32) - torch.sum(hit, dtype=i32)
+        return torch.cat([parent, pad]), ovf
+
+    near_x = active & ((x[:, 0] < t) | (x[:, 0] > lx - 1 - t)) if lx else None
+    near_y = active & ((x[:, 1] < t) | (x[:, 1] > ly - 1 - t)) if ly else None
+    blocks = []
+    if lx:
+        blocks.append((near_x, (0,)))
+    if ly:
+        blocks.append((near_y, (1,)))
+    if lx and ly:
+        blocks.append((near_x & near_y, (0, 1)))
+    parents, axes = [], []
+    ovf = torch.zeros((), dtype=i32, device=dev)
+    for flag, shifted in blocks:
+        p, o = pack(flag)
+        parents.append(p)
+        ax = torch.zeros((cap, 2), dtype=i32, device=dev)
+        for a in shifted:
+            ax[:, a].fill_(1)
+        axes.append(ax)
+        ovf = ovf + o
+    return torch.cat(parents), torch.cat(axes), ovf
+
+
+def apply_ghosts(parent, axes, x, v, omega, r, active, cfg: SimConfig):
+    """Append min-image shifted ghost rows to the disk arrays.
+
+    The shift side follows the parent's CURRENT position (a parent in
+    the west half gets its ghost at +L, in the east half at -L), so a
+    stale selection stays right across a seam crossing. Returns
+    (x, v, omega, r, active) with N + G rows; empty slots are inactive
+    and parked far outside the domain."""
+    if parent.shape[0] == 0:
+        return x, v, omega, r, active
+    j = parent.clamp(min=0).to(torch.int64)
+    gx = x[j]
+    cols = [gx[:, 0], gx[:, 1]]
+    for a, L in ((0, cfg.wrap_lx), (1, cfg.wrap_ly)):
+        if L:
+            c = cols[a]
+            shifted = torch.where(c < 0.5 * (L - 1.0), c + L, c - L)
+            cols[a] = torch.where(axes[:, a] > 0, shifted, c)
+    gxy = torch.stack(cols, dim=1)
+    g_act = (parent >= 0) & active[j]
+    gxy = torch.where(g_act[:, None], gxy, torch.full_like(gxy, -1e6))
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    return (torch.cat([x, gxy]),
+            torch.cat([v, torch.where(g_act[:, None], v[j], zero)]),
+            torch.cat([omega, torch.where(g_act, omega[j], zero)]),
+            torch.cat([r, torch.where(g_act, r[j], torch.ones_like(r[j]))]),
+            torch.cat([active, g_act]))
+
+
+def fold_ghost_forces(F, T, parent, n: int):
+    """Sum the ghost rows' hydro forces (F[n:], T[n:]) into their
+    parents: (F (n, 2), T (n,)). Empty slots add into a spare row that
+    is dropped, as the JAX scatter's mode="drop" does."""
+    if parent.shape[0] == 0:
+        return F, T
+    j = torch.where(parent >= 0, parent, n).to(torch.int64)
+    Fs = torch.cat([F[:n], torch.zeros_like(F[:1])]).index_add_(0, j, F[n:])
+    Ts = torch.cat([T[:n], torch.zeros_like(T[:1])]).index_add_(0, j, T[n:])
+    return Fs[:n], Ts[:n]
+
+
+def wrap_positions(x, active, cfg: SimConfig):
+    """Wrap ACTIVE disk centers into the periodic domain [-1/2, L-1/2).
+    Inactive slots stay parked outside the domain. Callers wrap only at
+    ghost-selection points, so tile lists never see the +-L jump."""
+    lx, ly = cfg.wrap_lx, cfg.wrap_ly
+    if not (lx or ly):
+        return x
+    cols = [x[:, 0], x[:, 1]]
+    for a, L in ((0, lx), (1, ly)):
+        if L:
+            c = cols[a]
+            cols[a] = c - L * torch.floor((c + 0.5) / L)
+    return torch.where(active[:, None], torch.stack(cols, dim=1), x)
+
+
+def periodic_ghosts(x, v, omega, r, active, cfg: SimConfig, margin: int = 0):
+    """Wrap, select and augment in one call: (x_wrapped, (x, v, omega,
+    r, active) with the ghost rows appended, parent, axes, overflow)."""
+    xw = wrap_positions(x, active, cfg)
+    parent, axes, ovf = ghost_selection(xw, active, cfg, margin)
+    aug = apply_ghosts(parent, axes, xw, v, omega, r, active, cfg)
+    return xw, aug, parent, axes, ovf
+
+
+def nt_tm(tau, mode: str = "nt"):
+    """The NT blend's tm = tau - 1/2 ("nt") or 3/16 / (tau - 1/2)
+    ("lambda"); tau a Python scalar or a tensor."""
     tm = tau - 0.5
     if mode == "lambda":
         tm = 0.1875 / tm
+    return tm
+
+
+def nt_weight(eps, tau, mode: str = "nt"):
+    """Noble-Torczynski blending B(eps, tau) = eps tm / ((1-eps) + tm)."""
+    tm = nt_tm(tau, mode)
     return eps * tm / ((1.0 - eps) + tm)
 
 

@@ -29,10 +29,26 @@ K4 launch, and `run` drives each chunk of n steps as n // TEMPORAL_K
 K5 passes of TEMPORAL_K steps each, then n % TEMPORAL_K K4 steps, on
 any lattice option and on f32 or shifted-bf16 storage.
 
-On CUDA tensors the kernels run as hand-written CUDA; on CPU
-tensors every kernel takes its plain PyTorch version (float32 or
-float64). Everything outside this slice raises NotImplementedError
-naming the ROADMAP.md item that will port it.
+When every disk is `DiskSpec.fixed` there is no contact mechanics
+(`dem_mode == "drift"`): fixed disks move at their prescribed v and
+omega. If they are also at rest (`static_solid`), the binning and the
+stamp are constants: `run` stamps once (K1, `_static_solid_operands`)
+and takes each chunk of n steps as n // TEMPORAL_K K7 passes of
+TEMPORAL_K steps and n % TEMPORAL_K K7 passes of one step, with no
+reduce. Otherwise `run` keeps the Verlet-cadence chunk (K1 + K2 per
+step, or K1 + K6 per coupling_k window) with the drift in place of the
+slab DEM, and `step()` on any all-fixed scene is that per-step step.
+
+On a periodic axis, disks whose stamp window crosses the seam get
+min-image ghost copies for the binning, the stamp and the force reduce
+(`imb.periodic_ghosts`); the ghosts' forces fold back into their
+parents.
+
+`Simulation` runs on the card unless it is given device="cpu". On CUDA
+tensors the kernels run as hand-written CUDA; on CPU tensors every
+kernel takes its plain PyTorch version (float32 or float64). Everything
+outside this slice raises NotImplementedError naming the ROADMAP.md
+item that will port it.
 
     sim = Simulation(cfg, disks, device="cuda")
     mlups = sim.run(100)
@@ -47,8 +63,8 @@ from typing import Callable, NamedTuple, Optional, Sequence
 import torch
 
 from lbmdem_tpu_torch.config import DiskSpec, SimConfig, window_for_radius
-from lbmdem_tpu_torch.ops import (fused_fluid, fused_lbm, imb, lbm,
-                                  not_ported, slab_dem)
+from lbmdem_tpu_torch.ops import (fused_fluid, fused_lbm, fused_static, imb,
+                                  lbm, not_ported, slab_dem)
 from lbmdem_tpu_torch.ops import stamp
 from lbmdem_tpu_torch.ops.dem import DemGrid, DiskState, make_disk_state
 
@@ -89,9 +105,17 @@ def check_slice(cfg: SimConfig, disks: Sequence[DiskSpec], device,
     if not disks:
         raise not_ported("coupled scenes without disks", 9)
     if all(d.fixed for d in disks):
-        raise not_ported("all-fixed scenes (drift mode; static hoist K7)", 10)
+        if _at_rest(disks):  # the static hoist: K1 once, then K7
+            fused_static.check_static_cfg(cfg)
+        else:  # drift: the K2 step and the K6 window, without the DEM
+            fused_lbm.check_step_cfg(cfg)
+        return
     fused_lbm.check_step_cfg(cfg)
     slab_dem.check_dem_cfg(cfg)
+
+
+def _at_rest(disks: Sequence[DiskSpec]) -> bool:
+    return all(d.vx == 0.0 and d.vy == 0.0 and d.omega == 0.0 for d in disks)
 
 
 def _zero_i32(device, value: int = 0) -> torch.Tensor:
@@ -100,21 +124,26 @@ def _zero_i32(device, value: int = 0) -> torch.Tensor:
 
 def make_step_fn(cfg: SimConfig, grid: Optional[DemGrid], tile_lists=None,
                  dem_axis: str = "y", temporal_k: int = 1,
-                 coupling_k: int = 1) -> Callable:
+                 coupling_k: int = 1, dem_mode: str = "subcycle") -> Callable:
     """The step: step(state, f_out) -> SimState.
 
     grid None (no disks): the pure-fluid step, temporal_k steps in one
     kernel pass (K4 when 1, K5 above). Otherwise the coupled step: one
-    step (K1, K2, K3) when coupling_k is 1, else a window of coupling_k
-    steps (K1 once, K6, coupling_k x K3w).
+    step (K1, K2, DEM) when coupling_k is 1, else a window of coupling_k
+    steps (K1 once, K6, then coupling_k DEM updates). The DEM is the
+    slab subcycle (K3, or K3w chained over the window), or under
+    dem_mode "drift" the prescribed motion of fixed disks.
 
-    `f_out` is the second, dead f buffer: K2 writes the new populations
-    into it (never into state.f), and the caller swaps the two buffers.
+    `f_out` is the second, dead f buffer: the kernel writes the new
+    populations into it (never into state.f), and the caller swaps the
+    two buffers.
 
-    `tile_lists` = (lists, counts, entry_slots, x_bin) reuses a binning
-    built at x_bin with BIN_MARGIN slack (Verlet cadence); per-step
-    travel beyond the margin is counted into state.overflow. Without it
-    every step bins afresh (margin 0)."""
+    `tile_lists` = (lists, counts, entry_slots, x_bin, gparent, gaxes)
+    reuses a binning built at x_bin with BIN_MARGIN slack (Verlet
+    cadence) and the periodic ghost selection made with it (gparent,
+    gaxes None without periodic axes); per-step travel beyond the margin
+    is counted into state.overflow. Without it every step wraps, selects
+    ghosts and bins afresh (margin 0)."""
     if grid is None:
 
         def fluid_step(state: SimState, f_out: torch.Tensor) -> SimState:
@@ -124,32 +153,76 @@ def make_step_fn(cfg: SimConfig, grid: Optional[DemGrid], tile_lists=None,
 
         return fluid_step
 
+    periodic = bool(cfg.wrap_lx or cfg.wrap_ly)
+
     def coupling_inputs(d: DiskState):
+        """The step's (or window's) coupling inputs: (d, tile_data,
+        counts, entry_slots, bovf, gparent). `d` has wrapped positions
+        when this call selected ghosts afresh; with tile_lists the
+        positions wrapped at the last rebuild and must not wrap again
+        before the next (the lists would see the +-L jump). The binning
+        is of the ghost-augmented disks (N + G rows)."""
+        gparent = aug = None
         if tile_lists is not None:
-            lists, counts, entry_slots, x_bin = tile_lists
+            lists, counts, entry_slots, x_bin, gparent, gaxes = tile_lists
             travel2 = torch.where(d.active, torch.sum((d.x - x_bin) ** 2, -1),
                                   torch.zeros_like(d.r))
             bovf = torch.sum(travel2 > float(BIN_MARGIN) ** 2).to(torch.int32)
-        else:
+        elif periodic:
+            xw, aug, gparent, gaxes, govf = imb.periodic_ghosts(
+                d.x, d.v, d.omega, d.r, d.active, cfg)
+            d = d._replace(x=xw)
+        if not periodic:
+            aug = (d.x, d.v, d.omega, d.r, d.active)
+        elif aug is None:  # Verlet cadence: stored selection, current x
+            aug = imb.apply_ghosts(gparent, gaxes, d.x, d.v, d.omega, d.r,
+                                   d.active, cfg)
+        xa, va, oma, ra, acta = aug
+        if tile_lists is None:
             lists, counts, entry_slots, bovf = stamp.build_tile_lists(
-                d.x, d.active, cfg)
-        tile_data = stamp.gather_tile_data(lists, d.x, d.v, d.omega, d.r,
-                                           d.active)
-        return tile_data, counts, entry_slots, bovf
+                xa, acta, cfg)
+            if periodic:
+                bovf = torch.maximum(bovf, govf)
+        tile_data = stamp.gather_tile_data(lists, xa, va, oma, ra, acta)
+        return d, tile_data, counts, entry_slots, bovf, gparent
+
+    def hydro(partials, entry_slots, gparent, n_real: int, dtype):
+        """Per-disk (F, T) of one step's partials, ghosts folded in."""
+        fh, th = stamp.gather_partials(partials, entry_slots, dtype)
+        if periodic:
+            fh, th = imb.fold_ghost_forces(fh, th, gparent, n_real)
+        return fh, th
+
+    def advance_disks(d: DiskState, fh, th):
+        """One step of disk motion: the slab DEM subcycle, or under
+        dem_mode "drift" (every disk fixed) the prescribed translation
+        and rotation over dt = 1, with no contact machinery."""
+        if dem_mode == "drift":
+            act = d.active.to(d.x.dtype)
+            z = _zero_i32(d.x.device)
+            return d._replace(x=d.x + d.v * act[:, None],
+                              theta=d.theta + d.omega * act), z, z
+        return slab_dem.dem_subcycle(d, fh, th, grid, cfg, dem_axis)
 
     if coupling_k > 1:
 
         def window_step(state: SimState, f_out: torch.Tensor) -> SimState:
-            d = state.disks
+            n_real = state.disks.x.shape[0]
             # window-start coupling inputs, frozen for the k inner steps
-            tile_data, counts, entry_slots, bovf = coupling_inputs(d)
+            d, tile_data, counts, entry_slots, bovf, gparent = (
+                coupling_inputs(state.disks))
             solid = stamp.stamp_fields(tile_data, counts, cfg)
             fnew, parts = fused_lbm.fused_step_imb_reduce_multi(
                 state.f, solid, tile_data, counts, cfg, coupling_k, f_out)
-            forces = [stamp.gather_partials(parts[t], entry_slots, d.x.dtype)
+            forces = [hydro(parts[t], entry_slots, gparent, n_real, d.x.dtype)
                       for t in range(coupling_k)]
-            disks, ovf, nc = slab_dem.dem_subcycle_window(d, forces, grid,
-                                                          cfg, dem_axis)
+            if dem_mode == "drift":
+                disks, ovf, nc = d, bovf, state.n_contacts
+                for fh, th in forces:
+                    disks, _, nc = advance_disks(disks, fh, th)
+            else:
+                disks, ovf, nc = slab_dem.dem_subcycle_window(
+                    d, forces, grid, cfg, dem_axis)
             return SimState(
                 f=fnew, disks=disks, step=state.step + coupling_k,
                 overflow=torch.maximum(state.overflow,
@@ -160,14 +233,14 @@ def make_step_fn(cfg: SimConfig, grid: Optional[DemGrid], tile_lists=None,
         return window_step
 
     def step(state: SimState, f_out: torch.Tensor) -> SimState:
-        d = state.disks
-        tile_data, counts, entry_slots, bovf = coupling_inputs(d)
+        n_real = state.disks.x.shape[0]
+        d, tile_data, counts, entry_slots, bovf, gparent = coupling_inputs(
+            state.disks)
         solid = stamp.stamp_fields(tile_data, counts, cfg)
         fnew, partials = fused_lbm.fused_step_imb_reduce(
             state.f, solid, tile_data, counts, cfg, f_out)
-        fh, th = stamp.gather_partials(partials, entry_slots, d.x.dtype)
-        disks, ovf, nc = slab_dem.dem_subcycle(d, fh, th, grid, cfg,
-                                               dem_axis)
+        fh, th = hydro(partials, entry_slots, gparent, n_real, d.x.dtype)
+        disks, ovf, nc = advance_disks(d, fh, th)
         return SimState(
             f=fnew, disks=disks, step=state.step + 1,
             overflow=torch.maximum(state.overflow, torch.maximum(ovf, bovf)),
@@ -177,14 +250,43 @@ def make_step_fn(cfg: SimConfig, grid: Optional[DemGrid], tile_lists=None,
     return step
 
 
+def make_static_step_fn(cfg: SimConfig, solid: torch.Tensor,
+                        k: int) -> Callable:
+    """The static-solid hoist's step: k coupled steps over the constant
+    solid stack in one K7 pass (no binning, reduce or DEM; the fixed
+    disks at rest never move)."""
+
+    def static_step(state: SimState, f_out: torch.Tensor) -> SimState:
+        fnew = fused_static.fused_step_imb_static_multi(state.f, solid, cfg,
+                                                        k, f_out)
+        return state._replace(f=fnew, step=state.step + k)
+
+    return static_step
+
+
 class Simulation:
-    """User-facing driver: owns the config, the state and two f buffers."""
+    """User-facing driver: owns the config, the state and two f buffers.
+
+    It runs on the card (device="cuda", the default) unless it is given
+    device="cpu", where every kernel takes its plain version; it raises
+    RuntimeError when asked for the card and none is present."""
 
     def __init__(self, cfg: SimConfig, disks: Sequence[DiskSpec] = (),
-                 device="cpu", mesh=None):
+                 device="cuda", mesh=None):
         disks = list(disks)
+        check_slice(cfg, disks, device, mesh)
         self.device = torch.device(device)
-        check_slice(cfg, disks, self.device, mesh)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "Simulation: no CUDA device is available "
+                "(torch.cuda.is_available() is False); pass device='cpu' to "
+                "run the plain PyTorch versions on the CPU")
+        # every disk fixed: no contact mechanics, positions drift at the
+        # prescribed v/omega; also at rest: binning and stamp are constant
+        self.dem_mode = ("drift" if disks and all(d.fixed for d in disks)
+                         else "subcycle")
+        self.static_solid = self.dem_mode == "drift" and _at_rest(disks)
+        self._solid_stack = None  # _static_solid_operands' cache
         if disks:
             cfg = self._derive_coupled(cfg, disks)
         else:
@@ -201,12 +303,13 @@ class Simulation:
         )
         # the second f buffer: each step writes into it and the two swap
         self._f_spare = torch.empty_like(f)
-        self._step = make_step_fn(cfg, self.grid, dem_axis=self.dem_axis)
+        self._step = make_step_fn(cfg, self.grid, dem_axis=self.dem_axis,
+                                  dem_mode=self.dem_mode)
         self.mlups_last = 0.0
 
     def _derive_coupled(self, cfg: SimConfig, disks) -> SimConfig:
-        """The coupled path's derived config (window, capacity, tile
-        cap), its DEM grid and slab axis."""
+        """The coupled path's derived config (window, capacity, tile cap,
+        ghost cap), its DEM grid and slab axis."""
         r_max = max(d.r for d in disks)
         if cfg.window <= 0:
             cfg = cfg.replace(window=window_for_radius(r_max))
@@ -218,8 +321,13 @@ class Simulation:
             r_min = min(d.r for d in disks)
             cfg = cfg.replace(tile_cap=stamp.default_tile_cap(
                 th, tw, r_min, cfg.window + 2 * BIN_MARGIN))
+        cfg.validate_periodic_dem()
+        if (cfg.wrap_lx or cfg.wrap_ly) and cfg.ghost_cap <= 0:
+            cfg = cfg.replace(ghost_cap=imb.default_ghost_cap(
+                cfg.max_disks, cfg, BIN_MARGIN))
         self.dem_axis = slab_dem.choose_axis(disks, cfg)
-        if not slab_dem.slab_supported(self.grid, self.dem_axis):
+        if (self.dem_mode == "subcycle"
+                and not slab_dem.slab_supported(self.grid, self.dem_axis)):
             raise not_ported("DEM grids beyond the slab gate (the cell-list "
                              "dem_subcycle)", 9)
         return cfg
@@ -231,14 +339,19 @@ class Simulation:
         self._f_spare = old_f
 
     def step(self) -> None:
-        """One step (coupled: with a fresh binning, no cadence)."""
+        """One step (coupled: with a fresh binning, no cadence; all-fixed
+        scenes: the per-step drift step, static or not)."""
         self._advance(self._step)
 
     def _run_chunk(self, n: int) -> None:
         """n steps as Verlet-cadence blocks of BIN_CADENCE steps (the JAX
-        single-device coupled chunk): each block rebuilds the tile lists
-        with BIN_MARGIN slack and counts their overflow, then takes its b
-        steps as b // coupling_k windows and b % coupling_k single steps.
+        single-device coupled chunk): each block wraps the positions and
+        selects the periodic ghosts with BIN_MARGIN slack, rebuilds the
+        tile lists with the same slack and counts both overflows, then
+        takes its b steps as b // coupling_k windows and b % coupling_k
+        single steps. The static hoist (all disks fixed at rest) instead
+        takes n // TEMPORAL_K K7 passes of TEMPORAL_K steps and
+        n % TEMPORAL_K of one step over the solid stack stamped once.
         Pure fluid: n // TEMPORAL_K K5 passes, then n % TEMPORAL_K K4
         steps (the JAX pure-fluid chunk)."""
         if self.grid is None:
@@ -249,27 +362,75 @@ class Simulation:
                 self._advance(self._step)
             return
         cfg = self.cfg
+        if self.static_solid:
+            solid = self._static_solid_operands()
+            passes, singles = divmod(n, TEMPORAL_K)
+            for k, m in ((TEMPORAL_K, passes), (1, singles)):
+                sstep = make_static_step_fn(cfg, solid, k)
+                for _ in range(m):
+                    self._advance(sstep)
+            return
+        periodic = bool(cfg.wrap_lx or cfg.wrap_ly)
         done = 0
         while done < n:
             k = min(BIN_CADENCE, n - done)
             d = self.state.disks
+            gparent = gaxes = None
+            xb, actb = d.x, d.active
+            if periodic:
+                # wrap and select ghosts only here, at the rebuild: the
+                # selection carries the lists' BIN_MARGIN slack
+                xw, aug, gparent, gaxes, govf = imb.periodic_ghosts(
+                    d.x, d.v, d.omega, d.r, d.active, cfg, margin=BIN_MARGIN)
+                d = d._replace(x=xw)
+                xb, actb = aug[0], aug[4]
+                self.state = self.state._replace(
+                    disks=d, overflow=torch.maximum(self.state.overflow, govf))
             lists, counts, entry_slots, bovf = stamp.build_tile_lists(
-                d.x, d.active, cfg, margin=BIN_MARGIN)
+                xb, actb, cfg, margin=BIN_MARGIN)
             self.state = self.state._replace(
                 overflow=torch.maximum(self.state.overflow, bovf))
-            tl = (lists, counts, entry_slots, d.x)
+            tl = (lists, counts, entry_slots, d.x, gparent, gaxes)
             ck = cfg.coupling_k
             nwin, rem = divmod(k, ck)
             if nwin:
                 wstep = make_step_fn(cfg, self.grid, tl, self.dem_axis,
-                                     coupling_k=ck)
+                                     coupling_k=ck, dem_mode=self.dem_mode)
                 for _ in range(nwin):
                     self._advance(wstep)
             if rem:
-                stepfn = make_step_fn(cfg, self.grid, tl, self.dem_axis)
+                stepfn = make_step_fn(cfg, self.grid, tl, self.dem_axis,
+                                      dem_mode=self.dem_mode)
                 for _ in range(rem):
                     self._advance(stepfn)
             done += k
+
+    def _static_solid_operands(self) -> torch.Tensor:
+        """The static hoist's (3, ny, nx) solid stack, stamped once (K1)
+        from the fixed disks at rest with their periodic ghosts and
+        cached: columns 0 and nx - 1 zeroed under Zou/He (the closures
+        assume fluid there). The binning and ghost overflow is checked
+        here, once, instead of per step."""
+        if self._solid_stack is None:
+            cfg = self.cfg
+            d = self.state.disks
+            x, v, om, r, act = d.x, d.v, d.omega, d.r, d.active
+            ovf = _zero_i32(self.device)
+            if cfg.wrap_lx or cfg.wrap_ly:
+                _, (x, v, om, r, act), _, _, ovf = imb.periodic_ghosts(
+                    x, v, om, r, act, cfg)
+            tile_data, counts, _, bovf = stamp.bin_disks_to_tiles(
+                x, v, om, r, act, cfg)
+            solid = stamp.stamp_fields(tile_data, counts, cfg)
+            if cfg.bc_west == "inlet":
+                solid[:, :, 0].zero_()
+                solid[:, :, -1].zero_()
+            if int(torch.maximum(ovf, bovf)) != 0:
+                raise ValueError(
+                    "static-solid binning overflow: raise cfg.tile_cap "
+                    "(or cfg.ghost_cap for periodic obstacle arrays)")
+            self._solid_stack = solid
+        return self._solid_stack
 
     def run(self, steps: Optional[int] = None,
             callback: Optional[Callable[["Simulation"], None]] = None) -> float:
@@ -309,6 +470,7 @@ class Simulation:
                              f"{self.cfg.dtype!r} store it as {want}")
         self.state = state
         self._f_spare = torch.empty_like(self.state.f)
+        self._solid_stack = None  # the loaded disks may sit elsewhere
 
     # --- observation ---
     def macroscopic(self):
@@ -321,19 +483,44 @@ class Simulation:
         return {k: v.cpu().numpy()
                 for k, v in self.state.disks._asdict().items()}
 
+    def _coupling_view(self):
+        """(x, v, omega, r, active) of the disks with their periodic
+        ghosts appended (fresh selection, margin 0), and the ghosts'
+        parents (None without periodic axes)."""
+        cfg = self.cfg
+        d = self.state.disks
+        view = (d.x, d.v, d.omega, d.r, d.active)
+        if cfg.max_disks > 0 and (cfg.wrap_lx or cfg.wrap_ly):
+            _, view, gparent, _, _ = imb.periodic_ghosts(*view, cfg)
+            return view, gparent
+        return view, None
+
+    def solid_fraction(self):
+        """The clipped solid fraction eps (ny, nx) of the current disks,
+        ghosts included, as a numpy array."""
+        (x, v, om, r, act), _ = self._coupling_view()
+        eps, _, _ = imb.stamp_solid_fraction(x, v, om, r, act, self.cfg)
+        return torch.clamp(eps, 0.0, 1.0).cpu().numpy()
+
     def hydro_forces(self):
         """(F (N, 2), T (N,)) per disk from one evaluation of the plain
         IMB functions on the CURRENT state (observation only; the steps
-        compute theirs in the kernels). Zeros for a pure-fluid scene."""
+        compute theirs in the kernels, and the static hoist computes
+        none): the drag on fixed obstacles. Ghost forces fold into their
+        parents; Zou/He columns are masked as the steps mask them. Zeros
+        for a pure-fluid scene."""
         cfg = self.cfg
         d = self.state.disks
         if self.grid is None:
             return (torch.zeros_like(d.x).cpu().numpy(),
                     torch.zeros_like(d.r).cpu().numpy())
-        eps, usx, usy = imb.stamp_solid_fraction(d.x, d.v, d.omega, d.r,
-                                                 d.active, cfg)
+        (x, v, om, r, act), gparent = self._coupling_view()
+        eps, usx, usy = imb.stamp_solid_fraction(x, v, om, r, act, cfg)
+        if cfg.bc_west == "inlet":
+            eps, usx, usy = imb.mask_open_columns(eps, usx, usy)
         f_phys = lbm.from_storage(self.state.f, cfg)
         _, phix, phiy = imb.collide_imb(f_phys, eps, usx, usy, cfg)
-        fh, th = imb.reduce_hydro_forces(d.x, d.r, d.active, eps, phix, phiy,
-                                         cfg)
+        fh, th = imb.reduce_hydro_forces(x, r, act, eps, phix, phiy, cfg)
+        if gparent is not None:
+            fh, th = imb.fold_ghost_forces(fh, th, gparent, d.x.shape[0])
         return fh.cpu().numpy(), th.cpu().numpy()

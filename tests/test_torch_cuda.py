@@ -9,7 +9,9 @@ forces 1e-6 relative to the largest |F|; K3 x/v/omega 2e-5 with equal
 contact counts; a whole run 1e-5 on f and 1e-4 on disk positions; K4
 rtol 1e-6 / atol 1e-7, K5 rtol 1e-5 / atol 5e-7 (2e-6 with Zou/He),
 bf16 storage atol 3e-4; K6 as K2 (f' 5e-6, forces 1e-6 relative, each
-inner step); K3w as K3."""
+inner step); K3w as K3; K7 rtol 1e-5 / atol 2e-6 (bf16 3e-4) against its
+plain version on CPU copies; all-fixed runs 1e-5 on f, hydro forces 1e-4
+relative to the largest |F|."""
 
 import numpy as np
 import pytest
@@ -18,8 +20,9 @@ import torch
 from lbmdem_tpu_torch import Simulation, lattice
 from lbmdem_tpu_torch.config import DiskSpec, SimConfig
 from lbmdem_tpu_torch.models import column_collapse
-from lbmdem_tpu_torch.ops import (dem, fused_fluid, fused_lbm, lbm, slab_dem,
-                                  stamp)
+from lbmdem_tpu_torch.models import porous_bed
+from lbmdem_tpu_torch.ops import (dem, fused_fluid, fused_lbm, fused_static,
+                                  imb, lbm, slab_dem, stamp)
 
 pytestmark = pytest.mark.cuda
 torch.set_num_threads(2)  # tier-1 runs several xdist workers
@@ -283,3 +286,87 @@ def test_fluid_kernels_reject_prehalo_and_float64(dev):
         fused_fluid.fused_step_fluid_multi(f, cfg, 4, out, prehalo=True)
     with pytest.raises(NotImplementedError, match="float64"):
         Simulation(cfg.replace(dtype="float64"), device=dev)
+
+
+def _obstacles():
+    """A row of fixed obstacles at rest, one across the periodic x seam."""
+    return [DiskSpec(x, y, r, fixed=True) for x, y, r in (
+        (1.2, 20.3, 4.0), (64.3, 32.1, 4.0), (128.0, 40.0, 3.0),
+        (200.5, 50.2, 5.0))]
+
+
+@pytest.mark.parametrize("storage", ["float32", "bfloat16"])
+@pytest.mark.parametrize("k", [1, 4])
+def test_static_kernel_matches_plain(dev, k, storage):
+    """K7 against its plain version on CPU copies of the same inputs (the
+    plain version on the card multiplies by 1/tau): Guo forcing and a
+    moving north wall over the stamped obstacles."""
+    cfg = SimConfig(nx=256, ny=64, tau=0.8, dtype="float32",
+                    f_storage=storage, gx=1e-5, uw_north=0.05)
+    sim = Simulation(cfg, _obstacles(), device=dev)
+    cfg = sim.cfg
+    solid = sim._static_solid_operands()
+    f = _fluid_f(cfg, dev, 5)
+    a = torch.empty_like(f)
+    n0 = fused_static.fused_step_imb_static_multi.launches
+    fused_static.fused_step_imb_static_multi(f, solid, cfg, k, a)
+    assert fused_static.fused_step_imb_static_multi.launches == n0 + 1
+    b = fused_static.fused_step_imb_static_multi_plain(
+        f.cpu(), solid.cpu(), cfg, k, torch.empty_like(f, device="cpu"))
+    a, b = a.float().cpu(), b.float()
+    atol, rtol = (3e-4, 0.0) if storage == "bfloat16" else (2e-6, 1e-5)
+    assert float(((a - b).abs() - rtol * b.abs()).max()) <= atol
+    assert float((b - f.float().cpu()).abs().max()) > 1e-3
+
+
+def _offset_bed():
+    cfg, disks = porous_bed(nx=256, ny=256)
+    return cfg.replace(gx=1e-5), [DiskSpec(d.x - 16.0, d.y - 16.0, d.r,
+                                           fixed=True) for d in disks]
+
+
+def test_static_simulation_on_card_matches_cpu(dev):
+    """run(19) of a porous bed on the seams of a fully periodic box: K1
+    once, 4 K7 passes of 4 steps and 3 of 1, and nothing else; the CPU
+    run and its hydro forces."""
+    cfg, disks = _offset_bed()
+    g = Simulation(cfg, disks, device=dev)
+    c = Simulation(cfg, disks, device="cpu")
+    assert g.static_solid
+    d = g.state.disks
+    parent = imb.periodic_ghosts(d.x, d.v, d.omega, d.r, d.active, g.cfg)[2]
+    assert int((parent >= 0).sum()) > 0
+    wrappers = (fused_static.fused_step_imb_static_multi, stamp.stamp_fields,
+                fused_lbm.fused_step_imb_reduce,
+                fused_lbm.fused_step_imb_reduce_multi,
+                slab_dem.subcycle_slabs)
+    n0 = [w.launches for w in wrappers]
+    g.run(19)
+    c.run(19)
+    assert [w.launches - n for w, n in zip(wrappers, n0)] == [7, 1, 0, 0, 0]
+    assert int(g.state.overflow) == 0 and int(g.state.step) == 19
+    assert float((g.state.f.cpu() - c.state.f).abs().max()) <= 1e-5
+    Fg, _ = g.hydro_forces()
+    Fc, _ = c.hydro_forces()
+    scale = float(np.abs(Fc).max())
+    assert scale > 0 and float(np.abs(Fg - Fc).max()) <= 1e-4 * scale
+
+
+def test_drift_simulation_on_card_matches_cpu(dev):
+    """Prescribed motion on a periodic x axis: K1 + K2 per step through
+    the Verlet cadence, no K7; the CPU run, positions equal."""
+    cfg = SimConfig(nx=256, ny=256, tau=0.8, gx=1e-5, dtype="float32")
+    disks = [DiskSpec(64.0, 128.0, 6.0, fixed=True),
+             DiskSpec(255.1, 120.0, 6.0, vx=0.05, fixed=True)]
+    g = Simulation(cfg, disks, device=dev)
+    c = Simulation(cfg, disks, device="cpu")
+    assert g.dem_mode == "drift" and not g.static_solid
+    wrappers = (stamp.stamp_fields, fused_lbm.fused_step_imb_reduce,
+                fused_static.fused_step_imb_static_multi)
+    n0 = [w.launches for w in wrappers]
+    g.run(19)
+    c.run(19)
+    assert [w.launches - n for w, n in zip(wrappers, n0)] == [19, 19, 0]
+    assert float((g.state.f.cpu() - c.state.f).abs().max()) <= 1e-5
+    assert torch.equal(g.state.disks.x.cpu(), c.state.disks.x)
+    assert float(g.state.disks.x[1, 0]) < 10.0  # crossed the seam, wrapped

@@ -165,7 +165,7 @@ def test_simulation_matches_jax_pallas(steps, kw, atol):
     cfg = JCfg(dtype="float32", out_interval=steps, **kw)
     js = JSim(cfg, use_pallas=True)
     js.run(steps)
-    sim = Simulation(to_torch_cfg(cfg))
+    sim = Simulation(to_torch_cfg(cfg), device="cpu")
     sim.run(steps)
     assert int(js.state.step) == int(sim.state.step) == steps
     np.testing.assert_allclose(npy(sim.state.f), np.asarray(js.state.f),
@@ -183,7 +183,8 @@ def test_chunk_is_k5_passes_then_k4_singles(monkeypatch):
         return multi(f, cfg, k, out, **kw)
 
     monkeypatch.setattr(fused_fluid, "fused_step_fluid_multi", spy)
-    sim = Simulation(to_torch_cfg(JCfg(nx=32, ny=8, tau=0.8, gx=1e-5)))
+    sim = Simulation(to_torch_cfg(JCfg(nx=32, ny=8, tau=0.8, gx=1e-5)),
+                     device="cpu")
     sim.run(19)
     assert calls == [4] * 4 + [1] * 3 and simulation.TEMPORAL_K == 4
     calls.clear()
@@ -197,7 +198,7 @@ def test_pure_fluid_state_and_observations():
     constructor), zero hydro forces, two swapped f buffers."""
     cfg = JCfg(nx=32, ny=8, tau=0.8, gx=1e-5)
     js = JSim(cfg)
-    sim = Simulation(to_torch_cfg(cfg))
+    sim = Simulation(to_torch_cfg(cfg), device="cpu")
     assert sim.grid is None and sim.cfg == to_torch_cfg(js.cfg)
     ja, ta = js.disk_arrays(), sim.disk_arrays()
     assert ja.keys() == ta.keys() and not ta["active"].any()
@@ -210,7 +211,7 @@ def test_pure_fluid_state_and_observations():
     assert (sim.state.f.data_ptr(), sim._f_spare.data_ptr()) == (p1, p0)
     sim.run(5)
     assert {sim.state.f.data_ptr(), sim._f_spare.data_ptr()} == {p0, p1}
-    for a, b in zip(js.macroscopic(), Simulation(to_torch_cfg(cfg)).macroscopic()):
+    for a, b in zip(js.macroscopic(), Simulation(to_torch_cfg(cfg), device="cpu").macroscopic()):
         np.testing.assert_allclose(a, b, rtol=0, atol=1e-7)
 
 
@@ -223,7 +224,7 @@ def test_interop_bf16_roundtrip_and_continue():
     js.run(5)
     d = jax_state_to_numpy(js.state)
     assert d["f"].dtype.name == "bfloat16"
-    sim = Simulation(to_torch_cfg(cfg))
+    sim = Simulation(to_torch_cfg(cfg), device="cpu")
     sim.load_state(d)
     assert sim.state.f.dtype == torch.bfloat16
     back = interop.state_to_numpy(sim.state)
@@ -241,7 +242,8 @@ def test_interop_bf16_roundtrip_and_continue():
 def test_load_state_rejects_other_storage():
     cfg = JCfg(nx=32, ny=8, tau=0.8, dtype="float32")
     d = jax_state_to_numpy(JSim(cfg).state)
-    sim = Simulation(to_torch_cfg(cfg.replace(f_storage="bfloat16")))
+    sim = Simulation(to_torch_cfg(cfg.replace(f_storage="bfloat16")),
+                     device="cpu")
     with pytest.raises(ValueError, match="f_storage"):
         sim.load_state(d)
 
@@ -265,7 +267,7 @@ def test_poiseuille_profile_f64():
     ny, nx, tau, g = 32, 4, 0.9, 1e-6
     cfg = SimConfig(nx=nx, ny=ny, tau=tau, gx=g, dtype="float64",
                     out_interval=16000)
-    sim = Simulation(cfg)
+    sim = Simulation(cfg, device="cpu")
     sim.run(16000)
     _, ux, _ = sim.macroscopic()
     y = np.arange(ny) + 0.5

@@ -70,7 +70,7 @@ def test_slice_matches_jax_oracle(dtype, tol):
     (K1/K2/K3 plain versions) against the JAX oracle step."""
     cfg, disks = _scene(dtype)
     _, jst = _jax_run(cfg, disks, 16)
-    sim = Simulation(to_torch_cfg(cfg), to_torch_disks(disks))
+    sim = Simulation(to_torch_cfg(cfg), to_torch_disks(disks), device="cpu")
     counts = (stamp.stamp_fields.launches,
               fused_lbm.fused_step_imb_reduce.launches,
               slab_dem.subcycle_slabs.launches)
@@ -88,7 +88,7 @@ def test_slice_matches_jax_oracle(dtype, tol):
 def test_slice_with_contacts_matches_jax_oracle():
     cfg, disks = _contact_scene("float64")
     _, jst = _jax_run(cfg, disks, 12)
-    sim = Simulation(to_torch_cfg(cfg), to_torch_disks(disks))
+    sim = Simulation(to_torch_cfg(cfg), to_torch_disks(disks), device="cpu")
     sim.run(12)
     assert int(sim.state.n_contacts) > 0
     _assert_state_close(jst, sim.state, 1e-9, 1e-9)
@@ -98,8 +98,8 @@ def test_step_equals_cadence_run():
     """A per-step fresh binning (step) and the Verlet-cadence binning
     (run) take the same arithmetic: the wider lists only add zeros."""
     cfg, disks = _contact_scene("float64")
-    a = Simulation(to_torch_cfg(cfg), to_torch_disks(disks))
-    b = Simulation(to_torch_cfg(cfg), to_torch_disks(disks))
+    a = Simulation(to_torch_cfg(cfg), to_torch_disks(disks), device="cpu")
+    b = Simulation(to_torch_cfg(cfg), to_torch_disks(disks), device="cpu")
     for _ in range(5):
         a.step()
     b.run(5)
@@ -113,7 +113,7 @@ def test_two_f_buffers_swap():
     """Each step writes into the spare buffer and the two trade places:
     no f-sized allocation per step."""
     cfg, disks = _scene("float32")
-    sim = Simulation(to_torch_cfg(cfg), to_torch_disks(disks))
+    sim = Simulation(to_torch_cfg(cfg), to_torch_disks(disks), device="cpu")
     p0, p1 = sim.state.f.data_ptr(), sim._f_spare.data_ptr()
     assert p0 != p1
     sim.step()
@@ -127,7 +127,7 @@ def test_interop_roundtrip_and_jax_state_loads():
     numpy form round-trips exactly."""
     cfg, disks = _contact_scene("float64")
     js, jst = _jax_run(cfg, disks, 3)
-    sim = Simulation(to_torch_cfg(cfg), to_torch_disks(disks))
+    sim = Simulation(to_torch_cfg(cfg), to_torch_disks(disks), device="cpu")
     d = jax_state_to_numpy(jst)
     sim.load_state(d)
     back = interop.state_to_numpy(sim.state)
@@ -152,7 +152,7 @@ def test_observations_match_jax():
     cfg, disks = _contact_scene("float64")
     js, jst = _jax_run(cfg, disks, 4)
     js.state = jst
-    sim = Simulation(to_torch_cfg(cfg), to_torch_disks(disks))
+    sim = Simulation(to_torch_cfg(cfg), to_torch_disks(disks), device="cpu")
     sim.load_state(jax_state_to_numpy(jst))
     jF, jT = js.hydro_forces()
     tF, tT = sim.hydro_forces()
@@ -169,7 +169,8 @@ def test_observations_match_jax():
 
 def _out_of_slice():
     cfg, disks = _scene("float32")
-    fixed = [JDisk(d.x, d.y, d.r, fixed=True) for d in disks]
+    # prescribed motion: the drift steps, whose K2 takes f32 storage only
+    fixed = [JDisk(d.x, d.y, d.r, vx=0.01, fixed=True) for d in disks]
     return [
         ("mesh", cfg, disks, dict(mesh=object())),
         ("coupled without disks", cfg.replace(max_disks=10), [], {}),
@@ -178,7 +179,7 @@ def _out_of_slice():
         ("coupling_k", cfg.replace(coupling_k=4, f_storage="bfloat16"),
          disks, {}),
         ("bfloat16", cfg.replace(f_storage="bfloat16"), disks, {}),
-        ("all-fixed", cfg, fixed, {}),
+        ("all-fixed", cfg.replace(f_storage="bfloat16"), fixed, {}),
         ("paranoid", cfg.replace(paranoia="chunk"), disks, {}),
         ("periodic", cfg.replace(bc_west="periodic", bc_east="periodic"),
          disks, {}),
@@ -197,7 +198,8 @@ def _out_of_slice():
                          ids=[c[0] for c in _out_of_slice()])
 def test_out_of_slice_raises_naming_the_roadmap(what, cfg, disks, kw):
     with pytest.raises(NotImplementedError, match="ROADMAP.md") as e:
-        Simulation(to_torch_cfg(cfg), to_torch_disks(disks), **kw)
+        Simulation(to_torch_cfg(cfg), to_torch_disks(disks),
+                   **{"device": "cpu", **kw})
     assert "item" in str(e.value)
 
 
@@ -213,7 +215,7 @@ def test_settling_golden(steps):
     cfg = SimConfig(nx=64, ny=192, tau=0.65, dtype="float64", g_py=-2e-5,
                     rho_s=1.5, kn=0.5, gamma_n=1.0, n_sub=10, buoyancy=True,
                     bc_west="wall", bc_east="wall", out_interval=100)
-    sim = Simulation(cfg, [DiskSpec(32.3, 150.0, 5.0)])
+    sim = Simulation(cfg, [DiskSpec(32.3, 150.0, 5.0)], device="cpu")
     rows = []
     sim.run(steps, callback=lambda s: rows.append(
         (float(s.state.disks.x[0, 1]), float(s.state.disks.v[0, 1]))))

@@ -238,7 +238,7 @@ def test_window_step_matches_windowed_oracle(k):
     jstep = jax.jit(jstep_fn(js.cfg, js.grid, False, dem_axis=js.dem_axis,
                              coupling_k=k))
     sim = Simulation(to_torch_cfg(cfg.replace(coupling_k=k)),
-                     to_torch_disks(disks))
+                     to_torch_disks(disks), device="cpu")
     assert sim.dem_axis == js.dem_axis
     tstep = simulation.make_step_fn(sim.cfg, sim.grid, None, sim.dem_axis,
                                     coupling_k=k)
@@ -270,7 +270,7 @@ def test_run_matches_windowed_oracle_split(k):
     for _ in range(3):
         jst = pstep(jst)
     sim = Simulation(to_torch_cfg(cfg.replace(coupling_k=k)),
-                     to_torch_disks(disks))
+                     to_torch_disks(disks), device="cpu")
     n0 = _counters()
     assert sim.run(19) > 0
     assert _counters() == n0
@@ -289,7 +289,7 @@ def test_settling_coupling_k4_within_golden():
                     rho_s=1.5, kn=0.5, gamma_n=1.0, n_sub=10, buoyancy=True,
                     bc_west="wall", bc_east="wall", out_interval=100,
                     coupling_k=4)
-    sim = Simulation(cfg, [DiskSpec(32.3, 150.0, 5.0)])
+    sim = Simulation(cfg, [DiskSpec(32.3, 150.0, 5.0)], device="cpu")
     vy = []
     sim.run(1000, callback=lambda s: vy.append(float(s.state.disks.v[0, 1])))
     gold = np.loadtxt(os.path.join(GOLDEN, "settling_r5_f64.csv"))[:len(vy), 2]
