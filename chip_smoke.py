@@ -53,7 +53,25 @@ nothing falls back to the CPU):
    the card against the CPU run, hydro_forces() against the CPU's;
 13. drift: a 256^2 periodic-x channel with a fixed disk at rest and one
    moving at vx = 0.01, run(19) on the card against the CPU run, the
-   moving disk at x0 + 19 vx, launches K1 + K2 per step and no K7.
+   moving disk at x0 + 19 vx, launches K1 + K2 per step and no K7;
+14. split kernels: K8 (fused_step_imb, one coupled step emitting phi)
+   against its plain version on CPU copies over the lattice-option
+   matrix at 256x64; then on the packed 256^2 and 4096^2 scenes for
+   eps_method sample, ramp, exact and sample with eps_r_shift: K1 against
+   its plain version (the coverage of every method), K8 + K9
+   (reduce_hydro_forces) against K2 on the same input (f' equal, forces
+   1e-6), K9 against its plain version, K2's reduce against its plain
+   version under ramp and exact; K8 and K9 timed at 4096^2 (phase 3
+   holds the sample path's K1/K2/K3 as before);
+15. cell-list DEM: dem.dem_subcycle on the card against the CPU on
+   phase 3's packed copy (contacts equal, x/v/omega 1e-4);
+16. ramp slice: phase 4 with eps_method="ramp", its MLUPS beside phase
+   4's sample MLUPS, overflow and mass gates; K8 and K2 timed on the
+   run's own state; the 256^2 ramp run against the CPU;
+17. ablation: lbmdem_tpu_torch.tools.ablate's f32 variants at
+   4096^2/10k disks (chunk 20; K1, K8, K9 and the slab DEM per step,
+   "fused" with K2), then the coupling_k = 4 window set, each row and
+   the marginals.
 
 The second-to-last line holds the per-kernel JSON record (with each
 kernel's bound: the larger of its bytes over 3.35 TB/s and its f32
@@ -83,6 +101,10 @@ F32_FLOPS = 67e12
 # the pure-fluid collide and the NT-blended collide
 FLOPS_FLUID = 200
 FLOPS_NT = 350
+# coverage operations per window cell (csrc/coverage.cuh): ns^2 sample
+# tests of ~6 operations, the ramp's 8, the exact form's ~40
+COV_OPS = {"sample": lambda ns: 6 * ns * ns, "ramp": lambda ns: 8,
+           "exact": lambda ns: 40}
 
 
 def log(phase: str, msg: str) -> None:
@@ -200,10 +222,7 @@ def kernel_checks(cfg, disks, label: str, timed: bool, seed: int = 0):
     assert int(ovf) == 0, f"binning overflow {int(ovf)}"
     out = {}
     cells = cfg.nx * cfg.ny
-    # the coverage of every binned (tile, slot) window: ns^2 sample tests
-    # of ~6 operations per cell, and ~12 to weight and sum a force
-    cov_flops = (int(counts.sum()) * cfg.window ** 2
-                 * (6 * cfg.eps_samples ** 2 + 12))
+    cov_flops = cov_flops_of(cfg, counts)
 
     # K1 stamp: atol 1e-6 (the JAX stamp-vs-oracle bar)
     solid = stamp.stamp_fields(tile_data, counts, cfg)
@@ -277,6 +296,7 @@ def kernel_checks(cfg, disks, label: str, timed: bool, seed: int = 0):
     log("kernels", f"{label} K3 slab DEM: x/v/omega max err {e3:.3e} (bar "
         f"2e-5); contacts {int(nc_k)} == {int(nc_p)}; kmax {int(kmax)}, "
         f"occupied bands {int(n_occ)}")
+    cell_list_vs_cpu(d, F, T, grid, cfg, label)
 
     # K6 coupled temporal block, k = 2, 4, 8: against the plain version
     # on CPU copies of the same inputs. The kernel divides as the CPU
@@ -360,6 +380,27 @@ def kernel_checks(cfg, disks, label: str, timed: bool, seed: int = 0):
     return out
 
 
+def cell_list_vs_cpu(d, F, T, grid, cfg, label: str) -> None:
+    """The cell-list DEM subcycle (plain PyTorch, no kernel) on the card
+    against the same call on CPU copies: contacts equal, x/v/omega within
+    1e-4."""
+    from lbmdem_tpu_torch.ops import dem
+
+    torch.set_num_threads(min(8, os.cpu_count() or 1))
+    g, ovf, nc = dem.dem_subcycle(d, F, T, grid, cfg)
+    dc = type(d)(*(a.cpu() for a in d))
+    c, ovf_c, nc_c = dem.dem_subcycle(dc, F.cpu(), T.cpu(), grid, cfg)
+    err = max(float((getattr(g, k).cpu() - getattr(c, k)).abs().max())
+              for k in ("x", "v", "omega"))
+    ms = cuda_ms(lambda: dem.dem_subcycle(d, F, T, grid, cfg), 3)
+    log("cell-list", f"{label} cell-list DEM: card vs CPU x/v/omega max err "
+        f"{err:.3e} (bar 1e-4); contacts {int(nc)} == {int(nc_c)}; overflow "
+        f"{int(ovf)}; {ms:.3f} ms per subcycle on the card (CUDA events)")
+    assert int(ovf) == int(ovf_c) == 0
+    assert int(nc) == int(nc_c) > 0, (int(nc), int(nc_c))
+    assert err <= 1e-4, f"cell-list DEM {label}: err {err}"
+
+
 def _wrappers():
     from lbmdem_tpu_torch.ops import (fused_fluid, fused_lbm, fused_static,
                                       slab_dem, stamp)
@@ -371,7 +412,9 @@ def _wrappers():
             "K5": fused_fluid.fused_step_fluid_multi,
             "K6": fused_lbm.fused_step_imb_reduce_multi,
             "K3w": slab_dem.subcycle_slabs_window,
-            "K7": fused_static.fused_step_imb_static_multi}
+            "K7": fused_static.fused_step_imb_static_multi,
+            "K8": fused_lbm.fused_step_imb,
+            "K9": stamp.reduce_hydro_forces}
 
 
 def launch_counts():
@@ -387,25 +430,30 @@ def reset_counts() -> None:
 # K2 and K3 every step; coupling_k = 4 takes each cadence block of 8
 # steps (and the last block of 4) as windows: K1 and K6 once per window,
 # K3w once per inner step
+_NONE = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 0, "K3w": 0,
+         "K7": 0, "K8": 0, "K9": 0}
 SLICE_COUNTS = {
-    1: {"K1": 200, "K2": 200, "K3": 200, "K4": 0, "K5": 0, "K6": 0,
-        "K3w": 0, "K7": 0},
-    4: {"K1": 50, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 50, "K3w": 200,
-        "K7": 0},
+    1: {**_NONE, "K1": 200, "K2": 200, "K3": 200},
+    4: {**_NONE, "K1": 50, "K6": 50, "K3w": 200},
 }
 
 
-def slice_run(smi: str, coupling_k: int = 1):
+def slice_run(smi: str, coupling_k: int = 1, eps_method: str = "sample",
+              keep: bool = False):
     """The coupled slice through Simulation(*column_collapse(),
-    device="cuda") with cfg.coupling_k: run(100) to warm, run(100) timed;
-    the launch counts of both runs, overflow, finiteness, mass, motion.
-    Returns (launch counts, MLUPS)."""
+    device="cuda") with cfg.coupling_k and cfg.eps_method: run(100) to
+    warm, run(100) timed; the launch counts of both runs, overflow,
+    finiteness, mass, motion. Returns (launch counts, MLUPS), and the
+    Simulation too when `keep`."""
     from lbmdem_tpu_torch import Simulation
     from lbmdem_tpu_torch.models import column_collapse
 
     cfg, disks = column_collapse()
-    cfg = cfg.replace(coupling_k=coupling_k)
-    tag = "slice" if coupling_k == 1 else f"window-slice k={coupling_k}"
+    cfg = cfg.replace(coupling_k=coupling_k, eps_method=eps_method)
+    tag = ("slice" if coupling_k == 1 else
+           f"window-slice k={coupling_k}")
+    if eps_method != "sample":
+        tag = f"{eps_method}-slice"
     sim = Simulation(cfg, disks, device="cuda")
     x0 = sim.state.disks.x.clone()
     reset_counts()
@@ -420,7 +468,8 @@ def slice_run(smi: str, coupling_k: int = 1):
     mass_err = abs(float(f.double().sum()) / (cfg.nx * cfg.ny) - 1.0)
     disp = float((st.disks.x - x0).abs().max())
     log(tag, f"column_collapse {cfg.nx}x{cfg.ny}, {len(disks)} disks, "
-        f"coupling_k={coupling_k}, {steps} steps: {mlups:.1f} MLUPS (timed "
+        f"coupling_k={coupling_k}, eps_method={eps_method}, {steps} steps: "
+        f"{mlups:.1f} MLUPS (timed "
         f"run(100), wall clock) on {smi}; peak mem "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     log(tag, f"launches {counts}; overflow {int(st.overflow)}; "
@@ -432,10 +481,11 @@ def slice_run(smi: str, coupling_k: int = 1):
     assert finite, "non-finite f"
     assert mass_err < 1e-5, f"mass drift {mass_err}"
     assert disp > 0.0, "disks did not move"
-    return counts, mlups
+    return (counts, mlups, sim) if keep else (counts, mlups)
 
 
-def slice_vs_cpu(coupling_k: int = 1, steps: int = 16) -> None:
+def slice_vs_cpu(coupling_k: int = 1, steps: int = 16,
+                 eps_method: str = "sample") -> None:
     """`steps` steps of a 256^2 column collapse on the card against the
     same run on CPU tensors (the plain versions)."""
     from lbmdem_tpu_torch import Simulation
@@ -443,7 +493,7 @@ def slice_vs_cpu(coupling_k: int = 1, steps: int = 16) -> None:
 
     torch.set_num_threads(min(8, os.cpu_count() or 1))
     cfg, disks = column_collapse(nx=256, ny=256, n_disks=60)
-    cfg = cfg.replace(coupling_k=coupling_k)
+    cfg = cfg.replace(coupling_k=coupling_k, eps_method=eps_method)
     g = Simulation(cfg, disks, device="cuda")
     c = Simulation(cfg, disks, device="cpu")
     g.run(steps)
@@ -451,8 +501,8 @@ def slice_vs_cpu(coupling_k: int = 1, steps: int = 16) -> None:
     ef = float((g.state.f.cpu() - c.state.f).abs().max())
     ex = float((g.state.disks.x.cpu() - c.state.disks.x).abs().max())
     log("vs-cpu", f"256x256, {len(disks)} disks, coupling_k={coupling_k}, "
-        f"{steps} steps: f max err {ef:.3e} (bar 1e-5), disk x max err "
-        f"{ex:.3e} (bar 1e-4)")
+        f"eps_method={eps_method}, {steps} steps: f max err {ef:.3e} (bar "
+        f"1e-5), disk x max err {ex:.3e} (bar 1e-4)")
     assert int(g.state.overflow) == 0
     assert ef <= 1e-5 and ex <= 1e-4
 
@@ -989,6 +1039,239 @@ def drift_vs_cpu() -> None:
     assert float(xg[0, 0]) == 64.0
 
 
+# the lattice-option matrix of K8 at 256x64 (tests/test_pallas.py's
+# coupled-kernel cases and more): BGK, TRT, LES, TRT + LES, the lambda
+# blend, moving walls, the Zou/He channel with the Poiseuille inlet,
+# periodic x (the default) and y
+SPLIT_MATRIX = [
+    ("bgk", dict(bc_west="wall", bc_east="wall", gy=-1e-5)),
+    ("trt", dict(collision="trt", gy=-1e-5)),
+    ("les", dict(smagorinsky=0.16, gx=2e-5, bc_west="wall", bc_east="wall")),
+    ("trt-les", dict(collision="trt", smagorinsky=0.16, gx=1e-5)),
+    ("lambda", dict(nt_mode="lambda", gy=-1e-5, bc_west="wall",
+                    bc_east="wall")),
+    ("moving-wall", dict(bc_west="wall", bc_east="wall", uw_north=0.05,
+                         uw_south=-0.02)),
+    ("zou-he", dict(bc_west="inlet", bc_east="outlet", u_inlet=0.05,
+                    inlet_profile="poiseuille")),
+    ("periodic", dict(bc_south="periodic", bc_north="periodic", gx=1e-5)),
+]
+
+
+def split_matrix() -> None:
+    """K8 against its plain version on CPU copies of the same inputs over
+    SPLIT_MATRIX at 256x64: five moving disks stamped by the oracle (Zou/He
+    columns masked, as Simulation masks them), f = w_i (1 + 0.05 N(0,
+    1)). Bars (tests/test_pallas.py): f' rtol 1e-6 + atol 1e-7, phi rtol
+    1e-5 + atol 5e-8."""
+    from lbmdem_tpu_torch import SimConfig, lattice
+    from lbmdem_tpu_torch.config import window_for_radius
+    from lbmdem_tpu_torch.ops import fused_lbm, imb
+
+    torch.set_num_threads(min(8, os.cpu_count() or 1))
+    x = torch.tensor([[1.2, 20.3], [64.3, 32.1], [128.0, 40.0], [200.5, 60.2],
+                      [240.0, 12.7]])
+    v = torch.tensor([[0.01, -0.02], [0.0, 0.01], [-0.02, 0.0], [0.01, 0.01],
+                      [0.0, -0.01]])
+    om = torch.tensor([0.005, -0.003, 0.0, 0.002, 0.001])
+    r = torch.tensor([4.0, 4.0, 3.0, 5.0, 3.5])
+    act = torch.ones(5, dtype=torch.bool)
+    rng = np.random.default_rng(31)
+    f = torch.as_tensor(lattice.W[:, None, None] * (
+        1.0 + 0.05 * rng.standard_normal((9, 64, 256))), dtype=torch.float32)
+    wrapper = fused_lbm.fused_step_imb
+    for label, kw in SPLIT_MATRIX:
+        cfg = SimConfig(**{"nx": 256, "ny": 64, "tau": 0.8, "dtype": "float32",
+                           "max_disks": 5, "window": window_for_radius(5.0),
+                           **kw})
+        fields = imb.stamp_solid_fraction(x, v, om, r, act, cfg)
+        if cfg.bc_west == "inlet":
+            fields = imb.mask_open_columns(*fields)
+        dev_in = [t.cuda() for t in (f, *fields)]
+        a = torch.empty_like(dev_in[0])
+        n0 = wrapper.launches
+        _, kx, ky = wrapper(*dev_in, cfg, a)
+        assert wrapper.launches == n0 + 1, "the kernel did not launch"
+        b, px, py = fused_lbm.fused_step_imb_plain(f, *fields, cfg,
+                                                   torch.empty_like(f))
+        ka = a.cpu()
+        err = float((ka - b).abs().max())
+        excess = float(((ka - b).abs() - 1e-6 * b.abs()).max())
+        perr = max(float((k.cpu() - p).abs().max()) for k, p in ((kx, px),
+                                                              (ky, py)))
+        pex = max(float(((k.cpu() - p).abs() - 1e-5 * p.abs()).max())
+                  for k, p in ((kx, px), (ky, py)))
+        log("split", f"{label} 256x64 K8: f' max err {err:.3e} (bar atol "
+            f"1e-7 + rtol 1e-6), phi max err {perr:.3e} (bar atol 5e-8 + "
+            f"rtol 1e-5; plain version on CPU tensors); max |phi| "
+            f"{float(px.abs().max()):.3e}")
+        assert bool(torch.isfinite(ka).all()), f"K8 {label}: non-finite"
+        assert excess <= 1e-7, f"K8 {label}: f' err {err} over the bar"
+        assert pex <= 5e-8, f"K8 {label}: phi err {perr} over the bar"
+        assert float(px.abs().max()) > 0.0
+
+
+def split_checks(cfg, disks, label: str, timed: bool, seed: int = 1):
+    """For eps_method sample, ramp, exact and sample with eps_r_shift on
+    the packed scene: K1 against its plain version (bar 1e-6); K8 + K9
+    against K2 on the same input (f' equal, forces atol 1e-6); K9 against
+    its plain version on the same card inputs (F, T atol 1e-6); K2's
+    reduce under ramp and exact against its plain version (forces 1e-6
+    of max |F|). Timed: K8 and K9 (sample) with their plain versions on
+    the card. Returns {"K8": work, "K9": work} when timed."""
+    from lbmdem_tpu_torch import Simulation
+    from lbmdem_tpu_torch.ops import fused_lbm, lbm, stamp
+
+    sim = Simulation(cfg, disks, device="cuda")
+    cfg = sim.cfg
+    rng = np.random.default_rng(seed)
+    d = sim.state.disks
+    n = d.x.shape[0]
+    dev = d.x.device
+    d = d._replace(
+        v=torch.as_tensor(rng.uniform(-0.02, 0.02, (n, 2)), dtype=torch.float32,
+                          device=dev),
+        omega=torch.as_tensor(rng.uniform(-2e-3, 2e-3, n), dtype=torch.float32,
+                              device=dev))
+    tile_data, counts, es, ovf = stamp.bin_disks_to_tiles(
+        d.x, d.v, d.omega, d.r, d.active, cfg)
+    assert int(ovf) == 0, f"binning overflow {int(ovf)}"
+    f = lbm.init_equilibrium(cfg, dev) * (1.0 + 0.02 * torch.as_tensor(
+        rng.standard_normal((9, cfg.ny, cfg.nx)), dtype=torch.float32,
+        device=dev))
+    fa, fb = torch.empty_like(f), torch.empty_like(f)
+    cells = cfg.nx * cfg.ny
+    out = {}
+    for method, shift in (("sample", 0.0), ("ramp", 0.0), ("exact", 0.0),
+                          ("sample", -0.4)):
+        mcfg = cfg.replace(eps_method=method, eps_r_shift=shift)
+        tag = f"{label} {method}" + (f" r_shift {shift:g}" if shift else "")
+        solid = stamp.stamp_fields(tile_data, counts, mcfg)
+        e1 = float((solid - stamp.stamp_fields_plain(tile_data, counts,
+                                                     mcfg)).abs().max())
+        assert e1 <= 1e-6, f"K1 {tag}: max |kernel - plain| {e1} > 1e-6"
+        eps, usx, usy = solid[0], solid[1], solid[2]
+        _, phix, phiy = fused_lbm.fused_step_imb(f, eps, usx, usy, mcfg, fa)
+        F9, T9 = stamp.reduce_hydro_forces(d.x, d.r, d.active, eps, phix,
+                                           phiy, mcfg, tile_data, counts, es)
+        _, parts = fused_lbm.fused_step_imb_reduce(f, solid, tile_data, counts,
+                                                   mcfg, fb)
+        F2, T2 = stamp.gather_partials(parts, es, torch.float32)
+        same = torch.equal(fa, fb)
+        e82 = max(float((F9 - F2).abs().max()), float((T9 - T2).abs().max()))
+        Fp, Tp = stamp.gather_partials(stamp.hydro_partials_plain(
+            eps, phix, phiy, tile_data, counts, mcfg), es, torch.float32)
+        fmax = float(Fp.abs().max())
+        tmax = float(Tp.abs().max())
+        # K9 against its plain version: the JAX package's atol 1e-6 holds
+        # for its |F| < 1; the f32 sums of larger forces and torques
+        # differ in order by a few ulp of the largest, so the bar scales
+        # with them above 1
+        e9 = float((F9 - Fp).abs().max())
+        e9t = float((T9 - Tp).abs().max())
+        msg = (f"{tag}: K1 max err {e1:.3e} (bar 1e-6); K8 f' == K2 f' "
+               f"{same}; K8 + K9 vs K2 forces/torques max err {e82:.3e} (bar "
+               f"1e-6); K9 vs plain F {e9:.3e} of max |F| {fmax:.3e}, T "
+               f"{e9t:.3e} of max |T| {tmax:.3e} (bars 1e-6 * max(1, max))")
+        if method != "sample":
+            _, pp = fused_lbm.fused_step_imb_reduce_plain(
+                f, solid, tile_data, counts, mcfg, torch.empty_like(f))
+            F2p, _ = stamp.gather_partials(pp, es, torch.float32)
+            e2r = float((F2 - F2p).abs().max())
+            msg += (f"; K2 {method} reduce vs plain {e2r:.3e} (bar 1e-6 * "
+                    f"max|F|)")
+            assert e2r <= 1e-6 * fmax, f"K2 {tag}: force err {e2r}"
+        log("split", msg)
+        assert same, f"K8 {tag}: f' differs from K2's"
+        assert e82 <= 1e-6, f"K8 + K9 {tag}: forces differ from K2's by {e82}"
+        assert e9 <= 1e-6 * max(1.0, fmax), f"K9 {tag}: F err {e9}"
+        assert e9t <= 1e-6 * max(1.0, tmax), f"K9 {tag}: T err {e9t}"
+        assert fmax > 0.0
+        if timed and method != "sample":
+            log("split", f"{tag} K1 kernel "
+                f"{cuda_ms(lambda: stamp.stamp_fields(tile_data, counts, mcfg), 20):.4f}"
+                f" ms (CUDA events)")
+        if timed and method == "sample" and not shift:
+            eps8 = (eps, usx, usy)
+            phi8 = (phix, phiy)
+            cov_cells = int(counts.sum()) * cfg.window ** 2
+            w8 = work(float((fa - fused_lbm.fused_step_imb_plain(
+                          f, *eps8, cfg, fb)[0]).abs().max()),
+                      cuda_ms(lambda: fused_lbm.fused_step_imb(
+                          f, *eps8, cfg, fa), 20),
+                      cuda_ms(lambda: fused_lbm.fused_step_imb_plain(
+                          f, *eps8, cfg, fb), 2),
+                      nbytes(f, eps, usx, usy, fa, phix, phiy),
+                      FLOPS_NT * cells)
+            w9 = work(e9,
+                      cuda_ms(lambda: stamp.reduce_hydro_forces(
+                          d.x, d.r, d.active, eps, *phi8, cfg, tile_data,
+                          counts, es), 20),
+                      cuda_ms(lambda: stamp.gather_partials(
+                          stamp.hydro_partials_plain(eps, *phi8, tile_data,
+                                                     counts, cfg),
+                          es, torch.float32), 2),
+                      nbytes(tile_data, counts, parts, F9, T9)
+                      + 12 * min(cells, cov_cells),
+                      cov_flops_of(cfg, counts))
+            out = {"K8": w8, "K9": w9}
+            for k, w in out.items():
+                bms, by = bound(w)
+                log("split", f"{label} {k}: kernel {w['ms']:.4f} ms, plain "
+                    f"{w['plain_ms']:.4f} ms (CUDA events); bound {bms:.4f} "
+                    f"ms by {by} ({w['bytes'] / 1e9:.4f} GB, "
+                    f"{w['flops'] / 1e9:.3f} GFLOP)")
+    return out
+
+
+def cov_flops_of(cfg, counts) -> float:
+    """Operations of the reduce over every binned window: the coverage
+    and ~12 to weight and sum a force, per window cell."""
+    return (int(counts.sum()) * cfg.window ** 2
+            * (COV_OPS[cfg.eps_method](cfg.eps_samples) + 12))
+
+
+def split_on_run_state(sim) -> None:
+    """K8 and K2 on a run's own (smooth) state, CUDA events: the f32
+    divide's slow path makes the collides slower there than on random
+    input."""
+    from lbmdem_tpu_torch.ops import fused_lbm, stamp
+
+    cfg = sim.cfg
+    d = sim.state.disks
+    tile_data, counts, _, _ = stamp.bin_disks_to_tiles(d.x, d.v, d.omega, d.r,
+                                                       d.active, cfg)
+    solid = stamp.stamp_fields(tile_data, counts, cfg)
+    f, out = sim.state.f, torch.empty_like(sim.state.f)
+    k8 = cuda_ms(lambda: fused_lbm.fused_step_imb(f, solid[0], solid[1],
+                                                  solid[2], cfg, out), 20)
+    k2 = cuda_ms(lambda: fused_lbm.fused_step_imb_reduce(
+        f, solid, tile_data, counts, cfg, out), 20)
+    log("split", f"on the {cfg.eps_method} slice's state after "
+        f"{int(sim.state.step)} steps: K8 {k8:.4f} ms, K2 {k2:.4f} ms per "
+        f"call (CUDA events)")
+
+
+def ablation(coupling_k: int, chunk: int = 20):
+    """lbmdem_tpu_torch.tools.ablate at 4096^2/10k disks: each variant's
+    row and the marginals. Returns the launch counts of the whole run."""
+    from lbmdem_tpu_torch.tools import ablate
+
+    sim = ablate.make_sim(4096, 10000, device="cuda",
+                          env={"ABLATE_COUPLING_K": str(coupling_k)})
+    reset_counts()
+    res = ablate.run_variants(
+        sim, chunk, log=lambda s: log(f"ablate k={coupling_k}", s))
+    counts = launch_counts()
+    assert all(r["ms"] > 0 for r in res.values())
+    if coupling_k == 1:
+        per = res["full"]["launches"]
+        assert per.get("K8") == per.get("K9") == per.get("K1") == 1.0, per
+        assert res["fused"]["launches"].get("K2") == 1.0
+        assert counts["K8"] > 0 and counts["K9"] > 0, counts
+    return counts
+
+
 def main() -> int:
     smi = probe()
     build()
@@ -997,11 +1280,23 @@ def main() -> int:
     cfg, disks = column_collapse(nx=256, ny=256, n_disks=60)
     kernel_checks(cfg, compressed(disks, 0.94),
                   f"{cfg.nx}x{cfg.ny}/{len(disks)} disks", timed=False)
+    split_matrix()
+    split_checks(cfg, compressed(disks, 0.94),
+                 f"{cfg.nx}x{cfg.ny}/{len(disks)} disks", timed=False)
     cfg, disks = column_collapse()
     res = kernel_checks(cfg, compressed(disks, 0.94),
                         f"{cfg.nx}x{cfg.ny}/{len(disks)} disks", timed=True)
+    res.update(split_checks(cfg, compressed(disks, 0.94),
+                            f"{cfg.nx}x{cfg.ny}/{len(disks)} disks",
+                            timed=True))
     counts, mlups1 = slice_run(smi)
+    _, mlups_r, rsim = slice_run(smi, eps_method="ramp", keep=True)
+    log("ramp-slice", f"eps_method=ramp {mlups_r:.1f} MLUPS vs sample "
+        f"{mlups1:.1f} MLUPS in this call ({mlups_r / mlups1:.3f}x)")
+    split_on_run_state(rsim)
+    del rsim
     slice_vs_cpu()
+    slice_vs_cpu(eps_method="ramp")
     wcounts, mlups4 = slice_run(smi, coupling_k=4)
     log("window-slice", f"coupling_k=4 {mlups4:.1f} MLUPS vs coupling_k=1 "
         f"{mlups1:.1f} MLUPS in this call ({mlups4 / mlups1:.3f}x)")
@@ -1017,6 +1312,9 @@ def main() -> int:
     static_slice(smi, "bfloat16")
     ghosts_vs_cpu()
     drift_vs_cpu()
+    acounts = ablation(1)
+    ablation(4)
+    counts.update({k: acounts[k] for k in ("K8", "K9")})
     counts.update({k: fcounts[k] for k in ("K4", "K5")})
     counts.update({k: wcounts[k] for k in ("K6", "K3w")})
     counts["K7"] = scounts["K7"]
@@ -1038,9 +1336,13 @@ def main() -> int:
                 "lbmdem_tpu/ops/pallas_dem.py:313"),
         "K7": ("imb_static_multi", "lbmdem_tpu_torch/csrc/imb_static.cu",
                "lbmdem_tpu/ops/pallas_lbm.py:911"),
+        "K8": ("imb_split_step", "lbmdem_tpu_torch/csrc/imb_split.cu",
+               "lbmdem_tpu/ops/pallas_lbm.py:1469"),
+        "K9": ("reduce_hydro", "lbmdem_tpu_torch/csrc/imb_split.cu",
+               "lbmdem_tpu/ops/pallas_stamp.py:474"),
     }
     kernels = []
-    for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K3w", "K7"):
+    for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K3w", "K7", "K8", "K9"):
         w = res[k]
         bms, by = bound(w)
         # no single PyTorch call computes any of these functions

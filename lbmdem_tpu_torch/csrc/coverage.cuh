@@ -1,24 +1,39 @@
-// Per-disk coverage of one lattice cell: the device function shared by
-// the stamp kernel (K1, stamp.cu) and the hydro-force reduce of the
-// fused IMB step (K2, imb_reduce.cu).
+// Per-disk coverage of one lattice cell: the device functions shared by
+// the stamp kernel (K1, stamp.cu) and the hydro-force reduce (K2/K6's
+// launch b and K9, imb.cuh reduce_kernel).
 //
-// Counterpart of the JAX package's pallas_stamp._cov_field (the
-// eps_method="sample" branch): eps_samples^2 subgrid points, tested in
-// the t-form  (relx + sx)^2 <= r^2 - (rely + sy)^2.  Sample membership
-// must agree BITWISE with the plain PyTorch version (ops/stamp.py
-// cov_field): one flipped sample is a 1/ns^2 coverage step. Every
-// operation therefore goes through the round-to-nearest intrinsics,
-// which nvcc never contracts into an FMA, whatever the build flags.
+// Counterpart of the JAX package's pallas_stamp._cov_field, all three
+// eps_method branches:
+//   sample  eps_samples^2 subgrid points, tested in the t-form
+//           (relx + sx)^2 <= r^2 - (rely + sy)^2;
+//   ramp    the linear ramp clip((r + 1/2) - d, 0, 1);
+//   exact   the analytic tangent-plane overlap (ops/imb.exact_coverage).
+// Coverage must agree BITWISE with the plain PyTorch version
+// (ops/stamp.py cov_field): one flipped sample is a 1/ns^2 coverage step,
+// and K1 is held to its plain version to the bit. Every operation
+// therefore goes through the round-to-nearest intrinsics, which nvcc never
+// contracts into an FMA, in the plain version's order; where the plain
+// version divides a Python scalar by a tensor, PyTorch computes
+// reciprocal(t) * scalar, and so does this code.
 #pragma once
 
-// relx, rely: cell centre minus disk centre (lattice units); rr: disk
-// radius (0 marks an empty slot and gives 0); r_shift: the
-// eps_r_shift calibration (0 = none); ns: samples per axis.
+// eps_method, a template parameter of the kernels that take coverage (each
+// method its own instantiation, chosen at launch)
+enum CovMethod { kSample = 0, kRamp = 1, kExact = 2 };
+
+// The eps_r_shift calibration of one disk radius (0 = none): a slot's
+// radius rr > 0 becomes max(rr + r_shift, 0.05); rr == 0 marks an empty
+// slot and stays 0. Applied once per disk, before any method.
+__device__ __forceinline__ float shift_radius(float rr, float r_shift) {
+  if (r_shift == 0.0f) return rr;
+  return rr > 0.0f ? fmaxf(__fadd_rn(rr, r_shift), 0.05f) : 0.0f;
+}
+
+// relx, rely: cell centre minus disk centre (lattice units); rr: the
+// (shifted) disk radius, 0 for an empty slot, which gives 0; ns: samples
+// per axis.
 __device__ __forceinline__ float cov_sample(float relx, float rely, float rr,
-                                            float r_shift, int ns) {
-  if (r_shift != 0.0f) {
-    rr = rr > 0.0f ? fmaxf(__fadd_rn(rr, r_shift), 0.05f) : 0.0f;
-  }
+                                            int ns) {
   // offsets and weight exactly as numpy computes them in float64, then
   // rounded to float32
   const float inv_s2 = (float)(1.0 / (double)(ns * ns));
@@ -37,4 +52,51 @@ __device__ __forceinline__ float cov_sample(float relx, float rely, float rr,
   // odd ns has a 0-offset sample: an empty slot would hit d = 0
   if ((ns & 1) && !(rr > 0.0f)) cov = 0.0f;
   return cov;
+}
+
+// d = sqrt(rely^2 + relx^2); clip((rr + 1/2) - d, 0, 1), 0 for an empty
+// slot (the ramp would otherwise stamp phantom cover where d < 1/2)
+__device__ __forceinline__ float cov_ramp(float relx, float rely, float rr) {
+  const float d =
+      __fsqrt_rn(__fadd_rn(__fmul_rn(rely, rely), __fmul_rn(relx, relx)));
+  const float c = fminf(fmaxf(__fsub_rn(__fadd_rn(rr, 0.5f), d), 0.0f), 1.0f);
+  return rr > 0.0f ? c : 0.0f;
+}
+
+// The analytic circle-cell overlap (ops/imb.exact_coverage, operation by
+// operation): two reciprocals and one square root per cell. An empty slot
+// (rr == 0) gives 0.
+__device__ __forceinline__ float cov_exact(float relx, float rely, float rr) {
+  const float ax = fabsf(relx), ay = fabsf(rely);
+  const float A = fmaxf(ax, ay), Bc = fminf(ax, ay);
+  const float d2 = __fadd_rn(__fmul_rn(relx, relx), __fmul_rn(rely, rely));
+  const float d = __fsqrt_rn(d2);
+  const float rc = __fsub_rn(rr, __frcp_rn(__fmul_rn(24.0f, fmaxf(rr, 1e-6f))));
+  const float S = __fmul_rn(d, __fsub_rn(rc, d));
+  const float C1 = __fmul_rn(0.5f, __fsub_rn(A, Bc));
+  const float C2 = __fmul_rn(0.5f, __fadd_rn(A, Bc));
+  const float t1 = __fadd_rn(S, C1);
+  const float t2 = __fadd_rn(S, C2);
+  const float t3 = __fsub_rn(S, C1);
+  const float t4 = __fsub_rn(S, C2);
+  const float u = fmaxf(t1, 0.0f), v = fmaxf(t2, 0.0f);
+  const float p = fmaxf(t3, 0.0f), q = fmaxf(t4, 0.0f);
+  const float inv_b = __frcp_rn(fmaxf(Bc, 1e-4f));
+  const float alpha = fminf(fmaxf(__fmul_rn(t2, inv_b), 0.0f), 1.0f);
+  const float beta = fminf(fmaxf(__fmul_rn(t3, inv_b), 0.0f), 1.0f);
+  const float num = __fsub_rn(__fmul_rn(alpha, __fadd_rn(v, u)),
+                              __fmul_rn(beta, __fadd_rn(p, q)));
+  float cov = __fmul_rn(num, __fmul_rn(__frcp_rn(fmaxf(A, 1e-6f)), 0.5f));
+  cov = fminf(fmaxf(cov, 0.0f), 1.0f);
+  return d2 < 0.01f ? (rr > 0.81f ? 1.0f : 0.0f) : cov;
+}
+
+// Coverage of one cell by one disk under method M; rr already shifted
+// (shift_radius).
+template <int M>
+__device__ __forceinline__ float coverage(float relx, float rely, float rr,
+                                          int ns) {
+  if constexpr (M == kRamp) return cov_ramp(relx, rely, rr);
+  if constexpr (M == kExact) return cov_exact(relx, rely, rr);
+  return cov_sample(relx, rely, rr, ns);
 }

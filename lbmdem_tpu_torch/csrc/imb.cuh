@@ -3,7 +3,8 @@
 // imb_multi.cu) and the static-solid temporal block (K7, imb_static.cu):
 // the scalars, the NT-blended collide of one cell (with K7's options as
 // template flags), the pull + half-way bounce-back of one cell, and the
-// per-(stamp tile, slot) hydro-force reduce.
+// per-(stamp tile, slot) hydro-force reduce (also the standalone K9 of
+// imb_split.cu, which computes w itself).
 //
 // The arithmetic mirrors the plain version (ops/imb.collide_imb,
 // ops/lbm.stream + apply_bounce_back, ops/fused_lbm.reduce_partials_plain)
@@ -202,21 +203,51 @@ __device__ __forceinline__ void imb_stream_cell(const float* post, int n,
 
 constexpr int kReduceThreads = 128;
 
+// The momentum exchange w = phi / max(eps_raw, eps_min) the reduce weights
+// by coverage, as a source functor of reduce_kernel: load(t, cell, wx, wy)
+// gives inner step t's (wx, wy) at a flat cell index.
+//
+// WPlanes: K2's and K6's launch (a) wrote w to a (k, 2, ny, nx) scratch.
+struct WPlanes {
+  const float* w;
+  size_t plane;
+  __device__ __forceinline__ void load(int t, size_t cell, float& wx,
+                                       float& wy) const {
+    const float* wt = w + (size_t)t * 2 * plane;
+    wx = wt[cell];
+    wy = wt[plane + cell];
+  }
+};
+
+// WFromPhi: K9 computes w from the raw phi planes and eps_raw, with the
+// expression of K2's launch (a), so K8 + K9 gives K2's partials.
+struct WFromPhi {
+  const float* eps;
+  const float* phix;
+  const float* phiy;
+  float eps_min;
+  __device__ __forceinline__ void load(int, size_t cell, float& wx,
+                                       float& wy) const {
+    const float sd = 1.0f / fmaxf(eps[cell], eps_min);
+    wx = __fmul_rn(phix[cell], sd);
+    wy = __fmul_rn(phiy[cell], sd);
+  }
+};
+
 // One block per (slot, stamp tile, inner step t): sums cov * w[t] and
 // the torque over the disk's window clipped to the tile (block
 // reduction) and writes partials[t][tile * cap + slot] = [fx, fy, tq, 0].
-// Slots past the tile's count write zeros. w: (k, 2, ny, nx), partials:
-// (k, n_tiles * cap, 4); K2 launches it with k = 1.
+// Slots past the tile's count write zeros. partials: (k, n_tiles * cap,
+// 4); K2 and K9 launch it with k = 1. M is the coverage method, W the
+// source of w (WPlanes or WFromPhi).
+template <int M, class W>
 __global__ void __launch_bounds__(kReduceThreads)
-    reduce_kernel(const float* __restrict__ w,
-                  const float* __restrict__ tile_data,
+    reduce_kernel(W wsrc, const float* __restrict__ tile_data,
                   const int* __restrict__ counts,
                   float* __restrict__ partials, int ny, int nx, int th, int tw,
                   int ntx, int cap, int window, int ns, float r_shift) {
   const int slot = blockIdx.x;
   const int tile = blockIdx.y;
-  const size_t plane = (size_t)ny * nx;
-  w += (size_t)blockIdx.z * 2 * plane;
   float* outp = partials +
                 (((size_t)blockIdx.z * gridDim.y + tile) * cap + slot) * 4;
   if (slot >= counts[tile]) {
@@ -224,7 +255,7 @@ __global__ void __launch_bounds__(kReduceThreads)
     return;
   }
   const float* d = tile_data + ((size_t)tile * cap + slot) * 8;
-  const float px = d[0], py = d[1], rr = d[5];
+  const float px = d[0], py = d[1], rr = shift_radius(d[5], r_shift);
   const int half = window / 2;
   const int y0 = (tile / ntx) * th, x0 = (tile % ntx) * tw;
   const int by = (int)floorf(py + 0.5f) - half;
@@ -238,10 +269,11 @@ __global__ void __launch_bounds__(kReduceThreads)
       const int gy = ya + c / ww, gx = xa + c % ww;
       const float relx = __fsub_rn((float)gx, px);
       const float rely = __fsub_rn((float)gy, py);
-      const float cov = cov_sample(relx, rely, rr, r_shift, ns);
-      const size_t cell = (size_t)gy * nx + gx;
-      const float fxc = __fmul_rn(cov, w[cell]);
-      const float fyc = __fmul_rn(cov, w[plane + cell]);
+      const float cov = coverage<M>(relx, rely, rr, ns);
+      float wx, wy;
+      wsrc.load(blockIdx.z, (size_t)gy * nx + gx, wx, wy);
+      const float fxc = __fmul_rn(cov, wx);
+      const float fyc = __fmul_rn(cov, wy);
       fx = __fadd_rn(fx, fxc);
       fy = __fadd_rn(fy, fyc);
       tq = __fadd_rn(tq, __fsub_rn(__fmul_rn(relx, fyc), __fmul_rn(rely, fxc)));
@@ -276,17 +308,23 @@ __global__ void __launch_bounds__(kReduceThreads)
   }
 }
 
-// Launch (b) of K2 and K6 over k inner steps; returns cudaGetLastError.
-inline int launch_reduce(const float* w, const float* tile_data,
-                         const int* counts, float* partials, int ny, int nx,
-                         int th, int tw, int ntx, int n_tiles, int cap,
-                         int window, int ns, float r_shift, int k,
+// The reduce over k inner steps (launch b of K2 and K6, and K9) for the
+// coverage method `method` (CovMethod); returns cudaGetLastError.
+template <class W>
+inline int launch_reduce(W wsrc, const float* tile_data, const int* counts,
+                         float* partials, int ny, int nx, int th, int tw,
+                         int ntx, int n_tiles, int cap, int window, int ns,
+                         float r_shift, int method, int k,
                          cudaStream_t stream) {
+  if (method < kSample || method > kExact) return (int)cudaErrorInvalidValue;
   if (n_tiles == 0 || cap == 0) return 0;
   const dim3 grid(cap, n_tiles, k);
-  reduce_kernel<<<grid, kReduceThreads, 0, stream>>>(
-      w, tile_data, counts, partials, ny, nx, th, tw, ntx, cap, window, ns,
-      r_shift);
+  auto kernel = method == kRamp    ? &reduce_kernel<kRamp, W>
+                : method == kExact ? &reduce_kernel<kExact, W>
+                                   : &reduce_kernel<kSample, W>;
+  kernel<<<grid, kReduceThreads, 0, stream>>>(wsrc, tile_data, counts,
+                                              partials, ny, nx, th, tw, ntx,
+                                              cap, window, ns, r_shift);
   return (int)cudaGetLastError();
 }
 

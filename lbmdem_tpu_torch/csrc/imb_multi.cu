@@ -132,13 +132,14 @@ __global__ void __launch_bounds__(kThreads)
 // [eps_raw, us_x, us_y], frozen for the k steps; w: (k, 2, ny, nx) f32
 // scratch; tile_data/counts: the stamp binning ((n_tiles, cap * 8),
 // (n_tiles,)) of th x tw tiles, ntx per row; partials: (k, n_tiles *
-// cap, 4) f32. 1 <= k <= 8.
+// cap, 4) f32; method: the CovMethod of cfg.eps_method. 1 <= k <= 8.
 extern "C" int lbm_imb_multi(const float* f, const float* solid,
                              const float* tile_data, const int* counts,
                              float* out, float* w, float* partials, int ny,
                              int nx, int th, int tw, int ntx, int n_tiles,
-                             int cap, int window, int ns, float r_shift, int k,
-                             LbmParams p, cudaStream_t stream) {
+                             int cap, int window, int ns, float r_shift,
+                             int method, int k, LbmParams p,
+                             cudaStream_t stream) {
   const size_t bytes =
       sizeof(float) * 21 * (size_t)(kTX + 2 * k) * (kTY + 2 * k);
   static size_t opted_in = 48 * 1024;
@@ -154,6 +155,7 @@ extern "C" int lbm_imb_multi(const float* f, const float* solid,
                                                        nx, k, p);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  return launch_reduce(w, tile_data, counts, partials, ny, nx, th, tw, ntx,
-                       n_tiles, cap, window, ns, r_shift, k, stream);
+  return launch_reduce(WPlanes{w, (size_t)ny * nx}, tile_data, counts,
+                       partials, ny, nx, th, tw, ntx, n_tiles, cap, window, ns,
+                       r_shift, method, k, stream);
 }

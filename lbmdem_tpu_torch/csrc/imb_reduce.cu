@@ -87,19 +87,21 @@ __global__ void __launch_bounds__(kBX * kBY)
 // f, fout: (9, ny, nx) f32 (distinct buffers); solid: (3, ny, nx) f32
 // [eps_raw, us_x, us_y]; w: (2, ny, nx) f32 scratch; tile_data/counts:
 // the stamp binning ((n_tiles, cap * 8), (n_tiles,)) of th x tw tiles,
-// ntx per row; partials: (n_tiles * cap, 4) f32.
+// ntx per row; partials: (n_tiles * cap, 4) f32; method: the CovMethod of
+// cfg.eps_method.
 extern "C" int lbm_imb_step(const float* f, const float* solid,
                             const float* tile_data, const int* counts,
                             float* fout, float* w, float* partials, int ny,
                             int nx, int th, int tw, int ntx, int n_tiles,
                             int cap, int window, int ns, float r_shift,
-                            LbmParams p, cudaStream_t stream) {
+                            int method, LbmParams p, cudaStream_t stream) {
   dim3 grid_a((nx + kBX - 1) / kBX, (ny + kBY - 1) / kBY);
   dim3 block_a(kBX, kBY);
   collide_stream_kernel<<<grid_a, block_a, 0, stream>>>(f, solid, fout, w, ny,
                                                         nx, p);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  return launch_reduce(w, tile_data, counts, partials, ny, nx, th, tw, ntx,
-                       n_tiles, cap, window, ns, r_shift, 1, stream);
+  return launch_reduce(WPlanes{w, (size_t)ny * nx}, tile_data, counts,
+                       partials, ny, nx, th, tw, ntx, n_tiles, cap, window, ns,
+                       r_shift, method, 1, stream);
 }

@@ -8,7 +8,8 @@
 //
 // What bounds it on the H100: the write of the three f32 planes
 // (12 B/cell, ~0.2 GB at 4096^2) and the per-disk issue work inside
-// dense tiles (16 sample tests per covered cell). Design: one block per
+// dense tiles (16 sample tests per covered cell; ramp and exact coverage
+// are a closed form per cell). Design: one block per
 // (tile, 16-row strip), one thread per column holding its 4 cells' sums
 // in registers; a disk whose window misses the strip is skipped by the
 // whole block, a cell outside the window by its thread. No atomics and
@@ -25,6 +26,8 @@ constexpr int kStrip = 16;   // rows per block
 constexpr int kCols = 128;   // threads along x (the stamp tile width cap)
 constexpr int kRowsPer = 4;  // rows per thread; blockDim.y = kStrip/kRowsPer
 
+// one instantiation per coverage method M (CovMethod)
+template <int M>
 __global__ void stamp_kernel(const float* __restrict__ tile_data,
                              const int* __restrict__ counts,
                              float* __restrict__ out, int ny, int nx, int th,
@@ -49,7 +52,7 @@ __global__ void stamp_kernel(const float* __restrict__ tile_data,
   for (int k = 0; k < cnt; ++k) {
     const float* d = base + (size_t)k * 8;
     const float px = d[0], py = d[1], vx = d[2], vy = d[3], om = d[4],
-                rr = d[5];
+                rr = shift_radius(d[5], r_shift);
     const int by = (int)floorf(py + 0.5f) - half;
     const int bx = (int)floorf(px + 0.5f) - half;
     // block-uniform: the window's rows miss this strip
@@ -62,7 +65,7 @@ __global__ void stamp_kernel(const float* __restrict__ tile_data,
       const int gy = y0 + row;
       if (row >= row_end || gy < by || gy >= by + window) continue;
       const float rely = __fsub_rn((float)gy, py);
-      const float cov = cov_sample(relx, rely, rr, r_shift, ns);
+      const float cov = coverage<M>(relx, rely, rr, ns);
       const float usx = __fsub_rn(vx, __fmul_rn(om, rely));
       const float usy = __fadd_rn(vy, __fmul_rn(om, relx));
       acc[j][0] = __fadd_rn(acc[j][0], cov);
@@ -88,17 +91,21 @@ __global__ void stamp_kernel(const float* __restrict__ tile_data,
 
 // tile_data: (n_tiles, cap * 8) f32 disk records [x, y, vx, vy, omega, r,
 // active, 0] in slot order; counts: (n_tiles,) i32; out: (3, ny, nx) f32.
-// Stamp tiles are th x tw (tw <= 128), ntx per tile row.
+// Stamp tiles are th x tw (tw <= 128), ntx per tile row; method: the
+// CovMethod of cfg.eps_method.
 extern "C" int lbm_stamp(const float* tile_data, const int* counts, float* out,
                          int ny, int nx, int th, int tw, int ntx, int cap,
                          int window, int ns, float r_shift, float eps_min,
-                         cudaStream_t stream) {
-  if (tw > kCols) return (int)cudaErrorInvalidValue;
+                         int method, cudaStream_t stream) {
+  if (tw > kCols || method < kSample || method > kExact)
+    return (int)cudaErrorInvalidValue;
   const int n_tiles = (ny / th) * ntx;
   dim3 grid(n_tiles, (th + kStrip - 1) / kStrip);
   dim3 block(kCols, kStrip / kRowsPer);
-  stamp_kernel<<<grid, block, 0, stream>>>(tile_data, counts, out, ny, nx, th,
-                                           tw, ntx, cap, window, ns, r_shift,
-                                           eps_min);
+  auto kernel = method == kRamp    ? &stamp_kernel<kRamp>
+                : method == kExact ? &stamp_kernel<kExact>
+                                   : &stamp_kernel<kSample>;
+  kernel<<<grid, block, 0, stream>>>(tile_data, counts, out, ny, nx, th, tw,
+                                     ntx, cap, window, ns, r_shift, eps_min);
   return (int)cudaGetLastError();
 }

@@ -31,7 +31,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent / "_build"
 SOURCES = ("stamp.cu", "imb_reduce.cu", "imb_multi.cu", "slab_dem.cu",
-           "fluid.cu", "imb_static.cu")
+           "fluid.cu", "imb_static.cu", "imb_split.cu")
 HEADERS = ("coverage.cuh", "d2q9.cuh", "imb.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -69,8 +69,9 @@ class DemParams(ctypes.Structure):
 
 
 class FluidParams(ctypes.Structure):
-    """Scalars of the pure-fluid steps (K4/K5) and of the static-solid
-    block (K7, with the NT constant beside it); mirrors `struct
+    """Scalars of the pure-fluid steps (K4/K5), of the static-solid block
+    (K7) and of the split coupled step (K8), the last two with the NT
+    constant beside it; mirrors `struct
     FluidParams` in csrc/d2q9.cuh field for field."""
 
     _fields_ = [
@@ -85,11 +86,12 @@ class FluidParams(ctypes.Structure):
 
 # C signatures: (name, argtypes)
 _SIGNATURES = {
-    "lbm_stamp": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P],
+    "lbm_stamp": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I,
+                  _P],
     "lbm_imb_step": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                     _I, _I, _I, _F, LbmParams, _P],
+                     _I, _I, _I, _F, _I, LbmParams, _P],
     "lbm_imb_multi": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                      _I, _I, _I, _F, _I, LbmParams, _P],
+                      _I, _I, _I, _F, _I, _I, LbmParams, _P],
     "lbm_dem_subcycle": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                          _I, DemParams, _P],
     "lbm_dem_subcycle_window": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
@@ -98,6 +100,10 @@ _SIGNATURES = {
     "lbm_fluid_multi": [_P, _P, _P, _I, _I, _I, _I, FluidParams, _P],
     "lbm_imb_static_multi": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
                              FluidParams, _F, _P],
+    "lbm_imb_split_step": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                           FluidParams, _F, _P],
+    "lbm_reduce_hydro": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                         _I, _I, _F, _F, _I, _P],
 }
 
 

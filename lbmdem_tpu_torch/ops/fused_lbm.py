@@ -1,5 +1,6 @@
-"""The coupled LBM step with the hydro-force reduce fused in (K2), and
-its temporal block over a frozen solid stack (K6).
+"""The coupled LBM step with the hydro-force reduce fused in (K2), its
+temporal block over a frozen solid stack (K6), and the split step that
+emits phi for a separate reduce (K8).
 
 Counterpart of `fused_step_imb_reduce` in the JAX package's
 `lbmdem_tpu/ops/pallas_lbm.py`: one step of NT-blended BGK collide
@@ -13,10 +14,17 @@ steps over the window-start solid stack and binning, with the reduce
 after every inner collide: the counterpart of the JAX
 `fused_step_imb_reduce_multi`.
 
+`fused_step_imb` (K8) is the counterpart of the JAX `fused_step_imb`:
+one f32 coupled step with every lattice option (BGK/TRT, LES, nt_mode,
+Guo forcing, static and moving walls, Zou/He, periodic axes) that returns
+the raw momentum exchange (phi_x, phi_y) instead of reducing it; the
+standalone reduce is `stamp.reduce_hydro_forces` (K9). Only the
+stage-ablation tool (`tools/ablate.py`) runs the pair.
+
 Each wrapper takes its plain version for CPU tensors and its CUDA
-kernel (`csrc/imb_reduce.cu`, `csrc/imb_multi.cu`) for CUDA tensors.
-Both write the new populations into the caller's second f buffer `out`,
-never into `f`.
+kernel (`csrc/imb_reduce.cu`, `csrc/imb_multi.cu`, `csrc/imb_split.cu`)
+for CUDA tensors. All write the new populations into the caller's second
+f buffer `out`, never into `f`.
 """
 
 from __future__ import annotations
@@ -26,9 +34,9 @@ import torch
 
 from lbmdem_tpu_torch import kernels
 from lbmdem_tpu_torch.config import SimConfig, WALL
-from lbmdem_tpu_torch.ops import imb, lbm, not_ported
-from lbmdem_tpu_torch.ops.stamp import (_PLAIN_TILES, check_stamp_cfg,
-                                        cov_field, tile_dims, tile_windows)
+from lbmdem_tpu_torch.ops import fused_fluid, imb, lbm, not_ported
+from lbmdem_tpu_torch.ops.stamp import (cov_method, hydro_partials_plain,
+                                        tile_dims)
 
 # K6's largest temporal block: cfg.coupling_k's range (the JAX kernel's
 # 8-row solid halo; here the shared-memory windows, 129 KB at k = 8)
@@ -37,7 +45,6 @@ MAX_K = 8
 
 def check_step_cfg(cfg: SimConfig) -> None:
     """Raise for lattice options the fused step does not take yet."""
-    check_stamp_cfg(cfg)
     if cfg.trt_lambda > 0.0:
         raise not_ported("TRT collision (collision='trt')", 9)
     if cfg.smagorinsky > 0.0:
@@ -48,30 +55,6 @@ def check_step_cfg(cfg: SimConfig) -> None:
         raise not_ported("f_storage='bfloat16'", 9)
     if cfg.nt_mode != "nt":
         raise not_ported(f"nt_mode={cfg.nt_mode!r}", 9)
-
-
-def reduce_partials_plain(w, tile_data, counts, cfg: SimConfig):
-    """Per-(tile, slot) [fx, fy, tq, 0] partials of cov * w over each
-    binned disk's window clipped to its tile: (n_tiles * cap, 4)."""
-    n_tiles = tile_data.shape[0]
-    cap = tile_data.shape[2] // 8
-    dt = w.dtype
-    wflat = w.reshape(2, -1)
-    parts = []
-    for t0 in range(0, n_tiles, _PLAIN_TILES):
-        t1 = min(t0 + _PLAIN_TILES, n_tiles)
-        rec, relx, rely, cell, inside = tile_windows(tile_data, counts, cfg,
-                                                     t0, t1)
-        cov = cov_field(relx, rely, rec[..., 5, None, None], cfg)
-        cov = torch.where(inside, cov, torch.zeros((), dtype=dt,
-                                                   device=w.device))
-        fx_c = cov * wflat[0][cell]
-        fy_c = cov * wflat[1][cell]
-        fx = torch.sum(fx_c, dim=(2, 3))
-        fy = torch.sum(fy_c, dim=(2, 3))
-        tq = torch.sum(relx * fy_c - rely * fx_c, dim=(2, 3))
-        parts.append(torch.stack([fx, fy, tq, torch.zeros_like(fx)], dim=-1))
-    return torch.cat(parts).reshape(n_tiles * cap, 4)
 
 
 def fused_step_imb_reduce_plain(f, solid, tile_data, counts, cfg: SimConfig,
@@ -91,13 +74,12 @@ def fused_step_imb_reduce_multi_plain(f, solid, tile_data, counts,
     reduce after every collide. Returns (out, partials (k, n_tiles * cap,
     4))."""
     eps, usx, usy = solid[0], solid[1], solid[2]
-    share_den = 1.0 / torch.clamp(eps, min=imb._EPS_MIN)
     parts = []
     for _ in range(k):
         fpost, phix, phiy = imb.collide_imb(f, eps, usx, usy, cfg)
         f = lbm.apply_bounce_back(lbm.stream(fpost), fpost, cfg)
-        w = torch.stack([phix * share_den, phiy * share_den])
-        parts.append(reduce_partials_plain(w, tile_data, counts, cfg))
+        parts.append(hydro_partials_plain(eps, phix, phiy, tile_data, counts,
+                                          cfg))
     out.copy_(f)
     return out, torch.stack(parts)
 
@@ -140,7 +122,7 @@ def _launch(f, solid, tile_data, counts, cfg: SimConfig, k: int, out,
             counts.data_ptr(), out.data_ptr(), w.data_ptr(),
             partials.data_ptr(), cfg.ny, cfg.nx, th, tw, cfg.nx // tw,
             n_tiles, cap, cfg.window, cfg.eps_samples,
-            float(cfg.eps_r_shift))
+            float(cfg.eps_r_shift), cov_method(cfg))
     lib = kernels.library()
     if k is None:
         code = lib.lbm_imb_step(*args, _params(cfg), kernels.stream())
@@ -194,5 +176,56 @@ def fused_step_imb_reduce_multi(f, solid, tile_data, counts, cfg: SimConfig,
     return out, partials
 
 
+def fused_step_imb_plain(f, eps, usx, usy, cfg: SimConfig, out):
+    """Plain version of K8: imb.collide_imb -> lbm.stream ->
+    lbm.apply_bounce_back -> lbm.apply_open_boundaries into `out`, with
+    phi from the collide. Returns (out, phi_x, phi_y)."""
+    fpost, phix, phiy = imb.collide_imb(f, eps, usx, usy, cfg)
+    out.copy_(lbm.apply_open_boundaries(
+        lbm.apply_bounce_back(lbm.stream(fpost), fpost, cfg), cfg))
+    return out, phix, phiy
+
+
+def fused_step_imb(f, eps, usx, usy, cfg: SimConfig, out, prehalo=False):
+    """K8: one coupled step of f (9, ny, nx) float32 over the solid fields
+    eps_raw, us_x, us_y (ny, nx), written into `out` (the other f buffer,
+    same shape; the JAX entry's out_buf). Returns (out, phi_x, phi_y), the
+    raw momentum exchange (ny, nx) for stamp.reduce_hydro_forces.
+
+    float32 only, as the JAX kernel (bf16 storage runs through the fused
+    reduce step). CPU tensors take the plain version; CUDA tensors take
+    the kernel lbm_imb_split_step of csrc/imb_split.cu (or raise)."""
+    if prehalo:
+        raise not_ported("the prehalo argument of the split coupled step "
+                         "(multi-chip halo exchange)", 12)
+    if f.dtype != torch.float32:
+        raise ValueError(f"fused_step_imb is float32-only (got {f.dtype}); "
+                         f"bf16 storage runs through fused_step_imb_reduce")
+    plane = (cfg.ny, cfg.nx)
+    if (tuple(f.shape) != (9,) + plane
+            or any(tuple(t.shape) != plane for t in (eps, usx, usy))):
+        raise ValueError(f"fused_step_imb: f (9, {cfg.ny}, {cfg.nx}) and "
+                         f"eps/usx/usy {plane}")
+    _check_args(f, out, "fused_step_imb")
+    if f.device.type == "cpu":
+        return fused_step_imb_plain(f, eps, usx, usy, cfg, out)
+    what = "split coupled step kernel (K8)"
+    kernels.require_cuda_f32(what, f, eps, usx, usy, out)
+    if any(t.dtype != torch.float32 for t in (eps, usx, usy, out)):
+        raise ValueError(f"{what}: float32 fields")
+    phi = torch.empty((2,) + plane, dtype=torch.float32, device=f.device)
+    u_in = (fused_fluid._inlet_profile(cfg, f.device).data_ptr()
+            if cfg.bc_west == "inlet" else None)
+    code = kernels.library().lbm_imb_split_step(
+        f.data_ptr(), eps.data_ptr(), usx.data_ptr(), usy.data_ptr(), u_in,
+        out.data_ptr(), phi.data_ptr(), cfg.ny, cfg.nx,
+        int(cfg.nt_mode == "lambda"), fused_fluid._params(cfg),
+        np.float32(imb.nt_tm(cfg.tau, cfg.nt_mode)), kernels.stream())
+    kernels.check(code, what)
+    fused_step_imb.launches += 1
+    return out, phi[0], phi[1]
+
+
 fused_step_imb_reduce.launches = 0
 fused_step_imb_reduce_multi.launches = 0
+fused_step_imb.launches = 0

@@ -22,7 +22,6 @@ import torch
 from lbmdem_tpu_torch import kernels
 from lbmdem_tpu_torch.config import SimConfig
 from lbmdem_tpu_torch.ops import fused_fluid, imb, lbm, not_ported
-from lbmdem_tpu_torch.ops.stamp import check_stamp_cfg
 
 # largest k per pass: the JAX kernel's 8-row solid halo; here the three
 # shared-memory windows (129 KB at k = 8)
@@ -30,9 +29,8 @@ MAX_K = 8
 
 
 def check_static_cfg(cfg: SimConfig, prehalo=False, edges=None) -> None:
-    """Raise for options of the JAX static-solid kernel (and of the K1
-    stamp that feeds it) that are not ported."""
-    check_stamp_cfg(cfg)
+    """Raise for options of the JAX static-solid kernel that are not
+    ported."""
     if prehalo or edges is not None:
         raise not_ported("the prehalo/edges arguments of the static-solid "
                          "kernel (multi-chip halo exchange)", 12)

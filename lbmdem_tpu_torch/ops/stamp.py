@@ -11,6 +11,14 @@ Counterpart of the JAX package's `lbmdem_tpu/ops/pallas_stamp.py`:
   `tile_data` (n_tiles, 1, cap*8).
 - `stamp_fields` is K1: the CUDA kernel `csrc/stamp.cu` for CUDA tensors,
   `stamp_fields_plain` for CPU tensors.
+- `reduce_hydro_forces` is K9, the standalone hydro-force reduce of the
+  split coupled step: per (tile, slot) partials of cov * phi / max(eps,
+  eps_min), then `gather_partials`; the CUDA kernel `lbm_reduce_hydro` of
+  `csrc/imb_split.cu` for CUDA tensors, `hydro_partials_plain` for CPU
+  tensors.
+
+Coverage takes every eps_method of the JAX package (sample, ramp, exact),
+in `cov_field` and in `csrc/coverage.cuh` alike.
 
 Ranks come from `torch.sort(stable=True)`, so within a tile the slots
 follow disk order. The JAX sorts are not stable: the two packages may
@@ -26,8 +34,7 @@ import torch
 
 from lbmdem_tpu_torch import kernels
 from lbmdem_tpu_torch.config import SimConfig
-from lbmdem_tpu_torch.ops import not_ported
-from lbmdem_tpu_torch.ops.imb import _EPS_MIN
+from lbmdem_tpu_torch.ops.imb import _EPS_MIN, exact_coverage
 
 # stamp tile rows / columns: the JAX chains (coupled lattice tile rows,
 # then sub-8 rows for tiny grids; 128-column granule), kept so that the
@@ -36,6 +43,8 @@ _TILE_ROWS = (256, 128, 64, 32, 16, 8, 4, 2, 1)
 _TILE_COLS = (128, 64, 32, 16, 8, 4, 2, 1)
 # plain-version tile chunk (bounds the (tiles, cap, W, W) temporaries)
 _PLAIN_TILES = 64
+# eps_method -> the kernels' CovMethod (csrc/coverage.cuh)
+COV_METHODS = {"sample": 0, "ramp": 1, "exact": 2}
 
 
 def tile_dims(cfg: SimConfig) -> Tuple[int, int]:
@@ -165,21 +174,35 @@ def gather_partials(flat, entry_slots, dtype):
     return tot[:, :2].to(dtype), tot[:, 2].to(dtype)
 
 
+def cov_method(cfg: SimConfig) -> int:
+    """The kernels' CovMethod code of cfg.eps_method."""
+    if cfg.eps_method not in COV_METHODS:
+        raise ValueError(f"unknown eps_method {cfg.eps_method!r}")
+    return COV_METHODS[cfg.eps_method]
+
+
 def cov_field(relx, rely, rr, cfg: SimConfig):
-    """Sample coverage of one disk per cell (broadcasting): the plain
-    twin of csrc/coverage.cuh and of the JAX pallas_stamp._cov_field, in
-    the same t-form so sample membership agrees bitwise."""
+    """Coverage of one disk per cell (broadcasting) under cfg.eps_method:
+    the plain twin of csrc/coverage.cuh and of the JAX
+    pallas_stamp._cov_field, operation by operation, so the kernels agree
+    with it bitwise (sample: the same t-form; ramp: clip((r + 1/2) - d,
+    0, 1); exact: imb.exact_coverage). Empty slots (rr == 0) give 0."""
     ns = cfg.eps_samples
     dt = relx.dtype
+    zero = torch.zeros((), dtype=dt, device=relx.device)
     if cfg.eps_r_shift:
         rr = torch.where(rr > 0, torch.clamp(rr + cfg.eps_r_shift, min=0.05),
                          torch.zeros_like(rr))
+    if cfg.eps_method == "ramp":
+        d = torch.sqrt(rely * rely + relx * relx)
+        return torch.where(rr > 0, torch.clamp(rr + 0.5 - d, 0.0, 1.0), zero)
+    if cfg.eps_method == "exact":
+        return exact_coverage(relx, rely, rr)
     inv_s2 = torch.tensor(np.float32(1.0 / (ns * ns)), dtype=dt)
     offs = ((np.arange(ns) + 0.5) / ns - 0.5).astype(np.float32)
     r2 = rr * rr
     ts = [r2 - (rely + float(sy)) * (rely + float(sy)) for sy in offs]
     dx2s = [(relx + float(sx)) * (relx + float(sx)) for sx in offs]
-    zero = torch.zeros((), dtype=dt, device=relx.device)
     inv_s2 = inv_s2.to(relx.device)
     cov = None
     for t in ts:
@@ -252,17 +275,11 @@ def stamp_fields_plain(tile_data, counts, cfg: SimConfig) -> torch.Tensor:
         3, cfg.ny, cfg.nx)
 
 
-def check_stamp_cfg(cfg: SimConfig) -> None:
-    """Raise for coverage models the port does not stamp yet."""
-    if cfg.eps_method != "sample":
-        raise not_ported(f"eps_method={cfg.eps_method!r} coverage", 9)
-
-
 def stamp_fields(tile_data, counts, cfg: SimConfig) -> torch.Tensor:
     """K1: the (3, ny, nx) solid fields [eps_raw, us_x, us_y] stamped
     from the tile binning. CPU tensors take the plain version; CUDA
     tensors take the kernel csrc/stamp.cu (or raise)."""
-    check_stamp_cfg(cfg)
+    method = cov_method(cfg)
     if tile_data.device.type == "cpu":
         return stamp_fields_plain(tile_data, counts, cfg)
     th, tw = tile_dims(cfg)
@@ -275,10 +292,88 @@ def stamp_fields(tile_data, counts, cfg: SimConfig) -> torch.Tensor:
     code = kernels.library().lbm_stamp(
         tile_data.data_ptr(), counts.data_ptr(), out.data_ptr(), cfg.ny,
         cfg.nx, th, tw, cfg.nx // tw, cap, cfg.window, cfg.eps_samples,
-        float(cfg.eps_r_shift), float(np.float32(_EPS_MIN)), kernels.stream())
+        float(cfg.eps_r_shift), float(np.float32(_EPS_MIN)), method,
+        kernels.stream())
     kernels.check(code, "stamp kernel (K1)")
     stamp_fields.launches += 1
     return out
 
 
+def reduce_partials_plain(w, tile_data, counts, cfg: SimConfig):
+    """Per-(tile, slot) [fx, fy, tq, 0] partials of cov * w over each
+    binned disk's window clipped to its tile: (n_tiles * cap, 4)."""
+    n_tiles = tile_data.shape[0]
+    cap = tile_data.shape[2] // 8
+    dt = w.dtype
+    wflat = w.reshape(2, -1)
+    parts = []
+    for t0 in range(0, n_tiles, _PLAIN_TILES):
+        t1 = min(t0 + _PLAIN_TILES, n_tiles)
+        rec, relx, rely, cell, inside = tile_windows(tile_data, counts, cfg,
+                                                     t0, t1)
+        cov = cov_field(relx, rely, rec[..., 5, None, None], cfg)
+        cov = torch.where(inside, cov, torch.zeros((), dtype=dt,
+                                                   device=w.device))
+        fx_c = cov * wflat[0][cell]
+        fy_c = cov * wflat[1][cell]
+        fx = torch.sum(fx_c, dim=(2, 3))
+        fy = torch.sum(fy_c, dim=(2, 3))
+        tq = torch.sum(relx * fy_c - rely * fx_c, dim=(2, 3))
+        parts.append(torch.stack([fx, fy, tq, torch.zeros_like(fx)], dim=-1))
+    return torch.cat(parts).reshape(n_tiles * cap, 4)
+
+
+def hydro_partials_plain(eps_raw, phi_x, phi_y, tile_data, counts,
+                         cfg: SimConfig):
+    """Plain version of K9's partials: reduce_partials_plain over the
+    momentum exchange w = phi / max(eps_raw, eps_min)."""
+    share_den = 1.0 / torch.clamp(eps_raw, min=_EPS_MIN)
+    return reduce_partials_plain(
+        torch.stack([phi_x * share_den, phi_y * share_den]), tile_data,
+        counts, cfg)
+
+
+def reduce_hydro_forces(xp, r, active, eps_raw, phi_x, phi_y, cfg: SimConfig,
+                        tile_data, counts, entry_slots):
+    """K9: per-disk hydrodynamic force (N, 2) and torque (N,) from the raw
+    momentum exchange (phi_x, phi_y) of fused_lbm.fused_step_imb and the
+    stamp binning (tile_data, counts, entry_slots): each binned disk
+    reduces cov * phi / max(eps_raw, eps_min) over its window clipped to
+    the tile into a per-(tile, slot) partial, and gather_partials sums a
+    disk's <= 4 partials. r and active are the JAX entry's arguments; the
+    radii come from tile_data.
+
+    CPU tensors take the plain version; CUDA tensors take the kernel
+    lbm_reduce_hydro of csrc/imb_split.cu (or raise)."""
+    method = cov_method(cfg)
+    if eps_raw.device.type == "cpu":
+        partials = hydro_partials_plain(eps_raw, phi_x, phi_y, tile_data,
+                                        counts, cfg)
+        return gather_partials(partials, entry_slots, xp.dtype)
+    what = "standalone hydro reduce kernel (K9)"
+    kernels.require_cuda_f32(what, eps_raw, phi_x, phi_y, tile_data, counts)
+    if (eps_raw.dtype, phi_x.dtype, phi_y.dtype, tile_data.dtype,
+            counts.dtype) != (torch.float32,) * 4 + (torch.int32,):
+        raise ValueError(f"{what}: f32 fields and tile_data, i32 counts")
+    for t in (eps_raw, phi_x, phi_y):
+        if tuple(t.shape) != (cfg.ny, cfg.nx):
+            raise ValueError(f"{what}: fields must be ({cfg.ny}, {cfg.nx}), "
+                             f"got {tuple(t.shape)}")
+    th, tw = tile_dims(cfg)
+    n_tiles = tile_data.shape[0]
+    cap = tile_data.shape[2] // 8
+    partials = torch.empty((n_tiles * cap, 4), dtype=torch.float32,
+                           device=eps_raw.device)
+    code = kernels.library().lbm_reduce_hydro(
+        eps_raw.data_ptr(), phi_x.data_ptr(), phi_y.data_ptr(),
+        tile_data.data_ptr(), counts.data_ptr(), partials.data_ptr(), cfg.ny,
+        cfg.nx, th, tw, cfg.nx // tw, n_tiles, cap, cfg.window,
+        cfg.eps_samples, float(cfg.eps_r_shift), float(np.float32(_EPS_MIN)),
+        method, kernels.stream())
+    kernels.check(code, what)
+    reduce_hydro_forces.launches += 1
+    return gather_partials(partials, entry_slots, xp.dtype)
+
+
 stamp_fields.launches = 0
+reduce_hydro_forces.launches = 0

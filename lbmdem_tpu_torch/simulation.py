@@ -3,8 +3,8 @@ windows, and pure fluid.
 
 Counterpart of the JAX package's `lbmdem_tpu/simulation.py` for the
 configurations it was benchmarked on (`Simulation(cfg, disks,
-use_pallas=True).run(n)`): f32 storage, BGK, eps_method="sample",
-walls, one device. Each coupled step (`make_step_fn`) runs
+use_pallas=True).run(n)`): f32 storage, BGK, any eps_method (sample,
+ramp, exact), walls, one device. Each coupled step (`make_step_fn`) runs
 
     coupling inputs (binning + travel check) -> gather_tile_data ->
     K1 stamp -> K2 fused IMB collide/stream/BB + reduce ->
@@ -13,7 +13,10 @@ walls, one device. Each coupled step (`make_step_fn`) runs
 
 and `run` drives it in Verlet-cadence chunks: the stamp tile lists are
 rebuilt every BIN_CADENCE steps with BIN_MARGIN cells of slack, and
-travel beyond the margin is counted into `state.overflow`.
+travel beyond the margin is counted into `state.overflow`. Where the
+DEM grid is beyond the slab DEM's gate (`slab_dem.slab_supported`), the
+cell-list `dem.dem_subcycle` takes the slab DEM's place, as in the JAX
+driver.
 
 With cfg.coupling_k = k > 1, `run` splits each cadence block of b steps
 into b // k windows and then b % k such per-step steps. A window
@@ -63,8 +66,8 @@ from typing import Callable, NamedTuple, Optional, Sequence
 import torch
 
 from lbmdem_tpu_torch.config import DiskSpec, SimConfig, window_for_radius
-from lbmdem_tpu_torch.ops import (fused_fluid, fused_lbm, fused_static, imb,
-                                  lbm, not_ported, slab_dem)
+from lbmdem_tpu_torch.ops import (dem, fused_fluid, fused_lbm, fused_static,
+                                  imb, lbm, not_ported, slab_dem)
 from lbmdem_tpu_torch.ops import stamp
 from lbmdem_tpu_torch.ops.dem import DemGrid, DiskState, make_disk_state
 
@@ -105,9 +108,10 @@ def check_slice(cfg: SimConfig, disks: Sequence[DiskSpec], device,
     if not disks:
         raise not_ported("coupled scenes without disks", 9)
     if all(d.fixed for d in disks):
-        if _at_rest(disks):  # the static hoist: K1 once, then K7
-            fused_static.check_static_cfg(cfg)
-        else:  # drift: the K2 step and the K6 window, without the DEM
+        # at rest, the static hoist (K1 once, then K7) takes every lattice
+        # option; with prescribed motion, the drift runs on the K2 step
+        # and the K6 window
+        if not _at_rest(disks):
             fused_lbm.check_step_cfg(cfg)
         return
     fused_lbm.check_step_cfg(cfg)
@@ -131,8 +135,9 @@ def make_step_fn(cfg: SimConfig, grid: Optional[DemGrid], tile_lists=None,
     kernel pass (K4 when 1, K5 above). Otherwise the coupled step: one
     step (K1, K2, DEM) when coupling_k is 1, else a window of coupling_k
     steps (K1 once, K6, then coupling_k DEM updates). The DEM is the
-    slab subcycle (K3, or K3w chained over the window), or under
-    dem_mode "drift" the prescribed motion of fixed disks.
+    slab subcycle (K3, or K3w chained over the window), the cell-list
+    subcycle where the grid is beyond the slab gate, or under dem_mode
+    "drift" the prescribed motion of fixed disks.
 
     `f_out` is the second, dead f buffer: the kernel writes the new
     populations into it (never into state.f), and the caller swaps the
@@ -154,6 +159,8 @@ def make_step_fn(cfg: SimConfig, grid: Optional[DemGrid], tile_lists=None,
         return fluid_step
 
     periodic = bool(cfg.wrap_lx or cfg.wrap_ly)
+    use_slab_dem = (dem_mode == "subcycle"
+                    and slab_dem.slab_supported(grid, dem_axis))
 
     def coupling_inputs(d: DiskState):
         """The step's (or window's) coupling inputs: (d, tile_data,
@@ -194,15 +201,18 @@ def make_step_fn(cfg: SimConfig, grid: Optional[DemGrid], tile_lists=None,
         return fh, th
 
     def advance_disks(d: DiskState, fh, th):
-        """One step of disk motion: the slab DEM subcycle, or under
-        dem_mode "drift" (every disk fixed) the prescribed translation
-        and rotation over dt = 1, with no contact machinery."""
+        """One step of disk motion: the slab DEM subcycle (the cell-list
+        subcycle beyond the slab gate), or under dem_mode "drift" (every
+        disk fixed) the prescribed translation and rotation over dt = 1,
+        with no contact machinery."""
         if dem_mode == "drift":
             act = d.active.to(d.x.dtype)
             z = _zero_i32(d.x.device)
             return d._replace(x=d.x + d.v * act[:, None],
                               theta=d.theta + d.omega * act), z, z
-        return slab_dem.dem_subcycle(d, fh, th, grid, cfg, dem_axis)
+        if use_slab_dem:
+            return slab_dem.dem_subcycle(d, fh, th, grid, cfg, dem_axis)
+        return dem.dem_subcycle(d, fh, th, grid, cfg)
 
     if coupling_k > 1:
 
@@ -216,13 +226,14 @@ def make_step_fn(cfg: SimConfig, grid: Optional[DemGrid], tile_lists=None,
                 state.f, solid, tile_data, counts, cfg, coupling_k, f_out)
             forces = [hydro(parts[t], entry_slots, gparent, n_real, d.x.dtype)
                       for t in range(coupling_k)]
-            if dem_mode == "drift":
-                disks, ovf, nc = d, bovf, state.n_contacts
-                for fh, th in forces:
-                    disks, _, nc = advance_disks(disks, fh, th)
-            else:
+            if use_slab_dem:
                 disks, ovf, nc = slab_dem.dem_subcycle_window(
                     d, forces, grid, cfg, dem_axis)
+            else:  # the drift or the cell-list DEM, per inner step
+                disks, ovf, nc = d, bovf, state.n_contacts
+                for fh, th in forces:
+                    disks, ovf_t, nc = advance_disks(disks, fh, th)
+                    ovf = torch.maximum(ovf, ovf_t)
             return SimState(
                 f=fnew, disks=disks, step=state.step + coupling_k,
                 overflow=torch.maximum(state.overflow,
@@ -309,7 +320,8 @@ class Simulation:
 
     def _derive_coupled(self, cfg: SimConfig, disks) -> SimConfig:
         """The coupled path's derived config (window, capacity, tile cap,
-        ghost cap), its DEM grid and slab axis."""
+        ghost cap), its DEM grid and slab axis (make_step_fn takes the
+        cell-list DEM where the slab gate rejects the grid)."""
         r_max = max(d.r for d in disks)
         if cfg.window <= 0:
             cfg = cfg.replace(window=window_for_radius(r_max))
@@ -326,10 +338,6 @@ class Simulation:
             cfg = cfg.replace(ghost_cap=imb.default_ghost_cap(
                 cfg.max_disks, cfg, BIN_MARGIN))
         self.dem_axis = slab_dem.choose_axis(disks, cfg)
-        if (self.dem_mode == "subcycle"
-                and not slab_dem.slab_supported(self.grid, self.dem_axis)):
-            raise not_ported("DEM grids beyond the slab gate (the cell-list "
-                             "dem_subcycle)", 9)
         return cfg
 
     # --- stepping ---

@@ -11,7 +11,12 @@ rtol 1e-6 / atol 1e-7, K5 rtol 1e-5 / atol 5e-7 (2e-6 with Zou/He),
 bf16 storage atol 3e-4; K6 as K2 (f' 5e-6, forces 1e-6 relative, each
 inner step); K3w as K3; K7 rtol 1e-5 / atol 2e-6 (bf16 3e-4) against its
 plain version on CPU copies; all-fixed runs 1e-5 on f, hydro forces 1e-4
-relative to the largest |F|."""
+relative to the largest |F|; K8 f' rtol 1e-6 / atol 1e-7 and phi rtol
+1e-5 / atol 5e-8 against its plain version on CPU copies, K8 + K9
+against K2 f' equal and forces 1e-6, K9 1e-6 against its plain version
+(relative to the largest |F| or |T| where that exceeds 1),
+K1 under ramp and exact 1e-6; the cell-list DEM 1e-4 against the CPU
+with equal contacts."""
 
 import numpy as np
 import pytest
@@ -370,3 +375,155 @@ def test_drift_simulation_on_card_matches_cpu(dev):
     assert float((g.state.f.cpu() - c.state.f).abs().max()) <= 1e-5
     assert torch.equal(g.state.disks.x.cpu(), c.state.disks.x)
     assert float(g.state.disks.x[1, 0]) < 10.0  # crossed the seam, wrapped
+
+
+_SPLIT_CASES = {
+    "walls-gy": dict(bc_west="wall", bc_east="wall", gy=-1e-5),
+    "trt-les": dict(collision="trt", smagorinsky=0.16, gx=1e-5),
+    "les-lambda": dict(smagorinsky=0.16, nt_mode="lambda", gx=1e-5),
+    "lid": dict(bc_west="wall", bc_east="wall", uw_north=0.05),
+    "zou-he": dict(bc_west="inlet", bc_east="outlet", u_inlet=0.05,
+                   inlet_profile="poiseuille"),
+    "periodic-xy": dict(bc_south="periodic", bc_north="periodic", gx=1e-5),
+}
+
+
+@pytest.mark.parametrize("case", list(_SPLIT_CASES))
+def test_split_kernel_matches_plain(dev, case):
+    """K8 against its plain version on CPU copies over its options, with
+    moving disks stamped across the tiles (Zou/He columns masked)."""
+    cfg = SimConfig(nx=256, ny=64, tau=0.8, dtype="float32", max_disks=4,
+                    window=13, **_SPLIT_CASES[case])
+    x = torch.tensor([[1.2, 20.3], [64.3, 32.1], [128.0, 40.0],
+                      [200.5, 60.2]])
+    v = torch.tensor([[0.01, -0.02], [0.0, 0.01], [-0.02, 0.0], [0.01, 0.01]])
+    om = torch.tensor([0.005, -0.003, 0.0, 0.002])
+    r = torch.tensor([4.0, 4.0, 3.0, 5.0])
+    fields = imb.stamp_solid_fraction(x, v, om, r, torch.ones(4, dtype=bool),
+                                      cfg)
+    if cfg.bc_west == "inlet":
+        fields = imb.mask_open_columns(*fields)
+    f = _fluid_f(cfg, "cpu", 7)
+    a = torch.empty_like(f, device=dev)
+    n0 = fused_lbm.fused_step_imb.launches
+    _, kx, ky = fused_lbm.fused_step_imb(f.to(dev), *(t.to(dev) for t in fields),
+                                         cfg, a)
+    assert fused_lbm.fused_step_imb.launches == n0 + 1
+    b, px, py = fused_lbm.fused_step_imb_plain(f, *fields, cfg,
+                                               torch.empty_like(f))
+    a = a.cpu()
+    assert float(((a - b).abs() - 1e-6 * b.abs()).max()) <= 1e-7
+    for k, p in ((kx, px), (ky, py)):
+        assert float(((k.cpu() - p).abs() - 1e-5 * p.abs()).max()) <= 5e-8
+    assert float(px.abs().max()) > 0
+
+
+def test_split_kernel_rejects_bf16(dev):
+    cfg = SimConfig(nx=128, ny=32, tau=0.8, dtype="float32")
+    g = lbm.init_equilibrium(cfg, dev).to(torch.bfloat16)
+    z = torch.zeros((32, 128), device=dev)
+    with pytest.raises(ValueError, match="float32"):
+        fused_lbm.fused_step_imb(g, z, z, z, cfg, torch.empty_like(g))
+
+
+@pytest.mark.parametrize("method", ["sample", "ramp", "exact"])
+def test_split_pair_and_coverage_match(dev, method):
+    """Under each coverage method: K1 against its plain version; K8 + K9
+    against K2 on the same input (f' equal, forces 1e-6); K9 against its
+    plain version; K2's reduce against its plain version."""
+    sim, d = _scene(dev, eps_method=method, gx=1e-5)
+    cfg = sim.cfg
+    td, cnt, es, _ = stamp.bin_disks_to_tiles(d.x, d.v, d.omega, d.r,
+                                              d.active, cfg)
+    solid = stamp.stamp_fields(td, cnt, cfg)
+    assert float((solid - stamp.stamp_fields_plain(td, cnt, cfg)).abs()
+                 .max()) <= 1e-6
+    g = torch.Generator().manual_seed(6)
+    f = (lbm.init_equilibrium(cfg, dev)
+         * (1.0 + 0.02 * torch.randn((9, cfg.ny, cfg.nx), generator=g)
+            .to(dev)))
+    fa, fb = torch.empty_like(f), torch.empty_like(f)
+    n8, n9 = fused_lbm.fused_step_imb.launches, stamp.reduce_hydro_forces.launches
+    _, phix, phiy = fused_lbm.fused_step_imb(f, solid[0], solid[1], solid[2],
+                                             cfg, fa)
+    F9, T9 = stamp.reduce_hydro_forces(d.x, d.r, d.active, solid[0], phix,
+                                       phiy, cfg, td, cnt, es)
+    assert (fused_lbm.fused_step_imb.launches - n8,
+            stamp.reduce_hydro_forces.launches - n9) == (1, 1)
+    _, parts = fused_lbm.fused_step_imb_reduce(f, solid, td, cnt, cfg, fb)
+    F2, T2 = stamp.gather_partials(parts, es, torch.float32)
+    assert torch.equal(fa, fb)
+    assert float((F9 - F2).abs().max()) <= 1e-6
+    assert float((T9 - T2).abs().max()) <= 1e-6
+    Fp, Tp = stamp.gather_partials(stamp.hydro_partials_plain(
+        solid[0], phix, phiy, td, cnt, cfg), es, torch.float32)
+    # atol 1e-6 for |F| < 1 (the JAX package's scene); above, f32 sums
+    # in another order differ by a few ulp of the largest value
+    fmax, tmax = float(Fp.abs().max()), float(Tp.abs().max())
+    assert fmax > 0
+    assert float((F9 - Fp).abs().max()) <= 1e-6 * max(1.0, fmax)
+    assert float((T9 - Tp).abs().max()) <= 1e-6 * max(1.0, tmax)
+    _, pp = fused_lbm.fused_step_imb_reduce_plain(f, solid, td, cnt, cfg,
+                                                  torch.empty_like(f))
+    F2p, _ = stamp.gather_partials(pp, es, torch.float32)
+    assert float((F2 - F2p).abs().max()) <= 1e-6 * float(F2p.abs().max())
+
+
+def _coverage_scene(path, method):
+    if path == "static":
+        cfg, disks = _offset_bed()
+    else:
+        cfg, disks = column_collapse(nx=256, ny=256, n_disks=60)
+        cfg = cfg.replace(coupling_k=4 if path == "window" else 1)
+    return cfg.replace(eps_method=method), disks
+
+
+@pytest.mark.parametrize("path,method", [("coupled", "ramp"),
+                                         ("window", "exact"),
+                                         ("static", "ramp")])
+def test_ramp_simulation_on_card_matches_cpu(dev, path, method):
+    """run(8) with ramp or exact coverage on the coupled step, the
+    coupling_k = 4 window and the static hoist, against the CPU run."""
+    cfg, disks = _coverage_scene(path, method)
+    g = Simulation(cfg, disks, device=dev)
+    c = Simulation(cfg, disks, device="cpu")
+    g.run(8)
+    c.run(8)
+    assert int(g.state.overflow) == 0
+    assert float((g.state.f.cpu() - c.state.f).abs().max()) <= 1e-5
+    assert float((g.state.disks.x.cpu() - c.state.disks.x).abs().max()) <= 1e-4
+
+
+def test_simulation_past_slab_gate_on_card_matches_cpu(dev):
+    """A long channel of small disks whose DEM grid the slab gate
+    rejects: the step takes the cell-list DEM, on the card as on the
+    CPU."""
+    cfg = SimConfig(nx=4352, ny=16, tau=0.8, dtype="float32", g_py=-1e-4,
+                    rho_s=2.0, n_sub=4, bc_west="wall", bc_east="wall")
+    disks = [DiskSpec(100.0 + 2.2 * i, 3.0 + 5.0 * j, 0.5)
+             for i in range(4) for j in range(3)]
+    g = Simulation(cfg, disks, device=dev)
+    c = Simulation(cfg, disks, device="cpu")
+    assert not slab_dem.slab_supported(g.grid, g.dem_axis)
+    n3 = slab_dem.subcycle_slabs.launches
+    g.run(4)
+    c.run(4)
+    assert slab_dem.subcycle_slabs.launches == n3
+    assert float((g.state.f.cpu() - c.state.f).abs().max()) <= 1e-5
+    assert float((g.state.disks.x.cpu() - c.state.disks.x).abs().max()) <= 1e-4
+
+
+def test_cell_list_dem_on_card_matches_cpu(dev):
+    sim, d = _scene(dev)
+    g = torch.Generator().manual_seed(8)
+    n = d.x.shape[0]
+    fh = (1e-3 * torch.randn((n, 2), generator=g)).to(dev)
+    th = (1e-4 * torch.randn((n,), generator=g)).to(dev)
+    a, ovf, nc = dem.dem_subcycle(d, fh, th, sim.grid, sim.cfg)
+    b, ovf_c, nc_c = dem.dem_subcycle(type(d)(*(t.cpu() for t in d)),
+                                      fh.cpu(), th.cpu(), sim.grid, sim.cfg)
+    assert int(ovf) == int(ovf_c) == 0
+    assert int(nc) == int(nc_c) > 0
+    for k in ("x", "v", "omega"):
+        assert float((getattr(a, k).cpu() - getattr(b, k)).abs().max()) <= 1e-4
+

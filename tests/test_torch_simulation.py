@@ -188,7 +188,7 @@ def _out_of_slice():
         ("kt > 0", cfg.replace(kt=0.5), disks, {}),
         ("TRT", cfg.replace(collision="trt"), disks, {}),
         ("LES", cfg.replace(smagorinsky=0.1), disks, {}),
-        ("eps_method", cfg.replace(eps_method="ramp"), disks, {}),
+        ("nt_mode", cfg.replace(nt_mode="lambda"), disks, {}),
         ("float64", cfg.replace(dtype="float64"), disks,
          dict(device="cuda")),
     ]

@@ -149,9 +149,17 @@ def test_gather_partials_matches():
 
 
 def test_stamp_rejects_unported_coverage():
-    cfg, (x, v, om, r, act) = _setup(eps_method="ramp")
+    """No coverage method is left to reject: ramp and exact, which
+    stamp_fields refused before they were ported, stamp like the oracle
+    (f64, 1e-12), and an unknown method still raises."""
+    for method in ("ramp", "exact"):
+        cfg, arrs = _setup("float64", seed=7, eps_method=method)
+        j = jimb.stamp_solid_fraction(*[jx(a) for a in arrs], cfg)
+        t = _port_stamp(*arrs, cfg)
+        assert float(npy(t[0]).sum()) > 0
+        for a, b in zip(j, t):
+            np.testing.assert_allclose(npy(a), npy(b), rtol=0, atol=1e-12)
     tcfg = to_torch_cfg(cfg)
-    td, cnt, _, _ = stamp.bin_disks_to_tiles(tt(x), tt(v), tt(om), tt(r),
-                                             tt(act), tcfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        stamp.stamp_fields(td, cnt, tcfg)
+    object.__setattr__(tcfg, "eps_method", "nope")
+    with pytest.raises(ValueError, match="eps_method"):
+        stamp.cov_method(tcfg)

@@ -301,7 +301,9 @@ def _still_raising():
     mobile = [dataclasses.replace(d, fixed=False) for d in specs]
     return [
         ("mobile periodic", cfg, mobile, {}, 9),
-        ("ramp coverage", cfg.replace(eps_method="ramp"), specs, {}, 9),
+        ("prescribed motion on bf16",
+         cfg.replace(dtype="float32", f_storage="bfloat16"),
+         [dataclasses.replace(d, vx=0.01) for d in specs], {}, 9),
         ("mesh", cfg, specs, dict(mesh=object()), 12),
     ]
 
