@@ -70,12 +70,36 @@ nothing falls back to the CPU):
    run's own state; the 256^2 ramp run against the CPU;
 17. ablation: lbmdem_tpu_torch.tools.ablate's f32 variants at
    4096^2/10k disks (chunk 20; K1, K8, K9 and the slab DEM per step,
-   "fused" with K2), then the coupling_k = 4 window set, each row and
-   the marginals.
+   "fused" with K2), then the coupling_k = 4 window set, then the bf16
+   set (every variant on the K2 step), each row and the marginals;
+18. lattice breadth: K2 and K6 (k = 2, 4) over the lattice-option matrix
+   (TRT, LES, lambda, moving walls, Zou/He, periodic, all at once) at
+   256x64 on f32 and shifted-bf16 storage against their plain versions
+   on CPU copies, and on f32 K8 + K9 against K2 bit for bit; then K2 and
+   K6 at 4096^2 on bf16 and under TRT + LES, timed beside the f32 BGK
+   instantiation and their byte bounds;
+19. DEM breadth: K3 and K3w with history springs (kt = 25, live springs
+   carried in) and K3 on a periodic axis under both slab orientations
+   against their plain versions, every slab channel, at 256^2 and at the
+   slice's shapes (4096^2, 10k disks), timed beside kt = 0;
+20. bf16 coupled slices: phase 4 and 5w's slice with
+   f_storage="bfloat16" (coupling_k 1 and 4), MLUPS beside the f32
+   slices', mass drift < 1e-4, overflow 0; the 256^2 bf16 and kt runs
+   (per step and per window) against CPU tensors; the 4096^2 / 10k-disk
+   slice packed into contact with kt = 25, per step and per window (the
+   slab DEM with springs at full width);
+21. open channel: a 1024x256 Zou/He channel under TRT + LES with a
+   mobile disk that leaves through the outlet and is culled, the card
+   against CPU tensors;
+22. decks: examples/column_collapse_friction.par (2048^2, 2 500 disks,
+   kt = 25) and examples/periodic_channel.par, the card against CPU
+   tensors, then the friction deck through coupling_k = 4 windows.
 
-The second-to-last line holds the per-kernel JSON record (with each
-kernel's bound: the larger of its bytes over 3.35 TB/s and its f32
-operations over 67 TFLOP/s), the line before it the card's name and
+The second-to-last line holds the per-kernel JSON record (the ten
+kernels, then the bf16, TRT + LES, kt and periodic instantiations of K2,
+K6, K3 and K3w as records of their own; with each kernel's bound: the
+larger of its bytes over 3.35 TB/s and its f32 operations over 67
+TFLOP/s), the line before it the card's name and
 power limit; the last line is the contract line
 {"ok": true, "device": {...}}.
 """
@@ -107,8 +131,12 @@ COV_OPS = {"sample": lambda ns: 6 * ns * ns, "ramp": lambda ns: 8,
            "exact": lambda ns: 40}
 
 
+T0 = time.perf_counter()
+
+
 def log(phase: str, msg: str) -> None:
-    print(f"[{phase}] {msg}", flush=True)
+    """One line of a phase, with the seconds since the script started."""
+    print(f"[{phase} +{time.perf_counter() - T0:.0f}s] {msg}", flush=True)
 
 
 def nbytes(*tensors) -> int:
@@ -269,15 +297,14 @@ def kernel_checks(cfg, disks, label: str, timed: bool, seed: int = 0):
     # K3 slab DEM: x/v/omega atol 2e-5 (the JAX slab-vs-XLA bar),
     # n_contacts equal
     body = dem.body_forces(d, cfg)
-    slabs, slot, sovf, kmax, n_occ, band_offs = slab_dem.build_slabs(
+    slabs, slot, sovf, kmax, n_occ, band_offs, _ = slab_dem.build_slabs(
         d, F, T, body, grid, axis)
     assert int(sovf) == 0, f"slab overflow {int(sovf)}"
     s_k, nc_k = slab_dem.subcycle_slabs(slabs.clone(), kmax, n_occ, band_offs,
                                         grid, cfg, axis)
-    s_p, nc_p = slab_dem.subcycle_slabs_plain(slabs, kmax, cfg,
-                                              slab_dem.slab_dims(grid, axis)[1])
-    dk = slab_dem._unslab(s_k, slot, d)
-    dp = slab_dem._unslab(s_p, slot, d)
+    s_p, nc_p = slab_dem.subcycle_slabs_plain(slabs, kmax, cfg, grid, axis)
+    dk, _ = slab_dem._unslab(s_k, slot, d, cfg, None, sovf)
+    dp, _ = slab_dem._unslab(s_p, slot, d, cfg, None, sovf)
     e3 = max(float((dk.x - dp.x).abs().max()), float((dk.v - dp.v).abs().max()),
              float((dk.omega - dp.omega).abs().max()))
     assert e3 <= 2e-5, f"K3 {label}: x/v/omega max err {e3} > 2e-5"
@@ -287,7 +314,7 @@ def kernel_checks(cfg, disks, label: str, timed: bool, seed: int = 0):
     t = (cuda_ms(lambda: slab_dem.subcycle_slabs(
             scratch, kmax, n_occ, band_offs, grid, cfg, axis), 20),
          cuda_ms(lambda: slab_dem.subcycle_slabs_plain(
-             slabs, kmax, cfg, slab_dem.slab_dims(grid, axis)[1]), 2)
+             slabs, kmax, cfg, grid, axis), 2)
          ) if timed else (None, None)
     # per substep each active disk tests the 9 neighbour cells' kmax
     # slots with a ~60-operation pair law
@@ -340,21 +367,20 @@ def kernel_checks(cfg, disks, label: str, timed: bool, seed: int = 0):
     # K3w: the window's 4 chained subcycles on one slim slab build, each
     # with its own inner step's forces (K6 k = 4's): x/v/omega atol 2e-5,
     # contacts equal at every inner step
-    slabs_w, slot_w, sovf, kmax_w, nocc_w, bands_w = slab_dem.build_slabs(
+    slabs_w, slot_w, sovf, kmax_w, nocc_w, bands_w, _ = slab_dem.build_slabs(
         d, None, None, body, grid, axis, bake_forces=False)
     assert int(sovf) == 0, f"slab overflow {int(sovf)}"
     f3 = slab_dem._force_planes_window(slot_w, forces4, body, slabs_w.shape)
-    ncl = slab_dem.slab_dims(grid, axis)[1]
     s_k, s_p = slabs_w.clone(), slabs_w
     for s in range(4):
         s_k, nc_k = slab_dem.subcycle_slabs_window(
             s_k, f3[s], kmax_w, nocc_w, bands_w, grid, cfg, axis)
-        s_p, nc_p = slab_dem.subcycle_slabs_plain(s_p, kmax_w, cfg, ncl,
-                                                  f3[s])
+        s_p, nc_p = slab_dem.subcycle_slabs_plain(s_p, kmax_w, cfg, grid,
+                                                  axis, f3[s])
         assert int(nc_k) == int(nc_p), f"K3w {label} inner step {s}: " \
             f"contacts {int(nc_k)} != {int(nc_p)}"
-    dk = slab_dem._unslab(s_k, slot_w, d)
-    dp = slab_dem._unslab(s_p, slot_w, d)
+    dk, _ = slab_dem._unslab(s_k, slot_w, d, cfg, None, sovf, slim=True)
+    dp, _ = slab_dem._unslab(s_p, slot_w, d, cfg, None, sovf, slim=True)
     e3w = max(float((dk.x - dp.x).abs().max()),
               float((dk.v - dp.v).abs().max()),
               float((dk.omega - dp.omega).abs().max()))
@@ -363,7 +389,7 @@ def kernel_checks(cfg, disks, label: str, timed: bool, seed: int = 0):
     t = (cuda_ms(lambda: slab_dem.subcycle_slabs_window(
             scratch, f3[0], kmax_w, nocc_w, bands_w, grid, cfg, axis), 20),
          cuda_ms(lambda: slab_dem.subcycle_slabs_plain(
-             slabs_w, kmax_w, cfg, ncl, f3[0]), 2)
+             slabs_w, kmax_w, cfg, grid, axis, f3[0]), 2)
          ) if timed else (None, None)
     out["K3w"] = work(e3w, *t, 2 * nbytes(slabs_w) + nbytes(f3[0]),
                       cfg.n_sub * int(d.active.sum()) * 9 * int(kmax_w) * 60)
@@ -439,21 +465,25 @@ SLICE_COUNTS = {
 
 
 def slice_run(smi: str, coupling_k: int = 1, eps_method: str = "sample",
-              keep: bool = False):
+              keep: bool = False, storage: str = "float32"):
     """The coupled slice through Simulation(*column_collapse(),
-    device="cuda") with cfg.coupling_k and cfg.eps_method: run(100) to
-    warm, run(100) timed; the launch counts of both runs, overflow,
-    finiteness, mass, motion. Returns (launch counts, MLUPS), and the
-    Simulation too when `keep`."""
+    device="cuda") with cfg.coupling_k, cfg.eps_method and cfg.f_storage:
+    run(100) to warm, run(100) timed; the launch counts of both runs,
+    overflow, finiteness, mass (bar 1e-5; bf16 storage 1e-4), motion.
+    Returns (launch counts, MLUPS), and the Simulation too when `keep`."""
+    from lbmdem_tpu_torch.ops import lbm
     from lbmdem_tpu_torch import Simulation
     from lbmdem_tpu_torch.models import column_collapse
 
     cfg, disks = column_collapse()
-    cfg = cfg.replace(coupling_k=coupling_k, eps_method=eps_method)
+    cfg = cfg.replace(coupling_k=coupling_k, eps_method=eps_method,
+                      f_storage=storage)
     tag = ("slice" if coupling_k == 1 else
            f"window-slice k={coupling_k}")
     if eps_method != "sample":
         tag = f"{eps_method}-slice"
+    if storage != "float32":
+        tag = f"{storage}-{tag}"
     sim = Simulation(cfg, disks, device="cuda")
     x0 = sim.state.disks.x.clone()
     reset_counts()
@@ -463,12 +493,15 @@ def slice_run(smi: str, coupling_k: int = 1, eps_method: str = "sample",
     counts = launch_counts()
     steps = int(sim.state.step)
     st = sim.state
-    f = st.f
+    assert st.f.dtype == (torch.bfloat16 if storage == "bfloat16"
+                          else torch.float32)
+    f = lbm.from_storage(st.f, cfg)
     finite = bool(torch.isfinite(f).all())
     mass_err = abs(float(f.double().sum()) / (cfg.nx * cfg.ny) - 1.0)
     disp = float((st.disks.x - x0).abs().max())
     log(tag, f"column_collapse {cfg.nx}x{cfg.ny}, {len(disks)} disks, "
-        f"coupling_k={coupling_k}, eps_method={eps_method}, {steps} steps: "
+        f"coupling_k={coupling_k}, eps_method={eps_method}, f_storage="
+        f"{storage}, {steps} steps: "
         f"{mlups:.1f} MLUPS (timed "
         f"run(100), wall clock) on {smi}; peak mem "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -479,32 +512,46 @@ def slice_run(smi: str, coupling_k: int = 1, eps_method: str = "sample",
     assert counts == SLICE_COUNTS[coupling_k], counts
     assert int(st.overflow) == 0, f"overflow {int(st.overflow)}"
     assert finite, "non-finite f"
-    assert mass_err < 1e-5, f"mass drift {mass_err}"
+    assert mass_err < (1e-5 if storage == "float32" else 1e-4), \
+        f"mass drift {mass_err}"
     assert disp > 0.0, "disks did not move"
     return (counts, mlups, sim) if keep else (counts, mlups)
 
 
 def slice_vs_cpu(coupling_k: int = 1, steps: int = 16,
-                 eps_method: str = "sample") -> None:
+                 eps_method: str = "sample", storage: str = "float32",
+                 kt: float = 0.0) -> None:
     """`steps` steps of a 256^2 column collapse on the card against the
-    same run on CPU tensors (the plain versions)."""
+    same run on CPU tensors (the plain versions). Bars: f 1e-5 (bf16
+    storage 3e-4, one flipped rounding of the shifted populations), disk
+    x 1e-4. kt > 0: the column packed into contact, so springs form."""
     from lbmdem_tpu_torch import Simulation
     from lbmdem_tpu_torch.models import column_collapse
 
     torch.set_num_threads(min(8, os.cpu_count() or 1))
-    cfg, disks = column_collapse(nx=256, ny=256, n_disks=60)
-    cfg = cfg.replace(coupling_k=coupling_k, eps_method=eps_method)
+    cfg, disks = column_collapse(nx=256, ny=256, n_disks=60, kt=kt)
+    if kt:
+        disks = compressed(disks, 0.94)
+    cfg = cfg.replace(coupling_k=coupling_k, eps_method=eps_method,
+                      f_storage=storage)
     g = Simulation(cfg, disks, device="cuda")
     c = Simulation(cfg, disks, device="cpu")
     g.run(steps)
     c.run(steps)
-    ef = float((g.state.f.cpu() - c.state.f).abs().max())
+    ef = float((g.state.f.float().cpu() - c.state.f.float()).abs().max())
     ex = float((g.state.disks.x.cpu() - c.state.disks.x).abs().max())
+    fbar = 1e-5 if storage == "float32" else 3e-4
+    springs = int((g.state.disks.ct_j >= 0).sum())
     log("vs-cpu", f"256x256, {len(disks)} disks, coupling_k={coupling_k}, "
-        f"eps_method={eps_method}, {steps} steps: f max err {ef:.3e} (bar "
-        f"1e-5), disk x max err {ex:.3e} (bar 1e-4)")
+        f"eps_method={eps_method}, f_storage={storage}, kt={kt:g}, {steps} "
+        f"steps: f max err {ef:.3e} (bar {fbar:g}), disk x max err {ex:.3e} "
+        f"(bar 1e-4); contacts {int(g.state.n_contacts)} == "
+        f"{int(c.state.n_contacts)}, live springs {springs}")
     assert int(g.state.overflow) == 0
-    assert ef <= 1e-5 and ex <= 1e-4
+    assert ef <= fbar and ex <= 1e-4
+    if kt:
+        assert int(g.state.n_contacts) == int(c.state.n_contacts) > 0
+        assert springs > 0 and springs == int((c.state.disks.ct_j >= 0).sum())
 
 
 def coupling_k_settling(ck: int = 4) -> None:
@@ -1232,9 +1279,9 @@ def cov_flops_of(cfg, counts) -> float:
 
 
 def split_on_run_state(sim) -> None:
-    """K8 and K2 on a run's own (smooth) state, CUDA events: the f32
-    divide's slow path makes the collides slower there than on random
-    input."""
+    """K8 (f32 storage only) and K2 on a run's own (smooth) state, CUDA
+    events: the f32 divide's slow path makes the collides slower there
+    than on random input."""
     from lbmdem_tpu_torch.ops import fused_lbm, stamp
 
     cfg = sim.cfg
@@ -1243,28 +1290,530 @@ def split_on_run_state(sim) -> None:
                                                        d.active, cfg)
     solid = stamp.stamp_fields(tile_data, counts, cfg)
     f, out = sim.state.f, torch.empty_like(sim.state.f)
-    k8 = cuda_ms(lambda: fused_lbm.fused_step_imb(f, solid[0], solid[1],
-                                                  solid[2], cfg, out), 20)
+    k8 = "" if cfg.f_storage != "float32" else "K8 %.4f ms, " % cuda_ms(
+        lambda: fused_lbm.fused_step_imb(f, solid[0], solid[1], solid[2], cfg,
+                                         out), 20)
     k2 = cuda_ms(lambda: fused_lbm.fused_step_imb_reduce(
         f, solid, tile_data, counts, cfg, out), 20)
-    log("split", f"on the {cfg.eps_method} slice's state after "
-        f"{int(sim.state.step)} steps: K8 {k8:.4f} ms, K2 {k2:.4f} ms per "
-        f"call (CUDA events)")
+    log("split", f"on the {cfg.eps_method} {cfg.f_storage} slice's state "
+        f"after {int(sim.state.step)} steps: {k8}K2 {k2:.4f} ms per call "
+        f"(CUDA events)")
 
 
-def ablation(coupling_k: int, chunk: int = 20):
+# the lattice-option matrix of K2 and K6 at 256x64: SPLIT_MATRIX and
+# every option at once on an open channel
+BREADTH_MATRIX = SPLIT_MATRIX + [
+    ("all", dict(collision="trt", smagorinsky=0.16, nt_mode="lambda",
+                 gx=1e-5, gy=-1e-5, uw_north=0.03, bc_west="inlet",
+                 bc_east="outlet", u_inlet=0.05,
+                 inlet_profile="poiseuille")),
+]
+
+
+def breadth_matrix() -> None:
+    """K2 and K6 (k = 2, 4) over BREADTH_MATRIX at 256x64 on f32 and
+    shifted-bf16 storage against their plain versions on CPU copies of
+    the same inputs (the plain version on the card multiplies by 1/tau):
+    five moving disks binned across the tiles, Zou/He columns zeroed as
+    Simulation zeroes them. Bars: f' 5e-6 (bf16 3e-4), every (inner)
+    step's forces 1e-6 of the largest |F| (bf16: 5e-6, the kernel's
+    shifted arithmetic rounds differently from the plain version's
+    physical form). On f32, K8 + K9 against K2: f' and forces bit for
+    bit."""
+    from lbmdem_tpu_torch import SimConfig, lattice
+    from lbmdem_tpu_torch.config import window_for_radius
+    from lbmdem_tpu_torch.ops import fused_lbm, lbm, stamp
+
+    torch.set_num_threads(min(8, os.cpu_count() or 1))
+    x = torch.tensor([[1.2, 20.3], [64.3, 32.1], [128.0, 40.0], [200.5, 60.2],
+                      [240.0, 12.7]])
+    v = torch.tensor([[0.01, -0.02], [0.0, 0.01], [-0.02, 0.0], [0.01, 0.01],
+                      [0.0, -0.01]])
+    om = torch.tensor([0.005, -0.003, 0.0, 0.002, 0.001])
+    r = torch.tensor([4.0, 4.0, 3.0, 5.0, 3.5])
+    act = torch.ones(5, dtype=torch.bool)
+    rng = np.random.default_rng(37)
+    f32 = torch.as_tensor(lattice.W[:, None, None] * (
+        1.0 + 0.05 * rng.standard_normal((9, 64, 256))), dtype=torch.float32)
+    k2, k6 = (fused_lbm.fused_step_imb_reduce,
+              fused_lbm.fused_step_imb_reduce_multi)
+
+    def forces_err(pk, pp, es):
+        Fk, _ = stamp.gather_partials(pk.cpu(), es, torch.float32)
+        Fp, _ = stamp.gather_partials(pp, es, torch.float32)
+        fmax = float(Fp.abs().max())
+        assert fmax > 0.0
+        return float((Fk - Fp).abs().max()) / fmax
+
+    for label, kw in BREADTH_MATRIX:
+        for storage in ("float32", "bfloat16"):
+            cfg = SimConfig(**{"nx": 256, "ny": 64, "tau": 0.8,
+                               "dtype": "float32", "max_disks": 5,
+                               "window": window_for_radius(5.0),
+                               "tile_cap": 8, "f_storage": storage, **kw})
+            td, cnt, es, ovf = stamp.bin_disks_to_tiles(x, v, om, r, act, cfg)
+            assert int(ovf) == 0
+            solid = stamp.stamp_fields(td, cnt, cfg)
+            if cfg.bc_west == "inlet":
+                solid[:, :, 0].zero_()
+                solid[:, :, -1].zero_()
+            f = lbm.to_storage(f32, cfg)
+            cpu_in = (f, solid, td, cnt)
+            dev_in = [t.cuda() for t in cpu_in]
+            a = torch.empty_like(dev_in[0])
+            fbar, rbar = (5e-6, 1e-6) if storage == "float32" else (3e-4, 5e-6)
+            n0 = k2.launches
+            _, pk = k2(*dev_in, cfg, a)
+            assert k2.launches == n0 + 1, "K2 did not launch"
+            b, pp = fused_lbm.fused_step_imb_reduce_plain(
+                *cpu_in, cfg, torch.empty_like(f))
+            errs = [float((a.float().cpu() - b.float()).abs().max())]
+            rels = [forces_err(pk, pp, es)]
+            for k in (2, 4):
+                n0 = k6.launches
+                _, pk = k6(*dev_in, cfg, k, a)
+                assert k6.launches == n0 + 1, "K6 did not launch"
+                b, pp = fused_lbm.fused_step_imb_reduce_multi_plain(
+                    *cpu_in, cfg, k, torch.empty_like(f))
+                errs.append(float((a.float().cpu() - b.float()).abs().max()))
+                rels.append(max(forces_err(pk[t], pp[t], es)
+                                for t in range(k)))
+            msg = (f"{label} {storage} 256x64: f' max err K2 {errs[0]:.3e}, "
+                   f"K6 k=2 {errs[1]:.3e}, k=4 {errs[2]:.3e} (bar {fbar:g}); "
+                   f"forces of max |F| K2 {rels[0]:.3e}, K6 {rels[1]:.3e}, "
+                   f"{rels[2]:.3e} (bar {rbar:g}; plain versions on CPU "
+                   f"tensors)")
+            assert bool(torch.isfinite(a.float()).all())
+            assert max(errs) <= fbar, f"{label} {storage}: f' {errs}"
+            assert max(rels) <= rbar, f"{label} {storage}: forces {rels}"
+            if storage == "float32":
+                # K8 + K9 against K2, bit for bit
+                fa, fb = torch.empty_like(a), torch.empty_like(a)
+                fd, sd, tdd, cd = dev_in
+                _, p2 = k2(fd, sd, tdd, cd, cfg, fa)
+                _, phx, phy = fused_lbm.fused_step_imb(fd, sd[0], sd[1],
+                                                       sd[2], cfg, fb)
+                esd = es.cuda()
+                F9, T9 = stamp.reduce_hydro_forces(
+                    x.cuda(), r.cuda(), act.cuda(), sd[0], phx, phy, cfg, tdd,
+                    cd, esd)
+                F2, T2 = stamp.gather_partials(p2, esd, torch.float32)
+                same = (torch.equal(fa, fb), torch.equal(F2, F9),
+                        torch.equal(T2, T9))
+                msg += f"; K8 + K9 == K2 bitwise (f', F, T) {same}"
+                assert all(same), f"{label}: K8 + K9 differ from K2 {same}"
+            log("breadth", msg)
+
+
+def breadth_timed(cfg, disks, label: str, seed: int = 5):
+    """K2 and K6 (k = 4) at the slice's shapes on the packed scene for
+    the new instantiations - shifted-bf16 storage, and TRT + LES on f32
+    - against their plain versions on the same card inputs (f' 3e-4 for
+    bf16; TRT + LES 5e-6, K6 2e-5: the plain version on the card
+    multiplies by 1/tau), with CUDA-event times beside the f32 BGK
+    instantiation's in this call and each one's bound. Returns {name:
+    work}."""
+    from lbmdem_tpu_torch import Simulation
+    from lbmdem_tpu_torch.ops import fused_lbm, lbm, stamp
+
+    sim = Simulation(cfg, disks, device="cuda")
+    base = sim.cfg
+    rng = np.random.default_rng(seed)
+    d = sim.state.disks
+    n = d.x.shape[0]
+    dev = d.x.device
+    vel = torch.as_tensor(rng.uniform(-0.02, 0.02, (n, 2)), dtype=torch.float32,
+                          device=dev)
+    td, cnt, es, ovf = stamp.bin_disks_to_tiles(d.x, vel, d.omega, d.r,
+                                                d.active, base)
+    assert int(ovf) == 0
+    solid = stamp.stamp_fields(td, cnt, base)
+    f32 = lbm.init_equilibrium(base, dev) * (1.0 + 0.02 * torch.as_tensor(
+        rng.standard_normal((9, base.ny, base.nx)), dtype=torch.float32,
+        device=dev))
+    cells = base.nx * base.ny
+    cov = cov_flops_of(base, cnt)
+    out = {}
+    variants = (("f32 bgk", {}, 5e-6, 5e-6),
+                ("bf16", dict(f_storage="bfloat16"), 3e-4, 3e-4),
+                ("f32 trt+les", dict(collision="trt", smagorinsky=0.16),
+                 5e-6, 2e-5))
+    for name, kw, bar2, bar6 in variants:
+        c = base.replace(**kw)
+        f = lbm.to_storage(f32, c)
+        a, b = torch.empty_like(f), torch.empty_like(f)
+        for key, k, bar in (("K2", None, bar2), ("K6", 4, bar6)):
+            if k is None:
+                run = lambda: fused_lbm.fused_step_imb_reduce(  # noqa: E731
+                    f, solid, td, cnt, c, a)
+                plain = lambda: fused_lbm.fused_step_imb_reduce_plain(  # noqa
+                    f, solid, td, cnt, c, b)
+            else:
+                run = lambda: fused_lbm.fused_step_imb_reduce_multi(  # noqa
+                    f, solid, td, cnt, c, k, a)
+                plain = lambda: fused_lbm.fused_step_imb_reduce_multi_plain(
+                    f, solid, td, cnt, c, k, b)  # noqa: E731
+            _, parts = run()
+            plain()
+            err = float((a.float() - b.float()).abs().max())
+            assert err <= bar, f"{key} {name} {label}: f' err {err} > {bar}"
+            nk = k or 1
+            w = work(err, cuda_ms(run, 10), cuda_ms(plain, 1),
+                     nbytes(f, solid, td, cnt, a, parts),
+                     nk * (FLOPS_NT * cells + cov))
+            out[f"{key} {name}"] = w
+            bms, by = bound(w)
+            log("breadth", f"{label} {key} {name}: f' max err {err:.3e} (bar "
+                f"{bar:g}); kernel {w['ms']:.4f} ms, plain {w['plain_ms']:.4f}"
+                f" ms (CUDA events); bound {bms:.4f} ms by {by} "
+                f"({w['bytes'] / 1e9:.4f} GB)")
+    return out
+
+
+def open_channel_vs_cpu(nx: int = 1024, ny: int = 256, steps: int = 48):
+    """A coupled Zou/He channel under TRT + LES (the coupled scene of the
+    JAX package's open-boundary tests, at 1024x256): a mobile disk next
+    to the outlet that leaves and is culled, a fixed obstacle and a
+    mobile disk mid-channel; the card against CPU tensors. Bars: f 1e-5,
+    disk x 1e-4, the culled disk inactive on both."""
+    from lbmdem_tpu_torch import DiskSpec, SimConfig, Simulation
+
+    torch.set_num_threads(min(8, os.cpu_count() or 1))
+    cfg = SimConfig(nx=nx, ny=ny, tau=0.7, dtype="float32", bc_west="inlet",
+                    bc_east="outlet", u_inlet=0.1, inlet_profile="uniform",
+                    rho_s=1.0, n_sub=2, u0x=0.1, collision="trt",
+                    smagorinsky=0.1, out_interval=10**9)
+    disks = [DiskSpec(nx - 3.0, 0.5 * ny, 3.0, vx=0.2),
+             DiskSpec(0.25 * nx, 0.4 * ny, 12.0, fixed=True),
+             DiskSpec(0.6 * nx, 0.55 * ny, 6.0, vx=0.1)]
+    g = Simulation(cfg, disks, device="cuda")
+    c = Simulation(cfg, disks, device="cpu")
+    reset_counts()
+    g.run(steps)
+    counts = launch_counts()
+    c.run(steps)
+    ef = float((g.state.f.cpu() - c.state.f).abs().max())
+    ex = float((g.state.disks.x.cpu() - c.state.disks.x).abs().max())
+    act_g = g.state.disks.active.cpu().tolist()
+    act_c = c.state.disks.active.tolist()
+    _, ux, _ = g.macroscopic()
+    log("open-channel", f"{nx}x{ny} Zou/He channel, TRT + LES, {steps} steps:"
+        f" launches K1 {counts['K1']}, K2 {counts['K2']}, K3 {counts['K3']}; "
+        f"f max err {ef:.3e} (bar 1e-5), disk x max err {ex:.3e} (bar 1e-4); "
+        f"active card {act_g} CPU {act_c}; inlet ux "
+        f"{float(ux[:, 0].min()):.6f}..{float(ux[:, 0].max()):.6f}; overflow "
+        f"{int(g.state.overflow)}")
+    assert counts["K2"] == steps and counts["K3"] == steps, counts
+    assert act_g == act_c == [False, True, True], (act_g, act_c)
+    assert float(g.state.disks.x[0, 0]) == -1.0e6
+    assert int(g.state.overflow) == 0
+    assert ef <= 1e-5 and ex <= 1e-4
+    assert abs(float(ux[:, 0].mean()) - 0.1) < 1e-6
+    return counts
+
+
+def dem_breadth_checks(cfg, disks, label: str, timed: bool, seed: int = 3):
+    """K3 and K3w with history springs on the packed scene (two
+    subcycles first, so the carry holds live springs to re-match), and
+    K3 on the same scene made periodic in x and shifted across the seam,
+    under both slab orientations, each against its plain version on the
+    same card inputs. Bars: every slab channel 3e-5 with kt (springs
+    included), 2e-5 on periodic axes, contacts equal. Returns {name:
+    work} when timed."""
+    from lbmdem_tpu_torch import DiskSpec, Simulation
+    from lbmdem_tpu_torch.ops import dem, slab_dem
+
+    out = {}
+    sim = Simulation(cfg.replace(kt=25.0), disks, device="cuda")
+    c, grid, axis = sim.cfg, sim.grid, sim.dem_axis
+    assert slab_dem.slab_supported(grid, axis, kt=True, device="cuda"), \
+        "the slab gate rejects this scene"
+    rng = np.random.default_rng(seed)
+    d = sim.state.disks
+    n = d.x.shape[0]
+    dev = d.x.device
+
+    def rnd(shape, amp):
+        return torch.as_tensor(rng.uniform(-amp, amp, shape),
+                               dtype=torch.float32, device=dev)
+
+    d = d._replace(v=rnd((n, 2), 0.02), omega=rnd((n,), 2e-3))
+    F, T = rnd((n, 2), 1e-3), rnd((n,), 1e-4)
+    for _ in range(2):
+        d, ovf, nc0 = slab_dem.dem_subcycle(d, F, T, grid, c, axis)
+    live = int((d.ct_j >= 0).sum())
+    assert int(ovf) == 0 and int(nc0) > 0 and live > 0
+    body = dem.body_forces(d, c)
+    act = int(d.active.sum())
+
+    # K3 with springs
+    slabs, slot, sovf, kmax, n_occ, bands, j36 = slab_dem.build_slabs(
+        d, F, T, body, grid, axis, kt=True)
+    s_k, nc_k = slab_dem.subcycle_slabs(slabs.clone(), kmax, n_occ, bands,
+                                        grid, c, axis)
+    s_p, nc_p = slab_dem.subcycle_slabs_plain(slabs, kmax, c, grid, axis)
+    e3 = float((s_k - s_p).abs().max())
+    exi = float((s_k[11:] - s_p[11:]).abs().max())
+    new, ovf2 = slab_dem._unslab(s_k, slot, d, c, j36, sovf)
+    log("dem-breadth", f"{label} K3 kt={c.kt:g}: all 51 channels max err "
+        f"{e3:.3e} (springs {exi:.3e}, max |xi| "
+        f"{float(s_p[11:47].abs().max()):.3e}; bar 3e-5); contacts "
+        f"{int(nc_k)} == {int(nc_p)}; carried springs {live} -> "
+        f"{int((new.ct_j >= 0).sum())}; overflow {int(ovf2)}")
+    assert e3 <= 3e-5, f"K3 kt {label}: {e3}"
+    assert int(nc_k) == int(nc_p) > 0 and int(ovf2) == 0
+    assert float(s_p[11:47].abs().max()) > 0 and int((new.ct_j >= 0).sum()) > 0
+    dem_flops = c.n_sub * act * 9 * int(kmax) * 75
+    if timed:
+        scratch = slabs.clone()
+        out["K3 kt"] = work(
+            e3, cuda_ms(lambda: slab_dem.subcycle_slabs(
+                scratch, kmax, n_occ, bands, grid, c, axis), 20),
+            cuda_ms(lambda: slab_dem.subcycle_slabs_plain(
+                slabs, kmax, c, grid, axis), 2), 2 * nbytes(slabs), dem_flops)
+
+    # K3w with springs: 3 chained calls on the slim layout
+    slabs_w, slot_w, sovf, kmax_w, nocc_w, bands_w, j36 = slab_dem.build_slabs(
+        d, None, None, body, grid, axis, kt=True, bake_forces=False)
+    forces = [(rnd((n, 2), 1e-3), rnd((n,), 1e-4)) for _ in range(3)]
+    f3 = slab_dem._force_planes_window(slot_w, forces, body, slabs_w.shape)
+    s_k, s_p = slabs_w.clone(), slabs_w
+    for t in range(3):
+        s_k, nc_k = slab_dem.subcycle_slabs_window(
+            s_k, f3[t], kmax_w, nocc_w, bands_w, grid, c, axis)
+        s_p, nc_p = slab_dem.subcycle_slabs_plain(s_p, kmax_w, c, grid, axis,
+                                                  f3[t])
+        assert int(nc_k) == int(nc_p) > 0, (t, int(nc_k), int(nc_p))
+    e3w = float((s_k - s_p).abs().max())
+    log("dem-breadth", f"{label} K3w kt={c.kt:g}, 3 chained calls: all 48 "
+        f"channels max err {e3w:.3e} (bar 3e-5); contacts {int(nc_k)} == "
+        f"{int(nc_p)} at the last")
+    assert e3w <= 3e-5, f"K3w kt {label}: {e3w}"
+    if timed:
+        scratch = slabs_w.clone()
+        out["K3w kt"] = work(
+            e3w, cuda_ms(lambda: slab_dem.subcycle_slabs_window(
+                scratch, f3[0], kmax_w, nocc_w, bands_w, grid, c, axis), 20),
+            cuda_ms(lambda: slab_dem.subcycle_slabs_plain(
+                slabs_w, kmax_w, c, grid, axis, f3[0]), 2),
+            2 * nbytes(slabs_w) + nbytes(f3[0]), dem_flops)
+
+    # K3 on a periodic x axis: the packed column shifted across the seam
+    pcfg = cfg.replace(bc_west="periodic", bc_east="periodic")
+    shift = 0.04 * cfg.nx
+    pdisks = [DiskSpec((s.x - shift) % cfg.nx, s.y, s.r) for s in disks]
+    psim = Simulation(pcfg, pdisks, device="cuda")
+    pc, pgrid = psim.cfg, psim.grid
+    pd = psim.state.disks._replace(v=rnd((n, 2), 0.02), omega=rnd((n,), 2e-3))
+    seam = int(((pd.x[:, 0] > cfg.nx - 20.0) & pd.active).sum())
+    assert seam > 0, "no disk beyond the seam"
+    pbody = dem.body_forces(pd, pc)
+    for ax in ("x", "y"):
+        if not slab_dem.slab_supported(pgrid, ax, device="cuda"):
+            log("dem-breadth", f"{label} periodic-x axis={ax}: past the slab "
+                f"gate, not run")
+            continue
+        slabs, slot, sovf, kmax, n_occ, bands, _ = slab_dem.build_slabs(
+            pd, F, T, pbody, pgrid, ax)
+        assert int(sovf) == 0
+        s_k, nc_k = slab_dem.subcycle_slabs(slabs.clone(), kmax, n_occ, bands,
+                                            pgrid, pc, ax)
+        s_p, nc_p = slab_dem.subcycle_slabs_plain(slabs, kmax, pc, pgrid, ax)
+        ep = float((s_k - s_p).abs().max())
+        log("dem-breadth", f"{label} K3 periodic x, slab axis {ax} ("
+            f"{'rows' if ax == 'x' else 'lanes'} wrap), {seam} disks beyond "
+            f"the seam: all channels max err {ep:.3e} (bar 2e-5); contacts "
+            f"{int(nc_k)} == {int(nc_p)}")
+        assert ep <= 2e-5, f"K3 periodic {label} axis {ax}: {ep}"
+        assert int(nc_k) == int(nc_p) > 0
+        if timed and ax == psim.dem_axis:
+            scratch = slabs.clone()
+            out["K3 periodic"] = work(
+                ep, cuda_ms(lambda: slab_dem.subcycle_slabs(
+                    scratch, kmax, n_occ, bands, pgrid, pc, ax), 20),
+                cuda_ms(lambda: slab_dem.subcycle_slabs_plain(
+                    slabs, kmax, pc, pgrid, ax), 2), 2 * nbytes(slabs),
+                pc.n_sub * act * 9 * int(kmax) * 65)
+    # the contacts through the seam: the slab step against the cell-list
+    # DEM on the CPU
+    a, _, nca = slab_dem.dem_subcycle(pd, F, T, pgrid, pc, psim.dem_axis)
+    pdc = type(pd)(*(t.cpu() for t in pd))
+    b, _, ncb = dem.dem_subcycle(pdc, F.cpu(), T.cpu(), pgrid, pc)
+    on = pdc.active  # unused slots keep the seeded v in the slab step
+    err = torch.stack([(getattr(a, k).cpu() - getattr(b, k)).abs().reshape(
+        n, -1).max(1).values for k in ("x", "v", "omega")]).max(0).values
+    ecl = float(err[on].max())
+    over = int((err[on] > 1e-4).sum())
+    flips = abs(int(nca) - int(ncb))
+    log("dem-breadth", f"{label} periodic x: slab step on the card vs the "
+        f"cell-list DEM on the CPU x/v/omega max err {ecl:.3e} (bar 1e-4; "
+        f"{over} disks over it); contacts {int(nca)} vs {int(ncb)}")
+    # the two DEMs sum in other orders: among tens of thousands of
+    # contacts a grazing pair may touch in one and not in the other, and
+    # only the disks around it may then miss the bar
+    assert flips <= 1e-4 * int(ncb) and over <= 8 * flips, (ecl, over, flips)
+    for k, w in out.items():
+        bms, by = bound(w)
+        log("dem-breadth", f"{label} {k}: kernel {w['ms']:.4f} ms, plain "
+            f"{w['plain_ms']:.4f} ms (CUDA events); bound {bms:.4f} ms by {by}"
+            f" ({w['bytes'] / 1e9:.4f} GB, {w['flops'] / 1e9:.3f} GFLOP)")
+    return out
+
+
+def kt_slice(smi: str):
+    """The coupled slice at full width with history springs: the packed
+    4096^2 / 10k-disk column with kt = 25, per step (K2 + K3) and through
+    coupling_k = 4 windows (K6 + K3w). The CPU's plane budget would send
+    this DEM grid to the cell-list DEM; on the card the slab DEM takes
+    it. run(8) to warm, run(16) timed; contacts and live springs form,
+    overflow 0, finite f, mass 1e-5. Returns {coupling_k: launch
+    counts}."""
+    from lbmdem_tpu_torch import Simulation
+    from lbmdem_tpu_torch.models import column_collapse
+    from lbmdem_tpu_torch.ops import slab_dem
+
+    cfg, disks = column_collapse(kt=25.0)
+    packed = compressed(disks, 0.94)
+    out = {}
+    for ck in (1, 4):
+        sim = Simulation(cfg.replace(coupling_k=ck, out_interval=10**9),
+                         packed, device="cuda")
+        assert not slab_dem.slab_supported(sim.grid, sim.dem_axis, kt=True)
+        assert slab_dem.slab_supported(sim.grid, sim.dem_axis, kt=True,
+                                       device="cuda")
+        reset_counts()
+        sim.run(8)
+        mlups = sim.run(16)
+        counts = out[ck] = launch_counts()
+        st = sim.state
+        springs = int((st.disks.ct_j >= 0).sum())
+        mass_err = abs(float(st.f.double().sum()) / (cfg.nx * cfg.ny) - 1.0)
+        log("kt-slice", f"column_collapse {cfg.nx}x{cfg.ny}, {len(disks)} "
+            f"disks packed, kt {cfg.kt:g}, coupling_k={ck}, 24 steps: "
+            f"{mlups:.1f} MLUPS (timed run(16), wall clock) on {smi}; "
+            f"launches K2 {counts['K2']}, K3 {counts['K3']}, K6 "
+            f"{counts['K6']}, K3w {counts['K3w']}; contacts "
+            f"{int(st.n_contacts)}; live springs {springs}; overflow "
+            f"{int(st.overflow)}; |sum f/(nx ny) - 1| {mass_err:.3e}")
+        want = (24, 24, 0, 0) if ck == 1 else (0, 0, 6, 24)
+        assert tuple(counts[k] for k in ("K2", "K3", "K6", "K3w")) == want, \
+            counts
+        assert int(st.overflow) == 0 and int(st.n_contacts) > 0
+        assert springs > 0 and bool(torch.isfinite(st.f).all())
+        assert mass_err < 1e-5, mass_err
+    return out
+
+
+def _deck(name: str):
+    """(cfg, disks) of examples/<name>.par, read beside this script."""
+    from lbmdem_tpu_torch import load_param_file, load_particle_file
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples")
+    cfg, pf = load_param_file(os.path.join(root, name + ".par"))
+    return cfg.replace(out_interval=10**9), load_particle_file(pf)
+
+
+def decks_vs_cpu(smi: str):
+    """examples/column_collapse_friction.par at its deck's size (2048^2,
+    2 500 disks, kt = 25; the column packed into contact so springs
+    form) and examples/periodic_channel.par (128x256, a disk straddling
+    the seam), the card against CPU tensors at the slice's bars (f 1e-5,
+    disk x 1e-4), overflow 0; then the friction deck through coupling_k
+    = 4 windows on the card (K6 + K3w with springs). Returns the launch
+    counts of the friction run, of its window run and of the periodic
+    channel's."""
+    from lbmdem_tpu_torch import Simulation
+    from lbmdem_tpu_torch.ops import slab_dem
+
+    torch.set_num_threads(min(8, os.cpu_count() or 1))
+    cfg, disks = _deck("column_collapse_friction")
+    assert (cfg.nx, cfg.ny, len(disks), cfg.kt) == (2048, 2048, 2500, 25.0)
+    packed = compressed(disks, 0.94)
+    g = Simulation(cfg, packed, device="cuda")
+    c = Simulation(cfg, packed, device="cpu")
+    # inside the CPU's gate too: both runs take the slab DEM
+    assert slab_dem.slab_supported(g.grid, g.dem_axis, kt=True)
+    reset_counts()
+    g.run(4)
+    t0 = time.perf_counter()
+    mlups = g.run(8)
+    secs = time.perf_counter() - t0
+    counts = launch_counts()
+    c.run(12)
+    ef = float((g.state.f.cpu() - c.state.f).abs().max())
+    ex = float((g.state.disks.x.cpu() - c.state.disks.x).abs().max())
+    springs = int((g.state.disks.ct_j >= 0).sum())
+    log("decks", f"column_collapse_friction {cfg.nx}x{cfg.ny}, {len(disks)} "
+        f"disks packed, kt {cfg.kt:g}, 12 steps: f max err {ef:.3e} (bar "
+        f"1e-5), disk x max err {ex:.3e} (bar 1e-4); contacts "
+        f"{int(g.state.n_contacts)} == {int(c.state.n_contacts)}; live "
+        f"springs {springs}; overflow {int(g.state.overflow)}; launches "
+        f"K2 {counts['K2']}, K3 {counts['K3']}; {mlups:.1f} MLUPS over "
+        f"run(8) ({secs:.3f} s, wall) on {smi}")
+    assert counts["K2"] == counts["K3"] == 12, counts
+    assert int(g.state.overflow) == int(c.state.overflow) == 0
+    assert ef <= 1e-5 and ex <= 1e-4
+    assert int(g.state.n_contacts) == int(c.state.n_contacts) > 0
+    assert springs > 0
+    w = Simulation(cfg.replace(coupling_k=4), packed, device="cuda")
+    reset_counts()
+    w.run(16)
+    wcounts = launch_counts()
+    wf = w.state.f
+    log("decks", f"column_collapse_friction coupling_k=4, 16 steps on the "
+        f"card: launches K6 {wcounts['K6']}, K3w {wcounts['K3w']}; contacts "
+        f"{int(w.state.n_contacts)}; live springs "
+        f"{int((w.state.disks.ct_j >= 0).sum())}; overflow "
+        f"{int(w.state.overflow)}; |sum f/(nx ny) - 1| "
+        f"{abs(float(wf.double().sum()) / (cfg.nx * cfg.ny) - 1.0):.3e}")
+    assert (wcounts["K6"], wcounts["K3w"]) == (4, 16), wcounts
+    assert int(w.state.overflow) == 0 and int(w.state.n_contacts) > 0
+    assert bool(torch.isfinite(wf).all())
+    assert int((w.state.disks.ct_j >= 0).sum()) > 0
+    del g, c, w
+
+    cfg, disks = _deck("periodic_channel")
+    g = Simulation(cfg, disks, device="cuda")
+    c = Simulation(cfg, disks, device="cpu")
+    assert slab_dem.slab_supported(g.grid, g.dem_axis)
+    reset_counts()
+    g.run(200)
+    pcounts = launch_counts()
+    c.run(200)
+    ef = float((g.state.f.cpu() - c.state.f).abs().max())
+    ex = float((g.state.disks.x.cpu() - c.state.disks.x).abs().max())
+    xs = g.state.disks.x[:, 0]
+    log("decks", f"periodic_channel {cfg.nx}x{cfg.ny}, {len(disks)} mobile "
+        f"disks on a periodic x axis, 200 steps: f max err {ef:.3e} (bar "
+        f"1e-5), disk x max err {ex:.3e} (bar 1e-4); launches K1 "
+        f"{pcounts['K1']}, K2 {pcounts['K2']}, K3 {pcounts['K3']}; seam disk "
+        f"x {float(xs[0]):.4f}; overflow {int(g.state.overflow)}")
+    assert pcounts["K2"] == pcounts["K3"] == 200, pcounts
+    assert int(g.state.overflow) == int(c.state.overflow) == 0
+    assert ef <= 1e-5 and ex <= 1e-4
+    assert -0.5 <= float(xs[0]) < cfg.nx - 0.5
+    return counts, wcounts, pcounts
+
+
+def ablation(coupling_k: int, chunk: int = 20, storage: str = "float32"):
     """lbmdem_tpu_torch.tools.ablate at 4096^2/10k disks: each variant's
-    row and the marginals. Returns the launch counts of the whole run."""
+    row and the marginals (bf16 storage: every variant on the K2 step).
+    Returns the launch counts of the whole run."""
     from lbmdem_tpu_torch.tools import ablate
 
     sim = ablate.make_sim(4096, 10000, device="cuda",
-                          env={"ABLATE_COUPLING_K": str(coupling_k)})
+                          env={"ABLATE_COUPLING_K": str(coupling_k),
+                               "ABLATE_F_STORAGE": storage})
     reset_counts()
-    res = ablate.run_variants(
-        sim, chunk, log=lambda s: log(f"ablate k={coupling_k}", s))
+    tag = f"ablate k={coupling_k}" + ("" if storage == "float32"
+                                      else f" {storage}")
+    res = ablate.run_variants(sim, chunk, log=lambda s: log(tag, s))
     counts = launch_counts()
     assert all(r["ms"] > 0 for r in res.values())
-    if coupling_k == 1:
+    if storage != "float32":
+        assert res["full"]["launches"].get("K2") == 1.0, res["full"]
+        assert counts["K8"] == counts["K9"] == 0, counts
+    elif coupling_k == 1:
         per = res["full"]["launches"]
         assert per.get("K8") == per.get("K9") == per.get("K1") == 1.0, per
         assert res["fused"]["launches"].get("K2") == 1.0
@@ -1312,8 +1861,33 @@ def main() -> int:
     static_slice(smi, "bfloat16")
     ghosts_vs_cpu()
     drift_vs_cpu()
+    breadth_matrix()
+    cfg, disks = column_collapse(nx=256, ny=256, n_disks=60)
+    dem_breadth_checks(cfg, compressed(disks, 0.94),
+                       f"{cfg.nx}x{cfg.ny}/{len(disks)} disks", timed=False)
+    cfg, disks = column_collapse()
+    label = f"{cfg.nx}x{cfg.ny}/{len(disks)} disks"
+    new = breadth_timed(cfg, compressed(disks, 0.94), label)
+    new.update(dem_breadth_checks(cfg, compressed(disks, 0.94), label,
+                                  timed=True))
+    bcounts, mlups_b, bsim = slice_run(smi, storage="bfloat16", keep=True)
+    split_on_run_state(bsim)
+    del bsim
+    bwcounts, mlups_bw = slice_run(smi, coupling_k=4, storage="bfloat16")
+    log("bfloat16-slice", f"f_storage=bfloat16 {mlups_b:.1f} MLUPS (k=1), "
+        f"{mlups_bw:.1f} MLUPS (k=4) vs float32 {mlups1:.1f} and "
+        f"{mlups4:.1f} MLUPS in this call ({mlups_b / mlups1:.3f}x, "
+        f"{mlups_bw / mlups4:.3f}x)")
+    slice_vs_cpu(storage="bfloat16")
+    slice_vs_cpu(coupling_k=4, steps=19, storage="bfloat16")
+    slice_vs_cpu(kt=25.0)
+    slice_vs_cpu(coupling_k=4, steps=19, kt=25.0)
+    kt_slice(smi)
+    open_counts = open_channel_vs_cpu()
+    dcounts, dwcounts, pcounts = decks_vs_cpu(smi)
     acounts = ablation(1)
     ablation(4)
+    ablation(1, chunk=10, storage="bfloat16")
     counts.update({k: acounts[k] for k in ("K8", "K9")})
     counts.update({k: fcounts[k] for k in ("K4", "K5")})
     counts.update({k: wcounts[k] for k in ("K6", "K3w")})
@@ -1341,14 +1915,24 @@ def main() -> int:
         "K9": ("reduce_hydro", "lbmdem_tpu_torch/csrc/imb_split.cu",
                "lbmdem_tpu/ops/pallas_stamp.py:474"),
     }
+    # the new instantiations: (base kernel, tag, work, launches of the
+    # path that ran it)
+    extra = [("K2", "bf16", new["K2 bf16"], bcounts["K2"]),
+             ("K6", "bf16", new["K6 bf16"], bwcounts["K6"]),
+             ("K2", "trt+les", new["K2 f32 trt+les"], open_counts["K2"]),
+             ("K3", "kt", new["K3 kt"], dcounts["K3"]),
+             ("K3w", "kt", new["K3w kt"], dwcounts["K3w"]),
+             ("K3", "periodic", new["K3 periodic"], pcounts["K3"])]
     kernels = []
-    for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K3w", "K7", "K8", "K9"):
-        w = res[k]
+    rows = [(k, "", res[k], counts[k]) for k in (
+        "K1", "K2", "K3", "K4", "K5", "K6", "K3w", "K7", "K8", "K9")] + extra
+    for k, tag, w, launches in rows:
         bms, by = bound(w)
         # no single PyTorch call computes any of these functions
         kernels.append({
-            "name": meta[k][0], "route": "cuda", "source": meta[k][1],
-            "replaces": meta[k][2], "launches": counts[k],
+            "name": meta[k][0] + (f"[{tag}]" if tag else ""), "route": "cuda",
+            "source": meta[k][1], "replaces": meta[k][2],
+            "launches": launches,
             "max_abs_err": w["err"], "ms": w["ms"], "plain_ms": w["plain_ms"],
             "bound_ms": bms, "bound_by": by, "library_ms": None})
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,35 +1,23 @@
 // Coupled-step device code shared by the fused IMB step (K2,
 // imb_reduce.cu), its temporal block over a frozen solid stack (K6,
-// imb_multi.cu) and the static-solid temporal block (K7, imb_static.cu):
-// the scalars, the NT-blended collide of one cell (with K7's options as
-// template flags), the pull + half-way bounce-back of one cell, and the
-// per-(stamp tile, slot) hydro-force reduce (also the standalone K9 of
-// imb_split.cu, which computes w itself).
+// imb_multi.cu), the static-solid temporal block (K7, imb_static.cu) and
+// the split step (K8/K9, imb_split.cu): the NT-blended collide of one
+// cell (the lattice options as template flags), the one-step tile kernel
+// that K2 and K8 launch (collide a 16 x 32 tile plus halo into shared
+// memory, pull, bounce-back, Zou/He) with the momentum-exchange sink as a
+// functor, and the per-(stamp tile, slot) hydro-force reduce with the w
+// source as a functor.
 //
 // The arithmetic mirrors the plain version (ops/imb.collide_imb,
-// ops/lbm.stream + apply_bounce_back, ops/fused_lbm.reduce_partials_plain)
-// with round-to-nearest intrinsics, under --fmad=false.
+// ops/lbm.stream + apply_bounce_back + apply_open_boundaries,
+// ops/stamp.hydro_partials_plain) with round-to-nearest intrinsics, under
+// --fmad=false.
 #pragma once
 
 #include <cuda_runtime.h>
 
 #include "coverage.cuh"
 #include "d2q9.cuh"
-
-// Scalars of the coupled collide-stream step (K2, K6); mirrored field
-// for field by kernels.LbmParams.
-struct LbmParams {
-  float tau;       // BGK relaxation time
-  float tm;        // NT blend tm = tau - 1/2
-  float half_gx;   // 0.5 * gx (velocity shift of the Guo scheme)
-  float half_gy;
-  float gx, gy;    // fluid body force
-  float guo_pref;  // 1 - 1/(2 tau)
-  float eps_min;
-  int forced;      // gx != 0 or gy != 0
-  int walls;       // bit 0 south, 1 north, 2 west, 3 east
-  double uw_west, uw_east, uw_south, uw_north, rho0;
-};
 
 namespace {
 
@@ -49,7 +37,7 @@ __device__ __forceinline__ float feq_nt(int i, float rho_b, float rho,
 
 // NT-blended collision of one cell (plain version: imb.collide_imb,
 // operation by operation). fp[9] receives the post-collision
-// populations; returns phi. P is LbmParams (K2, K6) or FluidParams (K7);
+// populations; returns phi. p is the FluidParams of ops/fused_fluid;
 // tm is the NT blend's tau - 1/2, or 3/16 / (tau - 1/2) under
 // nt_mode="lambda", rounded from float64 as the plain version's Python
 // scalar is. The options are compile-time flags:
@@ -60,12 +48,12 @@ __device__ __forceinline__ float feq_nt(int i, float rho_b, float rho,
 //   LES    Smagorinsky tau_eff per cell (lbm.smagorinsky_tau); B, the
 //          Guo prefactor and the TRT rates follow from it;
 //   LAMBDA with LES: tm = 3/16 / (tau_eff - 1/2) per cell.
-// The all-false instantiation is K2's and K6's collide.
-template <bool SHIFT = false, bool TRT = false, bool LES = false,
-          bool LAMBDA = false, class P>
+// The all-false instantiation is the f32 BGK collide of K2, K6, K7, K8.
+template <bool SHIFT, bool TRT, bool LES, bool LAMBDA>
 __device__ __forceinline__ void collide_cell(const float* fc, float eps_raw,
-                                             float usx, float usy, const P& p,
-                                             float tm, float* fp, float* phix,
+                                             float usx, float usy,
+                                             const FluidParams& p, float tm,
+                                             float* fp, float* phix,
                                              float* phiy) {
   float rs = 0.f, jx = 0.f, jy = 0.f;
 #pragma unroll
@@ -166,39 +154,125 @@ __device__ __forceinline__ void collide_cell(const float* fc, float eps_raw,
   *phiy = -py;
 }
 
-// Pull of the cell at index c of a post-collision window `post` (9
-// planes of n floats, w floats per row) whose global unwrapped
-// coordinate is (gy, gx), then half-way bounce-back where that
-// coordinate lies on a global wall: south, north, then west, east (at a
-// corner the x-wall rule wins; plain version: lbm.apply_bounce_back).
-// The wall rule reads only the cell itself, so garbage beyond a wall
-// never reaches the domain.
-__device__ __forceinline__ void imb_stream_cell(const float* post, int n,
-                                                int w, int c, int gy, int gx,
-                                                int ny, int nx,
-                                                const LbmParams& p, float* v) {
+// Sinks of the one-step tile kernel's momentum exchange at an interior
+// cell. WSink (K2) stores w = phi * (1 / max(eps_raw, eps_min)), the
+// share-weighted exchange its reduce sums; PhiSink (K8) stores the raw phi
+// for the standalone reduce (K9), whose WFromPhi source applies WSink's
+// expression, so K8 + K9 give K2's partials bitwise.
+struct WSink {
+  float* w;  // (2, ny, nx)
+  size_t plane;
+  float eps_min;
+  __device__ __forceinline__ void store(size_t cell, float eps_raw, float phix,
+                                        float phiy) const {
+    const float sd = 1.0f / fmaxf(eps_raw, eps_min);
+    w[cell] = __fmul_rn(phix, sd);
+    w[plane + cell] = __fmul_rn(phiy, sd);
+  }
+};
+
+struct PhiSink {
+  float* phi;  // (2, ny, nx)
+  size_t plane;
+  __device__ __forceinline__ void store(size_t cell, float, float phix,
+                                        float phiy) const {
+    phi[cell] = phix;
+    phi[plane + cell] = phiy;
+  }
+};
+
+constexpr int kStepBX = 32;
+constexpr int kStepBY = 16;
+constexpr int kStepHX = kStepBX + 2;
+constexpr int kStepHY = kStepBY + 2;
+
+// One coupled step of a 16 x 32 tile (launch (a) of K2, and K8): one block
+// of 512 threads collides the tile plus a 1-cell halo (wrapped at the
+// domain edge; on wall and open sides the wrapped values only reach
+// populations that bounce-back or Zou/He overwrite) into shared memory,
+// hands each interior cell's momentum exchange to the sink, then pulls
+// each interior cell's populations with bounce-back and the Zou/He
+// closures on the cell's global coordinate (d2q9.cuh stream_cell). Halo
+// cells are collided twice (1.2x the collide work) so no cell reads
+// another block's output. S is the storage type of f: float, or
+// __nv_bfloat16 for the shifted populations g = f - w rho0 (loaded and
+// stored once, compute in f32).
+template <typename S, bool TRT, bool LES, bool LAMBDA, class Sink>
+__global__ void __launch_bounds__(kStepBX * kStepBY)
+    coupled_step_kernel(const S* __restrict__ f, const float* __restrict__ eps,
+                        const float* __restrict__ usx,
+                        const float* __restrict__ usy,
+                        const float* __restrict__ u_in, S* __restrict__ fout,
+                        Sink sink, int ny, int nx, FluidParams p, float tm) {
+  constexpr bool kShift = sizeof(S) == 2;
+  __shared__ float post[9][kStepHY][kStepHX];
+  const int x0 = blockIdx.x * kStepBX;
+  const int y0 = blockIdx.y * kStepBY;
+  const size_t plane = (size_t)ny * nx;
+  const int tid = threadIdx.y * kStepBX + threadIdx.x;
+
+  for (int c = tid; c < kStepHY * kStepHX; c += kStepBX * kStepBY) {
+    const int ly = c / kStepHX, lx = c % kStepHX;
+    const int gy = y0 + ly - 1, gx = x0 + lx - 1;
+    const size_t cell = (size_t)wrap(gy, ny) * nx + wrap(gx, nx);
+    float fc[9], fp[9], phix, phiy;
 #pragma unroll
-  for (int i = 0; i < 9; ++i) v[i] = post[i * n + c - ey(i) * w - ex(i)];
-  if ((p.walls & 1) && gy == 0) {  // ey = +1 populations 2, 5, 6
-    v[2] = __fadd_rn(post[4 * n + c], wall_corr(2, p.uw_south, 0.0, p.rho0));
-    v[5] = __fadd_rn(post[7 * n + c], wall_corr(5, p.uw_south, 0.0, p.rho0));
-    v[6] = __fadd_rn(post[8 * n + c], wall_corr(6, p.uw_south, 0.0, p.rho0));
+    for (int i = 0; i < 9; ++i) fc[i] = load_f(f + i * plane + cell);
+    const float eps_raw = eps[cell];
+    collide_cell<kShift, TRT, LES, LAMBDA>(fc, eps_raw, usx[cell], usy[cell],
+                                           p, tm, fp, &phix, &phiy);
+#pragma unroll
+    for (int i = 0; i < 9; ++i) post[i][ly][lx] = fp[i];
+    const bool interior = ly >= 1 && ly <= kStepBY && lx >= 1 &&
+                          lx <= kStepBX && gy < ny && gx < nx;
+    if (interior) sink.store(cell, eps_raw, phix, phiy);
   }
-  if ((p.walls & 2) && gy == ny - 1) {  // ey = -1 populations 4, 7, 8
-    v[4] = __fadd_rn(post[2 * n + c], wall_corr(4, p.uw_north, 0.0, p.rho0));
-    v[7] = __fadd_rn(post[5 * n + c], wall_corr(7, p.uw_north, 0.0, p.rho0));
-    v[8] = __fadd_rn(post[6 * n + c], wall_corr(8, p.uw_north, 0.0, p.rho0));
+  __syncthreads();
+
+  const int gy = y0 + threadIdx.y, gx = x0 + threadIdx.x;
+  if (gy >= ny || gx >= nx) return;
+  float v[9];
+  stream_cell(&post[0][0][0], kStepHY * kStepHX, kStepHX,
+              (threadIdx.y + 1) * kStepHX + threadIdx.x + 1, gy, gx, ny, nx,
+              u_in, p, kShift ? p.rho0 : 0.0f, v);
+  const size_t cell = (size_t)gy * nx + gx;
+#pragma unroll
+  for (int i = 0; i < 9; ++i) store_f(fout + i * plane + cell, v[i]);
+}
+
+template <typename S, bool TRT, bool LES, bool LAMBDA, class Sink>
+int launch_coupled_step(const void* f, const float* eps, const float* usx,
+                        const float* usy, const float* u_in, void* fout,
+                        Sink sink, int ny, int nx, const FluidParams& p,
+                        float tm, cudaStream_t stream) {
+  const dim3 grid((nx + kStepBX - 1) / kStepBX, (ny + kStepBY - 1) / kStepBY);
+  coupled_step_kernel<S, TRT, LES, LAMBDA, Sink>
+      <<<grid, dim3(kStepBX, kStepBY), 0, stream>>>(
+          static_cast<const S*>(f), eps, usx, usy, u_in,
+          static_cast<S*>(fout), sink, ny, nx, p, tm);
+  return (int)cudaGetLastError();
+}
+
+// The instantiation of the one-step tile kernel for the options: LAMBDA
+// matters only with LES (else the caller's tm already has the lambda
+// form).
+template <typename S, class Sink>
+int dispatch_coupled_step(const void* f, const float* eps, const float* usx,
+                          const float* usy, const float* u_in, void* fout,
+                          Sink sink, int ny, int nx, int lambda,
+                          const FluidParams& p, float tm,
+                          cudaStream_t stream) {
+#define LBM_STEP(TRT, LES, LAMBDA)                                          \
+  launch_coupled_step<S, TRT, LES, LAMBDA, Sink>(f, eps, usx, usy, u_in,    \
+                                                 fout, sink, ny, nx, p, tm, \
+                                                 stream)
+  if (p.trt) {
+    if (!p.les) return LBM_STEP(true, false, false);
+    return lambda ? LBM_STEP(true, true, true) : LBM_STEP(true, true, false);
   }
-  if ((p.walls & 4) && gx == 0) {  // ex = +1 populations 1, 5, 8
-    v[1] = __fadd_rn(post[3 * n + c], wall_corr(1, 0.0, p.uw_west, p.rho0));
-    v[5] = __fadd_rn(post[7 * n + c], wall_corr(5, 0.0, p.uw_west, p.rho0));
-    v[8] = __fadd_rn(post[6 * n + c], wall_corr(8, 0.0, p.uw_west, p.rho0));
-  }
-  if ((p.walls & 8) && gx == nx - 1) {  // ex = -1 populations 3, 6, 7
-    v[3] = __fadd_rn(post[1 * n + c], wall_corr(3, 0.0, p.uw_east, p.rho0));
-    v[6] = __fadd_rn(post[8 * n + c], wall_corr(6, 0.0, p.uw_east, p.rho0));
-    v[7] = __fadd_rn(post[5 * n + c], wall_corr(7, 0.0, p.uw_east, p.rho0));
-  }
+  if (!p.les) return LBM_STEP(false, false, false);
+  return lambda ? LBM_STEP(false, true, true) : LBM_STEP(false, true, false);
+#undef LBM_STEP
 }
 
 constexpr int kReduceThreads = 128;

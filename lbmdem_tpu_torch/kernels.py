@@ -41,20 +41,6 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-_D = ctypes.c_double
-
-
-class LbmParams(ctypes.Structure):
-    """Scalars of the coupled collide-stream steps (K2, K6); mirrors
-    `struct LbmParams` in csrc/imb.cuh field for field."""
-
-    _fields_ = [
-        ("tau", _F), ("tm", _F), ("half_gx", _F), ("half_gy", _F),
-        ("gx", _F), ("gy", _F), ("guo_pref", _F), ("eps_min", _F),
-        ("forced", _I), ("walls", _I),
-        ("uw_west", _D), ("uw_east", _D), ("uw_south", _D),
-        ("uw_north", _D), ("rho0", _D),
-    ]
 
 
 class DemParams(ctypes.Structure):
@@ -63,16 +49,17 @@ class DemParams(ctypes.Structure):
 
     _fields_ = [
         ("kn", _F), ("gn", _F), ("gt", _F), ("mu", _F),
-        ("h", _F), ("half_h", _F),
+        ("h", _F), ("half_h", _F), ("kt", _F),
+        ("wrap_lx", _F), ("wrap_ly", _F),
         ("wall_pos", _F * 4), ("wall_on", _I * 4),
+        ("wrap_s", _I), ("wrap_l", _I), ("ncs", _I),
     ]
 
 
 class FluidParams(ctypes.Structure):
-    """Scalars of the pure-fluid steps (K4/K5), of the static-solid block
-    (K7) and of the split coupled step (K8), the last two with the NT
-    constant beside it; mirrors `struct
-    FluidParams` in csrc/d2q9.cuh field for field."""
+    """Scalars of the pure-fluid steps (K4/K5) and of the coupled steps
+    (K2, K6, K7, K8), those with the NT constant beside it; mirrors
+    `struct FluidParams` in csrc/d2q9.cuh field for field."""
 
     _fields_ = [
         ("tau", _F), ("tau_sq", _F), ("half_gx", _F), ("half_gy", _F),
@@ -88,10 +75,11 @@ class FluidParams(ctypes.Structure):
 _SIGNATURES = {
     "lbm_stamp": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I,
                   _P],
-    "lbm_imb_step": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                     _I, _I, _I, _F, _I, LbmParams, _P],
-    "lbm_imb_multi": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                      _I, _I, _I, _F, _I, _I, LbmParams, _P],
+    "lbm_imb_step": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                     _I, _I, _I, _F, _I, _I, _I, FluidParams, _F, _F, _P],
+    "lbm_imb_multi": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                      _I, _I, _I, _F, _I, _I, _I, _I, FluidParams, _F, _F,
+                      _P],
     "lbm_dem_subcycle": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                          _I, DemParams, _P],
     "lbm_dem_subcycle_window": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,

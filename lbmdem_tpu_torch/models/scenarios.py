@@ -128,8 +128,9 @@ def column_collapse(
     """#5: submerged granular column collapse at 4096^2 with 10k disks
     (the headline benchmark config; shard over the ICI mesh). kt > 0
     switches tangential friction to Cundall-Strack history springs
-    (runs in the slab DEM kernel up to ~2048^2-class cell grids, then
-    falls back to the XLA subcycle - pallas_dem.slab_supported)."""
+    (on the card the slab DEM kernel takes them at any size; on the CPU
+    ~2048^2-class cell grids are the last before the cell-list subcycle
+    - slab_dem.slab_supported)."""
     # kn sized so bottom-of-column overlap stays ~5% of r; n_sub=10
     # (dt_dem = 0.1) resolves the contact period 2 pi sqrt(m/kn) ~ 20
     # lattice times by ~200 points.

@@ -4,9 +4,9 @@ Counterpart of the JAX package's `lbmdem_tpu/ops/dem.py`: the
 broadphase grid geometry (`DemGrid`), the disk state (`DiskState`,
 `make_disk_state`), cell ids, the spring-dashpot pair law with the
 optional tangential history spring (C14), wall contacts (C15), body
-forces (C16 inputs), and the cell-list subcycle `dem_subcycle`: a
-fixed-capacity cell table, a 3x3-patch candidate list pruned by gap to
-contact_cap slots, history springs re-matched by partner id (kt > 0),
+forces (C16 inputs), the outflow cull of Zou/He channels, and the
+cell-list subcycle `dem_subcycle`: a fixed-capacity cell table, a
+3x3-patch candidate list pruned by gap to contact_cap slots, history springs re-matched by partner id (kt > 0),
 minimum-image contacts on periodic axes, and n_sub velocity-Verlet
 substeps. The JAX package runs it as XLA code, so it has no kernel here
 either; `Simulation` takes it past the slab DEM's gate
@@ -323,6 +323,25 @@ def body_forces(disks: DiskState, cfg: SimConfig) -> torch.Tensor:
         m_eff = disks.mass - cfg.rho0 * math.pi * disks.r * disks.r
     return (torch.stack([m_eff * cfg.g_px, m_eff * cfg.g_py], dim=1)
             * disks.active[:, None])
+
+
+def cull_open_boundaries(disks: DiskState, cfg: SimConfig) -> DiskState:
+    """Deactivate mobile disks advected fully past an open x end (Zou/He
+    channels, cfg.bc_west == "inlet"): once the whole footprint is
+    outside (centre beyond the boundary plane by more than the radius)
+    the slot is parked far outside at rest, like an unused slot of
+    make_disk_state. A disk that straddles the boundary keeps coupling
+    with its in-domain part. Fixed disks are exempt."""
+    x0 = disks.x[:, 0]
+    gone = (disks.active & disks.mobile
+            & ((x0 - disks.r > cfg.nx - 0.5) | (x0 + disks.r < -0.5)))
+    g2 = gone[:, None]
+    return disks._replace(
+        active=disks.active & ~gone,
+        x=torch.where(g2, -1.0e6, disks.x),
+        v=torch.where(g2, 0.0, disks.v),
+        omega=torch.where(gone, 0.0, disks.omega),
+    )
 
 
 def make_disk_state(specs, cfg: SimConfig, dtype=None,

@@ -44,6 +44,21 @@ def storage_dtype(cfg: SimConfig) -> torch.dtype:
     return lbm.torch_dtype(cfg)
 
 
+def check_storage(what: str, cfg: SimConfig, f, out) -> torch.dtype:
+    """The storage dtype of cfg, after checking that f and out are
+    contiguous CUDA tensors of it on one device (float64 on the card is
+    not ported)."""
+    if f.dtype == torch.float64:
+        raise not_ported("dtype='float64' on the card", 9)
+    want = storage_dtype(cfg)
+    for t in (f, out):
+        if t.device != f.device or t.dtype != want or not t.is_contiguous():
+            raise ValueError(f"{what}: f and out must be contiguous {want} "
+                             f"tensors on one CUDA device (f_storage="
+                             f"{cfg.f_storage!r})")
+    return want
+
+
 def fused_step_fluid_plain(f, cfg: SimConfig, out):
     """Plain version of K4: lbm.step_pure_fluid between from_storage and
     to_storage, into `out`."""
@@ -101,14 +116,7 @@ def _inlet_profile(cfg: SimConfig, device: torch.device):
 
 
 def _launch(f, cfg: SimConfig, k: int, out, what: str) -> None:
-    if f.dtype == torch.float64:
-        raise not_ported("dtype='float64' on the card", 9)
-    want = storage_dtype(cfg)
-    for t in (f, out):
-        if t.device != f.device or t.dtype != want or not t.is_contiguous():
-            raise ValueError(f"{what}: f and out must be contiguous {want} "
-                             f"tensors on one CUDA device (f_storage="
-                             f"{cfg.f_storage!r})")
+    want = check_storage(what, cfg, f, out)
     u_in = (_inlet_profile(cfg, f.device).data_ptr()
             if cfg.bc_west == "inlet" else None)
     bf16 = int(want == torch.bfloat16)

@@ -3,16 +3,19 @@ temporal block over a frozen solid stack (K6), and the split step that
 emits phi for a separate reduce (K8).
 
 Counterpart of `fused_step_imb_reduce` in the JAX package's
-`lbmdem_tpu/ops/pallas_lbm.py`: one step of NT-blended BGK collide
-(+ Guo forcing), pull streaming and half-way bounce-back (static or
-moving walls), plus the per-(stamp tile, slot) partials [fx, fy, tq, 0]
-of cov * phi / max(eps_raw, eps_min) that `stamp.gather_partials`
-turns into per-disk forces.
+`lbmdem_tpu/ops/pallas_lbm.py`: one step of the NT-blended collide (BGK
+or TRT, optional Smagorinsky LES, nt_mode "nt" or "lambda", Guo
+forcing), pull streaming, half-way bounce-back (static or moving walls)
+and the Zou/He inlet/outlet, on f32 or shifted-bf16 storage
+(`cfg.f_storage`), plus the per-(stamp tile, slot) partials
+[fx, fy, tq, 0] of cov * phi / max(eps_raw, eps_min) that
+`stamp.gather_partials` turns into per-disk forces.
 
 `fused_step_imb_reduce_multi` (K6, the coupling_k window) runs k such
 steps over the window-start solid stack and binning, with the reduce
 after every inner collide: the counterpart of the JAX
-`fused_step_imb_reduce_multi`.
+`fused_step_imb_reduce_multi`. The k inner steps stay in float32; bf16
+storage rounds once, at the end of the window, as the JAX kernel does.
 
 `fused_step_imb` (K8) is the counterpart of the JAX `fused_step_imb`:
 one f32 coupled step with every lattice option (BGK/TRT, LES, nt_mode,
@@ -33,7 +36,7 @@ import numpy as np
 import torch
 
 from lbmdem_tpu_torch import kernels
-from lbmdem_tpu_torch.config import SimConfig, WALL
+from lbmdem_tpu_torch.config import SimConfig
 from lbmdem_tpu_torch.ops import fused_fluid, imb, lbm, not_ported
 from lbmdem_tpu_torch.ops.stamp import (cov_method, hydro_partials_plain,
                                         tile_dims)
@@ -43,25 +46,12 @@ from lbmdem_tpu_torch.ops.stamp import (cov_method, hydro_partials_plain,
 MAX_K = 8
 
 
-def check_step_cfg(cfg: SimConfig) -> None:
-    """Raise for lattice options the fused step does not take yet."""
-    if cfg.trt_lambda > 0.0:
-        raise not_ported("TRT collision (collision='trt')", 9)
-    if cfg.smagorinsky > 0.0:
-        raise not_ported("Smagorinsky LES", 9)
-    if cfg.bc_west == "inlet":
-        raise not_ported("Zou/He inlet/outlet boundaries", 9)
-    if cfg.f_storage != "float32":
-        raise not_ported("f_storage='bfloat16'", 9)
-    if cfg.nt_mode != "nt":
-        raise not_ported(f"nt_mode={cfg.nt_mode!r}", 9)
-
-
 def fused_step_imb_reduce_plain(f, solid, tile_data, counts, cfg: SimConfig,
                                 out):
-    """Plain version of K2: imb.collide_imb -> lbm.stream ->
-    lbm.apply_bounce_back into `out`, plus the plain per-(tile, slot)
-    reduce. Returns (out, partials)."""
+    """Plain version of K2: from_storage, imb.collide_imb -> lbm.stream ->
+    lbm.apply_bounce_back -> lbm.apply_open_boundaries, to_storage into
+    `out`, plus the plain per-(tile, slot) reduce. Returns (out,
+    partials)."""
     out, partials = fused_step_imb_reduce_multi_plain(f, solid, tile_data,
                                                       counts, cfg, 1, out)
     return out, partials[0]
@@ -69,33 +59,21 @@ def fused_step_imb_reduce_plain(f, solid, tile_data, counts, cfg: SimConfig,
 
 def fused_step_imb_reduce_multi_plain(f, solid, tile_data, counts,
                                       cfg: SimConfig, k: int, out):
-    """Plain version of K6: k x (imb.collide_imb -> lbm.stream ->
-    lbm.apply_bounce_back) over the one solid stack, with the plain
-    reduce after every collide. Returns (out, partials (k, n_tiles * cap,
-    4))."""
+    """Plain version of K6: from_storage, k x (imb.collide_imb ->
+    lbm.stream -> lbm.apply_bounce_back -> lbm.apply_open_boundaries) over
+    the one solid stack with the plain reduce after every collide,
+    to_storage. Returns (out, partials (k, n_tiles * cap, 4))."""
     eps, usx, usy = solid[0], solid[1], solid[2]
+    g = lbm.from_storage(f, cfg)
     parts = []
     for _ in range(k):
-        fpost, phix, phiy = imb.collide_imb(f, eps, usx, usy, cfg)
-        f = lbm.apply_bounce_back(lbm.stream(fpost), fpost, cfg)
+        fpost, phix, phiy = imb.collide_imb(g, eps, usx, usy, cfg)
+        g = lbm.apply_open_boundaries(
+            lbm.apply_bounce_back(lbm.stream(fpost), fpost, cfg), cfg)
         parts.append(hydro_partials_plain(eps, phix, phiy, tile_data, counts,
                                           cfg))
-    out.copy_(f)
+    out.copy_(lbm.to_storage(g, cfg))
     return out, torch.stack(parts)
-
-
-def _params(cfg: SimConfig) -> kernels.LbmParams:
-    f32 = np.float32
-    walls = ((cfg.bc_south == WALL) | (cfg.bc_north == WALL) << 1
-             | (cfg.bc_west == WALL) << 2 | (cfg.bc_east == WALL) << 3)
-    return kernels.LbmParams(
-        tau=f32(cfg.tau), tm=f32(cfg.tau - 0.5), half_gx=f32(0.5 * cfg.gx),
-        half_gy=f32(0.5 * cfg.gy), gx=f32(cfg.gx), gy=f32(cfg.gy),
-        guo_pref=f32(1.0 - 0.5 / cfg.tau), eps_min=f32(imb._EPS_MIN),
-        forced=int(cfg.gx != 0.0 or cfg.gy != 0.0), walls=int(walls),
-        uw_west=cfg.uw_west, uw_east=cfg.uw_east, uw_south=cfg.uw_south,
-        uw_north=cfg.uw_north, rho0=cfg.rho0,
-    )
 
 
 def _check_args(f, out, what: str) -> None:
@@ -107,9 +85,11 @@ def _launch(f, solid, tile_data, counts, cfg: SimConfig, k: int, out,
             what: str):
     """Launch K2 (k None) or K6 (k steps); returns the partials
     (k or 1, n_tiles * cap, 4)."""
-    kernels.require_cuda_f32(what, f, solid, tile_data, counts, out)
-    if f.dtype != torch.float32 or counts.dtype != torch.int32:
-        raise ValueError(f"{what}: f32 fields, i32 counts")
+    want = fused_fluid.check_storage(what, cfg, f, out)
+    kernels.require_cuda_f32(what, solid, tile_data, counts)
+    if (solid.device != f.device or solid.dtype != torch.float32
+            or counts.dtype != torch.int32):
+        raise ValueError(f"{what}: f32 solid stack on f's device, i32 counts")
     th, tw = tile_dims(cfg)
     n_tiles = tile_data.shape[0]
     cap = tile_data.shape[2] // 8
@@ -118,29 +98,35 @@ def _launch(f, solid, tile_data, counts, cfg: SimConfig, k: int, out,
                     device=f.device)
     partials = torch.empty((nk, n_tiles * cap, 4), dtype=torch.float32,
                            device=f.device)
-    args = (f.data_ptr(), solid.data_ptr(), tile_data.data_ptr(),
+    u_in = (fused_fluid._inlet_profile(cfg, f.device).data_ptr()
+            if cfg.bc_west == "inlet" else None)
+    head = (f.data_ptr(), solid.data_ptr(), u_in, tile_data.data_ptr(),
             counts.data_ptr(), out.data_ptr(), w.data_ptr(),
             partials.data_ptr(), cfg.ny, cfg.nx, th, tw, cfg.nx // tw,
             n_tiles, cap, cfg.window, cfg.eps_samples,
             float(cfg.eps_r_shift), cov_method(cfg))
+    tail = (int(want == torch.bfloat16), int(cfg.nt_mode == "lambda"),
+            fused_fluid._params(cfg),
+            np.float32(imb.nt_tm(cfg.tau, cfg.nt_mode)),
+            np.float32(imb._EPS_MIN), kernels.stream())
     lib = kernels.library()
     if k is None:
-        code = lib.lbm_imb_step(*args, _params(cfg), kernels.stream())
+        code = lib.lbm_imb_step(*head, *tail)
     else:
-        code = lib.lbm_imb_multi(*args, k, _params(cfg), kernels.stream())
+        code = lib.lbm_imb_multi(*head, k, *tail)
     kernels.check(code, what)
     return partials
 
 
 def fused_step_imb_reduce(f, solid, tile_data, counts, cfg: SimConfig, out):
-    """K2: one coupled step of f (9, ny, nx) over the solid stack
+    """K2: one coupled step of f (9, ny, nx) in storage form (f32, or
+    shifted bf16 under f_storage="bfloat16") over the f32 solid stack
     (3, ny, nx) [eps_raw, us_x, us_y], written into `out` (the other f
     buffer, same shape), with the hydro partials (n_tiles * cap, 4) of
     the stamp binning (tile_data, counts). Returns (out, partials).
 
     CPU tensors take the plain version; CUDA tensors take the kernel
     csrc/imb_reduce.cu (two launches: collide-stream-BB, then reduce)."""
-    check_step_cfg(cfg)
     _check_args(f, out, "fused_step_imb_reduce")
     if f.device.type == "cpu":
         return fused_step_imb_reduce_plain(f, solid, tile_data, counts, cfg,
@@ -163,7 +149,6 @@ def fused_step_imb_reduce_multi(f, solid, tile_data, counts, cfg: SimConfig,
     CPU tensors take the plain version; CUDA tensors take the kernel
     csrc/imb_multi.cu (two launches: k collide-stream-BB steps in
     shared memory, then the reduce of every inner step)."""
-    check_step_cfg(cfg)
     if not 1 <= k <= MAX_K:
         raise ValueError(f"coupled temporal block k={k} outside 1..{MAX_K}")
     _check_args(f, out, "fused_step_imb_reduce_multi")

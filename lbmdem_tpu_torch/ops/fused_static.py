@@ -71,14 +71,7 @@ def fused_step_imb_static_multi(f, solid, cfg: SimConfig, k: int, out,
     if f.device.type == "cpu":
         return fused_step_imb_static_multi_plain(f, solid, cfg, k, out)
     what = "static-solid temporal-block kernel (K7)"
-    if f.dtype == torch.float64:
-        raise not_ported("dtype='float64' on the card", 9)
-    want = fused_fluid.storage_dtype(cfg)
-    for t in (f, out):
-        if t.device != f.device or t.dtype != want or not t.is_contiguous():
-            raise ValueError(f"{what}: f and out must be contiguous {want} "
-                             f"tensors on one CUDA device (f_storage="
-                             f"{cfg.f_storage!r})")
+    want = fused_fluid.check_storage(what, cfg, f, out)
     kernels.require_cuda_f32(what, solid)
     if solid.device != f.device or solid.dtype != torch.float32:
         raise ValueError(f"{what}: solid must be float32 on f's device")

@@ -1,10 +1,13 @@
 """Simulation state + driver: the coupled main path, its coupling_k
 windows, and pure fluid.
 
-Counterpart of the JAX package's `lbmdem_tpu/simulation.py` for the
-configurations it was benchmarked on (`Simulation(cfg, disks,
-use_pallas=True).run(n)`): f32 storage, BGK, any eps_method (sample,
-ramp, exact), walls, one device. Each coupled step (`make_step_fn`) runs
+Counterpart of the JAX package's `lbmdem_tpu/simulation.py` on its
+kernel path (`Simulation(cfg, disks, use_pallas=True).run(n)`) on one
+device: f32 or shifted-bf16 storage, BGK or TRT, Smagorinsky LES,
+nt_mode "nt" or "lambda", any eps_method (sample, ramp, exact), walls,
+moving walls, periodic axes and the Zou/He inlet/outlet, dashpot or
+history-spring friction (cfg.kt). Each coupled step (`make_step_fn`)
+runs
 
     coupling inputs (binning + travel check) -> gather_tile_data ->
     K1 stamp -> K2 fused IMB collide/stream/BB + reduce ->
@@ -14,9 +17,15 @@ ramp, exact), walls, one device. Each coupled step (`make_step_fn`) runs
 and `run` drives it in Verlet-cadence chunks: the stamp tile lists are
 rebuilt every BIN_CADENCE steps with BIN_MARGIN cells of slack, and
 travel beyond the margin is counted into `state.overflow`. Where the
-DEM grid is beyond the slab DEM's gate (`slab_dem.slab_supported`), the
-cell-list `dem.dem_subcycle` takes the slab DEM's place, as in the JAX
-driver.
+DEM grid is beyond the slab DEM's gate (`slab_dem.slab_supported`: on
+the card only what K3 needs; on the CPU also the JAX package's plane
+budget, narrower with the spring channels of cfg.kt > 0, so both
+packages take the same DEM there), the cell-list `dem.dem_subcycle`
+takes the slab DEM's place. In
+a Zou/He channel the solid stack's first and last columns are zeroed
+(the closures assume fluid there) and mobile disks that have left
+through an open end are deactivated after the DEM
+(`dem.cull_open_boundaries`).
 
 With cfg.coupling_k = k > 1, `run` splits each cadence block of b steps
 into b // k windows and then b % k such per-step steps. A window
@@ -45,12 +54,13 @@ slab DEM, and `step()` on any all-fixed scene is that per-step step.
 On a periodic axis, disks whose stamp window crosses the seam get
 min-image ghost copies for the binning, the stamp and the force reduce
 (`imb.periodic_ghosts`); the ghosts' forces fold back into their
-parents.
+parents, and the DEM takes minimum-image contacts across the seam.
 
 `Simulation` runs on the card unless it is given device="cpu". On CUDA
 tensors the kernels run as hand-written CUDA; on CPU tensors every
-kernel takes its plain PyTorch version (float32 or float64). Everything
-outside this slice raises NotImplementedError naming the ROADMAP.md
+kernel takes its plain PyTorch version (float32 or float64). What is
+not ported (float64 on the card, coupled scenes without disks, paranoid
+mode, a device mesh) raises NotImplementedError naming the ROADMAP.md
 item that will port it.
 
     sim = Simulation(cfg, disks, device="cuda")
@@ -94,8 +104,8 @@ class SimState(NamedTuple):
 
 def check_slice(cfg: SimConfig, disks: Sequence[DiskSpec], device,
                 mesh=None) -> None:
-    """Raise NotImplementedError for every configuration outside the
-    ported main path, naming the ROADMAP.md item that will port it."""
+    """Raise NotImplementedError for the configurations that are not
+    ported, naming the ROADMAP.md item that will port each."""
     if mesh is not None:
         raise not_ported("a device mesh (multi-GPU)", 12)
     if cfg.paranoia:
@@ -107,15 +117,6 @@ def check_slice(cfg: SimConfig, disks: Sequence[DiskSpec], device,
         return
     if not disks:
         raise not_ported("coupled scenes without disks", 9)
-    if all(d.fixed for d in disks):
-        # at rest, the static hoist (K1 once, then K7) takes every lattice
-        # option; with prescribed motion, the drift runs on the K2 step
-        # and the K6 window
-        if not _at_rest(disks):
-            fused_lbm.check_step_cfg(cfg)
-        return
-    fused_lbm.check_step_cfg(cfg)
-    slab_dem.check_dem_cfg(cfg)
 
 
 def _at_rest(disks: Sequence[DiskSpec]) -> bool:
@@ -159,8 +160,20 @@ def make_step_fn(cfg: SimConfig, grid: Optional[DemGrid], tile_lists=None,
         return fluid_step
 
     periodic = bool(cfg.wrap_lx or cfg.wrap_ly)
-    use_slab_dem = (dem_mode == "subcycle"
-                    and slab_dem.slab_supported(grid, dem_axis))
+    # Zou/He channels: the boundary columns stay pure fluid, and mobile
+    # disks that leave through an open end are deactivated
+    open_cull = cfg.bc_west == "inlet"
+
+    def use_slab_dem(d: DiskState) -> bool:
+        return (dem_mode == "subcycle" and slab_dem.slab_supported(
+            grid, dem_axis, kt=cfg.kt > 0.0, device=d.x.device))
+
+    def stamp_solid(tile_data, counts):
+        solid = stamp.stamp_fields(tile_data, counts, cfg)
+        if open_cull:
+            solid[:, :, 0].zero_()
+            solid[:, :, -1].zero_()
+        return solid
 
     def coupling_inputs(d: DiskState):
         """The step's (or window's) coupling inputs: (d, tile_data,
@@ -210,7 +223,7 @@ def make_step_fn(cfg: SimConfig, grid: Optional[DemGrid], tile_lists=None,
             z = _zero_i32(d.x.device)
             return d._replace(x=d.x + d.v * act[:, None],
                               theta=d.theta + d.omega * act), z, z
-        if use_slab_dem:
+        if use_slab_dem(d):
             return slab_dem.dem_subcycle(d, fh, th, grid, cfg, dem_axis)
         return dem.dem_subcycle(d, fh, th, grid, cfg)
 
@@ -221,12 +234,12 @@ def make_step_fn(cfg: SimConfig, grid: Optional[DemGrid], tile_lists=None,
             # window-start coupling inputs, frozen for the k inner steps
             d, tile_data, counts, entry_slots, bovf, gparent = (
                 coupling_inputs(state.disks))
-            solid = stamp.stamp_fields(tile_data, counts, cfg)
+            solid = stamp_solid(tile_data, counts)
             fnew, parts = fused_lbm.fused_step_imb_reduce_multi(
                 state.f, solid, tile_data, counts, cfg, coupling_k, f_out)
             forces = [hydro(parts[t], entry_slots, gparent, n_real, d.x.dtype)
                       for t in range(coupling_k)]
-            if use_slab_dem:
+            if use_slab_dem(d):
                 disks, ovf, nc = slab_dem.dem_subcycle_window(
                     d, forces, grid, cfg, dem_axis)
             else:  # the drift or the cell-list DEM, per inner step
@@ -234,6 +247,8 @@ def make_step_fn(cfg: SimConfig, grid: Optional[DemGrid], tile_lists=None,
                 for fh, th in forces:
                     disks, ovf_t, nc = advance_disks(disks, fh, th)
                     ovf = torch.maximum(ovf, ovf_t)
+            if open_cull:
+                disks = dem.cull_open_boundaries(disks, cfg)
             return SimState(
                 f=fnew, disks=disks, step=state.step + coupling_k,
                 overflow=torch.maximum(state.overflow,
@@ -247,11 +262,13 @@ def make_step_fn(cfg: SimConfig, grid: Optional[DemGrid], tile_lists=None,
         n_real = state.disks.x.shape[0]
         d, tile_data, counts, entry_slots, bovf, gparent = coupling_inputs(
             state.disks)
-        solid = stamp.stamp_fields(tile_data, counts, cfg)
+        solid = stamp_solid(tile_data, counts)
         fnew, partials = fused_lbm.fused_step_imb_reduce(
             state.f, solid, tile_data, counts, cfg, f_out)
         fh, th = hydro(partials, entry_slots, gparent, n_real, d.x.dtype)
         disks, ovf, nc = advance_disks(d, fh, th)
+        if open_cull:
+            disks = dem.cull_open_boundaries(disks, cfg)
         return SimState(
             f=fnew, disks=disks, step=state.step + 1,
             overflow=torch.maximum(state.overflow, torch.maximum(ovf, bovf)),

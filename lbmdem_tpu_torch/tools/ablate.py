@@ -8,8 +8,12 @@ from the ablated stage's inputs); the marginal cost of a stage is the
 difference between the "full" variant's time and its "no-<stage>"
 variant's. The f32 variants run the split step - K1 stamp, K8
 `fused_step_imb`, K9 `reduce_hydro_forces`, then the DEM - and "fused"
-runs the production K2 step beside them; with ABLATE_COUPLING_K = k > 1
-the variants run the window step (K1 once, K6, k DEM updates).
+runs the production K2 step beside them; with ABLATE_F_STORAGE=bfloat16
+every variant runs the K2 step (the split pair is f32-only; the reduce
+ablates through zeroed counts, "full" is "fused" and timed once, and
+"no-lbm" has no counterpart); with
+ABLATE_COUPLING_K = k > 1 the variants run the window step (K1 once, K6,
+k DEM updates).
 
 PyTorch runs eagerly: nothing is dead-code eliminated or hoisted, so
 the substitutes only keep the variants' shapes alike. The marginals are
@@ -28,8 +32,8 @@ counters. The slab DEM reads one scalar (its overflow) per step, as
 `nx` (default 4096) is the side of the column_collapse scene with
 `n_disks` (10000) disks; `chunk` (50) steps per timed chunk; `names` a
 comma-separated subset of the variants. ABLATE_EPS (sample | ramp |
-exact), ABLATE_F_STORAGE (float32; bfloat16 raises, ROADMAP.md item 9)
-and ABLATE_COUPLING_K (1) set the scene's options, as in the JAX tool.
+exact), ABLATE_F_STORAGE (float32 | bfloat16) and ABLATE_COUPLING_K (1)
+set the scene's options, as in the JAX tool.
 It runs on the card and raises without one.
 """
 
@@ -69,7 +73,6 @@ def build_variants(cfg, grid, axis: str = "y") -> dict:
     the Verlet cadence in production); the "full+bin" variant rebuilds
     them every step. Each step writes the new populations into `f_out`
     (the second f buffer) and returns the state holding it."""
-    fused_lbm.check_step_cfg(cfg)  # bf16 storage: item 9
     n = cfg.max_disks
     plane = (cfg.ny, cfg.nx)
 
@@ -107,6 +110,33 @@ def build_variants(cfg, grid, axis: str = "y") -> dict:
                               overflow=torch.maximum(state.overflow, ovf),
                               n_contacts=nc)
 
+    def split_step(state, d, solid, tile_data, counts, entry_slots, do_lbm,
+                   do_reduce, f_out):
+        """K8 then K9, each or its substitute: (f', F, T)."""
+        eps, usx, usy = solid[0], solid[1], solid[2]
+        if do_lbm:
+            fnew, phix, phiy = fused_lbm.fused_step_imb(
+                state.f, eps, usx, usy, cfg, f_out)
+        else:
+            # one pass over f (the floor's cost), live in the solid stack
+            # through one scalar reduction, and one phi plane
+            live = torch.sum(solid) * 1e-30
+            fnew = torch.add(state.f, live.to(state.f.dtype), out=f_out)
+            phix = torch.zeros(plane, dtype=torch.float32,
+                               device=d.x.device) + live
+            phiy = phix
+        if do_reduce:
+            fh, th = stamp.reduce_hydro_forces(
+                d.x, d.r, d.active, eps, phix, phiy, cfg, tile_data, counts,
+                entry_slots)
+        else:
+            live = torch.zeros((n,), dtype=torch.float32,
+                               device=d.x.device) + torch.sum(
+                _tiny(phix[0]) + _tiny(phiy[0]) + _tiny(eps[0]))
+            fh = torch.stack([live, live], 1).to(d.x.dtype)
+            th = live.to(d.x.dtype)
+        return fnew, fh, th
+
     def assemble(do_bin, do_stamp, do_lbm, do_reduce, dem_kind,
                  do_gather=True):
         def step(state, lists, counts, entry_slots, f_out):
@@ -120,33 +150,19 @@ def build_variants(cfg, grid, axis: str = "y") -> dict:
             tile_data, counts, entry_slots, solid = inputs(
                 state, lists, counts, entry_slots, do_bin, do_gather,
                 do_stamp)
-            eps, usx, usy = solid[0], solid[1], solid[2]
-            if do_lbm == "fused":  # the production step: K2
+            if do_lbm == "fused":
+                # the production step, K2 (the only coupled step on bf16
+                # storage): its reduce ablates through zeroed counts (no
+                # slot is reduced, the partials stay live)
+                rcounts = counts if do_reduce else torch.zeros_like(counts)
                 fnew, partials = fused_lbm.fused_step_imb_reduce(
-                    state.f, solid, tile_data, counts, cfg, f_out)
+                    state.f, solid, tile_data, rcounts, cfg, f_out)
                 fh, th = stamp.gather_partials(partials, entry_slots,
                                                d.x.dtype)
-                return finish(state, fnew, *slab_dem.dem_subcycle(
-                    d, fh, th, grid, cfg, axis))
-            if do_lbm:
-                fnew, phix, phiy = fused_lbm.fused_step_imb(
-                    state.f, eps, usx, usy, cfg, f_out)
             else:
-                fnew = torch.add(state.f, (_tiny(eps)[None] + _tiny(usx)
-                                           + _tiny(usy)).to(state.f.dtype),
-                                 out=f_out)
-                phix = _tiny(state.f[0]) + _tiny(eps)
-                phiy = phix
-            if do_reduce:
-                fh, th = stamp.reduce_hydro_forces(
-                    d.x, d.r, d.active, eps, phix, phiy, cfg, tile_data,
-                    counts, entry_slots)
-            else:
-                live = torch.zeros((n,), dtype=torch.float32,
-                                   device=d.x.device) + torch.sum(
-                    _tiny(phix[0]) + _tiny(phiy[0]) + _tiny(eps[0]))
-                fh = torch.stack([live, live], 1).to(d.x.dtype)
-                th = live.to(d.x.dtype)
+                fnew, fh, th = split_step(state, d, solid, tile_data, counts,
+                                          entry_slots, do_lbm, do_reduce,
+                                          f_out)
             if dem_kind == "slab":
                 return finish(state, fnew, *slab_dem.dem_subcycle(
                     d, fh, th, grid, cfg, axis))
@@ -155,8 +171,9 @@ def build_variants(cfg, grid, axis: str = "y") -> dict:
                                                              cfg))
             if dem_kind == "build":
                 # build_slabs only: the slab build apart from K3 + unslab
-                slabs, slot, _, kmax, _, _ = slab_dem.build_slabs(
-                    d, fh, th, dem.body_forces(d, cfg), grid, axis)
+                slabs, slot, _, kmax, _, _, _ = slab_dem.build_slabs(
+                    d, fh, th, dem.body_forces(d, cfg), grid, axis,
+                    kt=cfg.kt > 0.0)
                 live = (_tiny(slabs[0, 0, 0, :2].sum()) + _tiny(slot[0])
                         + _tiny(kmax)).to(d.x.dtype)
                 disks = d._replace(x=d.x + _tiny(fh).to(d.x.dtype) + live,
@@ -206,20 +223,29 @@ def build_variants(cfg, grid, axis: str = "y") -> dict:
             "no-gather": assemble_window(ck, False, True, True, "slab",
                                          do_gather=False),
         }
-    return {
+    # the split pair is f32-only: on bf16 storage every variant runs the
+    # K2 step, "full" and "fused" are one variant (timed once), and
+    # "no-lbm" has no counterpart
+    bf16 = cfg.f_storage == "bfloat16"
+    lbm = "fused" if bf16 else True
+    fused = assemble(False, True, "fused", True, "slab")
+    table = {
         "floor": floor,
-        "fused": assemble(False, True, "fused", True, "slab"),
-        "full": assemble(False, True, True, True, "slab"),
-        "full+bin": assemble(True, True, True, True, "slab"),
-        "no-stamp": assemble(False, False, True, True, "slab"),
+        "fused": fused,
+        "full": fused if bf16 else assemble(False, True, True, True, "slab"),
+        "full+bin": assemble(True, True, lbm, True, "slab"),
+        "no-stamp": assemble(False, False, lbm, True, "slab"),
         "no-lbm": assemble(False, True, False, True, "slab"),
-        "no-reduce": assemble(False, True, True, False, "slab"),
-        "no-dem": assemble(False, True, True, True, None),
-        "no-gather": assemble(False, True, True, True, "slab",
+        "no-reduce": assemble(False, True, lbm, False, "slab"),
+        "no-dem": assemble(False, True, lbm, True, None),
+        "no-gather": assemble(False, True, lbm, True, "slab",
                               do_gather=False),
-        "dem-build": assemble(False, True, True, True, "build"),
-        "xla-dem": assemble(False, True, True, True, "xla"),
+        "dem-build": assemble(False, True, lbm, True, "build"),
+        "xla-dem": assemble(False, True, lbm, True, "xla"),
     }
+    if bf16:
+        del table["no-lbm"]
+    return table
 
 
 def make_sim(nx: int = 4096, n_disks: int = 10000, device="cuda",
@@ -256,9 +282,8 @@ def run_variants(sim: Simulation, chunk: int = 50, names=None,
     """Time each variant from the scene's initial state: one warm chunk
     of `chunk` steps, then 3 timed chunks (CUDA events on the card, the
     host clock on the CPU), then on the card PROFILED_STEPS profiled
-calls. Prints
-    one row per variant and the marginals; returns {name: {"ms": best ms
-    per LBM step, "chunks": the 3 chunks' ms per step, "device_ms": the
+    calls. Prints one row per variant and the marginals; returns {name:
+    {"ms": best ms per LBM step, "chunks": the 3 chunks' ms per step, "device_ms": the
     profiled chunk's kernel time per step (None on the CPU), "launches":
     kernel launches per step of the timed chunks}}."""
     cfg = sim.cfg
@@ -271,7 +296,13 @@ calls. Prints
         d0.x, d0.active, cfg, margin=BIN_MARGIN)
     cuda = s0.f.device.type == "cuda"
     results = {}
+    timed = {}  # step -> the name it was timed under
     for name, step in variants.items():
+        if step in timed:  # the same variant under a second name
+            results[name] = results[timed[step]]
+            log(f"{name:10s} is {timed[step]} (timed once)")
+            continue
+        timed[step] = name
         state = s0._replace(f=s0.f.clone())
         spare = torch.empty_like(s0.f)
 
@@ -339,7 +370,7 @@ calls. Prints
                 log(f"  binning  {diff(r, full)} (per-step rebuild)")
             elif name == "xla-dem":
                 log(f"  xla-dem  {diff(r, full)} (cell-list DEM vs slab)")
-            elif name == "fused":
+            elif name == "fused" and r is not full:
                 log(f"  fused    {diff(r, full)} (K2 vs K8 + K9)")
     return results
 

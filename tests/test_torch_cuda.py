@@ -16,7 +16,9 @@ relative to the largest |F|; K8 f' rtol 1e-6 / atol 1e-7 and phi rtol
 against K2 f' equal and forces 1e-6, K9 1e-6 against its plain version
 (relative to the largest |F| or |T| where that exceeds 1),
 K1 under ramp and exact 1e-6; the cell-list DEM 1e-4 against the CPU
-with equal contacts."""
+with equal contacts; K2 and K6 over the lattice options on CPU copies as
+above (bf16 3e-4), K8 + K9 against K2 bit for bit; K3 and K3w with
+history springs 3e-5 on every slab channel, on periodic axes 2e-5."""
 
 import numpy as np
 import pytest
@@ -101,17 +103,17 @@ def test_slab_kernel_matches_plain(dev):
     n = d.x.shape[0]
     fh = (1e-3 * torch.randn((n, 2), generator=g)).to(dev)
     th = (1e-4 * torch.randn((n,), generator=g)).to(dev)
-    slabs, slot, ovf, kmax, n_occ, bands = slab_dem.build_slabs(
+    slabs, slot, ovf, kmax, n_occ, bands, _ = slab_dem.build_slabs(
         d, fh, th, dem.body_forces(d, cfg), grid, axis)
     assert int(ovf) == 0
     n0 = slab_dem.subcycle_slabs.launches
     sk, nck = slab_dem.subcycle_slabs(slabs.clone(), kmax, n_occ, bands, grid,
                                       cfg, axis)
     assert slab_dem.subcycle_slabs.launches == n0 + 1
-    sp, ncp = slab_dem.subcycle_slabs_plain(
-        slabs, kmax, cfg, slab_dem.slab_dims(grid, axis)[1])
+    sp, ncp = slab_dem.subcycle_slabs_plain(slabs, kmax, cfg, grid, axis)
     assert int(nck) == int(ncp) > 0
-    a, b = slab_dem._unslab(sk, slot, d), slab_dem._unslab(sp, slot, d)
+    a = slab_dem._unslab(sk, slot, d, cfg, None, ovf)[0]
+    b = slab_dem._unslab(sp, slot, d, cfg, None, ovf)[0]
     for k in ("x", "v", "omega", "theta"):
         assert float((getattr(a, k) - getattr(b, k)).abs().max()) <= 2e-5, k
 
@@ -159,20 +161,21 @@ def test_window_slab_kernel_matches_plain(dev):
                (1e-4 * torch.randn((n,), generator=g)).to(dev))
               for _ in range(4)]
     body = dem.body_forces(d, cfg)
-    slabs, slot, ovf, kmax, n_occ, bands = slab_dem.build_slabs(
+    slabs, slot, ovf, kmax, n_occ, bands, _ = slab_dem.build_slabs(
         d, None, None, body, grid, axis, bake_forces=False)
     assert int(ovf) == 0 and slabs.shape[0] == 8
     f3 = slab_dem._force_planes_window(slot, forces, body, slabs.shape)
     sk, sp = slabs.clone(), slabs
-    ncl = slab_dem.slab_dims(grid, axis)[1]
     n0 = slab_dem.subcycle_slabs_window.launches
     for t in range(4):
         sk, nck = slab_dem.subcycle_slabs_window(sk, f3[t], kmax, n_occ,
                                                  bands, grid, cfg, axis)
-        sp, ncp = slab_dem.subcycle_slabs_plain(sp, kmax, cfg, ncl, f3[t])
+        sp, ncp = slab_dem.subcycle_slabs_plain(sp, kmax, cfg, grid, axis,
+                                                f3[t])
         assert int(nck) == int(ncp) > 0
     assert slab_dem.subcycle_slabs_window.launches == n0 + 4
-    a, b = slab_dem._unslab(sk, slot, d), slab_dem._unslab(sp, slot, d)
+    a = slab_dem._unslab(sk, slot, d, cfg, None, ovf)[0]
+    b = slab_dem._unslab(sp, slot, d, cfg, None, ovf)[0]
     for k in ("x", "v", "omega", "theta"):
         assert float((getattr(a, k) - getattr(b, k)).abs().max()) <= 2e-5, k
 
@@ -494,17 +497,39 @@ def test_ramp_simulation_on_card_matches_cpu(dev, path, method):
     assert float((g.state.disks.x.cpu() - c.state.disks.x).abs().max()) <= 1e-4
 
 
-def test_simulation_past_slab_gate_on_card_matches_cpu(dev):
-    """A long channel of small disks whose DEM grid the slab gate
-    rejects: the step takes the cell-list DEM, on the card as on the
-    CPU."""
+def _long_channel():
     cfg = SimConfig(nx=4352, ny=16, tau=0.8, dtype="float32", g_py=-1e-4,
                     rho_s=2.0, n_sub=4, bc_west="wall", bc_east="wall")
     disks = [DiskSpec(100.0 + 2.2 * i, 3.0 + 5.0 * j, 0.5)
              for i in range(4) for j in range(3)]
+    return cfg, disks
+
+
+def test_simulation_past_slab_gate_on_card_matches_cpu(dev):
+    """A long channel of small disks whose DEM grid is past the CPU's
+    plane budget: the CPU run takes the cell-list DEM, the card has no
+    such limit and takes K3, and the two agree."""
+    cfg, disks = _long_channel()
     g = Simulation(cfg, disks, device=dev)
     c = Simulation(cfg, disks, device="cpu")
     assert not slab_dem.slab_supported(g.grid, g.dem_axis)
+    assert slab_dem.slab_supported(g.grid, g.dem_axis, device=dev)
+    n3 = slab_dem.subcycle_slabs.launches
+    g.run(4)
+    c.run(4)
+    assert slab_dem.subcycle_slabs.launches == n3 + 4
+    assert int(g.state.overflow) == int(c.state.overflow) == 0
+    assert float((g.state.f.cpu() - c.state.f).abs().max()) <= 1e-5
+    assert float((g.state.disks.x.cpu() - c.state.disks.x).abs().max()) <= 1e-4
+
+
+def test_simulation_cell_list_dem_on_card_matches_cpu(dev, monkeypatch):
+    """The same channel with the slab gate shut: the step takes the
+    cell-list DEM on the card as on the CPU."""
+    monkeypatch.setattr(slab_dem, "slab_supported", lambda *a, **k: False)
+    cfg, disks = _long_channel()
+    g = Simulation(cfg, disks, device=dev)
+    c = Simulation(cfg, disks, device="cpu")
     n3 = slab_dem.subcycle_slabs.launches
     g.run(4)
     c.run(4)
@@ -527,3 +552,280 @@ def test_cell_list_dem_on_card_matches_cpu(dev):
     for k in ("x", "v", "omega"):
         assert float((getattr(a, k).cpu() - getattr(b, k)).abs().max()) <= 1e-4
 
+
+
+# --- the lattice breadth of K2 and K6, the springs and periodic axes of
+# --- K3 and K3w
+
+_BREADTH_CASES = dict(
+    _SPLIT_CASES,
+    **{"trt": dict(collision="trt", bc_west="wall", bc_east="wall"),
+       "lambda": dict(nt_mode="lambda", bc_west="wall", bc_east="wall"),
+       "all": dict(collision="trt", smagorinsky=0.16, nt_mode="lambda",
+                   gx=1e-5, gy=-1e-5, uw_north=0.03, bc_west="inlet",
+                   bc_east="outlet", u_inlet=0.05,
+                   inlet_profile="poiseuille")})
+
+
+def _breadth_inputs(case, storage, seed=7):
+    """CPU inputs of a 256x64 coupled step under a lattice-option case:
+    (cfg, f in storage form, solid stack, tile_data, counts,
+    entry_slots), four moving disks across the tiles, Zou/He columns
+    zeroed as the steps zero them."""
+    cfg = SimConfig(nx=256, ny=64, tau=0.8, dtype="float32", max_disks=4,
+                    window=13, tile_cap=8, f_storage=storage,
+                    **_BREADTH_CASES[case])
+    x = torch.tensor([[1.2, 20.3], [64.3, 32.1], [128.0, 40.0],
+                      [200.5, 60.2]])
+    v = torch.tensor([[0.01, -0.02], [0.0, 0.01], [-0.02, 0.0], [0.01, 0.01]])
+    om = torch.tensor([0.005, -0.003, 0.0, 0.002])
+    r = torch.tensor([4.0, 4.0, 3.0, 5.0])
+    td, cnt, es, ovf = stamp.bin_disks_to_tiles(
+        x, v, om, r, torch.ones(4, dtype=torch.bool), cfg)
+    assert int(ovf) == 0
+    solid = stamp.stamp_fields(td, cnt, cfg)
+    if cfg.bc_west == "inlet":
+        solid[:, :, 0].zero_()
+        solid[:, :, -1].zero_()
+    f = lbm.to_storage(_fluid_f(cfg.replace(f_storage="float32"), "cpu",
+                                seed), cfg)
+    return cfg, f, solid, td, cnt, es, (x, r)
+
+
+def _assert_coupled(cfg, fa, pk, fb, pp, es):
+    """Kernel f' and partials (card) against the plain version's (CPU).
+    On bf16 storage the kernel computes in the shifted form, the plain
+    version in the physical one: forces within 5e-6 of the largest."""
+    bf16 = cfg.f_storage == "bfloat16"
+    tol = 3e-4 if bf16 else 5e-6
+    rel = 5e-6 if bf16 else 1e-6
+    assert fa.dtype == fb.dtype
+    assert float((fa.cpu().float() - fb.float()).abs().max()) <= tol
+    F, T = stamp.gather_partials(pk.cpu(), es, torch.float32)
+    Fp, Tp = stamp.gather_partials(pp, es, torch.float32)
+    fs, ts = float(Fp.abs().max()), float(Tp.abs().max())
+    assert fs > 0 and ts > 0
+    assert float((F - Fp).abs().max()) <= rel * fs
+    assert float((T - Tp).abs().max()) <= 2 * rel * ts
+
+
+@pytest.mark.parametrize("storage", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", list(_BREADTH_CASES))
+def test_fused_step_options_match_plain(dev, case, storage):
+    """K2 over the lattice options on f32 and shifted-bf16 storage,
+    against its plain version on CPU copies."""
+    cfg, f, solid, td, cnt, es, _ = _breadth_inputs(case, storage)
+    fa = torch.empty_like(f, device=dev)
+    n0 = fused_lbm.fused_step_imb_reduce.launches
+    _, pk = fused_lbm.fused_step_imb_reduce(f.to(dev), solid.to(dev),
+                                            td.to(dev), cnt.to(dev), cfg, fa)
+    assert fused_lbm.fused_step_imb_reduce.launches == n0 + 1
+    fb, pp = fused_lbm.fused_step_imb_reduce_plain(f, solid, td, cnt, cfg,
+                                                   torch.empty_like(f))
+    _assert_coupled(cfg, fa, pk, fb, pp, es)
+
+
+@pytest.mark.parametrize("k", [2, 4])
+@pytest.mark.parametrize("storage", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ["trt-les", "les-lambda", "zou-he",
+                                  "periodic-xy", "all"])
+def test_window_fluid_options_match_plain(dev, case, storage, k):
+    """K6 over the lattice options, f' and every inner step's forces,
+    against its plain version on CPU copies (Zou/He: the halo cells of
+    the blocks next to the open ends take the closures too)."""
+    cfg, f, solid, td, cnt, es, _ = _breadth_inputs(case, storage, seed=9)
+    fa = torch.empty_like(f, device=dev)
+    _, pk = fused_lbm.fused_step_imb_reduce_multi(
+        f.to(dev), solid.to(dev), td.to(dev), cnt.to(dev), cfg, k, fa)
+    fb, pp = fused_lbm.fused_step_imb_reduce_multi_plain(
+        f, solid, td, cnt, cfg, k, torch.empty_like(f))
+    for t in range(k):
+        _assert_coupled(cfg, fa, pk[t], fb, pp[t], es)
+
+
+@pytest.mark.parametrize("case", list(_BREADTH_CASES))
+def test_split_pair_equals_fused_step_bitwise(dev, case):
+    """K8 + K9 against K2 on f32 for every option K8 takes, Zou/He
+    included: f' and the partials bit for bit (one launch-(a) kernel)."""
+    cfg, f, solid, td, cnt, es, (x, r) = _breadth_inputs(case, "float32")
+    f, solid, td, cnt, es, x, r = (t.to(dev) for t in
+                                   (f, solid, td, cnt, es, x, r))
+    fa, fb = torch.empty_like(f), torch.empty_like(f)
+    _, p2 = fused_lbm.fused_step_imb_reduce(f, solid, td, cnt, cfg, fa)
+    _, phx, phy = fused_lbm.fused_step_imb(f, solid[0], solid[1], solid[2],
+                                           cfg, fb)
+    F9, T9 = stamp.reduce_hydro_forces(
+        x, r, torch.ones(4, dtype=torch.bool, device=dev), solid[0], phx, phy,
+        cfg, td, cnt, es)
+    F2, T2 = stamp.gather_partials(p2, es, torch.float32)
+    assert torch.equal(fa, fb)
+    assert float(F2.abs().max()) > 0
+    assert torch.equal(F2, F9) and torch.equal(T2, T9)
+
+
+def _kt_scene(dev, **kw):
+    """The packed 256^2 column with history springs, carried springs
+    from two subcycles on the CPU."""
+    sim, d = _scene(dev, kt=25.0, **kw)
+    cfg, grid, axis = sim.cfg, sim.grid, sim.dem_axis
+    g = torch.Generator().manual_seed(2)
+    n = d.x.shape[0]
+    fh = 1e-3 * torch.randn((n, 2), generator=g)
+    th = 1e-4 * torch.randn((n,), generator=g)
+    dc = type(d)(*(t.cpu() for t in d))
+    for _ in range(2):
+        dc, ovf, nc = slab_dem.dem_subcycle(dc, fh, th, grid, cfg, axis)
+    assert int(ovf) == 0 and int(nc) > 0 and int((dc.ct_j >= 0).sum()) > 0
+    return cfg, grid, axis, type(d)(*(t.to(dev) for t in dc)), fh.to(dev), \
+        th.to(dev)
+
+
+def _assert_slabs(sk, sp, nck, ncp, tol):
+    assert int(nck) == int(ncp) > 0
+    assert float((sk - sp).abs().max()) <= tol
+
+
+def test_slab_kernel_with_springs_matches_plain(dev):
+    """K3 with kt > 0 against its plain version on the card: every
+    channel of the slabs (springs included) 3e-5, equal contacts; the
+    unslabbed carry has live springs."""
+    cfg, grid, axis, d, fh, th = _kt_scene(dev)
+    slabs, slot, ovf, kmax, n_occ, bands, j36 = slab_dem.build_slabs(
+        d, fh, th, dem.body_forces(d, cfg), grid, axis, kt=True)
+    assert slabs.shape[0] == 51 and float(slabs[11:47].abs().max()) > 0
+    sk, nck = slab_dem.subcycle_slabs(slabs.clone(), kmax, n_occ, bands, grid,
+                                      cfg, axis)
+    sp, ncp = slab_dem.subcycle_slabs_plain(slabs, kmax, cfg, grid, axis)
+    _assert_slabs(sk, sp, nck, ncp, 3e-5)
+    new, ovf2 = slab_dem._unslab(sk, slot, d, cfg, j36, ovf)
+    assert int(ovf2) == 0 and int((new.ct_j >= 0).sum()) > 0
+
+
+def test_window_slab_kernel_with_springs_matches_plain(dev):
+    """K3w with kt > 0 (48 channels, springs from channel 8), three
+    chained calls, against its plain version."""
+    cfg, grid, axis, d, fh, th = _kt_scene(dev)
+    body = dem.body_forces(d, cfg)
+    slabs, slot, ovf, kmax, n_occ, bands, j36 = slab_dem.build_slabs(
+        d, None, None, body, grid, axis, kt=True, bake_forces=False)
+    assert slabs.shape[0] == 48
+    f3 = slab_dem._force_planes_window(slot, [(fh, th)] * 3, body,
+                                       slabs.shape)
+    sk, sp = slabs.clone(), slabs
+    for t in range(3):
+        sk, nck = slab_dem.subcycle_slabs_window(sk, f3[t], kmax, n_occ,
+                                                 bands, grid, cfg, axis)
+        sp, ncp = slab_dem.subcycle_slabs_plain(sp, kmax, cfg, grid, axis,
+                                                f3[t])
+        _assert_slabs(sk, sp, nck, ncp, 3e-5)
+
+
+@pytest.mark.parametrize("axis", ["y", "x"])
+@pytest.mark.parametrize("kt", [0.0, 0.4])
+def test_slab_kernel_periodic_matches_plain(dev, axis, kt):
+    """K3 on a doubly periodic box under both slab orientations: a pair
+    touching through the corner, a disk that crosses the seam; 2e-5
+    (3e-5 with kt)."""
+    cfg = SimConfig(nx=128, ny=96, tau=0.8, dtype="float32", max_disks=6,
+                    kn=2.0, gamma_n=1.0, gamma_t=0.3, mu=0.4, rho_s=2.0,
+                    n_sub=6, kt=kt, bc_west="periodic", bc_east="periodic",
+                    bc_south="periodic", bc_north="periodic")
+    specs = [DiskSpec(126.8, 94.5, 3.5, vx=0.03, vy=0.02),
+             DiskSpec(2.0, 1.5, 3.5, vx=-0.01),
+             DiskSpec(50.0, 50.0, 3.0), DiskSpec(55.5, 52.0, 3.0),
+             DiskSpec(127.2, 70.0, 2.5, vx=0.08),
+             DiskSpec(30.0, 95.0, 2.5, vy=0.05)]
+    d = dem.make_disk_state(specs, cfg, device=dev)
+    grid = dem.DemGrid.build(cfg, 3.5)
+    assert slab_dem.slab_supported(grid, axis, kt=kt > 0)
+    z2 = torch.zeros((6, 2), device=dev)
+    z1 = torch.zeros((6,), device=dev)
+    slabs, slot, ovf, kmax, n_occ, bands, j36 = slab_dem.build_slabs(
+        d, z2, z1, dem.body_forces(d, cfg), grid, axis, kt=kt > 0)
+    sk, nck = slab_dem.subcycle_slabs(slabs.clone(), kmax, n_occ, bands, grid,
+                                      cfg, axis)
+    sp, ncp = slab_dem.subcycle_slabs_plain(slabs, kmax, cfg, grid, axis)
+    assert int(ncp) >= 2
+    _assert_slabs(sk, sp, nck, ncp, 3e-5 if kt else 2e-5)
+    # and against the cell-list DEM on the CPU
+    a, _, nca = slab_dem.dem_subcycle(d, z2, z1, grid, cfg, axis)
+    b, _, ncb = dem.dem_subcycle(type(d)(*(t.cpu() for t in d)), z2.cpu(),
+                                 z1.cpu(), grid, cfg)
+    assert int(nca) == int(ncb)
+    for k in ("x", "v", "omega"):
+        assert float((getattr(a, k).cpu() - getattr(b, k)).abs().max()) <= 1e-4
+
+
+def _run_pair(cfg, disks, dev, n):
+    g = Simulation(cfg, disks, device=dev)
+    c = Simulation(cfg, disks, device="cpu")
+    g.run(n)
+    c.run(n)
+    assert int(g.state.overflow) == int(c.state.overflow) == 0
+    return g, c
+
+
+@pytest.mark.parametrize("ck", [1, 4])
+def test_bf16_coupled_simulation_on_card_matches_cpu(dev, ck):
+    """The coupled slice on shifted-bf16 storage, per step and per
+    coupling_k = 4 window, against the CPU run (3e-4: a flipped bf16
+    rounding of the shifted populations)."""
+    cfg, disks = column_collapse(nx=256, ny=256, n_disks=60)
+    cfg = cfg.replace(f_storage="bfloat16", coupling_k=ck)
+    n2 = fused_lbm.fused_step_imb_reduce.launches
+    n6 = fused_lbm.fused_step_imb_reduce_multi.launches
+    g, c = _run_pair(cfg, disks, dev, 16)
+    assert g.state.f.dtype == torch.bfloat16
+    assert (fused_lbm.fused_step_imb_reduce.launches - n2,
+            fused_lbm.fused_step_imb_reduce_multi.launches - n6) == \
+        ((16, 0) if ck == 1 else (0, 4))
+    assert float((g.state.f.float().cpu() - c.state.f.float()).abs().max()) \
+        <= 3e-4
+    assert float((g.state.disks.x.cpu() - c.state.disks.x).abs().max()) <= 1e-4
+
+
+def test_open_channel_simulation_on_card_matches_cpu(dev):
+    """A Zou/He channel under TRT + LES with a mobile disk that leaves
+    through the outlet and is culled, and a fixed obstacle."""
+    cfg = SimConfig(nx=256, ny=64, tau=0.7, dtype="float32", max_disks=2,
+                    bc_west="inlet", bc_east="outlet", u_inlet=0.1,
+                    inlet_profile="uniform", rho_s=1.0, n_sub=2, u0x=0.1,
+                    collision="trt", smagorinsky=0.1)
+    disks = [DiskSpec(253.0, 32.0, 3.0, vx=0.2),
+             DiskSpec(60.0, 20.0, 4.0, fixed=True)]
+    g, c = _run_pair(cfg, disks, dev, 48)
+    assert not bool(g.state.disks.active[0]) and \
+        not bool(c.state.disks.active[0])
+    assert bool(g.state.disks.active[1])
+    assert float((g.state.f.cpu() - c.state.f).abs().max()) <= 1e-5
+    assert float((g.state.disks.x.cpu() - c.state.disks.x).abs().max()) <= 1e-4
+
+
+def test_friction_simulation_on_card_matches_cpu(dev):
+    """The packed column with history springs (kt = 25) on K2 + K3."""
+    sim, _ = _scene("cpu", kt=25.0)
+    d = sim.state.disks
+    disks = [DiskSpec(float(x), float(y), float(r)) for (x, y), r, on in
+             zip(d.x, d.r, d.active) if on]
+    n3 = slab_dem.subcycle_slabs.launches
+    g, c = _run_pair(sim.cfg, disks, dev, 16)
+    assert slab_dem.subcycle_slabs.launches == n3 + 16
+    assert int(g.state.n_contacts) == int(c.state.n_contacts) > 0
+    assert int((g.state.disks.ct_j >= 0).sum()) > 0
+    assert float((g.state.f.cpu() - c.state.f).abs().max()) <= 1e-5
+    assert float((g.state.disks.x.cpu() - c.state.disks.x).abs().max()) <= 1e-4
+
+
+def test_periodic_mobile_disks_on_card_match_cpu(dev):
+    """Mobile disks on a periodic x axis, one straddling the seam: ghosts
+    for the stamp and the reduce, the periodic slab DEM."""
+    cfg = SimConfig(nx=128, ny=256, tau=0.65, dtype="float32", kn=0.5,
+                    gamma_n=1.0, mu=0.3, rho_s=1.25, n_sub=10, g_py=-2e-5,
+                    buoyancy=True, bc_west="periodic", bc_east="periodic")
+    disks = [DiskSpec(126.8, 200.0, 6.0, vx=0.02), DiskSpec(20.4, 180.0, 5.0),
+             DiskSpec(64.0, 210.0, 6.0, vx=-0.01)]
+    n3 = slab_dem.subcycle_slabs.launches
+    g, c = _run_pair(cfg, disks, dev, 24)
+    assert slab_dem.subcycle_slabs.launches == n3 + 24
+    assert float((g.state.f.cpu() - c.state.f).abs().max()) <= 1e-5
+    assert float((g.state.disks.x.cpu() - c.state.disks.x).abs().max()) <= 1e-4

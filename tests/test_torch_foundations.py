@@ -138,7 +138,7 @@ def test_particle_file_roundtrip(tmp_path):
 _C_TYPES = {"float*": ctypes.c_void_p, "int*": ctypes.c_void_p,
             "void*": ctypes.c_void_p,
             "cudaStream_t": ctypes.c_void_p, "int": ctypes.c_int,
-            "float": ctypes.c_float, "LbmParams": tkernels.LbmParams,
+            "float": ctypes.c_float,
             "DemParams": tkernels.DemParams,
             "FluidParams": tkernels.FluidParams}
 
@@ -160,8 +160,7 @@ def test_kernel_bindings_match_c_declarations():
                 r'extern "C" int (\w+)\(([^)]*)\)', src):
             found[name] = [_c_type(p) for p in params.split(",")]
     assert found == tkernels._SIGNATURES
-    assert ctypes.sizeof(tkernels.LbmParams) == 8 * 4 + 2 * 4 + 5 * 8
-    assert ctypes.sizeof(tkernels.DemParams) == 6 * 4 + 4 * 4 + 4 * 4
+    assert ctypes.sizeof(tkernels.DemParams) == 9 * 4 + 4 * 4 + 4 * 4 + 3 * 4
     assert ctypes.sizeof(tkernels.FluidParams) == 15 * 4 + 12 * 4 + 5 * 4
 
 

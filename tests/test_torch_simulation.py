@@ -167,40 +167,123 @@ def test_observations_match_jax():
     np.testing.assert_array_equal(ja["x"], ta["x"])
 
 
-def _out_of_slice():
+def _ported_options():
+    """(what, cfg, disks) of the options the coupled kernels take: every
+    lattice option, bf16 storage, history springs and periodic axes."""
     cfg, disks = _scene("float32")
-    # prescribed motion: the drift steps, whose K2 takes f32 storage only
+    # prescribed motion: the drift steps, on K2
     fixed = [JDisk(d.x, d.y, d.r, vx=0.01, fixed=True) for d in disks]
+    return [
+        ("coupling_k", cfg.replace(coupling_k=4, f_storage="bfloat16"),
+         disks),
+        ("bfloat16", cfg.replace(f_storage="bfloat16"), disks),
+        ("all-fixed", cfg.replace(f_storage="bfloat16"), fixed),
+        ("periodic", cfg.replace(bc_west="periodic", bc_east="periodic"),
+         disks),
+        ("Zou/He", cfg.replace(bc_west="inlet", bc_east="outlet",
+                               u_inlet=0.02), disks),
+        ("kt > 0", cfg.replace(kt=0.5), disks),
+        ("TRT", cfg.replace(collision="trt"), disks),
+        # float64: the JAX oracle's LES scan does not trace in float32
+        ("LES", cfg.replace(smagorinsky=0.1, dtype="float64"), disks),
+        ("nt_mode", cfg.replace(nt_mode="lambda"), disks),
+    ]
+
+
+def _out_of_slice():
+    """(what, cfg, disks, constructor keywords) of what is not ported."""
+    cfg, disks = _scene("float32")
     return [
         ("mesh", cfg, disks, dict(mesh=object())),
         ("coupled without disks", cfg.replace(max_disks=10), [], {}),
         ("pure-fluid float64", cfg.replace(max_disks=0, dtype="float64"), [],
          dict(device="cuda")),
-        ("coupling_k", cfg.replace(coupling_k=4, f_storage="bfloat16"),
-         disks, {}),
-        ("bfloat16", cfg.replace(f_storage="bfloat16"), disks, {}),
-        ("all-fixed", cfg.replace(f_storage="bfloat16"), fixed, {}),
         ("paranoid", cfg.replace(paranoia="chunk"), disks, {}),
-        ("periodic", cfg.replace(bc_west="periodic", bc_east="periodic"),
-         disks, {}),
-        ("Zou/He", cfg.replace(bc_west="inlet", bc_east="outlet",
-                               u_inlet=0.02), disks, {}),
-        ("kt > 0", cfg.replace(kt=0.5), disks, {}),
-        ("TRT", cfg.replace(collision="trt"), disks, {}),
-        ("LES", cfg.replace(smagorinsky=0.1), disks, {}),
-        ("nt_mode", cfg.replace(nt_mode="lambda"), disks, {}),
         ("float64", cfg.replace(dtype="float64"), disks,
          dict(device="cuda")),
     ]
 
 
+def _runs_and_matches_oracle(cfg, disks):
+    """4 steps through Simulation on CPU tensors land on the JAX oracle's
+    state (f32: f 5e-6, or 3e-4 on bf16 storage, disk positions 1e-5;
+    f64: 1e-9)."""
+    from lbmdem_tpu_torch.ops import lbm as tlbm
+
+    sim = Simulation(to_torch_cfg(cfg), to_torch_disks(disks), device="cpu")
+    js = JSim(cfg.replace(coupling_k=1), disks)
+    step = make_step_fn(js.cfg.replace(coupling_k=cfg.coupling_k), js.grid,
+                        False, coupling_k=cfg.coupling_k,
+                        dem_mode=js.dem_mode)
+    jst = js.state
+    for _ in range(4 // cfg.coupling_k):
+        jst = step(jst)
+    sim.run(4)
+    assert int(sim.state.step) == int(jst.step) == 4
+    assert int(sim.state.overflow) == 0
+    f64 = cfg.dtype == "float64"
+    tol = 3e-4 if cfg.f_storage == "bfloat16" else 1e-9 if f64 else 5e-6
+    np.testing.assert_allclose(np.asarray(jst.f, np.float64),
+                               npy(sim.state.f.to(torch.float64)), rtol=0,
+                               atol=tol)
+    np.testing.assert_allclose(np.asarray(jst.disks.x), npy(sim.state.disks.x),
+                               rtol=0, atol=1e-9 if f64 else 1e-5)
+    f = tlbm.from_storage(sim.state.f, sim.cfg)
+    assert bool(torch.isfinite(f).all())
+
+
+@pytest.mark.parametrize("what,cfg,disks", _ported_options(),
+                         ids=[c[0] for c in _ported_options()])
+def test_ported_options_match_oracle(what, cfg, disks):
+    """bf16 storage (per step, per window, with prescribed motion), TRT,
+    LES, lambda, Zou/He, kt and periodic axes run through Simulation and
+    match the JAX oracle."""
+    _runs_and_matches_oracle(cfg, disks)
+
+
 @pytest.mark.parametrize("what,cfg,disks,kw", _out_of_slice(),
                          ids=[c[0] for c in _out_of_slice()])
 def test_out_of_slice_raises_naming_the_roadmap(what, cfg, disks, kw):
+    """What is not ported raises naming its ROADMAP.md item."""
     with pytest.raises(NotImplementedError, match="ROADMAP.md") as e:
         Simulation(to_torch_cfg(cfg), to_torch_disks(disks),
                    **{"device": "cpu", **kw})
     assert "item" in str(e.value)
+
+
+def test_dkt_golden_steps():
+    """The golden's rows are 250 steps apart."""
+    gold = np.loadtxt(os.path.join(GOLDEN, "dkt_f64.csv"))
+    assert gold.shape == (12, 5) and gold[0, 0] == 250 and gold[-1, 0] == 3000
+
+
+@pytest.mark.parametrize(
+    "steps", [1000, pytest.param(3000, marks=pytest.mark.slow)])
+def test_dkt_golden(steps):
+    """The JAX package's pinned f64 drafting-kissing-tumbling trajectory
+    (64x256, two disks, mu = 0.1, rows every 250 steps: step, x0, y0, x1,
+    y1), run through the port's main path on CPU tensors at the bars of
+    test_sedimentation.py (rtol 1e-7, atol 1e-9). 1000 steps in the quick
+    lane, the whole 3000 under -m slow."""
+    from lbmdem_tpu_torch import DiskSpec, SimConfig
+
+    cfg = SimConfig(nx=64, ny=256, tau=0.56, dtype="float64", g_py=-1e-4,
+                    rho_s=2.0, kn=1.0, gamma_n=1.0, mu=0.1, n_sub=10,
+                    buoyancy=True, bc_west="wall", bc_east="wall",
+                    out_interval=250)
+    sim = Simulation(cfg, [DiskSpec(32.2, 220.0, 5.0),
+                           DiskSpec(31.8, 204.0, 5.0)], device="cpu")
+    rows = []
+    sim.run(steps, callback=lambda s: rows.append(
+        (int(s.state.step), *s.state.disks.x[0].tolist(),
+         *s.state.disks.x[1].tolist())))
+    rows = np.asarray(rows)
+    gold = np.loadtxt(os.path.join(GOLDEN, "dkt_f64.csv"))[:len(rows)]
+    assert len(rows) == steps // 250
+    np.testing.assert_allclose(rows, gold, rtol=1e-7, atol=1e-9)
+    assert int(sim.state.overflow) == 0
+    # the trailing disk drafts: the gap closes
+    assert rows[-1, 2] - rows[-1, 4] < 16.0
 
 
 @pytest.mark.parametrize("steps", [1000, pytest.param(3000, marks=pytest.mark.slow)])

@@ -119,7 +119,7 @@ def test_build_slabs_as_sets(axis):
     body = jdem.body_forces(jd, cfg)
     js, jslot, jovf, jk, jn, jb, _ = pallas_dem.build_slabs(
         jd, jx(fh), jx(th), body, jg, axis)
-    ts, tslot, tovf, tk, tn, tb = slab_dem.build_slabs(
+    ts, tslot, tovf, tk, tn, tb, _ = slab_dem.build_slabs(
         td, tt(fh), tt(th), tdem.body_forces(td, to_torch_cfg(cfg)),
         TGrid.build(to_torch_cfg(cfg), 3.0), axis)
     assert int(jovf) == int(tovf) == 0
@@ -234,10 +234,20 @@ def test_slab_overflow_counted_and_fallback_runs():
 @pytest.mark.parametrize("kw,what", [
     (dict(kt=0.5), "kt > 0"),
     (dict(bc_west="periodic", bc_east="periodic"), "periodic")])
-def test_unported_dem_options_raise(kw, what):
+def test_kt_and_periodic_match_cell_list_oracle(kw, what):
+    """History springs and a periodic axis (named by `what`): one subcycle of the slab path against the
+    JAX cell-list oracle at the slab bars (2e-5; 3e-5 with kt)."""
     cfg = _cfg(**kw)
-    _, td = _states(cfg, _specs(cfg=cfg), "float32")
-    z2, z1 = tt(np.zeros((24, 2), np.float32)), tt(np.zeros(24, np.float32))
-    with pytest.raises(NotImplementedError, match=what):
-        slab_dem.dem_subcycle(td, z2, z1, TGrid.build(to_torch_cfg(cfg), 3.0),
-                              to_torch_cfg(cfg), "y")
+    jd, td = _states(cfg, _specs(cfg=cfg), "float32")
+    fh, th = _forces(24, np.float32)
+    jn, jovf, jnc = jdem.dem_subcycle(jd, jx(fh), jx(th),
+                                      JGrid.build(cfg, 3.0), cfg)
+    tn, tovf, tnc = slab_dem.dem_subcycle(
+        td, tt(fh), tt(th), TGrid.build(to_torch_cfg(cfg), 3.0),
+        to_torch_cfg(cfg), "y")
+    assert int(jovf) == int(tovf) == 0 and int(jnc) == int(tnc) > 0
+    tol = 3e-5 if cfg.kt > 0 else 2e-5
+    for name in ("x", "v", "omega", "theta"):
+        np.testing.assert_allclose(npy(getattr(jn, name)),
+                                   npy(getattr(tn, name)), rtol=0, atol=tol,
+                                   err_msg=name)

@@ -412,8 +412,9 @@ def test_ablation_variants_run(ck):
 
 
 def test_ablation_runner_and_bf16(capsys):
-    """run_variants prints a row per variant and the marginals; bf16
-    storage raises its ROADMAP item, as check_step_cfg does."""
+    """run_variants prints a row per variant and the marginals; on bf16
+    storage every variant runs the K2 step ("full" is "fused"), the
+    reduce ablated through zeroed counts, and "no-lbm" has no row."""
     sim = ablate.make_sim(128, 40, device="cpu")
     res = ablate.run_variants(sim, chunk=1, names=["full", "no-dem",
                                                    "fused"])
@@ -421,6 +422,22 @@ def test_ablation_runner_and_bf16(capsys):
     assert all(len(r["chunks"]) == 3 and r["ms"] > 0 for r in res.values())
     out = capsys.readouterr().out
     assert "marginals vs full" in out and "  dem " in out
-    with pytest.raises(NotImplementedError, match="item 9"):
-        ablate.make_sim(128, 40, device="cpu",
-                        env={"ABLATE_F_STORAGE": "bfloat16"})
+    sim = ablate.make_sim(128, 40, device="cpu",
+                          env={"ABLATE_F_STORAGE": "bfloat16"})
+    assert sim.state.f.dtype == torch.bfloat16
+    variants = ablate.build_variants(sim.cfg, sim.grid, sim.dem_axis)
+    assert "no-lbm" not in variants and "xla-dem" in variants
+    assert variants["full"] is variants["fused"]
+    res = ablate.run_variants(sim, chunk=1, names=["full", "no-reduce",
+                                                   "fused"])
+    assert all(r["ms"] > 0 for r in res.values())
+    assert res["fused"] is res["full"]  # one variant, timed once
+    assert "is full (timed once)" in capsys.readouterr().out
+    d0 = sim.state.disks
+    tiles = stamp.build_tile_lists(d0.x, d0.active, sim.cfg,
+                                   margin=ablate.BIN_MARGIN)[:3]
+    ends = [variants[name](sim.state, *tiles, torch.empty_like(sim.state.f))
+            for name in ("full", "fused", "no-reduce")]
+    assert torch.equal(ends[0].f, ends[1].f)
+    assert torch.equal(ends[0].disks.v, ends[1].disks.v)
+    assert bool(torch.isfinite(ends[2].f.float()).all())

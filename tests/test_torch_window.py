@@ -138,7 +138,7 @@ def test_force_planes_window_matches_jax():
     td = tdem.make_disk_state(to_torch_disks(specs), to_torch_cfg(cfg),
                               "float32")
     grid = TGrid.build(to_torch_cfg(cfg), 3.0)
-    slabs, slot, _, _, _, _ = slab_dem.build_slabs(
+    slabs, slot, _, _, _, _, _ = slab_dem.build_slabs(
         td, None, None, tdem.body_forces(td, to_torch_cfg(cfg)), grid, "x",
         bake_forces=False)
     assert slabs.shape[0] == 8
