@@ -9,9 +9,10 @@ nothing falls back to the CPU):
 2. build: compile lbmdem_tpu_torch/csrc/*.cu into lbmdem_tpu_torch/_build/
    and print each kernel entry's registers and spills (ptxas);
 3. kernels: K1 stamp, K2 fused IMB step + reduce, K3 slab DEM, K6
-   coupled temporal block (k = 2, 4, 8) and K3w window slab DEM (4
-   chained calls), each against its plain PyTorch version (K6: on CPU
-   copies of the inputs) on a small scene and at the slice's shapes
+   coupled temporal block (k = 2, 4, 8; at 4096^2 k = 2, 4) and K3w
+   window slab DEM (4 chained calls), each against its plain PyTorch
+   version (K6: on CPU copies of the inputs) on a small scene and at
+   the slice's shapes
    (column_collapse: 4096^2, 10k disks), with CUDA-event times of kernel
    and plain version (on the card) at the slice's shapes;
 4. slice: Simulation(*column_collapse(), device="cuda"), run(100) to
@@ -93,7 +94,26 @@ nothing falls back to the CPU):
    against CPU tensors;
 22. decks: examples/column_collapse_friction.par (2048^2, 2 500 disks,
    kt = 25) and examples/periodic_channel.par, the card against CPU
-   tensors, then the friction deck through coupling_k = 4 windows.
+   tensors, then the friction deck through coupling_k = 4 windows;
+23. coverage sweep (after phase 3's small scene): K1 against its plain
+   version bit for bit for sample (ns 2, 3, 4, 5, 8), ramp and exact,
+   with and without eps_r_shift, on a 512^2 scene of sub-cell centres and
+   rims through sample points, with an empty tile and a full one (count
+   == cap) and windows clipped by tiles and the domain; on the same
+   scenes K2's and K9's reduces against the plain one, K8 + K9 == K2 bit
+   for bit, and the zero rows past every tile's count;
+24. boundary matrix: K2 on a 240x80 lattice (no multiple of the 32-wide
+   step blocks) with four walls and a moving lid, fully periodic,
+   periodic x with walls on y, and Zou/He with walls, f32 and bf16, at
+   the step kernel's block sizes 128, 256 and 512, against its plain
+   version on CPU copies, K8 + K9 == K2 bit for bit on f32, and K8 alone
+   on a 250x70 lattice;
+25. redesign timings (after phase 3's timed run): K1 under sample, ramp
+   and exact, K2 f32 BGK, bf16 and TRT + LES at the three block sizes,
+   and the reduce alone, at 4096^2/10k with CUDA events beside their
+   bounds (phase 16 times K2 on the slice's own state at the three block
+   sizes). The build phase fails if K2's f32 or bf16 BGK step kernel
+   spills.
 
 The second-to-last line holds the per-kernel JSON record (the ten
 kernels, then the bf16, TRT + LES, kt and periodic instantiations of K2,
@@ -197,12 +217,18 @@ def build() -> None:
     lib = kernels.library()
     log("build", f"{len(kernels.SOURCES)} sources -> {kernels.BUILD} in "
         f"{time.perf_counter() - t0:.2f} s (nvcc {lib.build_seconds:.2f} s)")
+    spills = {}
     for src, entry, regs, st, ld in kernels.resources():
         name = entry.replace("(anonymous namespace)::", "").removeprefix(
             "void ")
         name = name.split(">(")[0] + ">" if ">(" in name else name.split("(")[0]
         log("build", f"{src} {name}: {regs} registers, spills {st} B stored "
             f"/ {ld} B loaded")
+        spills[name] = st + ld
+    # K2's f32 and bf16 BGK step instantiations must not spill
+    for s in ("float", "__nv_bfloat16"):
+        name = f"coupled_step_kernel<{s}, false, false, false, WSink>"
+        assert spills.get(name) == 0, f"{name}: spills {spills.get(name)}"
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -334,7 +360,9 @@ def kernel_checks(cfg, disks, label: str, timed: bool, seed: int = 0):
     torch.set_num_threads(min(8, os.cpu_count() or 1))
     cpu_in = [a.cpu() for a in (f, solid, tile_data, counts)]
     es_cpu = entry_slots.cpu()
-    for k in (2, 4, 8):
+    # k = 8 against the CPU at the small scene only (at 4096^2 its plain
+    # version takes two minutes of the script's time)
+    for k in ((2, 4) if timed else (2, 4, 8)):
         _, pk = fused_lbm.fused_step_imb_reduce_multi(f, solid, tile_data,
                                                       counts, cfg, k, fa)
         fp_cpu, pp = fused_lbm.fused_step_imb_reduce_multi_plain(
@@ -1279,9 +1307,10 @@ def cov_flops_of(cfg, counts) -> float:
 
 
 def split_on_run_state(sim) -> None:
-    """K8 (f32 storage only) and K2 on a run's own (smooth) state, CUDA
-    events: the f32 divide's slow path makes the collides slower there
-    than on random input."""
+    """K8 (f32 storage only) and K2 (at the step kernel's block sizes) on
+    a run's own (smooth) state, CUDA events: before the collide skipped
+    the divide of a zero numerator, its slow path made the collides
+    slower there than on random input."""
     from lbmdem_tpu_torch.ops import fused_lbm, stamp
 
     cfg = sim.cfg
@@ -1293,11 +1322,10 @@ def split_on_run_state(sim) -> None:
     k8 = "" if cfg.f_storage != "float32" else "K8 %.4f ms, " % cuda_ms(
         lambda: fused_lbm.fused_step_imb(f, solid[0], solid[1], solid[2], cfg,
                                          out), 20)
-    k2 = cuda_ms(lambda: fused_lbm.fused_step_imb_reduce(
-        f, solid, tile_data, counts, cfg, out), 20)
+    k2 = block_times(lambda: fused_lbm.fused_step_imb_reduce(
+        f, solid, tile_data, counts, cfg, out))
     log("split", f"on the {cfg.eps_method} {cfg.f_storage} slice's state "
-        f"after {int(sim.state.step)} steps: {k8}K2 {k2:.4f} ms per call "
-        f"(CUDA events)")
+        f"after {int(sim.state.step)} steps: {k8}K2 {k2}")
 
 
 # the lattice-option matrix of K2 and K6 at 256x64: SPLIT_MATRIX and
@@ -1467,6 +1495,383 @@ def breadth_timed(cfg, disks, label: str, seed: int = 5):
                 f"{bar:g}); kernel {w['ms']:.4f} ms, plain {w['plain_ms']:.4f}"
                 f" ms (CUDA events); bound {bms:.4f} ms by {by} "
                 f"({w['bytes'] / 1e9:.4f} GB)")
+    return out
+
+
+# the coverage sweep's eps_method cases: sample at five sample counts,
+# ramp and exact; each with and without eps_r_shift
+SWEEP_METHODS = [("sample", ns) for ns in (2, 3, 4, 5, 8)] + [("ramp", 4),
+                                                               ("exact", 4)]
+
+
+def sweep_scene(nx: int = 512, ny: int = 512, n: int = 240, seed: int = 11):
+    """Disks (x, v, omega, r, active) on CPU tensors for the coverage
+    sweep: centres on a 1/8 sub-cell grid (integers, half-integers, cell
+    corners), half the radii chosen so the rim passes exactly through a
+    sample point of ns 3 or 4, windows clipped by the domain (corner
+    disks) and by the tiles (disks on tile corners); the stamp tile at
+    the top right is left empty."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(16, 8 * (nx - 140), n) / 8.0
+    y = rng.integers(16, 8 * (ny - 16), n) / 8.0
+    x[:6] = [0.3, nx - 0.4, 0.0, 128.0, 256.5, 383.5]
+    y[:6] = [0.2, 0.3, ny - 1.0, 256.0, 255.5, 100.0]
+    r = rng.uniform(1.5, 6.0, n)
+    for j in range(0, n, 2):  # a rim through a sample point
+        ns = 3 + (j // 2) % 2
+        s = (np.arange(ns) + 0.5) / ns - 0.5
+        a = np.floor(x[j]) + rng.integers(-4, 5) + rng.choice(s) - x[j]
+        b = np.floor(y[j]) + rng.integers(-4, 5) + rng.choice(s) - y[j]
+        r[j] = np.float32(np.hypot(np.float32(a), np.float32(b)))
+    r = np.clip(r, 1.5, 6.0)
+    t = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32)  # noqa
+    v = t(rng.uniform(-0.02, 0.02, (n, 2)))
+    om = t(rng.uniform(-2e-3, 2e-3, n))
+    return (t(np.stack([x, y], 1)), v, om, t(r),
+            torch.ones(n, dtype=torch.bool))
+
+
+def plain_stamp_cpu(td, cnt, cfg):
+    """K1's plain version on CPU copies, single-threaded: its per-cell
+    sums run in slot order (on the card index_add_ adds in the order its
+    atomics land, and the CPU at 8 threads gave a ramp or exact call that
+    differed from the next ones, PERF.md section 7)."""
+    from lbmdem_tpu_torch.ops import stamp
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        return stamp.stamp_fields_plain(td.cpu(), cnt.cpu(), cfg)
+    finally:
+        torch.set_num_threads(n)
+
+
+def coverage_sweep() -> None:
+    """K1 against its plain version bit for bit over SWEEP_METHODS with
+    eps_r_shift 0 and -0.4 on sweep_scene (the kernel on the card against
+    the plain version on CPU copies, plain_stamp_cpu; the plain version
+    on the card, whose index_add_ sums in atomic order, within 1e-6 as a
+    second witness), at a tile capacity equal to the fullest tile's
+    count, so one tile has count == cap and one has count 0. On the same
+    scenes the reduces: K2's partials (launch (b)) and K9's against
+    hydro_partials_plain of K8's phi within 1e-6 of max(1, max |F|) (and
+    of max(1, max |T|) for torques), K8 + K9 == K2 bit for bit, and every
+    partial row past its tile's count exactly 0."""
+    from lbmdem_tpu_torch import SimConfig
+    from lbmdem_tpu_torch.config import window_for_radius
+    from lbmdem_tpu_torch.ops import fused_lbm, lbm, stamp
+
+    torch.set_num_threads(min(8, os.cpu_count() or 1))
+    x, v, om, r, act = sweep_scene()
+    base = SimConfig(nx=512, ny=512, tau=0.8, dtype="float32",
+                     bc_west="wall", bc_east="wall", max_disks=x.shape[0],
+                     window=window_for_radius(float(r.max())), tile_cap=4096)
+    _, cnt, _, ovf = stamp.build_tile_lists(x, act, base)
+    cap = int(cnt.max())
+    assert int(ovf) == 0 and int(cnt.min()) == 0, (int(ovf), int(cnt.min()))
+    base = base.replace(tile_cap=cap)
+    td, cnt, es, ovf = stamp.bin_disks_to_tiles(x, v, om, r, act, base)
+    assert int(ovf) == 0 and int(cnt.max()) == cap
+    dev = [t.cuda() for t in (td, cnt, es, x, r, act)]
+    tdd, cd, esd, xd, rd, actd = dev
+    rng = np.random.default_rng(13)
+    f = lbm.init_equilibrium(base, "cuda") * (1.0 + 0.02 * torch.as_tensor(
+        rng.standard_normal((9, base.ny, base.nx)), dtype=torch.float32,
+        device="cuda"))
+    fa, fb = torch.empty_like(f), torch.empty_like(f)
+    n_tiles = td.shape[0]
+    worst = 0.0
+    for method, ns in SWEEP_METHODS:
+        for shift in (0.0, -0.4):
+            cfg = base.replace(eps_method=method, eps_samples=ns,
+                               eps_r_shift=shift)
+            tag = f"{method} ns={ns} r_shift={shift:g}"
+            k = stamp.stamp_fields(tdd, cd, cfg)
+            same = torch.equal(k.cpu(), plain_stamp_cpu(td, cnt, cfg))
+            card_err = float((k - stamp.stamp_fields_plain(
+                tdd, cd, cfg)).abs().max())
+            assert same, f"K1 sweep {tag}: kernel != plain version"
+            assert card_err <= 1e-6, f"K1 sweep {tag}: {card_err}"
+            solid = k
+            _, p2 = fused_lbm.fused_step_imb_reduce(f, solid, tdd, cd, cfg, fa)
+            _, phx, phy = fused_lbm.fused_step_imb(f, solid[0], solid[1],
+                                                   solid[2], cfg, fb)
+            F9, T9 = stamp.reduce_hydro_forces(xd, rd, actd, solid[0], phx,
+                                               phy, cfg, tdd, cd, esd)
+            F2, T2 = stamp.gather_partials(p2, esd, torch.float32)
+            Fp, Tp = stamp.gather_partials(stamp.hydro_partials_plain(
+                solid[0], phx, phy, tdd, cd, cfg), esd, torch.float32)
+            fs = max(1.0, float(Fp.abs().max()))
+            ts = max(1.0, float(Tp.abs().max()))
+            e2 = max(float((F2 - Fp).abs().max()) / fs,
+                     float((T2 - Tp).abs().max()) / ts)
+            bit = (torch.equal(fa, fb), torch.equal(F2, F9),
+                   torch.equal(T2, T9))
+            rows = p2.view(n_tiles, cap, 4)
+            past = torch.arange(cap, device="cuda")[None, :] >= cd.view(-1, 1)
+            zeros = bool((rows[past] == 0).all())
+            worst = max(worst, e2)
+            log("coverage-sweep", f"{tag}: K1 == plain (CPU) bitwise {same}"
+                f" (card plain max err {card_err:.3e}); eps sum "
+                f"{float(k[0].sum()):.6e}; K2/K9 reduce vs plain "
+                f"{e2:.3e} of max(1, max) (bar 1e-6); K8 + K9 == K2 (f', F, "
+                f"T) {bit}; rows past the count zero {zeros}")
+            assert e2 <= 1e-6, f"reduce {tag}: err {e2}"
+            assert all(bit), f"K8 + K9 != K2 {tag}: {bit}"
+            assert zeros, f"reduce {tag}: rows past the count not zero"
+            assert float(Fp.abs().max()) > 0
+    log("coverage-sweep", f"{len(SWEEP_METHODS) * 2} cases on {base.nx}x"
+        f"{base.ny}, {x.shape[0]} disks, {n_tiles} tiles (counts "
+        f"{cnt.view(-1).tolist()}, cap {cap}): K1 bitwise in all; worst "
+        f"reduce err {worst:.3e}")
+
+
+# the K2 boundary matrix: four walls with a moving lid, fully periodic,
+# periodic x with walls on y, Zou/He with walls on y
+BOUNDARY_MATRIX = [
+    ("walls-lid", dict(bc_west="wall", bc_east="wall", uw_north=0.05,
+                       uw_west=0.01)),
+    ("periodic-xy", dict(bc_south="periodic", bc_north="periodic", gx=1e-5)),
+    ("periodic-x-walls-y", dict(uw_south=-0.02)),
+    ("zou-he-walls", dict(bc_west="inlet", bc_east="outlet", u_inlet=0.05,
+                          inlet_profile="poiseuille")),
+]
+
+
+def boundary_matrix(nx: int = 240, ny: int = 80) -> None:
+    """K2 over BOUNDARY_MATRIX on f32 and shifted-bf16 storage at nx x ny
+    (no multiple of the step kernel's 32-wide blocks in x; a stamp tile
+    must hold a window, so ny stays a multiple of 16), for each block size
+    128, 256 and 512, against its plain version on CPU copies (bars f'
+    5e-6 / 3e-4, forces 1e-6 / 5e-6 of the largest |F|); on f32 K8 + K9
+    against K2 bit for bit; and K8 alone on a 250 x 70 lattice (ragged in
+    both axes; K8 needs no stamp tiling) against its plain version on CPU
+    copies (f' atol 1e-7 + rtol 1e-6, phi atol 5e-8 + rtol 1e-5)."""
+    from lbmdem_tpu_torch import SimConfig, lattice
+    from lbmdem_tpu_torch.config import window_for_radius
+    from lbmdem_tpu_torch.ops import fused_lbm, imb, lbm, stamp
+
+    torch.set_num_threads(min(8, os.cpu_count() or 1))
+    x = torch.tensor([[1.2, 20.3], [64.3, 32.1], [128.0, 40.0],
+                      [200.5, 60.2], [238.6, 2.7]])
+    v = torch.tensor([[0.01, -0.02], [0.0, 0.01], [-0.02, 0.0], [0.01, 0.01],
+                      [0.0, -0.01]])
+    om = torch.tensor([0.005, -0.003, 0.0, 0.002, 0.001])
+    r = torch.tensor([4.0, 4.0, 3.0, 5.0, 3.5])
+    act = torch.ones(5, dtype=torch.bool)
+    rng = np.random.default_rng(41)
+    f32 = torch.as_tensor(lattice.W[:, None, None] * (
+        1.0 + 0.05 * rng.standard_normal((9, ny, nx))), dtype=torch.float32)
+    k2 = fused_lbm.fused_step_imb_reduce
+    default = fused_lbm.STEP_THREADS
+    try:
+        for label, kw in BOUNDARY_MATRIX:
+            for storage in ("float32", "bfloat16"):
+                cfg = SimConfig(nx=nx, ny=ny, tau=0.8, dtype="float32",
+                                max_disks=5, window=window_for_radius(5.0),
+                                tile_cap=8, f_storage=storage, **kw)
+                td, cnt, es, ovf = stamp.bin_disks_to_tiles(x, v, om, r, act,
+                                                            cfg)
+                assert int(ovf) == 0
+                solid = stamp.stamp_fields(td, cnt, cfg)
+                if cfg.bc_west == "inlet":
+                    solid[:, :, 0].zero_()
+                    solid[:, :, -1].zero_()
+                f = lbm.to_storage(f32, cfg)
+                cpu_in = (f, solid, td, cnt)
+                dev_in = [t.cuda() for t in cpu_in]
+                b, pp = fused_lbm.fused_step_imb_reduce_plain(
+                    *cpu_in, cfg, torch.empty_like(f))
+                Fp, _ = stamp.gather_partials(pp, es, torch.float32)
+                fmax = float(Fp.abs().max())
+                assert fmax > 0.0
+                fbar, rbar = ((5e-6, 1e-6) if storage == "float32"
+                              else (3e-4, 5e-6))
+                errs = []
+                for threads in (128, 256, 512):
+                    fused_lbm.STEP_THREADS = threads
+                    a = torch.empty_like(dev_in[0])
+                    n0 = k2.launches
+                    _, pk = k2(*dev_in, cfg, a)
+                    assert k2.launches == n0 + 1, "K2 did not launch"
+                    F, _ = stamp.gather_partials(pk.cpu(), es, torch.float32)
+                    errs.append((float((a.float().cpu() - b.float()).abs()
+                                       .max()),
+                                 float((F - Fp).abs().max()) / fmax))
+                    assert bool(torch.isfinite(a.float()).all())
+                fused_lbm.STEP_THREADS = default
+                msg = (f"{label} {storage} {nx}x{ny}: (f' max err, forces of "
+                       f"max |F|) at 128/256/512 threads "
+                       + ", ".join(f"({e:.3e}, {q:.3e})" for e, q in errs)
+                       + f" (bars {fbar:g}, {rbar:g}; plain version on CPU "
+                       f"tensors)")
+                assert max(e for e, _ in errs) <= fbar, msg
+                assert max(q for _, q in errs) <= rbar, msg
+                if storage == "float32":
+                    fd, sd, tdd, cd = dev_in
+                    fa, fb = torch.empty_like(fd), torch.empty_like(fd)
+                    _, p2 = k2(fd, sd, tdd, cd, cfg, fa)
+                    _, phx, phy = fused_lbm.fused_step_imb(
+                        fd, sd[0], sd[1], sd[2], cfg, fb)
+                    esd = es.cuda()
+                    F9, T9 = stamp.reduce_hydro_forces(
+                        x.cuda(), r.cuda(), act.cuda(), sd[0], phx, phy, cfg,
+                        tdd, cd, esd)
+                    F2, T2 = stamp.gather_partials(p2, esd, torch.float32)
+                    same = (torch.equal(fa, fb), torch.equal(F2, F9),
+                            torch.equal(T2, T9))
+                    msg += f"; K8 + K9 == K2 bitwise (f', F, T) {same}"
+                    assert all(same), msg
+                log("boundary", msg)
+            # K8 alone on a lattice no stamp tiling takes
+            cfg = SimConfig(nx=250, ny=70, tau=0.8, dtype="float32",
+                            max_disks=5, window=window_for_radius(5.0), **kw)
+            fields = imb.stamp_solid_fraction(x, v, om, r, act, cfg)
+            if cfg.bc_west == "inlet":
+                fields = imb.mask_open_columns(*fields)
+            g = torch.as_tensor(lattice.W[:, None, None] * (
+                1.0 + 0.05 * rng.standard_normal((9, 70, 250))),
+                dtype=torch.float32)
+            bp, px, py = fused_lbm.fused_step_imb_plain(g, *fields, cfg,
+                                                        torch.empty_like(g))
+            ex8 = []
+            for threads in (128, 256, 512):
+                fused_lbm.STEP_THREADS = threads
+                a = torch.empty_like(g, device="cuda")
+                _, kx, ky = fused_lbm.fused_step_imb(
+                    g.cuda(), *(t.cuda() for t in fields), cfg, a)
+                ex8.append((float(((a.cpu() - bp).abs() - 1e-6 * bp.abs())
+                                  .max()),
+                            max(float(((k.cpu() - p).abs() - 1e-5 * p.abs())
+                                      .max()) for k, p in ((kx, px),
+                                                           (ky, py)))))
+            fused_lbm.STEP_THREADS = default
+            log("boundary", f"{label} K8 250x70: (f' excess over rtol 1e-6,"
+                f" phi excess over rtol 1e-5) at 128/256/512 threads "
+                + ", ".join(f"({e:.3e}, {q:.3e})" for e, q in ex8)
+                + " (bars 1e-7, 5e-8)")
+            assert max(e for e, _ in ex8) <= 1e-7, ex8
+            assert max(q for _, q in ex8) <= 5e-8, ex8
+    finally:
+        fused_lbm.STEP_THREADS = default
+
+
+def kernel_device_ms(fn, calls: int = 10) -> dict:
+    """torch.profiler over `calls` calls of fn(): device ms per call of
+    each CUDA kernel, by a short name (the template's name before "<")."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for a in prof.key_averages():
+        if a.device_type == DeviceType.CUDA:
+            name = a.key.replace("void ", "").replace(
+                "(anonymous namespace)::", "").split("<")[0].split("(")[0]
+            out[name] = out.get(name, 0.0) + a.self_device_time_total / 1e3
+    return {k: v / calls for k, v in out.items()}
+
+
+def block_times(fn) -> str:
+    """CUDA-event times of fn() at the step kernel's block sizes 128, 256
+    and 512 threads, in one string."""
+    from lbmdem_tpu_torch.ops import fused_lbm
+
+    default = fused_lbm.STEP_THREADS
+    times = {}
+    try:
+        for threads in (128, 256, 512):
+            fused_lbm.STEP_THREADS = threads
+            times[threads] = cuda_ms(fn, 20)
+    finally:
+        fused_lbm.STEP_THREADS = default
+    return (", ".join(f"{t} threads {ms:.4f} ms" for t, ms in times.items())
+            + f" (CUDA events; default {default})")
+
+
+def redesign_timed(cfg, disks, label: str):
+    """The redesigned kernels at the slice's shapes with CUDA events, on
+    the same card inputs as kernel_checks (random f): K1 under sample,
+    ramp and exact (against the plain version on the card, 1e-6, with its
+    time), K2 f32 BGK, bf16 and TRT + LES at the step kernel's
+    block sizes 128, 256 and 512, and the reduce alone (K9, launch (b)'s
+    kernel with phi for w). Returns {"K1 ramp": work, "K1 exact": work}
+    for the kernel JSON line."""
+    from lbmdem_tpu_torch import Simulation
+    from lbmdem_tpu_torch.ops import fused_lbm, lbm, stamp
+
+    sim = Simulation(cfg, disks, device="cuda")
+    base = sim.cfg
+    rng = np.random.default_rng(0)
+    d = sim.state.disks
+    n = d.x.shape[0]
+    d = d._replace(
+        v=torch.as_tensor(rng.uniform(-0.02, 0.02, (n, 2)),
+                          dtype=torch.float32, device="cuda"),
+        omega=torch.as_tensor(rng.uniform(-2e-3, 2e-3, n),
+                              dtype=torch.float32, device="cuda"))
+    td, cnt, es, ovf = stamp.bin_disks_to_tiles(d.x, d.v, d.omega, d.r,
+                                                d.active, base)
+    assert int(ovf) == 0
+    cells = base.nx * base.ny
+    out = {}
+    for method in ("sample", "ramp", "exact"):
+        c = base.replace(eps_method=method)
+        solid = stamp.stamp_fields(td, cnt, c)
+        k1_dev = kernel_device_ms(lambda: stamp.stamp_fields(td, cnt, c))
+        e1 = float((solid - stamp.stamp_fields_plain(td, cnt, c)).abs().max())
+        assert e1 <= 1e-6, f"K1 {method} {label}: max err {e1}"
+        w = work(e1, cuda_ms(lambda: stamp.stamp_fields(td, cnt, c), 20),
+                 cuda_ms(lambda: stamp.stamp_fields_plain(td, cnt, c), 2),
+                 nbytes(td, cnt, solid), cov_flops_of(c, cnt))
+        if method != "sample":
+            out[f"K1 {method}"] = w
+        bms, by = bound(w)
+        log("redesign", f"{label} K1 {method}: max err {e1:.3e} against "
+            f"the plain version (bar 1e-6); kernel {w['ms']:.4f} ms (device "
+            f"{k1_dev.get('stamp_kernel', 0.0):.4f} ms, torch.profiler), "
+            f"plain {w['plain_ms']:.4f} ms (CUDA events); bound {bms:.4f} ms "
+            f"by {by}")
+    solid = stamp.stamp_fields(td, cnt, base)
+    f32 = lbm.init_equilibrium(base, "cuda") * (1.0 + 0.02 * torch.as_tensor(
+        rng.standard_normal((9, base.ny, base.nx)), dtype=torch.float32,
+        device="cuda"))
+    for name, kw in (("f32 bgk", {}), ("bf16", dict(f_storage="bfloat16")),
+                     ("f32 trt+les", dict(collision="trt", smagorinsky=0.16))):
+        c = base.replace(**kw)
+        f = lbm.to_storage(f32, c)
+        a = torch.empty_like(f)
+        _, parts = fused_lbm.fused_step_imb_reduce(f, solid, td, cnt, c, a)
+        bms, by = bound(work(None, None, None,
+                             nbytes(f, solid, td, cnt, a, parts),
+                             FLOPS_NT * cells + cov_flops_of(c, cnt)))
+        run = lambda: fused_lbm.fused_step_imb_reduce(  # noqa: E731
+            f, solid, td, cnt, c, a)
+        dev = kernel_device_ms(run)
+        log("redesign", f"{label} K2 {name}: " + block_times(run)
+            + f"; bound {bms:.4f} ms by {by}; device ms per call by kernel "
+            "(torch.profiler): "
+            + ", ".join(f"{k} {v:.4f}" for k, v in sorted(dev.items())))
+    fo = torch.empty_like(f32)
+    _, phx, phy = fused_lbm.fused_step_imb(f32, solid[0], solid[1], solid[2],
+                                           base, fo)
+    dev8 = kernel_device_ms(lambda: fused_lbm.fused_step_imb(
+        f32, solid[0], solid[1], solid[2], base, fo))
+    dev9 = kernel_device_ms(lambda: stamp.reduce_hydro_forces(
+        d.x, d.r, d.active, solid[0], phx, phy, base, td, cnt, es))
+    log("redesign", f"{label} device ms per call by kernel (torch.profiler): "
+        f"K8 (launch (a) with a phi sink) "
+        + ", ".join(f"{k} {v:.4f}" for k, v in sorted(dev8.items()))
+        + "; K9 (launch (b)'s kernels with phi for w, and its gather) "
+        + ", ".join(f"{k} {v:.4f}" for k, v in sorted(dev9.items()))
+        + f"; {int(cnt.sum())} occupied slots in {cnt.numel()} tiles, "
+        f"{int((solid[0] > 0).sum())} covered cells of {cells}")
     return out
 
 
@@ -1829,12 +2234,16 @@ def main() -> int:
     cfg, disks = column_collapse(nx=256, ny=256, n_disks=60)
     kernel_checks(cfg, compressed(disks, 0.94),
                   f"{cfg.nx}x{cfg.ny}/{len(disks)} disks", timed=False)
+    coverage_sweep()
+    boundary_matrix()
     split_matrix()
     split_checks(cfg, compressed(disks, 0.94),
                  f"{cfg.nx}x{cfg.ny}/{len(disks)} disks", timed=False)
     cfg, disks = column_collapse()
     res = kernel_checks(cfg, compressed(disks, 0.94),
                         f"{cfg.nx}x{cfg.ny}/{len(disks)} disks", timed=True)
+    redesign_timed(cfg, compressed(disks, 0.94),
+                   f"{cfg.nx}x{cfg.ny}/{len(disks)} disks")
     res.update(split_checks(cfg, compressed(disks, 0.94),
                             f"{cfg.nx}x{cfg.ny}/{len(disks)} disks",
                             timed=True))

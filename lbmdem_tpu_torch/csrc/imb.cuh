@@ -2,10 +2,10 @@
 // imb_reduce.cu), its temporal block over a frozen solid stack (K6,
 // imb_multi.cu), the static-solid temporal block (K7, imb_static.cu) and
 // the split step (K8/K9, imb_split.cu): the NT-blended collide of one
-// cell (the lattice options as template flags), the one-step tile kernel
-// that K2 and K8 launch (collide a 16 x 32 tile plus halo into shared
-// memory, pull, bounce-back, Zou/He) with the momentum-exchange sink as a
-// functor, and the per-(stamp tile, slot) hydro-force reduce with the w
+// cell (the lattice options as template flags), the one-step push kernel
+// that K2 and K8 launch (one thread per cell: collide once, push with
+// bounce-back, then the Zou/He columns) with the momentum-exchange sink
+// as a functor, and the per-stamp-tile hydro-force reduce with the w
 // source as a functor.
 //
 // The arithmetic mirrors the plain version (ops/imb.collide_imb,
@@ -33,6 +33,15 @@ __device__ __forceinline__ float feq_nt(int i, float rho_b, float rho,
                                         float ux, float uy, float usq) {
   const float eu = edot_full(i, ux, uy);
   return SHIFT ? geq_eu(i, rho_b, rho, eu, usq) : feq_eu(i, rho, eu, usq);
+}
+
+// d / x for a divisor x > 0, with a zero numerator returned as it is:
+// 0 / x is d itself (sign included), so the result is the IEEE quotient
+// bit for bit, but a zero numerator skips the divide's slow path. About
+// 88 % of the main path's cells have eps = 0 (B's numerator), and a
+// fluid at rest has f = f_eq (the relaxation's).
+__device__ __forceinline__ float div_nz(float d, float x) {
+  return d == 0.0f ? d : d / x;
 }
 
 // NT-blended collision of one cell (plain version: imb.collide_imb,
@@ -91,7 +100,8 @@ __device__ __forceinline__ void collide_cell(const float* fc, float eps_raw,
     if constexpr (LAMBDA) tm = __fmul_rn(__frcp_rn(tm), 0.1875f);
   }
   const float eps = fminf(fmaxf(eps_raw, 0.0f), 1.0f);
-  const float B = __fmul_rn(eps, tm) / __fadd_rn(__fsub_rn(1.0f, eps), tm);
+  const float B =
+      div_nz(__fmul_rn(eps, tm), __fadd_rn(__fsub_rn(1.0f, eps), tm));
   const float omb = __fsub_rn(1.0f, B);
   float px = 0.f, py = 0.f;
   if constexpr (!TRT) {
@@ -102,7 +112,8 @@ __device__ __forceinline__ void collide_cell(const float* fc, float eps_raw,
       const int o = opp(i);
       const float fes = feq_nt<SHIFT>(i, rs, rho, usx, usy, ssq);
       const float om = __fsub_rn(__fadd_rn(__fsub_rn(fc[o], fc[i]), fes), fe[o]);
-      float v = __fsub_rn(fc[i], __fmul_rn(omb, __fsub_rn(fc[i], fe[i])) / tau);
+      float v = __fsub_rn(
+          fc[i], div_nz(__fmul_rn(omb, __fsub_rn(fc[i], fe[i])), tau));
       const float bom = __fmul_rn(B, om);
       v = __fadd_rn(v, bom);
       if (p.forced) {
@@ -154,17 +165,22 @@ __device__ __forceinline__ void collide_cell(const float* fc, float eps_raw,
   *phiy = -py;
 }
 
-// Sinks of the one-step tile kernel's momentum exchange at an interior
-// cell. WSink (K2) stores w = phi * (1 / max(eps_raw, eps_min)), the
-// share-weighted exchange its reduce sums; PhiSink (K8) stores the raw phi
-// for the standalone reduce (K9), whose WFromPhi source applies WSink's
-// expression, so K8 + K9 give K2's partials bitwise.
+
+// Sinks of the one-step kernel's momentum exchange at a cell. WSink (K2)
+// stores w = phi * (1 / max(eps_raw, eps_min)), the share-weighted
+// exchange its reduce sums, only where eps_raw > 0: elsewhere B = 0 makes
+// phi (and w) +-0, a term the reduce skips by reading eps_raw, so the
+// scratch there is never read. PhiSink (K8) stores the raw phi at every
+// cell (it is K8's output) for the standalone reduce (K9), whose
+// WFromPhi source applies WSink's expression, so K8 + K9 give K2's
+// partials bitwise.
 struct WSink {
   float* w;  // (2, ny, nx)
   size_t plane;
   float eps_min;
   __device__ __forceinline__ void store(size_t cell, float eps_raw, float phix,
                                         float phiy) const {
+    if (!(eps_raw > 0.0f)) return;
     const float sd = 1.0f / fmaxf(eps_raw, eps_min);
     w[cell] = __fmul_rn(phix, sd);
     w[plane + cell] = __fmul_rn(phiy, sd);
@@ -181,91 +197,151 @@ struct PhiSink {
   }
 };
 
-constexpr int kStepBX = 32;
-constexpr int kStepBY = 16;
-constexpr int kStepHX = kStepBX + 2;
-constexpr int kStepHY = kStepBY + 2;
+// FluidParams.bb index of the wall term that population i takes when it
+// is pushed past a wall and bounces into its own cell's slot opp(i):
+// past the south (ey < 0) or north (ey > 0) wall, past the west (ex < 0)
+// or east (ex > 0) wall (the order [south 2,5,6; north 4,7,8; west
+// 1,5,8; east 3,6,7] of the slot). Unused combinations give 0.
+__host__ __device__ constexpr int bb_y(int i) {
+  return ey(i) < 0 ? (opp(i) == 2 ? 0 : (opp(i) == 5 ? 1 : 2))
+                   : (opp(i) == 4 ? 3 : (opp(i) == 7 ? 4 : 5));
+}
+__host__ __device__ constexpr int bb_x(int i) {
+  return ex(i) < 0 ? (opp(i) == 1 ? 6 : (opp(i) == 5 ? 7 : 8))
+                   : (opp(i) == 3 ? 9 : (opp(i) == 6 ? 10 : 11));
+}
 
-// One coupled step of a 16 x 32 tile (launch (a) of K2, and K8): one block
-// of 512 threads collides the tile plus a 1-cell halo (wrapped at the
-// domain edge; on wall and open sides the wrapped values only reach
-// populations that bounce-back or Zou/He overwrite) into shared memory,
-// hands each interior cell's momentum exchange to the sink, then pulls
-// each interior cell's populations with bounce-back and the Zou/He
-// closures on the cell's global coordinate (d2q9.cuh stream_cell). Halo
-// cells are collided twice (1.2x the collide work) so no cell reads
-// another block's output. S is the storage type of f: float, or
-// __nv_bfloat16 for the shifted populations g = f - w rho0 (loaded and
-// stored once, compute in f32).
+constexpr int kStepMaxThreads = 512;
+
+// One coupled step by push streaming (launch (a) of K2, and K8): one
+// thread per cell, blocks of 32 x (threads / 32) cells. Each thread
+// loads its cell's 9 populations and solid fields, collides once, hands
+// phi to the sink and writes post-collision population i to slot i of
+// cell x + e_i (wrapped on an axis without walls). Where x + e_i lies
+// past a wall it writes its own cell's slot opp(i) plus that wall's term
+// instead, the x-wall's where it is past two (at a corner the pull's
+// x-wall rule wins, d2q9.cuh stream_cell). That is the pull + bounce-back
+// rule seen from the source: every slot of fout has exactly one writer,
+// and f' equals the pull's bit for bit (the collide is unchanged, the
+// streaming only moves values). Under Zou/He (p.open) a destination in
+// column 0 or nx - 1 also goes, in f32, to `edge` (9, ny, 2), from which
+// zou_he_edges_kernel closes those columns. S is the storage type of f:
+// float, or __nv_bfloat16 for the shifted populations g = f - w rho0
+// (one rounding per store, compute in f32).
 template <typename S, bool TRT, bool LES, bool LAMBDA, class Sink>
-__global__ void __launch_bounds__(kStepBX * kStepBY)
+__global__ void __launch_bounds__(kStepMaxThreads)
     coupled_step_kernel(const S* __restrict__ f, const float* __restrict__ eps,
                         const float* __restrict__ usx,
-                        const float* __restrict__ usy,
-                        const float* __restrict__ u_in, S* __restrict__ fout,
-                        Sink sink, int ny, int nx, FluidParams p, float tm) {
+                        const float* __restrict__ usy, S* __restrict__ fout,
+                        float* __restrict__ edge, Sink sink, int ny, int nx,
+                        FluidParams p, float tm) {
   constexpr bool kShift = sizeof(S) == 2;
-  __shared__ float post[9][kStepHY][kStepHX];
-  const int x0 = blockIdx.x * kStepBX;
-  const int y0 = blockIdx.y * kStepBY;
+  const int gx = blockIdx.x * 32 + threadIdx.x;
+  const int gy = blockIdx.y * blockDim.y + threadIdx.y;
+  if (gx >= nx || gy >= ny) return;
   const size_t plane = (size_t)ny * nx;
-  const int tid = threadIdx.y * kStepBX + threadIdx.x;
-
-  for (int c = tid; c < kStepHY * kStepHX; c += kStepBX * kStepBY) {
-    const int ly = c / kStepHX, lx = c % kStepHX;
-    const int gy = y0 + ly - 1, gx = x0 + lx - 1;
-    const size_t cell = (size_t)wrap(gy, ny) * nx + wrap(gx, nx);
-    float fc[9], fp[9], phix, phiy;
-#pragma unroll
-    for (int i = 0; i < 9; ++i) fc[i] = load_f(f + i * plane + cell);
-    const float eps_raw = eps[cell];
-    collide_cell<kShift, TRT, LES, LAMBDA>(fc, eps_raw, usx[cell], usy[cell],
-                                           p, tm, fp, &phix, &phiy);
-#pragma unroll
-    for (int i = 0; i < 9; ++i) post[i][ly][lx] = fp[i];
-    const bool interior = ly >= 1 && ly <= kStepBY && lx >= 1 &&
-                          lx <= kStepBX && gy < ny && gx < nx;
-    if (interior) sink.store(cell, eps_raw, phix, phiy);
-  }
-  __syncthreads();
-
-  const int gy = y0 + threadIdx.y, gx = x0 + threadIdx.x;
-  if (gy >= ny || gx >= nx) return;
-  float v[9];
-  stream_cell(&post[0][0][0], kStepHY * kStepHX, kStepHX,
-              (threadIdx.y + 1) * kStepHX + threadIdx.x + 1, gy, gx, ny, nx,
-              u_in, p, kShift ? p.rho0 : 0.0f, v);
   const size_t cell = (size_t)gy * nx + gx;
+  float fc[9], fp[9], phix, phiy;
 #pragma unroll
-  for (int i = 0; i < 9; ++i) store_f(fout + i * plane + cell, v[i]);
+  for (int i = 0; i < 9; ++i) fc[i] = load_f(f + i * plane + cell);
+  const float eps_raw = eps[cell];
+  collide_cell<kShift, TRT, LES, LAMBDA>(fc, eps_raw, usx[cell], usy[cell], p,
+                                         tm, fp, &phix, &phiy);
+  sink.store(cell, eps_raw, phix, phiy);
+  const bool wall_s = (p.walls & 1) && gy == 0;
+  const bool wall_n = (p.walls & 2) && gy == ny - 1;
+  const bool wall_w = (p.walls & 4) && gx == 0;
+  const bool wall_e = (p.walls & 8) && gx == nx - 1;
+  const int ys = gy == 0 ? ny - 1 : gy - 1, yn = gy == ny - 1 ? 0 : gy + 1;
+  const int xw = gx == 0 ? nx - 1 : gx - 1, xe = gx == nx - 1 ? 0 : gx + 1;
+#pragma unroll
+  for (int i = 0; i < 9; ++i) {
+    const bool past_y = ey(i) < 0 ? wall_s : (ey(i) > 0 && wall_n);
+    const bool past_x = ex(i) < 0 ? wall_w : (ex(i) > 0 && wall_e);
+    int slot = i;
+    int dy = ey(i) < 0 ? ys : (ey(i) > 0 ? yn : gy);
+    int dx = ex(i) < 0 ? xw : (ex(i) > 0 ? xe : gx);
+    float v = fp[i];
+    if (past_x || past_y) {
+      slot = opp(i);
+      dy = gy;
+      dx = gx;
+      v = __fadd_rn(fp[i], p.bb[past_x ? bb_x(i) : bb_y(i)]);
+    }
+    store_f(fout + slot * plane + (size_t)dy * nx + dx, v);
+    if (p.open && (dx == 0 || dx == nx - 1))
+      edge[((size_t)slot * ny + dy) * 2 + (dx == 0 ? 0 : 1)] = v;
+  }
+}
+
+// The Zou/He closures of a pushed step (p.open): one thread per row
+// applies zou_he_inlet to column 0 and zou_he_outlet to column nx - 1
+// from the f32 post-stream populations in `edge` (so bf16 storage closes
+// on unrounded knowns, as the pull did) and stores the three unknowns of
+// each into fout.
+template <typename S>
+__global__ void zou_he_edges_kernel(const float* __restrict__ edge,
+                                    const float* __restrict__ u_in,
+                                    S* __restrict__ fout, int ny, int nx,
+                                    FluidParams p) {
+  const int gy = blockIdx.x * blockDim.x + threadIdx.x;
+  if (gy >= ny) return;
+  const float shift = sizeof(S) == 2 ? p.rho0 : 0.0f;
+  const size_t plane = (size_t)ny * nx;
+  S* c0 = fout + (size_t)gy * nx;
+  float v[9];
+#pragma unroll
+  for (int i = 0; i < 9; ++i) v[i] = edge[((size_t)i * ny + gy) * 2];
+  zou_he_inlet(v, u_in[gy], shift);
+  store_f(c0 + plane, v[1]);
+  store_f(c0 + 5 * plane, v[5]);
+  store_f(c0 + 8 * plane, v[8]);
+  if (nx > 1) {
+#pragma unroll
+    for (int i = 0; i < 9; ++i) v[i] = edge[((size_t)i * ny + gy) * 2 + 1];
+  }
+  zou_he_outlet(v, p.rho_out, shift);  // nx == 1: after the inlet, in place
+  S* c1 = c0 + nx - 1;
+  store_f(c1 + 3 * plane, v[3]);
+  store_f(c1 + 6 * plane, v[6]);
+  store_f(c1 + 7 * plane, v[7]);
 }
 
 template <typename S, bool TRT, bool LES, bool LAMBDA, class Sink>
 int launch_coupled_step(const void* f, const float* eps, const float* usx,
                         const float* usy, const float* u_in, void* fout,
-                        Sink sink, int ny, int nx, const FluidParams& p,
-                        float tm, cudaStream_t stream) {
-  const dim3 grid((nx + kStepBX - 1) / kStepBX, (ny + kStepBY - 1) / kStepBY);
+                        float* edge, Sink sink, int ny, int nx,
+                        const FluidParams& p, float tm, int threads,
+                        cudaStream_t stream) {
+  if (threads < 32 || threads > kStepMaxThreads || threads % 32 != 0 ||
+      (p.open && (edge == nullptr || u_in == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  const int by = threads / 32;
+  const dim3 grid((nx + 31) / 32, (ny + by - 1) / by);
   coupled_step_kernel<S, TRT, LES, LAMBDA, Sink>
-      <<<grid, dim3(kStepBX, kStepBY), 0, stream>>>(
-          static_cast<const S*>(f), eps, usx, usy, u_in,
-          static_cast<S*>(fout), sink, ny, nx, p, tm);
+      <<<grid, dim3(32, by), 0, stream>>>(
+          static_cast<const S*>(f), eps, usx, usy, static_cast<S*>(fout), edge,
+          sink, ny, nx, p, tm);
+  const int err = (int)cudaGetLastError();
+  if (err != 0 || !p.open) return err;
+  zou_he_edges_kernel<S><<<(ny + 127) / 128, 128, 0, stream>>>(
+      edge, u_in, static_cast<S*>(fout), ny, nx, p);
   return (int)cudaGetLastError();
 }
 
-// The instantiation of the one-step tile kernel for the options: LAMBDA
+// The instantiation of the one-step kernel for the options: LAMBDA
 // matters only with LES (else the caller's tm already has the lambda
 // form).
 template <typename S, class Sink>
 int dispatch_coupled_step(const void* f, const float* eps, const float* usx,
                           const float* usy, const float* u_in, void* fout,
-                          Sink sink, int ny, int nx, int lambda,
-                          const FluidParams& p, float tm,
+                          float* edge, Sink sink, int ny, int nx, int lambda,
+                          const FluidParams& p, float tm, int threads,
                           cudaStream_t stream) {
-#define LBM_STEP(TRT, LES, LAMBDA)                                          \
-  launch_coupled_step<S, TRT, LES, LAMBDA, Sink>(f, eps, usx, usy, u_in,    \
-                                                 fout, sink, ny, nx, p, tm, \
-                                                 stream)
+#define LBM_STEP(TRT, LES, LAMBDA)                                        \
+  launch_coupled_step<S, TRT, LES, LAMBDA, Sink>(f, eps, usx, usy, u_in,  \
+                                                 fout, edge, sink, ny, nx, \
+                                                 p, tm, threads, stream)
   if (p.trt) {
     if (!p.les) return LBM_STEP(true, false, false);
     return lambda ? LBM_STEP(true, true, true) : LBM_STEP(true, true, false);
@@ -275,17 +351,18 @@ int dispatch_coupled_step(const void* f, const float* eps, const float* usx,
 #undef LBM_STEP
 }
 
-constexpr int kReduceThreads = 128;
+constexpr int kReduceThreads = 256;
 
 // The momentum exchange w = phi / max(eps_raw, eps_min) the reduce weights
-// by coverage, as a source functor of reduce_kernel: load(t, cell, wx, wy)
-// gives inner step t's (wx, wy) at a flat cell index.
+// by coverage, as a source functor of reduce_kernel: load(t, cell,
+// eps_raw, wx, wy) gives inner step t's (wx, wy) at a flat cell index
+// whose eps_raw > 0.
 //
 // WPlanes: K2's and K6's launch (a) wrote w to a (k, 2, ny, nx) scratch.
 struct WPlanes {
   const float* w;
   size_t plane;
-  __device__ __forceinline__ void load(int t, size_t cell, float& wx,
+  __device__ __forceinline__ void load(int t, size_t cell, float, float& wx,
                                        float& wy) const {
     const float* wt = w + (size_t)t * 2 * plane;
     wx = wt[cell];
@@ -296,109 +373,156 @@ struct WPlanes {
 // WFromPhi: K9 computes w from the raw phi planes and eps_raw, with the
 // expression of K2's launch (a), so K8 + K9 gives K2's partials.
 struct WFromPhi {
-  const float* eps;
   const float* phix;
   const float* phiy;
   float eps_min;
-  __device__ __forceinline__ void load(int, size_t cell, float& wx,
-                                       float& wy) const {
-    const float sd = 1.0f / fmaxf(eps[cell], eps_min);
+  __device__ __forceinline__ void load(int, size_t cell, float eps_raw,
+                                       float& wx, float& wy) const {
+    const float sd = 1.0f / fmaxf(eps_raw, eps_min);
     wx = __fmul_rn(phix[cell], sd);
     wy = __fmul_rn(phiy[cell], sd);
   }
 };
 
-// One block per (slot, stamp tile, inner step t): sums cov * w[t] and
-// the torque over the disk's window clipped to the tile (block
-// reduction) and writes partials[t][tile * cap + slot] = [fx, fy, tq, 0].
-// Slots past the tile's count write zeros. partials: (k, n_tiles * cap,
-// 4); K2 and K9 launch it with k = 1. M is the coverage method, W the
-// source of w (WPlanes or WFromPhi).
+// Exclusive prefix of the tiles' slot counts (clipped to cap) into
+// offsets[0..n_tiles], offsets[n_tiles] the number of occupied slots:
+// one block, 1024 slots per round, a warp scan then a scan over the
+// warps' totals.
+__global__ void __launch_bounds__(1024)
+    slot_offsets_kernel(const int* __restrict__ counts, int n_tiles, int cap,
+                        int* __restrict__ offsets) {
+  __shared__ int warp_sum[32];
+  __shared__ int carry;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  if (threadIdx.x == 0) carry = 0;
+  __syncthreads();
+  for (int t0 = 0; t0 < n_tiles; t0 += 1024) {
+    const int t = t0 + threadIdx.x;
+    const int c = t < n_tiles ? min(counts[t], cap) : 0;
+    int v = c;  // inclusive warp scan
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int u = __shfl_up_sync(0xffffffffu, v, o);
+      if (lane >= o) v += u;
+    }
+    if (lane == 31) warp_sum[warp] = v;
+    __syncthreads();
+    int before = carry;
+    for (int w = 0; w < warp; ++w) before += warp_sum[w];
+    if (t < n_tiles) offsets[t] = before + v - c;
+    __syncthreads();
+    if (threadIdx.x == 1023) carry = before + v;
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) offsets[n_tiles] = carry;
+}
+
+// The hydro-force reduce over the occupied slots only: a fixed grid of
+// kReduceBlocks x k blocks whose warps take the occupied slots j =
+// warp, warp + (all warps), ... below offsets[n_tiles]; a slot's tile is
+// found by binary search in offsets. The lanes of the warp sum cov *
+// w[t] and the torque over the disk's window clipped to the tile
+// (lane-strided, then a shuffle tree: a fixed order, so the partials are
+// deterministic) and lane 0 writes partials[t][tile * cap + rank] = [fx,
+// fy, tq, 0]; the same grid writes the zero rows past each tile's count.
+// A cell with eps_raw <= 0 is skipped before its coverage: its w
+// is +-0 (not even stored), and adding +-0 to a sum that starts at +0
+// changes no bit. partials: (k, n_tiles * cap, 4); K2 and K9 launch it
+// with k = 1. M is the coverage method, W the source of w (WPlanes or
+// WFromPhi).
+constexpr int kReduceBlocks = 1056;  // 8 blocks of 256 threads per SM
 template <int M, class W>
 __global__ void __launch_bounds__(kReduceThreads)
-    reduce_kernel(W wsrc, const float* __restrict__ tile_data,
+    reduce_kernel(W wsrc, const float* __restrict__ eps,
+                  const float* __restrict__ tile_data,
                   const int* __restrict__ counts,
-                  float* __restrict__ partials, int ny, int nx, int th, int tw,
-                  int ntx, int cap, int window, int ns, float r_shift) {
-  const int slot = blockIdx.x;
-  const int tile = blockIdx.y;
-  float* outp = partials +
-                (((size_t)blockIdx.z * gridDim.y + tile) * cap + slot) * 4;
-  if (slot >= counts[tile]) {
-    if (threadIdx.x < 4) outp[threadIdx.x] = 0.0f;
-    return;
+                  const int* __restrict__ offsets,
+                  float* __restrict__ partials, int nx, int th, int tw,
+                  int ntx, int n_tiles, int cap, int window, CovParams cp) {
+  __shared__ SampleTable tab;
+  if (M == kSample) fill_sample_table(&tab, cp.ns);
+  __syncthreads();
+  float* outp = partials + (size_t)blockIdx.y * n_tiles * cap * 4;
+  const size_t rows = (size_t)n_tiles * cap;
+  for (size_t row = (size_t)blockIdx.x * kReduceThreads + threadIdx.x;
+       row < rows; row += (size_t)gridDim.x * kReduceThreads) {
+    const int tile = (int)(row / cap);
+    if ((int)(row - (size_t)tile * cap) >= min(counts[tile], cap))
+      reinterpret_cast<float4*>(outp)[row] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
-  const float* d = tile_data + ((size_t)tile * cap + slot) * 8;
-  const float px = d[0], py = d[1], rr = shift_radius(d[5], r_shift);
+  const int lane = threadIdx.x % 32;
+  const int warps = gridDim.x * (kReduceThreads / 32);
+  const int total = offsets[n_tiles];
   const int half = window / 2;
-  const int y0 = (tile / ntx) * th, x0 = (tile % ntx) * tw;
-  const int by = (int)floorf(py + 0.5f) - half;
-  const int bx = (int)floorf(px + 0.5f) - half;
-  const int ya = max(by, y0), yb = min(by + window, y0 + th);
-  const int xa = max(bx, x0), xb = min(bx + window, x0 + tw);
-  const int wh = yb - ya, ww = xb - xa;
-  float fx = 0.f, fy = 0.f, tq = 0.f;
-  if (wh > 0 && ww > 0) {
-    for (int c = threadIdx.x; c < wh * ww; c += kReduceThreads) {
+  for (int j = blockIdx.x * (kReduceThreads / 32) + threadIdx.x / 32;
+       j < total; j += warps) {
+    int lo = 0, hi = n_tiles;  // the tile with offsets[t] <= j < [t + 1]
+    while (hi - lo > 1) {
+      const int mid = (lo + hi) / 2;
+      if (offsets[mid] <= j) lo = mid; else hi = mid;
+    }
+    const int tile = lo, slot = j - offsets[lo];
+    const float* d = tile_data + ((size_t)tile * cap + slot) * 8;
+    const float px = d[0], py = d[1], rr = shift_radius(d[5], cp.r_shift);
+    const int y0 = (tile / ntx) * th, x0 = (tile % ntx) * tw;
+    const int by = (int)floorf(py + 0.5f) - half;
+    const int bx = (int)floorf(px + 0.5f) - half;
+    const int ya = max(by, y0), yb = min(by + window, y0 + th);
+    const int xa = max(bx, x0), xb = min(bx + window, x0 + tw);
+    const int ww = xb - xa;
+    const int n = (yb > ya && ww > 0) ? (yb - ya) * ww : 0;
+    float fx = 0.f, fy = 0.f, tq = 0.f;
+    for (int c = lane; c < n; c += 32) {
       const int gy = ya + c / ww, gx = xa + c % ww;
+      const size_t cell = (size_t)gy * nx + gx;
+      const float e = eps[cell];
+      if (!(e > 0.0f)) continue;
       const float relx = __fsub_rn((float)gx, px);
       const float rely = __fsub_rn((float)gy, py);
-      const float cov = coverage<M>(relx, rely, rr, ns);
+      const float cov = coverage<M>(relx, rely, rr, cp, tab);
       float wx, wy;
-      wsrc.load(blockIdx.z, (size_t)gy * nx + gx, wx, wy);
+      wsrc.load(blockIdx.y, cell, e, wx, wy);
       const float fxc = __fmul_rn(cov, wx);
       const float fyc = __fmul_rn(cov, wy);
       fx = __fadd_rn(fx, fxc);
       fy = __fadd_rn(fy, fyc);
-      tq = __fadd_rn(tq, __fsub_rn(__fmul_rn(relx, fyc), __fmul_rn(rely, fxc)));
+      tq = __fadd_rn(tq,
+                     __fsub_rn(__fmul_rn(relx, fyc), __fmul_rn(rely, fxc)));
     }
-  }
-  // block reduction: warp shuffles, then one value per warp in shared
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    fx += __shfl_down_sync(0xffffffffu, fx, o);
-    fy += __shfl_down_sync(0xffffffffu, fy, o);
-    tq += __shfl_down_sync(0xffffffffu, tq, o);
-  }
-  __shared__ float red[3][kReduceThreads / 32];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  if (lane == 0) {
-    red[0][warp] = fx;
-    red[1][warp] = fy;
-    red[2][warp] = tq;
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float s0 = 0.f, s1 = 0.f, s2 = 0.f;
-    for (int k = 0; k < kReduceThreads / 32; ++k) {
-      s0 += red[0][k];
-      s1 += red[1][k];
-      s2 += red[2][k];
+    for (int o = 16; o > 0; o >>= 1) {
+      fx = __fadd_rn(fx, __shfl_down_sync(0xffffffffu, fx, o));
+      fy = __fadd_rn(fy, __shfl_down_sync(0xffffffffu, fy, o));
+      tq = __fadd_rn(tq, __shfl_down_sync(0xffffffffu, tq, o));
     }
-    outp[0] = s0;
-    outp[1] = s1;
-    outp[2] = s2;
-    outp[3] = 0.0f;
+    if (lane == 0)
+      reinterpret_cast<float4*>(outp)[(size_t)tile * cap + slot] =
+          make_float4(fx, fy, tq, 0.0f);
   }
 }
 
 // The reduce over k inner steps (launch b of K2 and K6, and K9) for the
-// coverage method `method` (CovMethod); returns cudaGetLastError.
+// coverage method cp.method: the prefix of the counts into `offsets`
+// ((n_tiles + 1,) i32 scratch), then the reduce over the occupied slots.
+// Returns cudaGetLastError.
 template <class W>
-inline int launch_reduce(W wsrc, const float* tile_data, const int* counts,
-                         float* partials, int ny, int nx, int th, int tw,
-                         int ntx, int n_tiles, int cap, int window, int ns,
-                         float r_shift, int method, int k,
+inline int launch_reduce(W wsrc, const float* eps, const float* tile_data,
+                         const int* counts, int* offsets, float* partials,
+                         int nx, int th, int tw, int ntx, int n_tiles, int cap,
+                         int window, const CovParams& cp, int k,
                          cudaStream_t stream) {
-  if (method < kSample || method > kExact) return (int)cudaErrorInvalidValue;
+  if (cp.method < kSample || cp.method > kExact)
+    return (int)cudaErrorInvalidValue;
   if (n_tiles == 0 || cap == 0) return 0;
-  const dim3 grid(cap, n_tiles, k);
-  auto kernel = method == kRamp    ? &reduce_kernel<kRamp, W>
-                : method == kExact ? &reduce_kernel<kExact, W>
-                                   : &reduce_kernel<kSample, W>;
-  kernel<<<grid, kReduceThreads, 0, stream>>>(wsrc, tile_data, counts,
-                                              partials, ny, nx, th, tw, ntx,
-                                              cap, window, ns, r_shift);
+  slot_offsets_kernel<<<1, 1024, 0, stream>>>(counts, n_tiles, cap, offsets);
+  const int err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  auto kernel = cp.method == kRamp    ? &reduce_kernel<kRamp, W>
+                : cp.method == kExact ? &reduce_kernel<kExact, W>
+                                      : &reduce_kernel<kSample, W>;
+  kernel<<<dim3(kReduceBlocks, k), kReduceThreads, 0, stream>>>(
+      wsrc, eps, tile_data, counts, offsets, partials, nx, th, tw, ntx,
+      n_tiles, cap, window, cp);
   return (int)cudaGetLastError();
 }
 

@@ -17,7 +17,9 @@
 // output cell at k = 4. Device memory per pass: f read and written once
 // (72 B per cell in f32, 36 B in bf16), the solid stack read once (12 B),
 // and the share-weighted momentum exchange w written per inner step
-// (8 B): ~2 GB at 4096^2 and k = 4 in f32, ~0.6 ms at 3.35 TB/s.
+// where eps_raw > 0 (8 B on ~12 % of the cells): ~1.4 GB at 4096^2 in
+// f32, ~0.42 ms at 3.35 TB/s. The collide skips the divide of a zero
+// numerator (imb.cuh div_nz; f stays bitwise).
 //
 // Design, two launches:
 //  (a) imb_multi_kernel: one block of 512 threads per 16 x 32 tile. It
@@ -35,11 +37,11 @@
 //      closure as the block that owns them. bf16 storage computes in the
 //      shifted form g = f - w rho0 with f32 windows and rounds once, at
 //      the final store, as the TPU kernel does. At every inner step the
-//      interior cells write w_t = phi / max(eps_raw, eps_min) into the
-//      (k, 2, ny, nx) scratch.
-//  (b) reduce_kernel (imb.cuh): one block per (slot, stamp tile, inner
-//      step), writing partials[t][tile * cap + slot] - K2's reduce over
-//      a third grid axis.
+//      interior cells with eps_raw > 0 write w_t = phi / max(eps_raw,
+//      eps_min) into the (k, 2, ny, nx) scratch.
+//  (b) reduce_kernel (imb.cuh): a warp per occupied slot and inner step,
+//      writing partials[t][tile * cap + slot] - K2's reduce over a
+//      second grid axis.
 // No atomics: f' and the partials are deterministic.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -184,24 +186,26 @@ int dispatch(const void* f, const float* solid, const float* u_in, void* out,
 // k steps; u_in: (ny,) f32 inlet profile (read only when p.open); w:
 // (k, 2, ny, nx) f32 scratch; tile_data/counts: the stamp binning
 // ((n_tiles, cap * 8), (n_tiles,)) of th x tw tiles, ntx per row;
-// partials: (k, n_tiles * cap, 4) f32; method: the CovMethod of
-// cfg.eps_method; tm: the NT blend constant (tau - 1/2, or 3/16 /
+// partials: (k, n_tiles * cap, 4) f32; offsets: (n_tiles + 1,) i32
+// scratch; cp: the coverage method and its
+// constants; tm: the NT blend constant (tau - 1/2, or 3/16 /
 // (tau - 1/2) when lambda = 1). 1 <= k <= 8.
 extern "C" int lbm_imb_multi(const void* f, const float* solid,
                              const float* u_in, const float* tile_data,
                              const int* counts, void* out, float* w,
-                             float* partials, int ny, int nx, int th, int tw,
-                             int ntx, int n_tiles, int cap, int window,
-                             int ns, float r_shift, int method, int k,
-                             int bf16, int lambda, FluidParams p, float tm,
-                             float eps_min, cudaStream_t stream) {
+                             float* partials, int* offsets, int ny, int nx,
+                             int th, int tw, int ntx, int n_tiles, int cap,
+                             int window,
+                             CovParams cp, int k, int bf16, int lambda,
+                             FluidParams p, float tm, float eps_min,
+                             cudaStream_t stream) {
   const int err =
       bf16 ? dispatch<__nv_bfloat16>(f, solid, u_in, out, w, ny, nx, k, lambda,
                                      p, tm, eps_min, stream)
            : dispatch<float>(f, solid, u_in, out, w, ny, nx, k, lambda, p, tm,
                              eps_min, stream);
   if (err != 0) return err;
-  return launch_reduce(WPlanes{w, (size_t)ny * nx}, tile_data, counts,
-                       partials, ny, nx, th, tw, ntx, n_tiles, cap, window, ns,
-                       r_shift, method, k, stream);
+  return launch_reduce(WPlanes{w, (size_t)ny * nx}, solid, tile_data, counts,
+                       offsets, partials, nx, th, tw, ntx, n_tiles, cap,
+                       window, cp, k, stream);
 }

@@ -1,5 +1,5 @@
 // K2: one coupled LBM step - NT-blended collide (BGK or TRT, optional
-// Smagorinsky LES, nt_mode "nt" or "lambda", Guo forcing), pull-stream,
+// Smagorinsky LES, nt_mode "nt" or "lambda", Guo forcing), streaming,
 // half-way bounce-back (static or moving walls), Zou/He inlet/outlet -
 // on f32 or shifted-bf16 storage, with the per-(stamp tile, slot)
 // hydrodynamic force reduce.
@@ -9,21 +9,32 @@
 // _stream_and_bb and pallas_stamp.reduce_partials_banded per lattice tile.
 //
 // What bounds it on the H100: device-memory traffic. Per cell the step
-// reads f (36 B; 18 B in bf16) and the solid stack (12 B) and writes f'
-// (36 B; 18 B) and the share-weighted momentum exchange w (8 B): 92 B
-// per cell in f32 (1.54 GB at 4096^2, 0.46 ms at 3.35 TB/s), 56 B in
-// bf16. Design, two launches:
-//  (a) imb.cuh coupled_step_kernel with WSink: one block per 16 x 32 cell
-//      tile collides the tile plus a 1-cell halo into shared memory, pulls
-//      each interior cell's 9 populations from its neighbours and writes
-//      them to the OTHER f buffer; w = phi / max(eps_raw, eps_min) goes to
-//      device memory in f32 for (b). The lattice options are template
-//      flags, so the f32 BGK instantiation carries none of the others; K8
-//      (imb_split.cu) launches the same kernel with a phi sink.
-//  (b) reduce_kernel: one block per (stamp tile, slot). It sums cov * w
-//      and the torque over the disk's window clipped to the tile with a
-//      block reduction and writes partials[tile * cap + slot] =
-//      [fx, fy, tq, 0]. Slots past the tile's count write zeros.
+// must read f (36 B; 18 B in bf16) and the solid stack (12 B) and write
+// f' (36 B; 18 B): 84 B per cell in f32 (1.41 GB at 4096^2, 0.42 ms at
+// 3.35 TB/s), 48 B in bf16 (0.24 ms). Design, two launches (three under
+// Zou/He):
+//  (a) imb.cuh coupled_step_kernel with WSink: push streaming, one
+//      thread per cell in blocks of 32 x (threads / 32). Each cell is
+//      loaded once, coalesced, collided once (no halo recompute, no
+//      shared memory, no barrier) and its 9 post-collision populations
+//      are written to their destinations in the OTHER f buffer, with
+//      bounce-back as a write into the cell's own opposite slot. The
+//      collide's two divides skip a zero numerator (imb.cuh div_nz; f
+//      stays bitwise): the far field's B = 0 no longer takes the IEEE
+//      divide's slow path. w = phi / max(eps_raw, eps_min) goes to device
+//      memory only where eps_raw > 0 (~12 % of the cells). Under Zou/He a
+//      one-thread-per-row launch closes columns 0 and nx - 1 from the f32
+//      edge scratch. The lattice options are template flags, so the f32
+//      BGK instantiation carries none of the others; K8 (imb_split.cu)
+//      launches the same kernel with a phi sink.
+//  (b) slot_offsets_kernel (one block: the prefix of the tiles' counts),
+//      then reduce_kernel: a fixed grid whose warps take the occupied
+//      slots only, one warp per slot. It sums cov * w and the torque over
+//      the disk's window clipped to the tile, skipping cells with
+//      eps_raw <= 0, and writes partials[tile * cap + slot] = [fx, fy,
+//      tq, 0]; the same grid writes the zero rows past each tile's count,
+//      so no block is spent on an empty slot. Coverage takes
+//      coverage.cuh's fast path.
 // No atomics: f' and the partials are deterministic.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -32,30 +43,33 @@
 
 // f, fout: (9, ny, nx) f32, or shifted bf16 when bf16 = 1 (distinct
 // buffers); solid: (3, ny, nx) f32 [eps_raw, us_x, us_y]; u_in: (ny,) f32
-// inlet profile (read only when p.open); w: (2, ny, nx) f32 scratch;
-// tile_data/counts: the stamp binning ((n_tiles, cap * 8), (n_tiles,)) of
-// th x tw tiles, ntx per row; partials: (n_tiles * cap, 4) f32; method:
-// the CovMethod of cfg.eps_method; tm: the NT blend constant (tau - 1/2,
-// or 3/16 / (tau - 1/2) when lambda = 1).
+// inlet profile and edge: (9, ny, 2) f32 scratch (both read only when
+// p.open); w: (2, ny, nx) f32 scratch; tile_data/counts: the stamp
+// binning ((n_tiles, cap * 8), (n_tiles,)) of th x tw tiles, ntx per row;
+// partials: (n_tiles * cap, 4) f32; offsets: (n_tiles + 1,) i32
+// scratch; cp: the coverage method and its
+// constants; tm: the NT blend constant (tau - 1/2, or 3/16 / (tau - 1/2)
+// when lambda = 1); threads: the step kernel's block size (a multiple of
+// 32, at most 512).
 extern "C" int lbm_imb_step(const void* f, const float* solid,
                             const float* u_in, const float* tile_data,
                             const int* counts, void* fout, float* w,
-                            float* partials, int ny, int nx, int th, int tw,
-                            int ntx, int n_tiles, int cap, int window, int ns,
-                            float r_shift, int method, int bf16, int lambda,
-                            FluidParams p, float tm, float eps_min,
-                            cudaStream_t stream) {
+                            float* edge, float* partials, int* offsets,
+                            int ny, int nx, int th, int tw, int ntx,
+                            int n_tiles, int cap, int window, CovParams cp,
+                            int bf16, int lambda, FluidParams p, float tm,
+                            float eps_min, int threads, cudaStream_t stream) {
   const size_t plane = (size_t)ny * nx;
   const WSink sink{w, plane, eps_min};
   const int err =
       bf16 ? dispatch_coupled_step<__nv_bfloat16>(
-                 f, solid, solid + plane, solid + 2 * plane, u_in, fout, sink,
-                 ny, nx, lambda, p, tm, stream)
-           : dispatch_coupled_step<float>(f, solid, solid + plane,
-                                          solid + 2 * plane, u_in, fout, sink,
-                                          ny, nx, lambda, p, tm, stream);
+                 f, solid, solid + plane, solid + 2 * plane, u_in, fout, edge,
+                 sink, ny, nx, lambda, p, tm, threads, stream)
+           : dispatch_coupled_step<float>(
+                 f, solid, solid + plane, solid + 2 * plane, u_in, fout, edge,
+                 sink, ny, nx, lambda, p, tm, threads, stream);
   if (err != 0) return err;
-  return launch_reduce(WPlanes{w, plane}, tile_data, counts, partials, ny, nx,
-                       th, tw, ntx, n_tiles, cap, window, ns, r_shift, method,
-                       1, stream);
+  return launch_reduce(WPlanes{w, plane}, solid, tile_data, counts, offsets,
+                       partials, nx, th, tw, ntx, n_tiles, cap, window, cp, 1,
+                       stream);
 }

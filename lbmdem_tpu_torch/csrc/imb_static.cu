@@ -30,8 +30,9 @@
 // cone on a wall axis; a domain smaller than the tile holds the same
 // cell more than once. The collide is imb.cuh's collide_cell with the
 // options as template flags (the BGK instantiation carries no TRT or LES
-// state); bf16 storage computes in the shifted form g = f - w rho0 and
-// rounds once per pass.
+// state, and a zero numerator skips its two divides, imb.cuh div_nz);
+// bf16 storage computes in the shifted form g = f - w rho0 and rounds
+// once per pass.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 

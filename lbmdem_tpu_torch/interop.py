@@ -38,9 +38,16 @@ def _f_from_numpy(d: dict, device) -> torch.Tensor:
     return torch.as_tensor(np.array(a), device=device)
 
 
-def state_from_numpy(d: dict, device="cpu") -> SimState:
+def state_from_numpy(d: dict, device="cuda") -> SimState:
     """SimState on `device` from the numpy form (fail_step defaults to
-    -1 when absent or None)."""
+    -1 when absent or None). The state goes to the card unless it is
+    asked for the CPU, as `Simulation` does; without a card the default
+    raises RuntimeError."""
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "state_from_numpy: no CUDA device is available "
+            "(torch.cuda.is_available() is False); pass device='cpu' to "
+            "load the state on the CPU")
     disks = DiskState(**{
         k: torch.as_tensor(np.array(d["disks"][k]), device=device)
         for k in DiskState._fields

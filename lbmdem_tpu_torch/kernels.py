@@ -71,14 +71,26 @@ class FluidParams(ctypes.Structure):
     ]
 
 
+class CovParams(ctypes.Structure):
+    """The coverage method of a launch and the constants of the sample
+    method's fast path (ops/stamp.cov_params); mirrors `struct
+    CovParams` in csrc/coverage.cuh field for field."""
+
+    _fields_ = [
+        ("method", _I), ("ns", _I), ("r_shift", _F), ("full", _F),
+        ("half", _F), ("lo", _F), ("hi", _F),
+    ]
+
+
 # C signatures: (name, argtypes)
 _SIGNATURES = {
-    "lbm_stamp": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I,
+    "lbm_stamp": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, CovParams, _F,
                   _P],
-    "lbm_imb_step": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                     _I, _I, _I, _F, _I, _I, _I, FluidParams, _F, _F, _P],
-    "lbm_imb_multi": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                      _I, _I, _I, _F, _I, _I, _I, _I, FluidParams, _F, _F,
+    "lbm_imb_step": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                     _I, _I, _I, _I, CovParams, _I, _I, FluidParams, _F, _F,
+                     _I, _P],
+    "lbm_imb_multi": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                      _I, _I, _I, CovParams, _I, _I, _I, FluidParams, _F, _F,
                       _P],
     "lbm_dem_subcycle": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                          _I, DemParams, _P],
@@ -88,10 +100,10 @@ _SIGNATURES = {
     "lbm_fluid_multi": [_P, _P, _P, _I, _I, _I, _I, FluidParams, _P],
     "lbm_imb_static_multi": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
                              FluidParams, _F, _P],
-    "lbm_imb_split_step": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                           FluidParams, _F, _P],
-    "lbm_reduce_hydro": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                         _I, _I, _F, _F, _I, _P],
+    "lbm_imb_split_step": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                           FluidParams, _F, _I, _P],
+    "lbm_reduce_hydro": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                         _I, _I, CovParams, _F, _P],
 }
 
 

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from lbmdem_tpu_torch.config import SimConfig, WALL
+from lbmdem_tpu_torch.ops.imb import sqrt_rn
 
 
 @dataclasses.dataclass(frozen=True)
@@ -215,7 +216,7 @@ def _pair_force(pxi, vi, omi, ri, xj, vj, omj, rj, mask, cfg: SimConfig,
     slip-consistent truncation; with kt == 0 a tangential dashpot with
     the same cap. Returns (F (..., 2), T (...,), touching, xi')."""
     d = pxi - xj
-    dist = torch.sqrt(torch.sum(d * d, dim=-1))
+    dist = sqrt_rn(torch.sum(d * d, dim=-1))
     dist = torch.clamp(dist, min=1e-12)
     delta = ri + rj - dist
     touching = mask & (delta > 0)

@@ -38,12 +38,15 @@ import torch
 from lbmdem_tpu_torch import kernels
 from lbmdem_tpu_torch.config import SimConfig
 from lbmdem_tpu_torch.ops import fused_fluid, imb, lbm, not_ported
-from lbmdem_tpu_torch.ops.stamp import (cov_method, hydro_partials_plain,
+from lbmdem_tpu_torch.ops.stamp import (cov_params, hydro_partials_plain,
                                         tile_dims)
 
 # K6's largest temporal block: cfg.coupling_k's range (the JAX kernel's
 # 8-row solid halo; here the shared-memory windows, 129 KB at k = 8)
 MAX_K = 8
+# block size of the one-step push kernel of K2 and K8 (32 x 4 cells),
+# chosen by timing 128, 256 and 512 at 4096^2 (PERF.md section 6)
+STEP_THREADS = 128
 
 
 def fused_step_imb_reduce_plain(f, solid, tile_data, counts, cfg: SimConfig,
@@ -81,6 +84,16 @@ def _check_args(f, out, what: str) -> None:
         raise ValueError(f"{what}: `out` must be a second f-shaped buffer")
 
 
+def _open_edges(cfg: SimConfig, device):
+    """(u_in, edge) pointers of the one-step kernel: under Zou/He the
+    inlet profile and a (9, ny, 2) f32 scratch that carries the boundary
+    columns' post-stream populations to their closures; else None."""
+    if cfg.bc_west != "inlet":
+        return None, None
+    edge = torch.empty((9, cfg.ny, 2), dtype=torch.float32, device=device)
+    return fused_fluid._inlet_profile(cfg, device).data_ptr(), edge
+
+
 def _launch(f, solid, tile_data, counts, cfg: SimConfig, k: int, out,
             what: str):
     """Launch K2 (k None) or K6 (k steps); returns the partials
@@ -98,22 +111,29 @@ def _launch(f, solid, tile_data, counts, cfg: SimConfig, k: int, out,
                     device=f.device)
     partials = torch.empty((nk, n_tiles * cap, 4), dtype=torch.float32,
                            device=f.device)
-    u_in = (fused_fluid._inlet_profile(cfg, f.device).data_ptr()
-            if cfg.bc_west == "inlet" else None)
-    head = (f.data_ptr(), solid.data_ptr(), u_in, tile_data.data_ptr(),
-            counts.data_ptr(), out.data_ptr(), w.data_ptr(),
-            partials.data_ptr(), cfg.ny, cfg.nx, th, tw, cfg.nx // tw,
-            n_tiles, cap, cfg.window, cfg.eps_samples,
-            float(cfg.eps_r_shift), cov_method(cfg))
+    offsets = torch.empty(n_tiles + 1, dtype=torch.int32, device=f.device)
+    lib = kernels.library()
+    ptrs = (f.data_ptr(), solid.data_ptr())
+    bins = (tile_data.data_ptr(), counts.data_ptr(), out.data_ptr(),
+            w.data_ptr())
+    dims = (cfg.ny, cfg.nx, th, tw, cfg.nx // tw, n_tiles, cap, cfg.window,
+            cov_params(cfg))
     tail = (int(want == torch.bfloat16), int(cfg.nt_mode == "lambda"),
             fused_fluid._params(cfg),
             np.float32(imb.nt_tm(cfg.tau, cfg.nt_mode)),
-            np.float32(imb._EPS_MIN), kernels.stream())
-    lib = kernels.library()
+            np.float32(imb._EPS_MIN))
     if k is None:
-        code = lib.lbm_imb_step(*head, *tail)
+        u_in, edge = _open_edges(cfg, f.device)
+        code = lib.lbm_imb_step(
+            *ptrs, u_in, *bins, None if edge is None else edge.data_ptr(),
+            partials.data_ptr(), offsets.data_ptr(), *dims, *tail,
+            STEP_THREADS, kernels.stream())
     else:
-        code = lib.lbm_imb_multi(*head, k, *tail)
+        u_in = (fused_fluid._inlet_profile(cfg, f.device).data_ptr()
+                if cfg.bc_west == "inlet" else None)
+        code = lib.lbm_imb_multi(*ptrs, u_in, *bins, partials.data_ptr(),
+                                 offsets.data_ptr(), *dims, k, *tail,
+                                 kernels.stream())
     kernels.check(code, what)
     return partials
 
@@ -126,7 +146,8 @@ def fused_step_imb_reduce(f, solid, tile_data, counts, cfg: SimConfig, out):
     the stamp binning (tile_data, counts). Returns (out, partials).
 
     CPU tensors take the plain version; CUDA tensors take the kernel
-    csrc/imb_reduce.cu (two launches: collide-stream-BB, then reduce)."""
+    csrc/imb_reduce.cu (two launches: the collide-push step, then the
+    reduce; under Zou/He a third closes the open columns)."""
     _check_args(f, out, "fused_step_imb_reduce")
     if f.device.type == "cpu":
         return fused_step_imb_reduce_plain(f, solid, tile_data, counts, cfg,
@@ -199,13 +220,14 @@ def fused_step_imb(f, eps, usx, usy, cfg: SimConfig, out, prehalo=False):
     if any(t.dtype != torch.float32 for t in (eps, usx, usy, out)):
         raise ValueError(f"{what}: float32 fields")
     phi = torch.empty((2,) + plane, dtype=torch.float32, device=f.device)
-    u_in = (fused_fluid._inlet_profile(cfg, f.device).data_ptr()
-            if cfg.bc_west == "inlet" else None)
+    u_in, edge = _open_edges(cfg, f.device)
     code = kernels.library().lbm_imb_split_step(
         f.data_ptr(), eps.data_ptr(), usx.data_ptr(), usy.data_ptr(), u_in,
-        out.data_ptr(), phi.data_ptr(), cfg.ny, cfg.nx,
+        out.data_ptr(), phi.data_ptr(),
+        None if edge is None else edge.data_ptr(), cfg.ny, cfg.nx,
         int(cfg.nt_mode == "lambda"), fused_fluid._params(cfg),
-        np.float32(imb.nt_tm(cfg.tau, cfg.nt_mode)), kernels.stream())
+        np.float32(imb.nt_tm(cfg.tau, cfg.nt_mode)), STEP_THREADS,
+        kernels.stream())
     kernels.check(code, what)
     fused_step_imb.launches += 1
     return out, phi[0], phi[1]

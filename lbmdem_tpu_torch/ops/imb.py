@@ -24,6 +24,17 @@ from lbmdem_tpu_torch.ops.lbm import (_const, equilibrium, guo_force_term,
 _EPS_MIN = 1e-7
 
 
+def sqrt_rn(x):
+    """Square root rounded once to x's precision, as IEEE sqrt (and the
+    kernels' __fsqrt_rn) gives it. The CPU's float32 torch.sqrt is not
+    correctly rounded on every build (and its vector and scalar paths
+    may disagree), so a float32 x takes the root in float64 and rounds
+    to float32 once, which is exact for a float32 argument."""
+    if x.dtype == torch.float32:
+        return torch.sqrt(x.double()).float()
+    return torch.sqrt(x)
+
+
 def exact_coverage(relx, rely, rr):
     """Analytic circle-cell overlap area (the "exact" eps_method); see
     the JAX twin for the derivation. Empty slots (rr == 0) give 0."""
@@ -32,7 +43,7 @@ def exact_coverage(relx, rely, rr):
     A = torch.maximum(ax, ay)
     Bc = torch.minimum(ax, ay)
     d2 = relx * relx + rely * rely
-    d = torch.sqrt(d2)
+    d = sqrt_rn(d2)
     rc = rr - 1.0 / (24.0 * torch.clamp(rr, min=1e-6))
     S = d * (rc - d)
     C1 = 0.5 * (A - Bc)

@@ -54,6 +54,7 @@ from lbmdem_tpu_torch import kernels
 from lbmdem_tpu_torch.config import SimConfig, WALL
 from lbmdem_tpu_torch.ops import dem as dem_ops
 from lbmdem_tpu_torch.ops.dem import DemGrid, DiskState
+from lbmdem_tpu_torch.ops.imb import sqrt_rn
 from lbmdem_tpu_torch.ops.stamp import _segment_ranks
 
 SLAB_K = 4  # slots per broadphase cell
@@ -298,7 +299,7 @@ def _pair(xi, yi, vxi, vyi, omi, ri, xj, yj, vxj, vyj, omj, rj, ok,
         dx = dx - cfg.wrap_lx * torch.round(dx / cfg.wrap_lx)
     if min_image and cfg.wrap_ly:
         dyv = dyv - cfg.wrap_ly * torch.round(dyv / cfg.wrap_ly)
-    dist = torch.clamp(torch.sqrt(dx * dx + dyv * dyv), min=1e-12)
+    dist = torch.clamp(sqrt_rn(dx * dx + dyv * dyv), min=1e-12)
     delta = ri + rj - dist
     touching = ok & (delta > 0) & (ri > 0)
     inv = 1.0 / dist

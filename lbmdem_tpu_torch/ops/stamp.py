@@ -18,7 +18,11 @@ Counterpart of the JAX package's `lbmdem_tpu/ops/pallas_stamp.py`:
   tensors.
 
 Coverage takes every eps_method of the JAX package (sample, ramp, exact),
-in `cov_field` and in `csrc/coverage.cuh` alike.
+in `cov_field` and in `csrc/coverage.cuh` alike. The kernels' sample
+method first classifies a cell against the disk (all-in, all-out, or
+ring) and runs the sample loop on ring cells only; `sample_consts`
+computes the constants of that test and `sample_class` is its plain
+twin, for the tests.
 
 Ranks come from `torch.sort(stable=True)`, so within a tile the slots
 follow disk order. The JAX sorts are not stable: the two packages may
@@ -27,6 +31,7 @@ order one tile's slots differently, and agree on each tile's set.
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import numpy as np
@@ -34,7 +39,7 @@ import torch
 
 from lbmdem_tpu_torch import kernels
 from lbmdem_tpu_torch.config import SimConfig
-from lbmdem_tpu_torch.ops.imb import _EPS_MIN, exact_coverage
+from lbmdem_tpu_torch.ops.imb import _EPS_MIN, exact_coverage, sqrt_rn
 
 # stamp tile rows / columns: the JAX chains (coupled lattice tile rows,
 # then sub-8 rows for tiny grids; 128-column granule), kept so that the
@@ -43,8 +48,14 @@ _TILE_ROWS = (256, 128, 64, 32, 16, 8, 4, 2, 1)
 _TILE_COLS = (128, 64, 32, 16, 8, 4, 2, 1)
 # plain-version tile chunk (bounds the (tiles, cap, W, W) temporaries)
 _PLAIN_TILES = 64
+# lanes of the reduce kernel's warp per slot, whose order the plain
+# reduce follows
+_LANES = 32
 # eps_method -> the kernels' CovMethod (csrc/coverage.cuh)
 COV_METHODS = {"sample": 0, "ramp": 1, "exact": 2}
+# relative margin on r^2 of the sample method's fast path: ~500x the f32
+# rounding of the sample loop's test (a few 2^-24 of max(d^2, r^2))
+COV_MARGIN = 2.0 ** -12
 
 
 def tile_dims(cfg: SimConfig) -> Tuple[int, int]:
@@ -181,6 +192,61 @@ def cov_method(cfg: SimConfig) -> int:
     return COV_METHODS[cfg.eps_method]
 
 
+def shift_radius(rr, r_shift: float):
+    """The eps_r_shift calibration of the radii rr (csrc/coverage.cuh
+    shift_radius): max(rr + r_shift, 0.05) where rr > 0; an empty slot
+    (rr == 0) stays 0."""
+    if not r_shift:
+        return rr
+    return torch.where(rr > 0, torch.clamp(rr + r_shift, min=0.05),
+                       torch.zeros_like(rr))
+
+
+@functools.lru_cache(maxsize=None)
+def sample_consts(ns: int):
+    """Float32 constants of the sample method's fast path for ns samples
+    per axis: (full, half, lo, hi) - the sample loop's sum when every
+    sample hits (ns^2 additions of 1/ns^2 in the loop's order: 1.0 for
+    ns = 4, not for every ns), the largest |sample offset|, and the
+    relative margins 1 -+ COV_MARGIN on r^2."""
+    inv_s2 = np.float32(1.0 / (ns * ns))
+    full = np.float32(0.0)
+    for _ in range(ns * ns):
+        full = np.float32(full + inv_s2)
+    offs = ((np.arange(ns) + 0.5) / ns - 0.5).astype(np.float32)
+    return (full, np.float32(np.abs(offs).max()),
+            np.float32(1.0 - COV_MARGIN), np.float32(1.0 + COV_MARGIN))
+
+
+def sample_class(relx, rely, rr, ns: int):
+    """The fast path's classification of cells against a disk of
+    (shifted) radius rr, as csrc/coverage.cuh cov_sample_fast computes it:
+    -1 all-out (the nearest sample lies outside r with a margin), +1
+    all-in (the farthest lies inside), 0 ring (the sample loop decides).
+    All-out is tested first, so an empty slot (rr == 0) is all-out. For
+    the tests: cov_field gives 0 on every all-out cell and
+    sample_consts(ns)[0] on every all-in one."""
+    _, half, lo, hi = (float(c) for c in sample_consts(ns))
+    ax, ay = relx.abs(), rely.abs()
+    r2 = rr * rr
+    nx_ = torch.clamp(ax - half, min=0.0)
+    ny_ = torch.clamp(ay - half, min=0.0)
+    fx, fy = ax + half, ay + half
+    out = (nx_ * nx_ + ny_ * ny_) >= r2 * hi
+    inn = (fx * fx + fy * fy) <= r2 * lo
+    return torch.where(out, -1, torch.where(inn, 1, 0)).to(torch.int8)
+
+
+@functools.lru_cache(maxsize=64)
+def cov_params(cfg: SimConfig) -> kernels.CovParams:
+    """The kernels' CovParams of cfg: method, samples, eps_r_shift and the
+    sample method's fast-path constants (sample_consts)."""
+    full, half, lo, hi = sample_consts(cfg.eps_samples)
+    return kernels.CovParams(
+        method=cov_method(cfg), ns=cfg.eps_samples,
+        r_shift=float(cfg.eps_r_shift), full=full, half=half, lo=lo, hi=hi)
+
+
 def cov_field(relx, rely, rr, cfg: SimConfig):
     """Coverage of one disk per cell (broadcasting) under cfg.eps_method:
     the plain twin of csrc/coverage.cuh and of the JAX
@@ -190,11 +256,9 @@ def cov_field(relx, rely, rr, cfg: SimConfig):
     ns = cfg.eps_samples
     dt = relx.dtype
     zero = torch.zeros((), dtype=dt, device=relx.device)
-    if cfg.eps_r_shift:
-        rr = torch.where(rr > 0, torch.clamp(rr + cfg.eps_r_shift, min=0.05),
-                         torch.zeros_like(rr))
+    rr = shift_radius(rr, cfg.eps_r_shift)
     if cfg.eps_method == "ramp":
-        d = torch.sqrt(rely * rely + relx * relx)
+        d = sqrt_rn(rely * rely + relx * relx)
         return torch.where(rr > 0, torch.clamp(rr + 0.5 - d, 0.0, 1.0), zero)
     if cfg.eps_method == "exact":
         return exact_coverage(relx, rely, rr)
@@ -279,7 +343,7 @@ def stamp_fields(tile_data, counts, cfg: SimConfig) -> torch.Tensor:
     """K1: the (3, ny, nx) solid fields [eps_raw, us_x, us_y] stamped
     from the tile binning. CPU tensors take the plain version; CUDA
     tensors take the kernel csrc/stamp.cu (or raise)."""
-    method = cov_method(cfg)
+    cp = cov_params(cfg)
     if tile_data.device.type == "cpu":
         return stamp_fields_plain(tile_data, counts, cfg)
     th, tw = tile_dims(cfg)
@@ -291,17 +355,47 @@ def stamp_fields(tile_data, counts, cfg: SimConfig) -> torch.Tensor:
     cap = tile_data.shape[2] // 8
     code = kernels.library().lbm_stamp(
         tile_data.data_ptr(), counts.data_ptr(), out.data_ptr(), cfg.ny,
-        cfg.nx, th, tw, cfg.nx // tw, cap, cfg.window, cfg.eps_samples,
-        float(cfg.eps_r_shift), float(np.float32(_EPS_MIN)), method,
-        kernels.stream())
+        cfg.nx, th, tw, cfg.nx // tw, cap, cfg.window, cp,
+        float(np.float32(_EPS_MIN)), kernels.stream())
     kernels.check(code, "stamp kernel (K1)")
     stamp_fields.launches += 1
     return out
 
 
+def _lane_order_sum(vals, inside):
+    """Sums of vals (K, T, cap, W, W) over each slot's inside cells in the
+    order of the reduce kernel (csrc/imb.cuh reduce_kernel), so the plain
+    partials equal the kernel's bit for bit: the inside cells in
+    row-major order are dealt to the warp's 32 lanes (cell c to lane
+    c % 32, in c order), each lane sums from +0, then a shuffle-down tree
+    adds lane l + o into lane l for o = 16, 8, 4, 2, 1. Returns (K, T,
+    cap)."""
+    K, T, cap, W, _ = vals.shape
+    ins = inside.reshape(T, cap, W * W)
+    n_it = -(-W * W // _LANES)
+    dump = n_it * _LANES  # one spare slot takes every outside cell
+    pos = torch.where(ins, torch.cumsum(ins, -1) - 1,
+                      torch.full((), dump, device=ins.device))
+    buf = torch.zeros((K, T, cap, dump + 1), dtype=vals.dtype,
+                      device=vals.device)
+    buf.scatter_(-1, pos.expand(K, T, cap, W * W),
+                 vals.reshape(K, T, cap, W * W))
+    buf = buf[..., :dump].reshape(K, T, cap, n_it, _LANES)
+    acc = torch.zeros((K, T, cap, _LANES), dtype=vals.dtype,
+                      device=vals.device)
+    for i in range(n_it):
+        acc = acc + buf[..., i, :]
+    o = _LANES // 2
+    while o:
+        acc = acc[..., :o] + acc[..., o:2 * o]
+        o //= 2
+    return acc[..., 0]
+
+
 def reduce_partials_plain(w, tile_data, counts, cfg: SimConfig):
     """Per-(tile, slot) [fx, fy, tq, 0] partials of cov * w over each
-    binned disk's window clipped to its tile: (n_tiles * cap, 4)."""
+    binned disk's window clipped to its tile: (n_tiles * cap, 4), each
+    sum taken in the reduce kernel's order (_lane_order_sum)."""
     n_tiles = tile_data.shape[0]
     cap = tile_data.shape[2] // 8
     dt = w.dtype
@@ -316,10 +410,10 @@ def reduce_partials_plain(w, tile_data, counts, cfg: SimConfig):
                                                    device=w.device))
         fx_c = cov * wflat[0][cell]
         fy_c = cov * wflat[1][cell]
-        fx = torch.sum(fx_c, dim=(2, 3))
-        fy = torch.sum(fy_c, dim=(2, 3))
-        tq = torch.sum(relx * fy_c - rely * fx_c, dim=(2, 3))
-        parts.append(torch.stack([fx, fy, tq, torch.zeros_like(fx)], dim=-1))
+        sums = _lane_order_sum(torch.stack(
+            [fx_c, fy_c, relx * fy_c - rely * fx_c]), inside)
+        parts.append(torch.cat([sums, torch.zeros_like(sums[:1])]).movedim(
+            0, -1))
     return torch.cat(parts).reshape(n_tiles * cap, 4)
 
 
@@ -345,7 +439,7 @@ def reduce_hydro_forces(xp, r, active, eps_raw, phi_x, phi_y, cfg: SimConfig,
 
     CPU tensors take the plain version; CUDA tensors take the kernel
     lbm_reduce_hydro of csrc/imb_split.cu (or raise)."""
-    method = cov_method(cfg)
+    cp = cov_params(cfg)
     if eps_raw.device.type == "cpu":
         partials = hydro_partials_plain(eps_raw, phi_x, phi_y, tile_data,
                                         counts, cfg)
@@ -364,12 +458,14 @@ def reduce_hydro_forces(xp, r, active, eps_raw, phi_x, phi_y, cfg: SimConfig,
     cap = tile_data.shape[2] // 8
     partials = torch.empty((n_tiles * cap, 4), dtype=torch.float32,
                            device=eps_raw.device)
+    offsets = torch.empty(n_tiles + 1, dtype=torch.int32,
+                          device=eps_raw.device)
     code = kernels.library().lbm_reduce_hydro(
         eps_raw.data_ptr(), phi_x.data_ptr(), phi_y.data_ptr(),
-        tile_data.data_ptr(), counts.data_ptr(), partials.data_ptr(), cfg.ny,
-        cfg.nx, th, tw, cfg.nx // tw, n_tiles, cap, cfg.window,
-        cfg.eps_samples, float(cfg.eps_r_shift), float(np.float32(_EPS_MIN)),
-        method, kernels.stream())
+        tile_data.data_ptr(), counts.data_ptr(), partials.data_ptr(),
+        offsets.data_ptr(), cfg.ny,
+        cfg.nx, th, tw, cfg.nx // tw, n_tiles, cap, cfg.window, cp,
+        float(np.float32(_EPS_MIN)), kernels.stream())
     kernels.check(code, what)
     reduce_hydro_forces.launches += 1
     return gather_partials(partials, entry_slots, xp.dtype)

@@ -352,7 +352,7 @@ def test_bf16_coupled_state_continues_in_the_port():
     for _ in range(3):
         s = step(s)
     d = interop.state_to_numpy(interop.state_from_numpy(
-        jax_state_to_numpy(s)))
+        jax_state_to_numpy(s), device="cpu"))
     assert d["f"].dtype == np.uint16 and d["f_dtype"] == "bfloat16"
     ts.load_state(d)
     np.testing.assert_array_equal(np.asarray(s.f, np.float32),

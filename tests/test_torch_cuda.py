@@ -18,7 +18,10 @@ against K2 f' equal and forces 1e-6, K9 1e-6 against its plain version
 K1 under ramp and exact 1e-6; the cell-list DEM 1e-4 against the CPU
 with equal contacts; K2 and K6 over the lattice options on CPU copies as
 above (bf16 3e-4), K8 + K9 against K2 bit for bit; K3 and K3w with
-history springs 3e-5 on every slab channel, on periodic axes 2e-5."""
+history springs 3e-5 on every slab channel, on periodic axes 2e-5; the
+redesigned K1 bit for bit against its plain version on CPU copies for
+every coverage method, and K2's push step at each block size over the
+boundary matrix with the bars above."""
 
 import numpy as np
 import pytest
@@ -829,3 +832,151 @@ def test_periodic_mobile_disks_on_card_match_cpu(dev):
     assert slab_dem.subcycle_slabs.launches == n3 + 24
     assert float((g.state.f.cpu() - c.state.f).abs().max()) <= 1e-5
     assert float((g.state.disks.x.cpu() - c.state.disks.x).abs().max()) <= 1e-4
+
+
+# --- the redesigned K1 and K2: coverage fast path, busy lanes, push
+# --- streaming, the reduce without empty blocks
+
+def _plain_stamp_cpu(td, cnt, cfg):
+    """K1's plain version on CPU copies, single-threaded (per-cell sums
+    in slot order; the card's index_add_ adds in atomic order)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        return stamp.stamp_fields_plain(td.cpu(), cnt.cpu(), cfg)
+    finally:
+        torch.set_num_threads(n)
+
+
+def _sweep_inputs(n=160, seed=11):
+    """A 512^2 scene of 8 stamp tiles: centres on a 1/8 sub-cell grid,
+    half the radii with the rim through a sample point of ns 3 or 4,
+    corner and tile-corner disks, the top-right tile empty and the
+    fullest tile at count == cap. Returns (cfg, tile_data, counts,
+    entry_slots, (x, r, active)) on the CPU."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(16, 8 * 372, n) / 8.0
+    y = rng.integers(16, 8 * 496, n) / 8.0
+    x[:5] = [0.3, 511.6, 0.0, 128.0, 383.5]
+    y[:5] = [0.2, 0.3, 511.0, 256.0, 100.0]
+    r = rng.uniform(1.5, 6.0, n)
+    for j in range(0, n, 2):
+        ns = 3 + (j // 2) % 2
+        s = (np.arange(ns) + 0.5) / ns - 0.5
+        a = np.floor(x[j]) + rng.integers(-4, 5) + rng.choice(s) - x[j]
+        b = np.floor(y[j]) + rng.integers(-4, 5) + rng.choice(s) - y[j]
+        r[j] = np.float32(np.hypot(np.float32(a), np.float32(b)))
+    r = np.clip(r, 1.5, 6.0)
+    xt = torch.as_tensor(np.stack([x, y], 1), dtype=torch.float32)
+    rt = torch.as_tensor(r, dtype=torch.float32)
+    v = torch.as_tensor(rng.uniform(-0.02, 0.02, (n, 2)), dtype=torch.float32)
+    om = torch.as_tensor(rng.uniform(-2e-3, 2e-3, n), dtype=torch.float32)
+    act = torch.ones(n, dtype=torch.bool)
+    cfg = SimConfig(nx=512, ny=512, tau=0.8, dtype="float32", bc_west="wall",
+                    bc_east="wall", max_disks=n, window=13, tile_cap=4096)
+    _, cnt, _, _ = stamp.build_tile_lists(xt, act, cfg)
+    cfg = cfg.replace(tile_cap=int(cnt.max()))
+    td, cnt, es, ovf = stamp.bin_disks_to_tiles(xt, v, om, rt, act, cfg)
+    assert int(ovf) == 0 and int(cnt.min()) == 0
+    return cfg, td, cnt, es, (xt, rt, act)
+
+
+_SWEEP = [("sample", ns) for ns in (2, 3, 4, 5, 8)] + [("ramp", 4),
+                                                       ("exact", 4)]
+
+
+@pytest.mark.parametrize("shift", [0.0, -0.4])
+@pytest.mark.parametrize("method,ns", _SWEEP)
+def test_stamp_coverage_sweep_bitwise(dev, method, ns, shift):
+    """K1 (busy lanes, the coverage fast path) equals its plain version
+    bit for bit for every method, sample count and eps_r_shift."""
+    cfg, td, cnt, _, _ = _sweep_inputs()
+    cfg = cfg.replace(eps_method=method, eps_samples=ns, eps_r_shift=shift)
+    k = stamp.stamp_fields(td.to(dev), cnt.to(dev), cfg)
+    assert float(k[0].sum()) > 0
+    assert torch.equal(k.cpu(), _plain_stamp_cpu(td, cnt, cfg))
+
+
+@pytest.mark.parametrize("method", ["sample", "ramp", "exact"])
+def test_reduce_edge_cases_match_plain(dev, method):
+    """The per-tile reduce (K2's launch (b) and K9) on tiles with count 0
+    and count == cap and windows clipped by tiles and the domain: forces
+    within 1e-6 of max(1, max |F|) of the plain reduce of K8's phi, K8 +
+    K9 == K2 bit for bit, and every row past its tile's count zero."""
+    cfg, td, cnt, es, (x, r, act) = _sweep_inputs(seed=12)
+    cfg = cfg.replace(eps_method=method)
+    td, cnt, es, x, r, act = (t.to(dev) for t in (td, cnt, es, x, r, act))
+    solid = stamp.stamp_fields(td, cnt, cfg)
+    f = _fluid_f(cfg, dev, 3)
+    fa, fb = torch.empty_like(f), torch.empty_like(f)
+    _, p2 = fused_lbm.fused_step_imb_reduce(f, solid, td, cnt, cfg, fa)
+    _, phx, phy = fused_lbm.fused_step_imb(f, solid[0], solid[1], solid[2],
+                                           cfg, fb)
+    F9, T9 = stamp.reduce_hydro_forces(x, r, act, solid[0], phx, phy, cfg,
+                                       td, cnt, es)
+    F2, T2 = stamp.gather_partials(p2, es, torch.float32)
+    Fp, Tp = stamp.gather_partials(stamp.hydro_partials_plain(
+        solid[0], phx, phy, td, cnt, cfg), es, torch.float32)
+    assert float(Fp.abs().max()) > 0
+    assert float((F2 - Fp).abs().max()) <= 1e-6 * max(1.0, float(
+        Fp.abs().max()))
+    assert float((T2 - Tp).abs().max()) <= 1e-6 * max(1.0, float(
+        Tp.abs().max()))
+    assert torch.equal(fa, fb) and torch.equal(F2, F9) and torch.equal(T2, T9)
+    cap = cfg.tile_cap
+    past = torch.arange(cap, device=dev)[None, :] >= cnt.view(-1, 1)
+    assert bool((p2.view(-1, cap, 4)[past] == 0).all())
+
+
+_BOUNDARY_CASES = {
+    "walls-lid": dict(bc_west="wall", bc_east="wall", uw_north=0.05,
+                      uw_west=0.01),
+    "periodic-xy": dict(bc_south="periodic", bc_north="periodic", gx=1e-5),
+    "periodic-x-walls-y": dict(uw_south=-0.02),
+    "zou-he-walls": dict(bc_west="inlet", bc_east="outlet", u_inlet=0.05,
+                         inlet_profile="poiseuille"),
+}
+
+
+@pytest.mark.parametrize("threads", [128, 256, 512])
+@pytest.mark.parametrize("storage", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", list(_BOUNDARY_CASES))
+def test_push_step_boundary_matrix(dev, case, storage, threads, monkeypatch):
+    """K2 (push streaming) on a 240 x 80 lattice, no multiple of the
+    32-wide step blocks, at each block size, against its plain version
+    on CPU copies; on f32 K8 + K9 against K2 bit for bit."""
+    monkeypatch.setattr(fused_lbm, "STEP_THREADS", threads)
+    cfg = SimConfig(nx=240, ny=80, tau=0.8, dtype="float32", max_disks=4,
+                    window=13, tile_cap=8, f_storage=storage,
+                    **_BOUNDARY_CASES[case])
+    x = torch.tensor([[1.2, 20.3], [64.3, 32.1], [128.0, 40.0],
+                      [238.6, 76.2]])
+    v = torch.tensor([[0.01, -0.02], [0.0, 0.01], [-0.02, 0.0], [0.01, 0.01]])
+    om = torch.tensor([0.005, -0.003, 0.0, 0.002])
+    r = torch.tensor([4.0, 4.0, 3.0, 3.5])
+    act = torch.ones(4, dtype=torch.bool)
+    td, cnt, es, ovf = stamp.bin_disks_to_tiles(x, v, om, r, act, cfg)
+    assert int(ovf) == 0
+    solid = stamp.stamp_fields(td, cnt, cfg)
+    if cfg.bc_west == "inlet":
+        solid[:, :, 0].zero_()
+        solid[:, :, -1].zero_()
+    f = lbm.to_storage(_fluid_f(cfg.replace(f_storage="float32"), "cpu", 5),
+                       cfg)
+    fa = torch.empty_like(f, device=dev)
+    dev_in = [t.to(dev) for t in (f, solid, td, cnt)]
+    _, pk = fused_lbm.fused_step_imb_reduce(*dev_in, cfg, fa)
+    fb, pp = fused_lbm.fused_step_imb_reduce_plain(f, solid, td, cnt, cfg,
+                                                   torch.empty_like(f))
+    _assert_coupled(cfg, fa, pk, fb, pp, es)
+    if storage == "float32":
+        fd, sd, tdd, cd = dev_in
+        fc = torch.empty_like(fd)
+        _, phx, phy = fused_lbm.fused_step_imb(fd, sd[0], sd[1], sd[2], cfg,
+                                               fc)
+        F9, T9 = stamp.reduce_hydro_forces(
+            x.to(dev), r.to(dev), act.to(dev), sd[0], phx, phy, cfg, tdd, cd,
+            es.to(dev))
+        F2, T2 = stamp.gather_partials(pk, es.to(dev), torch.float32)
+        assert torch.equal(fa, fc)
+        assert torch.equal(F2, F9) and torch.equal(T2, T9)

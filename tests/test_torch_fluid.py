@@ -230,7 +230,7 @@ def test_interop_bf16_roundtrip_and_continue():
     back = interop.state_to_numpy(sim.state)
     assert back["f_dtype"] == "bfloat16" and back["f"].dtype == np.uint16
     np.testing.assert_array_equal(back["f"], d["f"].view(np.uint16))
-    again = interop.state_from_numpy(back)
+    again = interop.state_from_numpy(back, device="cpu")
     assert torch.equal(again.f.view(torch.int16), sim.state.f.view(torch.int16))
     js.run(7)
     sim.run(7)

@@ -140,7 +140,8 @@ _C_TYPES = {"float*": ctypes.c_void_p, "int*": ctypes.c_void_p,
             "cudaStream_t": ctypes.c_void_p, "int": ctypes.c_int,
             "float": ctypes.c_float,
             "DemParams": tkernels.DemParams,
-            "FluidParams": tkernels.FluidParams}
+            "FluidParams": tkernels.FluidParams,
+            "CovParams": tkernels.CovParams}
 
 
 def _c_type(param: str):
@@ -162,6 +163,7 @@ def test_kernel_bindings_match_c_declarations():
     assert found == tkernels._SIGNATURES
     assert ctypes.sizeof(tkernels.DemParams) == 9 * 4 + 4 * 4 + 4 * 4 + 3 * 4
     assert ctypes.sizeof(tkernels.FluidParams) == 15 * 4 + 12 * 4 + 5 * 4
+    assert ctypes.sizeof(tkernels.CovParams) == 2 * 4 + 5 * 4
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():

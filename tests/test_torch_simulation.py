@@ -140,10 +140,29 @@ def test_interop_roundtrip_and_jax_state_loads():
         jst = step(jst)
     sim.run(5)
     _assert_state_close(jst, sim.state, 1e-9, 1e-9)
-    again = interop.state_from_numpy(interop.state_to_numpy(sim.state))
+    again = interop.state_from_numpy(interop.state_to_numpy(sim.state),
+                                     device="cpu")
     for a, b in zip(jax.tree_util.tree_leaves(tuple(again)),
                     jax.tree_util.tree_leaves(tuple(sim.state))):
         assert torch.equal(a, b)
+
+
+def test_state_from_numpy_defaults_to_the_card():
+    """interop.state_from_numpy puts the state on the card unless it is
+    asked for the CPU; without a card the default raises RuntimeError
+    naming device='cpu'."""
+    cfg, disks = _scene("float32")
+    d = interop.state_to_numpy(
+        Simulation(to_torch_cfg(cfg), to_torch_disks(disks),
+                   device="cpu").state)
+    if torch.cuda.is_available():
+        assert interop.state_from_numpy(d).f.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            interop.state_from_numpy(d)
+    back = interop.state_from_numpy(d, device="cpu")
+    assert back.f.device.type == "cpu"
+    np.testing.assert_array_equal(npy(back.f), d["f"])
 
 
 def test_observations_match_jax():

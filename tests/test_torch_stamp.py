@@ -148,10 +148,9 @@ def test_gather_partials_matches():
     np.testing.assert_array_equal(npy(jT), npy(tT))
 
 
-def test_stamp_rejects_unported_coverage():
-    """No coverage method is left to reject: ramp and exact, which
-    stamp_fields refused before they were ported, stamp like the oracle
-    (f64, 1e-12), and an unknown method still raises."""
+def test_every_coverage_method_matches_oracle():
+    """Ramp and exact stamp like the oracle (f64, 1e-12; sample is held
+    above), and an unknown method raises."""
     for method in ("ramp", "exact"):
         cfg, arrs = _setup("float64", seed=7, eps_method=method)
         j = jimb.stamp_solid_fraction(*[jx(a) for a in arrs], cfg)
