@@ -113,13 +113,31 @@ nothing falls back to the CPU):
    and the reduce alone, at 4096^2/10k with CUDA events beside their
    bounds (phase 16 times K2 on the slice's own state at the three block
    sizes). The build phase fails if K2's f32 or bf16 BGK step kernel
-   spills.
+   or the f32 or bf16 BGK instantiation of the K6/K7 temporal block
+   spills;
+26. temporal-block identities (after phase 24): the row-sweep K6(k)
+   equal to k chained K2 steps (f' and every inner step's partials) over
+   the lattice-option matrix of phase 18, and K7(k) equal to k chained K8
+   steps over phase 10's matrix, k = 1, 2, 4, 8, at 256x64, 240x80 and
+   96x32 (smaller than one strip), then on 240x80 at several strips
+   (threads, rows), all by torch.equal on f32;
+27. temporal-block timings (after phase 25): at 4096^2/10k on phase 3's
+   inputs K6(4) == 4 x K2 bit for bit, K6 k = 4 f32, bf16 and TRT + LES
+   beside 4 chained K2 steps (CUDA events, alternating; device time by
+   torch.profiler), K6 f32 at k = 8 beside 8 chained K2 steps; on the
+   static scene K7(4) == 4 x K8 bit for bit, K7 f32 and bf16 beside 4
+   chained K8 steps; the strip sweep (threads 64/128 x rows
+   32/64/128/256) of K6 and K7 f32. Phase 5w and 20 time K6
+   beside 4 chained K2 steps on the window slices' own states, phase 11
+   K7 beside 4 chained K8 steps on the static slice's, phase 18 4 chained
+   K2 steps beside K6 on its inputs.
 
 The second-to-last line holds the per-kernel JSON record (the ten
 kernels, then the bf16, TRT + LES, kt and periodic instantiations of K2,
 K6, K3 and K3w as records of their own; with each kernel's bound: the
 larger of its bytes over 3.35 TB/s and its f32 operations over 67
-TFLOP/s), the line before it the card's name and
+TFLOP/s; an NT collide counts 350 operations at a cell with eps_raw > 0
+and 180 on its fluid branch), the line before it the card's name and
 power limit; the last line is the contract line
 {"ok": true, "device": {...}}.
 """
@@ -142,9 +160,13 @@ HBM_BPS = 3.35e12
 F32_FLOPS = 67e12
 # f32 operations per cell and step, counted from the plain versions'
 # arithmetic (moments, 9 or 18 equilibria, relaxation, Guo forcing):
-# the pure-fluid collide and the NT-blended collide
+# the pure-fluid collide, the NT-blended collide at a cell with
+# eps_raw > 0, and its fluid branch at a cell with eps_raw <= 0 (csrc/
+# imb.cuh relax_cell: moments, 9 equilibria, relaxation; no equilibria
+# at u_s, Omega_i or phi)
 FLOPS_FLUID = 200
 FLOPS_NT = 350
+FLOPS_NT_FLUID = 180
 # coverage operations per window cell (csrc/coverage.cuh): ns^2 sample
 # tests of ~6 operations, the ramp's 8, the exact form's ~40
 COV_OPS = {"sample": lambda ns: 6 * ns * ns, "ramp": lambda ns: 8,
@@ -152,6 +174,14 @@ COV_OPS = {"sample": lambda ns: 6 * ns * ns, "ramp": lambda ns: 8,
 
 
 T0 = time.perf_counter()
+
+
+def nt_flops(solid) -> float:
+    """Operations of one NT collide step over the solid stack (3, ny,
+    nx): FLOPS_NT at the cells with eps_raw > 0, FLOPS_NT_FLUID at the
+    others (the work these inputs need)."""
+    n = int((solid[0] > 0).sum())
+    return FLOPS_NT * n + FLOPS_NT_FLUID * (solid[0].numel() - n)
 
 
 def log(phase: str, msg: str) -> None:
@@ -225,10 +255,15 @@ def build() -> None:
         log("build", f"{src} {name}: {regs} registers, spills {st} B stored "
             f"/ {ld} B loaded")
         spills[name] = st + ld
-    # K2's f32 and bf16 BGK step instantiations must not spill
+    # the f32 and bf16 BGK instantiations of K2's step and of the K6/K7
+    # temporal block must not spill
     for s in ("float", "__nv_bfloat16"):
-        name = f"coupled_step_kernel<{s}, false, false, false, WSink>"
-        assert spills.get(name) == 0, f"{name}: spills {spills.get(name)}"
+        for name in (f"coupled_step_kernel<{s}, false, false, false, WSink>",
+                     f"temporal_block_kernel<{s}, false, false, false, "
+                     f"WSteps>",
+                     f"temporal_block_kernel<{s}, false, false, false, "
+                     f"NoSink>"):
+            assert spills.get(name) == 0, f"{name}: spills {spills.get(name)}"
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -275,7 +310,6 @@ def kernel_checks(cfg, disks, label: str, timed: bool, seed: int = 0):
         d.x, d.v, d.omega, d.r, d.active, cfg)
     assert int(ovf) == 0, f"binning overflow {int(ovf)}"
     out = {}
-    cells = cfg.nx * cfg.ny
     cov_flops = cov_flops_of(cfg, counts)
 
     # K1 stamp: atol 1e-6 (the JAX stamp-vs-oracle bar)
@@ -315,7 +349,7 @@ def kernel_checks(cfg, disks, label: str, timed: bool, seed: int = 0):
              f, solid, tile_data, counts, cfg, fb), 2)
          ) if timed else (None, None)
     out["K2"] = work(e2, *t, nbytes(f, solid, tile_data, counts, fa, parts),
-                     FLOPS_NT * cells + cov_flops)
+                     nt_flops(solid) + cov_flops)
     log("kernels", f"{label} K2 fused step: f' max err {e2:.3e} (bar 5e-6); "
         f"force err {e2f:.3e} vs max|F| {fmax:.3e} (bar 1e-6 relative); "
         f"torque err {float((T - Tp).abs().max()):.3e}")
@@ -384,7 +418,7 @@ def kernel_checks(cfg, disks, label: str, timed: bool, seed: int = 0):
              ) if timed else (None, None)
         out[f"K6 k={k}"] = work(
             e6, *t, nbytes(f, solid, tile_data, counts, fa, pk),
-            k * (FLOPS_NT * cells + cov_flops))
+            k * (nt_flops(solid) + cov_flops))
         log("kernels", f"{label} K6 k={k} coupled block: f' max err {e6:.3e}"
             f" (bar 5e-6); worst inner-step force err {e6f:.3e} of max|F| "
             f"(bar 1e-6 relative; plain version on CPU tensors)")
@@ -916,7 +950,7 @@ def static_check(cfg, solid, k: int, seed: int, label: str,
              cuda_ms(lambda: fused_static.fused_step_imb_static_multi_plain(
                  f, solid, cfg, k, pc), 2))
     return work(err, *t, 2 * nbytes(f) + nbytes(solid),
-                k * FLOPS_NT * cfg.nx * cfg.ny)
+                k * nt_flops(solid))
 
 
 def static_kernels():
@@ -952,7 +986,9 @@ def static_kernels():
             f"ms per pass ({w['ms'] / 4:.4f} ms per step), plain version on "
             f"the card {w['plain_ms']:.4f} ms (CUDA events); memory floor "
             f"{w['bytes'] / 1e9:.4f} GB = {w['bytes'] / HBM_BPS * 1e3:.4f} "
-            f"ms, bound {bms:.4f} ms by {by}: kernel at "
+            f"ms, {w['flops'] / 1e9:.3f} GFLOP = "
+            f"{w['flops'] / F32_FLOPS * 1e3:.4f} ms; bound {bms:.4f} ms by "
+            f"{by}: kernel at "
             f"{100 * bms / w['ms']:.1f} % of it")
         if storage == "float32":
             out["K7"] = w
@@ -982,10 +1018,11 @@ def device_profile(sim, steps: int = 40):
 def static_slice(smi: str, storage: str):
     """The static hoist through Simulation(*static_bed(), device="cuda"):
     run(400) to warm (K1 once, then K7), run(400) timed, the checks,
-    then the profiler over run(40). Returns (launch counts of the warm
-    run, MLUPS)."""
+    then the profiler over run(40), then K7 (k = 4) and, on f32, 4
+    chained K8 steps on the run's own state. Returns (launch counts of the
+    warm run, MLUPS)."""
     from lbmdem_tpu_torch import Simulation
-    from lbmdem_tpu_torch.ops import lbm
+    from lbmdem_tpu_torch.ops import fused_static, lbm
 
     cfg, disks = static_bed(storage=storage)
     sim = Simulation(cfg, disks, device="cuda")
@@ -1026,6 +1063,17 @@ def static_slice(smi: str, storage: str):
     assert finite, "non-finite f"
     assert mass_err < bar, f"mass drift {mass_err}"
     assert ux > 0.0, "the body force drove no flow"
+    f, o = sim.state.f, torch.empty_like(sim.state.f)
+    solid = sim._static_solid_operands()
+    t7 = cuda_ms(lambda: fused_static.fused_step_imb_static_multi(
+        f, solid, cfg, 4, o), 10)
+    msg = (f"K7 k=4 on the run's state after {int(sim.state.step)} steps: "
+           f"{t7:.4f} ms per pass")
+    if storage == "float32":
+        a, b = torch.empty_like(f), torch.empty_like(f)
+        t8 = cuda_ms(lambda: chained(k8_step(solid, cfg), 4, f, a, b), 10)
+        msg += f"; 4 chained K8 {t8:.4f} ms"
+    log("static-slice", msg + " (CUDA events)")
     return first, mlups
 
 
@@ -1277,7 +1325,7 @@ def split_checks(cfg, disks, label: str, timed: bool, seed: int = 1):
                       cuda_ms(lambda: fused_lbm.fused_step_imb_plain(
                           f, *eps8, cfg, fb), 2),
                       nbytes(f, eps, usx, usy, fa, phix, phiy),
-                      FLOPS_NT * cells)
+                      nt_flops(solid))
             w9 = work(e9,
                       cuda_ms(lambda: stamp.reduce_hydro_forces(
                           d.x, d.r, d.active, eps, *phi8, cfg, tile_data,
@@ -1459,7 +1507,6 @@ def breadth_timed(cfg, disks, label: str, seed: int = 5):
     f32 = lbm.init_equilibrium(base, dev) * (1.0 + 0.02 * torch.as_tensor(
         rng.standard_normal((9, base.ny, base.nx)), dtype=torch.float32,
         device=dev))
-    cells = base.nx * base.ny
     cov = cov_flops_of(base, cnt)
     out = {}
     variants = (("f32 bgk", {}, 5e-6, 5e-6),
@@ -1488,13 +1535,19 @@ def breadth_timed(cfg, disks, label: str, seed: int = 5):
             nk = k or 1
             w = work(err, cuda_ms(run, 10), cuda_ms(plain, 1),
                      nbytes(f, solid, td, cnt, a, parts),
-                     nk * (FLOPS_NT * cells + cov))
+                     nk * (nt_flops(solid) + cov))
             out[f"{key} {name}"] = w
             bms, by = bound(w)
+            chain = ""
+            if k:
+                fa, fb = torch.empty_like(f), torch.empty_like(f)
+                t2 = cuda_ms(lambda: chained(k2_step(solid, td, cnt, c), 4,
+                                             f, fa, fb), 10)
+                chain = f"; 4 chained K2 {t2:.4f} ms"
             log("breadth", f"{label} {key} {name}: f' max err {err:.3e} (bar "
                 f"{bar:g}); kernel {w['ms']:.4f} ms, plain {w['plain_ms']:.4f}"
                 f" ms (CUDA events); bound {bms:.4f} ms by {by} "
-                f"({w['bytes'] / 1e9:.4f} GB)")
+                f"({w['bytes'] / 1e9:.4f} GB){chain}")
     return out
 
 
@@ -1850,7 +1903,7 @@ def redesign_timed(cfg, disks, label: str):
         _, parts = fused_lbm.fused_step_imb_reduce(f, solid, td, cnt, c, a)
         bms, by = bound(work(None, None, None,
                              nbytes(f, solid, td, cnt, a, parts),
-                             FLOPS_NT * cells + cov_flops_of(c, cnt)))
+                             nt_flops(solid) + cov_flops_of(c, cnt)))
         run = lambda: fused_lbm.fused_step_imb_reduce(  # noqa: E731
             f, solid, td, cnt, c, a)
         dev = kernel_device_ms(run)
@@ -1875,6 +1928,289 @@ def redesign_timed(cfg, disks, label: str):
     return out
 
 
+def chained(step, k: int, f, a, b):
+    """k chained one-step calls step(src, dst) from f, alternating the
+    buffers a and b: (the buffer holding the last step, [each call's
+    result])."""
+    src, res = f, []
+    for s in range(k):
+        dst = (a, b)[s % 2]
+        res.append(step(src, dst))
+        src = dst
+    return src, res
+
+
+def k2_step(solid, td, cnt, cfg):
+    """K2 as a step(src, dst) of `chained`, returning its partials."""
+    from lbmdem_tpu_torch.ops import fused_lbm
+
+    return lambda src, dst: fused_lbm.fused_step_imb_reduce(
+        src, solid, td, cnt, cfg, dst)[1]
+
+
+def k8_step(solid, cfg):
+    """K8 as a step(src, dst) of `chained`."""
+    from lbmdem_tpu_torch.ops import fused_lbm
+
+    return lambda src, dst: fused_lbm.fused_step_imb(
+        src, solid[0], solid[1], solid[2], cfg, dst)
+
+
+def k6_identity(f, solid, td, cnt, cfg, k: int, tag: str) -> None:
+    """K6(k) against k chained K2 steps on the same f32 input: f' and
+    every inner step's partials equal (torch.equal)."""
+    from lbmdem_tpu_torch.ops import fused_lbm
+
+    a, b, c = (torch.empty_like(f) for _ in range(3))
+    k6 = fused_lbm.fused_step_imb_reduce_multi
+    n0 = k6.launches
+    _, pk = k6(f, solid, td, cnt, cfg, k, c)
+    assert k6.launches == n0 + 1, "K6 did not launch"
+    last, p2 = chained(k2_step(solid, td, cnt, cfg), k, f, a, b)
+    same = (torch.equal(c, last),
+            all(torch.equal(pk[t], p2[t]) for t in range(k)))
+    assert all(same), f"K6 k={k} {tag}: (f', partials) equal {same}"
+    assert float((c - f).abs().max()) > 0.0, f"K6 k={k} {tag}: no change"
+
+
+def k7_identity(f, solid, cfg, k: int, tag: str) -> None:
+    """K7(k) against k chained K8 steps on the same f32 input: f' equal
+    (torch.equal)."""
+    from lbmdem_tpu_torch.ops import fused_static
+
+    a, b, c = (torch.empty_like(f) for _ in range(3))
+    k7 = fused_static.fused_step_imb_static_multi
+    n0 = k7.launches
+    k7(f, solid, cfg, k, c)
+    assert k7.launches == n0 + 1, "K7 did not launch"
+    last, _ = chained(k8_step(solid, cfg), k, f, a, b)
+    assert torch.equal(c, last), f"K7 k={k} {tag}: f' differs from K8's"
+    assert float((c - f).abs().max()) > 0.0, f"K7 k={k} {tag}: no change"
+
+
+# the strips (threads per level, rows per block) of the identity sweep on
+# 240x80
+IDENTITY_STRIPS = [(128, 128), (128, 64), (64, 128), (256, 128), (128, 1),
+                   (128, 5), (64, 7), (256, 33)]
+
+
+def tblock_identities() -> None:
+    """The row-sweep temporal block against the one-step kernels bit for
+    bit, f32: K6(k) == k chained K2 steps (f' and every inner step's
+    partials) over BREADTH_MATRIX, and K7(k) == k chained K8 steps over
+    STATIC_MATRIX, for k = 1, 2, 4, 8, at 256x64, at 240x80 (no multiple
+    of a strip) and at 96x32 (smaller than one strip), five moving disks
+    scaled to the lattice; on 240x80 again at every strip of
+    IDENTITY_STRIPS for the BGK, Zou/He, periodic and all-options cases."""
+    from lbmdem_tpu_torch import SimConfig, lattice
+    from lbmdem_tpu_torch.config import window_for_radius
+    from lbmdem_tpu_torch.ops import fused_lbm, fused_static, stamp
+
+    x0 = np.array([[1.2, 20.3], [64.3, 32.1], [128.0, 40.0], [200.5, 60.2],
+                   [238.6, 2.7]])
+    v = torch.tensor([[0.01, -0.02], [0.0, 0.01], [-0.02, 0.0], [0.01, 0.01],
+                      [0.0, -0.01]])
+    om = torch.tensor([0.005, -0.003, 0.0, 0.002, 0.001])
+    r = torch.tensor([4.0, 4.0, 3.0, 5.0, 3.5])
+    act = torch.ones(5, dtype=torch.bool)
+    rng = np.random.default_rng(43)
+    strips = (fused_lbm.MULTI_STRIP, fused_static.STRIP)
+    n = 0
+
+    def inputs(nx, ny, kw):
+        cfg = SimConfig(**{"nx": nx, "ny": ny, "tau": 0.8, "dtype": "float32",
+                           "max_disks": 5, "window": window_for_radius(5.0),
+                           "tile_cap": 8, **kw})
+        x = torch.as_tensor(x0 * [nx / 256, ny / 64], dtype=torch.float32)
+        td, cnt, _, ovf = stamp.bin_disks_to_tiles(x, v, om, r, act, cfg)
+        assert int(ovf) == 0
+        td, cnt = td.cuda(), cnt.cuda()
+        solid = stamp.stamp_fields(td, cnt, cfg)
+        if cfg.bc_west == "inlet":
+            solid[:, :, 0].zero_()
+            solid[:, :, -1].zero_()
+        f = torch.as_tensor(lattice.W[:, None, None] * (
+            1.0 + 0.05 * rng.standard_normal((9, ny, nx))),
+            dtype=torch.float32, device="cuda")
+        assert float(solid[0].max()) > 0.0
+        return cfg, f, solid, td, cnt
+
+    try:
+        for nx, ny in ((256, 64), (240, 80), (96, 32)):
+            for label, kw in BREADTH_MATRIX:
+                cfg, f, solid, td, cnt = inputs(nx, ny, kw)
+                for k in (1, 2, 4, 8):
+                    k6_identity(f, solid, td, cnt, cfg, k,
+                                f"{label} {nx}x{ny}")
+                    n += 1
+            for label, kw in STATIC_MATRIX:
+                cfg, f, solid, _, _ = inputs(nx, ny, kw)
+                for k in (1, 2, 4, 8):
+                    k7_identity(f, solid, cfg, k, f"{label} {nx}x{ny}")
+                    n += 1
+            log("tblock", f"{nx}x{ny}: K6(k) == k x K2 (f', partials) over "
+                f"{len(BREADTH_MATRIX)} option sets and K7(k) == k x K8 over "
+                f"{len(STATIC_MATRIX)}, k = 1, 2, 4, 8, bit for bit")
+        cases = dict(BREADTH_MATRIX)
+        for strip in IDENTITY_STRIPS:
+            fused_lbm.MULTI_STRIP = fused_static.STRIP = strip
+            for label in ("bgk", "zou-he", "periodic", "all"):
+                cfg, f, solid, td, cnt = inputs(240, 80, cases[label])
+                for k in (1, 4, 8):
+                    tag = f"{label} 240x80 strip {strip}"
+                    k6_identity(f, solid, td, cnt, cfg, k, tag)
+                    k7_identity(f, solid, cfg, k, tag)
+                    n += 2
+        log("tblock", f"240x80 at strips (threads, rows) {IDENTITY_STRIPS}: "
+            f"K6 == K2 chain and K7 == K8 chain bit for bit; {n} identities "
+            f"in all")
+    finally:
+        fused_lbm.MULTI_STRIP, fused_static.STRIP = strips
+
+
+def strip_times(run, k: int, attr) -> str:
+    """CUDA-event times of run() (a K6 or K7 pass of k steps) at each
+    strip (threads, rows) of the sweep, setting the module constant
+    `attr` = (module, name); restores it."""
+    mod, name = attr
+    default = getattr(mod, name)
+    times = []
+    try:
+        for threads in (64, 128):
+            for rows in (32, 64, 128, 256):
+                setattr(mod, name, (threads, rows))
+                times.append(f"({threads}, {rows}) {cuda_ms(run, 10):.4f}")
+    finally:
+        setattr(mod, name, default)
+    return f"k={k} ms per pass at (threads, rows): " + ", ".join(times)
+
+
+def tblock_timed(cfg, disks, label: str):
+    """The row-sweep K6 and K7 at the slice's shapes, on random input,
+    CUDA events and torch.profiler: K6 k = 4 (f32, bf16, TRT + LES) on
+    phase 3's inputs beside 4 chained K2 steps, the f32 identity K6 == 4 x
+    K2 at 4096^2 (f', partials); K7 k = 4 (f32, bf16) on the static
+    scene's solid stack beside 4 chained K8 steps and K7 == 4 x K8 at
+    4096^2; the strip sweep of both."""
+    from lbmdem_tpu_torch import Simulation, lattice
+    from lbmdem_tpu_torch.ops import fused_lbm, fused_static, lbm, stamp
+
+    sim = Simulation(cfg, disks, device="cuda")
+    base = sim.cfg
+    rng = np.random.default_rng(0)
+    d = sim.state.disks
+    n = d.x.shape[0]
+    d = d._replace(
+        v=torch.as_tensor(rng.uniform(-0.02, 0.02, (n, 2)),
+                          dtype=torch.float32, device="cuda"),
+        omega=torch.as_tensor(rng.uniform(-2e-3, 2e-3, n),
+                              dtype=torch.float32, device="cuda"))
+    td, cnt, _, ovf = stamp.bin_disks_to_tiles(d.x, d.v, d.omega, d.r,
+                                               d.active, base)
+    assert int(ovf) == 0
+    solid = stamp.stamp_fields(td, cnt, base)
+    f32 = lbm.init_equilibrium(base, "cuda") * (1.0 + 0.02 * torch.as_tensor(
+        rng.standard_normal((9, base.ny, base.nx)), dtype=torch.float32,
+        device="cuda"))
+    k6_identity(f32, solid, td, cnt, base, 4, label)
+    log("tblock", f"{label}: K6(4) == 4 x K2 bit for bit (f', partials)")
+    cov = cov_flops_of(base, cnt)
+    for name, kw in (("f32", {}), ("bf16", dict(f_storage="bfloat16")),
+                     ("trt+les", dict(collision="trt", smagorinsky=0.16))):
+        c = base.replace(**kw)
+        f = lbm.to_storage(f32, c)
+        a, b, o = (torch.empty_like(f) for _ in range(3))
+        run6 = lambda: fused_lbm.fused_step_imb_reduce_multi(  # noqa: E731
+            f, solid, td, cnt, c, 4, o)
+        run2 = lambda: chained(k2_step(solid, td, cnt, c), 4, f, a, b)  # noqa
+        _, parts = run6()
+        t6, t2 = cuda_ms(run6, 10), cuda_ms(run2, 10)
+        t6b, t2b = cuda_ms(run6, 10), cuda_ms(run2, 10)
+        dev6, dev2 = kernel_device_ms(run6), kernel_device_ms(run2)
+        bms, by = bound(work(None, None, None,
+                             nbytes(f, solid, td, cnt, o, parts),
+                             4 * (nt_flops(solid) + cov)))
+        log("tblock", f"{label} K6 {name} k=4: {t6:.4f}, {t6b:.4f} ms per "
+            f"pass; 4 chained K2 {t2:.4f}, {t2b:.4f} ms (CUDA events, "
+            f"alternating); bound {bms:.4f} ms by {by}; device ms by kernel "
+            f"(torch.profiler) K6 "
+            + ", ".join(f"{k} {v:.4f}" for k, v in sorted(dev6.items()))
+            + "; 4 x K2 "
+            + ", ".join(f"{k} {v:.4f}" for k, v in sorted(dev2.items())))
+        if name == "f32":
+            log("tblock", f"{label} K6 f32 strip sweep: " + strip_times(
+                run6, 4, (fused_lbm, "MULTI_STRIP")))
+            run68 = lambda: fused_lbm.fused_step_imb_reduce_multi(  # noqa
+                f, solid, td, cnt, c, 8, o)
+            t8 = cuda_ms(lambda: chained(k2_step(solid, td, cnt, c), 8, f, a,
+                                         b), 5)
+            log("tblock", f"{label} K6 f32 k=8: {cuda_ms(run68, 5):.4f} ms "
+                f"per pass; 8 chained K2 {t8:.4f} ms (CUDA events)")
+    del sim
+    ssim = Simulation(*static_bed(), device="cuda")
+    scfg = ssim.cfg
+    ssolid = ssim._static_solid_operands()
+    g = torch.Generator(device="cuda").manual_seed(9)
+    w = torch.as_tensor(lattice.W, dtype=torch.float32, device="cuda")
+    s32 = w[:, None, None] * (1.0 + 0.02 * torch.randn(
+        (9, scfg.ny, scfg.nx), generator=g, device="cuda"))
+    k7_identity(s32, ssolid, scfg, 4, "4096x4096 static")
+    log("tblock", "4096x4096 static: K7(4) == 4 x K8 bit for bit")
+    for name, kw in (("f32", {}), ("bf16", dict(f_storage="bfloat16"))):
+        c = scfg.replace(**kw)
+        f = lbm.to_storage(s32, c)
+        o = torch.empty_like(f)
+        run7 = lambda: fused_static.fused_step_imb_static_multi(  # noqa
+            f, ssolid, c, 4, o)
+        bms, by = bound(work(None, None, None, 2 * nbytes(f)
+                             + nbytes(ssolid), 4 * nt_flops(ssolid)))
+        line = (f"4096x4096 static K7 {name} k=4: {cuda_ms(run7, 10):.4f} ms "
+                f"per pass (CUDA events); bound {bms:.4f} ms by {by}")
+        if name == "f32":
+            a, b = torch.empty_like(f), torch.empty_like(f)
+            run8 = lambda: chained(k8_step(ssolid, c), 4, f, a, b)  # noqa
+            t8, t7b, t8b = (cuda_ms(fn, 10) for fn in (run8, run7, run8))
+            line += (f"; again {t7b:.4f}; 4 chained K8 {t8:.4f}, {t8b:.4f} "
+                     f"ms (alternating); device ms (torch.profiler) K7 "
+                     + ", ".join(f"{k} {v:.4f}" for k, v in sorted(
+                         kernel_device_ms(run7).items()))
+                     + "; 4 x K8 " + ", ".join(
+                         f"{k} {v:.4f}" for k, v in sorted(
+                             kernel_device_ms(run8).items())))
+        log("tblock", line)
+        if name == "f32":
+            log("tblock", "4096x4096 static K7 f32 strip sweep: "
+                + strip_times(run7, 4, (fused_static, "STRIP")))
+
+
+def tblock_on_run_state(sim) -> None:
+    """A coupling_k = 4 run (bf16 or f32) continued under torch.profiler
+    for 40 steps (device ms per step, idle share), then K6 (k = 4) against
+    4 chained K2 steps on its own state, CUDA events, as
+    split_on_run_state does for K2."""
+    from lbmdem_tpu_torch.ops import fused_lbm, stamp
+
+    dev_ms, wall_ms, top = device_profile(sim)
+    log("tblock", f"window slice ({sim.cfg.f_storage}) profiler run(40): "
+        f"device {dev_ms:.4f} ms per step against {wall_ms:.4f} ms wall "
+        f"(profiled): idle share {100 * max(0.0, 1 - dev_ms / wall_ms):.1f} "
+        f"%; top kernels {[(k[:40], round(t / 1e3, 3)) for k, t in top]} ms")
+    cfg = sim.cfg
+    d = sim.state.disks
+    td, cnt, _, _ = stamp.bin_disks_to_tiles(d.x, d.v, d.omega, d.r,
+                                             d.active, cfg)
+    solid = stamp.stamp_fields(td, cnt, cfg)
+    f = sim.state.f
+    a, b, o = (torch.empty_like(f) for _ in range(3))
+    run6 = lambda: fused_lbm.fused_step_imb_reduce_multi(  # noqa: E731
+        f, solid, td, cnt, cfg, 4, o)
+    run2 = lambda: chained(k2_step(solid, td, cnt, cfg), 4, f, a, b)  # noqa
+    times = [cuda_ms(fn, 10) for fn in (run6, run2, run2, run6)]
+    log("tblock", f"on the {cfg.f_storage} window slice's state after "
+        f"{int(sim.state.step)} steps: K6 k=4 {times[0]:.4f}, {times[3]:.4f}"
+        f" ms per pass; 4 chained K2 {times[1]:.4f}, {times[2]:.4f} ms (CUDA "
+        f"events); {int((solid[0] > 0).sum())} covered cells of "
+        f"{cfg.nx * cfg.ny}")
 def open_channel_vs_cpu(nx: int = 1024, ny: int = 256, steps: int = 48):
     """A coupled Zou/He channel under TRT + LES (the coupled scene of the
     JAX package's open-boundary tests, at 1024x256): a mobile disk next
@@ -2236,6 +2572,7 @@ def main() -> int:
                   f"{cfg.nx}x{cfg.ny}/{len(disks)} disks", timed=False)
     coverage_sweep()
     boundary_matrix()
+    tblock_identities()
     split_matrix()
     split_checks(cfg, compressed(disks, 0.94),
                  f"{cfg.nx}x{cfg.ny}/{len(disks)} disks", timed=False)
@@ -2244,6 +2581,8 @@ def main() -> int:
                         f"{cfg.nx}x{cfg.ny}/{len(disks)} disks", timed=True)
     redesign_timed(cfg, compressed(disks, 0.94),
                    f"{cfg.nx}x{cfg.ny}/{len(disks)} disks")
+    tblock_timed(cfg, compressed(disks, 0.94),
+                 f"{cfg.nx}x{cfg.ny}/{len(disks)} disks")
     res.update(split_checks(cfg, compressed(disks, 0.94),
                             f"{cfg.nx}x{cfg.ny}/{len(disks)} disks",
                             timed=True))
@@ -2255,7 +2594,9 @@ def main() -> int:
     del rsim
     slice_vs_cpu()
     slice_vs_cpu(eps_method="ramp")
-    wcounts, mlups4 = slice_run(smi, coupling_k=4)
+    wcounts, mlups4, wsim = slice_run(smi, coupling_k=4, keep=True)
+    tblock_on_run_state(wsim)
+    del wsim
     log("window-slice", f"coupling_k=4 {mlups4:.1f} MLUPS vs coupling_k=1 "
         f"{mlups1:.1f} MLUPS in this call ({mlups4 / mlups1:.3f}x)")
     slice_vs_cpu(coupling_k=4, steps=19)
@@ -2282,7 +2623,10 @@ def main() -> int:
     bcounts, mlups_b, bsim = slice_run(smi, storage="bfloat16", keep=True)
     split_on_run_state(bsim)
     del bsim
-    bwcounts, mlups_bw = slice_run(smi, coupling_k=4, storage="bfloat16")
+    bwcounts, mlups_bw, bwsim = slice_run(smi, coupling_k=4,
+                                          storage="bfloat16", keep=True)
+    tblock_on_run_state(bwsim)
+    del bwsim
     log("bfloat16-slice", f"f_storage=bfloat16 {mlups_b:.1f} MLUPS (k=1), "
         f"{mlups_bw:.1f} MLUPS (k=4) vs float32 {mlups1:.1f} and "
         f"{mlups4:.1f} MLUPS in this call ({mlups_b / mlups1:.3f}x, "

@@ -1,7 +1,7 @@
 // D2Q9 lattice device code shared by the coupled steps (K2, K6, K7,
 // through imb.cuh) and the pure-fluid steps (K4/K5, fluid.cu); the
-// storage loads/stores and the pull + bounce-back + Zou/He of one window
-// cell serve K4/K5 and K7.
+// storage loads/stores and the pull + bounce-back + Zou/He of one cell
+// serve K4/K5 and the K6/K7 temporal block (tblock.cuh).
 //
 // Every helper mirrors a function of the plain PyTorch version
 // (ops/lbm.py) operation by operation, in its evaluation order and with
@@ -251,41 +251,54 @@ __device__ __forceinline__ void store_f(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
-// Pull of window cell c (global unwrapped coordinate gy, gx) from the
-// post-collision window `post` (9 planes of n floats, w per row), then
-// half-way bounce-back at the global walls in the order south, north,
-// west, east (the x-wall rule wins at corners; plain version:
-// lbm.apply_bounce_back) and the Zou/He closures
-// (lbm.apply_open_boundaries).
-__device__ __forceinline__ void stream_cell(const float* post, int n, int w,
-                                            int c, int gy, int gx, int ny,
-                                            int nx, const float* u_in,
+// Pull of the cell at global unwrapped coordinate (gy, gx) from the
+// post-collision populations around it, then half-way bounce-back at the
+// global walls in the order south, north, west, east (the x-wall rule
+// wins at corners; plain version: lbm.apply_bounce_back) and the Zou/He
+// closures (lbm.apply_open_boundaries). post(i, dy, dx) is population i
+// of the cell (gy + dy, gx + dx).
+template <class Post>
+__device__ __forceinline__ void stream_pull(const Post& post, int gy, int gx,
+                                            int ny, int nx,
+                                            const float* u_in,
                                             const FluidParams& p, float shift,
                                             float* v) {
 #pragma unroll
-  for (int i = 0; i < 9; ++i) v[i] = post[i * n + c - ey(i) * w - ex(i)];
+  for (int i = 0; i < 9; ++i) v[i] = post(i, -ey(i), -ex(i));
   if ((p.walls & 1) && gy == 0) {  // ey = +1 populations 2, 5, 6
-    v[2] = __fadd_rn(post[4 * n + c], p.bb[0]);
-    v[5] = __fadd_rn(post[7 * n + c], p.bb[1]);
-    v[6] = __fadd_rn(post[8 * n + c], p.bb[2]);
+    v[2] = __fadd_rn(post(4, 0, 0), p.bb[0]);
+    v[5] = __fadd_rn(post(7, 0, 0), p.bb[1]);
+    v[6] = __fadd_rn(post(8, 0, 0), p.bb[2]);
   }
   if ((p.walls & 2) && gy == ny - 1) {  // ey = -1 populations 4, 7, 8
-    v[4] = __fadd_rn(post[2 * n + c], p.bb[3]);
-    v[7] = __fadd_rn(post[5 * n + c], p.bb[4]);
-    v[8] = __fadd_rn(post[6 * n + c], p.bb[5]);
+    v[4] = __fadd_rn(post(2, 0, 0), p.bb[3]);
+    v[7] = __fadd_rn(post(5, 0, 0), p.bb[4]);
+    v[8] = __fadd_rn(post(6, 0, 0), p.bb[5]);
   }
   if ((p.walls & 4) && gx == 0) {  // ex = +1 populations 1, 5, 8
-    v[1] = __fadd_rn(post[3 * n + c], p.bb[6]);
-    v[5] = __fadd_rn(post[7 * n + c], p.bb[7]);
-    v[8] = __fadd_rn(post[6 * n + c], p.bb[8]);
+    v[1] = __fadd_rn(post(3, 0, 0), p.bb[6]);
+    v[5] = __fadd_rn(post(7, 0, 0), p.bb[7]);
+    v[8] = __fadd_rn(post(6, 0, 0), p.bb[8]);
   }
   if ((p.walls & 8) && gx == nx - 1) {  // ex = -1 populations 3, 6, 7
-    v[3] = __fadd_rn(post[1 * n + c], p.bb[9]);
-    v[6] = __fadd_rn(post[8 * n + c], p.bb[10]);
-    v[7] = __fadd_rn(post[5 * n + c], p.bb[11]);
+    v[3] = __fadd_rn(post(1, 0, 0), p.bb[9]);
+    v[6] = __fadd_rn(post(8, 0, 0), p.bb[10]);
+    v[7] = __fadd_rn(post(5, 0, 0), p.bb[11]);
   }
   if (p.open) {
     if (gx == 0) zou_he_inlet(v, u_in[wrap(gy, ny)], shift);
     if (gx == nx - 1) zou_he_outlet(v, p.rho_out, shift);
   }
+}
+
+// stream_pull of window cell c from the post-collision window `post` (9
+// planes of n floats, w per row)
+__device__ __forceinline__ void stream_cell(const float* post, int n, int w,
+                                            int c, int gy, int gx, int ny,
+                                            int nx, const float* u_in,
+                                            const FluidParams& p, float shift,
+                                            float* v) {
+  stream_pull([&](int i, int dy, int dx) {
+    return post[i * n + c + dy * w + dx];
+  }, gy, gx, ny, nx, u_in, p, shift, v);
 }

@@ -44,6 +44,102 @@ __device__ __forceinline__ float div_nz(float d, float x) {
   return d == 0.0f ? d : d / x;
 }
 
+// The relaxation of one cell after its moments, equilibria and tau
+// (collide_cell): post-collision populations into fp[9] and phi. FLUID:
+// the cell has eps == 0, so B is +0 and omb = 1 - B is 1 exactly; then
+// omb * x is x, every B * Omega_i is +-0 and x + (+-0) is x (only the
+// sign of a zero can change), so the fluid terms alone, in the same
+// operations and order, give the full path's populations under == for
+// finite inputs, and phi is 0 (tests/test_torch_collide_fastpath.py
+// holds the rule on the plain version). That skips the nine equilibria at
+// u_s, Omega_i, B Omega_i and the phi sums at ~88 % of the coupled
+// cell's and ~99 % of the static cell's cells.
+template <bool SHIFT, bool TRT, bool LES, bool FLUID>
+__device__ __forceinline__ void relax_cell(const float* fc, const float* fe,
+                                           float rs, float rho, float ux,
+                                           float uy, float usx, float usy,
+                                           float tau, float B,
+                                           const FluidParams& p, float* fp,
+                                           float* phix, float* phiy) {
+  const float omb = __fsub_rn(1.0f, B);
+  float ssq = 0.f;
+  if constexpr (!FLUID)
+    ssq = __fadd_rn(__fmul_rn(usx, usx), __fmul_rn(usy, usy));
+  float px = 0.f, py = 0.f;
+  if constexpr (!TRT) {
+    float pref = p.guo_pref;
+    if constexpr (LES) pref = __fsub_rn(1.0f, __fmul_rn(__frcp_rn(tau), 0.5f));
+#pragma unroll
+    for (int i = 0; i < 9; ++i) {
+      const float ne = __fsub_rn(fc[i], fe[i]);
+      float v = __fsub_rn(fc[i], div_nz(FLUID ? ne : __fmul_rn(omb, ne), tau));
+      float bom = 0.f;
+      if constexpr (!FLUID) {
+        const int o = opp(i);
+        const float fes = feq_nt<SHIFT>(i, rs, rho, usx, usy, ssq);
+        const float om =
+            __fsub_rn(__fadd_rn(__fsub_rn(fc[o], fc[i]), fes), fe[o]);
+        bom = __fmul_rn(B, om);
+        v = __fadd_rn(v, bom);
+      }
+      if (p.forced) {
+        const float src = __fmul_rn(
+            pref, guo_proj(i, ux, uy, edot_full(i, ux, uy), p.gx, p.gy));
+        v = __fadd_rn(v, FLUID ? src : __fmul_rn(omb, src));
+      }
+      fp[i] = v;
+      if constexpr (!FLUID) {
+        px = __fadd_rn(px, __fmul_rn(bom, (float)ex(i)));
+        py = __fadd_rn(py, __fmul_rn(bom, (float)ey(i)));
+      }
+    }
+  } else {
+    float hp = p.trt_hp, hm = p.trt_hm, pe = p.trt_pe, po = p.trt_po;
+    if constexpr (LES) {  // ops/lbm.trt_tau_minus on the per-cell tau
+      hp = __fmul_rn(__frcp_rn(tau), 0.5f);
+      const float tmin = __fadd_rn(
+          __fmul_rn(__frcp_rn(__fsub_rn(tau, 0.5f)), p.trt_magic), 0.5f);
+      hm = __fmul_rn(__frcp_rn(tmin), 0.5f);
+      pe = __fmul_rn(__fsub_rn(1.0f, hp), 0.5f);
+      po = __fmul_rn(__fsub_rn(1.0f, hm), 0.5f);
+    }
+    float ne[9], S[9];
+#pragma unroll
+    for (int i = 0; i < 9; ++i) {
+      ne[i] = __fsub_rn(fc[i], fe[i]);
+      S[i] = p.forced ? guo_proj(i, ux, uy, edot_full(i, ux, uy), p.gx, p.gy)
+                      : 0.0f;
+    }
+#pragma unroll
+    for (int i = 0; i < 9; ++i) {
+      const int o = opp(i);
+      const float relax = __fadd_rn(__fmul_rn(hp, __fadd_rn(ne[i], ne[o])),
+                                    __fmul_rn(hm, __fsub_rn(ne[i], ne[o])));
+      float v = __fsub_rn(fc[i], FLUID ? relax : __fmul_rn(omb, relax));
+      float bom = 0.f;
+      if constexpr (!FLUID) {
+        const float fes = feq_nt<SHIFT>(i, rs, rho, usx, usy, ssq);
+        const float om =
+            __fsub_rn(__fadd_rn(__fsub_rn(fc[o], fc[i]), fes), fe[o]);
+        bom = __fmul_rn(B, om);
+        v = __fadd_rn(v, bom);
+      }
+      if (p.forced) {
+        const float src = __fadd_rn(__fmul_rn(pe, __fadd_rn(S[i], S[o])),
+                                    __fmul_rn(po, __fsub_rn(S[i], S[o])));
+        v = __fadd_rn(v, FLUID ? src : __fmul_rn(omb, src));
+      }
+      fp[i] = v;
+      if constexpr (!FLUID) {
+        px = __fadd_rn(px, __fmul_rn(bom, (float)ex(i)));
+        py = __fadd_rn(py, __fmul_rn(bom, (float)ey(i)));
+      }
+    }
+  }
+  *phix = FLUID ? 0.0f : -px;
+  *phiy = FLUID ? 0.0f : -py;
+}
+
 // NT-blended collision of one cell (plain version: imb.collide_imb,
 // operation by operation). fp[9] receives the post-collision
 // populations; returns phi. p is the FluidParams of ops/fused_fluid;
@@ -58,6 +154,7 @@ __device__ __forceinline__ float div_nz(float d, float x) {
 //          Guo prefactor and the TRT rates follow from it;
 //   LAMBDA with LES: tm = 3/16 / (tau_eff - 1/2) per cell.
 // The all-false instantiation is the f32 BGK collide of K2, K6, K7, K8.
+// A cell with eps == 0 (eps_raw <= 0) takes relax_cell's fluid branch.
 template <bool SHIFT, bool TRT, bool LES, bool LAMBDA>
 __device__ __forceinline__ void collide_cell(const float* fc, float eps_raw,
                                              float usx, float usy,
@@ -77,7 +174,6 @@ __device__ __forceinline__ void collide_cell(const float* fc, float eps_raw,
   const float ux = __fmul_rn(__fadd_rn(jx, p.half_gx), inv_rho);
   const float uy = __fmul_rn(__fadd_rn(jy, p.half_gy), inv_rho);
   const float usq = __fadd_rn(__fmul_rn(ux, ux), __fmul_rn(uy, uy));
-  const float ssq = __fadd_rn(__fmul_rn(usx, usx), __fmul_rn(usy, usy));
   float fe[9];
 #pragma unroll
   for (int i = 0; i < 9; ++i) fe[i] = feq_nt<SHIFT>(i, rs, rho, ux, uy, usq);
@@ -100,69 +196,15 @@ __device__ __forceinline__ void collide_cell(const float* fc, float eps_raw,
     if constexpr (LAMBDA) tm = __fmul_rn(__frcp_rn(tm), 0.1875f);
   }
   const float eps = fminf(fmaxf(eps_raw, 0.0f), 1.0f);
+  if (eps == 0.0f) {
+    relax_cell<SHIFT, TRT, LES, true>(fc, fe, rs, rho, ux, uy, usx, usy, tau,
+                                      0.0f, p, fp, phix, phiy);
+    return;
+  }
   const float B =
       div_nz(__fmul_rn(eps, tm), __fadd_rn(__fsub_rn(1.0f, eps), tm));
-  const float omb = __fsub_rn(1.0f, B);
-  float px = 0.f, py = 0.f;
-  if constexpr (!TRT) {
-    float pref = p.guo_pref;
-    if constexpr (LES) pref = __fsub_rn(1.0f, __fmul_rn(__frcp_rn(tau), 0.5f));
-#pragma unroll
-    for (int i = 0; i < 9; ++i) {
-      const int o = opp(i);
-      const float fes = feq_nt<SHIFT>(i, rs, rho, usx, usy, ssq);
-      const float om = __fsub_rn(__fadd_rn(__fsub_rn(fc[o], fc[i]), fes), fe[o]);
-      float v = __fsub_rn(
-          fc[i], div_nz(__fmul_rn(omb, __fsub_rn(fc[i], fe[i])), tau));
-      const float bom = __fmul_rn(B, om);
-      v = __fadd_rn(v, bom);
-      if (p.forced) {
-        const float proj = guo_proj(i, ux, uy, edot_full(i, ux, uy), p.gx, p.gy);
-        v = __fadd_rn(v, __fmul_rn(omb, __fmul_rn(pref, proj)));
-      }
-      fp[i] = v;
-      px = __fadd_rn(px, __fmul_rn(bom, (float)ex(i)));
-      py = __fadd_rn(py, __fmul_rn(bom, (float)ey(i)));
-    }
-  } else {
-    float hp = p.trt_hp, hm = p.trt_hm, pe = p.trt_pe, po = p.trt_po;
-    if constexpr (LES) {  // ops/lbm.trt_tau_minus on the per-cell tau
-      hp = __fmul_rn(__frcp_rn(tau), 0.5f);
-      const float tmin = __fadd_rn(
-          __fmul_rn(__frcp_rn(__fsub_rn(tau, 0.5f)), p.trt_magic), 0.5f);
-      hm = __fmul_rn(__frcp_rn(tmin), 0.5f);
-      pe = __fmul_rn(__fsub_rn(1.0f, hp), 0.5f);
-      po = __fmul_rn(__fsub_rn(1.0f, hm), 0.5f);
-    }
-    float ne[9], S[9];
-#pragma unroll
-    for (int i = 0; i < 9; ++i) {
-      ne[i] = __fsub_rn(fc[i], fe[i]);
-      S[i] = p.forced ? guo_proj(i, ux, uy, edot_full(i, ux, uy), p.gx, p.gy)
-                      : 0.0f;
-    }
-#pragma unroll
-    for (int i = 0; i < 9; ++i) {
-      const int o = opp(i);
-      const float fes = feq_nt<SHIFT>(i, rs, rho, usx, usy, ssq);
-      const float om = __fsub_rn(__fadd_rn(__fsub_rn(fc[o], fc[i]), fes), fe[o]);
-      const float relax = __fadd_rn(__fmul_rn(hp, __fadd_rn(ne[i], ne[o])),
-                                    __fmul_rn(hm, __fsub_rn(ne[i], ne[o])));
-      float v = __fsub_rn(fc[i], __fmul_rn(omb, relax));
-      const float bom = __fmul_rn(B, om);
-      v = __fadd_rn(v, bom);
-      if (p.forced) {
-        const float src = __fadd_rn(__fmul_rn(pe, __fadd_rn(S[i], S[o])),
-                                    __fmul_rn(po, __fsub_rn(S[i], S[o])));
-        v = __fadd_rn(v, __fmul_rn(omb, src));
-      }
-      fp[i] = v;
-      px = __fadd_rn(px, __fmul_rn(bom, (float)ex(i)));
-      py = __fadd_rn(py, __fmul_rn(bom, (float)ey(i)));
-    }
-  }
-  *phix = -px;
-  *phiy = -py;
+  relax_cell<SHIFT, TRT, LES, false>(fc, fe, rs, rho, ux, uy, usx, usy, tau,
+                                     B, p, fp, phix, phiy);
 }
 
 

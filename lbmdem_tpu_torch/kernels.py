@@ -32,7 +32,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent / "_build"
 SOURCES = ("stamp.cu", "imb_reduce.cu", "imb_multi.cu", "slab_dem.cu",
            "fluid.cu", "imb_static.cu", "imb_split.cu")
-HEADERS = ("coverage.cuh", "d2q9.cuh", "imb.cuh")
+HEADERS = ("coverage.cuh", "d2q9.cuh", "imb.cuh", "tblock.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-Xcompiler", "-fPIC",
@@ -98,8 +98,10 @@ _SIGNATURES = {
                                 _I, _I, DemParams, _P],
     "lbm_fluid_step": [_P, _P, _P, _I, _I, _I, FluidParams, _P],
     "lbm_fluid_multi": [_P, _P, _P, _I, _I, _I, _I, FluidParams, _P],
+    "lbm_imb_multi_strip": [_I, _I],
     "lbm_imb_static_multi": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
                              FluidParams, _F, _P],
+    "lbm_imb_static_strip": [_I, _I],
     "lbm_imb_split_step": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                            FluidParams, _F, _I, _P],
     "lbm_reduce_hydro": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

@@ -42,8 +42,13 @@ from lbmdem_tpu_torch.ops.stamp import (cov_params, hydro_partials_plain,
                                         tile_dims)
 
 # K6's largest temporal block: cfg.coupling_k's range (the JAX kernel's
-# 8-row solid halo; here the shared-memory windows, 129 KB at k = 8)
+# 8-row solid halo; here the shared-memory rings, 85 KB at k = 8)
 MAX_K = 8
+# strip of K6's row sweep (csrc/tblock.cuh): threads per level (64, 128
+# or 256: the strip's columns plus 2k halo columns; narrowed at launch
+# to at most 512 threads in all) and output rows per block, chosen by
+# timing at 4096^2 (PERF.md section 6)
+MULTI_STRIP = (128, 128)
 # block size of the one-step push kernel of K2 and K8 (32 x 4 cells),
 # chosen by timing 128, 256 and 512 at 4096^2 (PERF.md section 6)
 STEP_THREADS = 128
@@ -131,6 +136,7 @@ def _launch(f, solid, tile_data, counts, cfg: SimConfig, k: int, out,
     else:
         u_in = (fused_fluid._inlet_profile(cfg, f.device).data_ptr()
                 if cfg.bc_west == "inlet" else None)
+        kernels.check(lib.lbm_imb_multi_strip(*MULTI_STRIP), what)
         code = lib.lbm_imb_multi(*ptrs, u_in, *bins, partials.data_ptr(),
                                  offsets.data_ptr(), *dims, k, *tail,
                                  kernels.stream())
@@ -168,8 +174,8 @@ def fused_step_imb_reduce_multi(f, solid, tile_data, counts, cfg: SimConfig,
     forces.
 
     CPU tensors take the plain version; CUDA tensors take the kernel
-    csrc/imb_multi.cu (two launches: k collide-stream-BB steps in
-    shared memory, then the reduce of every inner step)."""
+    csrc/imb_multi.cu (two launches: the row sweep of k collide-stream-BB
+    steps, then the reduce of every inner step)."""
     if not 1 <= k <= MAX_K:
         raise ValueError(f"coupled temporal block k={k} outside 1..{MAX_K}")
     _check_args(f, out, "fused_step_imb_reduce_multi")

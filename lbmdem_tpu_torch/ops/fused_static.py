@@ -23,9 +23,13 @@ from lbmdem_tpu_torch import kernels
 from lbmdem_tpu_torch.config import SimConfig
 from lbmdem_tpu_torch.ops import fused_fluid, imb, lbm, not_ported
 
-# largest k per pass: the JAX kernel's 8-row solid halo; here the three
-# shared-memory windows (129 KB at k = 8)
+# largest k per pass: the JAX kernel's 8-row solid halo; here the
+# shared-memory rings of the row sweep (85 KB at k = 8)
 MAX_K = 8
+# strip of the row sweep (csrc/tblock.cuh): threads per level (64, 128
+# or 256) and output rows per block, chosen by timing at 4096^2 (PERF.md
+# section 6)
+STRIP = (128, 64)
 
 
 def check_static_cfg(cfg: SimConfig, prehalo=False, edges=None) -> None:
@@ -77,7 +81,9 @@ def fused_step_imb_static_multi(f, solid, cfg: SimConfig, k: int, out,
         raise ValueError(f"{what}: solid must be float32 on f's device")
     u_in = (fused_fluid._inlet_profile(cfg, f.device).data_ptr()
             if cfg.bc_west == "inlet" else None)
-    code = kernels.library().lbm_imb_static_multi(
+    lib = kernels.library()
+    kernels.check(lib.lbm_imb_static_strip(*STRIP), what)
+    code = lib.lbm_imb_static_multi(
         f.data_ptr(), solid.data_ptr(), out.data_ptr(), u_in, cfg.ny, cfg.nx,
         k, int(want == torch.bfloat16), int(cfg.nt_mode == "lambda"),
         fused_fluid._params(cfg), np.float32(imb.nt_tm(cfg.tau, cfg.nt_mode)),

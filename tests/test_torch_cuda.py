@@ -20,8 +20,9 @@ with equal contacts; K2 and K6 over the lattice options on CPU copies as
 above (bf16 3e-4), K8 + K9 against K2 bit for bit; K3 and K3w with
 history springs 3e-5 on every slab channel, on periodic axes 2e-5; the
 redesigned K1 bit for bit against its plain version on CPU copies for
-every coverage method, and K2's push step at each block size over the
-boundary matrix with the bars above."""
+every coverage method, K2's push step at each block size over the
+boundary matrix with the bars above, and on f32 the row-sweep K6(k)
+and K7(k) equal to k chained K2 and K8 steps, bit for bit."""
 
 import numpy as np
 import pytest
@@ -980,3 +981,70 @@ def test_push_step_boundary_matrix(dev, case, storage, threads, monkeypatch):
         F2, T2 = stamp.gather_partials(pk, es.to(dev), torch.float32)
         assert torch.equal(fa, fc)
         assert torch.equal(F2, F9) and torch.equal(T2, T9)
+
+
+# --- the row-sweep temporal block of K6 and K7 against the one-step
+# --- kernels, bit for bit
+
+
+def _chain(step, k, f):
+    """k chained step(src, dst) calls from f: (last f, [results])."""
+    bufs = (torch.empty_like(f), torch.empty_like(f))
+    src, res = f, []
+    for s in range(k):
+        res.append(step(src, bufs[s % 2]))
+        src = bufs[s % 2]
+    return src, res
+
+
+@pytest.mark.parametrize("strip", [(128, 128), (64, 3), (256, 33)],
+                         ids=["128-128", "64-3", "256-33"])
+@pytest.mark.parametrize("k", [1, 2, 4, 8])
+@pytest.mark.parametrize("case", ["walls-gy", "zou-he", "periodic-xy",
+                                  "all"])
+def test_window_kernel_equals_chained_steps(dev, case, k, strip,
+                                            monkeypatch):
+    """K6(k) == k chained K2 steps on f32: f' and every inner step's
+    partials, torch.equal (one collide and stream rule), at each strip."""
+    monkeypatch.setattr(fused_lbm, "MULTI_STRIP", strip)
+    cfg, f, solid, td, cnt, _, _ = _breadth_inputs(case, "float32")
+    f, solid, td, cnt = (t.to(dev) for t in (f, solid, td, cnt))
+    out = torch.empty_like(f)
+    _, pk = fused_lbm.fused_step_imb_reduce_multi(f, solid, td, cnt, cfg, k,
+                                                  out)
+    last, p2 = _chain(lambda s, d: fused_lbm.fused_step_imb_reduce(
+        s, solid, td, cnt, cfg, d)[1], k, f)
+    assert torch.equal(out, last)
+    assert all(torch.equal(pk[t], p2[t]) for t in range(k))
+    assert float(p2[-1].abs().max()) > 0
+
+
+@pytest.mark.parametrize("shape", [(256, 64), (240, 80), (96, 64)])
+@pytest.mark.parametrize("k", [1, 2, 4, 8])
+@pytest.mark.parametrize("case", ["walls-gx", "zou-he", "trt-les-lambda",
+                                  "periodic"])
+def test_static_kernel_equals_chained_steps(dev, case, k, shape):
+    """K7(k) == k chained K8 steps on f32 (torch.equal), on lattices that
+    are and are not multiples of a strip and one smaller than a strip."""
+    kw = {"walls-gx": dict(bc_west="wall", bc_east="wall", gx=1e-5),
+          "zou-he": dict(bc_west="inlet", bc_east="outlet", u_inlet=0.06,
+                         inlet_profile="poiseuille"),
+          "trt-les-lambda": dict(collision="trt", smagorinsky=0.16,
+                                 nt_mode="lambda", gx=1e-5),
+          "periodic": dict(bc_south="periodic", bc_north="periodic",
+                           gy=-1e-5)}[case]
+    nx, ny = shape
+    cfg = SimConfig(nx=nx, ny=ny, tau=0.8, dtype="float32", **kw)
+    obstacles = [DiskSpec(d.x * nx / 256, d.y * ny / 64, d.r, fixed=True)
+                 for d in _obstacles()]
+    sim = Simulation(cfg, obstacles, device=dev)
+    cfg = sim.cfg
+    solid = sim._static_solid_operands()
+    assert float(solid[0].max()) > 0
+    f = _fluid_f(cfg, dev, 11)
+    out = torch.empty_like(f)
+    fused_static.fused_step_imb_static_multi(f, solid, cfg, k, out)
+    last, _ = _chain(lambda s, d: fused_lbm.fused_step_imb(
+        s, solid[0], solid[1], solid[2], cfg, d), k, f)
+    assert torch.equal(out, last)
+    assert float((out - f).abs().max()) > 0
