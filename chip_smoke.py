@@ -7,7 +7,10 @@ nothing falls back to the CPU):
 
 1. probe: the card, its power limit, nvcc, CUDA_HOME, triton;
 2. build: compile lbmdem_tpu_torch/csrc/*.cu into lbmdem_tpu_torch/_build/
-   and print each kernel entry's registers and spills (ptxas);
+   and print each kernel entry's registers and spills (ptxas); the f32
+   and bf16 BGK instantiations of K2's step, of the K6/K7 temporal block
+   and of K5's row sweep (its sweeps through f32 scratch too) must not
+   spill;
 3. kernels: K1 stamp, K2 fused IMB step + reduce, K3 slab DEM, K6
    coupled temporal block (k = 2, 4, 8; at 4096^2 k = 2, 4) and K3w
    window slab DEM (4 chained calls), each against its plain PyTorch
@@ -130,7 +133,20 @@ nothing falls back to the CPU):
    32/64/128/256) of K6 and K7 f32. Phase 5w and 20 time K6
    beside 4 chained K2 steps on the window slices' own states, phase 11
    K7 beside 4 chained K8 steps on the static slice's, phase 18 4 chained
-   K2 steps beside K6 on its inputs.
+   K2 steps beside K6 on its inputs;
+28. K3 redesign (after phase 27): every K3/K3w instantiation (K3, K3 with
+   springs, K3w, K3w with springs, K3 on a periodic axis) at 4096^2/10k
+   packed into contact, against its plain version (bit for bit without
+   springs, 3e-5 with them, contacts equal), timed at each grid cap (the
+   same result bit for bit), with device ms and CUDA launches per call
+   from the profiler (one launch per call, or the phase fails);
+29. K5 redesign (after phase 6): the row-sweep K5(k) equal to k chained
+   K4 steps bit for bit over the f32 cases of FLUID_MATRIX at 256x64 and
+   240x80, k = 2, 4, 7, 8, and at every strip of IDENTITY_STRIPS; bf16 K5
+   at k = 4, 12, 16 within 3e-4 of its plain version; at 4096^2 K5(4) ==
+   4 x K4, K5 and 4 chained K4 steps timed in turns (f32, bf16), K4's
+   one-step body (f32) beside the sweep at k = 1 (f' equal), k = 8 (bf16
+   16: two sweeps) beside the chain, and the strip sweep.
 
 The second-to-last line holds the per-kernel JSON record (the ten
 kernels, then the bf16, TRT + LES, kt and periodic instantiations of K2,
@@ -255,14 +271,23 @@ def build() -> None:
         log("build", f"{src} {name}: {regs} registers, spills {st} B stored "
             f"/ {ld} B loaded")
         spills[name] = st + ld
-    # the f32 and bf16 BGK instantiations of K2's step and of the K6/K7
-    # temporal block must not spill
-    for s in ("float", "__nv_bfloat16"):
-        for name in (f"coupled_step_kernel<{s}, false, false, false, WSink>",
-                     f"temporal_block_kernel<{s}, false, false, false, "
-                     f"WSteps>",
-                     f"temporal_block_kernel<{s}, false, false, false, "
-                     f"NoSink>"):
+    # the f32 and bf16 BGK instantiations of K2's step, of the K6/K7
+    # temporal block and of K5's row sweep (on bf16 with the sweeps
+    # through its f32 scratch: bf16 -> f32, f32 -> f32, f32 -> bf16) must
+    # not spill
+    spills = {k.replace(" ", ""): v for k, v in spills.items()}
+    bf = "__nv_bfloat16"
+    for s, sh in (("float", "false"), (bf, "true")):
+        names = [f"coupled_step_kernel<{s},false,false,false,WSink>",
+                 f"temporal_block_kernel<{s},{s},{sh},1,2,NTCell<false,"
+                 f"false,false,WSteps>>",
+                 f"temporal_block_kernel<{s},{s},{sh},1,2,NTCell<false,"
+                 f"false,false,NoSink>>"]
+        pairs = [(s, s)] + ([(bf, "float"), ("float", "float"),
+                             ("float", bf)] if s == bf else [])
+        names += [f"temporal_block_kernel<{a},{b},{sh},2,2,FluidCell<0,0,"
+                  f"{fo}>>" for a, b in pairs for fo in (0, 1)]
+        for name in names:
             assert spills.get(name) == 0, f"{name}: spills {spills.get(name)}"
 
 
@@ -865,6 +890,319 @@ def fluid_vs_cpu() -> None:
         log("fluid-vs-cpu", f"{label} {cfg.nx}x{cfg.ny}, 19 steps: f max err "
             f"{err:.3e} (bar 1e-5)")
         assert err <= 1e-5
+
+
+def k4_step(cfg):
+    """K4 as a step(src, dst) of `chained`."""
+    from lbmdem_tpu_torch.ops import fused_fluid
+
+    return lambda src, dst: fused_fluid.fused_step_fluid(src, cfg, dst)
+
+
+def k5_identity(f, cfg, k: int, tag: str) -> None:
+    """K5(k) against k chained K4 steps on the same f32 input: f' equal
+    (torch.equal)."""
+    from lbmdem_tpu_torch.ops import fused_fluid
+
+    a, b, c = (torch.empty_like(f) for _ in range(3))
+    k5 = fused_fluid.fused_step_fluid_multi
+    n0 = k5.launches
+    k5(f, cfg, k, c)
+    assert k5.launches == n0 + 1, "K5 did not launch"
+    last, _ = chained(k4_step(cfg), k, f, a, b)
+    assert torch.equal(c, last), f"K5 k={k} {tag}: f' differs from {k} " \
+        "chained K4 steps"
+    assert float((c - f).abs().max()) > 0.0, f"K5 k={k} {tag}: no change"
+
+
+def k5_identities() -> None:
+    """The row-sweep K5 against K4 bit for bit: in f32 K5(k) == k chained
+    K4 steps over the f32 cases of FLUID_MATRIX (Zou/He, moving lids,
+    periodic y, TRT + LES, the 4 x 32 and 24 x 6 lattices smaller than a
+    strip), k = 2, 4, 7, 8, at 256x64 and 240x80, then on 240x80 at every
+    strip of IDENTITY_STRIPS; on bf16 K5 at k = 4, 12 and 16 (two sweeps
+    past 8) within 3e-4 of its plain version on the card (one rounding
+    per pass)."""
+    from lbmdem_tpu_torch import SimConfig, lattice
+    from lbmdem_tpu_torch.ops import fused_fluid, lbm
+
+    rng = np.random.default_rng(47)
+    n = 0
+
+    def inputs(kw, nx, ny):
+        cfg = SimConfig(**{"nx": nx, "ny": ny, "tau": 0.8, "dtype": "float32",
+                           **kw})
+        f = torch.as_tensor(lattice.W[:, None, None] * (
+            1.0 + 0.05 * rng.standard_normal((9, cfg.ny, cfg.nx))),
+            dtype=torch.float32, device="cuda")
+        return cfg, f
+
+    saved = fused_fluid.STRIP
+    try:
+        for nx, ny in ((256, 64), (240, 80)):
+            errs = []
+            for label, kw in FLUID_MATRIX:
+                if "nx" in kw and nx != 256:
+                    continue  # the small lattices once
+                cfg, f = inputs(kw, nx, ny)
+                if cfg.f_storage == "bfloat16":
+                    g = lbm.to_storage(f, cfg)
+                    for k in (4, 12, 16):
+                        a, b = torch.empty_like(g), torch.empty_like(g)
+                        fused_fluid.fused_step_fluid_multi(g, cfg, k, a)
+                        fused_fluid.fused_step_fluid_multi_plain(g, cfg, k, b)
+                        err = float((a.float() - b.float()).abs().max())
+                        assert err <= 3e-4, f"K5 bf16 k={k} {label}: {err}"
+                        errs.append(err)
+                    continue
+                for k in (2, 4, 7, 8):
+                    k5_identity(f, cfg, k, f"{label} {cfg.nx}x{cfg.ny}")
+                    n += 1
+            log("k5", f"{nx}x{ny}: K5(k) == k x K4 over the f32 cases of "
+                f"FLUID_MATRIX, k = 2, 4, 7, 8, bit for bit; bf16 k = 4, 12, "
+                f"16 max err {max(errs):.3e} against the plain version")
+        cases = dict(FLUID_MATRIX)
+        for strip in IDENTITY_STRIPS:
+            fused_fluid.STRIP = strip
+            for label in ("walls", "zou-he", "periodic", "trt-les"):
+                cfg, f = inputs(cases[label], 240, 80)
+                for k in (2, 4, 7, 8):
+                    k5_identity(f, cfg, k, f"{label} 240x80 strip {strip}")
+                    n += 1
+        log("k5", f"240x80 at strips (threads, rows) {IDENTITY_STRIPS}: K5 =="
+            f" K4 chain bit for bit; {n} identities in all")
+    finally:
+        fused_fluid.STRIP = saved
+
+
+def k5_timed(n: int = 4096) -> None:
+    """K5 at n^2 on random input (tau 0.8, gx 1e-6, f = w_i (1 + 0.02
+    N(0, 1))), f32 and bf16: K5(4) == 4 x K4 bit for bit (f32); K5 and 4
+    chained K4 steps in turns (CUDA events), device ms per call
+    (torch.profiler), K4 (on f32 its one-step body, on bf16 the row sweep
+    at k = 1) beside the row sweep at k = 1 (f' equal), K5 at k = 8 (f32;
+    16 on bf16, two sweeps) beside 8 (16) chained K4 steps, and the strip
+    sweep (threads per level 64/128/256 x rows 32/64/128/256)."""
+    from lbmdem_tpu_torch import SimConfig, kernels, lattice
+    from lbmdem_tpu_torch.ops import fused_fluid, lbm
+
+    lib = kernels.library()
+    saved = fused_fluid.STRIP
+    try:
+        for storage in ("float32", "bfloat16"):
+            cfg = SimConfig(nx=n, ny=n, tau=0.8, gx=1e-6, dtype="float32",
+                            f_storage=storage)
+            g = torch.Generator(device="cuda").manual_seed(7)
+            w = torch.as_tensor(lattice.W, dtype=torch.float32, device="cuda")
+            f = lbm.to_storage(w[:, None, None] * (1.0 + 0.02 * torch.randn(
+                (9, n, n), generator=g, device="cuda")), cfg)
+            a, b, c = (torch.empty_like(f) for _ in range(3))
+            bms, by = bound(work(None, None, None, 2 * nbytes(f),
+                                 4 * FLOPS_FLUID * n * n))
+
+            def k5(k=4):
+                return fused_fluid.fused_step_fluid_multi(f, cfg, k, c)
+
+            def chain(k=4):
+                return chained(k4_step(cfg), k, f, a, b)
+
+            if storage == "float32":
+                k5_identity(f, cfg, 4, f"{n}x{n}")
+                log("k5", f"{n}x{n} f32: K5(4) == 4 x K4 bit for bit")
+            t5, tc = [], []
+            for fn, ts in ((chain, tc), (k5, t5), (k5, t5), (chain, tc)):
+                ts.append(cuda_ms(fn, 10))
+            dev5 = kernel_device_ms(k5)
+            dev4 = kernel_device_ms(chain)
+            log("k5", f"{n}x{n} {storage} k=4, ms per pass (CUDA events, in "
+                f"turns: chain, K5, K5, chain): K5 {t5[0]:.4f}, {t5[1]:.4f}; "
+                f"4 chained K4 {tc[0]:.4f}, {tc[1]:.4f}; bound {bms:.4f} ms "
+                f"by {by}; device ms per call (torch.profiler) K5 "
+                + ", ".join(f"{k} {v:.4f}" for k, v in sorted(dev5.items()))
+                + "; 4 x K4 " + ", ".join(f"{k} {v:.4f}" for k, v in sorted(
+                    dev4.items())))
+            bf16 = int(storage == "bfloat16")
+
+            def sweep1():
+                kernels.setting("lbm_fluid_strip", *fused_fluid.STRIP)
+                kernels.check(lib.lbm_fluid_multi(
+                    f.data_ptr(), c.data_ptr(), None, None, n, n, 1, bf16,
+                    fused_fluid._params(cfg), kernels.stream()), "K5 k=1")
+
+            def k4():
+                fused_fluid.fused_step_fluid(f, cfg, a)
+
+            sweep1()
+            k4()
+            torch.cuda.synchronize()
+            same1 = torch.equal(a, c)
+            t1 = [cuda_ms(fn, 20) for fn in (k4, sweep1, sweep1, k4)]
+            body = "one-step body" if storage == "float32" else "row sweep"
+            log("k5", f"{n}x{n} {storage} one step: K4 ({body}) "
+                f"{t1[0]:.4f}, {t1[3]:.4f} ms; the row sweep at k = 1 "
+                f"{t1[1]:.4f}, {t1[2]:.4f} ms (CUDA events); f' equal {same1}")
+            # f32: K4's one-step body and the sweep give the same f'
+            assert same1, f"K4 {storage} differs from the row sweep at k = 1"
+            kk = 8 if storage == "float32" else 16
+            tk = [cuda_ms(fn, 5) for fn in (lambda: k5(kk),
+                                            lambda: chain(kk))]
+            log("k5", f"{n}x{n} {storage} k={kk}: K5 {tk[0]:.4f} ms per pass;"
+                f" {kk} chained K4 {tk[1]:.4f} ms (CUDA events)")
+            sweep = []
+            for threads in (64, 128, 256):
+                for rows in (32, 64, 128, 256):
+                    fused_fluid.STRIP = (threads, rows)
+                    sweep.append(f"({threads}, {rows}) "
+                                 f"{cuda_ms(k5, 10):.4f}")
+            fused_fluid.STRIP = saved
+            log("k5", f"{n}x{n} {storage} k=4 strip sweep, ms per pass at "
+                f"(threads, rows): " + ", ".join(sweep)
+                + f" (chosen {saved})")
+    finally:
+        fused_fluid.STRIP = saved
+
+
+def launches_per_call(fn, calls: int = 10, sessions: int = 3) -> float:
+    """CUDA kernel launches per call of fn() under torch.profiler. A spin
+    kernel (torch.cuda._sleep) before and after the calls keeps the
+    profiler's first and last device records on kernels that are not
+    counted, and shows whether the session kept its device records: a
+    session that lost either spin kernel's record is read as no
+    measurement and taken again, at most `sessions` times."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)
+            for _ in range(calls):
+                fn()
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+        dev = [a for a in prof.key_averages()
+               if a.device_type == DeviceType.CUDA]
+        if sum(a.count for a in dev if "spin" in a.key) == 2:
+            return sum(a.count for a in dev if "spin" not in a.key) / calls
+        log("profile", "a session lost its device records; taken again")
+    raise AssertionError(f"torch.profiler kept no device records in "
+                         f"{sessions} sessions")
+
+
+def k3_timed(cfg, disks, label: str, seed: int = 3) -> None:
+    """Every K3/K3w instantiation at the slice's shapes (4096^2, 10k disks
+    packed into contact, seeded velocities and forces): K3, K3 with
+    springs (kt = 25, live springs carried in), K3w, K3w with springs, K3
+    on a periodic x axis. Each: one call against its plain version on the
+    card (every slab channel; equal contacts), CUDA-event ms per call at
+    the default cooperative grid and at grids capped to 132, 264 and 528
+    blocks (the same result bit for bit), device ms and CUDA launches per
+    call (torch.profiler), beside its bound; K3 also at n_sub = 5, 10 and
+    20, for the cost of one phase."""
+    from lbmdem_tpu_torch import DiskSpec, Simulation
+    from lbmdem_tpu_torch.ops import dem, slab_dem
+
+    rng = np.random.default_rng(seed)
+
+    def rnd(shape, amp):
+        return torch.as_tensor(rng.uniform(-amp, amp, shape),
+                               dtype=torch.float32, device="cuda")
+
+    cases = []
+    for kt in (0.0, 25.0):
+        sim = Simulation(cfg.replace(kt=kt), disks, device="cuda")
+        c, grid, axis = sim.cfg, sim.grid, sim.dem_axis
+        d = sim.state.disks
+        m = d.x.shape[0]
+        d = d._replace(v=rnd((m, 2), 0.02), omega=rnd((m,), 2e-3))
+        F, T = rnd((m, 2), 1e-3), rnd((m,), 1e-4)
+        if kt:
+            for _ in range(2):
+                d, _, _ = slab_dem.dem_subcycle(d, F, T, grid, c, axis)
+        body = dem.body_forces(d, c)
+        act = int(d.active.sum())
+        tag = " kt" if kt else ""
+        sl = slab_dem.build_slabs(d, F, T, body, grid, axis, kt=kt > 0)
+        cases.append((f"K3{tag}", c, grid, axis, sl[0], sl[3:6], None, act))
+        sw = slab_dem.build_slabs(d, None, None, body, grid, axis, kt=kt > 0,
+                                  bake_forces=False)
+        f3 = slab_dem._force_planes_window(sw[1], [(F, T)], body,
+                                           sw[0].shape)[0]
+        cases.append((f"K3w{tag}", c, grid, axis, sw[0], sw[3:6], f3, act))
+    pcfg = cfg.replace(bc_west="periodic", bc_east="periodic")
+    shift = 0.04 * cfg.nx
+    psim = Simulation(pcfg, [DiskSpec((s.x - shift) % cfg.nx, s.y, s.r)
+                             for s in disks], device="cuda")
+    pd = psim.state.disks
+    m = pd.x.shape[0]
+    pd = pd._replace(v=rnd((m, 2), 0.02), omega=rnd((m,), 2e-3))
+    F, T = rnd((m, 2), 1e-3), rnd((m,), 1e-4)
+    sl = slab_dem.build_slabs(pd, F, T, dem.body_forces(pd, psim.cfg),
+                              psim.grid, psim.dem_axis)
+    cases.append(("K3 periodic", psim.cfg, psim.grid, psim.dem_axis, sl[0],
+                  sl[3:6], None, int(pd.active.sum())))
+    cap0 = slab_dem.GRID_CAP
+    try:
+        for name, c, grid, axis, slabs, (kmax, n_occ, bands), f3, act in \
+                cases:
+            if f3 is None:
+                def call(s):
+                    return slab_dem.subcycle_slabs(s, kmax, n_occ, bands,
+                                                   grid, c, axis)[1]
+                plain = slab_dem.subcycle_slabs_plain(slabs, kmax, c, grid,
+                                                      axis)
+            else:
+                def call(s):
+                    return slab_dem.subcycle_slabs_window(
+                        s, f3, kmax, n_occ, bands, grid, c, axis)[1]
+                plain = slab_dem.subcycle_slabs_plain(slabs, kmax, c, grid,
+                                                      axis, f3)
+            ref = slabs.clone()
+            nc = call(ref)
+            err = float((ref - plain[0]).abs().max())
+            same = torch.equal(ref, plain[0])
+            assert int(nc) == int(plain[1]) > 0, (name, int(nc),
+                                                  int(plain[1]))
+            assert err <= (3e-5 if c.kt > 0 else 2e-5), (name, err)
+            scratch = slabs.clone()
+            times = []
+            for cap in (0, 132, 264, 528):
+                slab_dem.GRID_CAP = cap
+                s = slabs.clone()
+                assert int(call(s)) == int(nc)
+                assert torch.equal(s, ref), f"{name}: grid cap {cap}"
+                times.append(f"{cap or 'occupancy'} "
+                             f"{cuda_ms(lambda: call(scratch), 20):.4f}")
+            slab_dem.GRID_CAP = cap0
+            per = launches_per_call(lambda: call(scratch))
+            dev = kernel_device_ms(lambda: call(scratch))
+            bms, by = bound(work(None, None, None, 2 * nbytes(slabs)
+                                 + (nbytes(f3) if f3 is not None else 0),
+                                 c.n_sub * act * 9 * int(kmax) * 60))
+            log("k3", f"{label} {name} (kmax {int(kmax)}, {int(n_occ)} "
+                f"occupied bands): against the plain version max err "
+                f"{err:.3e}, equal {same}; contacts {int(nc)}; ms per call at"
+                f" grid (blocks): " + ", ".join(times)
+                + " (CUDA events); "
+                f"{per:g} CUDA launches per call, device ms per call "
+                + ", ".join(f"{k} {v:.4f}" for k, v in sorted(dev.items()))
+                + f" (torch.profiler); bound {bms:.4f} ms by {by}")
+            assert per == 1.0, f"{name}: {per} launches per call"
+            # bit for bit where the 31-launch kernel was: without springs
+            assert same or c.kt > 0, f"{name}: differs from the plain version"
+            if name == "K3":  # the cost of one phase: n_sub + 1 phases
+                ms = {n: cuda_ms(lambda: slab_dem.subcycle_slabs(
+                    scratch, kmax, n_occ, bands, grid, c.replace(n_sub=n),
+                    axis), 20) for n in (5, 10, 20)}
+                log("k3", f"{label} K3 at n_sub 5, 10, 20: " + ", ".join(
+                    f"{v:.4f}" for v in ms.values()) + " ms per call (CUDA "
+                    f"events): {(ms[20] - ms[5]) / 15 * 1e3:.2f} us per "
+                    f"phase, {(ms[5] - 6 * (ms[20] - ms[5]) / 15) * 1e3:.2f} "
+                    "us besides")
+    finally:
+        slab_dem.GRID_CAP = cap0
 
 
 # the lattice-option matrix of K7 at 256x64: walls with forcing, the
@@ -2583,6 +2921,8 @@ def main() -> int:
                    f"{cfg.nx}x{cfg.ny}/{len(disks)} disks")
     tblock_timed(cfg, compressed(disks, 0.94),
                  f"{cfg.nx}x{cfg.ny}/{len(disks)} disks")
+    k3_timed(cfg, compressed(disks, 0.94),
+             f"{cfg.nx}x{cfg.ny}/{len(disks)} disks")
     res.update(split_checks(cfg, compressed(disks, 0.94),
                             f"{cfg.nx}x{cfg.ny}/{len(disks)} disks",
                             timed=True))
@@ -2602,6 +2942,8 @@ def main() -> int:
     slice_vs_cpu(coupling_k=4, steps=19)
     coupling_k_settling()
     res.update(fluid_kernels())
+    k5_identities()
+    k5_timed()
     fcounts, _ = fluid_slice(smi, "float32")
     fluid_slice(smi, "bfloat16")
     poiseuille_check()

@@ -1,7 +1,7 @@
 // D2Q9 lattice device code shared by the coupled steps (K2, K6, K7,
 // through imb.cuh) and the pure-fluid steps (K4/K5, fluid.cu); the
 // storage loads/stores and the pull + bounce-back + Zou/He of one cell
-// serve K4/K5 and the K6/K7 temporal block (tblock.cuh).
+// serve K4 and the K5/K6/K7 temporal block (tblock.cuh).
 //
 // Every helper mirrors a function of the plain PyTorch version
 // (ops/lbm.py) operation by operation, in its evaluation order and with
@@ -126,13 +126,26 @@ __device__ __forceinline__ float guo_proj(int i, float ux, float uy, float eu,
   return __fmul_rn(weight(i), __fadd_rn(t1, t2));
 }
 
+// A lattice option of a collide: fixed at compile time (0 or 1), or
+// kRuntime to read it from FluidParams at run time
+constexpr int kRuntime = -1;
+__device__ __forceinline__ bool option(int fixed, int runtime) {
+  return fixed == kRuntime ? runtime != 0 : fixed != 0;
+}
+
 // Pure-fluid collision of one cell in place (plain version:
 // ops/lbm.collide): moments with the Guo half-force shift, BGK or TRT,
 // optional Smagorinsky tau_eff, Guo forcing. SHIFT: f holds the shifted
 // populations g = f - w rho0 (bf16 storage); the update keeps its form
 // with f_eq -> g_eq, since BGK, TRT and Guo are linear in (f - f_eq).
-template <bool SHIFT>
-__device__ __forceinline__ void fluid_collide(float* f, const FluidParams& p) {
+// TRT, LES, FORCED: the options p.trt, p.les, p.forced fixed at compile
+// time (0/1), or kRuntime; every choice runs the same operations in the
+// same order for the same options, so the results agree bit for bit.
+template <bool SHIFT, int TRT, int LES, int FORCED>
+__device__ __forceinline__ void fluid_collide_t(float* f,
+                                                const FluidParams& p) {
+  const bool trt = option(TRT, p.trt), les = option(LES, p.les);
+  const bool forced = option(FORCED, p.forced);
   float rs = 0.f, jx = 0.f, jy = 0.f;
 #pragma unroll
   for (int i = 0; i < 9; ++i) rs = __fadd_rn(rs, f[i]);
@@ -154,7 +167,7 @@ __device__ __forceinline__ void fluid_collide(float* f, const FluidParams& p) {
     fe[i] = SHIFT ? geq_eu(i, rs, rho, eu[i], usq) : feq_eu(i, rho, eu[i], usq);
   }
   float tau = p.tau;
-  if (p.les) {  // ops/lbm.smagorinsky_tau
+  if (les) {  // ops/lbm.smagorinsky_tau
     float pxx = 0.f, pyy = 0.f, pxy = 0.f;
 #pragma unroll
     for (int i = 0; i < 9; ++i) {
@@ -170,23 +183,23 @@ __device__ __forceinline__ void fluid_collide(float* f, const FluidParams& p) {
         p.tau_sq, __fdiv_rn(__fmul_rn(p.les_c, pn), rho)))));
   }
   float S[9];
-  if (p.forced) {
+  if (forced) {
 #pragma unroll
     for (int i = 0; i < 9; ++i) S[i] = guo_proj(i, ux, uy, eu[i], p.gx, p.gy);
   }
-  if (!p.trt) {
-    const float pref = p.les ? __fsub_rn(1.0f, __fmul_rn(__frcp_rn(tau), 0.5f))
-                             : p.guo_pref;
+  if (!trt) {
+    const float pref = les ? __fsub_rn(1.0f, __fmul_rn(__frcp_rn(tau), 0.5f))
+                           : p.guo_pref;
 #pragma unroll
     for (int i = 0; i < 9; ++i) {
       float v = __fsub_rn(f[i], __fdiv_rn(__fsub_rn(f[i], fe[i]), tau));
-      if (p.forced) v = __fadd_rn(v, __fmul_rn(pref, S[i]));
+      if (forced) v = __fadd_rn(v, __fmul_rn(pref, S[i]));
       f[i] = v;
     }
     return;
   }
   float hp = p.trt_hp, hm = p.trt_hm, pe = p.trt_pe, po = p.trt_po;
-  if (p.les) {  // ops/lbm.trt_tau_minus on the per-cell tau
+  if (les) {  // ops/lbm.trt_tau_minus on the per-cell tau
     hp = __fmul_rn(__frcp_rn(tau), 0.5f);
     const float tm = __fadd_rn(
         __fmul_rn(__frcp_rn(__fsub_rn(tau, 0.5f)), p.trt_magic), 0.5f);
@@ -202,12 +215,18 @@ __device__ __forceinline__ void fluid_collide(float* f, const FluidParams& p) {
     const int o = opp(i);
     float v = __fsub_rn(__fsub_rn(f[i], __fmul_rn(hp, __fadd_rn(ne[i], ne[o]))),
                         __fmul_rn(hm, __fsub_rn(ne[i], ne[o])));
-    if (p.forced) {
+    if (forced) {
       v = __fadd_rn(__fadd_rn(v, __fmul_rn(pe, __fadd_rn(S[i], S[o]))),
                     __fmul_rn(po, __fsub_rn(S[i], S[o])));
     }
     f[i] = v;
   }
+}
+
+// fluid_collide_t with every option read at run time (K4)
+template <bool SHIFT>
+__device__ __forceinline__ void fluid_collide(float* f, const FluidParams& p) {
+  fluid_collide_t<SHIFT, kRuntime, kRuntime, kRuntime>(f, p);
 }
 
 // Zou/He west-inlet closure (ops/lbm.zou_he_inlet): the unknown

@@ -5,39 +5,45 @@
 // Replaces the TPU kernels lbmdem_tpu/ops/pallas_lbm.py:_fluid_kernel
 // (K4, entry fused_step_fluid: one step per pass) and
 // _fluid_multi_kernel (K5, entry fused_step_fluid_multi: k steps per
-// pass, temporal blocking). Both are one templated body here, with k a
-// launch argument (K4 is k = 1) and the storage type a template
-// parameter; each has its own C entry point.
+// pass, temporal blocking). Each has its own C entry point; the storage
+// type is a template parameter of both.
 //
-// What bounds it on the H100: at k = 1, device memory. Per cell a step
-// reads f and writes f' (72 B in f32, 36 B in bf16): 1.2 GB per step
-// at 4096^2, ~0.36 ms at 3.35 TB/s. Temporal blocking divides that
-// traffic by k and moves the bound to the arithmetic: ~150-250 flops per
-// cell and step (no FMA contraction, --fmad=false), times the halo
-// recompute (1 + 2k/16)(1 + 2k/32), 1.9x at k = 4.
+// K4: on f32, one block of 512 threads per 16 x 32 tile loads the tile
+// and a one-cell halo (periodic wrap at the domain edge, as the plain
+// version's torch.roll), collides it into shared memory and streams the
+// tile into `out`, the caller's second f buffer; on bf16, K5's row sweep
+// at k = 1, faster there (PERF.md section 6). Bounded by device memory:
+// per cell a step reads f and writes f' (72 B in f32, 36 B in bf16),
+// 1.2 GB per step at 4096^2, ~0.36 ms at 3.35 TB/s.
 //
-// Design: one block of 512 threads per 16 x 32 output tile. The block
-// keeps a window of the tile plus a k-cell halo on every side in shared
-// memory (periodic wrap at the domain edge, as the plain version's
-// torch.roll). Pass 0 loads the window from f and collides it; each of
-// the k - 1 inner steps pull-streams and collides the window shrunk by
-// one more cell per side into the second window buffer; the last pass
-// streams the interior straight to `out`, the caller's second f buffer
-// (never f: other blocks still read their halos from it). Shared memory
-// is 9 (16 + 2k)(32 + 2k) floats per buffer, two buffers when k > 1:
-// 69 KB at k = 4, 110 KB at k = 8, 221 KB at k = 16 (bf16 only), under
-// the 227 KB a block can have; that, and the halo recompute, bound k
-// and the tile.
-//
-// Halo validity: every window cell carries its unwrapped global
-// coordinate. Bounce-back and the Zou/He closures fire where that
-// coordinate is on the global wall or open column, across the whole
-// window: on a periodic axis the halo holds true wrapped data that must
-// keep evolving exactly (the other axis's wall rule included); on a
-// wall or open axis the halo beyond the edge is garbage, but the wall
-// rule reads only its own cell, which cuts the dependency cone. The
-// inlet profile is indexed by the global row mod ny. A domain smaller
-// than the tile just holds the same cell more than once.
+// K5: the row-sweep temporal block of tblock.cuh with FluidCell (no
+// solid ring, no sink): strips of T - 2k output columns, one warp group
+// per inner step, each LAG rows behind the one before, a ring of rows per
+// step in shared memory. Its collide and stream are K4's (fluid_collide_t
+// with the options as compile-time flags runs K4's operations in K4's
+// order), so in f32 K5(k) equals k chained K4 steps bit for bit; bf16
+// rounds once per pass. What bounds it now: not the 0.36 ms of bytes
+// (the pass reads and writes f once) but the collides' instruction
+// issue and latency: ~200 operations and nine IEEE divides per cell and
+// step (the divides must stay: the identity), 4.2 collides per output
+// cell and pass at k = 4 and T = 128, one barrier per phase. With no
+// solid ring and no sink its rings take less shared memory and its
+// collide fewer registers than the NT one, which the design spends on
+// two rows per level and phase (a ring of 6 rows, 110.6 KB at T = 128
+// and k = 4; two independent collides per thread and half the barriers)
+// at 2 blocks of 512 threads per SM, with the options fixed at compile
+// time. The steps before it (the options read at run time; fixed at 2 or
+// 3 blocks per SM; one row per phase) were slower at 4096^2 on f32 and
+// bf16; their times are in PERF.md section 6. The strip (threads per
+// level, rows per block) is `lbm_fluid_strip`'s, chosen by
+// chip_smoke.py's sweep at 4096^2 (ops/fused_fluid.STRIP). A sweep takes
+// at most kSweepK = 4 steps, the most at which a level keeps T = 128
+// threads (T k <= 512): deeper, T falls to 64, the halo takes 2k of 64
+// columns and the rings (and at bf16 k = 16 two levels per warp group)
+// leave one block per SM. So k > 4 runs as ceil(k / 4) sweeps of near
+// equal depth, the ones between through f32 scratch planes that hold the
+// populations unrounded (shifted on bf16): the same arithmetic as one
+// pass, bit for bit, and one rounding per pass on bf16.
 //
 // bf16: loads the shifted populations g = f - w rho0, computes in f32
 // in the shifted form (d2q9.cuh geq_eu), and rounds once per call with
@@ -46,7 +52,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include "d2q9.cuh"
+#include "tblock.cuh"
 
 namespace {
 
@@ -54,22 +60,19 @@ constexpr int kTX = 32;
 constexpr int kTY = 16;
 constexpr int kThreads = kTX * kTY;
 
+// K4 on f32: one step of a 16 x 32 tile (see the header)
 template <typename S>
 __global__ void __launch_bounds__(kThreads)
-    fluid_kernel(const S* __restrict__ f, S* __restrict__ out,
-                 const float* __restrict__ u_in, int ny, int nx, int k,
-                 FluidParams p) {
+    fluid_step_kernel(const S* __restrict__ f, S* __restrict__ out,
+                      const float* __restrict__ u_in, int ny, int nx,
+                      FluidParams p) {
   constexpr bool kShift = sizeof(S) == 2;  // bf16 storage
-  extern __shared__ float smem[];
+  __shared__ float post[9 * (kTX + 2) * (kTY + 2)];
   const float shift = kShift ? p.rho0 : 0.0f;
-  const int w = kTX + 2 * k, h = kTY + 2 * k, n = w * h;
-  float* cur = smem;
-  float* nxt = smem + 9 * n;
-  const int gy0 = blockIdx.y * kTY - k;  // global row of window row 0
-  const int gx0 = blockIdx.x * kTX - k;
+  const int w = kTX + 2, n = w * (kTY + 2);
+  const int gy0 = blockIdx.y * kTY - 1;  // global row of window row 0
+  const int gx0 = blockIdx.x * kTX - 1;
   const size_t plane = (size_t)ny * nx;
-
-  // pass 0: load and collide the whole window
   for (int c = threadIdx.x; c < n; c += kThreads) {
     const int ly = c / w, lx = c - ly * w;
     const size_t cell = (size_t)wrap(gy0 + ly, ny) * nx + wrap(gx0 + lx, nx);
@@ -78,78 +81,115 @@ __global__ void __launch_bounds__(kThreads)
     for (int i = 0; i < 9; ++i) v[i] = load_f(f + i * plane + cell);
     fluid_collide<kShift>(v, p);
 #pragma unroll
-    for (int i = 0; i < 9; ++i) cur[i * n + c] = v[i];
+    for (int i = 0; i < 9; ++i) post[i * n + c] = v[i];
   }
   __syncthreads();
-
-  // inner steps: stream + collide the window shrunk by s cells per side
-  for (int s = 1; s < k; ++s) {
-    const int ws = w - 2 * s, hs = h - 2 * s;
-    for (int c = threadIdx.x; c < ws * hs; c += kThreads) {
-      const int ly = s + c / ws, lx = s + c % ws;
-      const int wc = ly * w + lx;
-      float v[9];
-      stream_cell(cur, n, w, wc, gy0 + ly, gx0 + lx, ny, nx, u_in, p, shift,
-                  v);
-      fluid_collide<kShift>(v, p);
-#pragma unroll
-      for (int i = 0; i < 9; ++i) nxt[i * n + wc] = v[i];
-    }
-    __syncthreads();
-    float* t = cur;
-    cur = nxt;
-    nxt = t;
-  }
-
-  // last pass: stream the interior into the other f buffer
-  const int ly = k + threadIdx.x / kTX, lx = k + threadIdx.x % kTX;
+  const int ly = 1 + threadIdx.x / kTX, lx = 1 + threadIdx.x % kTX;
   const int gy = gy0 + ly, gx = gx0 + lx;
   if (gy >= ny || gx >= nx) return;
   float v[9];
-  stream_cell(cur, n, w, ly * w + lx, gy, gx, ny, nx, u_in, p, shift, v);
+  stream_cell(post, n, w, ly * w + lx, gy, gx, ny, nx, u_in, p, shift, v);
   const size_t cell = (size_t)gy * nx + gx;
 #pragma unroll
   for (int i = 0; i < 9; ++i) store_f(out + i * plane + cell, v[i]);
 }
 
-template <typename S>
-int launch(const void* f, void* out, const float* u_in, int ny, int nx, int k,
-           const FluidParams& p, cudaStream_t stream) {
-  const size_t bytes = sizeof(float) * 9 * (size_t)(kTX + 2 * k) *
-                       (kTY + 2 * k) * (k > 1 ? 2 : 1);
-  static size_t opted_in = 48 * 1024;  // per instantiation
-  if (bytes > opted_in) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        fluid_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)bytes);
-    if (err != cudaSuccess) return (int)err;
-    opted_in = bytes;
-  }
-  const dim3 grid((nx + kTX - 1) / kTX, (ny + kTY - 1) / kTY);
-  fluid_kernel<S><<<grid, kThreads, bytes, stream>>>(
-      static_cast<const S*>(f), static_cast<S*>(out), u_in, ny, nx, k, p);
-  return (int)cudaGetLastError();
+constexpr int kRows = 2;    // rows per level and phase (see the header)
+constexpr int kSweepK = 4;  // steps per sweep (see the header)
+
+StripConfig strip{128, 64};
+
+// one sweep, S -> SO, for the options; TRT or LES builds for one block
+// per SM (its collide needs more registers)
+template <typename S, typename SO, bool SHIFT, int TRT, int LES, int FORCED>
+int launch_sweep(const void* f, void* out, const float* u_in, int ny, int nx,
+                 int k, const FluidParams& p, cudaStream_t stream) {
+  return launch_temporal_block<S, SO, SHIFT, kRows, (TRT || LES) ? 1 : 2>(
+      f, u_in, out, FluidCell<TRT, LES, FORCED>{}, ny, nx, k, strip, p,
+      stream);
 }
 
-int dispatch(const void* f, void* out, const float* u_in, int ny, int nx,
-             int k, int bf16, const FluidParams& p, cudaStream_t stream) {
-  return bf16 ? launch<__nv_bfloat16>(f, out, u_in, ny, nx, k, p, stream)
-              : launch<float>(f, out, u_in, ny, nx, k, p, stream);
+template <typename S, typename SO, bool SHIFT>
+int launch_pass(const void* f, void* out, const float* u_in, int ny, int nx,
+                int k, const FluidParams& p, cudaStream_t stream) {
+#define LBM_FL(TRT, LES)                                                     \
+  (p.forced ? launch_sweep<S, SO, SHIFT, TRT, LES, 1>(f, out, u_in, ny, nx, \
+                                                      k, p, stream)         \
+            : launch_sweep<S, SO, SHIFT, TRT, LES, 0>(f, out, u_in, ny, nx, \
+                                                      k, p, stream))
+  if (p.trt) return p.les ? LBM_FL(1, 1) : LBM_FL(1, 0);
+  return p.les ? LBM_FL(0, 1) : LBM_FL(0, 0);
+#undef LBM_FL
+}
+
+// k steps: ceil(k / kSweepK) sweeps of near equal depth, sweep i < n - 1
+// into the f32 scratch plane mid[i % 2]
+template <typename S>
+int launch_multi(const void* f, float* mid, void* out, const float* u_in,
+                 int ny, int nx, int k, const FluidParams& p,
+                 cudaStream_t stream) {
+  constexpr bool kShift = sizeof(S) == 2;
+  const int n = (k + kSweepK - 1) / kSweepK;
+  if (n == 1)
+    return launch_pass<S, S, kShift>(f, out, u_in, ny, nx, k, p, stream);
+  if (mid == nullptr) return (int)cudaErrorInvalidValue;
+  const size_t plane = (size_t)9 * ny * nx;
+  const float* src = nullptr;
+  for (int i = 0; i < n; ++i) {
+    const int ki = k / n + (i < k % n);
+    float* dst = mid + (i & 1) * plane;
+    int err;
+    if (i == 0)
+      err = launch_pass<S, float, kShift>(f, dst, u_in, ny, nx, ki, p, stream);
+    else if (i < n - 1)
+      err = launch_pass<float, float, kShift>(src, dst, u_in, ny, nx, ki, p,
+                                              stream);
+    else
+      err = launch_pass<float, S, kShift>(src, out, u_in, ny, nx, ki, p,
+                                          stream);
+    if (err != 0) return err;
+    src = dst;
+  }
+  return 0;
+}
+
+template <typename S>
+int launch_step(const void* f, void* out, const float* u_in, int ny, int nx,
+                const FluidParams& p, cudaStream_t stream) {
+  const dim3 grid((nx + kTX - 1) / kTX, (ny + kTY - 1) / kTY);
+  fluid_step_kernel<S><<<grid, kThreads, 0, stream>>>(
+      static_cast<const S*>(f), static_cast<S*>(out), u_in, ny, nx, p);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// The strip of K5: threads per level (64, 128 or 256) and output rows
+// per block (>= 1). Returns cudaErrorInvalidValue for anything else.
+extern "C" int lbm_fluid_strip(int threads, int rows) {
+  return set_strip(strip, threads, rows);
+}
+
 // K4: one step. f, out: (9, ny, nx) f32 or bf16 (bf16 = 1; distinct
-// buffers); u_in: (ny,) f32 inlet profile (read only when p.open).
+// buffers); u_in: (ny,) f32 inlet profile (read only when p.open). On
+// bf16 the row sweep at k = 1 (K5's body, the same f') is faster at
+// 4096^2 than the one-step body; on f32 it is slower.
 extern "C" int lbm_fluid_step(const void* f, void* out, const float* u_in,
                               int ny, int nx, int bf16, FluidParams p,
                               cudaStream_t stream) {
-  return dispatch(f, out, u_in, ny, nx, 1, bf16, p, stream);
+  return bf16 ? launch_pass<__nv_bfloat16, __nv_bfloat16, true>(
+                    f, out, u_in, ny, nx, 1, p, stream)
+              : launch_step<float>(f, out, u_in, ny, nx, p, stream);
 }
 
-// K5: k steps in one pass (1 <= k <= 8 for f32, <= 16 for bf16).
-extern "C" int lbm_fluid_multi(const void* f, void* out, const float* u_in,
-                               int ny, int nx, int k, int bf16,
-                               FluidParams p, cudaStream_t stream) {
-  return dispatch(f, out, u_in, ny, nx, k, bf16, p, stream);
+// K5: k steps in one pass by row sweeps (1 <= k <= 16; the wrappers take
+// k <= 8 on f32 and k = 1 to K4). mid: f32 scratch of (n - 1, 9, ny, nx)
+// for n = ceil(k / 4) sweeps, at most (2, 9, ny, nx); unused (may be
+// null) for k <= 4.
+extern "C" int lbm_fluid_multi(const void* f, void* out, float* mid,
+                               const float* u_in, int ny, int nx, int k,
+                               int bf16, FluidParams p, cudaStream_t stream) {
+  return bf16 ? launch_multi<__nv_bfloat16>(f, mid, out, u_in, ny, nx, k, p,
+                                            stream)
+              : launch_multi<float>(f, mid, out, u_in, ny, nx, k, p, stream);
 }

@@ -35,23 +35,49 @@
 // evaluation (h = 0) reads the springs; every later one advances them by
 // h and writes them back - each thread only its own slot's channels.
 //
-// What bounds it on the H100: launch latency and the dependent phases,
-// not bandwidth. At the 4096^2 / 10k-disk slice a force evaluation
-// covers the ~57k slots of 7 occupied bands and reads a few MB from L2;
-// the phases need grid-wide ordering, so each is its own launch:
-// force(h = 0), then n_sub x (kick-drift, force, kick) = 31 launches
-// per LBM step at n_sub = 10. Design: one thread per
-// (rank k, cell) of the OCCUPIED 8-row bands only (the band table of the
-// binning; empty bands hold no disk and carry every channel through
-// untouched, as on the TPU). The force evaluation writes only a
-// (3, K, R, C) force scratch and its own slot's springs; kick-drift and
-// kick read and write only their own slot, so every launch is race-free
-// and slots no phase touches carry their input values. The contact count
-// is a warp-summed integer atomicAdd per evaluation into its own counter;
-// the caller takes the max over evaluations and halves it. The spring
-// and wrap code are template flags: the kt = 0, wall-axes instantiation
-// is the plain dashpot kernel.
+// What bounds it on the H100: latency, not bandwidth or arithmetic. At
+// the 4096^2 / 10k-disk slice a force evaluation covers the ~57k slots
+// of 7 occupied bands (kmax <= 4 ranks, 9 x kmax partner slots each) and
+// reads a few MB from L2; the bound is ~0.007 ms. The phases need
+// grid-wide ordering (a force reads its neighbours' state after their
+// kick-drift), and as 31 launches per call (force(h = 0), then n_sub x
+// (kick-drift, force, kick) at n_sub = 10) each phase cost ~9.6 us of
+// launch latency. Now the grid barriers and each phase's dependent chain
+// (a slot's loads, then its 9 kmax pair laws in order) bound it.
+//
+// Design: ONE cooperative persistent launch per call
+// (cudaLaunchCooperativeKernel; the grid is the occupancy's blocks per SM
+// times the SMs, capped by the tiles the slab can have). Blocks stride
+// over the tiles of 32 lanes x kTileRows rows of one OCCUPIED
+// 8-row band x one rank (the band table of the binning; n_occ is read on
+// the device, so any grid covers any slab; empty bands hold no disk and
+// carry every channel through untouched, as on the TPU). A slot issues
+// the loads of a rank's 9 partners before their pair laws run (and an
+// empty slot skips them), so it waits on memory about twice per rank and
+// not twice per partner. A slot's force feeds only its own kick, so the
+// kick of substep t and the kick-drift of substep t + 1 run in one phase
+// after the force that feeds both: phase 0 is force(h = 0) + kick-drift,
+// phase t (1 <= t < n_sub) force + kick + kick-drift, phase n_sub force
+// + kick: n_sub + 1 phases and n_sub grid barriers. The
+// force stays in registers. The five channels a neighbour reads (x, y,
+// vx, vy, omega) ping-pong between `slabs` and two scratch buffers:
+// phase t reads buffer t and writes buffer t + 1, where buffer 0 and
+// buffer n_sub + 1 are `slabs` and buffer t in between is scratch
+// t mod 2, so no phase writes what another slot of the same phase reads
+// and one barrier per phase suffices. theta, the springs and the
+// constant channels are read and written only at their own slot, in
+// place. Each slot's arithmetic is that of the 31-launch schedule in the
+// same order, so the result is the same bit for bit. The contact count:
+// block 0 zeroes the n_sub + 1 per-evaluation counters and a ticket at
+// the start; each block adds its directed count of phase t after the
+// barrier that follows it (so after the zeroing), and of the last phase
+// before taking a ticket; the block that takes the last ticket writes the
+// max over the evaluations, halved. The spring and wrap code are template
+// flags: the kt = 0, wall-axes instantiation is the plain dashpot kernel.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include <algorithm>
 
 struct DemParams {
   float kn, gn, gt, mu;  // normal stiffness/damping, tangential damping, mu
@@ -138,193 +164,267 @@ __device__ __forceinline__ bool pair(float xi, float yi, float vxi, float vyi,
   return true;
 }
 
-// (k, s, l) of this thread, or false if its band is unoccupied
-__device__ __forceinline__ bool slot_of_thread(const int* n_occ,
-                                               const int* band_offs,
-                                               const Geom& g, int& k, int& s,
-                                               int& l) {
-  if ((int)blockIdx.y >= *n_occ) return false;
-  k = blockIdx.z;
-  s = band_offs[blockIdx.y] + threadIdx.y;
-  l = blockIdx.x * kLanes + threadIdx.x;
-  return l < g.C;
-}
+// The state channels a force reads at a neighbour (x, y, vx, vy,
+// omega: slab channels 0-4), in `slabs` or in one ping-pong scratch
+// buffer of the same (5, K, R, C) layout
+constexpr int kNState = 5;
 
-// One force evaluation. sl is read for the state channels and, with KT,
-// read and (WRITE_XI) written for this thread's own spring channels.
-template <bool KT, bool WRAP, bool WRITE_XI>
-__global__ void __launch_bounds__(kLanes * kBand)
-    force_kernel(float* __restrict__ sl, const float* __restrict__ hyd,
-                 float* __restrict__ fscr,
-                 int* __restrict__ counter, const int* __restrict__ kmax_p,
-                 const int* __restrict__ n_occ,
-                 const int* __restrict__ band_offs, Geom g, DemParams p) {
-  int k, s, l;
-  const bool mine = slot_of_thread(n_occ, band_offs, g, k, s, l);
-  if ((int)blockIdx.y >= *n_occ) return;  // whole block: band unoccupied
-  int nc = 0;
-  if (mine) {
-    const int kmax = *kmax_p;
-    const float xi = sl[g.at(kX, k, s, l)], yi = sl[g.at(kY, k, s, l)];
-    const float vxi = sl[g.at(kVX, k, s, l)], vyi = sl[g.at(kVY, k, s, l)];
-    const float omi = sl[g.at(kOM, k, s, l)], ri = sl[g.at(kR, k, s, l)];
-    const float adv = WRITE_XI ? p.h : 0.0f;
-    float fx = 0.f, fy = 0.f, tq = 0.f;
-    if (k < kmax) {
-      for (int k2 = 0; k2 < kmax; ++k2) {
-        for (int dy = -1; dy <= 1; ++dy) {
-          for (int dc = -1; dc <= 1; ++dc) {
-            float spring = 0.0f;
-            float* xi_p = nullptr;
-            if constexpr (KT) {
-              xi_p = sl + g.at(g.xi0 + ((dy + 1) * 3 + (dc + 1)) * g.K + k2,
-                               k, s, l);
-              spring = *xi_p;
-            }
-            int l2 = l + dc;
-            int s2 = s + dy;  // guard rows keep s2 inside [0, R)
-            bool ok = true;
-            if (WRAP && p.wrap_l) {
-              if (l >= g.ncl) ok = false;  // lane padding: an empty slot
-              l2 = l2 < 0 ? l2 + g.ncl : (l2 >= g.ncl ? l2 - g.ncl : l2);
-            } else if (l2 < 0 || l2 >= g.ncl) {
-              ok = false;
-            }
-            if (WRAP && p.wrap_s) {
-              const int r2 = s2 - 8;  // modular within the real cell rows
-              if (s < 8 || s >= 8 + p.ncs) ok = false;  // row padding
-              s2 = 8 + (r2 < 0 ? r2 + p.ncs : (r2 >= p.ncs ? r2 - p.ncs : r2));
-            }
-            if (k2 == k && s2 == s && l2 == l) ok = false;  // itself
-            bool touch = false;
-            if (ok) {
-              const float rj = sl[g.at(kR, k2, s2, l2)];
-              if (rj > 0.0f)
-                touch = pair<KT, WRAP>(
-                    xi, yi, vxi, vyi, omi, ri, sl[g.at(kX, k2, s2, l2)],
-                    sl[g.at(kY, k2, s2, l2)], sl[g.at(kVX, k2, s2, l2)],
-                    sl[g.at(kVY, k2, s2, l2)], sl[g.at(kOM, k2, s2, l2)], rj,
-                    true, p, fx, fy, tq, adv, spring);
-            }
-            nc += touch;
-            if constexpr (KT && WRITE_XI) *xi_p = touch ? spring : 0.0f;
-          }
-        }
+// One force evaluation at slot (k, s, l), whose state is (xi .. omi, ri):
+// the contact forces from the partners' state in `st` (r from `sl`) plus
+// the hydro + body force. With KT the springs advance by adv and, with
+// write_xi, are written back to this slot's channels of `sl`. Adds the
+// touching pairs to nc. An empty slot (ri = 0) touches nothing and keeps
+// its (zero) springs. The loads of a rank's 9 partners are issued before
+// their pair laws run, so a thread waits on memory once or twice per rank
+// and not once or twice per partner; the pair laws then run and add up in
+// the order (k2, dy, dc) of the plain version.
+template <bool KT, bool WRAP>
+__device__ __forceinline__ void slot_force(const float* __restrict__ st,
+                                           float* __restrict__ sl,
+                                           const float* __restrict__ hyd,
+                                           const Geom& g, const DemParams& p,
+                                           int kmax, int k, int s, int l,
+                                           float xi, float yi, float vxi,
+                                           float vyi, float omi, float ri,
+                                           float adv, bool write_xi, int& nc,
+                                           float& ffx, float& ffy,
+                                           float& ftq) {
+  float fx = 0.f, fy = 0.f, tq = 0.f;
+  if (k < kmax && ri > 0.0f) {
+    // the plane offsets of the 3 x 3 partner cells, and whether each is a
+    // real cell (wrapped by index on a periodic axis)
+    int cell[9];
+    bool okc[9];
+#pragma unroll
+    for (int n = 0; n < 9; ++n) {
+      const int dy = n / 3 - 1, dc = n % 3 - 1;
+      int l2 = l + dc;
+      int s2 = s + dy;  // guard rows keep s2 inside [0, R)
+      bool ok = true;
+      if (WRAP && p.wrap_l) {
+        if (l >= g.ncl) ok = false;  // lane padding: an empty slot
+        l2 = l2 < 0 ? l2 + g.ncl : (l2 >= g.ncl ? l2 - g.ncl : l2);
+      } else if (l2 < 0 || l2 >= g.ncl) {
+        ok = false;
       }
-      for (int wsl = 0; wsl < 4; ++wsl) {
-        if (!p.wall_on[wsl]) continue;
-        const float xj = wsl < 2 ? p.wall_pos[wsl] : xi;
-        const float yj = wsl < 2 ? yi : p.wall_pos[wsl];
-        float spring = 0.0f;
-        float* xi_p = nullptr;
-        if constexpr (KT) {
-          xi_p = sl + g.at(g.xi0 + 9 * g.K + wsl, k, s, l);
-          spring = *xi_p;
-        }
-        const bool touch =
-            pair<KT, false>(xi, yi, vxi, vyi, omi, ri, xj, yj, 0.f, 0.f, 0.f,
-                            0.f, true, p, fx, fy, tq, adv, spring);
-        if constexpr (KT && WRITE_XI) *xi_p = touch ? spring : 0.0f;
+      if (WRAP && p.wrap_s) {
+        const int r2 = s2 - 8;  // modular within the real cell rows
+        if (s < 8 || s >= 8 + p.ncs) ok = false;  // row padding
+        s2 = 8 + (r2 < 0 ? r2 + p.ncs : (r2 >= p.ncs ? r2 - p.ncs : r2));
+      }
+      cell[n] = s2 * g.C + l2;
+      okc[n] = ok;
+    }
+    const int own = s * g.C + l;
+    for (int k2 = 0; k2 < kmax; ++k2) {
+      float rj[9], xj[9], yj[9], vxj[9], vyj[9], omj[9], spring[9];
+#pragma unroll
+      for (int n = 0; n < 9; ++n) {
+        const bool ok = okc[n] && !(k2 == k && cell[n] == own);  // itself
+        rj[n] = ok ? sl[g.at(kR, k2, 0, 0) + cell[n]] : 0.0f;
+        if constexpr (KT)
+          spring[n] = sl[g.at(g.xi0 + n * g.K + k2, k, s, l)];
+      }
+#pragma unroll
+      for (int n = 0; n < 9; ++n) {
+        const bool live = rj[n] > 0.0f;
+        const size_t c = g.at(0, k2, 0, 0) + cell[n];
+        const size_t pl = (size_t)g.K * g.plane;  // one channel
+        xj[n] = live ? st[c + kX * pl] : 0.0f;
+        yj[n] = live ? st[c + kY * pl] : 0.0f;
+        vxj[n] = live ? st[c + kVX * pl] : 0.0f;
+        vyj[n] = live ? st[c + kVY * pl] : 0.0f;
+        omj[n] = live ? st[c + kOM * pl] : 0.0f;
+      }
+#pragma unroll
+      for (int n = 0; n < 9; ++n) {
+        float sp = KT ? spring[n] : 0.0f;
+        bool touch = false;
+        if (rj[n] > 0.0f)
+          touch = pair<KT, WRAP>(xi, yi, vxi, vyi, omi, ri, xj[n], yj[n],
+                                 vxj[n], vyj[n], omj[n], rj[n], true, p, fx,
+                                 fy, tq, adv, sp);
+        nc += touch;
+        if (KT && write_xi)
+          sl[g.at(g.xi0 + n * g.K + k2, k, s, l)] = touch ? sp : 0.0f;
       }
     }
-    const float act = ri > 0.0f ? 1.0f : 0.0f;
-    const size_t pl3 = (size_t)g.K * g.plane;
-    const size_t o = (size_t)k * g.plane + (size_t)s * g.C + l;
-    fscr[o] = __fmul_rn(__fadd_rn(fx, hyd[o]), act);
-    fscr[pl3 + o] = __fmul_rn(__fadd_rn(fy, hyd[pl3 + o]), act);
-    fscr[2 * pl3 + o] = __fmul_rn(__fadd_rn(tq, hyd[2 * pl3 + o]), act);
+    for (int wsl = 0; wsl < 4; ++wsl) {
+      if (!p.wall_on[wsl]) continue;
+      const float xw = wsl < 2 ? p.wall_pos[wsl] : xi;
+      const float yw = wsl < 2 ? yi : p.wall_pos[wsl];
+      float spring = 0.0f;
+      float* xi_p = nullptr;
+      if constexpr (KT) {
+        xi_p = sl + g.at(g.xi0 + 9 * g.K + wsl, k, s, l);
+        spring = *xi_p;
+      }
+      const bool touch =
+          pair<KT, false>(xi, yi, vxi, vyi, omi, ri, xw, yw, 0.f, 0.f, 0.f,
+                          0.f, true, p, fx, fy, tq, adv, spring);
+      if (KT && write_xi) *xi_p = touch ? spring : 0.0f;
+    }
   }
-  // directed contact count of this evaluation
-  const int w = __reduce_add_sync(0xffffffffu, nc);
-  if ((threadIdx.x & 31) == 0 && w) atomicAdd(counter, w);
-}
-
-// first half-kick + drift (drift = 0 only for empty slots: fixed disks
-// have minv = 0 and keep their prescribed v/omega)
-__global__ void __launch_bounds__(kLanes * kBand)
-    kickdrift_kernel(float* __restrict__ sl, const float* __restrict__ fscr,
-                     const int* __restrict__ n_occ,
-                     const int* __restrict__ band_offs, Geom g, DemParams p) {
-  int k, s, l;
-  if (!slot_of_thread(n_occ, band_offs, g, k, s, l)) return;
+  const float act = ri > 0.0f ? 1.0f : 0.0f;
   const size_t pl3 = (size_t)g.K * g.plane;
   const size_t o = (size_t)k * g.plane + (size_t)s * g.C + l;
-  const float r = sl[g.at(kR, k, s, l)];
-  const float minv = sl[g.at(g.minv, k, s, l)];
-  const float inv_i = __fmul_rn(minv, 2.0f) / fmaxf(__fmul_rn(r, r), 1e-12f);
-  const float a = r > 0.0f ? 1.0f : 0.0f;
-  const float vxh = __fadd_rn(sl[g.at(kVX, k, s, l)],
-                              __fmul_rn(__fmul_rn(p.half_h, fscr[o]), minv));
-  const float vyh = __fadd_rn(sl[g.at(kVY, k, s, l)],
-                              __fmul_rn(__fmul_rn(p.half_h, fscr[pl3 + o]), minv));
-  const float omh = __fadd_rn(sl[g.at(kOM, k, s, l)],
-                              __fmul_rn(__fmul_rn(p.half_h, fscr[2 * pl3 + o]), inv_i));
-  sl[g.at(kX, k, s, l)] = __fadd_rn(sl[g.at(kX, k, s, l)], __fmul_rn(__fmul_rn(p.h, vxh), a));
-  sl[g.at(kY, k, s, l)] = __fadd_rn(sl[g.at(kY, k, s, l)], __fmul_rn(__fmul_rn(p.h, vyh), a));
-  sl[g.at(kTH, k, s, l)] = __fadd_rn(sl[g.at(kTH, k, s, l)], __fmul_rn(__fmul_rn(p.h, omh), a));
-  sl[g.at(kVX, k, s, l)] = vxh;
-  sl[g.at(kVY, k, s, l)] = vyh;
-  sl[g.at(kOM, k, s, l)] = omh;
+  ffx = __fmul_rn(__fadd_rn(fx, hyd[o]), act);
+  ffy = __fmul_rn(__fadd_rn(fy, hyd[pl3 + o]), act);
+  ftq = __fmul_rn(__fadd_rn(tq, hyd[2 * pl3 + o]), act);
 }
 
-// second half-kick with the fresh force
-__global__ void __launch_bounds__(kLanes * kBand)
-    kick_kernel(float* __restrict__ sl, const float* __restrict__ fscr,
-                const int* __restrict__ n_occ,
-                const int* __restrict__ band_offs, Geom g, DemParams p) {
-  int k, s, l;
-  if (!slot_of_thread(n_occ, band_offs, g, k, s, l)) return;
-  const size_t pl3 = (size_t)g.K * g.plane;
-  const size_t o = (size_t)k * g.plane + (size_t)s * g.C + l;
-  const float r = sl[g.at(kR, k, s, l)];
-  const float minv = sl[g.at(g.minv, k, s, l)];
-  const float inv_i = __fmul_rn(minv, 2.0f) / fmaxf(__fmul_rn(r, r), 1e-12f);
-  const float a = r > 0.0f ? 1.0f : 0.0f;
-  sl[g.at(kVX, k, s, l)] = __fmul_rn(
-      __fadd_rn(sl[g.at(kVX, k, s, l)], __fmul_rn(__fmul_rn(p.half_h, fscr[o]), minv)), a);
-  sl[g.at(kVY, k, s, l)] = __fmul_rn(
-      __fadd_rn(sl[g.at(kVY, k, s, l)], __fmul_rn(__fmul_rn(p.half_h, fscr[pl3 + o]), minv)), a);
-  sl[g.at(kOM, k, s, l)] = __fmul_rn(
-      __fadd_rn(sl[g.at(kOM, k, s, l)], __fmul_rn(__fmul_rn(p.half_h, fscr[2 * pl3 + o]), inv_i)), a);
-}
-
-// The 1 + 3 n_sub launches of one subcycle: hyd is the (3, K, R, C)
-// hydro + body force source, minv the 1/mass channel, xi0 the first
-// spring channel.
+// The whole subcycle in one cooperative launch (see the header). sl: the
+// slabs, updated in place; hyd: the (3, K, R, C) hydro + body forces;
+// buf: (2, 5, K, R, C) ping-pong scratch; counters: (n_sub + 2,) scratch
+// (per-evaluation directed counts, then the ticket); n_contacts: (1,)
+// out.
 template <bool KT, bool WRAP>
-int subcycle(float* slabs, const float* hyd, float* fscr, int* counters,
-             const int* kmax, const int* n_occ, const int* band_offs, int nb,
-             const Geom& g, int n_sub, const DemParams& p,
-             cudaStream_t stream) {
-  const dim3 grid((g.C + kLanes - 1) / kLanes, nb, g.K);
-  const dim3 block(kLanes, kBand);
-  force_kernel<KT, WRAP, false><<<grid, block, 0, stream>>>(
-      slabs, hyd, fscr, counters, kmax, n_occ, band_offs, g, p);
-  cudaError_t err = cudaGetLastError();
-  for (int t = 0; t < n_sub && err == cudaSuccess; ++t) {
-    kickdrift_kernel<<<grid, block, 0, stream>>>(slabs, fscr, n_occ, band_offs,
-                                                 g, p);
-    force_kernel<KT, WRAP, KT><<<grid, block, 0, stream>>>(
-        slabs, hyd, fscr, counters + t + 1, kmax, n_occ, band_offs, g, p);
-    kick_kernel<<<grid, block, 0, stream>>>(slabs, fscr, n_occ, band_offs, g,
-                                            p);
-    err = cudaGetLastError();
+__global__ void __launch_bounds__(kLanes * kBand)
+    subcycle_kernel(float* __restrict__ sl, const float* __restrict__ hyd,
+                    float* __restrict__ buf, int* __restrict__ counters,
+                    int* __restrict__ n_contacts,
+                    const int* __restrict__ kmax_p,
+                    const int* __restrict__ n_occ_p,
+                    const int* __restrict__ band_offs, Geom g, DemParams p,
+                    int n_sub) {
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  __shared__ int block_nc;
+  const bool lead = threadIdx.x == 0 && threadIdx.y == 0;
+  const int kmax = *kmax_p, n_occ = *n_occ_p;
+  const int nbx = g.C / kLanes;
+  const int parts = kBand / blockDim.y;  // tiles per band, lane block, rank
+  const int tiles = nbx * n_occ * parts * g.K;
+  const size_t stride = (size_t)kNState * g.K * g.plane;
+  if (blockIdx.x == 0)
+    for (int i = threadIdx.y * kLanes + threadIdx.x; i < n_sub + 2;
+         i += kLanes * blockDim.y)
+      counters[i] = 0;
+  if (lead) block_nc = 0;
+  __syncthreads();
+  int pending = 0;  // the lead thread's block count of the last phase
+  for (int ph = 0; ph <= n_sub; ++ph) {
+    const float* st = ph == 0 ? sl : buf + (ph & 1) * stride;
+    float* nxt = ph == n_sub ? sl : buf + ((ph + 1) & 1) * stride;
+    int nc = 0;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int bx = tile % nbx, part = (tile / nbx) % parts;
+      const int rest = tile / (nbx * parts);
+      const int k = rest / n_occ;
+      const int s =
+          band_offs[rest - k * n_occ] + part * blockDim.y + threadIdx.y;
+      const int l = bx * kLanes + threadIdx.x;
+      float x = st[g.at(kX, k, s, l)], y = st[g.at(kY, k, s, l)];
+      float vx = st[g.at(kVX, k, s, l)], vy = st[g.at(kVY, k, s, l)];
+      float om = st[g.at(kOM, k, s, l)];
+      const float r = sl[g.at(kR, k, s, l)];
+      float fx, fy, tq;
+      slot_force<KT, WRAP>(st, sl, hyd, g, p, kmax, k, s, l, x, y, vx, vy, om,
+                           r, ph == 0 ? 0.0f : p.h, KT && ph > 0, nc, fx, fy,
+                           tq);
+      const float minv = sl[g.at(g.minv, k, s, l)];
+      const float inv_i =
+          __fmul_rn(minv, 2.0f) / fmaxf(__fmul_rn(r, r), 1e-12f);
+      const float a = r > 0.0f ? 1.0f : 0.0f;
+      if (ph > 0) {  // second half-kick of substep ph - 1, fresh force
+        vx = __fmul_rn(__fadd_rn(vx, __fmul_rn(__fmul_rn(p.half_h, fx), minv)),
+                       a);
+        vy = __fmul_rn(__fadd_rn(vy, __fmul_rn(__fmul_rn(p.half_h, fy), minv)),
+                       a);
+        om = __fmul_rn(
+            __fadd_rn(om, __fmul_rn(__fmul_rn(p.half_h, tq), inv_i)), a);
+      }
+      if (ph < n_sub) {  // first half-kick + drift of substep ph (drift = 0
+                         // only for empty slots: fixed disks have minv = 0
+                         // and keep their prescribed v/omega)
+        vx = __fadd_rn(vx, __fmul_rn(__fmul_rn(p.half_h, fx), minv));
+        vy = __fadd_rn(vy, __fmul_rn(__fmul_rn(p.half_h, fy), minv));
+        om = __fadd_rn(om, __fmul_rn(__fmul_rn(p.half_h, tq), inv_i));
+        x = __fadd_rn(x, __fmul_rn(__fmul_rn(p.h, vx), a));
+        y = __fadd_rn(y, __fmul_rn(__fmul_rn(p.h, vy), a));
+        float* th = sl + g.at(kTH, k, s, l);
+        *th = __fadd_rn(*th, __fmul_rn(__fmul_rn(p.h, om), a));
+      }
+      nxt[g.at(kX, k, s, l)] = x;
+      nxt[g.at(kY, k, s, l)] = y;
+      nxt[g.at(kVX, k, s, l)] = vx;
+      nxt[g.at(kVY, k, s, l)] = vy;
+      nxt[g.at(kOM, k, s, l)] = om;
+    }
+    // directed contact count of this evaluation
+    const int w = __reduce_add_sync(0xffffffffu, nc);
+    if ((threadIdx.x & 31) == 0 && w) atomicAdd(&block_nc, w);
+    __syncthreads();
+    if (lead) {
+      pending = block_nc;
+      block_nc = 0;
+    }
+    if (ph < n_sub) {
+      grid.sync();  // also orders block 0's zeroing before every add
+      if (lead && pending) atomicAdd(&counters[ph], pending);
+    }
   }
-  return (int)err;
+  if (!lead) return;
+  if (pending) atomicAdd(&counters[n_sub], pending);
+  __threadfence();
+  if (atomicAdd(&counters[n_sub + 1], 1) != (int)gridDim.x - 1) return;
+  int m = 0;  // the last block: every count is in
+  for (int t = 0; t <= n_sub; ++t)
+    m = max(m, *(volatile const int*)&counters[t]);
+  *n_contacts = m / 2;
 }
 
-int dispatch(float* slabs, const float* hyd, float* fscr, int* counters,
-             const int* kmax, const int* n_occ, const int* band_offs, int nb,
-             int K, int R, int C, int ncl, int minv, int xi0, int n_sub,
+// Rows of a band per block (of 1, 2, 4 and 8 the fastest at 4096^2,
+// PERF.md section 6), and a test-only cap on the cooperative grid (0: the
+// occupancy's grid)
+constexpr int kTileRows = 4;
+int grid_cap = 0;
+
+template <bool KT, bool WRAP>
+int subcycle(float* slabs, const float* hyd, float* buf, int* counters,
+             int* n_contacts, const int* kmax, const int* n_occ,
+             const int* band_offs, int nb, const Geom& g, int n_sub,
              const DemParams& p, cudaStream_t stream) {
-  if (nb == 0) return 0;
+  auto kernel = subcycle_kernel<KT, WRAP>;
+  static int resident = 0, sms = 0;  // per instantiation
+  if (resident == 0) {
+    int dev = 0, coop = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+    if (!coop) return (int)cudaErrorNotSupported;
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &resident, kernel, kLanes * kTileRows, 0);
+    if (err != cudaSuccess) return (int)err;
+  }
+  // every block must be resident; no more blocks than tiles the slab can
+  // have (n_occ <= nb)
+  const int most = (g.C / kLanes) * nb * (kBand / kTileRows) * g.K;
+  int blocks = std::min(resident * sms, most);
+  if (grid_cap > 0) blocks = std::min(blocks, grid_cap);
+  if (blocks < 1) return (int)cudaErrorInvalidConfiguration;
+  Geom gg = g;
+  DemParams pp = p;
+  void* args[] = {&slabs,  (void*)&hyd,  &buf,       &counters,
+                  &n_contacts, (void*)&kmax, (void*)&n_occ,
+                  (void*)&band_offs, &gg, &pp, &n_sub};
+  return (int)cudaLaunchCooperativeKernel((const void*)kernel, dim3(blocks),
+                                          dim3(kLanes, kTileRows), args, 0,
+                                          stream);
+}
+
+int dispatch(float* slabs, const float* hyd, float* buf, int* counters,
+             int* n_contacts, const int* kmax, const int* n_occ,
+             const int* band_offs, int nb, int K, int R, int C, int ncl,
+             int minv, int xi0, int n_sub, const DemParams& p,
+             cudaStream_t stream) {
+  if (n_sub < 1 || nb < 1 || C % kLanes) return (int)cudaErrorInvalidValue;
   const Geom g{K, R, C, ncl, minv, xi0, (size_t)R * C};
   const bool kt = p.kt > 0.0f;
   const bool wrap = p.wrap_s || p.wrap_l || p.wrap_lx != 0.0f ||
                     p.wrap_ly != 0.0f;
 #define LBM_DEM(KT, WRAP)                                                  \
-  subcycle<KT, WRAP>(slabs, hyd, fscr, counters, kmax, n_occ, band_offs,   \
-                     nb, g, n_sub, p, stream)
+  subcycle<KT, WRAP>(slabs, hyd, buf, counters, n_contacts, kmax, n_occ,   \
+                     band_offs, nb, g, n_sub, p, stream)
   if (kt) return wrap ? LBM_DEM(true, true) : LBM_DEM(true, false);
   return wrap ? LBM_DEM(false, true) : LBM_DEM(false, false);
 #undef LBM_DEM
@@ -332,30 +432,43 @@ int dispatch(float* slabs, const float* hyd, float* fscr, int* counters,
 
 }  // namespace
 
+// A cap on the cooperative grid of K3 and K3w in blocks (0: the
+// occupancy's blocks per SM times the SMs), so that a test can make each
+// block stride over several tiles. Returns cudaErrorInvalidValue for a
+// negative cap.
+extern "C" int lbm_dem_grid(int cap) {
+  if (cap < 0) return (int)cudaErrorInvalidValue;
+  grid_cap = cap;
+  return 0;
+}
+
 // K3. slabs: (11, K, R, C) f32, or (51, K, R, C) when p.kt > 0, updated in
-// place; fscr: (3, K, R, C) f32 scratch; counters: (n_sub + 1,) i32,
-// zeroed by the caller (one per force evaluation); kmax, n_occ: (1,) i32;
+// place; buf: (2, 5, K, R, C) f32 scratch; counters: (n_sub + 2,) i32
+// scratch; n_contacts: (1,) i32 out, the max over the force evaluations
+// of the directed touching count, halved; kmax, n_occ: (1,) i32;
 // band_offs: (nb,) i32 plane-row offsets of the occupied 8-row bands
-// (first n_occ entries).
-extern "C" int lbm_dem_subcycle(float* slabs, float* fscr, int* counters,
-                                const int* kmax, const int* n_occ,
-                                const int* band_offs, int nb, int K, int R,
-                                int C, int ncl, int n_sub, DemParams p,
-                                cudaStream_t stream) {
-  return dispatch(slabs, slabs + (size_t)kFHX * K * R * C, fscr, counters,
-                  kmax, n_occ, band_offs, nb, K, R, C, ncl, kMINV, kXI0, n_sub,
-                  p, stream);
+// (first n_occ entries); n_sub >= 1, nb >= 1. One cooperative launch.
+extern "C" int lbm_dem_subcycle(float* slabs, float* buf, int* counters,
+                                int* n_contacts, const int* kmax,
+                                const int* n_occ, const int* band_offs,
+                                int nb, int K, int R, int C, int ncl,
+                                int n_sub, DemParams p, cudaStream_t stream) {
+  return dispatch(slabs, slabs + (size_t)kFHX * K * R * C, buf, counters,
+                  n_contacts, kmax, n_occ, band_offs, nb, K, R, C, ncl, kMINV,
+                  kXI0, n_sub, p, stream);
 }
 
 // K3w. slabs: the slim (8, K, R, C) f32 window slabs, or (48, K, R, C)
 // when p.kt > 0, updated in place; forces3: (3, K, R, C) f32 hydro + body
 // forces of this inner step; the rest as K3.
 extern "C" int lbm_dem_subcycle_window(float* slabs, const float* forces3,
-                                       float* fscr, int* counters,
-                                       const int* kmax, const int* n_occ,
+                                       float* buf, int* counters,
+                                       int* n_contacts, const int* kmax,
+                                       const int* n_occ,
                                        const int* band_offs, int nb, int K,
                                        int R, int C, int ncl, int n_sub,
                                        DemParams p, cudaStream_t stream) {
-  return dispatch(slabs, forces3, fscr, counters, kmax, n_occ, band_offs, nb,
-                  K, R, C, ncl, kMINV_SLIM, kXI0_SLIM, n_sub, p, stream);
+  return dispatch(slabs, forces3, buf, counters, n_contacts, kmax, n_occ,
+                  band_offs, nb, K, R, C, ncl, kMINV_SLIM, kXI0_SLIM, n_sub,
+                  p, stream);
 }

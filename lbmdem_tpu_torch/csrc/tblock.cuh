@@ -1,23 +1,26 @@
-// The temporal block of the coupled step: k NT-blended collide +
-// pull-stream steps over one solid stack in one pass over f, by a row
-// sweep. One body serves K6 (imb_multi.cu: the coupling_k window, a sink
-// that writes every inner step's momentum exchange w_t) and K7
-// (imb_static.cu: the static-solid hoist, a sink that stores nothing).
+// The temporal block: k collide + pull-stream steps in one pass over f,
+// by a row sweep, generic over a cell policy. One body serves K5
+// (fluid.cu: the pure-fluid collide, FluidCell), K6 (imb_multi.cu: the
+// coupling_k window, NTCell with a sink that writes every inner step's
+// momentum exchange w_t) and K7 (imb_static.cu: the static-solid hoist,
+// NTCell with a sink that stores nothing).
 //
 // Replaces the bodies of the TPU kernels
-// lbmdem_tpu/ops/pallas_lbm.py:_imb_reduce_multi_kernel (K6, line 1257)
-// and :_imb_static_multi_kernel (K7, line 911).
+// lbmdem_tpu/ops/pallas_lbm.py:_fluid_multi_kernel (K5, line 780),
+// :_imb_reduce_multi_kernel (K6, line 1257) and
+// :_imb_static_multi_kernel (K7, line 911).
 //
 // What bounds it on the H100: neither roof. Per pass f is read and
-// written once (72 B per cell in f32, 36 B in bf16) and the solid stack
-// read once (12 B): 1.41 GB at 4096^2 in f32, 0.42 ms at 3.35 TB/s. The
-// NT collide is ~350 operations at a cell with eps > 0 and ~180 on the
-// fluid branch (imb.cuh relax_cell), nine IEEE divides among them; at
-// k = 4 the coupled cell's collides (without the halo recompute) are
-// ~13.5 GFLOP, 0.20 ms at the 67 TFLOP/s peak and twice that with no
-// multiply-add fused under --fmad=false. The kernel takes 1.6-1.8 ms
-// per pass (PERF.md section 6): the collide's dependent chains at the
-// occupancy the rings allow, with one barrier per row, hold it.
+// written once (72 B per cell in f32, 36 B in bf16), and for NTCell the
+// solid stack read once (12 B): 1.21 GB (K5) and 1.41 GB (K6, K7) at
+// 4096^2 in f32, 0.36 and 0.42 ms at 3.35 TB/s. The NT collide is ~350
+// operations at a cell with eps > 0 and ~180 on the fluid branch (imb.cuh
+// relax_cell), the pure-fluid collide ~200 (d2q9.cuh fluid_collide), nine
+// IEEE divides among them; at k = 4 that is 0.18-0.24 ms at the 67
+// TFLOP/s peak, twice that with no multiply-add fused under --fmad=false.
+// The sweep takes several times that: the collide's dependent chains at
+// the occupancy the rings and registers allow, with one barrier per
+// phase, hold it (PERF.md sections 6 and 7).
 //
 // Why the design before this one (one 512-thread block per 16 x 32 tile,
 // two f windows of (16 + 2k)(32 + 2k) cells, each inner step the window
@@ -30,41 +33,49 @@
 //
 // Design: a block owns a strip of W = T - 2k output columns and `rows`
 // output rows. It has k groups of T threads (blockDim (T, k)), one
-// thread per column of the strip plus its k-column halo on each side and
-// per level: group t runs inner step t. The block walks its rows from k
-// above its first output row to k below its last, one row per phase and
-// one barrier per phase. Level 0 loads f and the solid fields of its row
-// from device memory and collides; level t pull-streams from level t - 1's
-// ring (d2q9.cuh stream_pull) and collides; level k, run by group k - 1
-// after its collide, streams level k - 1 into `out` (bf16: one rounding,
-// at this store). Level t runs 2 rows behind level t - 1 (the lag), so
-// the three rows it reads were all written in earlier phases and all
-// levels work in the same phase between two barriers, k independent
-// collides per column and phase on k warps, where one thread per column
-// doing them in turn left the SM idle on the collide's dependency chains
-// and lost to chained K2 steps. The x halo shrinks by one column
-// per level, as the dependency cone does, so no row is collided twice
-// and only the 2(k - t) halo columns and rows of level t are recomputed:
-// at T = 128 and k = 4 about (128 + 126 + 124 + 122) / 120 (1 + 2k /
-// rows) = 4.2 collides per output cell and pass. Every cell carries its
-// global unwrapped coordinate: bounce-back and the Zou/He closures fire
-// on it, as in K5, so wrapped halos on a periodic axis evolve exactly,
-// the wall rule cuts the cone on a wall axis, and a domain smaller than a
-// strip holds a cell more than once.
+// thread per column of the strip plus its k-column halo on each side:
+// group t runs inner step (level) t. k <= 8 per launch (T k <= 512 at
+// T = 64); fluid.cu runs K5 as sweeps of at most 4 steps. The block
+// walks its rows from k above its first output row to k below its last,
+// ROWS rows per level and phase and one barrier per phase. Level 0 loads
+// f (and the cell's solid fields, which NTCell keeps in a ring) from
+// device memory and collides; level t pull-streams from level t - 1's
+// ring (d2q9.cuh stream_pull) and collides; level k, run by the group of
+// level k - 1 after its collides, streams level k - 1 into `out` (bf16:
+// one rounding, at this store). The storage types of f and `out` are
+// separate: an f32 side of a bf16 pass holds the shifted form unrounded,
+// so such launches chain into one pass bit for bit. At phase ph
+// level t works on rows [ROWS ph - LAG t, ROWS ph - LAG t + ROWS), LAG =
+// ROWS + 1 rows behind the level before, so every row it reads was
+// written in an earlier phase and all levels work in the same phase
+// between two barriers, independent collides on every warp. A level's
+// ring holds the 2 ROWS + 2 rows that are live at once (4, or 6 with two
+// rows per phase). The x halo shrinks by one column per level, as the
+// dependency cone does, so no row is collided twice and only the
+// 2(k - t) halo columns and rows of level t are recomputed: at T = 128
+// and k = 4 about (128 + 126 + 124 + 122) / 120 (1 + 2k / rows) = 4.2
+// collides per output cell and pass. Every cell carries its global unwrapped
+// coordinate: bounce-back and the Zou/He closures fire on it, so wrapped
+// halos on a periodic axis evolve exactly, the wall rule cuts the cone on
+// a wall axis, and a domain smaller than a strip holds a cell more than
+// once. tests/test_torch_fluid_sweep.py holds this bookkeeping, written
+// plainly, against k chained plain steps bit for bit.
 //
-// Shared memory: per level a ring of lag + 2 = 4 post-collision rows of
-// 9 x T floats, and one ring of 2k - 1 rows of the solid fields (3 x T
-// floats; level t reads the row level 0 stored 2t phases before):
+// Shared memory: per level a ring of 4 (6) post-collision rows of 9 x T
+// floats and, for NTCell, one ring of 2k - 1 rows of the solid fields
+// (3 x T floats; level t reads the row level 0 stored 2t phases before):
 // 4 T (36 k + 3 (2k - 1)) bytes, 84.5 KB at T = 128 and k = 4, 85 KB at
-// T = 64 and k = 8. A strip is narrowed (256 -> 128 -> 64) at launch
-// until T k <= 512 threads and its rings fit a block. Chosen by
-// chip_smoke.py's strip sweep at 4096^2: T = 128 (64 for k >= 5), so
-// W = 128 - 2k (120 at k = 4); 128 rows per block for K6 and 64 for K7
-// (ops/fused_lbm.MULTI_STRIP, ops/fused_static.STRIP); the lag is 2 at
-// every k, the least that lets all levels share one barrier.
+// T = 64 and k = 8; FluidCell 144 T k bytes, 216 T k with two rows per
+// phase (K5: 110.6 KB at T = 128 and k = 4). A strip is narrowed (256
+// -> 128 -> 64) at launch while T k > 512 threads or its rings pass a
+// block's shared memory. The strips in use were chosen by
+// chip_smoke.py's sweeps at 4096^2 (ops/fused_fluid.STRIP,
+// ops/fused_lbm.MULTI_STRIP, ops/fused_static.STRIP).
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include <algorithm>
 
 #include "imb.cuh"
 
@@ -87,9 +98,9 @@ inline int set_strip(StripConfig& s, int threads, int rows) {
   return 0;
 }
 
-// Per-inner-step sinks at a block's output cells. WSteps (K6): inner step
-// t's w_t into plane pair t of the (k, 2, ny, nx) scratch, where eps_raw
-// > 0 (WSink). NoSink (K7): nothing.
+// Per-inner-step sinks of NTCell at a block's output cells. WSteps (K6):
+// inner step t's w_t into plane pair t of the (k, 2, ny, nx) scratch,
+// where eps_raw > 0 (WSink). NoSink (K7): nothing.
 struct WSteps {
   float* w;
   size_t plane;
@@ -106,27 +117,84 @@ struct NoSink {
                                         float) const {}
 };
 
-// dynamic shared memory of a block: k rings of 4 rows of 9 x T floats and
-// a ring of 2k - 1 rows of 3 x T floats
-inline size_t tblock_smem(int k, int threads) {
-  return sizeof(float) * (size_t)threads * (36 * k + 3 * (2 * k - 1));
+// Cell policies: what a level does to the populations v[9] of one cell
+// after level 0's load or a pull, leaving the post-collision populations
+// in v. kSolid: the cell reads the solid stack (eps_raw, us_x, us_y),
+// which level 0 loads and the later levels take from a ring. out: the
+// cell is an output cell of the block, at global index `cell`.
+//
+// NTCell (K6, K7): the NT-blended collide of K2 and K8 (imb.cuh
+// collide_cell) and the sink.
+template <bool TRT, bool LES, bool LAMBDA, class Sink>
+struct NTCell {
+  static constexpr bool kSolid = true;
+  const float* solid;  // (3, ny, nx)
+  Sink sink;
+  float tm;
+  template <bool SHIFT>
+  __device__ __forceinline__ void collide(int t, float* v, float e, float sx,
+                                          float sy, const FluidParams& p,
+                                          bool out, size_t cell) const {
+    float fp[9], phix, phiy;
+    collide_cell<SHIFT, TRT, LES, LAMBDA>(v, e, sx, sy, p, tm, fp, &phix,
+                                          &phiy);
+    if (out) sink.store(t, cell, e, phix, phiy);
+#pragma unroll
+    for (int i = 0; i < 9; ++i) v[i] = fp[i];
+  }
+};
+
+// FluidCell (K5): the pure-fluid collide of K4 (d2q9.cuh
+// fluid_collide_t), the options fixed at compile time.
+template <int TRT, int LES, int FORCED>
+struct FluidCell {
+  static constexpr bool kSolid = false;
+  template <bool SHIFT>
+  __device__ __forceinline__ void collide(int, float* v, float, float, float,
+                                          const FluidParams& p, bool,
+                                          size_t) const {
+    fluid_collide_t<SHIFT, TRT, LES, FORCED>(v, p);
+  }
+};
+
+// the ring of post-collision rows of one level: 4, or 6 with two rows per
+// phase (2 ROWS + 2 rows are live at once)
+template <int ROWS>
+__host__ __device__ constexpr int ring_rows() {
+  return 2 * ROWS + 2;
 }
 
-// __launch_bounds__: two blocks of 512 threads per SM for the BGK
-// instantiations (64 registers, no spills), so one block's work fills
-// the other's barrier waits; one for TRT or LES, whose collide would
-// spill at 64.
-template <typename S, bool TRT, bool LES, bool LAMBDA, class Sink>
-__global__ void __launch_bounds__(kTBMaxThreads, (TRT || LES) ? 1 : 2)
+// dynamic shared memory of a block of T threads per level: k rings of
+// 9 x T floats per row and, with a solid stack, a ring of 2k - 1 rows of
+// 3 x T floats
+template <int ROWS, bool SOLID>
+inline size_t tblock_smem(int k, int threads) {
+  return sizeof(float) * (size_t)threads *
+         (9 * ring_rows<ROWS>() * k + (SOLID ? 3 * (2 * k - 1) : 0));
+}
+
+// The sweep (see the header). S, SO: the storage types of f and `out`;
+// SHIFT: both hold the shifted form (bf16 storage, or an f32 scratch of
+// a bf16 pass). MINB: __launch_bounds__'s blocks per
+// SM, so a register cap: the BGK instantiations build for two blocks of
+// 512 threads per SM (64 registers, no spills), so one block's work fills
+// the other's barrier waits; TRT or LES for one, whose collide would
+// spill at 64. ROWS: rows per level and phase (two: two independent
+// collides per thread between barriers, half the barriers).
+template <typename S, typename SO, bool SHIFT, int ROWS, int MINB,
+          class Cell>
+__global__ void __launch_bounds__(kTBMaxThreads, MINB)
     temporal_block_kernel(const S* __restrict__ f,
-                          const float* __restrict__ solid,
-                          const float* __restrict__ u_in, S* __restrict__ out,
-                          Sink sink, int ny, int nx, int k, int rows,
-                          FluidParams p, float tm) {
-  constexpr bool kShift = sizeof(S) == 2;  // bf16 storage
+                          const float* __restrict__ u_in, SO* __restrict__ out,
+                          Cell cell, int ny, int nx, int k, int rows,
+                          FluidParams p) {
+  constexpr bool kShift = SHIFT;
+  constexpr int RING = ring_rows<ROWS>();
+  constexpr int LAG = ROWS + 1;
+  static_assert(!Cell::kSolid || ROWS == 1, "the solid ring lags 2 rows");
   extern __shared__ float smem[];
   const int T = blockDim.x, lx = threadIdx.x;
-  const int t = threadIdx.y;                     // this thread's level
+  const int g = threadIdx.y;                     // group g runs level g
   const int y0 = blockIdx.y * rows;              // first output row
   const int h = min(rows, ny - y0);              // output rows
   const int gx = blockIdx.x * (T - 2 * k) - k + lx;  // global unwrapped
@@ -134,74 +202,84 @@ __global__ void __launch_bounds__(kTBMaxThreads, (TRT || LES) ? 1 : 2)
   const size_t plane = (size_t)ny * nx;
   const float shift = kShift ? p.rho0 : 0.0f;
   const int R = 2 * k - 1;
-  float* sol = smem + (size_t)36 * k * T;  // [R][eps_raw, us_x, us_y][T]
+  // NTCell: [R][eps_raw, us_x, us_y][T]
+  float* sol = smem + (size_t)9 * RING * k * T;
   const bool out_col = lx >= k && lx < T - k && gx < nx;
+  const bool stores = out_col && g == k - 1;  // level k: the store
   // Row j of the sweep is global row y0 - k + j. Level t collides rows j
-  // in [t, h + 2k - t) at phase j + 2t into ring slot j % 4 (solid: j %
-  // R, kept in `rs`); level k streams rows j in [k, k + h) into `out`
-  // (by level k - 1's threads).
+  // in [t, h + 2k - t) (at phase (j + LAG t) / ROWS) into ring slot
+  // j % RING; level k streams rows j in [k, k + h) into `out`.
   const int n0 = h + 2 * k;
+  const int nph = (h + k - 1 + LAG * k) / ROWS + 1;
   // pull of row j, column lx from level lt - 1's ring
   auto pull = [&](int lt, int j, float* v) {
-    const float* src = smem + (size_t)(lt - 1) * 36 * T + lx;
+    const float* src = smem + (size_t)(lt - 1) * RING * 9 * T + lx;
     stream_pull([&](int i, int dy, int dx) {
-      return src[((j + dy) & 3) * 9 * T + i * T + dx];
+      return src[(unsigned)(j + dy) % RING * 9 * T + i * T + dx];
     }, y0 - k + j, gx, ny, nx, u_in, p, shift, v);
   };
-  int rs = (R - (2 * t) % R) % R;  // (ph - 2t) mod R at ph = 0
-  for (int ph = 0; ph < h + 3 * k; ++ph) {
-    const int j = ph - 2 * t;
-    if (j >= t && j < n0 - t && lx >= t && lx < T - t) {
-      float fc[9], fp[9], phix, phiy;
+  int rs = (R - (2 * g) % R) % R;  // NTCell: (ph - 2g) mod R at ph = 0
+  // level t's rows of phase ph (and, for NTCell, the solid ring's row)
+  auto level = [&](int ph, int t) {
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) {
+      const int j = ROWS * ph - LAG * t + r;
+      if (!(j >= t && j < n0 - t && lx >= t && lx < T - t)) continue;
+      float v[9], e = 0.f, sx = 0.f, sy = 0.f;
       float* sr = sol + (size_t)rs * 3 * T + lx;
-      float e, sx, sy;
-      if (t == 0) {  // row j = ph from device memory
-        const size_t cell = (size_t)wrap(y0 - k + j, ny) * nx + cx;
+      if (t == 0) {  // row j from device memory
+        const size_t c = (size_t)wrap(y0 - k + j, ny) * nx + cx;
 #pragma unroll
-        for (int i = 0; i < 9; ++i) fc[i] = load_f(f + i * plane + cell);
-        e = solid[cell];
-        sx = solid[plane + cell];
-        sy = solid[2 * plane + cell];
-        if (k > 1) {
-          sr[0] = e;
-          sr[T] = sx;
-          sr[2 * T] = sy;
+        for (int i = 0; i < 9; ++i) v[i] = load_f(f + i * plane + c);
+        if constexpr (Cell::kSolid) {
+          e = __ldg(cell.solid + c);  // read-only, as a __restrict__ one
+          sx = __ldg(cell.solid + plane + c);
+          sy = __ldg(cell.solid + 2 * plane + c);
+          if (k > 1) {
+            sr[0] = e;
+            sr[T] = sx;
+            sr[2 * T] = sy;
+          }
         }
-      } else {  // row j from level t - 1, solid from level 0's ring
-        pull(t, j, fc);
-        e = sr[0];
-        sx = sr[T];
-        sy = sr[2 * T];
+      } else {  // row j from level t - 1 (solid: level 0's ring)
+        pull(t, j, v);
+        if constexpr (Cell::kSolid) {
+          e = sr[0];
+          sx = sr[T];
+          sy = sr[2 * T];
+        }
       }
-      collide_cell<kShift, TRT, LES, LAMBDA>(fc, e, sx, sy, p, tm, fp, &phix,
-                                             &phiy);
-      if (out_col && j >= k && j < k + h)
-        sink.store(t, (size_t)(y0 - k + j) * nx + gx, e, phix, phiy);
-      float* dst = smem + (size_t)(4 * t + (j & 3)) * 9 * T;
+      const bool oc = out_col && j >= k && j < k + h;
+      cell.template collide<kShift>(t, v, e, sx, sy, p, oc,
+                                    (size_t)(y0 - k + j) * nx + gx);
+      float* dst = smem + ((size_t)t * RING + (unsigned)j % RING) * 9 * T;
 #pragma unroll
-      for (int i = 0; i < 9; ++i) dst[i * T + lx] = fp[i];
+      for (int i = 0; i < 9; ++i) dst[i * T + lx] = v[i];
     }
-    const int jo = ph - 2 * k;  // level k: the store, by level k - 1
-    if (t == k - 1 && jo >= k && jo < k + h && out_col) {
-      float v[9];
-      pull(k, jo, v);
-      const size_t cell = (size_t)(y0 - k + jo) * nx + gx;
+  };
+  for (int ph = 0; ph < nph; ++ph) {
+    level(ph, g);
+    if (stores) {  // level k: the store
 #pragma unroll
-      for (int i = 0; i < 9; ++i) store_f(out + i * plane + cell, v[i]);
+      for (int r = 0; r < ROWS; ++r) {
+        const int jo = ROWS * ph - LAG * k + r;
+        if (jo < k || jo >= k + h) continue;
+        float v[9];
+        pull(k, jo, v);
+        const size_t c = (size_t)(y0 - k + jo) * nx + gx;
+#pragma unroll
+        for (int i = 0; i < 9; ++i) store_f(out + i * plane + c, v[i]);
+      }
     }
-    if (++rs == R) rs = 0;
+    if constexpr (Cell::kSolid) {
+      if (++rs == R) rs = 0;
+    }
     __syncthreads();
   }
 }
 
-template <typename S, bool TRT, bool LES, bool LAMBDA, class Sink>
-int launch_temporal_block(const void* f, const float* solid,
-                          const float* u_in, void* out, Sink sink, int ny,
-                          int nx, int k, StripConfig strip,
-                          const FluidParams& p, float tm,
-                          cudaStream_t stream) {
-  auto kernel = temporal_block_kernel<S, TRT, LES, LAMBDA, Sink>;
-  if (k < 1 || k > kTBMaxK) return (int)cudaErrorInvalidValue;
+// The device's opt-in shared memory per block, read once
+inline int max_block_smem() {
   static int max_smem = 0;
   if (max_smem == 0) {
     int dev = 0;
@@ -209,11 +287,24 @@ int launch_temporal_block(const void* f, const float* solid,
     cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                            dev);
   }
+  return max_smem;
+}
+
+template <typename S, typename SO, bool SHIFT, int ROWS, int MINB,
+          class Cell>
+int launch_temporal_block(const void* f, const float* u_in, void* out,
+                          Cell cell, int ny, int nx, int k, StripConfig strip,
+                          const FluidParams& p, cudaStream_t stream) {
+  auto kernel = temporal_block_kernel<S, SO, SHIFT, ROWS, MINB, Cell>;
+  if (k < 1 || k > kTBMaxK) return (int)cudaErrorInvalidValue;
+  const int max_smem = max_block_smem();
   int threads = strip.threads;
-  while (threads > 64 && (threads * k > kTBMaxThreads ||
-                          tblock_smem(k, threads) > (size_t)max_smem))
+  while (threads > 64 &&
+         (threads * k > kTBMaxThreads ||
+          tblock_smem<ROWS, Cell::kSolid>(k, threads) > (size_t)max_smem))
     threads /= 2;
-  const size_t bytes = tblock_smem(k, threads);
+  if (threads * k > kTBMaxThreads) return (int)cudaErrorInvalidValue;
+  const size_t bytes = tblock_smem<ROWS, Cell::kSolid>(k, threads);
   static size_t opted_in = 48 * 1024;  // per instantiation
   if (bytes > opted_in) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -225,23 +316,23 @@ int launch_temporal_block(const void* f, const float* solid,
   const int nbx = (nx + w - 1) / w, rows = strip.rows;
   const dim3 grid(nbx, (ny + rows - 1) / rows);
   kernel<<<grid, dim3(threads, k), bytes, stream>>>(
-      static_cast<const S*>(f), solid, u_in, static_cast<S*>(out), sink, ny,
-      nx, k, rows, p, tm);
+      static_cast<const S*>(f), u_in, static_cast<SO*>(out), cell, ny, nx, k,
+      rows, p);
   return (int)cudaGetLastError();
 }
 
-// The instantiation for the options: LAMBDA matters only with LES (else
-// the caller's tm already has the lambda form)
+// K6 and K7: the NTCell instantiation for the options (LAMBDA matters only
+// with LES, else the caller's tm already has the lambda form); 1 <= k <= 8
 template <typename S, class Sink>
 int dispatch_temporal_block(const void* f, const float* solid,
                             const float* u_in, void* out, Sink sink, int ny,
                             int nx, int k, int lambda, StripConfig strip,
                             const FluidParams& p, float tm,
                             cudaStream_t stream) {
-#define LBM_TB(TRT, LES, LAMBDA)                                            \
-  launch_temporal_block<S, TRT, LES, LAMBDA, Sink>(f, solid, u_in, out, sink, \
-                                                   ny, nx, k, strip, p, tm,   \
-                                                   stream)
+#define LBM_TB(TRT, LES, LAMBDA)                                          \
+  launch_temporal_block<S, S, sizeof(S) == 2, 1, (TRT || LES) ? 1 : 2>(   \
+      f, u_in, out, NTCell<TRT, LES, LAMBDA, Sink>{solid, sink, tm}, ny,  \
+      nx, k, strip, p, stream)
   if (p.trt) {
     if (!p.les) return LBM_TB(true, false, false);
     return lambda ? LBM_TB(true, true, true) : LBM_TB(true, true, false);

@@ -92,12 +92,14 @@ _SIGNATURES = {
     "lbm_imb_multi": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                       _I, _I, _I, CovParams, _I, _I, _I, FluidParams, _F, _F,
                       _P],
-    "lbm_dem_subcycle": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+    "lbm_dem_subcycle": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                          _I, DemParams, _P],
-    "lbm_dem_subcycle_window": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                _I, _I, DemParams, _P],
+    "lbm_dem_subcycle_window": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                _I, _I, _I, DemParams, _P],
+    "lbm_dem_grid": [_I],
     "lbm_fluid_step": [_P, _P, _P, _I, _I, _I, FluidParams, _P],
-    "lbm_fluid_multi": [_P, _P, _P, _I, _I, _I, _I, FluidParams, _P],
+    "lbm_fluid_multi": [_P, _P, _P, _P, _I, _I, _I, _I, FluidParams, _P],
+    "lbm_fluid_strip": [_I, _I],
     "lbm_imb_multi_strip": [_I, _I],
     "lbm_imb_static_multi": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
                              FluidParams, _F, _P],
@@ -215,6 +217,18 @@ def check(code: int, what: str) -> None:
     """Raise if a launch reported a CUDA error."""
     if code != 0:
         raise RuntimeError(f"{what}: CUDA error {code} at launch")
+
+
+_settings: dict = {}
+
+
+def setting(name: str, *args) -> None:
+    """Call the library's setter `name` (a strip, a grid cap) with `args`
+    unless its last call had the same ones, so a launch makes no ctypes
+    call for a setting that did not change; raise on an error code."""
+    if _settings.get(name) != args:
+        check(getattr(library(), name)(*args), name)
+        _settings[name] = args
 
 
 def stream() -> int:

@@ -25,9 +25,17 @@ from lbmdem_tpu_torch import kernels, lattice
 from lbmdem_tpu_torch.config import SimConfig, WALL
 from lbmdem_tpu_torch.ops import lbm, not_ported
 
-# largest k per pass: the k-cell halo window of K5 must fit in shared
-# memory (csrc/fluid.cu); bf16 keeps the TPU kernel's 16-step range
+# largest k per pass, the TPU kernel's: f32 8, bf16 16
 MAX_K = {"float32": 8, "bfloat16": 16}
+
+# steps per row sweep (csrc/fluid.cu kSweepK): a larger k runs as
+# ceil(k / SWEEP_K) sweeps through f32 scratch planes, one pass bit for
+# bit
+SWEEP_K = 4
+
+# K5's strip, threads per level and output rows per block, from
+# chip_smoke.py's sweep at 4096^2
+STRIP = (128, 64)
 
 
 def check_fluid_cfg(cfg: SimConfig, prehalo=False, edges=None) -> None:
@@ -121,13 +129,18 @@ def _launch(f, cfg: SimConfig, k: int, out, what: str) -> None:
             if cfg.bc_west == "inlet" else None)
     bf16 = int(want == torch.bfloat16)
     lib = kernels.library()
+    kernels.setting("lbm_fluid_strip", *STRIP)
     if k == 1:
         code = lib.lbm_fluid_step(f.data_ptr(), out.data_ptr(), u_in, cfg.ny,
                                   cfg.nx, bf16, _params(cfg), kernels.stream())
     else:
-        code = lib.lbm_fluid_multi(f.data_ptr(), out.data_ptr(), u_in, cfg.ny,
-                                   cfg.nx, k, bf16, _params(cfg),
-                                   kernels.stream())
+        n_mid = min(-(-k // SWEEP_K) - 1, 2)  # scratch planes in turn
+        mid = (torch.empty((n_mid, *f.shape), dtype=torch.float32,
+                           device=f.device) if n_mid else None)
+        code = lib.lbm_fluid_multi(f.data_ptr(), out.data_ptr(),
+                                   None if mid is None else mid.data_ptr(),
+                                   u_in, cfg.ny, cfg.nx, k, bf16,
+                                   _params(cfg), kernels.stream())
     kernels.check(code, what)
 
 

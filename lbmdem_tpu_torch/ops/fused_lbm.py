@@ -136,7 +136,7 @@ def _launch(f, solid, tile_data, counts, cfg: SimConfig, k: int, out,
     else:
         u_in = (fused_fluid._inlet_profile(cfg, f.device).data_ptr()
                 if cfg.bc_west == "inlet" else None)
-        kernels.check(lib.lbm_imb_multi_strip(*MULTI_STRIP), what)
+        kernels.setting("lbm_imb_multi_strip", *MULTI_STRIP)
         code = lib.lbm_imb_multi(*ptrs, u_in, *bins, partials.data_ptr(),
                                  offsets.data_ptr(), *dims, k, *tail,
                                  kernels.stream())

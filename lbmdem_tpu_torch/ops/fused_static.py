@@ -82,7 +82,7 @@ def fused_step_imb_static_multi(f, solid, cfg: SimConfig, k: int, out,
     u_in = (fused_fluid._inlet_profile(cfg, f.device).data_ptr()
             if cfg.bc_west == "inlet" else None)
     lib = kernels.library()
-    kernels.check(lib.lbm_imb_static_strip(*STRIP), what)
+    kernels.setting("lbm_imb_static_strip", *STRIP)
     code = lib.lbm_imb_static_multi(
         f.data_ptr(), solid.data_ptr(), out.data_ptr(), u_in, cfg.ny, cfg.nx,
         k, int(want == torch.bfloat16), int(cfg.nt_mode == "lambda"),

@@ -461,9 +461,15 @@ def _dem_params(cfg: SimConfig, grid: DemGrid, axis: str) -> kernels.DemParams:
     )
 
 
+# a test-only cap on K3/K3w's cooperative grid in blocks (0: the
+# occupancy's grid), so that each block strides over several tiles
+GRID_CAP = 0
+
+
 def _launch(slabs, forces3, kmax, n_occ, band_offs, grid: DemGrid,
             cfg: SimConfig, axis: str, what: str):
-    """Launch K3 (forces3 None) or K3w on CUDA slabs, in place; returns
+    """Launch K3 (forces3 None) or K3w on CUDA slabs, in place: one
+    cooperative launch that also counts the contacts; returns
     n_contacts () i32."""
     ncs, ncl, R, C, nb = slab_dims(grid, axis)
     kmax = kmax.reshape(1)
@@ -472,21 +478,23 @@ def _launch(slabs, forces3, kmax, n_occ, band_offs, grid: DemGrid,
     kernels.require_cuda_f32(what, slabs, kmax, n_occ, band_offs, *extra)
     if slabs.dtype != torch.float32:
         raise ValueError(f"{what}: the CUDA kernel takes float32")
-    fscr = torch.empty((3, SLAB_K, R, C), dtype=torch.float32,
-                       device=slabs.device)
-    counters = torch.zeros((cfg.n_sub + 1,), dtype=torch.int32,
-                           device=slabs.device)
+    dev = slabs.device
+    buf = torch.empty((2, 5, SLAB_K, R, C), dtype=torch.float32, device=dev)
+    counters = torch.empty((cfg.n_sub + 2,), dtype=torch.int32, device=dev)
+    n_contacts = torch.empty((), dtype=torch.int32, device=dev)
     lib = kernels.library()
-    args = (fscr.data_ptr(), counters.data_ptr(), kmax.data_ptr(),
-            n_occ.data_ptr(), band_offs.data_ptr(), nb, SLAB_K, R, C, ncl,
-            cfg.n_sub, _dem_params(cfg, grid, axis), kernels.stream())
+    kernels.setting("lbm_dem_grid", GRID_CAP)
+    args = (buf.data_ptr(), counters.data_ptr(), n_contacts.data_ptr(),
+            kmax.data_ptr(), n_occ.data_ptr(), band_offs.data_ptr(), nb,
+            SLAB_K, R, C, ncl, cfg.n_sub, _dem_params(cfg, grid, axis),
+            kernels.stream())
     if forces3 is None:
         code = lib.lbm_dem_subcycle(slabs.data_ptr(), *args)
     else:
         code = lib.lbm_dem_subcycle_window(slabs.data_ptr(),
                                            forces3.data_ptr(), *args)
     kernels.check(code, what)
-    return (torch.max(counters) // 2).to(torch.int32)
+    return n_contacts
 
 
 def _check_slabs(slabs, nch: int, grid: DemGrid, axis: str, what: str):

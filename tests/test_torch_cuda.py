@@ -21,8 +21,10 @@ above (bf16 3e-4), K8 + K9 against K2 bit for bit; K3 and K3w with
 history springs 3e-5 on every slab channel, on periodic axes 2e-5; the
 redesigned K1 bit for bit against its plain version on CPU copies for
 every coverage method, K2's push step at each block size over the
-boundary matrix with the bars above, and on f32 the row-sweep K6(k)
-and K7(k) equal to k chained K2 and K8 steps, bit for bit."""
+boundary matrix with the bars above, and on f32 the row-sweep K5(k),
+K6(k) and K7(k) equal to k chained K4, K2 and K8 steps, bit for bit (K5
+on bf16 3e-4 against its plain version); the one-launch K3 and K3w bit
+for bit alike at every cooperative grid, one CUDA launch per call."""
 
 import numpy as np
 import pytest
@@ -1048,3 +1050,154 @@ def test_static_kernel_equals_chained_steps(dev, case, k, shape):
         s, solid[0], solid[1], solid[2], cfg, d), k, f)
     assert torch.equal(out, last)
     assert float((out - f).abs().max()) > 0
+
+
+# --- K5 on the row sweep against K4, and the one-launch K3 / K3w
+
+
+_FLUID_CASES = {
+    "periodic-x-forcing": dict(gx=1e-5, gy=-2e-5),
+    "walls-lid": dict(bc_west="wall", bc_east="wall", uw_north=0.08),
+    "periodic": dict(bc_south="periodic", bc_north="periodic", gx=1e-5),
+    "trt-les": dict(collision="trt", smagorinsky=0.16, gx=1e-5),
+    "zou-he": dict(bc_west="inlet", bc_east="outlet", u_inlet=0.06,
+                   inlet_profile="poiseuille"),
+    "zou-he-periodic-y": dict(bc_west="inlet", bc_east="outlet",
+                              u_inlet=0.06, bc_south="periodic",
+                              bc_north="periodic"),
+}
+
+
+@pytest.mark.parametrize("shape", [(256, 64), (240, 80), (24, 6)],
+                         ids=["256x64", "240x80", "24x6"])
+@pytest.mark.parametrize("case", sorted(_FLUID_CASES))
+def test_fluid_multi_equals_chained_steps(dev, case, shape):
+    """K5(k) == k chained K4 steps on f32 (torch.equal), k = 2, 4, 7, 8
+    (7 and 8: two sweeps through the f32 scratch), on lattices that are
+    and are not a multiple of a strip and one smaller than a strip; then
+    on bf16 K5 at k = 4, 12 and 16 (three and four sweeps) against its
+    plain version (3e-4: one rounding per pass)."""
+    nx, ny = shape
+    cfg = SimConfig(nx=nx, ny=ny, tau=0.8, dtype="float32",
+                    **_FLUID_CASES[case])
+    f = _fluid_f(cfg, dev, 13)
+    for k in (2, 4, 7, 8):
+        out = torch.empty_like(f)
+        n0 = fused_fluid.fused_step_fluid_multi.launches
+        fused_fluid.fused_step_fluid_multi(f, cfg, k, out)
+        assert fused_fluid.fused_step_fluid_multi.launches == n0 + 1
+        last, _ = _chain(lambda s, d: fused_fluid.fused_step_fluid(s, cfg, d),
+                         k, f)
+        assert torch.equal(out, last), k
+        assert float((out - f).abs().max()) > 0
+    bcfg = cfg.replace(f_storage="bfloat16")
+    g = _fluid_f(bcfg, dev, 14)
+    for k in (4, 12, 16):
+        a, b = torch.empty_like(g), torch.empty_like(g)
+        fused_fluid.fused_step_fluid_multi(g, bcfg, k, a)
+        fused_fluid.fused_step_fluid_multi_plain(g, bcfg, k, b)
+        assert float((a.float() - b.float()).abs().max()) <= 3e-4, k
+
+
+def _slab_cases(dev):
+    """(name, cfg, grid, axis, slabs, kmax, n_occ, bands, forces3) of K3
+    and K3w on the packed 256^2 column (walls; with springs) and of K3 on
+    a doubly periodic box (both slab orientations)."""
+    out = []
+    sim, d = _scene(dev)
+    n = d.x.shape[0]
+    g = torch.Generator().manual_seed(2)
+    fh = (1e-3 * torch.randn((n, 2), generator=g)).to(dev)
+    th = (1e-4 * torch.randn((n,), generator=g)).to(dev)
+    body = dem.body_forces(d, sim.cfg)
+    sl = slab_dem.build_slabs(d, fh, th, body, sim.grid, sim.dem_axis)
+    out.append(("K3", sim.cfg, sim.grid, sim.dem_axis, sl[0], *sl[3:6],
+                None))
+    sw = slab_dem.build_slabs(d, None, None, body, sim.grid, sim.dem_axis,
+                              bake_forces=False)
+    f3 = slab_dem._force_planes_window(sw[1], [(fh, th)], body,
+                                       sw[0].shape)[0]
+    out.append(("K3w", sim.cfg, sim.grid, sim.dem_axis, sw[0], *sw[3:6], f3))
+    cfg, grid, axis, dk, fh, th = _kt_scene(dev)
+    body = dem.body_forces(dk, cfg)
+    sl = slab_dem.build_slabs(dk, fh, th, body, grid, axis, kt=True)
+    out.append(("K3 kt", cfg, grid, axis, sl[0], *sl[3:6], None))
+    sw = slab_dem.build_slabs(dk, None, None, body, grid, axis, kt=True,
+                              bake_forces=False)
+    f3 = slab_dem._force_planes_window(sw[1], [(fh, th)], body,
+                                       sw[0].shape)[0]
+    out.append(("K3w kt", cfg, grid, axis, sw[0], *sw[3:6], f3))
+    pcfg = SimConfig(nx=128, ny=96, tau=0.8, dtype="float32", max_disks=6,
+                     kn=2.0, gamma_n=1.0, gamma_t=0.3, mu=0.4, rho_s=2.0,
+                     n_sub=6, bc_west="periodic", bc_east="periodic",
+                     bc_south="periodic", bc_north="periodic")
+    specs = [DiskSpec(126.8, 94.5, 3.5, vx=0.03, vy=0.02),
+             DiskSpec(2.0, 1.5, 3.5, vx=-0.01),
+             DiskSpec(50.0, 50.0, 3.0), DiskSpec(55.5, 52.0, 3.0),
+             DiskSpec(127.2, 70.0, 2.5, vx=0.08),
+             DiskSpec(30.0, 95.0, 2.5, vy=0.05)]
+    pd = dem.make_disk_state(specs, pcfg, device=dev)
+    pgrid = dem.DemGrid.build(pcfg, 3.5)
+    z2, z1 = torch.zeros((6, 2), device=dev), torch.zeros((6,), device=dev)
+    for ax in ("y", "x"):
+        sl = slab_dem.build_slabs(pd, z2, z1, dem.body_forces(pd, pcfg),
+                                  pgrid, ax)
+        out.append((f"K3 periodic {ax}", pcfg, pgrid, ax, sl[0], *sl[3:6],
+                    None))
+    return out
+
+
+def _slab_call(case, s=None):
+    """K3 or K3w of a _slab_cases case on `s` (a copy of its slabs)."""
+    name, cfg, grid, axis, slabs, kmax, n_occ, bands, f3 = case
+    s = slabs.clone() if s is None else s
+    if f3 is None:
+        return slab_dem.subcycle_slabs(s, kmax, n_occ, bands, grid, cfg,
+                                       axis)
+    return slab_dem.subcycle_slabs_window(s, f3, kmax, n_occ, bands, grid,
+                                          cfg, axis)
+
+
+@pytest.mark.parametrize("cap", [1, 3, 7])
+def test_slab_kernel_capped_grid_matches(dev, cap, monkeypatch):
+    """K3 and K3w with the cooperative grid capped to `cap` blocks, so each
+    block strides over several tiles: every slab channel and the contact
+    count equal to the uncapped launch bit for bit, and against the plain
+    version at the bars of the uncapped kernel (walls and periodic axes
+    2e-5, springs 3e-5; contacts equal)."""
+    for case in _slab_cases(dev):
+        name, cfg, grid, axis, slabs, kmax, n_occ, bands, f3 = case
+        ref, ncr = _slab_call(case)
+        monkeypatch.setattr(slab_dem, "GRID_CAP", cap)
+        got, ncg = _slab_call(case)
+        monkeypatch.setattr(slab_dem, "GRID_CAP", 0)
+        tiles = -(-slabs.shape[3] // 32) * int(n_occ) * slab_dem.SLAB_K
+        assert tiles > cap, name
+        assert torch.equal(got, ref) and int(ncg) == int(ncr), name
+        sp, ncp = slab_dem.subcycle_slabs_plain(slabs, kmax, cfg, grid, axis,
+                                                f3)
+        _assert_slabs(got, sp, ncg, ncp, 3e-5 if cfg.kt > 0 else 2e-5)
+
+
+def test_slab_kernel_is_one_launch(dev):
+    """One K3 or K3w call is one CUDA kernel launch, the contact count
+    included (torch.profiler; a spin kernel before and after keeps the
+    first and last device records on kernels that are not counted)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for case in _slab_cases(dev)[:2]:
+        s = case[4].clone()
+        _slab_call(case, s)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)
+            for _ in range(3):
+                _slab_call(case, s)
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+        run = [a for a in prof.key_averages()
+               if a.device_type == DeviceType.CUDA and "spin" not in a.key]
+        assert sum(a.count for a in run) == 3, (
+            case[0], [(a.key, a.count) for a in run])
