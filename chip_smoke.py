@@ -92,7 +92,7 @@ nothing falls back to the CPU):
    (per step and per window) against CPU tensors; the 4096^2 / 10k-disk
    slice packed into contact with kt = 25, per step and per window (the
    slab DEM with springs at full width);
-21. open channel: a 1024x256 Zou/He channel under TRT + LES with a
+21. open channel: a 512x256 Zou/He channel under TRT + LES with a
    mobile disk that leaves through the outlet and is culled, the card
    against CPU tensors;
 22. decks: examples/column_collapse_friction.par (2048^2, 2 500 disks,
@@ -146,7 +146,27 @@ nothing falls back to the CPU):
    at k = 4, 12, 16 within 3e-4 of its plain version; at 4096^2 K5(4) ==
    4 x K4, K5 and 4 chained K4 steps timed in turns (f32, bf16), K4's
    one-step body (f32) beside the sweep at k = 1 (f' equal), k = 8 (bf16
-   16: two sweeps) beside the chain, and the strip sweep.
+   16: two sweeps) beside the chain, and the strip sweep;
+30. CLI at full width: `python -m lbmdem_tpu_torch.cli
+   examples/column_collapse.par --steps 200` in this process (the auto
+   path: the kernels), its launches (K1, K2, K3 200 each, nothing else),
+   files (metrics.csv, the fluid and particle VTK, trajectories.csv),
+   mass drift < 1e-5, its step-200 disk state bit for bit against an
+   in-process Simulation.run(200) of the deck, both runs' MLUPS and the
+   host time of one snapshot's reads;
+31. checkpoint on the card: examples/settling_column.par, run(100),
+   save_state, a fresh Simulation restored and run(100) against the
+   continuing run and one run(200), bit for bit;
+32. plain path on the card: examples/schafer_turek.par (440 x 82)
+   through the CLI's auto path (the plain-path note, no kernel launch,
+   200 steps, finite, overflow 0; --kernels on it exits 2); float64
+   settling_column on the card against the CPU (20 steps, f and disk x
+   within 1e-9, equal contacts) and its MLUPS; column_collapse at 4096^2
+   (10k disks, f32) on the plain path: MLUPS over run(4);
+33. paranoia on the card: a NaN injected into f after step 4 of a
+   128x32 channel with a fixed disk reports step 5 under "step" (K1 +
+   K2 per step) and step 8 under "chunk" (the static hoist's K7 passes),
+   the state frozen there, as on the CPU.
 
 The second-to-last line holds the per-kernel JSON record (the ten
 kernels, then the bf16, TRT + LES, kt and periodic instantiations of K2,
@@ -2549,9 +2569,9 @@ def tblock_on_run_state(sim) -> None:
         f" ms per pass; 4 chained K2 {times[1]:.4f}, {times[2]:.4f} ms (CUDA "
         f"events); {int((solid[0] > 0).sum())} covered cells of "
         f"{cfg.nx * cfg.ny}")
-def open_channel_vs_cpu(nx: int = 1024, ny: int = 256, steps: int = 48):
+def open_channel_vs_cpu(nx: int = 512, ny: int = 256, steps: int = 48):
     """A coupled Zou/He channel under TRT + LES (the coupled scene of the
-    JAX package's open-boundary tests, at 1024x256): a mobile disk next
+    JAX package's open-boundary tests, at 512x256): a mobile disk next
     to the outlet that leaves and is culled, a fixed obstacle and a
     mobile disk mid-channel; the card against CPU tensors. Bars: f 1e-5,
     disk x 1e-4, the culled disk inactive on both."""
@@ -2900,6 +2920,255 @@ def ablation(coupling_k: int, chunk: int = 20, storage: str = "float32"):
     return counts
 
 
+def _cli(argv):
+    """cli.main(argv) in this process: (exit code, stdout, stderr, wall
+    seconds), the output echoed to the log."""
+    import contextlib
+    import io
+
+    from lbmdem_tpu_torch import cli
+
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli.main(argv)
+    secs = time.perf_counter() - t0
+    for line in (out.getvalue() + err.getvalue()).splitlines():
+        log("cli", f"  | {line}")
+    return rc, out.getvalue(), err.getvalue(), secs
+
+
+def _done_mlups(text: str) -> float:
+    """The MLUPS of the CLI's closing line "done: N steps, M MLUPS
+    overall"."""
+    line = [s for s in text.splitlines() if s.startswith("done:")][-1]
+    return float(line.split(",")[1].split()[0])
+
+
+def cli_full_width(smi: str):
+    """The user's entry point at full width: `python -m
+    lbmdem_tpu_torch.cli examples/column_collapse.par --steps 200 --out
+    <tmp>` in this process (auto path: the kernels), with the launch
+    counts zeroed before and read after (K1, K2, K3 200 each, nothing
+    else), the files it writes (metrics.csv, the fluid and particle VTK of
+    step 200, trajectories.csv), mass drift < 1e-5 from its metrics row,
+    and its step-200 disk state (from trajectories.csv) against an
+    in-process Simulation.run(200) of the deck, bit for bit. MLUPS of
+    both runs: the CLI's includes the snapshot. Returns the counts."""
+    import shutil
+    import tempfile
+
+    from lbmdem_tpu_torch import Simulation
+    from lbmdem_tpu_torch.utils.metrics import read_diagnostics
+
+    deck = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "examples", "column_collapse.par")
+    out = tempfile.mkdtemp(prefix="lbmdem_cli_")
+    try:
+        reset_counts()
+        rc, text, err, secs = _cli([deck, "--steps", "200", "--out", out])
+        counts = launch_counts()
+        assert rc == 0 and "note:" not in err, (rc, err)
+        assert counts == {**_NONE, "K1": 200, "K2": 200, "K3": 200}, counts
+        names = sorted(os.listdir(out))
+        want = ["fluid_00000200.vtk", "metrics.csv",
+                "particles_00000200.vtk", "trajectories.csv"]
+        assert names == want, names
+        sizes = {n: os.path.getsize(os.path.join(out, n)) for n in names}
+        assert sizes["fluid_00000200.vtk"] > 4096 * 4096 * 4 * 5, sizes
+        m = open(os.path.join(out, "metrics.csv")).read().splitlines()
+        row = dict(zip(m[0].split(","), m[-1].split(",")))
+        mass_err = abs(float(row["mass"]) / 4096 ** 2 - 1.0)
+        rows = np.loadtxt(os.path.join(out, "trajectories.csv"),
+                          delimiter=",", skiprows=1, ndmin=2)
+        cli_mlups = _done_mlups(text)
+        cfg, disks = _deck("column_collapse")
+        sim = Simulation(cfg, disks, device="cuda")
+        sim_mlups = sim.run(200)
+        # the host side of one snapshot: what the CLI's callback reads
+        t0 = time.perf_counter()
+        read_diagnostics(sim.state, sim.cfg)
+        sim.macroscopic()
+        sim.solid_fraction()
+        d = sim.disk_arrays()
+        snap_s = time.perf_counter() - t0
+        ids = rows[:, 1].astype(np.int64)
+        assert (rows[:, 0] == 200).all() and len(ids) == len(disks)
+        got = rows[:, 2:].astype(np.float32)
+        ref = np.column_stack([d["x"][ids], d["v"][ids], d["theta"][ids],
+                               d["omega"][ids]]).astype(np.float32)
+        err_d = float(np.abs(got - ref).max())
+        log("cli", f"column_collapse.par through the CLI: {rc=}, 200 steps "
+            f"in {secs:.2f} s, {cli_mlups:.1f} MLUPS (its run, snapshot "
+            f"included) vs Simulation.run(200) of the deck {sim_mlups:.1f} "
+            f"MLUPS in this call on {smi} (one snapshot's reads: "
+            f"{snap_s:.3f} s); launches {counts}; files "
+            f"{sizes}; |mass/(nx ny) - 1| {mass_err:.3e} (bar 1e-5); "
+            f"overflow {row['overflow']}, nan {row['nan']}; step-200 disk "
+            f"state (x, v, theta, omega of {len(ids)} disks) vs the "
+            f"in-process run: max |diff| {err_d:.3e} (bit for bit: "
+            f"{bool(np.array_equal(got, ref))})")
+        assert mass_err < 1e-5 and int(row["overflow"]) == 0
+        assert int(row["nan"]) == 0
+        assert np.array_equal(got, ref), f"CLI != in-process run ({err_d})"
+        return counts, cli_mlups, sim_mlups
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+
+
+def checkpoint_on_card():
+    """examples/settling_column.par on the card: run(100), save_state,
+    run(100) more; a fresh Simulation restored from the checkpoint and
+    run(100) equals the continuing run, and both equal one run(200) with
+    out_interval 100 (the same chunks), bit for bit on every leaf."""
+    import tempfile
+
+    from lbmdem_tpu_torch import Simulation
+    from lbmdem_tpu_torch.utils import checkpoint as ckpt
+
+    cfg, disks = _deck("settling_column")
+    cfg = cfg.replace(out_interval=100)
+    a = Simulation(cfg, disks, device="cuda")
+    a.run(100)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "restart.npz")
+        ckpt.save_state(path, ckpt.to_host(a.state), a.cfg)
+        a.run(100)
+        b = Simulation(cfg, disks, device="cuda")
+        b.state = ckpt.load_state(path, b.state)
+        mb = os.path.getsize(path) / 2**20
+    step0 = int(b.state.step)
+    b.run(100)
+    c = Simulation(cfg, disks, device="cuda")
+    c.run(200)
+    la, lb, lc = (ckpt._leaves(s.state) for s in (a, b, c))
+    same_ab = all(torch.equal(x, y) for x, y in zip(la, lb))
+    same_ac = all(torch.equal(x, y) for x, y in zip(la, lc))
+    ex = float((b.state.disks.x - c.state.disks.x).abs().max())
+    log("checkpoint", f"settling_column {cfg.nx}x{cfg.ny}, {len(disks)} "
+        f"disks: restored at step {step0} from a {mb:.1f} MiB checkpoint, "
+        f"run(100): equal to the continuing run bit for bit {same_ab}, to "
+        f"run(200) {same_ac} (disk x max |diff| {ex:.3e}); overflow "
+        f"{int(b.state.overflow)}")
+    assert step0 == 100 and int(b.state.step) == 200
+    assert same_ab and same_ac
+
+
+def plain_path_on_card(smi: str):
+    """The plain path (use_kernels=False) on the card: the Schafer-Turek
+    deck (440 x 82, no stamp tile takes its window) through the CLI's
+    auto path, which prints the plain-path note, launches no kernel and
+    runs 200 steps, finite with overflow 0; --kernels on that deck is an
+    error; examples/settling_column.par in float64 on the card against
+    the CPU (20 steps, f and disk x within 1e-9), then its MLUPS; the
+    column_collapse deck (4096^2, 10k disks, f32) on the plain path:
+    MLUPS over run(4) after run(2). Returns the MLUPS."""
+    import tempfile
+
+    from lbmdem_tpu_torch import Simulation
+
+    deck = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "examples", "schafer_turek.par")
+    with tempfile.TemporaryDirectory() as out:
+        reset_counts()
+        rc, text, err, secs = _cli([deck, "--steps", "200", "--out", out])
+        counts = launch_counts()
+        m = open(os.path.join(out, "metrics.csv")).read().splitlines()
+        row = dict(zip(m[0].split(","), m[-1].split(",")))
+        try:
+            _cli([deck, "--kernels", "--steps", "2", "--out", out])
+            refused = None
+        except SystemExit as e:
+            refused = e.code
+    st_mlups = _done_mlups(text)
+    log("plain", f"schafer_turek.par through the CLI's auto path: {rc=}, "
+        f"note {'note: ' in err and 'plain path' in err}, 200 steps in "
+        f"{secs:.2f} s ({st_mlups:.2f} MLUPS), launches {counts}; step "
+        f"{row['step']}, nan {row['nan']}, overflow {row['overflow']}, "
+        f"max_u {float(row['max_u']):.4f}; --kernels on it exits "
+        f"{refused}")
+    assert rc == 0 and "note: " in err and "plain path" in err
+    assert counts == _NONE, counts
+    assert int(row["step"]) == 200 and int(row["nan"]) == 0
+    assert int(row["overflow"]) == 0 and 0 < float(row["max_u"]) < 0.3
+    assert refused == 2
+
+    torch.set_num_threads(min(8, os.cpu_count() or 1))
+    cfg, disks = _deck("settling_column")
+    cfg = cfg.replace(dtype="float64")
+    g = Simulation(cfg, disks, device="cuda", use_kernels=False)
+    c = Simulation(cfg, disks, device="cpu", use_kernels=False)
+    reset_counts()
+    g.run(20)
+    c.run(20)
+    assert launch_counts() == _NONE
+    ef = float((g.state.f.cpu() - c.state.f).abs().max())
+    ex = float((g.state.disks.x.cpu() - c.state.disks.x).abs().max())
+    nc = (int(g.state.n_contacts), int(c.state.n_contacts))
+    f64_mlups = g.run(20)
+    log("plain", f"settling_column {cfg.nx}x{cfg.ny}, {len(disks)} disks, "
+        f"float64, plain path, 20 steps: card vs CPU f max err {ef:.3e}, "
+        f"disk x max err {ex:.3e} (bar 1e-9); contacts {nc[0]} == {nc[1]};"
+        f" then {f64_mlups:.2f} MLUPS over run(20) on {smi}")
+    assert g.state.f.dtype == torch.float64
+    assert ef <= 1e-9 and ex <= 1e-9
+    assert nc[0] == nc[1] and int(g.state.overflow) == 0
+    del g, c
+
+    cfg, disks = _deck("column_collapse")
+    p = Simulation(cfg, disks, device="cuda", use_kernels=False)
+    p.run(2)
+    torch.cuda.reset_peak_memory_stats()
+    big_mlups = p.run(4)
+    f = p.state.f
+    mass_err = abs(float(f.double().sum()) / (cfg.nx * cfg.ny) - 1.0)
+    log("plain", f"column_collapse {cfg.nx}x{cfg.ny}, {len(disks)} disks, "
+        f"f32, plain path: {big_mlups:.2f} MLUPS over run(4) on {smi}; "
+        f"peak mem {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+        f"|sum f/(nx ny) - 1| {mass_err:.3e}; overflow "
+        f"{int(p.state.overflow)}")
+    assert bool(torch.isfinite(f).all()) and mass_err < 1e-5
+    assert int(p.state.overflow) == 0
+    return st_mlups, f64_mlups, big_mlups
+
+
+def paranoia_on_card():
+    """Paranoid mode on the card against the CPU: a 128x32 channel with
+    a fixed disk at rest, a NaN injected into f after step 4, run(8):
+    "step" (the per-step cadence path, K1 + K2) reports step 5, "chunk"
+    (the static hoist, K7 passes of 4) step 8, each with the state frozen
+    there, the same on both devices."""
+    from lbmdem_tpu_torch import DiskSpec, SimConfig, Simulation
+    from lbmdem_tpu_torch.simulation import SimulationDiverged
+
+    for mode, want, kern in ((True, 5, "K2"), ("chunk", 8, "K7")):
+        cfg = SimConfig(nx=128, ny=32, tau=0.8, gx=1e-5, paranoia=mode,
+                        bc_west="wall", bc_east="wall", out_interval=100)
+        got = {}
+        for dev in ("cuda", "cpu"):
+            sim = Simulation(cfg, [DiskSpec(40.0, 16.0, 3.0, fixed=True)],
+                             device=dev)
+            sim.run(4)
+            assert int(sim.state.fail_step) == -1
+            sim.state.f[0, 5, 7] = float("nan")
+            reset_counts()
+            try:
+                sim.run(8)
+                got[dev] = None
+            except SimulationDiverged as e:
+                got[dev] = (e.step, int(sim.state.step),
+                            int(sim.state.fail_step))
+            if dev == "cuda":
+                counts = launch_counts()
+        log("paranoia", f"paranoia={mode!r}: card {got['cuda']}, CPU "
+            f"{got['cpu']} (fail step, frozen step, fail_step; want "
+            f"{want}); card launches {counts}")
+        assert got["cuda"] == got["cpu"] == (want, want, want), got
+        assert counts[kern] > 0, counts
+
+
+
+
 def main() -> int:
     smi = probe()
     build()
@@ -2983,6 +3252,10 @@ def main() -> int:
     acounts = ablation(1)
     ablation(4)
     ablation(1, chunk=10, storage="bfloat16")
+    cli_full_width(smi)
+    checkpoint_on_card()
+    plain_path_on_card(smi)
+    paranoia_on_card()
     counts.update({k: acounts[k] for k in ("K8", "K9")})
     counts.update({k: fcounts[k] for k in ("K4", "K5")})
     counts.update({k: wcounts[k] for k in ("K6", "K3w")})

@@ -54,10 +54,12 @@ def storage_dtype(cfg: SimConfig) -> torch.dtype:
 
 def check_storage(what: str, cfg: SimConfig, f, out) -> torch.dtype:
     """The storage dtype of cfg, after checking that f and out are
-    contiguous CUDA tensors of it on one device (float64 on the card is
-    not ported)."""
+    contiguous CUDA tensors of it on one device (float64 is for the
+    plain path)."""
     if f.dtype == torch.float64:
-        raise not_ported("dtype='float64' on the card", 9)
+        raise NotImplementedError(
+            f"{what}: the kernels take float32 or bfloat16 storage; float64 "
+            f"runs on the plain path (Simulation(..., use_kernels=False))")
     want = storage_dtype(cfg)
     for t in (f, out):
         if t.device != f.device or t.dtype != want or not t.is_contiguous():

@@ -345,6 +345,8 @@ def _force_plain(s, hyd, kmax: int, wrap_l: bool, cfg: SimConfig, xi0=None,
                     (col + dc >= 0) & (col + dc < C)) for dc in (-1, 0, 1)}
     F = torch.zeros((3, K, R, C), dtype=s.dtype, device=s.device)
     nc = torch.zeros((), dtype=torch.int64, device=s.device)
+    if kmax == 0:  # no disk holds a slot (e.g. every one past the grid)
+        return F, nc
     st = s[[_X, _Y, _VX, _VY, _OM, _R], :kmax]  # (6, kmax, R, C)
     # partner planes of every (k2, dy, dc), in the kernel's loop order:
     # shifted[c, j][s][l] = st[c, k2][s + dy][l + dc]

@@ -58,10 +58,15 @@ COV_METHODS = {"sample": 0, "ramp": 1, "exact": 2}
 COV_MARGIN = 2.0 ** -12
 
 
+def tile_shape(cfg: SimConfig) -> Tuple[int, int]:
+    """(th, tw) of the stamp tiles of cfg's lattice."""
+    return (next(t for t in _TILE_ROWS if cfg.ny % t == 0),
+            next(t for t in _TILE_COLS if cfg.nx % t == 0))
+
+
 def tile_dims(cfg: SimConfig) -> Tuple[int, int]:
     """(th, tw) of the stamp tiles; the tile must hold a stamp window."""
-    th = next(t for t in _TILE_ROWS if cfg.ny % t == 0)
-    tw = next(t for t in _TILE_COLS if cfg.nx % t == 0)
+    th, tw = tile_shape(cfg)
     if cfg.window > min(th, tw):
         raise ValueError(
             f"stamp window {cfg.window} exceeds tile {th}x{tw}; disks too "

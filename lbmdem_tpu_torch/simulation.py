@@ -58,10 +58,27 @@ parents, and the DEM takes minimum-image contacts across the seam.
 
 `Simulation` runs on the card unless it is given device="cpu". On CUDA
 tensors the kernels run as hand-written CUDA; on CPU tensors every
-kernel takes its plain PyTorch version (float32 or float64). What is
-not ported (float64 on the card, coupled scenes without disks, paranoid
-mode, a device mesh) raises NotImplementedError naming the ROADMAP.md
-item that will port it.
+kernel takes its plain PyTorch version (float32 or float64).
+`kernels_supported` states the kernels' limits; `use_kernels=True` (the
+default) on a config past them raises ValueError before any launch.
+
+With use_kernels=False every step is the JAX package's plain step
+(`make_step_fn(use_pallas=False)`) on tensors of any device and dtype:
+the coupled step stamps, collides, streams, bounces back and reduces
+with `ops/imb.py` and `ops/lbm.py` and moves the disks with the
+cell-list `dem.dem_subcycle` (or the drift), one step at a time with
+no Verlet cadence; pure fluid is `lbm.step_pure_fluid`. That path runs
+float64 on the card, lattices the stamp tiles cannot take, and coupled
+scenes without disks (max_disks > 0), as the JAX package's default
+path does.
+
+Paranoid mode (cfg.paranoia) validates the state on the device
+(`state_ok`) and freezes it at the first failing step
+(`paranoid_commit`): "step" after every step, "chunk" at the kernel
+chunks' boundaries (a cadence block, a K7 pass); pure fluid on the
+kernels validates once per K5 pass in either mode, and the plain path
+after every step. `run` raises SimulationDiverged after the chunk.
+A device mesh raises NotImplementedError naming its ROADMAP.md item.
 
     sim = Simulation(cfg, disks, device="cuda")
     mlups = sim.run(100)
@@ -90,6 +107,14 @@ BIN_MARGIN = 2
 TEMPORAL_K = 4
 
 
+class SimulationDiverged(RuntimeError):
+    """Raised by paranoid mode; .step is the first failing step."""
+
+    def __init__(self, msg: str, step: int):
+        super().__init__(msg)
+        self.step = step
+
+
 class SimState(NamedTuple):
     """Full simulation state (the JAX `SimState` fields); the counters
     are 0-dim int32 tensors on the state's device."""
@@ -99,24 +124,115 @@ class SimState(NamedTuple):
     step: torch.Tensor
     overflow: torch.Tensor  # max binning/slab overflow seen
     n_contacts: torch.Tensor  # contacts at the last step
-    fail_step: torch.Tensor  # -1 (paranoid mode is not ported)
+    # first step whose state failed paranoid validation (-1 = healthy);
+    # once set, every later commit keeps the state frozen there
+    fail_step: torch.Tensor
 
 
-def check_slice(cfg: SimConfig, disks: Sequence[DiskSpec], device,
-                mesh=None) -> None:
-    """Raise NotImplementedError for the configurations that are not
-    ported, naming the ROADMAP.md item that will port each."""
-    if mesh is not None:
-        raise not_ported("a device mesh (multi-GPU)", 12)
-    if cfg.paranoia:
-        raise not_ported("paranoid mode", 11)
-    if cfg.dtype == "float64" and torch.device(device).type == "cuda":
-        raise not_ported("dtype='float64' on the card", 9)
-    if cfg.max_disks == 0 and not disks:
-        fused_fluid.check_fluid_cfg(cfg)
-        return
-    if not disks:
-        raise not_ported("coupled scenes without disks", 9)
+def state_ok(cfg: SimConfig, new: SimState) -> torch.Tensor:
+    """() bool on the state's device: all f finite, rho > 0 everywhere
+    (summed in float32, as the JAX check does), disk state finite, no
+    capacity overflow."""
+    ok = torch.isfinite(new.f).all()
+    # bf16 storage holds g = f - w*rho0: rho = sum(g) + rho0
+    rho = torch.sum(new.f.to(torch.float32), dim=0)
+    if cfg.f_storage == "bfloat16":
+        rho = rho + cfg.rho0
+    ok = ok & (rho > 0.0).all()
+    if cfg.max_disks > 0:
+        d = new.disks
+        ok = (ok & torch.isfinite(d.x).all() & torch.isfinite(d.v).all()
+              & torch.isfinite(d.omega).all())
+    return ok & (new.overflow == 0)
+
+
+def paranoid_commit(old: SimState, new: SimState, ok) -> SimState:
+    """Freeze-on-failure commit, on the device: once old.fail_step is
+    set every commit returns `old`; an ok=False commit records new.step
+    as the failing step. f is selected into new.f's buffer (the step's
+    output), so the two f buffers keep trading places."""
+    frozen = old.fail_step >= 0
+
+    def sel(o, n):
+        return torch.where(frozen, o, n)
+
+    f = torch.where(frozen, old.f, new.f, out=new.f)
+    disks = DiskState(*(sel(o, n) for o, n in zip(old.disks, new.disks)))
+    fail = torch.where(frozen, old.fail_step,
+                       torch.where(ok, -1, new.step).to(torch.int32))
+    return SimState(f=f, disks=disks, step=sel(old.step, new.step),
+                    overflow=sel(old.overflow, new.overflow),
+                    n_contacts=sel(old.n_contacts, new.n_contacts),
+                    fail_step=fail)
+
+
+def paranoid_wrap(step: Callable, cfg: SimConfig) -> Callable:
+    """The step followed by state_ok and paranoid_commit: the step runs
+    unconditionally, and after the first failure the state stays frozen
+    at the failing step for inspection."""
+
+    def wrapped(state: SimState, f_out: torch.Tensor) -> SimState:
+        new = step(state, f_out)
+        return paranoid_commit(state, new, state_ok(cfg, new))
+
+    return wrapped
+
+
+def kernels_supported(cfg: SimConfig, device="cuda") -> Optional[str]:
+    """None if the kernel path takes the derived config `cfg` (window
+    and tile_cap set, as `derive_config` leaves them) on `device`, else
+    the reason. On the card the kernels take f32 or shifted-bf16 storage
+    of a float32 config; on any device a coupled scene needs the stamp
+    window plus the 2 BIN_MARGIN cells of the Verlet cadence to fit one
+    stamp tile, and disks to size the tiles' capacity from. Unlike the
+    JAX package's pallas_supported there is no 8 x 128 lattice
+    alignment."""
+    if torch.device(device).type == "cuda" and cfg.dtype != "float32":
+        return (f"the kernels take float32 or bfloat16 storage "
+                f"(dtype={cfg.dtype})")
+    if cfg.max_disks == 0:
+        return None
+    th, tw = stamp.tile_shape(cfg)
+    margin = 2 * BIN_MARGIN
+    if cfg.window + margin > min(th, tw):
+        return (f"stamp window {cfg.window} (+{margin} Verlet margin) "
+                f"exceeds the {th}x{tw} stamp tile; disks too large for "
+                f"this lattice")
+    if cfg.tile_cap <= 0:
+        return ("a coupled scene without disks (max_disks > 0, no "
+                "particles): the stamp tiles' capacity is sized from them")
+    return None
+
+
+def derive_config(cfg: SimConfig, disks: Sequence[DiskSpec],
+                  use_kernels: bool = True):
+    """(derived cfg, DEM grid or None): the stamp window and disk
+    capacity from the disks, the DEM grid (at r = 1 for a coupled scene
+    without disks), on the kernel path the stamp tiles' capacity, and
+    on periodic axes the ghost capacity - the JAX Simulation's
+    derivation."""
+    grid = None
+    if disks:
+        r_max = max(d.r for d in disks)
+        if cfg.window <= 0:
+            cfg = cfg.replace(window=window_for_radius(r_max))
+        if cfg.max_disks < len(disks):
+            cfg = cfg.replace(max_disks=len(disks))
+        grid = DemGrid.build(cfg, r_max)
+    elif cfg.max_disks > 0:
+        grid = DemGrid.build(cfg, 1.0)
+        if cfg.window <= 0:
+            cfg = cfg.replace(window=window_for_radius(1.0))
+    if use_kernels and disks and cfg.tile_cap <= 0:
+        th, tw = stamp.tile_shape(cfg)
+        cfg = cfg.replace(tile_cap=stamp.default_tile_cap(
+            th, tw, min(d.r for d in disks), cfg.window + 2 * BIN_MARGIN))
+    cfg.validate_periodic_dem()
+    if (cfg.max_disks > 0 and (cfg.wrap_lx or cfg.wrap_ly)
+            and cfg.ghost_cap <= 0):
+        cfg = cfg.replace(ghost_cap=imb.default_ghost_cap(
+            cfg.max_disks, cfg, BIN_MARGIN))
+    return cfg, grid
 
 
 def _at_rest(disks: Sequence[DiskSpec]) -> bool:
@@ -129,8 +245,13 @@ def _zero_i32(device, value: int = 0) -> torch.Tensor:
 
 def make_step_fn(cfg: SimConfig, grid: Optional[DemGrid], tile_lists=None,
                  dem_axis: str = "y", temporal_k: int = 1,
-                 coupling_k: int = 1, dem_mode: str = "subcycle") -> Callable:
-    """The step: step(state, f_out) -> SimState.
+                 coupling_k: int = 1, dem_mode: str = "subcycle",
+                 use_kernels: bool = True) -> Callable:
+    """The step: step(state, f_out) -> SimState, wrapped in
+    paranoid_wrap when cfg.paranoia is set.
+
+    use_kernels=False: the plain step (`make_plain_step_fn`), one step
+    per call; the other arguments but grid and dem_mode are unused.
 
     grid None (no disks): the pure-fluid step, temporal_k steps in one
     kernel pass (K4 when 1, K5 above). Otherwise the coupled step: one
@@ -150,6 +271,88 @@ def make_step_fn(cfg: SimConfig, grid: Optional[DemGrid], tile_lists=None,
     gaxes None without periodic axes); per-step travel beyond the margin
     is counted into state.overflow. Without it every step wraps, selects
     ghosts and bins afresh (margin 0)."""
+    if not use_kernels:
+        step = make_plain_step_fn(cfg, grid, dem_mode)
+    else:
+        step = _kernel_step_fn(cfg, grid, tile_lists, dem_axis, temporal_k,
+                               coupling_k, dem_mode)
+    return paranoid_wrap(step, cfg) if cfg.paranoia else step
+
+
+def _advance_disks(d: DiskState, fh, th, grid: DemGrid, cfg: SimConfig,
+                   dem_mode: str):
+    """One step of disk motion on the cell list: the DEM subcycle, or
+    under dem_mode "drift" (every disk fixed) the prescribed translation
+    and rotation over dt = 1, with no contact machinery."""
+    if dem_mode == "drift":
+        act = d.active.to(d.x.dtype)
+        z = _zero_i32(d.x.device)
+        return d._replace(x=d.x + d.v * act[:, None],
+                          theta=d.theta + d.omega * act), z, z
+    return dem.dem_subcycle(d, fh, th, grid, cfg)
+
+
+def make_plain_step_fn(cfg: SimConfig, grid: Optional[DemGrid],
+                       dem_mode: str = "subcycle") -> Callable:
+    """The JAX package's plain step (its make_step_fn with use_pallas
+    False) on tensors of any device and dtype: pure fluid
+    (`lbm.step_pure_fluid`, grid None), or the coupled step - periodic
+    ghosts, `imb.stamp_solid_fraction`, `mask_open_columns` under
+    Zou/He, `imb.collide_imb`, `lbm.stream`, `apply_bounce_back`,
+    `apply_open_boundaries`, `imb.reduce_hydro_forces`, the ghost fold,
+    the cell-list DEM subcycle or the drift, `cull_open_boundaries`.
+    Storage converts at the step's ends (bf16 round trip). It returns
+    new tensors; `f_out` is unused."""
+    if grid is None:
+
+        def fluid_step(state: SimState, f_out=None) -> SimState:
+            f = lbm.step_pure_fluid(lbm.from_storage(state.f, cfg), cfg)
+            return state._replace(f=lbm.to_storage(f, cfg),
+                                  step=state.step + 1)
+
+        return fluid_step
+
+    periodic = bool(cfg.wrap_lx or cfg.wrap_ly)
+    open_cull = cfg.bc_west == "inlet"
+
+    def step(state: SimState, f_out=None) -> SimState:
+        d = state.disks
+        n_real = d.x.shape[0]
+        gparent = None
+        if periodic:
+            xw, aug, gparent, _, bovf = imb.periodic_ghosts(
+                d.x, d.v, d.omega, d.r, d.active, cfg)
+            d = d._replace(x=xw)
+        else:
+            aug = (d.x, d.v, d.omega, d.r, d.active)
+            bovf = _zero_i32(d.x.device)
+        xa, va, oma, ra, acta = aug
+        eps, usx, usy = imb.stamp_solid_fraction(xa, va, oma, ra, acta, cfg)
+        if open_cull:
+            eps, usx, usy = imb.mask_open_columns(eps, usx, usy)
+        f_phys = lbm.from_storage(state.f, cfg)
+        fpost, phix, phiy = imb.collide_imb(f_phys, eps, usx, usy, cfg)
+        fnew = lbm.to_storage(lbm.apply_open_boundaries(
+            lbm.apply_bounce_back(lbm.stream(fpost), fpost, cfg), cfg), cfg)
+        fh, th = imb.reduce_hydro_forces(xa, ra, acta, eps, phix, phiy, cfg)
+        if periodic:
+            fh, th = imb.fold_ghost_forces(fh, th, gparent, n_real)
+        disks, ovf, nc = _advance_disks(d, fh, th, grid, cfg, dem_mode)
+        if open_cull:
+            disks = dem.cull_open_boundaries(disks, cfg)
+        return SimState(
+            f=fnew, disks=disks, step=state.step + 1,
+            overflow=torch.maximum(state.overflow, torch.maximum(ovf, bovf)),
+            n_contacts=nc, fail_step=state.fail_step,
+        )
+
+    return step
+
+
+def _kernel_step_fn(cfg: SimConfig, grid: Optional[DemGrid], tile_lists,
+                    dem_axis: str, temporal_k: int, coupling_k: int,
+                    dem_mode: str) -> Callable:
+    """make_step_fn's kernel path (its docstring)."""
     if grid is None:
 
         def fluid_step(state: SimState, f_out: torch.Tensor) -> SimState:
@@ -214,18 +417,11 @@ def make_step_fn(cfg: SimConfig, grid: Optional[DemGrid], tile_lists=None,
         return fh, th
 
     def advance_disks(d: DiskState, fh, th):
-        """One step of disk motion: the slab DEM subcycle (the cell-list
-        subcycle beyond the slab gate), or under dem_mode "drift" (every
-        disk fixed) the prescribed translation and rotation over dt = 1,
-        with no contact machinery."""
-        if dem_mode == "drift":
-            act = d.active.to(d.x.dtype)
-            z = _zero_i32(d.x.device)
-            return d._replace(x=d.x + d.v * act[:, None],
-                              theta=d.theta + d.omega * act), z, z
+        """One step of disk motion: the slab DEM subcycle, past the slab
+        gate the cell-list subcycle, or the drift."""
         if use_slab_dem(d):
             return slab_dem.dem_subcycle(d, fh, th, grid, cfg, dem_axis)
-        return dem.dem_subcycle(d, fh, th, grid, cfg)
+        return _advance_disks(d, fh, th, grid, cfg, dem_mode)
 
     if coupling_k > 1:
 
@@ -282,14 +478,39 @@ def make_static_step_fn(cfg: SimConfig, solid: torch.Tensor,
                         k: int) -> Callable:
     """The static-solid hoist's step: k coupled steps over the constant
     solid stack in one K7 pass (no binning, reduce or DEM; the fixed
-    disks at rest never move)."""
+    disks at rest never move). Under paranoia="chunk" (the hoist's only
+    paranoid mode) each pass is validated at its end."""
 
     def static_step(state: SimState, f_out: torch.Tensor) -> SimState:
         fnew = fused_static.fused_step_imb_static_multi(state.f, solid, cfg,
                                                         k, f_out)
         return state._replace(f=fnew, step=state.step + k)
 
-    return static_step
+    return paranoid_wrap(static_step, cfg) if cfg.paranoia else static_step
+
+
+def static_solid_stack(cfg: SimConfig, d: DiskState) -> torch.Tensor:
+    """The static hoist's (3, ny, nx) solid stack of fixed disks at rest,
+    stamped once (K1) with their periodic ghosts: columns 0 and nx - 1
+    zeroed under Zou/He (the closures assume fluid there). The binning
+    (margin 0) and ghost overflow is checked here, once, instead of per
+    step."""
+    x, v, om, r, act = d.x, d.v, d.omega, d.r, d.active
+    ovf = _zero_i32(x.device)
+    if cfg.wrap_lx or cfg.wrap_ly:
+        _, (x, v, om, r, act), _, _, ovf = imb.periodic_ghosts(
+            x, v, om, r, act, cfg)
+    tile_data, counts, _, bovf = stamp.bin_disks_to_tiles(x, v, om, r, act,
+                                                          cfg)
+    solid = stamp.stamp_fields(tile_data, counts, cfg)
+    if cfg.bc_west == "inlet":
+        solid[:, :, 0].zero_()
+        solid[:, :, -1].zero_()
+    if int(torch.maximum(ovf, bovf)) != 0:
+        raise ValueError(
+            "static-solid binning overflow: raise cfg.tile_cap "
+            "(or cfg.ghost_cap for periodic obstacle arrays)")
+    return solid
 
 
 class Simulation:
@@ -297,31 +518,48 @@ class Simulation:
 
     It runs on the card (device="cuda", the default) unless it is given
     device="cpu", where every kernel takes its plain version; it raises
-    RuntimeError when asked for the card and none is present."""
+    RuntimeError when asked for the card and none is present.
+    use_kernels=False takes the plain path (the JAX package's
+    use_pallas=False); use_kernels=True raises ValueError where
+    `kernels_supported` names a reason."""
 
     def __init__(self, cfg: SimConfig, disks: Sequence[DiskSpec] = (),
-                 device="cuda", mesh=None):
+                 device="cuda", use_kernels: bool = True, mesh=None):
         disks = list(disks)
-        check_slice(cfg, disks, device, mesh)
+        if mesh is not None:
+            raise not_ported("a device mesh (multi-GPU)", 12)
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
                 "Simulation: no CUDA device is available "
                 "(torch.cuda.is_available() is False); pass device='cpu' to "
                 "run the plain PyTorch versions on the CPU")
+        cfg, self.grid = derive_config(cfg, disks, use_kernels)
+        if use_kernels:
+            reason = kernels_supported(cfg, self.device)
+            if reason is not None:
+                raise ValueError(f"use_kernels=True unsupported: {reason}")
+        if cfg.coupling_k > 1 and cfg.max_disks > 0:
+            # a window is a kernel chunk structure; step() stays exact
+            # per-step coupling
+            if not use_kernels:
+                raise ValueError(
+                    "coupling_k > 1 needs use_kernels=True (it is a fused-"
+                    "kernel chunk structure)")
+            if cfg.paranoia_mode == "step":
+                raise ValueError(
+                    "coupling_k > 1 conflicts with paranoia='step' "
+                    "(per-step validation forces per-step coupling); "
+                    "use paranoia='chunk'")
+        self.cfg = cfg
+        self.use_kernels = use_kernels
+        self.dem_axis = slab_dem.choose_axis(disks, cfg)
         # every disk fixed: no contact mechanics, positions drift at the
         # prescribed v/omega; also at rest: binning and stamp are constant
         self.dem_mode = ("drift" if disks and all(d.fixed for d in disks)
                          else "subcycle")
         self.static_solid = self.dem_mode == "drift" and _at_rest(disks)
         self._solid_stack = None  # _static_solid_operands' cache
-        if disks:
-            cfg = self._derive_coupled(cfg, disks)
-        else:
-            self.grid = None
-            self.dem_axis = "y"
-            self._kstep = make_step_fn(cfg, None, temporal_k=TEMPORAL_K)
-        self.cfg = cfg
         f = lbm.to_storage(lbm.init_equilibrium(cfg, self.device), cfg)
         self.state = SimState(
             f=f, disks=make_disk_state(disks, cfg, device=self.device),
@@ -329,33 +567,15 @@ class Simulation:
             n_contacts=_zero_i32(self.device),
             fail_step=_zero_i32(self.device, -1),
         )
-        # the second f buffer: each step writes into it and the two swap
+        # the second f buffer: each kernel step writes into it and the
+        # two swap
         self._f_spare = torch.empty_like(f)
         self._step = make_step_fn(cfg, self.grid, dem_axis=self.dem_axis,
-                                  dem_mode=self.dem_mode)
+                                  dem_mode=self.dem_mode,
+                                  use_kernels=use_kernels)
+        if self.grid is None and use_kernels:
+            self._kstep = make_step_fn(cfg, None, temporal_k=TEMPORAL_K)
         self.mlups_last = 0.0
-
-    def _derive_coupled(self, cfg: SimConfig, disks) -> SimConfig:
-        """The coupled path's derived config (window, capacity, tile cap,
-        ghost cap), its DEM grid and slab axis (make_step_fn takes the
-        cell-list DEM where the slab gate rejects the grid)."""
-        r_max = max(d.r for d in disks)
-        if cfg.window <= 0:
-            cfg = cfg.replace(window=window_for_radius(r_max))
-        if cfg.max_disks < len(disks):
-            cfg = cfg.replace(max_disks=len(disks))
-        self.grid = DemGrid.build(cfg, r_max)
-        if cfg.tile_cap <= 0:
-            th, tw = stamp.tile_dims(cfg)
-            r_min = min(d.r for d in disks)
-            cfg = cfg.replace(tile_cap=stamp.default_tile_cap(
-                th, tw, r_min, cfg.window + 2 * BIN_MARGIN))
-        cfg.validate_periodic_dem()
-        if (cfg.wrap_lx or cfg.wrap_ly) and cfg.ghost_cap <= 0:
-            cfg = cfg.replace(ghost_cap=imb.default_ghost_cap(
-                cfg.max_disks, cfg, BIN_MARGIN))
-        self.dem_axis = slab_dem.choose_axis(disks, cfg)
-        return cfg
 
     # --- stepping ---
     def _advance(self, stepfn: Callable) -> None:
@@ -369,16 +589,22 @@ class Simulation:
         self._advance(self._step)
 
     def _run_chunk(self, n: int) -> None:
-        """n steps as Verlet-cadence blocks of BIN_CADENCE steps (the JAX
+        """n steps. The plain path takes them one at a time. On the
+        kernels: Verlet-cadence blocks of BIN_CADENCE steps (the JAX
         single-device coupled chunk): each block wraps the positions and
         selects the periodic ghosts with BIN_MARGIN slack, rebuilds the
         tile lists with the same slack and counts both overflows, then
         takes its b steps as b // coupling_k windows and b % coupling_k
-        single steps. The static hoist (all disks fixed at rest) instead
-        takes n // TEMPORAL_K K7 passes of TEMPORAL_K steps and
-        n % TEMPORAL_K of one step over the solid stack stamped once.
-        Pure fluid: n // TEMPORAL_K K5 passes, then n % TEMPORAL_K K4
-        steps (the JAX pure-fluid chunk)."""
+        single steps; under paranoia="chunk" the block is validated at
+        its end. The static hoist (all disks fixed at rest, unless
+        paranoia="step") instead takes n // TEMPORAL_K K7 passes of
+        TEMPORAL_K steps and n % TEMPORAL_K of one step over the solid
+        stack stamped once. Pure fluid: n // TEMPORAL_K K5 passes, then
+        n % TEMPORAL_K K4 steps (the JAX pure-fluid chunk)."""
+        if not self.use_kernels:
+            for _ in range(n):
+                self._advance(self._step)
+            return
         if self.grid is None:
             passes, singles = divmod(n, TEMPORAL_K)
             for _ in range(passes):
@@ -387,7 +613,7 @@ class Simulation:
                 self._advance(self._step)
             return
         cfg = self.cfg
-        if self.static_solid:
+        if self.static_solid and cfg.paranoia_mode != "step":
             solid = self._static_solid_operands()
             passes, singles = divmod(n, TEMPORAL_K)
             for k, m in ((TEMPORAL_K, passes), (1, singles)):
@@ -396,9 +622,17 @@ class Simulation:
                     self._advance(sstep)
             return
         periodic = bool(cfg.wrap_lx or cfg.wrap_ly)
+        # paranoia="chunk": validate once per cadence block instead of
+        # per step (the inner steps run unwrapped)
+        par_chunk = cfg.paranoia_mode == "chunk"
+        step_cfg = cfg.replace(paranoia=False) if par_chunk else cfg
         done = 0
         while done < n:
             k = min(BIN_CADENCE, n - done)
+            if par_chunk:
+                # the block's steps overwrite both f buffers: keep the
+                # block-start f for a commit that stays frozen
+                st_in = self.state._replace(f=self.state.f.clone())
             d = self.state.disks
             gparent = gaxes = None
             xb, actb = d.x, d.active
@@ -419,42 +653,25 @@ class Simulation:
             ck = cfg.coupling_k
             nwin, rem = divmod(k, ck)
             if nwin:
-                wstep = make_step_fn(cfg, self.grid, tl, self.dem_axis,
+                wstep = make_step_fn(step_cfg, self.grid, tl, self.dem_axis,
                                      coupling_k=ck, dem_mode=self.dem_mode)
                 for _ in range(nwin):
                     self._advance(wstep)
             if rem:
-                stepfn = make_step_fn(cfg, self.grid, tl, self.dem_axis,
+                stepfn = make_step_fn(step_cfg, self.grid, tl, self.dem_axis,
                                       dem_mode=self.dem_mode)
                 for _ in range(rem):
                     self._advance(stepfn)
+            if par_chunk:
+                self.state = paranoid_commit(st_in, self.state,
+                                             state_ok(cfg, self.state))
             done += k
 
     def _static_solid_operands(self) -> torch.Tensor:
-        """The static hoist's (3, ny, nx) solid stack, stamped once (K1)
-        from the fixed disks at rest with their periodic ghosts and
-        cached: columns 0 and nx - 1 zeroed under Zou/He (the closures
-        assume fluid there). The binning and ghost overflow is checked
-        here, once, instead of per step."""
+        """The static hoist's solid stack (`static_solid_stack`), stamped
+        once and cached."""
         if self._solid_stack is None:
-            cfg = self.cfg
-            d = self.state.disks
-            x, v, om, r, act = d.x, d.v, d.omega, d.r, d.active
-            ovf = _zero_i32(self.device)
-            if cfg.wrap_lx or cfg.wrap_ly:
-                _, (x, v, om, r, act), _, _, ovf = imb.periodic_ghosts(
-                    x, v, om, r, act, cfg)
-            tile_data, counts, _, bovf = stamp.bin_disks_to_tiles(
-                x, v, om, r, act, cfg)
-            solid = stamp.stamp_fields(tile_data, counts, cfg)
-            if cfg.bc_west == "inlet":
-                solid[:, :, 0].zero_()
-                solid[:, :, -1].zero_()
-            if int(torch.maximum(ovf, bovf)) != 0:
-                raise ValueError(
-                    "static-solid binning overflow: raise cfg.tile_cap "
-                    "(or cfg.ghost_cap for periodic obstacle arrays)")
-            self._solid_stack = solid
+            self._solid_stack = static_solid_stack(self.cfg, self.state.disks)
         return self._solid_stack
 
     def run(self, steps: Optional[int] = None,
@@ -470,6 +687,8 @@ class Simulation:
             n = min(interval, steps - done)
             self._run_chunk(n)
             done += n
+            if self.cfg.paranoia:
+                self.check_health()
             if callback is not None:
                 self._sync()
                 callback(self)
@@ -477,6 +696,17 @@ class Simulation:
         dt_s = time.perf_counter() - t0
         self.mlups_last = self.cfg.nx * self.cfg.ny * steps / dt_s / 1e6
         return self.mlups_last
+
+    def check_health(self) -> None:
+        """Raise SimulationDiverged if paranoid validation tripped (one
+        read of fail_step from the device)."""
+        fail = int(self.state.fail_step)
+        if fail >= 0:
+            raise SimulationDiverged(
+                f"paranoid check failed at step {fail}: non-finite f, "
+                f"rho <= 0, non-finite disk state, or capacity overflow "
+                f"(overflow={int(self.state.overflow)}); state frozen at "
+                f"the failing step for inspection", fail)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -505,7 +735,9 @@ class Simulation:
         return rho.cpu().numpy(), ux.cpu().numpy(), uy.cpu().numpy()
 
     def disk_arrays(self):
-        return {k: v.cpu().numpy()
+        """The disk state as numpy arrays (copies: a writer may hold
+        them while the run goes on)."""
+        return {k: v.to("cpu", copy=True).numpy()
                 for k, v in self.state.disks._asdict().items()}
 
     def _coupling_view(self):

@@ -36,6 +36,8 @@ from lbmdem_tpu_torch.models import column_collapse
 from lbmdem_tpu_torch.models import porous_bed
 from lbmdem_tpu_torch.ops import (dem, fused_fluid, fused_lbm, fused_static,
                                   imb, lbm, slab_dem, stamp)
+from lbmdem_tpu_torch.ops.dem import make_disk_state
+from lbmdem_tpu_torch.simulation import derive_config, static_solid_stack
 
 pytestmark = pytest.mark.cuda
 torch.set_num_threads(2)  # tier-1 runs several xdist workers
@@ -217,9 +219,19 @@ def test_simulation_on_card_matches_cpu(dev):
 
 
 def test_kernels_reject_float64_on_card(dev):
+    """float64 on the card: the kernel path refuses it before any launch,
+    the plain path runs it and agrees with the CPU's plain path."""
     cfg, disks = column_collapse(nx=256, ny=256, n_disks=60)
-    with pytest.raises(NotImplementedError, match="float64"):
-        Simulation(cfg.replace(dtype="float64"), disks, device=dev)
+    cfg = cfg.replace(dtype="float64")
+    with pytest.raises(ValueError, match="float64"):
+        Simulation(cfg, disks, device=dev)
+    g = Simulation(cfg, disks, device=dev, use_kernels=False)
+    c = Simulation(cfg, disks, device="cpu", use_kernels=False)
+    g.run(4)
+    c.run(4)
+    assert g.state.f.dtype == torch.float64
+    assert float((g.state.f.cpu() - c.state.f).abs().max()) <= 1e-12
+    assert float((g.state.disks.x.cpu() - c.state.disks.x).abs().max()) <= 1e-12
 
 
 def _fluid_f(cfg, dev, seed):
@@ -298,7 +310,7 @@ def test_fluid_kernels_reject_prehalo_and_float64(dev):
         fused_fluid.fused_step_fluid(f, cfg, out, prehalo=True)
     with pytest.raises(NotImplementedError, match="item 12"):
         fused_fluid.fused_step_fluid_multi(f, cfg, 4, out, prehalo=True)
-    with pytest.raises(NotImplementedError, match="float64"):
+    with pytest.raises(ValueError, match="float64"):
         Simulation(cfg.replace(dtype="float64"), device=dev)
 
 
@@ -1027,7 +1039,10 @@ def test_window_kernel_equals_chained_steps(dev, case, k, strip,
                                   "periodic"])
 def test_static_kernel_equals_chained_steps(dev, case, k, shape):
     """K7(k) == k chained K8 steps on f32 (torch.equal), on lattices that
-    are and are not multiples of a strip and one smaller than a strip."""
+    are and are not multiples of a strip and one smaller than a strip.
+    The solid stack is stamped as the static hoist stamps it (margin 0):
+    240 x 80 is in the Verlet margin gap, where Simulation refuses the
+    kernel path."""
     kw = {"walls-gx": dict(bc_west="wall", bc_east="wall", gx=1e-5),
           "zou-he": dict(bc_west="inlet", bc_east="outlet", u_inlet=0.06,
                          inlet_profile="poiseuille"),
@@ -1039,9 +1054,9 @@ def test_static_kernel_equals_chained_steps(dev, case, k, shape):
     cfg = SimConfig(nx=nx, ny=ny, tau=0.8, dtype="float32", **kw)
     obstacles = [DiskSpec(d.x * nx / 256, d.y * ny / 64, d.r, fixed=True)
                  for d in _obstacles()]
-    sim = Simulation(cfg, obstacles, device=dev)
-    cfg = sim.cfg
-    solid = sim._static_solid_operands()
+    cfg, _ = derive_config(cfg, obstacles)
+    solid = static_solid_stack(cfg, make_disk_state(obstacles, cfg,
+                                                    device=dev))
     assert float(solid[0].max()) > 0
     f = _fluid_f(cfg, dev, 11)
     out = torch.empty_like(f)
