@@ -166,7 +166,28 @@ nothing falls back to the CPU):
 33. paranoia on the card: a NaN injected into f after step 4 of a
    128x32 channel with a fixed disk reports step 5 under "step" (K1 +
    K2 per step) and step 8 under "chunk" (the static hoist's K7 passes),
-   the state frozen there, as on the CPU.
+   the state frozen there, as on the CPU;
+34. mesh kernels: K4, K5 (k = 4, edge flags of corner, edge and
+   interior shards) and K2 on pre-haloed shards ("y" and "yx") against
+   their plain versions on the card - K4/K5 over a lattice-option matrix
+   at a 256 x 128 shard, K2 on every shard of a 512^2 column collapse on
+   2 x 2 and 4 x 1 meshes of one card; then at the 2 x 2 (2048^2) and 4
+   x 1 shards of the 4096^2 slice, timed beside the same kernel without
+   a halo on the shard's interior (K2: partials equal to the halo-free
+   step's on the same cells) and their bounds (the halo cells each
+   reads: a ring of one for K4 and K2, of k for K5);
+35. mesh slice: BASELINE config 5, the 4096^2 column collapse with
+   10 000 disks, through Simulation(..., mesh=...) on a 2 x 2 and a 4 x 1
+   mesh: run(16) against the single-device run(16) (f 5e-6, x 1e-5, v
+   1e-6), then run(100) timed in alternating pairs with the
+   single-device run(100) (three each, every reading printed), its
+   launches per step (K1 and K2 once per shard, K3 once per replica),
+   overflow 0, mass drift < 1e-5;
+36. mesh fluid: 4096^2 pure fluid on a 2 x 2 mesh, run(19) against one
+   device within 1e-7 (K5 4, K4 3 per shard), then run(400) timed in
+   alternating pairs with one device; with 4 cards or more phases 35 and
+   36 run again on distinct cards; every mesh phase prints the cards its
+   shards spanned.
 
 The second-to-last line holds the per-kernel JSON record (the ten
 kernels, then the bf16, TRT + LES, kt and periodic instantiations of K2,
@@ -227,6 +248,16 @@ def log(phase: str, msg: str) -> None:
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def frame_bytes(t: torch.Tensor, h: int, w: int, mode: str,
+                ring: int) -> int:
+    """Bytes of a pre-haloed frame t (planes, h + 16, w [+ 256]) that a
+    kernel on it must read: the interior and `ring` rows above and below
+    it and, in "yx" mode, `ring` columns on either side (a "y" shard
+    spans the width and wraps in x)."""
+    cols = w + 2 * ring if mode == "yx" else w
+    return t.shape[0] * t.element_size() * (h + 2 * ring) * cols
 
 
 def work(err, ms, pms, moved: int, flops: float) -> dict:
@@ -293,8 +324,8 @@ def build() -> None:
         spills[name] = st + ld
     # the f32 and bf16 BGK instantiations of K2's step, of the K6/K7
     # temporal block and of K5's row sweep (on bf16 with the sweeps
-    # through its f32 scratch: bf16 -> f32, f32 -> f32, f32 -> bf16) must
-    # not spill
+    # through its f32 scratch: bf16 -> f32, f32 -> f32, f32 -> bf16), and
+    # the f32 BGK pre-haloed K2 step and K5 sweep, must not spill
     spills = {k.replace(" ", ""): v for k, v in spills.items()}
     bf = "__nv_bfloat16"
     for s, sh in (("float", "false"), (bf, "true")):
@@ -307,6 +338,12 @@ def build() -> None:
                              ("float", bf)] if s == bf else [])
         names += [f"temporal_block_kernel<{a},{b},{sh},2,2,FluidCell<0,0,"
                   f"{fo}>>" for a, b in pairs for fo in (0, 1)]
+        if s == "float":  # the pre-haloed modes ("y" 1, "yx" 2), f32 only
+            names += [f"temporal_block_prehalo_kernel<float,float,false,2,2,"
+                      f"FluidCell<0,0,{fo}>,{pre}>" for fo in (0, 1)
+                      for pre in (1, 2)]
+            names += [f"coupled_step_prehalo_kernel<false,false,false,WSink,"
+                      f"{pre}>" for pre in (1, 2)]
         for name in names:
             assert spills.get(name) == 0, f"{name}: spills {spills.get(name)}"
 
@@ -3169,6 +3206,375 @@ def paranoia_on_card():
 
 
 
+# --- the lattice mesh (parallel/): K2, K4 and K5 pre-haloed -------------
+
+# lattice options of the pre-haloed checks at a 256 x 128 shard
+MESH_MATRIX = [
+    ("walls+lid", dict(bc_west="wall", bc_east="wall", uw_north=0.05,
+                       gy=-1e-5)),
+    ("periodic", dict(bc_south="periodic", bc_north="periodic", gx=1e-5)),
+    ("zou-he", dict(bc_west="inlet", bc_east="outlet", u_inlet=0.06,
+                    inlet_profile="poiseuille")),
+    ("trt+les", dict(collision="trt", smagorinsky=0.16, gx=1e-5,
+                     bc_west="wall", bc_east="wall")),
+]
+# K5's edge flags (south, north, west, east, global row offset) of a
+# shard of a 4 x 4 mesh of 256-row shards: corner, edge, interior (a
+# "y" shard spans the width: both x flags set)
+MESH_EDGES = [(1, 1, 1, 1, 0), (1, 0, 1, 0, 0), (0, 1, 0, 1, 768),
+              (0, 0, 0, 0, 512)]
+
+
+def mesh_frame(cfg, mode: str, seed: int, amp: float = 0.05):
+    """A shard's pre-haloed frame f = w_i (1 + amp N(0, 1)) on the card."""
+    from lbmdem_tpu_torch import lattice
+    from lbmdem_tpu_torch.ops import fused_fluid
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    w = torch.as_tensor(lattice.W, dtype=torch.float32, device="cuda")
+    shape = fused_fluid.frame_shape(cfg, mode)
+    return w[:, None, None] * (1.0 + amp * torch.randn(shape, generator=g,
+                                                       device="cuda"))
+
+
+def mesh_fluid_check(cfg, mode: str, k: int, edges, seed: int, label: str,
+                     timed: bool = False, amp: float = 0.05):
+    """K4 (k == 1) or K5 (k steps, `edges`) on a pre-haloed frame against
+    its plain version on the same card input, at fluid_bar's bars.
+    Returns work(max_abs_err, ms, plain_ms, bytes, flops): the bytes are
+    the frame's cells the k steps need read once (frame_bytes: a ring of
+    k around the interior) and the interior, and K4's edge populations,
+    written once."""
+    from lbmdem_tpu_torch.ops import fused_fluid
+
+    f = mesh_frame(cfg, mode, seed, amp)
+    a = torch.empty((9, cfg.ny, cfg.nx), device="cuda")
+    b = torch.empty_like(a)
+    nyg = 4 * cfg.ny
+    ea = (torch.empty((9, 2, cfg.nx), device="cuda"),
+          torch.empty((9, cfg.ny, 2), device="cuda"))
+    eb = tuple(torch.empty_like(t) for t in ea)
+    if k == 1:
+        wrapper = fused_fluid.fused_step_fluid
+        run = lambda: wrapper(f, cfg, a, prehalo=mode,  # noqa: E731
+                              edge_post=ea)
+        plain = lambda: fused_fluid.fused_step_fluid_prehalo_plain(  # noqa
+            f, cfg, mode, b, eb)
+    else:
+        wrapper = fused_fluid.fused_step_fluid_multi
+        run = lambda: wrapper(f, cfg, k, a, prehalo=mode,  # noqa: E731
+                              edges=edges, ny_glob=nyg)
+        plain = lambda: fused_fluid.fused_step_fluid_multi_prehalo_plain(  # noqa
+            f, cfg, k, mode, edges, nyg, b)
+    n0 = wrapper.launches
+    run()
+    assert wrapper.launches == n0 + 1, "the kernel did not launch"
+    plain()
+    torch.cuda.synchronize()
+    err = float((a - b).abs().max())
+    atol, rtol = fluid_bar(cfg, k)
+    excess = float(((a - b).abs() - rtol * b.abs()).max())
+    if k == 1:  # the edge rows' and columns' post-collision populations
+        for x, y in zip(ea, eb):
+            err = max(err, float((x - y).abs().max()))
+            excess = max(excess, float(((x - y).abs() - rtol * y.abs()).max()))
+    name = "K4" if k == 1 else f"K5 k={k} edges={edges}"
+    log("mesh-kernels", f"{label} prehalo={mode} {name}: max err {err:.3e} "
+        f"(bar atol {atol:g} + rtol {rtol:g})")
+    assert bool(torch.isfinite(a).all()), f"{label} {name}: non-finite"
+    assert excess <= atol, f"{label} {name}: err {err} over the bar"
+    t = (cuda_ms(run, 20), cuda_ms(plain, 2)) if timed else (None, None)
+    moved = frame_bytes(f, cfg.ny, cfg.nx, mode, k) + nbytes(a)
+    if k == 1:
+        moved += nbytes(*ea)
+    return work(err, *t, moved, k * FLOPS_FLUID * cfg.nx * cfg.ny)
+
+
+def mesh_coupled_inputs(cfg, disks, dims, seed: int):
+    """A coupled scene on a mesh of one card: the sharded kernel path's
+    pieces (parallel/_kernel_step._Sharded), pre-collision frames of
+    perturbed f, and every shard's K2 inputs from disks with random
+    velocities. Returns (parts, frames, [(entries, solid, td, cnt, s_k,
+    K2's origin)])."""
+    from lbmdem_tpu_torch import Simulation
+    from lbmdem_tpu_torch.parallel import make_mesh
+    from lbmdem_tpu_torch.parallel._kernel_step import _Sharded, exchange
+
+    mesh = make_mesh(["cuda"] * (dims[0] * dims[1]), dims)
+    sim = Simulation(cfg, disks, mesh=mesh)
+    parts = _Sharded(sim.cfg, sim.grid, mesh, sim.dem_axis, sim.dem_mode)
+    rng = np.random.default_rng(seed)
+    d = sim._state.disks[0]
+    n = d.x.shape[0]
+    v = torch.as_tensor(rng.uniform(-0.02, 0.02, (n, 2)), dtype=torch.float32,
+                        device="cuda")
+    om = torch.as_tensor(rng.uniform(-2e-3, 2e-3, n), dtype=torch.float32,
+                         device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    fs = [f * (1.0 + 0.02 * torch.randn(f.shape, generator=g, device="cuda"))
+          for f in sim._state.f]
+    frames = exchange(fs, mesh)
+    ins = []
+    for p, iy, ix in mesh.positions():
+        entries, solid, td, cnt, s_k, bovf = parts.shard_inputs(
+            iy, ix, (d.x, v, om, d.r, d.active))
+        assert int(bovf) == 0, f"binning overflow {int(bovf)}"
+        ins.append((entries, solid, td, cnt, s_k,
+                    parts.interior_origin(iy, ix)))
+    return parts, frames, ins
+
+
+def mesh_k2_check(parts, frame, inp, label: str, timed: bool = False):
+    """K2 on a shard's frame against its plain version on the same card
+    input: f' atol 5e-6, forces (gather_partials over the interior entry
+    slots) 1e-6 of the largest |F| (phase 3's K2 bars). Its bytes: f and
+    the solid window over the interior and its ring of one cell
+    (frame_bytes), the binning, and f', the partials and the edge
+    populations written."""
+    from lbmdem_tpu_torch.ops import fused_lbm, stamp
+
+    cfg, mode = parts.local_cfg, parts.mode
+    entries, _, td, cnt, s_k, origin = inp
+    a = torch.empty((9, cfg.ny, cfg.nx), device="cuda")
+    b = torch.empty_like(a)
+    ea = (torch.empty((9, 2, cfg.nx), device="cuda"),
+          torch.empty((9, cfg.ny, 2), device="cuda"))
+    eb = tuple(torch.empty_like(t) for t in ea)
+    run = lambda: fused_lbm.fused_step_imb_reduce(  # noqa: E731
+        frame, s_k, td, cnt, cfg, a, prehalo=mode, origin=origin,
+        edge_post=ea)
+    plain = lambda: fused_lbm.fused_step_imb_reduce_prehalo_plain(  # noqa
+        frame, s_k, td, cnt, cfg, mode, origin, b, eb)
+    n0 = fused_lbm.fused_step_imb_reduce.launches
+    _, pk = run()
+    assert fused_lbm.fused_step_imb_reduce.launches == n0 + 1
+    _, pp = plain()
+    torch.cuda.synchronize()
+    e2 = max(float((x - y).abs().max()) for x, y in
+             zip((a,) + ea, (b,) + eb))
+    F, T = stamp.gather_partials(pk, entries, torch.float32)
+    Fp, Tp = stamp.gather_partials(pp, entries, torch.float32)
+    fmax = float(Fp.abs().max())
+    e2f = float((F - Fp).abs().max())
+    log("mesh-kernels", f"{label} prehalo={mode} origin={origin} K2: f' "
+        f"(and edge post-collision populations) max "
+        f"err {e2:.3e} (bar 5e-6); force err {e2f:.3e} vs max|F| "
+        f"{fmax:.3e} (bar 1e-6 relative); torque err "
+        f"{float((T - Tp).abs().max()):.3e}; binned disks "
+        f"{int((entries >= 0).any(1).sum())}")
+    assert e2 <= 5e-6, f"K2 {label}: f' max err {e2}"
+    assert e2f <= 1e-6 * max(fmax, 1e-30), f"K2 {label}: force err {e2f}"
+    assert bool(torch.isfinite(a).all())
+    cov = cov_flops_of(cfg, cnt)
+    t = (cuda_ms(run, 20), cuda_ms(plain, 2)) if timed else (None, None)
+    moved = (frame_bytes(frame, cfg.ny, cfg.nx, mode, 1)
+             + frame_bytes(s_k, cfg.ny, cfg.nx, mode, 1)
+             + nbytes(td, cnt, a, pk, *ea))
+    return work(e2, *t, moved,
+                nt_flops(s_k[:, 8:8 + cfg.ny, parts.padx:parts.padx + cfg.nx])
+                + cov)
+
+
+def mesh_kernels(n: int = 4096):
+    """K4, K5 and K2 in each pre-haloed mode against their plain versions
+    on the card: over MESH_MATRIX (and K5 over MESH_EDGES) at a 256 x 128
+    shard, K2 on every shard of a 512^2 column collapse on 2 x 2 ("yx")
+    and 4 x 1 ("y") meshes; then at the 2 x 2 shard of the n^2 slice
+    (n/2 square, plus halos) and the 4 x 1 one, timed with CUDA events
+    beside the same kernel on an n/2-square lattice without a halo.
+    Returns {record: work(...)} of the timed n/2 "yx" checks."""
+    from lbmdem_tpu_torch import SimConfig
+    from lbmdem_tpu_torch.models import column_collapse
+    from lbmdem_tpu_torch.ops import fused_fluid, fused_lbm
+
+    for i, (label, kw) in enumerate(MESH_MATRIX):
+        cfg = SimConfig(**{"nx": 128, "ny": 256, "tau": 0.8,
+                           "dtype": "float32", **kw})
+        for mode in ("y", "yx"):
+            mesh_fluid_check(cfg, mode, 1, None, 300 + i,
+                             f"{label} {cfg.ny}x{cfg.nx}")
+            for j, e in enumerate(MESH_EDGES):
+                if mode == "y":  # a "y" shard spans the width
+                    e = e[:2] + (1, 1) + e[4:]
+                mesh_fluid_check(cfg, mode, 4, e, 310 + i + j,
+                                 f"{label} {cfg.ny}x{cfg.nx}")
+    cfg, disks = column_collapse(nx=512, ny=512, n_disks=240)
+    for dims in ((2, 2), (4, 1)):
+        parts, frames, ins = mesh_coupled_inputs(cfg, compressed(disks, 0.94),
+                                                 dims, 7)
+        for p, inp in enumerate(ins):
+            mesh_k2_check(parts, frames[p], inp,
+                          f"512^2/{len(disks)} disks {dims} shard {p}")
+    out = {}
+    h = n // 2
+    for mode, shape in (("yx", (h, h)), ("y", (n // 4, n))):
+        cfg = SimConfig(nx=shape[1], ny=shape[0], tau=0.8, gx=1e-6,
+                        dtype="float32")
+        w4 = mesh_fluid_check(cfg, mode, 1, None, 21, f"{shape}", timed=True,
+                              amp=0.02)
+        w5 = mesh_fluid_check(cfg, mode, 4, (1, 0, 1, int(mode == "y"), 0),
+                              22, f"{shape}", timed=True, amp=0.02)
+        f = mesh_frame(cfg, "", 23, 0.02)
+        a = torch.empty_like(f)
+        t4 = cuda_ms(lambda: fused_fluid.fused_step_fluid(f, cfg, a), 20)
+        t5 = cuda_ms(lambda: fused_fluid.fused_step_fluid_multi(f, cfg, 4, a),
+                     20)
+        for key, w, t in (("K4", w4, t4), ("K5", w5, t5)):
+            bms, by = bound(w)
+            log("mesh-kernels", f"{shape[0]}x{shape[1]} shard prehalo={mode} "
+                f"{key}: kernel {w['ms']:.4f} ms, plain {w['plain_ms']:.4f} ms"
+                f", the same kernel without a halo on {shape[0]}x{shape[1]} "
+                f"{t:.4f} ms (CUDA events); bound {bms:.4f} ms by {by} "
+                f"({w['bytes'] / 1e9:.4f} GB, the halo cells it reads "
+                f"included)")
+            if mode == "yx":
+                out[key] = w
+    cfg, disks = column_collapse()
+    for dims in ((2, 2), (4, 1)):
+        parts, frames, ins = mesh_coupled_inputs(cfg, compressed(disks, 0.94),
+                                                 dims, 8)
+        w2 = mesh_k2_check(parts, frames[0], ins[0],
+                           f"{n}^2/{len(disks)} disks {dims} shard 0",
+                           timed=True)
+        # the same step without a halo on shard 0's interior, whose
+        # global origin is (0, 0): the same cells, tiles and windows of
+        # the same records, so the same partials
+        lc, hx = parts.local_cfg, parts.padx
+        assert ins[0][5] == (0, 0)
+        f = frames[0][:, 8:8 + lc.ny, hx:hx + lc.nx].contiguous()
+        solid = ins[0][4][:, 8:8 + lc.ny, hx:hx + lc.nx].contiguous()
+        td = ins[0][2]
+        a, b = torch.empty_like(f), torch.empty((9, lc.ny, lc.nx),
+                                                device="cuda")
+        _, p0 = fused_lbm.fused_step_imb_reduce(f, solid, td, ins[0][3], lc,
+                                                a)
+        _, p1 = fused_lbm.fused_step_imb_reduce(
+            frames[0], ins[0][4], td, ins[0][3], lc, b, prehalo=parts.mode,
+            origin=(0, 0))
+        perr = float((p0 - p1).abs().max())
+        pmax = float(p1.abs().max())
+        t2 = cuda_ms(lambda: fused_lbm.fused_step_imb_reduce(
+            f, solid, td, ins[0][3], lc, a), 20)
+        bms, by = bound(w2)
+        log("mesh-kernels", f"{lc.ny}x{lc.nx} shard of {n}^2 prehalo="
+            f"{parts.mode} K2: kernel {w2['ms']:.4f} ms, plain "
+            f"{w2['plain_ms']:.4f} ms, the step without a halo on "
+            f"{lc.ny}x{lc.nx} {t2:.4f} ms (CUDA events); bound {bms:.4f} ms "
+            f"by {by} ({w2['bytes'] / 1e9:.4f} GB, its ring included); "
+            f"partials against the halo-free step's {perr:.3e} of max "
+            f"{pmax:.3e}")
+        assert perr <= 1e-6 * max(pmax, 1e-30), perr
+        if parts.mode == "yx":
+            out["K2"] = w2
+    return out
+
+
+def paired_runs(sh, one, steps: int):
+    """MLUPS of sh.run(steps) (the mesh) and one.run(steps) (one device)
+    in alternating pairs, mesh, one, one, mesh, mesh, one: the host-bound
+    wall clock swings within a call, so the ratio is read per pair.
+    Returns (launch counts of the first mesh run, the mesh's readings,
+    one device's, the per-pair ratios)."""
+    reset_counts()
+    reads = {"mesh": [sh.run(steps)], "one": []}
+    counts = launch_counts()
+    for who in ("one", "one", "mesh", "mesh", "one"):
+        reads[who].append((sh if who == "mesh" else one).run(steps))
+    ratios = [m / o for m, o in zip(reads["mesh"], reads["one"])]
+    return counts, reads["mesh"], reads["one"], ratios
+
+
+def paired_line(mesh, m, o, r, steps: int, smi: str) -> str:
+    return (f"{mesh_cards(mesh)}: timed run({steps}) in pairs (mesh, one, "
+            f"one, mesh, mesh, one), wall clock: mesh {m} MLUPS, one device "
+            f"{o} MLUPS, ratio per pair {[round(x, 4) for x in r]} "
+            f"(median {float(np.median(r)):.4f}x) on {smi}")
+
+
+def mesh_cards(mesh) -> str:
+    return (f"{mesh.shape['y']}x{mesh.shape['x']} mesh, shards on "
+            f"{len(mesh.replicas)} card(s) {[str(d) for d in mesh.replicas]}")
+
+
+def mesh_slice(smi: str, dims, devices=None):
+    """BASELINE config 5, the column collapse at 4096^2 with 10 000 disks
+    (f32, BGK, sample, walls, coupling_k = 1), through Simulation(...,
+    mesh=...): run(16) against the single-device run(16) at the JAX
+    chunk test's bars (f 5e-6, x 1e-5, v 1e-6), then run(100) timed in
+    pairs with the single-device run(100) (paired_runs): MLUPS, launches
+    per step per kernel, overflow 0 and mass drift < 1e-5. Returns
+    (launch counts of the first timed run, median MLUPS, single-device
+    median MLUPS)."""
+    from lbmdem_tpu_torch import Simulation
+    from lbmdem_tpu_torch.models import column_collapse
+    from lbmdem_tpu_torch.ops import lbm
+    from lbmdem_tpu_torch.parallel import make_mesh
+
+    cfg, disks = column_collapse()
+    cfg = cfg.replace(out_interval=10**9)
+    n = dims[0] * dims[1]
+    mesh = make_mesh(devices or ["cuda"] * n, dims)
+    one = Simulation(cfg, disks, device="cuda")
+    sh = Simulation(cfg, disks, mesh=mesh)
+    one.run(16)
+    sh.run(16)
+    a, b = one.state, sh.state
+    ef = float((a.f - b.f.to(a.f.device)).abs().max())
+    ex = float((a.disks.x - b.disks.x.to(a.f.device)).abs().max())
+    ev = float((a.disks.v - b.disks.v.to(a.f.device)).abs().max())
+    log("mesh-slice", f"{cfg.nx}x{cfg.ny}, {len(disks)} disks, "
+        f"{mesh_cards(mesh)}: run(16) against one device: f max err "
+        f"{ef:.3e} (bar 5e-6), x {ex:.3e} (bar 1e-5), v {ev:.3e} (bar 1e-6)")
+    assert ef <= 5e-6 and ex <= 1e-5 and ev <= 1e-6, (ef, ex, ev)
+    del a
+    counts, m, o, r = paired_runs(sh, one, 100)
+    st = sh.state
+    f = lbm.from_storage(st.f, cfg)
+    mass_err = abs(float(f.double().sum()) / (cfg.nx * cfg.ny) - 1.0)
+    per_step = {k: v / 100 for k, v in counts.items() if v}
+    log("mesh-slice", paired_line(mesh, m, o, r, 100, smi))
+    log("mesh-slice", f"launches per step {per_step}; overflow "
+        f"{int(st.overflow)}; n_contacts {int(st.n_contacts)}; "
+        f"|sum f/(nx ny) - 1| {mass_err:.3e} (bar 1e-5)")
+    assert counts == {**_NONE, "K1": 100 * n, "K2": 100 * n,
+                      "K3": 100 * len(mesh.replicas)}, counts
+    assert int(st.overflow) == 0, f"overflow {int(st.overflow)}"
+    assert bool(torch.isfinite(f).all()), "non-finite f"
+    assert mass_err < 1e-5, f"mass drift {mass_err}"
+    return counts, float(np.median(m)), float(np.median(o))
+
+
+def mesh_fluid(smi: str, dims=(2, 2), devices=None, n: int = 4096):
+    """n^2 pure fluid (f32, tau 0.8, gx 1e-6, periodic x) on a mesh:
+    run(19) (4 K5 blocks, 3 K4 steps) against the single-device run(19)
+    within 1e-7, then run(400) timed in pairs with the single-device
+    run(400) (paired_runs). Returns (launch counts of the mesh's run(19),
+    median MLUPS)."""
+    from lbmdem_tpu_torch import SimConfig, Simulation
+    from lbmdem_tpu_torch.parallel import make_mesh
+
+    cfg = SimConfig(nx=n, ny=n, tau=0.8, gx=1e-6, dtype="float32",
+                    out_interval=10**9)
+    mesh = make_mesh(devices or ["cuda"] * (dims[0] * dims[1]), dims)
+    one = Simulation(cfg, device="cuda")
+    sh = Simulation(cfg, mesh=mesh)
+    one.run(19)
+    reset_counts()
+    sh.run(19)
+    c19 = launch_counts()
+    err = float((one.state.f - sh.state.f.to(one.device)).abs().max())
+    log("mesh-fluid", f"{n}x{n} f32, {mesh_cards(mesh)}: run(19) against one "
+        f"device: f max err {err:.3e} (bar 1e-7); launches of the mesh's "
+        f"run(19) {c19}")
+    assert err <= 1e-7, err
+    assert c19 == {**_NONE, "K5": 4 * mesh.size, "K4": 3 * mesh.size}, c19
+    counts, m, o, r = paired_runs(sh, one, 400)
+    log("mesh-fluid", paired_line(mesh, m, o, r, 400, smi)
+        + f"; launches of the first mesh run {counts}")
+    assert counts == {**_NONE, "K5": 100 * mesh.size}, counts
+    return c19, float(np.median(m))
+
+
 def main() -> int:
     smi = probe()
     build()
@@ -3256,6 +3662,18 @@ def main() -> int:
     checkpoint_on_card()
     plain_path_on_card(smi)
     paranoia_on_card()
+    mres = mesh_kernels()
+    mcounts, _, _ = mesh_slice(smi, (2, 2))
+    mesh_slice(smi, (4, 1))
+    mfcounts, _ = mesh_fluid(smi)
+    if torch.cuda.device_count() >= 4:
+        cards = [f"cuda:{i}" for i in range(4)]
+        mesh_slice(smi, (2, 2), cards)
+        mesh_fluid(smi, (2, 2), cards)
+    else:
+        log("mesh-placement", f"{torch.cuda.device_count()} card(s): every "
+            f"mesh phase put all its shards on cuda:0 (distinct cards need "
+            f"4)")
     counts.update({k: acounts[k] for k in ("K8", "K9")})
     counts.update({k: fcounts[k] for k in ("K4", "K5")})
     counts.update({k: wcounts[k] for k in ("K6", "K3w")})
@@ -3290,7 +3708,10 @@ def main() -> int:
              ("K2", "trt+les", new["K2 f32 trt+les"], open_counts["K2"]),
              ("K3", "kt", new["K3 kt"], dcounts["K3"]),
              ("K3w", "kt", new["K3w kt"], dwcounts["K3w"]),
-             ("K3", "periodic", new["K3 periodic"], pcounts["K3"])]
+             ("K3", "periodic", new["K3 periodic"], pcounts["K3"]),
+             ("K2", "prehalo yx", mres["K2"], mcounts["K2"]),
+             ("K4", "prehalo yx", mres["K4"], mfcounts["K4"]),
+             ("K5", "prehalo yx", mres["K5"], mfcounts["K5"])]
     kernels = []
     rows = [(k, "", res[k], counts[k]) for k in (
         "K1", "K2", "K3", "K4", "K5", "K6", "K3w", "K7", "K8", "K9")] + extra

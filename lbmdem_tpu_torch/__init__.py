@@ -10,7 +10,9 @@ use_pallas=False) on either device: float64, lattices the stamp tiles
 cannot take, coupled scenes without disks. Paranoid mode raises
 SimulationDiverged at the first failing step. The user's entry point is
 the CLI, `python -m lbmdem_tpu_torch.cli run.par --out out/`, with
-checkpoints, metrics, VTK output and profiling in `utils/`.
+checkpoints, metrics, VTK output and profiling in `utils/`. `parallel/`
+shards the lattice over a mesh of devices in one process
+(`Simulation(..., mesh=parallel.make_mesh(...))`, the CLI's --mesh YxX).
 
     from lbmdem_tpu_torch import Simulation
     from lbmdem_tpu_torch.models import column_collapse
@@ -21,7 +23,7 @@ checkpoints, metrics, VTK output and profiling in `utils/`.
 from lbmdem_tpu_torch.config import (DiskSpec, SimConfig, load_param_file,
                                      load_particle_file)
 from lbmdem_tpu_torch.ops.dem import DiskState
-from lbmdem_tpu_torch.simulation import (SimState, Simulation,
+from lbmdem_tpu_torch.simulation import (FluidState, SimState, Simulation,
                                          SimulationDiverged)
 
 __all__ = [
@@ -32,5 +34,6 @@ __all__ = [
     "Simulation",
     "SimulationDiverged",
     "SimState",
+    "FluidState",
     "DiskState",
 ]

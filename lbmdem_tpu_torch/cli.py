@@ -13,6 +13,14 @@ the card the CUDA kernels where `kernels_supported` passes, otherwise the
 plain path with a note on stderr; on the CPU the plain path. --kernels
 asks for the kernels (an error where they cannot take the deck; on the
 CPU they run as their plain versions), --no-kernels for the plain path.
+
+--mesh YxX shards the lattice over a Y x X mesh of devices in this
+process (the JAX CLI's --mesh): on the card over the visible cards,
+taken in turn, so a mesh larger than the host's cards puts several
+shards on a card; with --device cpu every shard on the CPU. --mesh auto
+takes every visible card. On a mesh the auto path takes the pre-haloed
+kernels where `kernels_supported(..., mesh)` passes, else the plain
+sharded step. --distributed (several processes) is not ported.
 """
 
 from __future__ import annotations
@@ -61,7 +69,9 @@ def main(argv=None) -> int:
                          "validates at kernel-chunk granularity (the "
                          "reported step is the end of the failing block)")
     ap.add_argument("--mesh", default=None, metavar="YxX",
-                    help="shard the lattice over a device mesh (not ported)")
+                    help="shard the lattice over a Y x X mesh of devices "
+                         "in this process ('auto': every visible card; with "
+                         "--device cpu the shards share the CPU)")
     ap.add_argument("--distributed", action="store_true",
                     help="multi-process run (not ported)")
     ap.add_argument("--profile", default=None, metavar="LOGDIR",
@@ -75,8 +85,25 @@ def main(argv=None) -> int:
 
     from lbmdem_tpu_torch.ops import not_ported
 
-    if args.mesh or args.distributed:
-        raise not_ported("--mesh and --distributed (multi-GPU)", 12)
+    if args.distributed:
+        raise not_ported("--distributed (multi-process runs on "
+                         "torch.distributed)", 12)
+    mesh = None
+    if args.mesh:
+        from lbmdem_tpu_torch.parallel import make_mesh
+
+        if args.mesh == "auto":
+            if args.device == "cpu":
+                ap.error("--mesh auto takes the visible cards; give YxX "
+                         "with --device cpu")
+            mesh = make_mesh()
+        else:
+            try:
+                ysz, xsz = (int(t) for t in args.mesh.lower().split("x"))
+            except ValueError:
+                ap.error(f"--mesh {args.mesh!r}: expected YxX or auto")
+            mesh = make_mesh(["cpu"] * (ysz * xsz) if args.device == "cpu"
+                             else None, shape=(ysz, xsz))
 
     from lbmdem_tpu_torch.config import load_param_file, load_particle_file
     from lbmdem_tpu_torch.simulation import (Simulation, derive_config,
@@ -104,7 +131,8 @@ def main(argv=None) -> int:
         )
     on_card = args.device == "cuda"
     if args.kernels is None or args.kernels:
-        reason = kernels_supported(derive_config(cfg, disks)[0], args.device)
+        reason = kernels_supported(derive_config(cfg, disks)[0], args.device,
+                                   mesh)
         if args.kernels and reason is not None:
             ap.error(f"--kernels: {reason}")
         if args.kernels is None:
@@ -116,7 +144,13 @@ def main(argv=None) -> int:
                 print(f"note: the kernels cannot take this deck; using the "
                       f"plain path ({reason})", file=sys.stderr)
 
-    sim = Simulation(cfg, disks, device=args.device, use_kernels=args.kernels)
+    sim = Simulation(cfg, disks, device=args.device, use_kernels=args.kernels,
+                     mesh=mesh)
+    if mesh is not None:
+        print(f"mesh: {mesh.shape['y']}x{mesh.shape['x']} shards on "
+              f"{len(mesh.replicas)} device(s), "
+              f"{'kernels' if args.kernels else 'plain path'}",
+              file=sys.stderr)
     cfg = sim.cfg  # Simulation derives max_disks/window/tile_cap
     if args.restore:
         sim.state = ckpt.load_state(args.restore, sim.state)

@@ -111,7 +111,43 @@ struct FluidParams {
   int trt;          // collision == "trt"
   int les;          // smagorinsky > 0
   int walls;        // bit 0 south, 1 north, 2 west, 3 east
-  int open;         // west Zou/He inlet + east Zou/He outlet
+  int open;         // west Zou/He inlet + east Zou/He outlet (on a
+                    // shard's frame: bit 0 the inlet, bit 1 the outlet)
+};
+
+// A shard's pre-haloed frame on the lattice mesh (ops/fused_fluid
+// prehalo): kHaloRows exchanged rows above and below its ny x nx
+// interior and, in "yx" mode, kHaloCols columns on either side (hx =
+// kHaloCols, else 0); pitch is the frame's row length. Row r of the
+// interior is frame row r + kHaloRows.
+constexpr int kHaloRows = 8;
+constexpr int kHaloCols = 128;
+struct Frame {
+  int pitch;
+  int hx;
+};
+
+// The post-collision populations of a shard's interior edges, which the
+// one-step pre-haloed kernels (K4, K2) hand to the caller's wall fixups
+// (the walls they skip): rows (9, 2, nx) - the first and last interior
+// rows - and cols (9, ny, 2) - the first and last columns; either may be
+// null.
+struct EdgePost {
+  float* rows;
+  float* cols;
+  __device__ __forceinline__ void store(int y, int x, int ny, int nx,
+                                        const float* v) const {
+    if (rows != nullptr && (y == 0 || y == ny - 1)) {
+      const int r = y == 0 ? 0 : 1;
+#pragma unroll
+      for (int i = 0; i < 9; ++i) rows[((size_t)i * 2 + r) * nx + x] = v[i];
+    }
+    if (cols != nullptr && (x == 0 || x == nx - 1)) {
+      const int c = x == 0 ? 0 : 1;
+#pragma unroll
+      for (int i = 0; i < 9; ++i) cols[((size_t)i * ny + y) * 2 + c] = v[i];
+    }
+  }
 };
 
 // w_i [3 (e_i - u) . g + 9 (e_i . u)(e_i . g)] (ops/lbm._guo_proj)
@@ -275,8 +311,12 @@ __device__ __forceinline__ void store_f(__nv_bfloat16* p, float v) {
 // global walls in the order south, north, west, east (the x-wall rule
 // wins at corners; plain version: lbm.apply_bounce_back) and the Zou/He
 // closures (lbm.apply_open_boundaries). post(i, dy, dx) is population i
-// of the cell (gy + dy, gx + dx).
-template <class Post>
+// of the cell (gy + dy, gx + dx). On a shard of the lattice mesh (PRE)
+// (gy, gx) are its local unwrapped coordinates, p.walls and p.open hold
+// only the global edges the shard has (p.open: bit 0 the inlet, bit 1
+// the outlet), and u_in is the inlet profile of the shard's frame rows
+// (row gy at u_in[gy + kHaloRows], the global rows wrapped by the host).
+template <bool PRE = false, class Post>
 __device__ __forceinline__ void stream_pull(const Post& post, int gy, int gx,
                                             int ny, int nx,
                                             const float* u_in,
@@ -304,7 +344,11 @@ __device__ __forceinline__ void stream_pull(const Post& post, int gy, int gx,
     v[6] = __fadd_rn(post(8, 0, 0), p.bb[10]);
     v[7] = __fadd_rn(post(5, 0, 0), p.bb[11]);
   }
-  if (p.open) {
+  if constexpr (PRE) {
+    if ((p.open & 1) && gx == 0)
+      zou_he_inlet(v, u_in[gy + kHaloRows], shift);
+    if ((p.open & 2) && gx == nx - 1) zou_he_outlet(v, p.rho_out, shift);
+  } else if (p.open) {
     if (gx == 0) zou_he_inlet(v, u_in[wrap(gy, ny)], shift);
     if (gx == nx - 1) zou_he_outlet(v, p.rho_out, shift);
   }
@@ -312,12 +356,13 @@ __device__ __forceinline__ void stream_pull(const Post& post, int gy, int gx,
 
 // stream_pull of window cell c from the post-collision window `post` (9
 // planes of n floats, w per row)
+template <bool PRE = false>
 __device__ __forceinline__ void stream_cell(const float* post, int n, int w,
                                             int c, int gy, int gx, int ny,
                                             int nx, const float* u_in,
                                             const FluidParams& p, float shift,
                                             float* v) {
-  stream_pull([&](int i, int dy, int dx) {
+  stream_pull<PRE>([&](int i, int dy, int dx) {
     return post[i * n + c + dy * w + dx];
   }, gy, gx, ny, nx, u_in, p, shift, v);
 }

@@ -49,6 +49,22 @@
 // in the shifted form (d2q9.cuh geq_eu), and rounds once per call with
 // __float2bfloat16_rn: once per k steps in K5. The rest state g = 0 is
 // a fixed point exactly.
+//
+// Pre-haloed mode (the lattice mesh, ops/fused_fluid prehalo): the
+// same bodies read a shard's frame (d2q9.cuh Frame) in place of the
+// wrapped lattice - K4's tile and its ring of one cell, K5's cone of k
+// rows and columns - and write the interior. They replace the prehalo
+// branches of the TPU kernels (_window_copies' pre-haloed offsets,
+// pallas_lbm.py:398; _stream_and_bb's skipped walls, :482; and the edge
+// flags of _stream_and_bb_window, :669). K4 runs no y walls ("y") or no
+// walls ("yx") and no Zou/He: the caller fixes the shards at a global
+// edge. K5 runs the walls and closures of the shard's global edges at
+// every inner step (p.walls, p.open and the frame rows' inlet profile
+// from the host). f32 only. A pass reads the interior and the halo
+// cells its steps need - K4 a ring of one cell, K5 a ring of k (rows
+// only in "y" mode, where x wraps) - and writes the interior: 9 x 4 B x
+// ((ny + 2k) (nx [+ 2k]) + ny nx); the frame's other halo cells are
+// exchanged but not read.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -60,12 +76,17 @@ constexpr int kTX = 32;
 constexpr int kTY = 16;
 constexpr int kThreads = kTX * kTY;
 
-// K4 on f32: one step of a 16 x 32 tile (see the header)
-template <typename S>
+// K4 on f32: one step of a 16 x 32 tile (see the header). PRE: 0 on
+// the lattice, 1 ("y") or 2 ("yx") on a shard's frame `fr`, whose rows
+// (and in "yx" mode columns) past the ring of one cell are clamped: no
+// output pulls from them; there the interior's first and last rows and
+// columns also hand their post-collision populations to `edge` (d2q9.cuh
+// EdgePost), where the caller's wall fixups read them.
+template <typename S, int PRE>
 __global__ void __launch_bounds__(kThreads)
     fluid_step_kernel(const S* __restrict__ f, S* __restrict__ out,
                       const float* __restrict__ u_in, int ny, int nx,
-                      FluidParams p) {
+                      FluidParams p, Frame fr, EdgePost edge) {
   constexpr bool kShift = sizeof(S) == 2;  // bf16 storage
   __shared__ float post[9 * (kTX + 2) * (kTY + 2)];
   const float shift = kShift ? p.rho0 : 0.0f;
@@ -73,12 +94,21 @@ __global__ void __launch_bounds__(kThreads)
   const int gy0 = blockIdx.y * kTY - 1;  // global row of window row 0
   const int gx0 = blockIdx.x * kTX - 1;
   const size_t plane = (size_t)ny * nx;
+  const size_t fplane =
+      PRE ? (size_t)(ny + 2 * kHaloRows) * fr.pitch : plane;
   for (int c = threadIdx.x; c < n; c += kThreads) {
     const int ly = c / w, lx = c - ly * w;
-    const size_t cell = (size_t)wrap(gy0 + ly, ny) * nx + wrap(gx0 + lx, nx);
+    size_t cell;
+    if constexpr (PRE == 0) {
+      cell = (size_t)wrap(gy0 + ly, ny) * nx + wrap(gx0 + lx, nx);
+    } else {
+      const int col = PRE == 2 ? min(gx0 + lx, nx) + fr.hx
+                               : wrap(gx0 + lx, nx);
+      cell = (size_t)(min(gy0 + ly, ny) + kHaloRows) * fr.pitch + col;
+    }
     float v[9];
 #pragma unroll
-    for (int i = 0; i < 9; ++i) v[i] = load_f(f + i * plane + cell);
+    for (int i = 0; i < 9; ++i) v[i] = load_f(f + i * fplane + cell);
     fluid_collide<kShift>(v, p);
 #pragma unroll
     for (int i = 0; i < 9; ++i) post[i * n + c] = v[i];
@@ -88,10 +118,16 @@ __global__ void __launch_bounds__(kThreads)
   const int gy = gy0 + ly, gx = gx0 + lx;
   if (gy >= ny || gx >= nx) return;
   float v[9];
-  stream_cell(post, n, w, ly * w + lx, gy, gx, ny, nx, u_in, p, shift, v);
+  stream_cell<PRE != 0>(post, n, w, ly * w + lx, gy, gx, ny, nx, u_in, p,
+                        shift, v);
   const size_t cell = (size_t)gy * nx + gx;
 #pragma unroll
   for (int i = 0; i < 9; ++i) store_f(out + i * plane + cell, v[i]);
+  if constexpr (PRE != 0) {
+#pragma unroll
+    for (int i = 0; i < 9; ++i) v[i] = post[i * n + ly * w + lx];
+    edge.store(gy, gx, ny, nx, v);
+  }
 }
 
 constexpr int kRows = 2;    // rows per level and phase (see the header)
@@ -153,13 +189,42 @@ int launch_multi(const void* f, float* mid, void* out, const float* u_in,
   return 0;
 }
 
-template <typename S>
+template <typename S, int PRE = 0>
 int launch_step(const void* f, void* out, const float* u_in, int ny, int nx,
-                const FluidParams& p, cudaStream_t stream) {
+                const FluidParams& p, cudaStream_t stream,
+                Frame fr = Frame{0, 0},
+                EdgePost edge = EdgePost{nullptr, nullptr}) {
   const dim3 grid((nx + kTX - 1) / kTX, (ny + kTY - 1) / kTY);
-  fluid_step_kernel<S><<<grid, kThreads, 0, stream>>>(
-      static_cast<const S*>(f), static_cast<S*>(out), u_in, ny, nx, p);
+  fluid_step_kernel<S, PRE><<<grid, kThreads, 0, stream>>>(
+      static_cast<const S*>(f), static_cast<S*>(out), u_in, ny, nx, p, fr,
+      edge);
   return (int)cudaGetLastError();
+}
+
+// K5 on a frame: one f32 sweep (k <= kSweepK) of the options
+template <int PRE, int TRT, int LES, int FORCED>
+int launch_sweep_prehalo(const void* f, void* out, const float* u_in, int ny,
+                         int nx, int k, const FluidParams& p, Frame fr,
+                         cudaStream_t stream) {
+  return launch_temporal_block<float, float, false, kRows,
+                               (TRT || LES) ? 1 : 2,
+                               FluidCell<TRT, LES, FORCED>, PRE>(
+      f, u_in, out, FluidCell<TRT, LES, FORCED>{}, ny, nx, k, strip, p,
+      stream, fr);
+}
+
+template <int PRE>
+int launch_multi_prehalo(const void* f, void* out, const float* u_in, int ny,
+                         int nx, int k, const FluidParams& p, Frame fr,
+                         cudaStream_t stream) {
+#define LBM_FP(TRT, LES)                                                    \
+  (p.forced ? launch_sweep_prehalo<PRE, TRT, LES, 1>(f, out, u_in, ny, nx, \
+                                                     k, p, fr, stream)     \
+            : launch_sweep_prehalo<PRE, TRT, LES, 0>(f, out, u_in, ny, nx, \
+                                                     k, p, fr, stream))
+  if (p.trt) return p.les ? LBM_FP(1, 1) : LBM_FP(1, 0);
+  return p.les ? LBM_FP(0, 1) : LBM_FP(0, 0);
+#undef LBM_FP
 }
 
 }  // namespace
@@ -192,4 +257,41 @@ extern "C" int lbm_fluid_multi(const void* f, void* out, float* mid,
   return bf16 ? launch_multi<__nv_bfloat16>(f, mid, out, u_in, ny, nx, k, p,
                                             stream)
               : launch_multi<float>(f, mid, out, u_in, ny, nx, k, p, stream);
+}
+
+// K4 on a shard's pre-haloed frame (f32): f (9, ny + 16, pitch), the
+// interior at column hx (128 in "yx" mode, else 0; pitch = nx + 2 hx);
+// out (9, ny, nx); erow (9, 2, nx) and ecol (9, ny, 2) f32, or null: the
+// post-collision populations of the interior's first and last rows and
+// columns. p carries only the walls the kernel runs (the x walls in "y"
+// mode, none in "yx") and no Zou/He.
+extern "C" int lbm_fluid_step_prehalo(const void* f, void* out, float* erow,
+                                      float* ecol, int ny, int nx, int pitch,
+                                      int hx, FluidParams p,
+                                      cudaStream_t stream) {
+  if (p.open || pitch != nx + 2 * hx || (hx != 0 && hx != kHaloCols))
+    return (int)cudaErrorInvalidValue;
+  const Frame fr{pitch, hx};
+  const EdgePost edge{erow, ecol};
+  return hx ? launch_step<float, 2>(f, out, nullptr, ny, nx, p, stream, fr,
+                                    edge)
+            : launch_step<float, 1>(f, out, nullptr, ny, nx, p, stream, fr,
+                                    edge);
+}
+
+// K5 on a shard's pre-haloed frame (f32): k <= 4 steps in one sweep, the
+// frame as lbm_fluid_step_prehalo's; p carries the walls and Zou/He sides
+// of the shard's global edges (p.open: bit 0 inlet, bit 1 outlet); u_in:
+// (ny + 16,) f32, the inlet profile at the frame's global rows (read only
+// when p.open).
+extern "C" int lbm_fluid_multi_prehalo(const void* f, void* out,
+                                       const float* u_in, int ny, int nx,
+                                       int pitch, int hx, int k,
+                                       FluidParams p, cudaStream_t stream) {
+  if (k < 1 || k > kSweepK || pitch != nx + 2 * hx ||
+      (hx != 0 && hx != kHaloCols) || (p.open && u_in == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const Frame fr{pitch, hx};
+  return hx ? launch_multi_prehalo<2>(f, out, u_in, ny, nx, k, p, fr, stream)
+            : launch_multi_prehalo<1>(f, out, u_in, ny, nx, k, p, fr, stream);
 }

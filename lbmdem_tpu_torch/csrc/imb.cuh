@@ -349,6 +349,66 @@ __global__ void zou_he_edges_kernel(const float* __restrict__ edge,
   store_f(c1 + 7 * plane, v[7]);
 }
 
+// The one-step push kernel on a shard's pre-haloed frame (K2 on the
+// lattice mesh; f32): f and the solid window are frames (d2q9.cuh
+// Frame, both of pitch fr.pitch), fout the (9, ny, nx) interior. One
+// thread per cell of the interior and its ring of one cell (the ring's
+// rows always; its columns in "yx" mode, PRE = 2 - in "y" mode, PRE = 1,
+// x wraps over the shard's full width). Each collides once; the
+// interior's cells hand phi to the sink at their interior index, and
+// every cell pushes the populations that land in the interior, so that
+// the ring's pushes are the exchanged neighbours' and each interior slot
+// has one writer, as in coupled_step_kernel. p.walls holds only the x
+// walls ("y" mode) or none ("yx"), p.open is 0: the caller fixes the
+// global edges of the shards that hold them (the JAX _stream_and_bb with
+// prehalo), from the post-collision populations of the interior's edge
+// rows and columns that `edge` receives.
+template <bool TRT, bool LES, bool LAMBDA, class Sink, int PRE>
+__global__ void __launch_bounds__(kStepMaxThreads)
+    coupled_step_prehalo_kernel(const float* __restrict__ f,
+                                const float* __restrict__ solid,
+                                float* __restrict__ fout, Sink sink, int ny,
+                                int nx, Frame fr, FluidParams p, float tm,
+                                EdgePost edge) {
+  constexpr int kRing = PRE == 2 ? 1 : 0;  // ring columns per side
+  const int gx = blockIdx.x * 32 + threadIdx.x - kRing;
+  const int gy = blockIdx.y * blockDim.y + threadIdx.y - 1;
+  if (gx >= nx + kRing || gy > ny) return;
+  const size_t fplane = (size_t)(ny + 2 * kHaloRows) * fr.pitch;
+  const size_t src = (size_t)(gy + kHaloRows) * fr.pitch + gx + fr.hx;
+  float fc[9], fp[9], phix, phiy;
+#pragma unroll
+  for (int i = 0; i < 9; ++i) fc[i] = f[i * fplane + src];
+  const float eps_raw = solid[src];
+  collide_cell<false, TRT, LES, LAMBDA>(fc, eps_raw, solid[fplane + src],
+                                        solid[2 * fplane + src], p, tm, fp,
+                                        &phix, &phiy);
+  const size_t plane = (size_t)ny * nx;
+  const bool inside = gy >= 0 && gy < ny && gx >= 0 && gx < nx;
+  if (inside) {
+    sink.store((size_t)gy * nx + gx, eps_raw, phix, phiy);
+    edge.store(gy, gx, ny, nx, fp);
+  }
+  const bool wall_w = (p.walls & 4) && gx == 0;
+  const bool wall_e = (p.walls & 8) && gx == nx - 1;
+#pragma unroll
+  for (int i = 0; i < 9; ++i) {
+    const bool past_x = ex(i) < 0 ? wall_w : (ex(i) > 0 && wall_e);
+    int slot = i, dy = gy + ey(i), dx = gx + ex(i);
+    float v = fp[i];
+    if (past_x) {
+      slot = opp(i);
+      dy = gy;
+      dx = gx;
+      v = __fadd_rn(fp[i], p.bb[bb_x(i)]);
+    } else if (PRE == 1) {
+      dx = dx < 0 ? nx - 1 : (dx == nx ? 0 : dx);
+    }
+    if (dy < 0 || dy >= ny || dx < 0 || dx >= nx) continue;
+    fout[slot * plane + (size_t)dy * nx + dx] = v;
+  }
+}
+
 template <typename S, bool TRT, bool LES, bool LAMBDA, class Sink>
 int launch_coupled_step(const void* f, const float* eps, const float* usx,
                         const float* usy, const float* u_in, void* fout,
@@ -371,6 +431,28 @@ int launch_coupled_step(const void* f, const float* eps, const float* usx,
   return (int)cudaGetLastError();
 }
 
+template <bool TRT, bool LES, bool LAMBDA, class Sink>
+int launch_coupled_step_prehalo(const float* f, const float* solid,
+                                float* fout, Sink sink, int ny, int nx,
+                                Frame fr, const FluidParams& p, float tm,
+                                EdgePost edge, int threads,
+                                cudaStream_t stream) {
+  if (threads < 32 || threads > kStepMaxThreads || threads % 32 != 0 ||
+      p.open || (p.walls & 3) || (fr.hx != 0 && (p.walls & 12)))
+    return (int)cudaErrorInvalidValue;
+  const int by = threads / 32, ring = fr.hx ? 2 : 0;
+  const dim3 grid((nx + ring + 31) / 32, (ny + 2 + by - 1) / by);
+  if (fr.hx)
+    coupled_step_prehalo_kernel<TRT, LES, LAMBDA, Sink, 2>
+        <<<grid, dim3(32, by), 0, stream>>>(f, solid, fout, sink, ny, nx, fr,
+                                            p, tm, edge);
+  else
+    coupled_step_prehalo_kernel<TRT, LES, LAMBDA, Sink, 1>
+        <<<grid, dim3(32, by), 0, stream>>>(f, solid, fout, sink, ny, nx, fr,
+                                            p, tm, edge);
+  return (int)cudaGetLastError();
+}
+
 // The instantiation of the one-step kernel for the options: LAMBDA
 // matters only with LES (else the caller's tm already has the lambda
 // form).
@@ -384,6 +466,24 @@ int dispatch_coupled_step(const void* f, const float* eps, const float* usx,
   launch_coupled_step<S, TRT, LES, LAMBDA, Sink>(f, eps, usx, usy, u_in,  \
                                                  fout, edge, sink, ny, nx, \
                                                  p, tm, threads, stream)
+  if (p.trt) {
+    if (!p.les) return LBM_STEP(true, false, false);
+    return lambda ? LBM_STEP(true, true, true) : LBM_STEP(true, true, false);
+  }
+  if (!p.les) return LBM_STEP(false, false, false);
+  return lambda ? LBM_STEP(false, true, true) : LBM_STEP(false, true, false);
+#undef LBM_STEP
+}
+
+template <class Sink>
+int dispatch_coupled_step_prehalo(const float* f, const float* solid,
+                                  float* fout, Sink sink, int ny, int nx,
+                                  Frame fr, int lambda, const FluidParams& p,
+                                  float tm, EdgePost edge, int threads,
+                                  cudaStream_t stream) {
+#define LBM_STEP(TRT, LES, LAMBDA)                                         \
+  launch_coupled_step_prehalo<TRT, LES, LAMBDA, Sink>(                     \
+      f, solid, fout, sink, ny, nx, fr, p, tm, edge, threads, stream)
   if (p.trt) {
     if (!p.les) return LBM_STEP(true, false, false);
     return lambda ? LBM_STEP(true, true, true) : LBM_STEP(true, true, false);
@@ -471,16 +571,22 @@ __global__ void __launch_bounds__(1024)
 // is +-0 (not even stored), and adding +-0 to a sum that starts at +0
 // changes no bit. partials: (k, n_tiles * cap, 4); K2 and K9 launch it
 // with k = 1. M is the coverage method, W the source of w (WPlanes or
-// WFromPhi).
+// WFromPhi). On a shard of the lattice mesh (K2's pre-haloed mode) the
+// disk records are in the coordinates of the shard's stamp canvas, whose
+// cell (oy, ox) is the interior's (0, 0): the tiles sit at that origin,
+// w is read at the interior cell and eps_raw from a window of row length
+// eps_pitch whose pointer is at the interior's (0, 0); FRAME selects
+// that instantiation, so the lattice's keeps its indexing.
 constexpr int kReduceBlocks = 1056;  // 8 blocks of 256 threads per SM
-template <int M, class W>
+template <int M, class W, bool FRAME>
 __global__ void __launch_bounds__(kReduceThreads)
     reduce_kernel(W wsrc, const float* __restrict__ eps,
                   const float* __restrict__ tile_data,
                   const int* __restrict__ counts,
                   const int* __restrict__ offsets,
                   float* __restrict__ partials, int nx, int th, int tw,
-                  int ntx, int n_tiles, int cap, int window, CovParams cp) {
+                  int ntx, int n_tiles, int cap, int window, CovParams cp,
+                  int eps_pitch, int oy, int ox) {
   __shared__ SampleTable tab;
   if (M == kSample) fill_sample_table(&tab, cp.ns);
   __syncthreads();
@@ -506,7 +612,8 @@ __global__ void __launch_bounds__(kReduceThreads)
     const int tile = lo, slot = j - offsets[lo];
     const float* d = tile_data + ((size_t)tile * cap + slot) * 8;
     const float px = d[0], py = d[1], rr = shift_radius(d[5], cp.r_shift);
-    const int y0 = (tile / ntx) * th, x0 = (tile % ntx) * tw;
+    const int y0 = (tile / ntx) * th + (FRAME ? oy : 0);
+    const int x0 = (tile % ntx) * tw + (FRAME ? ox : 0);
     const int by = (int)floorf(py + 0.5f) - half;
     const int bx = (int)floorf(px + 0.5f) - half;
     const int ya = max(by, y0), yb = min(by + window, y0 + th);
@@ -516,8 +623,15 @@ __global__ void __launch_bounds__(kReduceThreads)
     float fx = 0.f, fy = 0.f, tq = 0.f;
     for (int c = lane; c < n; c += 32) {
       const int gy = ya + c / ww, gx = xa + c % ww;
-      const size_t cell = (size_t)gy * nx + gx;
-      const float e = eps[cell];
+      size_t cell;
+      float e;
+      if constexpr (FRAME) {
+        cell = (size_t)(gy - oy) * nx + (gx - ox);
+        e = eps[(size_t)(gy - oy) * eps_pitch + (gx - ox)];
+      } else {
+        cell = (size_t)gy * nx + gx;
+        e = eps[cell];
+      }
       if (!(e > 0.0f)) continue;
       const float relx = __fsub_rn((float)gx, px);
       const float rely = __fsub_rn((float)gy, py);
@@ -552,19 +666,29 @@ inline int launch_reduce(W wsrc, const float* eps, const float* tile_data,
                          const int* counts, int* offsets, float* partials,
                          int nx, int th, int tw, int ntx, int n_tiles, int cap,
                          int window, const CovParams& cp, int k,
-                         cudaStream_t stream) {
+                         cudaStream_t stream, int eps_pitch = 0, int oy = 0,
+                         int ox = 0) {
+  // eps_pitch 0: the lattice (eps (ny, nx), origin (0, 0)); else a
+  // shard's solid window, the interior at (oy, ox) of the records' frame
   if (cp.method < kSample || cp.method > kExact)
     return (int)cudaErrorInvalidValue;
   if (n_tiles == 0 || cap == 0) return 0;
   slot_offsets_kernel<<<1, 1024, 0, stream>>>(counts, n_tiles, cap, offsets);
   const int err = (int)cudaGetLastError();
   if (err != 0) return err;
-  auto kernel = cp.method == kRamp    ? &reduce_kernel<kRamp, W>
-                : cp.method == kExact ? &reduce_kernel<kExact, W>
-                                      : &reduce_kernel<kSample, W>;
+  const bool frame = eps_pitch != 0;
+  auto kernel =
+      cp.method == kRamp
+          ? (frame ? &reduce_kernel<kRamp, W, true>
+                   : &reduce_kernel<kRamp, W, false>)
+      : cp.method == kExact
+          ? (frame ? &reduce_kernel<kExact, W, true>
+                   : &reduce_kernel<kExact, W, false>)
+          : (frame ? &reduce_kernel<kSample, W, true>
+                   : &reduce_kernel<kSample, W, false>);
   kernel<<<dim3(kReduceBlocks, k), kReduceThreads, 0, stream>>>(
       wsrc, eps, tile_data, counts, offsets, partials, nx, th, tw, ntx,
-      n_tiles, cap, window, cp);
+      n_tiles, cap, window, cp, frame ? eps_pitch : nx, oy, ox);
   return (int)cudaGetLastError();
 }
 

@@ -36,6 +36,19 @@
 //      so no block is spent on an empty slot. Coverage takes
 //      coverage.cuh's fast path.
 // No atomics: f' and the partials are deterministic.
+//
+// Pre-haloed mode (lbm_imb_step_prehalo, the lattice mesh): the step
+// reads a shard's frame and solid window (d2q9.cuh Frame) and collides
+// the interior and its ring of one cell, whose pushes bring the
+// exchanged neighbours' populations in (imb.cuh
+// coupled_step_prehalo_kernel); the reduce places the interior tiles at
+// the origin (oy, ox) of the shard's stamp canvas, where the disk records
+// live, and reads eps_raw from the window. It replaces the prehalo and
+// origin branches of the TPU kernel (_imb_reduce_kernel's pre-haloed
+// windows and oy/ox, pallas_lbm.py:1048). Bytes per step: f and the
+// solid window over the interior and its ring of one cell (48 B per cell
+// of (ny + 2)(nx [+ 2])) read, f' (36 B per interior cell) written, f32
+// only.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -72,4 +85,34 @@ extern "C" int lbm_imb_step(const void* f, const float* solid,
   return launch_reduce(WPlanes{w, plane}, solid, tile_data, counts, offsets,
                        partials, nx, th, tw, ntx, n_tiles, cap, window, cp, 1,
                        stream);
+}
+
+// K2 on a shard's pre-haloed frame (f32): f (9, ny + 16, pitch) and solid
+// (3, ny + 16, pitch), the interior at column hx (128 in "yx" mode, else
+// 0; pitch = nx + 2 hx); fout (9, ny, nx); w (2, ny, nx) scratch; the
+// binning of the interior's th x tw tiles with disk records in canvas
+// coordinates, the interior's (0, 0) at canvas cell (oy, ox); p carries
+// only the x walls ("y" mode) or none ("yx"), and no Zou/He; erow (9, 2,
+// nx) and ecol (9, ny, 2) f32, or null: the post-collision populations of
+// the interior's first and last rows and columns.
+extern "C" int lbm_imb_step_prehalo(
+    const float* f, const float* solid, const float* tile_data,
+    const int* counts, float* fout, float* w, float* erow, float* ecol,
+    float* partials, int* offsets,
+    int ny, int nx, int pitch, int hx, int oy, int ox, int th, int tw,
+    int ntx, int n_tiles, int cap, int window, CovParams cp, int lambda,
+    FluidParams p, float tm, float eps_min, int threads,
+    cudaStream_t stream) {
+  if (pitch != nx + 2 * hx || (hx != 0 && hx != kHaloCols))
+    return (int)cudaErrorInvalidValue;
+  const size_t plane = (size_t)ny * nx;
+  const Frame fr{pitch, hx};
+  const int err = dispatch_coupled_step_prehalo(
+      f, solid, fout, WSink{w, plane, eps_min}, ny, nx, fr, lambda, p, tm,
+      EdgePost{erow, ecol}, threads, stream);
+  if (err != 0) return err;
+  return launch_reduce(WPlanes{w, plane},
+                       solid + (size_t)kHaloRows * pitch + hx, tile_data,
+                       counts, offsets, partials, nx, th, tw, ntx, n_tiles,
+                       cap, window, cp, 1, stream, pitch, oy, ox);
 }

@@ -23,6 +23,14 @@
 // No atomics and no shared accumulators: each cell's sum runs in slot
 // order in its own thread, so eps and u_s equal the plain version's
 // (ops/stamp.stamp_fields_plain) bit for bit, for every method.
+//
+// The lattice's cell (0, 0) sits at (oy, ox) of the frame the disk
+// records are in ((0, 0) on one device). A shard of the lattice mesh
+// stamps its canvas from records in global coordinates with the
+// canvas's global offset as the origin, so every window cell's relative
+// coordinate, and so its coverage, is the single-device stamp's bit for
+// bit (records shifted into canvas coordinates would round in f32 near
+// the low global edges).
 #include <cuda_runtime.h>
 
 #include "coverage.cuh"
@@ -46,7 +54,7 @@ __global__ void __launch_bounds__(kThreads)
     stamp_kernel(const float* __restrict__ tile_data,
                  const int* __restrict__ counts, float* __restrict__ out,
                  int ny, int nx, int th, int tw, int ntx, int cap, int window,
-                 CovParams cp, float eps_min) {
+                 CovParams cp, float eps_min, int oy, int ox) {
   __shared__ Disk disks[kThreads];
   __shared__ int warp_n[kWarps];
   __shared__ SampleTable tab;  // filled before the first barrier
@@ -55,7 +63,7 @@ __global__ void __launch_bounds__(kThreads)
   const int nsx = (tw + kSubX - 1) / kSubX;
   const int sy0 = (blockIdx.y / nsx) * kSubY;  // sub-tile origin in the tile
   const int sx0 = (blockIdx.y % nsx) * kSubX;
-  const int y0 = (tile / ntx) * th, x0 = (tile % ntx) * tw;
+  const int y0 = (tile / ntx) * th + oy, x0 = (tile % ntx) * tw + ox;
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int row = sy0 + warp, col = sx0 + lane;
   const bool mine = row < th && col < tw;
@@ -120,7 +128,7 @@ __global__ void __launch_bounds__(kThreads)
   }
   if (!mine) return;
   const size_t plane = (size_t)ny * nx;
-  const size_t c = (size_t)gy * nx + gx;
+  const size_t c = (size_t)(gy - oy) * nx + (gx - ox);
   const float inv = 1.0f / fmaxf(a0, eps_min);
   out[c] = a0;
   out[plane + c] = __fmul_rn(a1, inv);
@@ -132,11 +140,12 @@ __global__ void __launch_bounds__(kThreads)
 // tile_data: (n_tiles, cap * 8) f32 disk records [x, y, vx, vy, omega, r,
 // active, 0] in slot order; counts: (n_tiles,) i32; out: (3, ny, nx) f32.
 // Stamp tiles are th x tw, ntx per tile row; cp: the coverage method and
-// its constants (ops/stamp.cov_params).
+// its constants (ops/stamp.cov_params); (oy, ox): the lattice's cell (0,
+// 0) in the records' frame.
 extern "C" int lbm_stamp(const float* tile_data, const int* counts, float* out,
                          int ny, int nx, int th, int tw, int ntx, int cap,
-                         int window, CovParams cp, float eps_min,
-                         cudaStream_t stream) {
+                         int window, CovParams cp, float eps_min, int oy,
+                         int ox, cudaStream_t stream) {
   if (cp.method < kSample || cp.method > kExact)
     return (int)cudaErrorInvalidValue;
   const int n_tiles = (ny / th) * ntx;
@@ -147,6 +156,7 @@ extern "C" int lbm_stamp(const float* tile_data, const int* counts, float* out,
                 : cp.method == kExact ? &stamp_kernel<kExact>
                                       : &stamp_kernel<kSample>;
   kernel<<<grid, kThreads, 0, stream>>>(tile_data, counts, out, ny, nx, th,
-                                        tw, ntx, cap, window, cp, eps_min);
+                                        tw, ntx, cap, window, cp, eps_min, oy,
+                                        ox);
   return (int)cudaGetLastError();
 }

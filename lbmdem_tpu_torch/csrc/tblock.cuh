@@ -83,6 +83,7 @@ namespace {
 
 constexpr int kTBMaxThreads = 512;
 constexpr int kTBMaxK = 8;
+constexpr int kMaxDevices = 64;
 
 // Strip of a temporal-block launch: threads per level (the strip's
 // output columns plus the 2k halo columns) and output rows per block
@@ -180,18 +181,27 @@ inline size_t tblock_smem(int k, int threads) {
 // 512 threads per SM (64 registers, no spills), so one block's work fills
 // the other's barrier waits; TRT or LES for one, whose collide would
 // spill at 64. ROWS: rows per level and phase (two: two independent
-// collides per thread between barriers, half the barriers).
-template <typename S, typename SO, bool SHIFT, int ROWS, int MINB,
-          class Cell>
-__global__ void __launch_bounds__(kTBMaxThreads, MINB)
-    temporal_block_kernel(const S* __restrict__ f,
-                          const float* __restrict__ u_in, SO* __restrict__ out,
-                          Cell cell, int ny, int nx, int k, int rows,
-                          FluidParams p) {
+// collides per thread between barriers, half the barriers). PRE: 0 on
+// the lattice; 1 ("y") or 2 ("yx") on a shard's pre-haloed frame `fr`
+// (d2q9.cuh Frame): level 0 reads row y of the interior from frame row
+// y + kHaloRows, which holds exchanged data for the k <= kHaloRows rows
+// above and below the interior, and column x from frame column x + hx
+// in "yx" mode (wrapped in x in "y" mode, where the shard spans the
+// lattice's width); the walls and Zou/He closures that fire are those
+// of p (the shard's global edges). FluidCell only. The body is one
+// device function; the lattice's kernel (temporal_block_kernel) and the
+// frame's (temporal_block_prehalo_kernel) are two entries, so the
+// lattice's keeps its own signature and code.
+template <typename S, typename SO, bool SHIFT, int ROWS, class Cell, int PRE>
+__device__ __forceinline__ void temporal_block_body(
+    const S* __restrict__ f, const float* __restrict__ u_in,
+    SO* __restrict__ out, Cell cell, int ny, int nx, int k, int rows,
+    FluidParams p, Frame fr) {
   constexpr bool kShift = SHIFT;
   constexpr int RING = ring_rows<ROWS>();
   constexpr int LAG = ROWS + 1;
   static_assert(!Cell::kSolid || ROWS == 1, "the solid ring lags 2 rows");
+  static_assert(!Cell::kSolid || PRE == 0, "a frame holds no solid stack");
   extern __shared__ float smem[];
   const int T = blockDim.x, lx = threadIdx.x;
   const int g = threadIdx.y;                     // group g runs level g
@@ -200,6 +210,11 @@ __global__ void __launch_bounds__(kTBMaxThreads, MINB)
   const int gx = blockIdx.x * (T - 2 * k) - k + lx;  // global unwrapped
   const int cx = wrap(gx, nx);
   const size_t plane = (size_t)ny * nx;
+  // PRE: the frame's plane, and the lane's frame column (lanes past the
+  // 2k-column cone that no output needs read a clamped column)
+  const size_t fplane =
+      PRE ? (size_t)(ny + 2 * kHaloRows) * fr.pitch : plane;
+  const int fx = PRE == 2 ? min(gx, nx + kHaloCols - 1) + fr.hx : cx;
   const float shift = kShift ? p.rho0 : 0.0f;
   const int R = 2 * k - 1;
   // NTCell: [R][eps_raw, us_x, us_y][T]
@@ -214,7 +229,7 @@ __global__ void __launch_bounds__(kTBMaxThreads, MINB)
   // pull of row j, column lx from level lt - 1's ring
   auto pull = [&](int lt, int j, float* v) {
     const float* src = smem + (size_t)(lt - 1) * RING * 9 * T + lx;
-    stream_pull([&](int i, int dy, int dx) {
+    stream_pull<PRE != 0>([&](int i, int dy, int dx) {
       return src[(unsigned)(j + dy) % RING * 9 * T + i * T + dx];
     }, y0 - k + j, gx, ny, nx, u_in, p, shift, v);
   };
@@ -228,9 +243,11 @@ __global__ void __launch_bounds__(kTBMaxThreads, MINB)
       float v[9], e = 0.f, sx = 0.f, sy = 0.f;
       float* sr = sol + (size_t)rs * 3 * T + lx;
       if (t == 0) {  // row j from device memory
-        const size_t c = (size_t)wrap(y0 - k + j, ny) * nx + cx;
+        const size_t c =
+            PRE ? (size_t)(y0 - k + j + kHaloRows) * fr.pitch + fx
+                : (size_t)wrap(y0 - k + j, ny) * nx + cx;
 #pragma unroll
-        for (int i = 0; i < 9; ++i) v[i] = load_f(f + i * plane + c);
+        for (int i = 0; i < 9; ++i) v[i] = load_f(f + i * fplane + c);
         if constexpr (Cell::kSolid) {
           e = __ldg(cell.solid + c);  // read-only, as a __restrict__ one
           sx = __ldg(cell.solid + plane + c);
@@ -278,6 +295,29 @@ __global__ void __launch_bounds__(kTBMaxThreads, MINB)
   }
 }
 
+template <typename S, typename SO, bool SHIFT, int ROWS, int MINB,
+          class Cell>
+__global__ void __launch_bounds__(kTBMaxThreads, MINB)
+    temporal_block_kernel(const S* __restrict__ f,
+                          const float* __restrict__ u_in, SO* __restrict__ out,
+                          Cell cell, int ny, int nx, int k, int rows,
+                          FluidParams p) {
+  temporal_block_body<S, SO, SHIFT, ROWS, Cell, 0>(f, u_in, out, cell, ny, nx,
+                                                   k, rows, p, Frame{0, 0});
+}
+
+template <typename S, typename SO, bool SHIFT, int ROWS, int MINB,
+          class Cell, int PRE>
+__global__ void __launch_bounds__(kTBMaxThreads, MINB)
+    temporal_block_prehalo_kernel(const S* __restrict__ f,
+                                  const float* __restrict__ u_in,
+                                  SO* __restrict__ out, Cell cell, int ny,
+                                  int nx, int k, int rows, FluidParams p,
+                                  Frame fr) {
+  temporal_block_body<S, SO, SHIFT, ROWS, Cell, PRE>(f, u_in, out, cell, ny,
+                                                     nx, k, rows, p, fr);
+}
+
 // The device's opt-in shared memory per block, read once
 inline int max_block_smem() {
   static int max_smem = 0;
@@ -291,12 +331,20 @@ inline int max_block_smem() {
 }
 
 template <typename S, typename SO, bool SHIFT, int ROWS, int MINB,
-          class Cell>
+          class Cell, int PRE = 0>
 int launch_temporal_block(const void* f, const float* u_in, void* out,
                           Cell cell, int ny, int nx, int k, StripConfig strip,
-                          const FluidParams& p, cudaStream_t stream) {
-  auto kernel = temporal_block_kernel<S, SO, SHIFT, ROWS, MINB, Cell>;
-  if (k < 1 || k > kTBMaxK) return (int)cudaErrorInvalidValue;
+                          const FluidParams& p, cudaStream_t stream,
+                          Frame fr = Frame{0, 0}) {
+  auto kernel = [] {
+    if constexpr (PRE == 0)
+      return temporal_block_kernel<S, SO, SHIFT, ROWS, MINB, Cell>;
+    else
+      return temporal_block_prehalo_kernel<S, SO, SHIFT, ROWS, MINB, Cell,
+                                           PRE>;
+  }();
+  if (k < 1 || k > kTBMaxK || (PRE && k > kHaloRows))
+    return (int)cudaErrorInvalidValue;
   const int max_smem = max_block_smem();
   int threads = strip.threads;
   while (threads > 64 &&
@@ -305,19 +353,29 @@ int launch_temporal_block(const void* f, const float* u_in, void* out,
     threads /= 2;
   if (threads * k > kTBMaxThreads) return (int)cudaErrorInvalidValue;
   const size_t bytes = tblock_smem<ROWS, Cell::kSolid>(k, threads);
-  static size_t opted_in = 48 * 1024;  // per instantiation
-  if (bytes > opted_in) {
+  // per instantiation and device: the attribute is a device's (the
+  // shards of a mesh may sit on several cards)
+  static size_t opted_in[kMaxDevices];
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (bytes > std::max(opted_in[dev], (size_t)48 * 1024)) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (err != cudaSuccess) return (int)err;
-    opted_in = bytes;
+    opted_in[dev] = bytes;
   }
   const int w = threads - 2 * k;
   const int nbx = (nx + w - 1) / w, rows = strip.rows;
   const dim3 grid(nbx, (ny + rows - 1) / rows);
-  kernel<<<grid, dim3(threads, k), bytes, stream>>>(
-      static_cast<const S*>(f), u_in, static_cast<SO*>(out), cell, ny, nx, k,
-      rows, p);
+  if constexpr (PRE == 0)
+    kernel<<<grid, dim3(threads, k), bytes, stream>>>(
+        static_cast<const S*>(f), u_in, static_cast<SO*>(out), cell, ny, nx,
+        k, rows, p);
+  else
+    kernel<<<grid, dim3(threads, k), bytes, stream>>>(
+        static_cast<const S*>(f), u_in, static_cast<SO*>(out), cell, ny, nx,
+        k, rows, p, fr);
   return (int)cudaGetLastError();
 }
 

@@ -85,7 +85,7 @@ class CovParams(ctypes.Structure):
 # C signatures: (name, argtypes)
 _SIGNATURES = {
     "lbm_stamp": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, CovParams, _F,
-                  _P],
+                  _I, _I, _P],
     "lbm_imb_step": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                      _I, _I, _I, _I, CovParams, _I, _I, FluidParams, _F, _F,
                      _I, _P],
@@ -100,6 +100,13 @@ _SIGNATURES = {
     "lbm_fluid_step": [_P, _P, _P, _I, _I, _I, FluidParams, _P],
     "lbm_fluid_multi": [_P, _P, _P, _P, _I, _I, _I, _I, FluidParams, _P],
     "lbm_fluid_strip": [_I, _I],
+    "lbm_fluid_step_prehalo": [_P, _P, _P, _P, _I, _I, _I, _I, FluidParams,
+                               _P],
+    "lbm_fluid_multi_prehalo": [_P, _P, _P, _I, _I, _I, _I, _I, FluidParams,
+                                _P],
+    "lbm_imb_step_prehalo": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                             _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                             CovParams, _I, FluidParams, _F, _F, _I, _P],
     "lbm_imb_multi_strip": [_I, _I],
     "lbm_imb_static_multi": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
                              FluidParams, _F, _P],

@@ -11,6 +11,18 @@ CPU tensors take the plain versions; CUDA tensors take the kernels of
 `out`, never into `f`. K5 keeps the k inner steps in float32 and rounds
 to the storage type once per call, so its plain version is k f32 steps
 between one `from_storage` and one `to_storage`.
+
+Pre-haloed mode (`prehalo`, the lattice mesh of `parallel/`): f is a
+shard's frame with HY = 8 exchanged halo rows per side ("y"), and also
+HX = 128 halo columns per side ("yx"); cfg is the shard's local config
+and the output is the (9, ny, nx) interior. K4 skips the y walls ("y")
+or every wall ("yx") and the Zou/He closures: the caller fixes the
+shards that hold a global edge afterwards. K5 runs every wall and the
+Zou/He closures itself at each inner step, gated by `edges` = (south,
+north, west, east, global row offset of the shard), with the inlet
+profile taken at the global row (`ny_glob` rows in all). Both keep the
+JAX shapes, so the parity tests feed both packages one array; f32
+storage only.
 """
 
 from __future__ import annotations
@@ -37,12 +49,51 @@ SWEEP_K = 4
 # chip_smoke.py's sweep at 4096^2
 STRIP = (128, 64)
 
+# halo of a pre-haloed frame: rows per side, and columns per side in
+# "yx" mode (the JAX shapes: its f32 DMA row granule and lane granule)
+HY = 8
+HX = 128
 
-def check_fluid_cfg(cfg: SimConfig, prehalo=False, edges=None) -> None:
-    """Raise for options of the JAX fluid kernels that are not ported."""
-    if prehalo or edges is not None:
-        raise not_ported("the prehalo/edges arguments of the fluid kernels "
-                         "(multi-chip halo exchange)", 12)
+
+def prehalo_mode(prehalo) -> str:
+    """"" (no halo), "y" or "yx" from a JAX-style prehalo argument
+    (False, True or "y", "yx")."""
+    if prehalo is False or prehalo is None:
+        return ""
+    if prehalo is True or prehalo == "y":
+        return "y"
+    if prehalo == "yx":
+        return "yx"
+    raise ValueError(f"prehalo must be False, True, 'y' or 'yx', got "
+                     f"{prehalo!r}")
+
+
+def frame_shape(cfg: SimConfig, mode: str):
+    """The (9, rows, cols) input frame of a shard of cfg's (local) size
+    in pre-halo mode `mode` ("" is the lattice itself)."""
+    return (9, cfg.ny + (2 * HY if mode else 0),
+            cfg.nx + (2 * HX if mode == "yx" else 0))
+
+
+def check_fluid_cfg(cfg: SimConfig, prehalo=False, edges=None,
+                    k: int = 1) -> str:
+    """The pre-halo mode of the arguments; raise for what the fluid
+    kernels do not take: edges without a pre-haloed frame, bf16 storage
+    on a frame (its 16-row halo), K5 on a frame deeper than one row sweep
+    (k > SWEEP_K)."""
+    mode = prehalo_mode(prehalo)
+    if not mode:
+        if edges is not None:
+            raise ValueError("edges are the mesh position of a pre-haloed "
+                             "shard (prehalo='y' or 'yx')")
+        return mode
+    if cfg.f_storage != "float32":
+        raise not_ported("bf16 storage on a lattice mesh (16-row halos)",
+                         12)
+    if k > SWEEP_K:
+        raise not_ported(f"K5 on a pre-haloed shard with k = {k} > "
+                         f"{SWEEP_K} (more than one row sweep)", 12)
+    return mode
 
 
 def storage_dtype(cfg: SimConfig) -> torch.dtype:
@@ -85,8 +136,134 @@ def fused_step_fluid_multi_plain(f, cfg: SimConfig, k: int, out):
     return out.copy_(lbm.to_storage(g, cfg))
 
 
-@functools.lru_cache(maxsize=64)
-def _params(cfg: SimConfig) -> kernels.FluidParams:
+def _collide(g, cfg: SimConfig):
+    return lbm.collide(g, cfg.tau, cfg.gx, cfg.gy, cfg.smagorinsky,
+                       cfg.trt_lambda)
+
+
+def stream_frame(fpost, mode: str, h: int, w: int):
+    """Pull streaming of the (h, w) interior from the post-collision
+    populations of the interior and its ring of one cell: fpost holds
+    rows -1..h and, in "yx" mode, columns -1..w (in "y" mode all w
+    columns, wrapped periodically as the shard spans the lattice)."""
+    outs = []
+    for i in range(9):
+        ex, ey = int(lattice.E[i, 0]), int(lattice.E[i, 1])
+        p = fpost[i, 1 - ey:1 - ey + h]
+        if mode == "yx":
+            outs.append(p[:, 1 - ex:1 - ex + w])
+        else:
+            outs.append(torch.roll(p, ex, dims=1) if ex else p)
+    return torch.stack(outs)
+
+
+def x_walls_frame(fnew, fpost, cfg: SimConfig, h: int):
+    """The west and east bounce-back of a "y"-mode shard (the JAX
+    _stream_and_bb's x-wall rule, the one a 1D mesh keeps in the
+    kernel); fpost as in stream_frame. In place."""
+    opp = lattice.OPP
+    for side, idxs, col, uw in ((cfg.bc_west, lattice.IN_E, 0, cfg.uw_west),
+                                (cfg.bc_east, lattice.IN_W, -1, cfg.uw_east)):
+        if side != WALL:
+            continue
+        for i in (int(j) for j in idxs):
+            fnew[i, :, col] = (fpost[int(opp[i]), 1:1 + h, col]
+                               + lattice.wall_corr(i, 0.0, uw, cfg.rho0))
+    return fnew
+
+
+def edge_post_plain(fpost, mode: str, h: int, w: int, edge_post) -> None:
+    """Fill `edge_post` = (rows (9, 2, w), cols (9, h, 2)) with the
+    post-collision populations of the interior's first and last rows and
+    columns, fpost as in stream_frame."""
+    if edge_post is None:
+        return
+    rows, cols = edge_post
+    c = slice(1, 1 + w) if mode == "yx" else slice(None)
+    inner = fpost[:, 1:1 + h, c]
+    rows[:, 0] = inner[:, 0]
+    rows[:, 1] = inner[:, -1]
+    cols[:, :, 0] = inner[:, :, 0]
+    cols[:, :, 1] = inner[:, :, -1]
+
+
+def fused_step_fluid_prehalo_plain(f, cfg: SimConfig, mode: str, out,
+                                   edge_post=None):
+    """Plain version of K4 on a pre-haloed frame: the collide of the
+    interior and its ring (lbm.collide), pull streaming, the x walls in
+    "y" mode, into `out` (9, ny, nx), the edges' post-collision
+    populations into `edge_post`. No y walls and no Zou/He: the sharded
+    caller fixes the global edges."""
+    h, w = cfg.ny, cfg.nx
+    g = lbm.from_storage(f, cfg)[:, HY - 1:HY + h + 1]
+    if mode == "yx":
+        g = g[:, :, HX - 1:HX + w + 1]
+    fpost = _collide(g, cfg)
+    fnew = stream_frame(fpost, mode, h, w)
+    if mode == "y":
+        x_walls_frame(fnew, fpost, cfg, h)
+    edge_post_plain(fpost, mode, h, w, edge_post)
+    return out.copy_(lbm.to_storage(fnew, cfg))
+
+
+def fused_step_fluid_multi_prehalo_plain(f, cfg: SimConfig, k: int, mode: str,
+                                         edges, ny_glob: int, out):
+    """Plain version of K5 on a pre-haloed frame (the JAX
+    _stream_and_bb_window with its mesh-position flags): k x (collide
+    the whole frame, stream it with periodic rolls - the garbage that
+    wraps in at the frame's edge stays in the halo, one cell deeper per
+    step -, bounce-back at the shard's wall rows and columns across the
+    frame where `edges` says it holds that global edge, the Zou/He
+    closures on every frame row at the global row offset edges[4]),
+    then the interior into `out`."""
+    h, w = cfg.ny, cfg.nx
+    hx = HX if mode == "yx" else 0
+    s_on, n_on, w_on, e_on = (bool(e) for e in edges[:4])
+    oy = int(edges[4]) if len(edges) > 4 else 0
+    opp = lattice.OPP
+    g = lbm.from_storage(f, cfg)
+    u_in = lbm.inlet_profile_array(cfg.replace(ny=ny_glob))
+    u_rows = torch.as_tensor(u_in[frame_profile_rows(cfg, oy, ny_glob)],
+                             dtype=g.dtype, device=g.device)
+    rho_o = cfg.rho_outlet or cfg.rho0
+    for _ in range(k):
+        fpost = _collide(g, cfg)
+        g = lbm.stream(fpost)
+        for on, side, idxs, sl, uwx, uwy in (
+                (s_on, cfg.bc_south, lattice.IN_N, (HY, slice(None)),
+                 cfg.uw_south, 0.0),
+                (n_on, cfg.bc_north, lattice.IN_S, (HY + h - 1, slice(None)),
+                 cfg.uw_north, 0.0),
+                (w_on, cfg.bc_west, lattice.IN_E, (slice(None), hx), 0.0,
+                 cfg.uw_west),
+                (e_on, cfg.bc_east, lattice.IN_W, (slice(None), hx + w - 1),
+                 0.0, cfg.uw_east)):
+            if not (on and side == WALL):
+                continue
+            for i in (int(j) for j in idxs):
+                g[(i,) + sl] = (fpost[(int(opp[i]),) + sl]
+                                + lattice.wall_corr(i, uwx, uwy, cfg.rho0))
+        if cfg.bc_west == "inlet":
+            cw, ce = hx, hx + w - 1
+            if w_on:
+                n1, n5, n8 = lbm.zou_he_inlet(
+                    tuple(g[i, :, cw] for i in range(9)), u_rows)
+                g[1, :, cw], g[5, :, cw], g[8, :, cw] = n1, n5, n8
+            if e_on:
+                n3, n7, n6 = lbm.zou_he_outlet(
+                    tuple(g[i, :, ce] for i in range(9)), rho_o)
+                g[3, :, ce], g[7, :, ce], g[6, :, ce] = n3, n7, n6
+    return out.copy_(lbm.to_storage(g[:, HY:HY + h, hx:hx + w], cfg))
+
+
+@functools.lru_cache(maxsize=256)
+def _params(cfg: SimConfig, walls_mask: int = 15,
+            open_mask=None) -> kernels.FluidParams:
+    """The kernels' FluidParams of cfg. On a pre-haloed shard the walls
+    and the Zou/He sides are masked to those the kernel runs there
+    (walls_mask: bit 0 south, 1 north, 2 west, 3 east; open_mask: bit 0
+    the west inlet, 1 the east outlet; None on the lattice, where `open`
+    is 1 under Zou/He)."""
     f32 = np.float32
     tau = cfg.tau
     trt = cfg.trt_lambda
@@ -111,82 +288,180 @@ def _params(cfg: SimConfig) -> kernels.FluidParams:
         rho0=f32(cfg.rho0), rho_out=f32(cfg.rho_outlet or cfg.rho0),
         bb=(ctypes.c_float * 12)(*bb),
         forced=int(cfg.gx != 0.0 or cfg.gy != 0.0), trt=int(trt > 0.0),
-        les=int(cfg.smagorinsky > 0.0), walls=int(walls),
-        open=int(cfg.bc_west == "inlet"),
+        les=int(cfg.smagorinsky > 0.0), walls=int(walls) & walls_mask,
+        open=(int(cfg.bc_west == "inlet") if open_mask is None
+              else (3 if cfg.bc_west == "inlet" else 0) & open_mask),
     )
 
 
 @functools.lru_cache(maxsize=64)
 def _inlet_profile(cfg: SimConfig, device: torch.device):
     """The (ny,) f32 inlet profile on the card (lbm.inlet_profile_array),
-    made once per configuration: a host-to-device copy per launch would
-    synchronise the stream."""
+    made once per configuration and device: a host-to-device copy per
+    launch would synchronise the stream."""
     return torch.as_tensor(lbm.inlet_profile_array(cfg), dtype=torch.float32,
                            device=device)
 
 
-def _launch(f, cfg: SimConfig, k: int, out, what: str) -> None:
+def frame_profile_rows(cfg: SimConfig, oy: int, ny_glob: int):
+    """The global rows of a shard's frame rows -HY .. ny + HY - 1 whose
+    local row 0 is global row oy, wrapped on a periodic y axis and
+    clamped on a wall axis (whose halo rows no output needs)."""
+    rows = np.arange(cfg.ny + 2 * HY) - HY + oy
+    if cfg.bc_south != WALL:
+        return np.mod(rows, ny_glob)
+    return np.clip(rows, 0, ny_glob - 1)
+
+
+@functools.lru_cache(maxsize=256)
+def _frame_profile(cfg: SimConfig, oy: int, ny_glob: int,
+                   device: torch.device):
+    """The (ny + 16,) f32 inlet profile at a shard's frame rows, on the
+    card, made once per shard."""
+    u = lbm.inlet_profile_array(cfg.replace(ny=ny_glob))
+    return torch.as_tensor(u[frame_profile_rows(cfg, oy, ny_glob)],
+                           dtype=torch.float32, device=device)
+
+
+def edge_ptrs(edge_post, cfg: SimConfig, device):
+    """(rows, cols) pointers of an edge_post pair for the C launchers
+    (None where it is None), after checking its shapes."""
+    if edge_post is None:
+        return None, None
+    rows, cols = edge_post
+    for t, shape in ((rows, (9, 2, cfg.nx)), (cols, (9, cfg.ny, 2))):
+        if (tuple(t.shape) != shape or t.dtype != torch.float32
+                or t.device != device or not t.is_contiguous()):
+            raise ValueError(f"edge_post: contiguous f32 {shape} buffers on "
+                             f"f's device")
+    return rows.data_ptr(), cols.data_ptr()
+
+
+def _frame_args(f, cfg: SimConfig, mode: str):
+    """(pitch, halo columns) of a frame for the C launchers: the row
+    length of f and the column of its interior's first cell."""
+    return f.shape[2], (HX if mode == "yx" else 0)
+
+
+def _launch(f, cfg: SimConfig, k: int, out, what: str, mode: str = "",
+            edges=None, ny_glob: int = 0, edge_post=None) -> None:
+    """Launch K4 (k None) or K5 (k steps) on the lattice or, in pre-halo
+    mode `mode`, on a shard's frame."""
     want = check_storage(what, cfg, f, out)
-    u_in = (_inlet_profile(cfg, f.device).data_ptr()
-            if cfg.bc_west == "inlet" else None)
     bf16 = int(want == torch.bfloat16)
     lib = kernels.library()
     kernels.setting("lbm_fluid_strip", *STRIP)
-    if k == 1:
-        code = lib.lbm_fluid_step(f.data_ptr(), out.data_ptr(), u_in, cfg.ny,
-                                  cfg.nx, bf16, _params(cfg), kernels.stream())
-    else:
-        n_mid = min(-(-k // SWEEP_K) - 1, 2)  # scratch planes in turn
-        mid = (torch.empty((n_mid, *f.shape), dtype=torch.float32,
-                           device=f.device) if n_mid else None)
-        code = lib.lbm_fluid_multi(f.data_ptr(), out.data_ptr(),
-                                   None if mid is None else mid.data_ptr(),
-                                   u_in, cfg.ny, cfg.nx, k, bf16,
-                                   _params(cfg), kernels.stream())
+    u_in = (_inlet_profile(cfg, f.device).data_ptr()
+            if cfg.bc_west == "inlet" else None)
+    with torch.cuda.device(f.device):
+        if mode and k is None:  # the caller fixes the global edges
+            pitch, hx = _frame_args(f, cfg, mode)
+            erow, ecol = edge_ptrs(edge_post, cfg, f.device)
+            code = lib.lbm_fluid_step_prehalo(
+                f.data_ptr(), out.data_ptr(), erow, ecol, cfg.ny, cfg.nx,
+                pitch, hx, _params(cfg, 12 if mode == "y" else 0, 0),
+                kernels.stream())
+        elif mode:
+            pitch, hx = _frame_args(f, cfg, mode)
+            s_on, n_on, w_on, e_on = (int(bool(e)) for e in edges[:4])
+            oy = int(edges[4]) if len(edges) > 4 else 0
+            p = _params(cfg, s_on | n_on << 1 | w_on << 2 | e_on << 3,
+                        w_on | e_on << 1)
+            if cfg.bc_west == "inlet":
+                u_in = _frame_profile(cfg, oy, ny_glob or cfg.ny,
+                                      f.device).data_ptr()
+            code = lib.lbm_fluid_multi_prehalo(
+                f.data_ptr(), out.data_ptr(), u_in, cfg.ny, cfg.nx, pitch,
+                hx, k, p, kernels.stream())
+        elif k is None:
+            code = lib.lbm_fluid_step(f.data_ptr(), out.data_ptr(), u_in,
+                                      cfg.ny, cfg.nx, bf16, _params(cfg),
+                                      kernels.stream())
+        else:
+            n_mid = min(-(-k // SWEEP_K) - 1, 2)  # scratch planes in turn
+            mid = (torch.empty((n_mid, *f.shape), dtype=torch.float32,
+                               device=f.device) if n_mid else None)
+            code = lib.lbm_fluid_multi(f.data_ptr(), out.data_ptr(),
+                                       None if mid is None else mid.data_ptr(),
+                                       u_in, cfg.ny, cfg.nx, k, bf16,
+                                       _params(cfg), kernels.stream())
     kernels.check(code, what)
 
 
-def _check_args(f, cfg: SimConfig, out, what: str) -> None:
-    if f.shape != (9, cfg.ny, cfg.nx):
-        raise ValueError(f"{what}: f must be (9, {cfg.ny}, {cfg.nx}), got "
-                         f"{tuple(f.shape)}")
-    if out.shape != f.shape or out.data_ptr() == f.data_ptr():
-        raise ValueError(f"{what}: `out` must be a second f-shaped buffer")
+def _check_args(f, cfg: SimConfig, out, what: str, mode: str = "") -> None:
+    shape = frame_shape(cfg, mode)
+    if tuple(f.shape) != shape:
+        raise ValueError(f"{what}: f must be {shape}, got {tuple(f.shape)}")
+    if (tuple(out.shape) != (9, cfg.ny, cfg.nx)
+            or out.data_ptr() == f.data_ptr()):
+        raise ValueError(f"{what}: `out` must be a second (9, {cfg.ny}, "
+                         f"{cfg.nx}) f buffer")
 
 
-def fused_step_fluid(f, cfg: SimConfig, out, prehalo=False):
+def fused_step_fluid(f, cfg: SimConfig, out, prehalo=False, edge_post=None):
     """K4: one pure-fluid step of f (9, ny, nx) in storage form, written
     into `out` (the other f buffer, same shape). Returns out.
 
+    prehalo ("y" or True, "yx"): f is a shard's pre-haloed frame
+    (frame_shape), `out` its (9, ny, nx) interior; the y walls ("y") or
+    all walls ("yx") and the Zou/He closures are left to the caller,
+    which may ask for the post-collision populations of the interior's
+    first and last rows and columns in edge_post = (rows (9, 2, nx),
+    cols (9, ny, 2)) f32 buffers (the bounce-back's sources).
+
     CPU tensors take the plain version; CUDA tensors take the kernel
-    csrc/fluid.cu (lbm_fluid_step)."""
-    check_fluid_cfg(cfg, prehalo)
-    _check_args(f, cfg, out, "fused_step_fluid")
+    csrc/fluid.cu (lbm_fluid_step, or lbm_fluid_step_prehalo on a
+    frame)."""
+    mode = check_fluid_cfg(cfg, prehalo)
+    _check_args(f, cfg, out, "fused_step_fluid", mode)
+    if edge_post is not None and not mode:
+        raise ValueError("edge_post is for a pre-haloed frame")
     if f.device.type == "cpu":
+        if mode:
+            return fused_step_fluid_prehalo_plain(f, cfg, mode, out,
+                                                  edge_post)
         return fused_step_fluid_plain(f, cfg, out)
-    _launch(f, cfg, 1, out, "pure-fluid step kernel (K4)")
+    _launch(f, cfg, None, out, "pure-fluid step kernel (K4)", mode,
+            edge_post=edge_post)
     fused_step_fluid.launches += 1
     return out
 
 
 def fused_step_fluid_multi(f, cfg: SimConfig, k: int, out, prehalo=False,
-                           edges=None):
+                           edges=None, ny_glob: int = 0):
     """K5: k pure-fluid steps in one pass (1 <= k <= MAX_K[f_storage]),
     written into `out`. Returns out. k == 1 is K4, as in the JAX entry.
 
+    prehalo ("y" or True, "yx"): f is a shard's pre-haloed frame, `out`
+    its interior, k <= SWEEP_K; `edges` = (south, north, west, east[,
+    global row offset]) flags the global edges the shard holds, where
+    the walls and the Zou/He closures run at every inner step, and
+    `ny_glob` is the global lattice height (the inlet profile's).
+
     CPU tensors take the plain version; CUDA tensors take the kernel
-    csrc/fluid.cu (lbm_fluid_multi)."""
-    check_fluid_cfg(cfg, prehalo, edges)
+    csrc/fluid.cu (lbm_fluid_multi, or lbm_fluid_multi_prehalo on a
+    frame)."""
+    mode = check_fluid_cfg(cfg, prehalo, edges, k)
     if not 1 <= k <= MAX_K[cfg.f_storage]:
         raise ValueError(f"temporal block k={k} outside "
                          f"1..{MAX_K[cfg.f_storage]} for f_storage="
                          f"{cfg.f_storage!r}")
-    if k == 1:
+    if mode and (edges is None or len(edges) not in (4, 5)):
+        raise ValueError("a pre-haloed K5 needs edges = (south, north, west, "
+                         "east[, global row offset])")
+    if mode == "y" and not (edges[2] and edges[3]):
+        raise ValueError("a 'y' shard spans the lattice's width: it holds "
+                         "both x edges (edges[2] = edges[3] = 1)")
+    if k == 1 and not mode:
         return fused_step_fluid(f, cfg, out)
-    _check_args(f, cfg, out, "fused_step_fluid_multi")
+    _check_args(f, cfg, out, "fused_step_fluid_multi", mode)
     if f.device.type == "cpu":
+        if mode:
+            return fused_step_fluid_multi_prehalo_plain(
+                f, cfg, k, mode, edges, ny_glob or cfg.ny, out)
         return fused_step_fluid_multi_plain(f, cfg, k, out)
-    _launch(f, cfg, k, out, "temporal-block fluid kernel (K5)")
+    _launch(f, cfg, k, out, "temporal-block fluid kernel (K5)", mode, edges,
+            ny_glob)
     fused_step_fluid_multi.launches += 1
     return out
 

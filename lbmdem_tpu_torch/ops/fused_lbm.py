@@ -28,6 +28,17 @@ Each wrapper takes its plain version for CPU tensors and its CUDA
 kernel (`csrc/imb_reduce.cu`, `csrc/imb_multi.cu`, `csrc/imb_split.cu`)
 for CUDA tensors. All write the new populations into the caller's second
 f buffer `out`, never into `f`.
+
+K2 also takes a shard of the lattice mesh (`prehalo`, `origin`: the
+JAX entry's multi-chip arguments): f is the shard's pre-haloed frame
+and the solid stack its window (3, ny + 16, nx [+ 256]), both in the
+shapes of `fused_fluid.frame_shape`; cfg is the shard's local config.
+The step skips the y walls ("y") or all walls ("yx") and the Zou/He
+closures, which the caller fixes on the shards at a global edge. The
+binning is that of the interior tiles of the shard's stamp canvas, whose
+disk records are in canvas coordinates: the interior's cell (0, 0) is
+the canvas's cell `origin`. The partials keep K2's slot numbering over
+the interior tiles. f32 storage only.
 """
 
 from __future__ import annotations
@@ -38,6 +49,7 @@ import torch
 from lbmdem_tpu_torch import kernels
 from lbmdem_tpu_torch.config import SimConfig
 from lbmdem_tpu_torch.ops import fused_fluid, imb, lbm, not_ported
+from lbmdem_tpu_torch.ops.fused_fluid import HX, HY
 from lbmdem_tpu_torch.ops.stamp import (cov_params, hydro_partials_plain,
                                         tile_dims)
 
@@ -84,9 +96,68 @@ def fused_step_imb_reduce_multi_plain(f, solid, tile_data, counts,
     return out, torch.stack(parts)
 
 
+def fused_step_imb_reduce_prehalo_plain(f, solid, tile_data, counts,
+                                        cfg: SimConfig, mode: str, origin,
+                                        out, edge_post=None):
+    """Plain version of K2 on a pre-haloed frame: imb.collide_imb of the
+    interior and its ring of one cell, pull streaming, the x walls in
+    "y" mode, into `out` (9, ny, nx), the edges' post-collision
+    populations into `edge_post`; the plain reduce of the interior's
+    momentum exchange over the interior tiles, at `origin`. Returns
+    (out, partials)."""
+    h, w = cfg.ny, cfg.nx
+    rows = slice(HY - 1, HY + h + 1)
+    cols = slice(HX - 1, HX + w + 1) if mode == "yx" else slice(None)
+    s = solid[:, rows, cols]
+    fpost, phix, phiy = imb.collide_imb(
+        lbm.from_storage(f, cfg)[:, rows, cols], s[0], s[1], s[2], cfg)
+    fnew = fused_fluid.stream_frame(fpost, mode, h, w)
+    if mode == "y":
+        fused_fluid.x_walls_frame(fnew, fpost, cfg, h)
+    fused_fluid.edge_post_plain(fpost, mode, h, w, edge_post)
+    out.copy_(lbm.to_storage(fnew, cfg))
+    c = slice(1, 1 + w) if mode == "yx" else slice(None)
+    partials = hydro_partials_plain(s[0, 1:1 + h, c], phix[1:1 + h, c],
+                                    phiy[1:1 + h, c], tile_data, counts, cfg,
+                                    origin)
+    return out, partials
+
+
 def _check_args(f, out, what: str) -> None:
     if out.shape != f.shape or out.data_ptr() == f.data_ptr():
         raise ValueError(f"{what}: `out` must be a second f-shaped buffer")
+
+
+def _launch_prehalo(f, solid, tile_data, counts, cfg: SimConfig, mode: str,
+                    origin, out, edge_post, what: str):
+    """Launch K2 on a pre-haloed frame; returns the partials."""
+    fused_fluid.check_storage(what, cfg, f, out)
+    kernels.require_cuda_f32(what, f, solid, tile_data, counts, out)
+    if solid.dtype != torch.float32 or counts.dtype != torch.int32:
+        raise ValueError(f"{what}: f32 solid window, i32 counts")
+    th, tw = tile_dims(cfg)
+    n_tiles = tile_data.shape[0]
+    cap = tile_data.shape[2] // 8
+    w = torch.empty((2, cfg.ny, cfg.nx), dtype=torch.float32,
+                    device=f.device)
+    partials = torch.empty((n_tiles * cap, 4), dtype=torch.float32,
+                           device=f.device)
+    offsets = torch.empty(n_tiles + 1, dtype=torch.int32, device=f.device)
+    pitch, hx = fused_fluid._frame_args(f, cfg, mode)
+    erow, ecol = fused_fluid.edge_ptrs(edge_post, cfg, f.device)
+    with torch.cuda.device(f.device):
+        code = kernels.library().lbm_imb_step_prehalo(
+            f.data_ptr(), solid.data_ptr(), tile_data.data_ptr(),
+            counts.data_ptr(), out.data_ptr(), w.data_ptr(), erow, ecol,
+            partials.data_ptr(), offsets.data_ptr(), cfg.ny, cfg.nx, pitch,
+            hx, int(origin[0]), int(origin[1]), th, tw, cfg.nx // tw,
+            n_tiles, cap, cfg.window, cov_params(cfg),
+            int(cfg.nt_mode == "lambda"),
+            fused_fluid._params(cfg, 12 if mode == "y" else 0, 0),
+            np.float32(imb.nt_tm(cfg.tau, cfg.nt_mode)),
+            np.float32(imb._EPS_MIN), STEP_THREADS, kernels.stream())
+    kernels.check(code, what)
+    return partials
 
 
 def _open_edges(cfg: SimConfig, device):
@@ -144,16 +215,49 @@ def _launch(f, solid, tile_data, counts, cfg: SimConfig, k: int, out,
     return partials
 
 
-def fused_step_imb_reduce(f, solid, tile_data, counts, cfg: SimConfig, out):
+def fused_step_imb_reduce(f, solid, tile_data, counts, cfg: SimConfig, out,
+                          prehalo=False, origin=(0, 0), edge_post=None):
     """K2: one coupled step of f (9, ny, nx) in storage form (f32, or
     shifted bf16 under f_storage="bfloat16") over the f32 solid stack
     (3, ny, nx) [eps_raw, us_x, us_y], written into `out` (the other f
     buffer, same shape), with the hydro partials (n_tiles * cap, 4) of
     the stamp binning (tile_data, counts). Returns (out, partials).
 
+    prehalo ("y" or True, "yx") and origin: a shard's pre-haloed frame
+    and solid window, its interior binning in canvas coordinates (the
+    module docstring); `out` is the (9, ny, nx) interior, and edge_post
+    = (rows (9, 2, nx), cols (9, ny, 2)) f32 buffers, when given, receive
+    the post-collision populations of the interior's first and last rows
+    and columns (the sources of the caller's wall fixups).
+
     CPU tensors take the plain version; CUDA tensors take the kernel
     csrc/imb_reduce.cu (two launches: the collide-push step, then the
-    reduce; under Zou/He a third closes the open columns)."""
+    reduce; under Zou/He a third closes the open columns; on a frame
+    lbm_imb_step_prehalo, two launches)."""
+    mode = fused_fluid.check_fluid_cfg(cfg, prehalo)
+    if mode:
+        what = "fused_step_imb_reduce"
+        shape = fused_fluid.frame_shape(cfg, mode)
+        if tuple(f.shape) != shape or tuple(solid.shape) != (3,) + shape[1:]:
+            raise ValueError(f"{what}: a pre-haloed f {shape} and solid "
+                             f"window {(3,) + shape[1:]}, got "
+                             f"{tuple(f.shape)} and {tuple(solid.shape)}")
+        if (tuple(out.shape) != (9, cfg.ny, cfg.nx)
+                or out.data_ptr() == f.data_ptr()):
+            raise ValueError(f"{what}: `out` must be a second (9, {cfg.ny}, "
+                             f"{cfg.nx}) f buffer")
+        if f.device.type == "cpu":
+            return fused_step_imb_reduce_prehalo_plain(
+                f, solid, tile_data, counts, cfg, mode, origin, out,
+                edge_post)
+        partials = _launch_prehalo(f, solid, tile_data, counts, cfg, mode,
+                                   origin, out, edge_post,
+                                   "fused IMB step kernel (K2)")
+        fused_step_imb_reduce.launches += 1
+        return out, partials
+    if tuple(origin) != (0, 0) or edge_post is not None:
+        raise ValueError("origin and edge_post are a shard's: they need "
+                         "prehalo='y' or 'yx'")
     _check_args(f, out, "fused_step_imb_reduce")
     if f.device.type == "cpu":
         return fused_step_imb_reduce_plain(f, solid, tile_data, counts, cfg,

@@ -103,14 +103,16 @@ def _segment_ranks(keys: torch.Tensor):
     return skeys, order, iota - first
 
 
-def build_tile_lists(xp, active, cfg: SimConfig, margin: int = 0):
+def build_tile_lists(xp, active, cfg: SimConfig, margin: int = 0,
+                     origin: Tuple[int, int] = (0, 0)):
     """Bucket disks into per-tile lists by stamp-window intersection.
 
     Returns (lists (n_tiles, cap) i32, counts (n_tiles, 1, 1) i32,
     entry_slots (N, 4) i32 - the slot tile*cap + rank of each of the
     disk's <= 4 tile entries, -1 if unused - and overflow () i32).
     `margin` widens the test by that many cells per side (Verlet-cadence
-    rebuilds)."""
+    rebuilds); origin = (oy, ox): the lattice's cell (0, 0) in the
+    positions' frame (a shard's canvas in global coordinates)."""
     th, tw = tile_dims(cfg)
     nty, ntx = cfg.ny // th, cfg.nx // tw
     n_tiles = nty * ntx
@@ -124,8 +126,8 @@ def build_tile_lists(xp, active, cfg: SimConfig, margin: int = 0):
         raise ValueError(
             f"stamp window {cfg.window} + margins exceeds tile {th}x{tw}")
     half = window // 2
-    bx = torch.floor(xp[:, 0] + 0.5).to(torch.int64) - half
-    by = torch.floor(xp[:, 1] + 0.5).to(torch.int64) - half
+    bx = torch.floor(xp[:, 0] + 0.5).to(torch.int64) - half - origin[1]
+    by = torch.floor(xp[:, 1] + 0.5).to(torch.int64) - half - origin[0]
     ty0 = torch.div(by, th, rounding_mode="floor")
     ty1 = torch.div(by + window - 1, th, rounding_mode="floor")
     tx0 = torch.div(bx, tw, rounding_mode="floor")
@@ -176,6 +178,25 @@ def bin_disks_to_tiles(xp, vp, omega, r, active, cfg: SimConfig):
     lists, counts, entry_slots, overflow = build_tile_lists(xp, active, cfg)
     tile_data = gather_tile_data(lists, xp, vp, omega, r, active)
     return tile_data, counts, entry_slots, overflow
+
+
+def remap_entry_slots(entry_slots, cap: int, ntx_src: int, oy_t: int,
+                      ox_t: int, nty_dst: int, ntx_dst: int):
+    """Renumber binning entry slots from a source tile grid (ntx_src
+    tiles per row) into the (nty_dst, ntx_dst) sub-grid at tile offset
+    (oy_t, ox_t): the JAX pallas_stamp.remap_entry_slots. A shard bins
+    its disks once on its stamp canvas and its fused step reduces over
+    the interior tiles only, so the inverse map is renumbered over them;
+    entries in the canvas apron become -1 (a neighbouring shard reduces
+    those cells)."""
+    t = torch.div(entry_slots, cap, rounding_mode="floor")
+    rank = entry_slots - t * cap
+    iy = torch.div(t, ntx_src, rounding_mode="floor") - oy_t
+    ix = t - torch.div(t, ntx_src, rounding_mode="floor") * ntx_src - ox_t
+    ok = ((entry_slots >= 0) & (iy >= 0) & (iy < nty_dst) & (ix >= 0)
+          & (ix < ntx_dst))
+    return torch.where(ok, (iy * ntx_dst + ix) * cap + rank,
+                       torch.full_like(entry_slots, -1))
 
 
 def gather_partials(flat, entry_slots, dtype):
@@ -283,14 +304,20 @@ def cov_field(relx, rely, rr, cfg: SimConfig):
     return cov
 
 
-def tile_windows(tile_data, counts, cfg: SimConfig, t0: int, t1: int):
+def tile_windows(tile_data, counts, cfg: SimConfig, t0: int, t1: int,
+                 origin: Tuple[int, int] = (0, 0)):
     """Per-(tile, slot) stamp windows of tiles [t0, t1), clipped to their
     tile - the shared geometry of the plain stamp and the plain reduce.
 
+    origin = (oy, ox): the lattice's cell (0, 0) sits at (oy, ox) of the
+    frame the disk records were gathered in (a shard's stamp canvas);
+    the tiles are the lattice's, the coordinates the frame's.
+
     Returns (rec (T, cap, 8) disk records, relx (T, cap, 1, W), rely
-    (T, cap, W, 1), cell (T, cap, W, W) int64 flat cell index (clipped
-    into the domain), inside (T, cap, W, W) bool: the slot holds a disk
-    and the cell lies in the window and the tile)."""
+    (T, cap, W, 1), cell (T, cap, W, W) int64 flat cell index of the
+    lattice (clipped into it), inside (T, cap, W, W) bool: the slot holds
+    a disk and the cell lies in the window and the tile)."""
+    oy, ox = origin
     th, tw = tile_dims(cfg)
     ntx = cfg.nx // tw
     n_tiles = tile_data.shape[0]
@@ -301,8 +328,8 @@ def tile_windows(tile_data, counts, cfg: SimConfig, t0: int, t1: int):
     dt = tile_data.dtype
     rec = tile_data.reshape(n_tiles, cap, 8)[t0:t1]
     tiles = torch.arange(t0, t1, device=dev)
-    y0 = ((tiles // ntx) * th)[:, None, None]
-    x0 = ((tiles % ntx) * tw)[:, None, None]
+    y0 = ((tiles // ntx) * th + oy)[:, None, None]
+    x0 = ((tiles % ntx) * tw + ox)[:, None, None]
     slot_ok = (torch.arange(cap, device=dev)[None, :]
                < counts.reshape(n_tiles)[t0:t1, None])
     px, py = rec[..., 0], rec[..., 1]
@@ -314,22 +341,24 @@ def tile_windows(tile_data, counts, cfg: SimConfig, t0: int, t1: int):
     inside = slot_ok[..., None, None] & in_r[..., :, None] & in_c[..., None, :]
     relx = (cols.to(dt) - px[..., None])[..., None, :]
     rely = (rows.to(dt) - py[..., None])[..., :, None]
-    cell = (rows.clamp(0, cfg.ny - 1)[..., :, None] * cfg.nx
-            + cols.clamp(0, cfg.nx - 1)[..., None, :])
+    cell = ((rows - oy).clamp(0, cfg.ny - 1)[..., :, None] * cfg.nx
+            + (cols - ox).clamp(0, cfg.nx - 1)[..., None, :])
     return rec, relx, rely, cell, inside
 
 
-def stamp_fields_plain(tile_data, counts, cfg: SimConfig) -> torch.Tensor:
+def stamp_fields_plain(tile_data, counts, cfg: SimConfig,
+                       origin: Tuple[int, int] = (0, 0)) -> torch.Tensor:
     """Plain version of K1: loops over chunks of tiles, evaluates each
     binned disk's window clipped to its tile, and scatter-adds into the
-    (3, ny, nx) fields [eps_raw, us_x, us_y]."""
+    (3, ny, nx) fields [eps_raw, us_x, us_y]. origin: see
+    tile_windows."""
     n_tiles = tile_data.shape[0]
     dt = tile_data.dtype
     acc = torch.zeros((cfg.ny * cfg.nx, 3), dtype=dt, device=tile_data.device)
     for t0 in range(0, n_tiles, _PLAIN_TILES):
         t1 = min(t0 + _PLAIN_TILES, n_tiles)
         rec, relx, rely, cell, inside = tile_windows(tile_data, counts, cfg,
-                                                     t0, t1)
+                                                     t0, t1, origin)
         vx, vy, om, rr = (rec[..., c, None, None] for c in (2, 3, 4, 5))
         cov = cov_field(relx, rely, rr, cfg)
         cov = torch.where(inside, cov, torch.zeros((), dtype=dt,
@@ -344,13 +373,16 @@ def stamp_fields_plain(tile_data, counts, cfg: SimConfig) -> torch.Tensor:
         3, cfg.ny, cfg.nx)
 
 
-def stamp_fields(tile_data, counts, cfg: SimConfig) -> torch.Tensor:
+def stamp_fields(tile_data, counts, cfg: SimConfig,
+                 origin: Tuple[int, int] = (0, 0)) -> torch.Tensor:
     """K1: the (3, ny, nx) solid fields [eps_raw, us_x, us_y] stamped
-    from the tile binning. CPU tensors take the plain version; CUDA
-    tensors take the kernel csrc/stamp.cu (or raise)."""
+    from the tile binning; origin = (oy, ox) is the lattice's cell (0, 0)
+    in the frame of the disk records (a shard's canvas offset, the
+    records global). CPU tensors take the plain version; CUDA tensors
+    take the kernel csrc/stamp.cu (or raise)."""
     cp = cov_params(cfg)
     if tile_data.device.type == "cpu":
-        return stamp_fields_plain(tile_data, counts, cfg)
+        return stamp_fields_plain(tile_data, counts, cfg, origin)
     th, tw = tile_dims(cfg)
     kernels.require_cuda_f32("stamp_fields", tile_data, counts)
     if counts.dtype != torch.int32 or tile_data.dtype != torch.float32:
@@ -361,7 +393,8 @@ def stamp_fields(tile_data, counts, cfg: SimConfig) -> torch.Tensor:
     code = kernels.library().lbm_stamp(
         tile_data.data_ptr(), counts.data_ptr(), out.data_ptr(), cfg.ny,
         cfg.nx, th, tw, cfg.nx // tw, cap, cfg.window, cp,
-        float(np.float32(_EPS_MIN)), kernels.stream())
+        float(np.float32(_EPS_MIN)), int(origin[0]), int(origin[1]),
+        kernels.stream())
     kernels.check(code, "stamp kernel (K1)")
     stamp_fields.launches += 1
     return out
@@ -397,10 +430,12 @@ def _lane_order_sum(vals, inside):
     return acc[..., 0]
 
 
-def reduce_partials_plain(w, tile_data, counts, cfg: SimConfig):
+def reduce_partials_plain(w, tile_data, counts, cfg: SimConfig,
+                          origin: Tuple[int, int] = (0, 0)):
     """Per-(tile, slot) [fx, fy, tq, 0] partials of cov * w over each
     binned disk's window clipped to its tile: (n_tiles * cap, 4), each
-    sum taken in the reduce kernel's order (_lane_order_sum)."""
+    sum taken in the reduce kernel's order (_lane_order_sum). origin:
+    see tile_windows."""
     n_tiles = tile_data.shape[0]
     cap = tile_data.shape[2] // 8
     dt = w.dtype
@@ -409,7 +444,7 @@ def reduce_partials_plain(w, tile_data, counts, cfg: SimConfig):
     for t0 in range(0, n_tiles, _PLAIN_TILES):
         t1 = min(t0 + _PLAIN_TILES, n_tiles)
         rec, relx, rely, cell, inside = tile_windows(tile_data, counts, cfg,
-                                                     t0, t1)
+                                                     t0, t1, origin)
         cov = cov_field(relx, rely, rec[..., 5, None, None], cfg)
         cov = torch.where(inside, cov, torch.zeros((), dtype=dt,
                                                    device=w.device))
@@ -423,13 +458,13 @@ def reduce_partials_plain(w, tile_data, counts, cfg: SimConfig):
 
 
 def hydro_partials_plain(eps_raw, phi_x, phi_y, tile_data, counts,
-                         cfg: SimConfig):
+                         cfg: SimConfig, origin: Tuple[int, int] = (0, 0)):
     """Plain version of K9's partials: reduce_partials_plain over the
     momentum exchange w = phi / max(eps_raw, eps_min)."""
     share_den = 1.0 / torch.clamp(eps_raw, min=_EPS_MIN)
     return reduce_partials_plain(
         torch.stack([phi_x * share_den, phi_y * share_den]), tile_data,
-        counts, cfg)
+        counts, cfg, origin)
 
 
 def reduce_hydro_forces(xp, r, active, eps_raw, phi_x, phi_y, cfg: SimConfig,

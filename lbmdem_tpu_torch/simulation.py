@@ -78,7 +78,17 @@ Paranoid mode (cfg.paranoia) validates the state on the device
 chunks' boundaries (a cadence block, a K7 pass); pure fluid on the
 kernels validates once per K5 pass in either mode, and the plain path
 after every step. `run` raises SimulationDiverged after the chunk.
-A device mesh raises NotImplementedError naming its ROADMAP.md item.
+
+With `mesh` (parallel.make_mesh) the lattice is sharded over the mesh's
+devices and the disks replicated per device, as the JAX Simulation(mesh=
+...) does: coupled scenes run the sharded Verlet-cadence chunk (K1 on
+each shard's canvas, K2 pre-haloed, K3 per replica), pure fluid K5 on
+pre-haloed shards in blocks of TEMPORAL_K steps and then K4 singles, and
+use_kernels=False the plain sharded step. `state` then gathers the
+global state (and setting it shards one); the observation methods work
+on the gathered state. What the mesh does not take yet - coupling_k > 1,
+the static hoist, bf16 storage, paranoid mode - raises
+NotImplementedError naming its ROADMAP.md item.
 
     sim = Simulation(cfg, disks, device="cuda")
     mlups = sim.run(100)
@@ -113,6 +123,12 @@ class SimulationDiverged(RuntimeError):
     def __init__(self, msg: str, step: int):
         super().__init__(msg)
         self.step = step
+
+
+class FluidState(NamedTuple):
+    """Pure-fluid state: the distributions alone (the JAX FluidState)."""
+
+    f: torch.Tensor  # (9, ny, nx)
 
 
 class SimState(NamedTuple):
@@ -178,7 +194,8 @@ def paranoid_wrap(step: Callable, cfg: SimConfig) -> Callable:
     return wrapped
 
 
-def kernels_supported(cfg: SimConfig, device="cuda") -> Optional[str]:
+def kernels_supported(cfg: SimConfig, device="cuda",
+                      mesh=None) -> Optional[str]:
     """None if the kernel path takes the derived config `cfg` (window
     and tile_cap set, as `derive_config` leaves them) on `device`, else
     the reason. On the card the kernels take f32 or shifted-bf16 storage
@@ -186,18 +203,41 @@ def kernels_supported(cfg: SimConfig, device="cuda") -> Optional[str]:
     window plus the 2 BIN_MARGIN cells of the Verlet cadence to fit one
     stamp tile, and disks to size the tiles' capacity from. Unlike the
     JAX package's pallas_supported there is no 8 x 128 lattice
-    alignment."""
+    alignment on one device.
+
+    With `mesh` (as pallas_supported with one): the lattice must tile
+    the mesh, each shard be a multiple of 8 rows and 128 columns (the
+    pre-haloed kernels' halos), and the stamp window plus the margin fit
+    the stamp tile of the shard's canvas (parallel/_kernel_step)."""
+    if mesh is not None:
+        device = mesh.devices[0]
     if torch.device(device).type == "cuda" and cfg.dtype != "float32":
         return (f"the kernels take float32 or bfloat16 storage "
                 f"(dtype={cfg.dtype})")
+    ny, nx = cfg.ny, cfg.nx
+    if mesh is not None:
+        from lbmdem_tpu_torch.parallel._kernel_step import canvas_pads
+
+        ny_sh, nx_sh = mesh.shape["y"], mesh.shape["x"]
+        if cfg.ny % ny_sh or cfg.nx % nx_sh:
+            return (f"lattice {cfg.ny}x{cfg.nx} does not tile the "
+                    f"{ny_sh}x{nx_sh} mesh")
+        h, w = cfg.ny // ny_sh, cfg.nx // nx_sh
+        if h % 8 or w % 128:
+            return (f"the pre-haloed kernels need per-shard ny%8==0 and "
+                    f"nx%128==0 (shard {h}x{w})")
+        if cfg.max_disks > 0:
+            pady, padx = canvas_pads(h, nx_sh > 1)
+            ny, nx = h + 2 * pady, w + 2 * padx
     if cfg.max_disks == 0:
         return None
-    th, tw = stamp.tile_shape(cfg)
+    th, tw = stamp.tile_shape(cfg.replace(ny=ny, nx=nx))
     margin = 2 * BIN_MARGIN
     if cfg.window + margin > min(th, tw):
+        canvas = " stamp-canvas" if mesh is not None else ""
         return (f"stamp window {cfg.window} (+{margin} Verlet margin) "
-                f"exceeds the {th}x{tw} stamp tile; disks too large for "
-                f"this lattice")
+                f"exceeds the {th}x{tw}{canvas} stamp tile; disks too large "
+                f"for this lattice")
     if cfg.tile_cap <= 0:
         return ("a coupled scene without disks (max_disks > 0, no "
                 "particles): the stamp tiles' capacity is sized from them")
@@ -526,8 +566,10 @@ class Simulation:
     def __init__(self, cfg: SimConfig, disks: Sequence[DiskSpec] = (),
                  device="cuda", use_kernels: bool = True, mesh=None):
         disks = list(disks)
+        self.mesh = mesh
         if mesh is not None:
-            raise not_ported("a device mesh (multi-GPU)", 12)
+            self._refuse_on_mesh(cfg, disks, use_kernels, mesh)
+            device = mesh.devices[0]
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -536,7 +578,7 @@ class Simulation:
                 "run the plain PyTorch versions on the CPU")
         cfg, self.grid = derive_config(cfg, disks, use_kernels)
         if use_kernels:
-            reason = kernels_supported(cfg, self.device)
+            reason = kernels_supported(cfg, self.device, mesh)
             if reason is not None:
                 raise ValueError(f"use_kernels=True unsupported: {reason}")
         if cfg.coupling_k > 1 and cfg.max_disks > 0:
@@ -567,20 +609,77 @@ class Simulation:
             n_contacts=_zero_i32(self.device),
             fail_step=_zero_i32(self.device, -1),
         )
-        # the second f buffer: each kernel step writes into it and the
-        # two swap
-        self._f_spare = torch.empty_like(f)
+        self.mlups_last = 0.0
+        if mesh is None:
+            # the second f buffer: each kernel step writes into it and the
+            # two swap (on a mesh, one per shard)
+            self._f_spare = torch.empty_like(f)
+        else:
+            from lbmdem_tpu_torch.parallel import make_sharded_step
+
+            self._step = make_sharded_step(
+                cfg, self.grid, mesh, use_kernels, dem_axis=self.dem_axis,
+                dem_mode=self.dem_mode)
+            if self.grid is None and use_kernels:
+                self._kstep = make_sharded_step(cfg, None, mesh, True,
+                                                temporal_k=TEMPORAL_K)
+            return
         self._step = make_step_fn(cfg, self.grid, dem_axis=self.dem_axis,
                                   dem_mode=self.dem_mode,
                                   use_kernels=use_kernels)
         if self.grid is None and use_kernels:
             self._kstep = make_step_fn(cfg, None, temporal_k=TEMPORAL_K)
-        self.mlups_last = 0.0
+
+    @staticmethod
+    def _refuse_on_mesh(cfg: SimConfig, disks, use_kernels: bool,
+                        mesh) -> None:
+        """Raise for what a mesh does not take yet (ROADMAP.md item 12),
+        before any device work."""
+        from lbmdem_tpu_torch.parallel import Mesh
+
+        if not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be a parallel.Mesh (make_mesh), got "
+                            f"{type(mesh).__name__}")
+        if cfg.f_storage != "float32":
+            raise not_ported("bf16 storage on a lattice mesh (16-row "
+                             "halos)", 12)
+        if cfg.paranoia:
+            raise not_ported("paranoid mode on a lattice mesh", 12)
+        coupled = cfg.max_disks > 0 or bool(disks)
+        if use_kernels and coupled and cfg.coupling_k > 1:
+            raise not_ported("coupling_k > 1 on a lattice mesh (K6 with "
+                             "origin, edges and ny_glob)", 12)
+        if (use_kernels and disks and all(d.fixed for d in disks)
+                and _at_rest(disks)):
+            raise not_ported("the static-solid hoist on a lattice mesh (K7 "
+                             "with edges)", 12)
+
+    # --- the state (gathered from the shards on a mesh) ---
+    @property
+    def state(self) -> SimState:
+        """The SimState; on a mesh the global state gathered from the
+        shards and the first replica (a copy: set `state` to change
+        it)."""
+        if self.mesh is None:
+            return self._state
+        from lbmdem_tpu_torch.parallel import unshard
+
+        return unshard(self._state, self.mesh)
+
+    @state.setter
+    def state(self, value: SimState) -> None:
+        if self.mesh is None:
+            self._state = value
+            return
+        from lbmdem_tpu_torch.parallel import shard_state
+
+        self._state = shard_state(value, self.mesh)
+        self._f_spare = tuple(torch.empty_like(f) for f in self._state.f)
 
     # --- stepping ---
     def _advance(self, stepfn: Callable) -> None:
-        old_f = self.state.f
-        self.state = stepfn(self.state, self._f_spare)
+        old_f = self._state.f
+        self._state = stepfn(self._state, self._f_spare)
         self._f_spare = old_f
 
     def step(self) -> None:
@@ -604,6 +703,16 @@ class Simulation:
         if not self.use_kernels:
             for _ in range(n):
                 self._advance(self._step)
+            return
+        if self.mesh is not None and self.grid is not None:
+            from lbmdem_tpu_torch.parallel._kernel_step import (
+                make_sharded_coupled_chunk,
+            )
+
+            chunk = make_sharded_coupled_chunk(
+                self.cfg, self.grid, self.mesh, n, self.dem_axis,
+                self.dem_mode)
+            self._state, self._f_spare = chunk(self._state, self._f_spare)
             return
         if self.grid is None:
             passes, singles = divmod(n, TEMPORAL_K)
@@ -709,8 +818,10 @@ class Simulation:
                 f"the failing step for inspection", fail)
 
     def _sync(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        devices = [self.device] if self.mesh is None else self.mesh.replicas
+        for d in devices:
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
 
     def load_state(self, d: dict) -> None:
         """Replace the state by one in the numpy form of
@@ -724,7 +835,8 @@ class Simulation:
                              f"f_storage={self.cfg.f_storage!r} and dtype="
                              f"{self.cfg.dtype!r} store it as {want}")
         self.state = state
-        self._f_spare = torch.empty_like(self.state.f)
+        if self.mesh is None:
+            self._f_spare = torch.empty_like(state.f)
         self._solid_stack = None  # the loaded disks may sit elsewhere
 
     # --- observation ---

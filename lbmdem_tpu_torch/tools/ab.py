@@ -11,21 +11,23 @@ A_DIR and B_DIR hold unpacked trees of the repository (for instance
 this file as a script with its tree first on PYTHONPATH, so it builds and
 loads that tree's kernels (`kernels.library()`) and calls only the
 wrappers a user calls, whose signatures outlive the C entry points':
-`fused_step_fluid`, `fused_step_fluid_multi`,
-`fused_step_imb_reduce_multi`, `fused_step_imb_static_multi`,
-`subcycle_slabs` and `subcycle_slabs_window`.
+`stamp_fields`, `fused_step_fluid`, `fused_step_fluid_multi`,
+`fused_step_imb_reduce`, `fused_step_imb_reduce_multi`,
+`fused_step_imb_static_multi`, `subcycle_slabs` and
+`subcycle_slabs_window`.
 
 Cases: K4 and K5 (k = 4, 8; bf16 also 16) at 4096^2 (tau 0.8, gx 1e-6,
-periodic x, f = w_i (1 + 0.02 N(0, 1))), f32 and bf16; K6 (k = 4) on the
-4096^2 / 10k-disk column packed into contact (positions scaled by 0.94)
-and K7 (k = 4) on a 4096^2 porous bed of 4096 fixed disks of r = 4, f32
-and bf16; K3, K3w, both with springs (kt = 25, two subcycles first so
-live springs are carried), and K3 on a periodic x axis, on the packed
-column with seeded velocities and forces. The inputs are made by each
-tree's own code and digested too, so a line says whether both trees saw
-the same inputs. CUDA-event ms per call after a warm call (the slab
-kernels run on in place); the first worker of each tree also digests the
-outputs (sha256 of their bytes) of a call on the fresh inputs.
+periodic x, f = w_i (1 + 0.02 N(0, 1))), f32 and bf16; K1 (the stamp),
+K2 and K6 (k = 4) on the 4096^2 / 10k-disk column packed into contact
+(positions scaled by 0.94) and K7 (k = 4) on a 4096^2 porous bed of
+4096 fixed disks of r = 4, f32 and bf16 (K1 f32 only); K3, K3w, both
+with springs (kt = 25, two subcycles first so live springs are
+carried), and K3 on a periodic x axis, on the packed column with seeded
+velocities and forces. The inputs are made by each tree's own code and
+digested too, so a line says whether both trees saw the same inputs.
+CUDA-event ms per call after a warm call (the slab kernels run on in
+place); the first worker of each tree also digests the outputs (sha256
+of their bytes) of a call on the fresh inputs.
 Prints one line per case and the card's name and power limit, and
 writes every number to OUT.json when given. Needs one CUDA device.
 """
@@ -102,7 +104,7 @@ def _packed_column():
 
 
 def block_cases():
-    """K6 and K7 at k = 4, f32 and bf16."""
+    """K1; K2, K6 and K7 (k = 4), f32 and bf16."""
     from lbmdem_tpu_torch import Simulation
     from lbmdem_tpu_torch.models import porous_bed
     from lbmdem_tpu_torch.ops import fused_lbm, fused_static, lbm, stamp
@@ -116,9 +118,16 @@ def block_cases():
     bed = Simulation(*porous_bed(nx=_N, ny=_N, r=4.0, pitch=64),
                      device="cuda")
     bsolid = bed._static_solid_operands()
+    stamped = {}
+
+    def stamp_run(fresh=False):
+        stamped["s"] = stamp.stamp_fields(td, cnt, sim.cfg)
+
+    yield "K1", (td, cnt), stamp_run, lambda: (stamped["s"],)
     g = torch.Generator(device="cuda").manual_seed(9)
     for storage in ("float32", "bfloat16"):
-        for name, c, ins in (("K6", sim.cfg, (solid, td, cnt)),
+        for name, c, ins in (("K2", sim.cfg, (solid, td, cnt)),
+                             ("K6", sim.cfg, (solid, td, cnt)),
                              ("K7", bed.cfg, (bsolid,))):
             c = c.replace(f_storage=storage)
             f = lbm.to_storage(lbm.init_equilibrium(c, "cuda") * (
@@ -126,7 +135,14 @@ def block_cases():
                                          device="cuda")), c)
             out = torch.empty_like(f)
             res = {}
-            if name == "K6":
+            if name == "K2":
+                def run(fresh=False, f=f, c=c, out=out, res=res):
+                    res["p"] = fused_lbm.fused_step_imb_reduce(
+                        f, solid, td, cnt, c, out)[1]
+
+                def outs(out=out, res=res):
+                    return (out, res["p"])
+            elif name == "K6":
                 def run(fresh=False, f=f, c=c, out=out, res=res):
                     res["p"] = fused_lbm.fused_step_imb_reduce_multi(
                         f, solid, td, cnt, c, 4, out)[1]
@@ -140,7 +156,8 @@ def block_cases():
 
                 def outs(out=out):
                     return (out,)
-            yield f"{name} {storage} k=4", (f, *ins), run, outs
+            tag = "" if name == "K2" else " k=4"
+            yield f"{name} {storage}{tag}", (f, *ins), run, outs
 
 
 def slab_cases():

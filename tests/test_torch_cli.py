@@ -130,14 +130,16 @@ def test_cli_kernels_and_plain_path(tmp_path, capsys):
 
 def test_cli_refuses_what_it_cannot_run(tmp_path, capsys):
     """--kernels on a deck the kernels cannot take is an error naming
-    the reason; --mesh and --distributed name ROADMAP item 12."""
+    the reason; --distributed, and on a --mesh what the mesh does not
+    take yet (paranoid mode), name ROADMAP item 12."""
     deck = os.path.join(EXAMPLES, "schafer_turek.par")
     with pytest.raises(SystemExit) as e:
         cli.main([deck, "--kernels", "--device", "cpu", "--out",
                   str(tmp_path / "x")])
     assert e.value.code == 2
     assert "exceeds the" in capsys.readouterr().err
-    for flag in (["--mesh", "2x2"], ["--distributed"]):
+    for flag in (["--mesh", "2x2", "--device", "cpu", "--paranoid"],
+                 ["--distributed"]):
         with pytest.raises(NotImplementedError, match="item 12"):
             cli.main([deck, *flag, "--out", str(tmp_path / "x")])
 

@@ -303,13 +303,17 @@ def test_fluid_simulation_on_card_matches_cpu(dev):
 
 
 def test_fluid_kernels_reject_prehalo_and_float64(dev):
+    """A pre-haloed call wants the frame's shape (the modes themselves:
+    test_prehalo_kernels_match_plain), K5 on a frame at most one sweep
+    (item 12), and float64 runs on the plain path."""
     cfg = SimConfig(nx=128, ny=32, tau=0.8, dtype="float32")
     f = lbm.init_equilibrium(cfg, dev)
     out = torch.empty_like(f)
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(ValueError, match="f must be"):
         fused_fluid.fused_step_fluid(f, cfg, out, prehalo=True)
     with pytest.raises(NotImplementedError, match="item 12"):
-        fused_fluid.fused_step_fluid_multi(f, cfg, 4, out, prehalo=True)
+        fused_fluid.fused_step_fluid_multi(f, cfg, 8, out, prehalo=True,
+                                           edges=(1, 1, 1, 1))
     with pytest.raises(ValueError, match="float64"):
         Simulation(cfg.replace(dtype="float64"), device=dev)
 
@@ -1216,3 +1220,86 @@ def test_slab_kernel_is_one_launch(dev):
                if a.device_type == DeviceType.CUDA and "spin" not in a.key]
         assert sum(a.count for a in run) == 3, (
             case[0], [(a.key, a.count) for a in run])
+
+
+@pytest.mark.parametrize("mode", ["y", "yx"])
+def test_prehalo_kernels_match_plain(dev, mode):
+    """K4, K5 (k = 4, edge flags) and K2 on a pre-haloed 256 x 128 shard
+    (the lattice mesh) against their plain versions on the same card
+    input, at the bars above."""
+    from lbmdem_tpu_torch.parallel import make_mesh
+    from lbmdem_tpu_torch.parallel._kernel_step import _Sharded, exchange
+
+    w = torch.as_tensor(lattice.W, dtype=torch.float32, device=dev)
+    for kw in (dict(bc_west="wall", bc_east="wall", uw_north=0.05, gy=-1e-5),
+               dict(bc_west="inlet", bc_east="outlet", u_inlet=0.06,
+                    inlet_profile="poiseuille")):
+        cfg = SimConfig(nx=128, ny=256, tau=0.7, dtype="float32", **kw)
+        g = torch.Generator(device=dev).manual_seed(3)
+        f = w[:, None, None] * (1.0 + 0.05 * torch.randn(
+            fused_fluid.frame_shape(cfg, mode), generator=g, device=dev))
+        a = torch.empty((9, 256, 128), device=dev)
+        b = torch.empty_like(a)
+        fused_fluid.fused_step_fluid(f, cfg, a, prehalo=mode)
+        fused_fluid.fused_step_fluid_prehalo_plain(f, cfg, mode, b)
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
+        for edges in ((1, 1, 1, 1, 0), (0, 1, 0, 1, 768), (0, 0, 1, 0, 256)):
+            if mode == "y":  # a "y" shard spans the width
+                edges = edges[:2] + (1, 1) + edges[4:]
+            fused_fluid.fused_step_fluid_multi(f, cfg, 4, a, prehalo=mode,
+                                               edges=edges, ny_glob=1024)
+            fused_fluid.fused_step_fluid_multi_prehalo_plain(
+                f, cfg, 4, mode, edges, 1024, b)
+            atol = 2e-6 if cfg.bc_west == "inlet" else 5e-7
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=atol)
+    cfg, disks = column_collapse(nx=512, ny=512, n_disks=240)
+    disks = [DiskSpec(d.x * 0.94, d.y * 0.94, d.r) for d in disks]
+    dims = (2, 2) if mode == "yx" else (4, 1)
+    mesh = make_mesh([dev] * 4, dims)
+    sim = Simulation(cfg, disks, mesh=mesh)
+    parts = _Sharded(sim.cfg, sim.grid, mesh, sim.dem_axis, sim.dem_mode)
+    d = sim._state.disks[0]
+    frames = exchange(sim._state.f, mesh)
+    for p, iy, ix in mesh.positions():
+        entries, _, td, cnt, s_k, _ = parts.shard_inputs(
+            iy, ix, (d.x, d.v, d.omega, d.r, d.active))
+        lc = parts.local_cfg
+        a = torch.empty((9, lc.ny, lc.nx), device=dev)
+        b = torch.empty_like(a)
+        origin = parts.interior_origin(iy, ix)
+        _, pk = fused_lbm.fused_step_imb_reduce(frames[p], s_k, td, cnt, lc,
+                                                a, prehalo=mode,
+                                                origin=origin)
+        _, pp = fused_lbm.fused_step_imb_reduce_prehalo_plain(
+            frames[p], s_k, td, cnt, lc, mode, origin, b)
+        torch.testing.assert_close(a, b, rtol=0, atol=5e-6)
+        F, _ = stamp.gather_partials(pk, entries, torch.float32)
+        Fp, _ = stamp.gather_partials(pp, entries, torch.float32)
+        scale = max(float(Fp.abs().max()), 1e-30)
+        assert float((F - Fp).abs().max()) <= 1e-6 * scale
+
+
+def test_mesh_runs_on_one_card(dev):
+    """A 2 x 2 mesh whose shards share the card: the coupled run(11) and
+    the fluid run(9) against one device (f 5e-6, x 1e-5, v 1e-6), through
+    the pre-haloed kernels."""
+    from lbmdem_tpu_torch.parallel import make_mesh
+
+    cfg, disks = column_collapse(nx=256, ny=256, n_disks=60)
+    mesh = make_mesh([dev] * 4, (2, 2))
+    one = Simulation(cfg, disks, device=dev)
+    sh = Simulation(cfg, disks, mesh=mesh)
+    n2 = fused_lbm.fused_step_imb_reduce.launches
+    one.run(11)
+    sh.run(11)
+    assert fused_lbm.fused_step_imb_reduce.launches - n2 == 11 + 44
+    a, b = one.state, sh.state
+    torch.testing.assert_close(b.f, a.f, rtol=0, atol=5e-6)
+    torch.testing.assert_close(b.disks.x, a.disks.x, rtol=0, atol=1e-5)
+    torch.testing.assert_close(b.disks.v, a.disks.v, rtol=0, atol=1e-6)
+    fcfg = SimConfig(nx=512, ny=256, tau=0.8, gx=1e-6, dtype="float32")
+    one = Simulation(fcfg, device=dev)
+    sh = Simulation(fcfg, mesh=mesh)
+    one.run(9)
+    sh.run(9)
+    torch.testing.assert_close(sh.state.f, one.state.f, rtol=0, atol=1e-7)

@@ -170,3 +170,14 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     """The CUDA path takes CUDA tensors only (no silent CPU fallback)."""
     with pytest.raises(ValueError, match="CUDA"):
         tkernels.require_cuda_f32("k", torch.zeros(3))
+
+
+def test_fluid_state_has_the_jax_fields():
+    """FluidState, the pure-fluid state, is exported by both packages
+    with the same fields."""
+    from lbmdem_tpu import FluidState as JFluidState
+    from lbmdem_tpu_torch import FluidState
+
+    assert FluidState._fields == JFluidState._fields == ("f",)
+    s = FluidState(f=torch.zeros((9, 2, 2)))
+    assert s.f.shape == (9, 2, 2)

@@ -212,11 +212,15 @@ def _ported_options():
 def _out_of_slice():
     """(what, cfg, disks, constructor keywords) of what raised naming its
     ROADMAP.md item before the plain path and paranoid mode were ported:
-    only the mesh still does; the rest constructs on the CPU (float64 and
-    the coupled scene without disks on the plain path)."""
+    of the mesh only coupling_k > 1 still does (its other refusals:
+    tests/test_torch_mesh.py); the rest constructs on the CPU (float64
+    and the coupled scene without disks on the plain path)."""
+    from lbmdem_tpu_torch.parallel import make_mesh
+
     cfg, disks = _scene("float32")
     return [
-        ("mesh", cfg, disks, dict(mesh=object())),
+        ("mesh", cfg.replace(coupling_k=2), disks,
+         dict(mesh=make_mesh(["cpu"] * 4, (2, 2)))),
         ("coupled without disks", cfg.replace(max_disks=10), [],
          dict(use_kernels=False)),
         ("pure-fluid float64", cfg.replace(max_disks=0, dtype="float64"), [],
@@ -267,9 +271,9 @@ def test_ported_options_match_oracle(what, cfg, disks):
 @pytest.mark.parametrize("what,cfg,disks,kw", _out_of_slice(),
                          ids=[c[0] for c in _out_of_slice()])
 def test_out_of_slice_raises_naming_the_roadmap(what, cfg, disks, kw):
-    """A device mesh raises naming its ROADMAP.md item (12); what else
-    raised so before (coupled scenes without disks, float64, paranoid
-    mode) now constructs and steps healthily."""
+    """coupling_k > 1 on a device mesh raises naming its ROADMAP.md item
+    (12); what else raised so before (coupled scenes without disks,
+    float64, paranoid mode) now constructs and steps healthily."""
     if what == "mesh":
         with pytest.raises(NotImplementedError, match="ROADMAP.md") as e:
             Simulation(to_torch_cfg(cfg), to_torch_disks(disks),

@@ -336,11 +336,13 @@ def test_bed_variants_match_oracle(what, cfg, specs):
 
 
 def test_out_of_slice_names_its_item():
-    """A device mesh raises naming its item."""
+    """The static hoist on a device mesh raises naming its item."""
+    from lbmdem_tpu_torch.parallel import make_mesh
+
     cfg, specs = _offset_bed()
     with pytest.raises(NotImplementedError, match="item 12"):
-        Simulation(to_torch_cfg(cfg), to_torch_disks(specs), device="cpu",
-                   mesh=object())
+        Simulation(to_torch_cfg(cfg), to_torch_disks(specs),
+                   mesh=make_mesh(["cpu"] * 4, (2, 2)))
 
 
 def test_default_device_is_the_card():
