@@ -187,11 +187,37 @@ nothing falls back to the CPU):
    device within 1e-7 (K5 4, K4 3 per shard), then run(400) timed in
    alternating pairs with one device; with 4 cards or more phases 35 and
    36 run again on distinct cards; every mesh phase prints the cards its
-   shards spanned.
+   shards spanned;
+37. mesh kernels II: K6 and K7 pre-haloed (k = 1, 2, 4, 8) over the
+   lattice-option matrices of phases 18 and 10, and K8 pre-haloed over
+   phase 18's, on the 256 x 128 shards of a 3 x 3 ("yx": corner, edge,
+   interior shards) and a 3 x 1 ("y") mesh of one card, against their
+   plain versions on CPU copies (K6 f' 5e-6 and every inner step's
+   forces 1e-6 of the largest |F|, K7 rtol 1e-5 + atol 2e-6, K8 f' 5e-6
+   and phi 1e-6); the identity - with no edge flags on a fully periodic
+   lattice, frames filled from the lattice, pre-haloed K6(k) f' and
+   partials and K7(k) f' against the halo-free kernels on the shards'
+   rows, torch.equal, any difference printed; then at the 2 x 2 and 4 x
+   1 shards of the 4096^2 window and static scenes K6 (k = 4), K8 and K7
+   (k = 4) timed with CUDA events beside the halo-free kernel on the
+   shard's interior and their bounds (a ring of k, or 1, read);
+38. mesh window: BASELINE config 5 with coupling_k = 4 through
+   Simulation(..., mesh=...) on 2 x 2 and 4 x 1: run(16) against one
+   device (f 5e-6, x 1e-5, v 1e-6), run(100) in three alternating pairs
+   with one device, launches per run(100) (K1 and K6 25 per shard, K3w
+   100, nothing else), overflow 0, mass drift < 1e-5;
+39. mesh static: the static/4096 scene on 2 x 2 and 4 x 1: run(19)
+   against one device (f 2e-6, disk x equal; K1 once and K7 7 times per
+   shard), run(400) in three alternating pairs (K7 100 per shard);
+40. paranoia on a mesh: a NaN injected after step 4 of a 128 x 256
+   channel with a fixed disk on a 2 x 2 mesh reports the one-device
+   fail_step under "step" (5) and "chunk" (8), frozen there.
+Each phase of 37-40 prints its seconds.
 
 The second-to-last line holds the per-kernel JSON record (the ten
 kernels, then the bf16, TRT + LES, kt and periodic instantiations of K2,
-K6, K3 and K3w as records of their own; with each kernel's bound: the
+K6, K3 and K3w and the pre-haloed K2, K4, K5, K6, K7 and K8 as records
+of their own; with each kernel's bound: the
 larger of its bytes over 3.35 TB/s and its f32 operations over 67
 TFLOP/s; an NT collide counts 350 operations at a cell with eps_raw > 0
 and 180 on its fluid branch), the line before it the card's name and
@@ -325,7 +351,8 @@ def build() -> None:
     # the f32 and bf16 BGK instantiations of K2's step, of the K6/K7
     # temporal block and of K5's row sweep (on bf16 with the sweeps
     # through its f32 scratch: bf16 -> f32, f32 -> f32, f32 -> bf16), and
-    # the f32 BGK pre-haloed K2 step and K5 sweep, must not spill
+    # the f32 BGK pre-haloed K2 and K8 steps and K5, K6 and K7 sweeps,
+    # must not spill
     spills = {k.replace(" ", ""): v for k, v in spills.items()}
     bf = "__nv_bfloat16"
     for s, sh in (("float", "false"), (bf, "true")):
@@ -344,6 +371,12 @@ def build() -> None:
                       for pre in (1, 2)]
             names += [f"coupled_step_prehalo_kernel<false,false,false,WSink,"
                       f"{pre}>" for pre in (1, 2)]
+            # K6, K7 and K8 pre-haloed
+            names += [f"temporal_block_prehalo_kernel<float,float,false,1,2,"
+                      f"NTCell<false,false,false,{sink}>,{pre}>"
+                      for sink in ("WSteps", "NoSink") for pre in (1, 2)]
+            names += [f"coupled_step_prehalo_kernel<false,false,false,"
+                      f"PhiSink,{pre}>" for pre in (1, 2)]
         for name in names:
             assert spills.get(name) == 0, f"{name}: spills {spills.get(name)}"
 
@@ -3575,6 +3608,512 @@ def mesh_fluid(smi: str, dims=(2, 2), devices=None, n: int = 4096):
     return c19, float(np.median(m))
 
 
+# --- the lattice mesh II: K6, K7 and K8 pre-haloed, the window and static
+# mesh paths, paranoia on a mesh -------------------------------------------
+
+def mesh_grid_disks(ny: int, nx: int, pitch: int = 40, r: float = 3.0,
+                    fixed: bool = False, seed: int = 0):
+    """Disks on a jittered square grid over the whole lattice, so every
+    shard and seam holds some; seeded velocities unless fixed (at rest)."""
+    from lbmdem_tpu_torch import DiskSpec
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for y in range(pitch // 2, ny, pitch):
+        for x in range(pitch // 2, nx, pitch):
+            jx, jy = rng.uniform(-pitch / 4, pitch / 4, 2)
+            vx, vy = (0.0, 0.0) if fixed else rng.uniform(-0.02, 0.02, 2)
+            out.append(DiskSpec(x + jx, y + jy, r, vx, vy, fixed=fixed))
+    return out
+
+
+def mesh_k6_check(parts, frame, inp, p: int, k: int, label: str,
+                  timed: bool = False):
+    """K6 pre-haloed on shard p's frame against its plain version on CPU
+    copies of the same inputs (the plain version on the card multiplies
+    by 1/tau): f' 5e-6, every inner step's forces 1e-6 of the largest |F|
+    (K6's bars). Its bytes: f and the solid window over the interior and
+    its ring of k cells (frame_bytes), the binning, f' and the partials
+    written; its operations k NT collides and reduces."""
+    from lbmdem_tpu_torch.ops import fused_lbm, stamp
+
+    cfg, mode = parts.local_cfg, parts.mode
+    entries, _, td, cnt, s_k, origin = inp
+    edges, nyg = parts.edges[p], parts.cfg.ny
+    a = torch.empty((9, cfg.ny, cfg.nx), device="cuda")
+    k6 = fused_lbm.fused_step_imb_reduce_multi
+    run = lambda: k6(frame, s_k, td, cnt, cfg, k, a,  # noqa: E731
+                     prehalo=mode, origin=origin, edges=edges, ny_glob=nyg)
+    n0 = k6.launches
+    _, pk = run()
+    assert k6.launches == n0 + 1, "K6 did not launch"
+    c = [t.cpu() for t in (frame, s_k, td, cnt)]
+    b, pp = k6(*c, cfg, k, torch.empty((9, cfg.ny, cfg.nx)), prehalo=mode,
+               origin=origin, edges=edges, ny_glob=nyg)
+    err = float((a.cpu() - b).abs().max())
+    ef, fmax = 0.0, 0.0
+    es = entries.cpu()
+    for t in range(k):
+        F, _ = stamp.gather_partials(pk[t].cpu(), es, torch.float32)
+        Fp, _ = stamp.gather_partials(pp[t], es, torch.float32)
+        m = max(float(Fp.abs().max()), 1e-30)
+        fmax = max(fmax, m)
+        ef = max(ef, float((F - Fp).abs().max()) / m)
+    assert bool(torch.isfinite(a).all()), f"K6 {label}: non-finite"
+    assert err <= 5e-6, f"K6 k={k} {label}: f' err {err}"
+    assert ef <= 1e-6, f"K6 k={k} {label}: force err {ef} relative"
+    t = (None, None)
+    if timed:
+        bb = torch.empty_like(a)
+        t = (cuda_ms(run, 10), cuda_ms(
+            lambda: fused_lbm.fused_step_imb_reduce_multi_prehalo_plain(
+                frame, s_k, td, cnt, cfg, k, mode, origin, edges, nyg, bb),
+            1))
+    inner = s_k[:, 8:8 + cfg.ny, parts.padx:parts.padx + cfg.nx]
+    moved = (frame_bytes(frame, cfg.ny, cfg.nx, mode, k)
+             + frame_bytes(s_k, cfg.ny, cfg.nx, mode, k)
+             + nbytes(td, cnt, a, pk))
+    return work(err, *t, moved, k * (nt_flops(inner) + cov_flops_of(cfg, cnt))
+                ), ef, fmax
+
+
+def mesh_k7_check(parts, frame, s_k, p: int, k: int, label: str,
+                  timed: bool = False):
+    """K7 pre-haloed on shard p's frame against its plain version on CPU
+    copies of the same inputs: rtol 1e-5 with atol 2e-6 (K7's bar). Its
+    bytes: f and the solid window over the interior and its ring of k
+    cells, f' written."""
+    from lbmdem_tpu_torch.ops import fused_static
+
+    cfg, mode = parts.local_cfg, parts.mode
+    edges, nyg = parts.edges[p], parts.cfg.ny
+    a = torch.empty((9, cfg.ny, cfg.nx), device="cuda")
+    k7 = fused_static.fused_step_imb_static_multi
+    run = lambda: k7(frame, s_k, cfg, k, a, prehalo=mode,  # noqa: E731
+                     edges=edges, ny_glob=nyg)
+    n0 = k7.launches
+    run()
+    assert k7.launches == n0 + 1, "K7 did not launch"
+    b = k7(frame.cpu(), s_k.cpu(), cfg, k, torch.empty((9, cfg.ny, cfg.nx)),
+           prehalo=mode, edges=edges, ny_glob=nyg)
+    d = (a.cpu() - b).abs()
+    err = float(d.max())
+    assert bool(torch.isfinite(a).all()), f"K7 {label}: non-finite"
+    assert float((d - 1e-5 * b.abs()).max()) <= 2e-6, \
+        f"K7 k={k} {label}: err {err} over the bar"
+    t = (None, None)
+    if timed:
+        bb = torch.empty_like(a)
+        t = (cuda_ms(run, 10), cuda_ms(
+            lambda: fused_static.fused_step_imb_static_multi_prehalo_plain(
+                frame, s_k, cfg, k, mode, edges, nyg, bb), 1))
+    inner = s_k[:, 8:8 + cfg.ny, parts.padx:parts.padx + cfg.nx]
+    moved = (frame_bytes(frame, cfg.ny, cfg.nx, mode, k)
+             + frame_bytes(s_k, cfg.ny, cfg.nx, mode, k) + nbytes(a))
+    return work(err, *t, moved, k * nt_flops(inner))
+
+
+def mesh_k8_check(parts, frame, s_k, label: str, timed: bool = False):
+    """K8 pre-haloed on a shard's frame against its plain version on CPU
+    copies: f' 5e-6, phi 1e-6. Its bytes: f and the solid fields over the
+    interior and its ring of one cell, f' and phi written."""
+    from lbmdem_tpu_torch.ops import fused_lbm
+
+    cfg, mode = parts.local_cfg, parts.mode
+    a = torch.empty((9, cfg.ny, cfg.nx), device="cuda")
+    k8 = fused_lbm.fused_step_imb
+    run = lambda: k8(frame, s_k[0], s_k[1], s_k[2], cfg, a,  # noqa: E731
+                     prehalo=mode)
+    n0 = k8.launches
+    _, px, py = run()
+    assert k8.launches == n0 + 1, "K8 did not launch"
+    c, s = frame.cpu(), s_k.cpu()
+    b, qx, qy = k8(c, s[0], s[1], s[2], cfg, torch.empty((9, cfg.ny, cfg.nx)),
+                   prehalo=mode)
+    err = float((a.cpu() - b).abs().max())
+    ephi = max(float((px.cpu() - qx).abs().max()),
+               float((py.cpu() - qy).abs().max()))
+    assert err <= 5e-6 and ephi <= 1e-6, f"K8 {label}: {err}, phi {ephi}"
+    t = (None, None)
+    if timed:
+        bb = torch.empty_like(a)
+        t = (cuda_ms(run, 20), cuda_ms(
+            lambda: fused_lbm.fused_step_imb_prehalo_plain(
+                frame, s_k[0], s_k[1], s_k[2], cfg, mode, bb), 2))
+    inner = s_k[:, 8:8 + cfg.ny, parts.padx:parts.padx + cfg.nx]
+    moved = (frame_bytes(frame, cfg.ny, cfg.nx, mode, 1)
+             + frame_bytes(s_k, cfg.ny, cfg.nx, mode, 1)
+             + nbytes(a, px, py))
+    return work(max(err, ephi), *t, moved, nt_flops(inner)), ephi
+
+
+# the shards of the matrix checks: corner, edge, interior and the far
+# corner of a 3 x 3 mesh ("yx"); every shard of a 3 x 1 mesh ("y")
+MESH2_SHARDS = {"yx": ((3, 3), (0, 1, 4, 8)), "y": ((3, 1), (0, 1, 2))}
+
+
+def mesh_tblock_matrix() -> None:
+    """K6 over phase 18's matrix (BREADTH_MATRIX) and K7 over phase 10's
+    (STATIC_MATRIX), k = 1, 2, 4, 8, and K8 over phase 18's, on the
+    pre-haloed 256 x 128 shards of MESH2_SHARDS (corner, edge and
+    interior flags, Zou/He among the options) against their plain
+    versions on CPU copies."""
+    from lbmdem_tpu_torch import SimConfig
+
+    torch.set_num_threads(min(8, os.cpu_count() or 1))
+    opts = ([("K6", lb, kw) for lb, kw in BREADTH_MATRIX]
+            + [("K7", lb, kw) for lb, kw in STATIC_MATRIX])
+    for mode, (dims, shards) in MESH2_SHARDS.items():
+        ny, nx = 256 * dims[0], 128 * dims[1]
+        disks = mesh_grid_disks(ny, nx, seed=len(mode))
+        worst = {"K6": [0.0, 0.0], "K7": [0.0], "K8": [0.0, 0.0]}
+        for i, (kern, label, kw) in enumerate(opts):
+            cfg = SimConfig(**{"nx": nx, "ny": ny, "tau": 0.8,
+                               "dtype": "float32", **kw})
+            parts, frames, ins = mesh_coupled_inputs(cfg, disks, dims,
+                                                     400 + i)
+            for p in shards:
+                tag = f"{label} {mode} shard {p} edges {parts.edges[p]}"
+                if kern == "K7":
+                    for k in (1, 2, 4, 8):
+                        w = mesh_k7_check(parts, frames[p], ins[p][4], p, k,
+                                          tag)
+                        worst["K7"][0] = max(worst["K7"][0], w["err"])
+                    continue
+                for k in (1, 2, 4, 8):
+                    w, ef, _ = mesh_k6_check(parts, frames[p], ins[p], p, k,
+                                             tag)
+                    worst["K6"] = [max(worst["K6"][0], w["err"]),
+                                   max(worst["K6"][1], ef)]
+                w, ephi = mesh_k8_check(parts, frames[p], ins[p][4], tag)
+                worst["K8"] = [max(worst["K8"][0], w["err"]),
+                               max(worst["K8"][1], ephi)]
+        log("mesh-kernels-2", f"prehalo={mode} {dims} mesh of 256x128 shards"
+            f" {list(shards)}: K6 k=1,2,4,8 over {len(BREADTH_MATRIX)} "
+            f"options, worst f' err {worst['K6'][0]:.3e} (bar 5e-6), worst "
+            f"force err {worst['K6'][1]:.3e} of max|F| (bar 1e-6); K7 k=1,2,"
+            f"4,8 over {len(STATIC_MATRIX)} options, worst err "
+            f"{worst['K7'][0]:.3e} (bar atol 2e-6 + rtol 1e-5); K8 worst f' "
+            f"err {worst['K8'][0]:.3e} (bar 5e-6), phi {worst['K8'][1]:.3e}"
+            f" (bar 1e-6); plain versions on CPU tensors")
+
+
+def mesh_tblock_identity() -> None:
+    """Pre-haloed K6(k) and K7(k), k = 1, 2, 4, 8, with no wall or Zou/He
+    edge (a fully periodic lattice), the frames' halos filled from the
+    lattice's own f and solid stack, against the halo-free K6(k) and
+    K7(k) on the whole lattice: the shards' rows of f' and (K6) the
+    partials of the shards' tiles, under torch.equal; where they differ
+    the largest difference is printed (the bars of phase 37's matrix
+    hold either way)."""
+    from lbmdem_tpu_torch import SimConfig, Simulation
+    from lbmdem_tpu_torch.ops import fused_lbm, fused_static, imb, stamp
+    from lbmdem_tpu_torch.ops.fused_fluid import HX, HY
+
+    for mode, dims in (("yx", (2, 2)), ("y", (2, 1))):
+        ny, nx = 256 * dims[0], 128 * dims[1]
+        cfg = SimConfig(nx=nx, ny=ny, tau=0.8, dtype="float32", gx=1e-5,
+                        bc_west="periodic", bc_east="periodic",
+                        bc_south="periodic", bc_north="periodic")
+        disks = mesh_grid_disks(ny, nx, seed=7)
+        sim = Simulation(cfg, disks, device="cuda")
+        cfg, d = sim.cfg, sim.state.disks
+        _, aug, _, _, govf = imb.periodic_ghosts(d.x, d.v, d.omega, d.r,
+                                                 d.active, cfg)
+        td, cnt, _, bovf = stamp.bin_disks_to_tiles(*aug, cfg)
+        assert int(govf) == int(bovf) == 0
+        solid = stamp.stamp_fields(td, cnt, cfg)
+        f = mesh_frame(cfg, "", 31, 0.05)
+        h, w = ny // dims[0], nx // dims[1]
+        lc = cfg.replace(ny=h, nx=w)
+        th, tw = stamp.tile_dims(cfg)
+        assert stamp.tile_dims(lc) == (th, tw)
+        cap = cfg.tile_cap
+        nty, ntx = ny // th, nx // tw
+        hx = HX if mode == "yx" else 0
+        same, diffs = [], []
+        for k in (1, 2, 4, 8):
+            a = torch.empty_like(f)
+            _, pa = fused_lbm.fused_step_imb_reduce_multi(f, solid, td, cnt,
+                                                          cfg, k, a)
+            a7 = torch.empty_like(f)
+            fused_static.fused_step_imb_static_multi(f, solid, cfg, k, a7)
+            pa = pa.reshape(k, nty, ntx, cap, 4)
+            for iy in range(dims[0]):
+                for ix in range(dims[1]):
+                    rows = (torch.arange(-HY, h + HY, device="cuda")
+                            + iy * h) % ny
+                    cols = ((torch.arange(-hx, w + hx, device="cuda")
+                             + ix * w) % nx)
+                    fr = f[:, rows][:, :, cols].contiguous()
+                    sw = solid[:, rows][:, :, cols].contiguous()
+                    ty, tx = iy * h // th, ix * w // tw
+                    tiles = (slice(ty, ty + h // th), slice(tx, tx + w // tw))
+                    td_i = td.reshape(nty, ntx, -1)[tiles].reshape(
+                        -1, 1, cap * 8).contiguous()
+                    cnt_i = cnt.reshape(nty, ntx)[tiles].reshape(
+                        -1, 1, 1).contiguous()
+                    edges = (0, 0, int(mode == "y"), int(mode == "y"), iy * h)
+                    b = torch.empty((9, h, w), device="cuda")
+                    _, pb = fused_lbm.fused_step_imb_reduce_multi(
+                        fr, sw, td_i, cnt_i, lc, k, b, prehalo=mode,
+                        origin=(iy * h, ix * w), edges=edges, ny_glob=ny)
+                    b7 = torch.empty_like(b)
+                    fused_static.fused_step_imb_static_multi(
+                        fr, sw, lc, k, b7, prehalo=mode, edges=edges,
+                        ny_glob=ny)
+                    ref = a[:, iy * h:(iy + 1) * h, ix * w:(ix + 1) * w]
+                    ref7 = a7[:, iy * h:(iy + 1) * h, ix * w:(ix + 1) * w]
+                    refp = pa[:, tiles[0], tiles[1]].reshape(k, -1, 4)
+                    for what, x, y in (("K6 f'", b, ref),
+                                       ("K6 partials", pb, refp),
+                                       ("K7 f'", b7, ref7)):
+                        eq = torch.equal(x, y)
+                        same.append(eq)
+                        if not eq:
+                            diffs.append((what, k, (iy, ix), float(
+                                (x - y).abs().max())))
+            assert float((a - f).abs().max()) > 0.0
+        log("mesh-kernels-2", f"identity prehalo={mode} {dims} (no edge "
+            f"flags, fully periodic {ny}x{nx}, {len(disks)} disks): K6(k) f'"
+            f" and partials and K7(k) f', k = 1, 2, 4, 8, against the "
+            f"halo-free kernels on the shards' rows: {sum(same)} of "
+            f"{len(same)} torch.equal; differences {diffs}")
+        for what, k, pos, dmax in diffs:
+            bar = 5e-6 if what == "K6 f'" else (2e-6 if what == "K7 f'"
+                                                else 1e-6)
+            assert dmax <= bar, (what, k, pos, dmax)
+
+
+def mesh_tblock_timed(n: int = 4096):
+    """At the 2 x 2 (n/2 square) and 4 x 1 shards of the n^2 window and
+    static scenes: K6 (k = 4) and K8 on shard 0 of the column collapse
+    (10 000 disks), K7 (k = 4) on shard 0 of the static bed (4096 fixed
+    disks), each against its plain version, timed with CUDA events beside
+    the same kernel without a halo on the shard's interior (whose global
+    origin is (0, 0): K6's partials equal the halo-free pass's on the
+    same tiles) and their bounds (the cells each reads: a ring of k for
+    K6 and K7, of 1 for K8). Returns {"K6"|"K7"|"K8": work} of the 2 x 2
+    shards."""
+    from lbmdem_tpu_torch import Simulation
+    from lbmdem_tpu_torch.models import column_collapse
+    from lbmdem_tpu_torch.ops import fused_lbm, fused_static
+    from lbmdem_tpu_torch.parallel import make_mesh
+    from lbmdem_tpu_torch.parallel._kernel_step import (
+        _Sharded, exchange, sharded_static_solid,
+    )
+
+    out = {}
+    cfg, disks = column_collapse()
+    cfg = cfg.replace(coupling_k=4)
+    for dims in ((2, 2), (4, 1)):
+        parts, frames, ins = mesh_coupled_inputs(cfg, compressed(disks, 0.94),
+                                                 dims, 9)
+        lc, hx, mode = parts.local_cfg, parts.padx, parts.mode
+        w6, ef, fmax = mesh_k6_check(parts, frames[0], ins[0], 0, 4,
+                                     f"{n}^2 {dims} shard 0", timed=True)
+        w8, _ = mesh_k8_check(parts, frames[0], ins[0][4],
+                              f"{n}^2 {dims} shard 0", timed=True)
+        _, _, td, cnt, s_k, origin = ins[0]
+        assert origin == (0, 0)
+        f = frames[0][:, 8:8 + lc.ny, hx:hx + lc.nx].contiguous()
+        solid = s_k[:, 8:8 + lc.ny, hx:hx + lc.nx].contiguous()
+        a = torch.empty_like(f)
+        t6 = cuda_ms(lambda: fused_lbm.fused_step_imb_reduce_multi(
+            f, solid, td, cnt, lc, 4, a), 10)
+        t8 = cuda_ms(lambda: fused_lbm.fused_step_imb(
+            f, solid[0], solid[1], solid[2], lc, a), 20)
+        for key, wk, t in (("K6 k=4", w6, t6), ("K8", w8, t8)):
+            bms, by = bound(wk)
+            log("mesh-kernels-2", f"{lc.ny}x{lc.nx} shard of {n}^2/"
+                f"{len(disks)} disks prehalo={mode} {key}: kernel "
+                f"{wk['ms']:.4f} ms, plain {wk['plain_ms']:.4f} ms, the same "
+                f"kernel without a halo on {lc.ny}x{lc.nx} {t:.4f} ms (CUDA "
+                f"events); bound {bms:.4f} ms by {by} ({wk['bytes'] / 1e9:.4f}"
+                f" GB, the ring it reads included)")
+        log("mesh-kernels-2", f"{dims} shard 0 K6 k=4: force err {ef:.3e} "
+            f"of max|F| {fmax:.3e} against the plain version on CPU tensors")
+        if dims == (2, 2):
+            out["K6"], out["K8"] = w6, w8
+    scfg, sdisks = static_bed()
+    for dims in ((2, 2), (4, 1)):
+        mesh = make_mesh(["cuda"] * (dims[0] * dims[1]), dims)
+        sim = Simulation(scfg, sdisks, mesh=mesh)
+        wins = sharded_static_solid(sim.cfg, mesh, sim._state)
+        parts = _Sharded(sim.cfg, None, mesh, "y", "drift")
+        g = torch.Generator(device="cuda").manual_seed(10)
+        fs = [f * (1.0 + 0.02 * torch.randn(f.shape, generator=g,
+                                             device="cuda"))
+              for f in sim._state.f]
+        frames = exchange(fs, mesh)
+        lc, hx = parts.local_cfg, parts.padx
+        w7 = mesh_k7_check(parts, frames[0], wins[0], 0, 4,
+                           f"static {n}^2 {dims} shard 0", timed=True)
+        f = frames[0][:, 8:8 + lc.ny, hx:hx + lc.nx].contiguous()
+        solid = wins[0][:, 8:8 + lc.ny, hx:hx + lc.nx].contiguous()
+        a = torch.empty_like(f)
+        t7 = cuda_ms(lambda: fused_static.fused_step_imb_static_multi(
+            f, solid, lc, 4, a), 10)
+        bms, by = bound(w7)
+        log("mesh-kernels-2", f"{lc.ny}x{lc.nx} shard of the static {n}^2 "
+            f"bed prehalo={parts.mode} K7 k=4: kernel {w7['ms']:.4f} ms, "
+            f"plain {w7['plain_ms']:.4f} ms, the same kernel without a halo "
+            f"on {lc.ny}x{lc.nx} {t7:.4f} ms (CUDA events); bound "
+            f"{bms:.4f} ms by {by} ({w7['bytes'] / 1e9:.4f} GB)")
+        if dims == (2, 2):
+            out["K7"] = w7
+        del sim, wins, frames, fs
+    return out
+
+
+def mesh_kernels_2():
+    """Phase 37: the matrix, the identity, the timed shards."""
+    mesh_tblock_matrix()
+    mesh_tblock_identity()
+    return mesh_tblock_timed()
+
+
+def mesh_window_slice(smi: str, dims):
+    """BASELINE config 5 with coupling_k = 4 (the column collapse at
+    4096^2, 10 000 disks, f32, BGK, sample, walls) through Simulation(...,
+    mesh=...) on one card: run(16) against the single-device run(16) (f
+    5e-6, x 1e-5, v 1e-6), then run(100) in pairs with one device
+    (paired_runs), its launches (K1 and K6 once per shard and window, K3w
+    once per inner step and replica, nothing else), overflow 0, mass
+    drift < 1e-5. Returns (launch counts of the first timed run, median
+    MLUPS, one device's median MLUPS)."""
+    from lbmdem_tpu_torch import Simulation
+    from lbmdem_tpu_torch.models import column_collapse
+    from lbmdem_tpu_torch.ops import lbm
+    from lbmdem_tpu_torch.parallel import make_mesh
+
+    cfg, disks = column_collapse()
+    cfg = cfg.replace(out_interval=10**9, coupling_k=4)
+    n = dims[0] * dims[1]
+    mesh = make_mesh(["cuda"] * n, dims)
+    one = Simulation(cfg, disks, device="cuda")
+    sh = Simulation(cfg, disks, mesh=mesh)
+    one.run(16)
+    sh.run(16)
+    a, b = one.state, sh.state
+    ef = float((a.f - b.f).abs().max())
+    ex = float((a.disks.x - b.disks.x).abs().max())
+    ev = float((a.disks.v - b.disks.v).abs().max())
+    log("mesh-window", f"{cfg.nx}x{cfg.ny}, {len(disks)} disks, coupling_k "
+        f"4, {mesh_cards(mesh)}: run(16) against one device: f max err "
+        f"{ef:.3e} (bar 5e-6), x {ex:.3e} (bar 1e-5), v {ev:.3e} (bar 1e-6)")
+    assert ef <= 5e-6 and ex <= 1e-5 and ev <= 1e-6, (ef, ex, ev)
+    del a, b
+    counts, m, o, r = paired_runs(sh, one, 100)
+    st = sh.state
+    f = lbm.from_storage(st.f, cfg)
+    mass_err = abs(float(f.double().sum()) / (cfg.nx * cfg.ny) - 1.0)
+    log("mesh-window", paired_line(mesh, m, o, r, 100, smi))
+    log("mesh-window", f"launches of the first timed run(100) (25 windows) "
+        f"{ {k: v for k, v in counts.items() if v} }; overflow "
+        f"{int(st.overflow)}; n_contacts {int(st.n_contacts)}; "
+        f"|sum f/(nx ny) - 1| {mass_err:.3e} (bar 1e-5)")
+    assert counts == {**_NONE, "K1": 25 * n, "K6": 25 * n,
+                      "K3w": 100 * len(mesh.replicas)}, counts
+    assert int(st.overflow) == 0, f"overflow {int(st.overflow)}"
+    assert bool(torch.isfinite(f).all()), "non-finite f"
+    assert mass_err < 1e-5, f"mass drift {mass_err}"
+    return counts, float(np.median(m)), float(np.median(o))
+
+
+def mesh_static_slice(smi: str, dims, steps: int = 400):
+    """The static/4096 scene (4096^2, 4096 fixed disks at rest) through
+    Simulation(..., mesh=...) on one card: run(19) against the
+    single-device run(19) (f 2e-6, disk x equal) with its launches (K1
+    once per shard for the solid windows, K7 4 passes of 4 and 3 of 1 per
+    shard), then run(steps) in pairs with one device. Returns (launch
+    counts of the first timed run, median MLUPS, one device's)."""
+    from lbmdem_tpu_torch import Simulation
+    from lbmdem_tpu_torch.ops import lbm
+    from lbmdem_tpu_torch.parallel import make_mesh
+
+    cfg, disks = static_bed()
+    n = dims[0] * dims[1]
+    mesh = make_mesh(["cuda"] * n, dims)
+    one = Simulation(cfg, disks, device="cuda")
+    sh = Simulation(cfg, disks, mesh=mesh)
+    assert sh.static_solid
+    one.run(19)
+    reset_counts()
+    sh.run(19)
+    c19 = launch_counts()
+    a, b = one.state, sh.state
+    ef = float((a.f - b.f).abs().max())
+    xeq = torch.equal(a.disks.x, b.disks.x)
+    log("mesh-static", f"{cfg.nx}x{cfg.ny}, {len(disks)} fixed disks, "
+        f"{mesh_cards(mesh)}: run(19) against one device: f max err "
+        f"{ef:.3e} (bar 2e-6), disk x equal {xeq}; launches {c19}")
+    assert ef <= 2e-6 and xeq, (ef, xeq)
+    assert c19 == {**_NONE, "K1": n, "K7": 7 * n}, c19
+    del a, b
+    counts, m, o, r = paired_runs(sh, one, steps)
+    st = sh.state
+    f = lbm.from_storage(st.f, cfg)
+    mass_err = abs(float(f.double().sum()) / (cfg.nx * cfg.ny) - 1.0)
+    log("mesh-static", paired_line(mesh, m, o, r, steps, smi))
+    log("mesh-static", f"launches of the first timed run({steps}) {counts}; "
+        f"overflow {int(st.overflow)}; |sum f/(nx ny) - 1| {mass_err:.3e} "
+        f"(bar 1e-5)")
+    assert counts == {**_NONE, "K7": steps // 4 * n}, counts
+    assert int(st.overflow) == 0 and bool(torch.isfinite(f).all())
+    assert mass_err < 1e-5, f"mass drift {mass_err}"
+    return counts, float(np.median(m)), float(np.median(o))
+
+
+def mesh_paranoia() -> None:
+    """Paranoid mode on a 2 x 2 mesh of one card against one device: a
+    128 x 256 channel with a fixed disk at rest, a NaN injected into f
+    after step 4 (in shard (1, 1)), run(8): "step" (the per-step sharded
+    step, K1 + K2 per shard) reports step 5, "chunk" (the static chunk's
+    K7 passes of 4) step 8, each with the state frozen there, as one
+    device does."""
+    from lbmdem_tpu_torch import DiskSpec, SimConfig, Simulation
+    from lbmdem_tpu_torch.parallel import make_mesh
+    from lbmdem_tpu_torch.simulation import SimulationDiverged
+
+    for mode, want, kern in ((True, 5, "K2"), ("chunk", 8, "K7")):
+        cfg = SimConfig(nx=256, ny=128, tau=0.8, gx=1e-5, paranoia=mode,
+                        bc_west="wall", bc_east="wall", out_interval=100)
+        got = {}
+        for where in ("one", "mesh"):
+            kw = (dict(device="cuda") if where == "one" else
+                  dict(mesh=make_mesh(["cuda"] * 4, (2, 2))))
+            sim = Simulation(cfg, [DiskSpec(40.0, 64.0, 3.0, fixed=True)],
+                             **kw)
+            sim.run(4)
+            assert int(sim.state.fail_step) == -1
+            st = sim.state
+            st.f[0, 70, 150] = float("nan")
+            sim.state = st
+            reset_counts()
+            try:
+                sim.run(8)
+                got[where] = None
+            except SimulationDiverged as e:
+                got[where] = (e.step, int(sim.state.step),
+                              int(sim.state.fail_step))
+            if where == "mesh":
+                counts = launch_counts()
+        log("mesh-paranoia", f"paranoia={mode!r}: 2x2 mesh {got['mesh']}, "
+            f"one device {got['one']} (fail step, frozen step, fail_step; "
+            f"want {want}); mesh launches {counts}")
+        assert got["mesh"] == got["one"] == (want, want, want), got
+        assert counts[kern] > 0, counts
+
+
+def timed_phase(label: str, fn, *args):
+    """fn(*args), logging the phase's seconds."""
+    t0 = time.perf_counter()
+    res = fn(*args)
+    log("phase-seconds", f"{label}: {time.perf_counter() - t0:.1f} s")
+    return res
+
+
 def main() -> int:
     smi = probe()
     build()
@@ -3674,6 +4213,14 @@ def main() -> int:
         log("mesh-placement", f"{torch.cuda.device_count()} card(s): every "
             f"mesh phase put all its shards on cuda:0 (distinct cards need "
             f"4)")
+    mres2 = timed_phase("37 mesh kernels II", mesh_kernels_2)
+    wmcounts, _, _ = timed_phase("38 mesh window 2x2", mesh_window_slice,
+                                 smi, (2, 2))
+    timed_phase("38 mesh window 4x1", mesh_window_slice, smi, (4, 1))
+    smcounts, _, _ = timed_phase("39 mesh static 2x2", mesh_static_slice,
+                                 smi, (2, 2))
+    timed_phase("39 mesh static 4x1", mesh_static_slice, smi, (4, 1))
+    timed_phase("40 mesh paranoia", mesh_paranoia)
     counts.update({k: acounts[k] for k in ("K8", "K9")})
     counts.update({k: fcounts[k] for k in ("K4", "K5")})
     counts.update({k: wcounts[k] for k in ("K6", "K3w")})
@@ -3701,6 +4248,8 @@ def main() -> int:
         "K9": ("reduce_hydro", "lbmdem_tpu_torch/csrc/imb_split.cu",
                "lbmdem_tpu/ops/pallas_stamp.py:474"),
     }
+    k8_mesh = wmcounts["K8"] + smcounts["K8"]
+    assert k8_mesh == 0, f"a mesh path launched K8 {k8_mesh} times"
     # the new instantiations: (base kernel, tag, work, launches of the
     # path that ran it)
     extra = [("K2", "bf16", new["K2 bf16"], bcounts["K2"]),
@@ -3711,7 +4260,12 @@ def main() -> int:
              ("K3", "periodic", new["K3 periodic"], pcounts["K3"]),
              ("K2", "prehalo yx", mres["K2"], mcounts["K2"]),
              ("K4", "prehalo yx", mres["K4"], mfcounts["K4"]),
-             ("K5", "prehalo yx", mres["K5"], mfcounts["K5"])]
+             ("K5", "prehalo yx", mres["K5"], mfcounts["K5"]),
+             ("K6", "prehalo yx", mres2["K6"], wmcounts["K6"]),
+             ("K7", "prehalo yx", mres2["K7"], smcounts["K7"]),
+             # no path runs K8 on a frame (the JAX package's neither):
+             # the mesh paths' runs read none
+             ("K8", "prehalo yx", mres2["K8"], k8_mesh)]
     kernels = []
     rows = [(k, "", res[k], counts[k]) for k in (
         "K1", "K2", "K3", "K4", "K5", "K6", "K3w", "K7", "K8", "K9")] + extra

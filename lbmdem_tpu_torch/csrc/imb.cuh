@@ -349,9 +349,10 @@ __global__ void zou_he_edges_kernel(const float* __restrict__ edge,
   store_f(c1 + 7 * plane, v[7]);
 }
 
-// The one-step push kernel on a shard's pre-haloed frame (K2 on the
-// lattice mesh; f32): f and the solid window are frames (d2q9.cuh
-// Frame, both of pitch fr.pitch), fout the (9, ny, nx) interior. One
+// The one-step push kernel on a shard's pre-haloed frame (K2 and K8 on
+// the lattice mesh; f32): f and the solid fields eps, usx, usy are
+// frames (d2q9.cuh Frame, all of pitch fr.pitch), fout the (9, ny, nx)
+// interior. One
 // thread per cell of the interior and its ring of one cell (the ring's
 // rows always; its columns in "yx" mode, PRE = 2 - in "y" mode, PRE = 1,
 // x wraps over the shard's full width). Each collides once; the
@@ -366,7 +367,9 @@ __global__ void zou_he_edges_kernel(const float* __restrict__ edge,
 template <bool TRT, bool LES, bool LAMBDA, class Sink, int PRE>
 __global__ void __launch_bounds__(kStepMaxThreads)
     coupled_step_prehalo_kernel(const float* __restrict__ f,
-                                const float* __restrict__ solid,
+                                const float* __restrict__ eps,
+                                const float* __restrict__ usx,
+                                const float* __restrict__ usy,
                                 float* __restrict__ fout, Sink sink, int ny,
                                 int nx, Frame fr, FluidParams p, float tm,
                                 EdgePost edge) {
@@ -379,10 +382,9 @@ __global__ void __launch_bounds__(kStepMaxThreads)
   float fc[9], fp[9], phix, phiy;
 #pragma unroll
   for (int i = 0; i < 9; ++i) fc[i] = f[i * fplane + src];
-  const float eps_raw = solid[src];
-  collide_cell<false, TRT, LES, LAMBDA>(fc, eps_raw, solid[fplane + src],
-                                        solid[2 * fplane + src], p, tm, fp,
-                                        &phix, &phiy);
+  const float eps_raw = eps[src];
+  collide_cell<false, TRT, LES, LAMBDA>(fc, eps_raw, usx[src], usy[src], p,
+                                        tm, fp, &phix, &phiy);
   const size_t plane = (size_t)ny * nx;
   const bool inside = gy >= 0 && gy < ny && gx >= 0 && gx < nx;
   if (inside) {
@@ -432,7 +434,8 @@ int launch_coupled_step(const void* f, const float* eps, const float* usx,
 }
 
 template <bool TRT, bool LES, bool LAMBDA, class Sink>
-int launch_coupled_step_prehalo(const float* f, const float* solid,
+int launch_coupled_step_prehalo(const float* f, const float* eps,
+                                const float* usx, const float* usy,
                                 float* fout, Sink sink, int ny, int nx,
                                 Frame fr, const FluidParams& p, float tm,
                                 EdgePost edge, int threads,
@@ -444,12 +447,12 @@ int launch_coupled_step_prehalo(const float* f, const float* solid,
   const dim3 grid((nx + ring + 31) / 32, (ny + 2 + by - 1) / by);
   if (fr.hx)
     coupled_step_prehalo_kernel<TRT, LES, LAMBDA, Sink, 2>
-        <<<grid, dim3(32, by), 0, stream>>>(f, solid, fout, sink, ny, nx, fr,
-                                            p, tm, edge);
+        <<<grid, dim3(32, by), 0, stream>>>(f, eps, usx, usy, fout, sink, ny,
+                                            nx, fr, p, tm, edge);
   else
     coupled_step_prehalo_kernel<TRT, LES, LAMBDA, Sink, 1>
-        <<<grid, dim3(32, by), 0, stream>>>(f, solid, fout, sink, ny, nx, fr,
-                                            p, tm, edge);
+        <<<grid, dim3(32, by), 0, stream>>>(f, eps, usx, usy, fout, sink, ny,
+                                            nx, fr, p, tm, edge);
   return (int)cudaGetLastError();
 }
 
@@ -476,14 +479,16 @@ int dispatch_coupled_step(const void* f, const float* eps, const float* usx,
 }
 
 template <class Sink>
-int dispatch_coupled_step_prehalo(const float* f, const float* solid,
+int dispatch_coupled_step_prehalo(const float* f, const float* eps,
+                                  const float* usx, const float* usy,
                                   float* fout, Sink sink, int ny, int nx,
                                   Frame fr, int lambda, const FluidParams& p,
                                   float tm, EdgePost edge, int threads,
                                   cudaStream_t stream) {
 #define LBM_STEP(TRT, LES, LAMBDA)                                         \
   launch_coupled_step_prehalo<TRT, LES, LAMBDA, Sink>(                     \
-      f, solid, fout, sink, ny, nx, fr, p, tm, edge, threads, stream)
+      f, eps, usx, usy, fout, sink, ny, nx, fr, p, tm, edge, threads,      \
+      stream)
   if (p.trt) {
     if (!p.les) return LBM_STEP(true, false, false);
     return lambda ? LBM_STEP(true, true, true) : LBM_STEP(true, true, false);

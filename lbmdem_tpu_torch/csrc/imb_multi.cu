@@ -30,6 +30,20 @@
 //      writing partials[t][tile * cap + slot] - K2's reduce over a
 //      second grid axis.
 // No atomics: f' and the partials are deterministic.
+//
+// Pre-haloed mode (lbm_imb_multi_prehalo, the lattice mesh's coupling_k
+// window): launch (a) reads a shard's f frame and solid window (d2q9.cuh
+// Frame: 8 halo rows and, in "yx" mode, 128 halo columns per side, the
+// dependency cone of k <= 8 steps) and writes the interior; the walls and
+// the Zou/He closures of the shard's global edges run at every inner
+// step (p.walls, p.open and the frame rows' inlet profile from the
+// host). Launch (b) is K2's pre-haloed reduce over k inner steps: the
+// interior tiles at the origin (oy, ox) of the disk records, eps_raw
+// from the solid window. It replaces the prehalo, origin, edges and
+// ny_glob branches of the TPU kernel (pallas_lbm.py:1257, the edge flags
+// at :1299-1301). Bytes per pass: f and the solid window over the
+// interior and its ring of k cells (rows only in "y" mode, where x
+// wraps) read, f' written, w written per inner step where eps_raw > 0.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -76,4 +90,39 @@ extern "C" int lbm_imb_multi(const void* f, const float* solid,
   return launch_reduce(WPlanes{w, (size_t)ny * nx}, solid, tile_data, counts,
                        offsets, partials, nx, th, tw, ntx, n_tiles, cap,
                        window, cp, k, stream);
+}
+
+// K6 on a shard's pre-haloed frame (f32): f (9, ny + 16, pitch) and solid
+// (3, ny + 16, pitch), the interior at column hx (128 in "yx" mode, else
+// 0; pitch = nx + 2 hx); out (9, ny, nx); w (k, 2, ny, nx) scratch; the
+// binning of the interior's th x tw tiles with disk records whose frame
+// puts the interior's (0, 0) at (oy, ox); p carries the walls and Zou/He
+// sides of the shard's global edges (p.open: bit 0 inlet, bit 1 outlet);
+// u_in: (ny + 16,) f32, the inlet profile at the frame's global rows
+// (read only when p.open). 1 <= k <= 8.
+extern "C" int lbm_imb_multi_prehalo(
+    const float* f, const float* solid, const float* u_in,
+    const float* tile_data, const int* counts, float* out, float* w,
+    float* partials, int* offsets, int ny, int nx, int pitch, int hx, int oy,
+    int ox, int th, int tw, int ntx, int n_tiles, int cap, int window,
+    CovParams cp, int k, int lambda, FluidParams p, float tm, float eps_min,
+    cudaStream_t stream) {
+  if (pitch != nx + 2 * hx || (hx != 0 && hx != kHaloCols) ||
+      (p.open && u_in == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const size_t plane = (size_t)ny * nx;
+  const WSteps sink{w, plane, eps_min};
+  const Frame fr{pitch, hx};
+  const int err =
+      hx ? dispatch_temporal_block<float, WSteps, 2>(
+               f, solid, u_in, out, sink, ny, nx, k, lambda, strip, p, tm,
+               stream, fr)
+         : dispatch_temporal_block<float, WSteps, 1>(
+               f, solid, u_in, out, sink, ny, nx, k, lambda, strip, p, tm,
+               stream, fr);
+  if (err != 0) return err;
+  return launch_reduce(WPlanes{w, plane},
+                       solid + (size_t)kHaloRows * pitch + hx, tile_data,
+                       counts, offsets, partials, nx, th, tw, ntx, n_tiles,
+                       cap, window, cp, k, stream, pitch, oy, ox);
 }

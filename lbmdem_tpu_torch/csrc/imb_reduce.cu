@@ -106,9 +106,11 @@ extern "C" int lbm_imb_step_prehalo(
   if (pitch != nx + 2 * hx || (hx != 0 && hx != kHaloCols))
     return (int)cudaErrorInvalidValue;
   const size_t plane = (size_t)ny * nx;
+  const size_t fplane = (size_t)(ny + 2 * kHaloRows) * pitch;
   const Frame fr{pitch, hx};
   const int err = dispatch_coupled_step_prehalo(
-      f, solid, fout, WSink{w, plane, eps_min}, ny, nx, fr, lambda, p, tm,
+      f, solid, solid + fplane, solid + 2 * fplane, fout,
+      WSink{w, plane, eps_min}, ny, nx, fr, lambda, p, tm,
       EdgePost{erow, ecol}, threads, stream);
   if (err != 0) return err;
   return launch_reduce(WPlanes{w, plane},

@@ -19,6 +19,16 @@
 // stores w. Every f32 instantiation is K2's, so K8's f' equals K2's
 // bitwise.
 //
+// Pre-haloed K8 (lbm_imb_split_step_prehalo): K2's pre-haloed step
+// (imb.cuh coupled_step_prehalo_kernel, the interior and its ring of one
+// cell collided, pushes into the interior) with the phi sink, so f' and
+// the edges' post-collision populations equal K2's bitwise; it replaces
+// the prehalo branch of the TPU kernel (pallas_lbm.py:1469, "y" or
+// "yx", f32). The walls it skips are the caller's, as for K2. Bytes:
+// f and the solid fields over the interior and its ring of one cell
+// (48 B per cell) read, f' (36 B) and phi (8 B) per interior cell
+// written.
+//
 // K9 replaces the TPU kernel lbmdem_tpu/ops/pallas_stamp.py:_reduce_kernel
 // (entry reduce_hydro_forces). It is K2's launch (b), imb.cuh reduce_kernel
 // (a warp per occupied slot, cells with eps_raw <= 0 skipped), with a w source that computes w = phi * (1 /
@@ -44,6 +54,24 @@ extern "C" int lbm_imb_split_step(const float* f, const float* eps,
   return dispatch_coupled_step<float>(f, eps, usx, usy, u_in, fout, edge,
                                       PhiSink{phi, (size_t)ny * nx}, ny, nx,
                                       lambda, p, tm, threads, stream);
+}
+
+// K8 on a shard's pre-haloed frame (f32): f (9, ny + 16, pitch) and eps,
+// usx, usy (ny + 16, pitch), the interior at column hx (128 in "yx" mode,
+// else 0; pitch = nx + 2 hx); fout (9, ny, nx); phi (2, ny, nx) out; p
+// carries only the x walls ("y" mode) or none ("yx"), and no Zou/He;
+// erow (9, 2, nx) and ecol (9, ny, 2) f32, or null: the post-collision
+// populations of the interior's first and last rows and columns.
+extern "C" int lbm_imb_split_step_prehalo(
+    const float* f, const float* eps, const float* usx, const float* usy,
+    float* fout, float* phi, float* erow, float* ecol, int ny, int nx,
+    int pitch, int hx, int lambda, FluidParams p, float tm, int threads,
+    cudaStream_t stream) {
+  if (pitch != nx + 2 * hx || (hx != 0 && hx != kHaloCols))
+    return (int)cudaErrorInvalidValue;
+  return dispatch_coupled_step_prehalo(
+      f, eps, usx, usy, fout, PhiSink{phi, (size_t)ny * nx}, ny, nx,
+      Frame{pitch, hx}, lambda, p, tm, EdgePost{erow, ecol}, threads, stream);
 }
 
 // K9. eps, phix, phiy: (ny, nx) f32; tile_data/counts: the stamp binning

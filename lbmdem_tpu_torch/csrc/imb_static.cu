@@ -19,6 +19,14 @@
 // stream are K8's, so in f32 f' equals k chained K8 steps bit for bit; at
 // ~99 % of the static cell's cells eps_raw = 0 and the collide takes its
 // fluid branch. bf16 storage rounds once per pass.
+//
+// Pre-haloed mode (lbm_imb_static_multi_prehalo, the static hoist on the
+// lattice mesh): the same sweep on a shard's f frame and solid window
+// (d2q9.cuh Frame), the walls and Zou/He closures of the shard's global
+// edges at every inner step; it replaces the prehalo, edges and ny_glob
+// branches of the TPU kernel (pallas_lbm.py:911). Bytes per pass: f and
+// the solid window over the interior and its ring of k cells (rows only
+// in "y" mode) read, f' written.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -51,4 +59,28 @@ extern "C" int lbm_imb_static_multi(const void* f, const float* solid,
               : dispatch_temporal_block<float>(f, solid, u_in, out, NoSink{},
                                                ny, nx, k, lambda, strip, p, tm,
                                                stream);
+}
+
+// K7 on a shard's pre-haloed frame (f32): f (9, ny + 16, pitch) and solid
+// (3, ny + 16, pitch), the interior at column hx (128 in "yx" mode, else
+// 0; pitch = nx + 2 hx); out (9, ny, nx); p carries the walls and Zou/He
+// sides of the shard's global edges (p.open: bit 0 inlet, bit 1 outlet);
+// u_in: (ny + 16,) f32, the inlet profile at the frame's global rows
+// (read only when p.open); 1 <= k <= 8.
+extern "C" int lbm_imb_static_multi_prehalo(const float* f,
+                                            const float* solid, float* out,
+                                            const float* u_in, int ny, int nx,
+                                            int pitch, int hx, int k,
+                                            int lambda, FluidParams p,
+                                            float tm, cudaStream_t stream) {
+  if (pitch != nx + 2 * hx || (hx != 0 && hx != kHaloCols) ||
+      (p.open && u_in == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const Frame fr{pitch, hx};
+  return hx ? dispatch_temporal_block<float, NoSink, 2>(
+                  f, solid, u_in, out, NoSink{}, ny, nx, k, lambda, strip, p,
+                  tm, stream, fr)
+            : dispatch_temporal_block<float, NoSink, 1>(
+                  f, solid, u_in, out, NoSink{}, ny, nx, k, lambda, strip, p,
+                  tm, stream, fr);
 }

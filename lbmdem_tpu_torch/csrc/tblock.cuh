@@ -3,7 +3,8 @@
 // (fluid.cu: the pure-fluid collide, FluidCell), K6 (imb_multi.cu: the
 // coupling_k window, NTCell with a sink that writes every inner step's
 // momentum exchange w_t) and K7 (imb_static.cu: the static-solid hoist,
-// NTCell with a sink that stores nothing).
+// NTCell with a sink that stores nothing), each on the lattice and on a
+// shard's pre-haloed frame of the lattice mesh (PRE below).
 //
 // Replaces the bodies of the TPU kernels
 // lbmdem_tpu/ops/pallas_lbm.py:_fluid_multi_kernel (K5, line 780),
@@ -188,10 +189,13 @@ inline size_t tblock_smem(int k, int threads) {
 // above and below the interior, and column x from frame column x + hx
 // in "yx" mode (wrapped in x in "y" mode, where the shard spans the
 // lattice's width); the walls and Zou/He closures that fire are those
-// of p (the shard's global edges). FluidCell only. The body is one
-// device function; the lattice's kernel (temporal_block_kernel) and the
-// frame's (temporal_block_prehalo_kernel) are two entries, so the
-// lattice's keeps its own signature and code.
+// of p (the shard's global edges). An NTCell reads its solid stack from
+// a frame of the same shape (3 planes of the frame's plane, the JAX
+// solid window of 8 halo rows and, in "yx" mode, 128 halo columns) at
+// the f frame's index. The body is one device function; the lattice's
+// kernel (temporal_block_kernel) and the frame's
+// (temporal_block_prehalo_kernel) are two entries, so the lattice's
+// keeps its own signature and code.
 template <typename S, typename SO, bool SHIFT, int ROWS, class Cell, int PRE>
 __device__ __forceinline__ void temporal_block_body(
     const S* __restrict__ f, const float* __restrict__ u_in,
@@ -201,7 +205,6 @@ __device__ __forceinline__ void temporal_block_body(
   constexpr int RING = ring_rows<ROWS>();
   constexpr int LAG = ROWS + 1;
   static_assert(!Cell::kSolid || ROWS == 1, "the solid ring lags 2 rows");
-  static_assert(!Cell::kSolid || PRE == 0, "a frame holds no solid stack");
   extern __shared__ float smem[];
   const int T = blockDim.x, lx = threadIdx.x;
   const int g = threadIdx.y;                     // group g runs level g
@@ -210,8 +213,9 @@ __device__ __forceinline__ void temporal_block_body(
   const int gx = blockIdx.x * (T - 2 * k) - k + lx;  // global unwrapped
   const int cx = wrap(gx, nx);
   const size_t plane = (size_t)ny * nx;
-  // PRE: the frame's plane, and the lane's frame column (lanes past the
-  // 2k-column cone that no output needs read a clamped column)
+  // PRE: the frame's plane (of f and of the solid stack), and the lane's
+  // frame column (lanes past the 2k-column cone that no output needs
+  // read a clamped column)
   const size_t fplane =
       PRE ? (size_t)(ny + 2 * kHaloRows) * fr.pitch : plane;
   const int fx = PRE == 2 ? min(gx, nx + kHaloCols - 1) + fr.hx : cx;
@@ -250,8 +254,8 @@ __device__ __forceinline__ void temporal_block_body(
         for (int i = 0; i < 9; ++i) v[i] = load_f(f + i * fplane + c);
         if constexpr (Cell::kSolid) {
           e = __ldg(cell.solid + c);  // read-only, as a __restrict__ one
-          sx = __ldg(cell.solid + plane + c);
-          sy = __ldg(cell.solid + 2 * plane + c);
+          sx = __ldg(cell.solid + fplane + c);
+          sy = __ldg(cell.solid + 2 * fplane + c);
           if (k > 1) {
             sr[0] = e;
             sr[T] = sx;
@@ -380,17 +384,20 @@ int launch_temporal_block(const void* f, const float* u_in, void* out,
 }
 
 // K6 and K7: the NTCell instantiation for the options (LAMBDA matters only
-// with LES, else the caller's tm already has the lambda form); 1 <= k <= 8
-template <typename S, class Sink>
+// with LES, else the caller's tm already has the lambda form); 1 <= k <= 8.
+// PRE: 0 on the lattice, 1 ("y") or 2 ("yx") on a shard's frame `fr`,
+// whose solid stack is a frame too (f32 only)
+template <typename S, class Sink, int PRE = 0>
 int dispatch_temporal_block(const void* f, const float* solid,
                             const float* u_in, void* out, Sink sink, int ny,
                             int nx, int k, int lambda, StripConfig strip,
                             const FluidParams& p, float tm,
-                            cudaStream_t stream) {
+                            cudaStream_t stream, Frame fr = Frame{0, 0}) {
 #define LBM_TB(TRT, LES, LAMBDA)                                          \
-  launch_temporal_block<S, S, sizeof(S) == 2, 1, (TRT || LES) ? 1 : 2>(   \
+  launch_temporal_block<S, S, sizeof(S) == 2, 1, (TRT || LES) ? 1 : 2,    \
+                        NTCell<TRT, LES, LAMBDA, Sink>, PRE>(             \
       f, u_in, out, NTCell<TRT, LES, LAMBDA, Sink>{solid, sink, tm}, ny,  \
-      nx, k, strip, p, stream)
+      nx, k, strip, p, stream, fr)
   if (p.trt) {
     if (!p.les) return LBM_TB(true, false, false);
     return lambda ? LBM_TB(true, true, true) : LBM_TB(true, true, false);

@@ -107,12 +107,19 @@ _SIGNATURES = {
     "lbm_imb_step_prehalo": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                              _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                              CovParams, _I, FluidParams, _F, _F, _I, _P],
+    "lbm_imb_multi_prehalo": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                              _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                              CovParams, _I, _I, FluidParams, _F, _F, _P],
     "lbm_imb_multi_strip": [_I, _I],
     "lbm_imb_static_multi": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
                              FluidParams, _F, _P],
+    "lbm_imb_static_multi_prehalo": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                     _I, FluidParams, _F, _P],
     "lbm_imb_static_strip": [_I, _I],
     "lbm_imb_split_step": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                            FluidParams, _F, _I, _P],
+    "lbm_imb_split_step_prehalo": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                   _I, _I, _I, FluidParams, _F, _I, _P],
     "lbm_reduce_hydro": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                          _I, _I, CovParams, _F, _P],
 }

@@ -209,25 +209,44 @@ def fused_step_fluid_prehalo_plain(f, cfg: SimConfig, mode: str, out,
 def fused_step_fluid_multi_prehalo_plain(f, cfg: SimConfig, k: int, mode: str,
                                          edges, ny_glob: int, out):
     """Plain version of K5 on a pre-haloed frame (the JAX
-    _stream_and_bb_window with its mesh-position flags): k x (collide
-    the whole frame, stream it with periodic rolls - the garbage that
-    wraps in at the frame's edge stays in the halo, one cell deeper per
-    step -, bounce-back at the shard's wall rows and columns across the
-    frame where `edges` says it holds that global edge, the Zou/He
-    closures on every frame row at the global row offset edges[4]),
-    then the interior into `out`."""
+    _stream_and_bb_window with its mesh-position flags): frame_steps_plain
+    with the pure-fluid collide, then the interior into `out`."""
+    g = frame_steps_plain(lbm.from_storage(f, cfg), cfg, k, mode, edges,
+                          ny_glob, lambda g, t: _collide(g, cfg))
+    return out.copy_(lbm.to_storage(frame_interior(g, cfg, mode), cfg))
+
+
+def frame_interior(g, cfg: SimConfig, mode: str):
+    """The (planes, ny, nx) interior of a pre-haloed frame."""
+    hx = HX if mode == "yx" else 0
+    return g[:, HY:HY + cfg.ny, hx:hx + cfg.nx]
+
+
+def frame_steps_plain(g, cfg: SimConfig, k: int, mode: str, edges,
+                      ny_glob: int, collide):
+    """k steps of a whole pre-haloed frame g (9, ny + 16, nx [+ 256]), the
+    plain form of the pre-haloed temporal blocks (K5, K6, K7): each step
+    collide(g, t) -> post-collision frame, streamed with periodic rolls
+    (the garbage that wraps in at the frame's edge stays in the halo, one
+    cell deeper per step), bounce-back at the shard's wall rows and
+    columns across the frame where `edges` = (south, north, west, east[,
+    global row offset]) says it holds that global edge, and the Zou/He
+    closures on every frame row at the global row offset (the inlet
+    profile of ny_glob rows). Returns the frame after k steps."""
     h, w = cfg.ny, cfg.nx
     hx = HX if mode == "yx" else 0
     s_on, n_on, w_on, e_on = (bool(e) for e in edges[:4])
     oy = int(edges[4]) if len(edges) > 4 else 0
     opp = lattice.OPP
-    g = lbm.from_storage(f, cfg)
+    if ny_glob <= 0:
+        raise ValueError("a pre-haloed frame needs ny_glob, the global "
+                         "lattice height")
     u_in = lbm.inlet_profile_array(cfg.replace(ny=ny_glob))
     u_rows = torch.as_tensor(u_in[frame_profile_rows(cfg, oy, ny_glob)],
                              dtype=g.dtype, device=g.device)
     rho_o = cfg.rho_outlet or cfg.rho0
-    for _ in range(k):
-        fpost = _collide(g, cfg)
+    for t in range(k):
+        fpost = collide(g, t)
         g = lbm.stream(fpost)
         for on, side, idxs, sl, uwx, uwy in (
                 (s_on, cfg.bc_south, lattice.IN_N, (HY, slice(None)),
@@ -253,7 +272,37 @@ def fused_step_fluid_multi_prehalo_plain(f, cfg: SimConfig, k: int, mode: str,
                 n3, n7, n6 = lbm.zou_he_outlet(
                     tuple(g[i, :, ce] for i in range(9)), rho_o)
                 g[3, :, ce], g[7, :, ce], g[6, :, ce] = n3, n7, n6
-    return out.copy_(lbm.to_storage(g[:, HY:HY + h, hx:hx + w], cfg))
+    return g
+
+
+def check_edges(mode: str, edges, ny_glob=None) -> None:
+    """The edge flags a pre-haloed temporal block (K5, K6, K7) needs:
+    (south, north, west, east[, global row offset]); a "y" shard spans
+    the lattice's width, so it holds both x edges. K6 and K7 pass their
+    ny_glob, which must then be given (the inlet profile's global
+    height); K5 defaults to the shard's own height."""
+    if edges is None or len(edges) not in (4, 5):
+        raise ValueError("a pre-haloed temporal block needs edges = (south, "
+                         "north, west, east[, global row offset])")
+    if mode == "y" and not (edges[2] and edges[3]):
+        raise ValueError("a 'y' shard spans the lattice's width: it holds "
+                         "both x edges (edges[2] = edges[3] = 1)")
+    if ny_glob is not None and ny_glob <= 0:
+        raise ValueError("a pre-haloed temporal block needs ny_glob, the "
+                         "global lattice height")
+
+
+def edge_params(cfg: SimConfig, edges, ny_glob: int, device):
+    """(FluidParams, inlet profile pointer or None) of a pre-haloed
+    temporal block on the shard that `edges` places: the walls and Zou/He
+    sides of its global edges, the profile at its frame rows."""
+    s_on, n_on, w_on, e_on = (int(bool(e)) for e in edges[:4])
+    oy = int(edges[4]) if len(edges) > 4 else 0
+    p = _params(cfg, s_on | n_on << 1 | w_on << 2 | e_on << 3,
+                w_on | e_on << 1)
+    u_in = (_frame_profile(cfg, oy, ny_glob, device).data_ptr()
+            if cfg.bc_west == "inlet" else None)
+    return p, u_in
 
 
 @functools.lru_cache(maxsize=256)
@@ -363,13 +412,7 @@ def _launch(f, cfg: SimConfig, k: int, out, what: str, mode: str = "",
                 kernels.stream())
         elif mode:
             pitch, hx = _frame_args(f, cfg, mode)
-            s_on, n_on, w_on, e_on = (int(bool(e)) for e in edges[:4])
-            oy = int(edges[4]) if len(edges) > 4 else 0
-            p = _params(cfg, s_on | n_on << 1 | w_on << 2 | e_on << 3,
-                        w_on | e_on << 1)
-            if cfg.bc_west == "inlet":
-                u_in = _frame_profile(cfg, oy, ny_glob or cfg.ny,
-                                      f.device).data_ptr()
+            p, u_in = edge_params(cfg, edges, ny_glob, f.device)
             code = lib.lbm_fluid_multi_prehalo(
                 f.data_ptr(), out.data_ptr(), u_in, cfg.ny, cfg.nx, pitch,
                 hx, k, p, kernels.stream())
@@ -446,12 +489,8 @@ def fused_step_fluid_multi(f, cfg: SimConfig, k: int, out, prehalo=False,
         raise ValueError(f"temporal block k={k} outside "
                          f"1..{MAX_K[cfg.f_storage]} for f_storage="
                          f"{cfg.f_storage!r}")
-    if mode and (edges is None or len(edges) not in (4, 5)):
-        raise ValueError("a pre-haloed K5 needs edges = (south, north, west, "
-                         "east[, global row offset])")
-    if mode == "y" and not (edges[2] and edges[3]):
-        raise ValueError("a 'y' shard spans the lattice's width: it holds "
-                         "both x edges (edges[2] = edges[3] = 1)")
+    if mode:
+        check_edges(mode, edges)
     if k == 1 and not mode:
         return fused_step_fluid(f, cfg, out)
     _check_args(f, cfg, out, "fused_step_fluid_multi", mode)
@@ -461,7 +500,7 @@ def fused_step_fluid_multi(f, cfg: SimConfig, k: int, out, prehalo=False,
                 f, cfg, k, mode, edges, ny_glob or cfg.ny, out)
         return fused_step_fluid_multi_plain(f, cfg, k, out)
     _launch(f, cfg, k, out, "temporal-block fluid kernel (K5)", mode, edges,
-            ny_glob)
+            ny_glob or cfg.ny)
     fused_step_fluid_multi.launches += 1
     return out
 

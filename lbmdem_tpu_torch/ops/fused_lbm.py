@@ -29,16 +29,19 @@ kernel (`csrc/imb_reduce.cu`, `csrc/imb_multi.cu`, `csrc/imb_split.cu`)
 for CUDA tensors. All write the new populations into the caller's second
 f buffer `out`, never into `f`.
 
-K2 also takes a shard of the lattice mesh (`prehalo`, `origin`: the
-JAX entry's multi-chip arguments): f is the shard's pre-haloed frame
-and the solid stack its window (3, ny + 16, nx [+ 256]), both in the
-shapes of `fused_fluid.frame_shape`; cfg is the shard's local config.
-The step skips the y walls ("y") or all walls ("yx") and the Zou/He
-closures, which the caller fixes on the shards at a global edge. The
-binning is that of the interior tiles of the shard's stamp canvas, whose
-disk records are in canvas coordinates: the interior's cell (0, 0) is
-the canvas's cell `origin`. The partials keep K2's slot numbering over
-the interior tiles. f32 storage only.
+K2, K6 and K8 also take a shard of the lattice mesh (`prehalo` and, for
+K2 and K6, `origin`: the JAX entries' multi-chip arguments): f is the
+shard's pre-haloed frame and the solid stack its window (3, ny + 16, nx
+[+ 256]), both in the shapes of `fused_fluid.frame_shape`; cfg is the
+shard's local config. The one-step kernels (K2, K8) skip the y walls
+("y") or all walls ("yx") and the Zou/He closures, which the caller
+fixes on the shards at a global edge; K6 runs the walls and closures of
+the shard's global edges itself at every inner step, gated by `edges`
+= (south, north, west, east, global row offset), with the inlet profile
+of `ny_glob` rows. The binning is that of the interior tiles of the
+shard's stamp canvas: the interior's cell (0, 0) is the cell `origin` of
+the disk records' frame. The partials keep K2's slot numbering over the
+interior tiles. f32 storage only.
 """
 
 from __future__ import annotations
@@ -48,7 +51,7 @@ import torch
 
 from lbmdem_tpu_torch import kernels
 from lbmdem_tpu_torch.config import SimConfig
-from lbmdem_tpu_torch.ops import fused_fluid, imb, lbm, not_ported
+from lbmdem_tpu_torch.ops import fused_fluid, imb, lbm
 from lbmdem_tpu_torch.ops.fused_fluid import HX, HY
 from lbmdem_tpu_torch.ops.stamp import (cov_params, hydro_partials_plain,
                                         tile_dims)
@@ -96,31 +99,69 @@ def fused_step_imb_reduce_multi_plain(f, solid, tile_data, counts,
     return out, torch.stack(parts)
 
 
-def fused_step_imb_reduce_prehalo_plain(f, solid, tile_data, counts,
-                                        cfg: SimConfig, mode: str, origin,
-                                        out, edge_post=None):
-    """Plain version of K2 on a pre-haloed frame: imb.collide_imb of the
-    interior and its ring of one cell, pull streaming, the x walls in
-    "y" mode, into `out` (9, ny, nx), the edges' post-collision
-    populations into `edge_post`; the plain reduce of the interior's
-    momentum exchange over the interior tiles, at `origin`. Returns
-    (out, partials)."""
+def fused_step_imb_prehalo_plain(f, eps, usx, usy, cfg: SimConfig,
+                                 mode: str, out, edge_post=None):
+    """Plain version of K8 on a pre-haloed frame (f and the solid fields
+    frames): imb.collide_imb of the interior and its ring of one cell,
+    pull streaming, the x walls in "y" mode, into `out` (9, ny, nx), the
+    edges' post-collision populations into `edge_post`. Returns (out,
+    phi_x, phi_y) of the interior."""
     h, w = cfg.ny, cfg.nx
     rows = slice(HY - 1, HY + h + 1)
     cols = slice(HX - 1, HX + w + 1) if mode == "yx" else slice(None)
-    s = solid[:, rows, cols]
     fpost, phix, phiy = imb.collide_imb(
-        lbm.from_storage(f, cfg)[:, rows, cols], s[0], s[1], s[2], cfg)
+        lbm.from_storage(f, cfg)[:, rows, cols], eps[rows, cols],
+        usx[rows, cols], usy[rows, cols], cfg)
     fnew = fused_fluid.stream_frame(fpost, mode, h, w)
     if mode == "y":
         fused_fluid.x_walls_frame(fnew, fpost, cfg, h)
     fused_fluid.edge_post_plain(fpost, mode, h, w, edge_post)
     out.copy_(lbm.to_storage(fnew, cfg))
     c = slice(1, 1 + w) if mode == "yx" else slice(None)
-    partials = hydro_partials_plain(s[0, 1:1 + h, c], phix[1:1 + h, c],
-                                    phiy[1:1 + h, c], tile_data, counts, cfg,
+    return out, phix[1:1 + h, c], phiy[1:1 + h, c]
+
+
+def fused_step_imb_reduce_prehalo_plain(f, solid, tile_data, counts,
+                                        cfg: SimConfig, mode: str, origin,
+                                        out, edge_post=None):
+    """Plain version of K2 on a pre-haloed frame: K8's
+    (fused_step_imb_prehalo_plain), then the plain reduce of the
+    interior's momentum exchange over the interior tiles, at `origin`.
+    Returns (out, partials)."""
+    out, phix, phiy = fused_step_imb_prehalo_plain(
+        f, solid[0], solid[1], solid[2], cfg, mode, out, edge_post)
+    eps = fused_fluid.frame_interior(solid, cfg, mode)[0]
+    partials = hydro_partials_plain(eps, phix, phiy, tile_data, counts, cfg,
                                     origin)
     return out, partials
+
+
+def fused_step_imb_reduce_multi_prehalo_plain(f, solid, tile_data, counts,
+                                              cfg: SimConfig, k: int,
+                                              mode: str, origin, edges,
+                                              ny_glob: int, out):
+    """Plain version of K6 on a pre-haloed frame (the JAX
+    _imb_reduce_multi_kernel with its mesh-position flags):
+    fused_fluid.frame_steps_plain with imb.collide_imb over the solid
+    window, the plain reduce of the interior's momentum exchange over the
+    interior tiles at `origin` after every collide, then the interior
+    into `out`. Returns (out, partials (k, n_tiles * cap, 4))."""
+    eps_i = fused_fluid.frame_interior(solid, cfg, mode)[0]
+    parts = []
+
+    def collide(g, t):
+        fpost, phix, phiy = imb.collide_imb(g, solid[0], solid[1], solid[2],
+                                            cfg)
+        parts.append(hydro_partials_plain(
+            eps_i, fused_fluid.frame_interior(phix[None], cfg, mode)[0],
+            fused_fluid.frame_interior(phiy[None], cfg, mode)[0], tile_data,
+            counts, cfg, origin))
+        return fpost
+
+    g = fused_fluid.frame_steps_plain(lbm.from_storage(f, cfg), cfg, k, mode,
+                                      edges, ny_glob, collide)
+    out.copy_(lbm.to_storage(fused_fluid.frame_interior(g, cfg, mode), cfg))
+    return out, torch.stack(parts)
 
 
 def _check_args(f, out, what: str) -> None:
@@ -128,9 +169,11 @@ def _check_args(f, out, what: str) -> None:
         raise ValueError(f"{what}: `out` must be a second f-shaped buffer")
 
 
-def _launch_prehalo(f, solid, tile_data, counts, cfg: SimConfig, mode: str,
-                    origin, out, edge_post, what: str):
-    """Launch K2 on a pre-haloed frame; returns the partials."""
+def _prehalo_buffers(f, solid, tile_data, counts, cfg: SimConfig,
+                     mode: str, origin, out, what: str, nk: int):
+    """Check a pre-haloed K2/K6 launch's operands and allocate its phi
+    scratch, partials (nk, n_tiles * cap, 4) and tile offsets. Returns
+    (partials, phi scratch, offsets, dims, tm) for the C entries."""
     fused_fluid.check_storage(what, cfg, f, out)
     kernels.require_cuda_f32(what, f, solid, tile_data, counts, out)
     if solid.dtype != torch.float32 or counts.dtype != torch.int32:
@@ -138,24 +181,56 @@ def _launch_prehalo(f, solid, tile_data, counts, cfg: SimConfig, mode: str,
     th, tw = tile_dims(cfg)
     n_tiles = tile_data.shape[0]
     cap = tile_data.shape[2] // 8
-    w = torch.empty((2, cfg.ny, cfg.nx), dtype=torch.float32,
+    w = torch.empty((nk, 2, cfg.ny, cfg.nx), dtype=torch.float32,
                     device=f.device)
-    partials = torch.empty((n_tiles * cap, 4), dtype=torch.float32,
+    partials = torch.empty((nk, n_tiles * cap, 4), dtype=torch.float32,
                            device=f.device)
     offsets = torch.empty(n_tiles + 1, dtype=torch.int32, device=f.device)
     pitch, hx = fused_fluid._frame_args(f, cfg, mode)
-    erow, ecol = fused_fluid.edge_ptrs(edge_post, cfg, f.device)
+    dims = (cfg.ny, cfg.nx, pitch, hx, int(origin[0]), int(origin[1]), th,
+            tw, cfg.nx // tw, n_tiles, cap, cfg.window, cov_params(cfg))
+    tm = (np.float32(imb.nt_tm(cfg.tau, cfg.nt_mode)),
+          np.float32(imb._EPS_MIN))
+    return partials, w, offsets, dims, tm
+
+
+def _launch_k2_prehalo(f, solid, tile_data, counts, cfg: SimConfig,
+                       mode: str, origin, out, edge_post):
+    """Launch K2 on a pre-haloed frame, handing out edge_post; returns
+    the partials (1, n_tiles * cap, 4)."""
+    what = "fused IMB step kernel (K2)"
+    partials, w, offsets, dims, tm = _prehalo_buffers(
+        f, solid, tile_data, counts, cfg, mode, origin, out, what, 1)
+    lam = int(cfg.nt_mode == "lambda")
     with torch.cuda.device(f.device):
+        erow, ecol = fused_fluid.edge_ptrs(edge_post, cfg, f.device)
         code = kernels.library().lbm_imb_step_prehalo(
             f.data_ptr(), solid.data_ptr(), tile_data.data_ptr(),
             counts.data_ptr(), out.data_ptr(), w.data_ptr(), erow, ecol,
-            partials.data_ptr(), offsets.data_ptr(), cfg.ny, cfg.nx, pitch,
-            hx, int(origin[0]), int(origin[1]), th, tw, cfg.nx // tw,
-            n_tiles, cap, cfg.window, cov_params(cfg),
-            int(cfg.nt_mode == "lambda"),
-            fused_fluid._params(cfg, 12 if mode == "y" else 0, 0),
-            np.float32(imb.nt_tm(cfg.tau, cfg.nt_mode)),
-            np.float32(imb._EPS_MIN), STEP_THREADS, kernels.stream())
+            partials.data_ptr(), offsets.data_ptr(), *dims, lam,
+            fused_fluid._params(cfg, 12 if mode == "y" else 0, 0), *tm,
+            STEP_THREADS, kernels.stream())
+    kernels.check(code, what)
+    return partials
+
+
+def _launch_k6_prehalo(f, solid, tile_data, counts, cfg: SimConfig,
+                       mode: str, origin, out, k: int, edges,
+                       ny_glob: int):
+    """Launch K6 on a pre-haloed frame, k steps with the shard's edges
+    in the kernel; returns the partials (k, n_tiles * cap, 4)."""
+    what = "coupled temporal-block kernel (K6)"
+    partials, w, offsets, dims, tm = _prehalo_buffers(
+        f, solid, tile_data, counts, cfg, mode, origin, out, what, k)
+    lam = int(cfg.nt_mode == "lambda")
+    with torch.cuda.device(f.device):
+        p, u_in = fused_fluid.edge_params(cfg, edges, ny_glob, f.device)
+        kernels.setting("lbm_imb_multi_strip", *MULTI_STRIP)
+        code = kernels.library().lbm_imb_multi_prehalo(
+            f.data_ptr(), solid.data_ptr(), u_in, tile_data.data_ptr(),
+            counts.data_ptr(), out.data_ptr(), w.data_ptr(),
+            partials.data_ptr(), offsets.data_ptr(), *dims, k, lam, p, *tm,
+            kernels.stream())
     kernels.check(code, what)
     return partials
 
@@ -236,25 +311,16 @@ def fused_step_imb_reduce(f, solid, tile_data, counts, cfg: SimConfig, out,
     lbm_imb_step_prehalo, two launches)."""
     mode = fused_fluid.check_fluid_cfg(cfg, prehalo)
     if mode:
-        what = "fused_step_imb_reduce"
-        shape = fused_fluid.frame_shape(cfg, mode)
-        if tuple(f.shape) != shape or tuple(solid.shape) != (3,) + shape[1:]:
-            raise ValueError(f"{what}: a pre-haloed f {shape} and solid "
-                             f"window {(3,) + shape[1:]}, got "
-                             f"{tuple(f.shape)} and {tuple(solid.shape)}")
-        if (tuple(out.shape) != (9, cfg.ny, cfg.nx)
-                or out.data_ptr() == f.data_ptr()):
-            raise ValueError(f"{what}: `out` must be a second (9, {cfg.ny}, "
-                             f"{cfg.nx}) f buffer")
+        _check_prehalo_shapes(f, solid, cfg, mode, out,
+                              "fused_step_imb_reduce")
         if f.device.type == "cpu":
             return fused_step_imb_reduce_prehalo_plain(
                 f, solid, tile_data, counts, cfg, mode, origin, out,
                 edge_post)
-        partials = _launch_prehalo(f, solid, tile_data, counts, cfg, mode,
-                                   origin, out, edge_post,
-                                   "fused IMB step kernel (K2)")
+        partials = _launch_k2_prehalo(f, solid, tile_data, counts, cfg,
+                                      mode, origin, out, edge_post)
         fused_step_imb_reduce.launches += 1
-        return out, partials
+        return out, partials[0]
     if tuple(origin) != (0, 0) or edge_post is not None:
         raise ValueError("origin and edge_post are a shard's: they need "
                          "prehalo='y' or 'yx'")
@@ -268,8 +334,22 @@ def fused_step_imb_reduce(f, solid, tile_data, counts, cfg: SimConfig, out,
     return out, partials[0]
 
 
+def _check_prehalo_shapes(f, solid, cfg: SimConfig, mode: str, out,
+                          what: str) -> None:
+    shape = fused_fluid.frame_shape(cfg, mode)
+    if tuple(f.shape) != shape or tuple(solid.shape) != (3,) + shape[1:]:
+        raise ValueError(f"{what}: a pre-haloed f {shape} and solid window "
+                         f"{(3,) + shape[1:]}, got {tuple(f.shape)} and "
+                         f"{tuple(solid.shape)}")
+    if (tuple(out.shape) != (9, cfg.ny, cfg.nx)
+            or out.data_ptr() == f.data_ptr()):
+        raise ValueError(f"{what}: `out` must be a second (9, {cfg.ny}, "
+                         f"{cfg.nx}) f buffer")
+
+
 def fused_step_imb_reduce_multi(f, solid, tile_data, counts, cfg: SimConfig,
-                                k: int, out):
+                                k: int, out, prehalo=False, origin=(0, 0),
+                                edges=None, ny_glob: int = 0):
     """K6: k coupled steps of f over ONE solid stack and binning (the
     window-start ones of a coupling_k window), written into `out`, with
     the hydro partials of every inner step: (out, partials (k, n_tiles *
@@ -277,11 +357,34 @@ def fused_step_imb_reduce_multi(f, solid, tile_data, counts, cfg: SimConfig,
     so stamp.gather_partials(partials[t], ...) gives inner step t's
     forces.
 
+    prehalo ("y" or True, "yx"), origin, edges and ny_glob: a shard's
+    pre-haloed frame and solid window, its interior binning (the module
+    docstring), its global edges (south, north, west, east, global row
+    offset; a "y" shard holds both x edges) where the walls and Zou/He
+    closures run at every inner step, and the global lattice height;
+    `out` is the (9, ny, nx) interior.
+
     CPU tensors take the plain version; CUDA tensors take the kernel
     csrc/imb_multi.cu (two launches: the row sweep of k collide-stream-BB
-    steps, then the reduce of every inner step)."""
+    steps, then the reduce of every inner step; on a frame
+    lbm_imb_multi_prehalo)."""
     if not 1 <= k <= MAX_K:
         raise ValueError(f"coupled temporal block k={k} outside 1..{MAX_K}")
+    mode = fused_fluid.check_fluid_cfg(cfg, prehalo, edges)
+    if mode:
+        what = "fused_step_imb_reduce_multi"
+        fused_fluid.check_edges(mode, edges, ny_glob)
+        _check_prehalo_shapes(f, solid, cfg, mode, out, what)
+        if f.device.type == "cpu":
+            return fused_step_imb_reduce_multi_prehalo_plain(
+                f, solid, tile_data, counts, cfg, k, mode, origin, edges,
+                ny_glob, out)
+        partials = _launch_k6_prehalo(f, solid, tile_data, counts, cfg,
+                                      mode, origin, out, k, edges, ny_glob)
+        fused_step_imb_reduce_multi.launches += 1
+        return out, partials
+    if tuple(origin) != (0, 0):
+        raise ValueError("origin is a shard's: it needs prehalo='y' or 'yx'")
     _check_args(f, out, "fused_step_imb_reduce_multi")
     if f.device.type == "cpu":
         return fused_step_imb_reduce_multi_plain(f, solid, tile_data, counts,
@@ -302,34 +405,71 @@ def fused_step_imb_plain(f, eps, usx, usy, cfg: SimConfig, out):
     return out, phix, phiy
 
 
-def fused_step_imb(f, eps, usx, usy, cfg: SimConfig, out, prehalo=False):
+def _launch_split_prehalo(f, eps, usx, usy, cfg: SimConfig, mode: str, out,
+                          edge_post, phi, what: str) -> None:
+    """Launch K8 on a pre-haloed frame into `out` and `phi`."""
+    pitch, hx = fused_fluid._frame_args(f, cfg, mode)
+    erow, ecol = fused_fluid.edge_ptrs(edge_post, cfg, f.device)
+    with torch.cuda.device(f.device):
+        code = kernels.library().lbm_imb_split_step_prehalo(
+            f.data_ptr(), eps.data_ptr(), usx.data_ptr(), usy.data_ptr(),
+            out.data_ptr(), phi.data_ptr(), erow, ecol, cfg.ny, cfg.nx,
+            pitch, hx, int(cfg.nt_mode == "lambda"),
+            fused_fluid._params(cfg, 12 if mode == "y" else 0, 0),
+            np.float32(imb.nt_tm(cfg.tau, cfg.nt_mode)), STEP_THREADS,
+            kernels.stream())
+    kernels.check(code, what)
+
+
+def fused_step_imb(f, eps, usx, usy, cfg: SimConfig, out, prehalo=False,
+                   edge_post=None):
     """K8: one coupled step of f (9, ny, nx) float32 over the solid fields
     eps_raw, us_x, us_y (ny, nx), written into `out` (the other f buffer,
     same shape; the JAX entry's out_buf). Returns (out, phi_x, phi_y), the
     raw momentum exchange (ny, nx) for stamp.reduce_hydro_forces.
 
+    prehalo ("y" or True, "yx"): f and the solid fields are a shard's
+    pre-haloed frames (the module docstring), `out` the (9, ny, nx)
+    interior and phi the interior's; the y walls ("y") or all walls
+    ("yx") and the Zou/He closures are left to the caller, which may ask
+    for the post-collision populations of the interior's first and last
+    rows and columns in edge_post = (rows (9, 2, nx), cols (9, ny, 2))
+    f32 buffers, as K2's pre-haloed step hands them out.
+
     float32 only, as the JAX kernel (bf16 storage runs through the fused
     reduce step). CPU tensors take the plain version; CUDA tensors take
-    the kernel lbm_imb_split_step of csrc/imb_split.cu (or raise)."""
-    if prehalo:
-        raise not_ported("the prehalo argument of the split coupled step "
-                         "(multi-chip halo exchange)", 12)
+    the kernel lbm_imb_split_step of csrc/imb_split.cu (on a frame
+    lbm_imb_split_step_prehalo), or raise."""
+    mode = fused_fluid.prehalo_mode(prehalo)
     if f.dtype != torch.float32:
         raise ValueError(f"fused_step_imb is float32-only (got {f.dtype}); "
                          f"bf16 storage runs through fused_step_imb_reduce")
+    if edge_post is not None and not mode:
+        raise ValueError("edge_post is for a pre-haloed frame")
     plane = (cfg.ny, cfg.nx)
-    if (tuple(f.shape) != (9,) + plane
-            or any(tuple(t.shape) != plane for t in (eps, usx, usy))):
-        raise ValueError(f"fused_step_imb: f (9, {cfg.ny}, {cfg.nx}) and "
-                         f"eps/usx/usy {plane}")
-    _check_args(f, out, "fused_step_imb")
+    fshape = fused_fluid.frame_shape(cfg, mode)
+    if (tuple(f.shape) != fshape
+            or any(tuple(t.shape) != fshape[1:] for t in (eps, usx, usy))):
+        raise ValueError(f"fused_step_imb: f {fshape} and eps/usx/usy "
+                         f"{fshape[1:]}")
+    if tuple(out.shape) != (9,) + plane or out.data_ptr() == f.data_ptr():
+        raise ValueError(f"fused_step_imb: `out` must be a second (9, "
+                         f"{cfg.ny}, {cfg.nx}) f buffer")
     if f.device.type == "cpu":
+        if mode:
+            return fused_step_imb_prehalo_plain(f, eps, usx, usy, cfg, mode,
+                                                out, edge_post)
         return fused_step_imb_plain(f, eps, usx, usy, cfg, out)
     what = "split coupled step kernel (K8)"
     kernels.require_cuda_f32(what, f, eps, usx, usy, out)
     if any(t.dtype != torch.float32 for t in (eps, usx, usy, out)):
         raise ValueError(f"{what}: float32 fields")
     phi = torch.empty((2,) + plane, dtype=torch.float32, device=f.device)
+    if mode:
+        _launch_split_prehalo(f, eps, usx, usy, cfg, mode, out, edge_post,
+                              phi, what)
+        fused_step_imb.launches += 1
+        return out, phi[0], phi[1]
     u_in, edge = _open_edges(cfg, f.device)
     code = kernels.library().lbm_imb_split_step(
         f.data_ptr(), eps.data_ptr(), usx.data_ptr(), usy.data_ptr(), u_in,

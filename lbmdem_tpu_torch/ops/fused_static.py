@@ -12,6 +12,13 @@ CPU tensors take the plain version; CUDA tensors take the kernel of
 `csrc/imb_static.cu` or raise. Both write into the caller's second f
 buffer `out`, never into `f`, and keep the k inner steps in float32,
 rounding to the storage type once per call (as K5 does).
+
+On a shard of the lattice mesh (`prehalo`, `edges`, `ny_glob`: the JAX
+entry's multi-chip arguments) f is the shard's pre-haloed frame and the
+solid stack its window, both in the shapes of `fused_fluid.frame_shape`,
+`out` the (9, ny, nx) interior; the walls and Zou/He closures of the
+shard's global edges run at every inner step, as in K5's pre-haloed
+mode. f32 storage only.
 """
 
 from __future__ import annotations
@@ -21,7 +28,7 @@ import torch
 
 from lbmdem_tpu_torch import kernels
 from lbmdem_tpu_torch.config import SimConfig
-from lbmdem_tpu_torch.ops import fused_fluid, imb, lbm, not_ported
+from lbmdem_tpu_torch.ops import fused_fluid, imb, lbm
 
 # largest k per pass: the JAX kernel's 8-row solid halo; here the
 # shared-memory rings of the row sweep (85 KB at k = 8)
@@ -32,12 +39,16 @@ MAX_K = 8
 STRIP = (128, 64)
 
 
-def check_static_cfg(cfg: SimConfig, prehalo=False, edges=None) -> None:
-    """Raise for options of the JAX static-solid kernel that are not
-    ported."""
-    if prehalo or edges is not None:
-        raise not_ported("the prehalo/edges arguments of the static-solid "
-                         "kernel (multi-chip halo exchange)", 12)
+def check_static_cfg(cfg: SimConfig, prehalo=False, edges=None,
+                     ny_glob=None) -> str:
+    """The pre-halo mode of the arguments; raise for what the
+    static-solid kernel does not take: edges without a pre-haloed frame,
+    a frame without edges (or, where ny_glob is passed, without the
+    global height), bf16 storage on a frame (its 16-row halo)."""
+    mode = fused_fluid.check_fluid_cfg(cfg, prehalo, edges)
+    if mode:
+        fused_fluid.check_edges(mode, edges, ny_glob)
+    return mode
 
 
 def fused_step_imb_static_multi_plain(f, solid, cfg: SimConfig, k: int, out):
@@ -53,41 +64,77 @@ def fused_step_imb_static_multi_plain(f, solid, cfg: SimConfig, k: int, out):
     return out.copy_(lbm.to_storage(g, cfg))
 
 
+def fused_step_imb_static_multi_prehalo_plain(f, solid, cfg: SimConfig,
+                                              k: int, mode: str, edges,
+                                              ny_glob: int, out):
+    """Plain version of K7 on a pre-haloed frame (the JAX
+    _imb_static_multi_kernel with its mesh-position flags):
+    fused_fluid.frame_steps_plain with imb.collide_imb over the solid
+    window, then the interior into `out`."""
+    g = fused_fluid.frame_steps_plain(
+        lbm.from_storage(f, cfg), cfg, k, mode, edges, ny_glob,
+        lambda g, t: imb.collide_imb(g, solid[0], solid[1], solid[2],
+                                     cfg)[0])
+    return out.copy_(lbm.to_storage(fused_fluid.frame_interior(g, cfg, mode),
+                                    cfg))
+
+
 def fused_step_imb_static_multi(f, solid, cfg: SimConfig, k: int, out,
-                                prehalo=False, edges=None):
+                                prehalo=False, edges=None, ny_glob: int = 0):
     """K7: k coupled steps of f (9, ny, nx) in storage form over the
     constant solid stack (3, ny, nx) [eps_raw, us_x, us_y], written into
     `out` (the other f buffer, same shape). Returns out.
 
+    prehalo ("y" or True, "yx"), edges and ny_glob: a shard's pre-haloed
+    frame and solid window, its global edges (south, north, west, east,
+    global row offset; a "y" shard holds both x edges) and the global
+    lattice height (the module docstring); `out` is the (9, ny, nx)
+    interior.
+
     CPU tensors take the plain version; CUDA tensors take the kernel
-    csrc/imb_static.cu (lbm_imb_static_multi)."""
-    check_static_cfg(cfg, prehalo, edges)
+    csrc/imb_static.cu (lbm_imb_static_multi, or
+    lbm_imb_static_multi_prehalo on a frame)."""
+    mode = check_static_cfg(cfg, prehalo, edges, ny_glob)
     if not 1 <= k <= MAX_K:
         raise ValueError(f"static-solid temporal block k={k} outside "
                          f"1..{MAX_K}")
-    if f.shape != (9, cfg.ny, cfg.nx) or solid.shape != (3, cfg.ny, cfg.nx):
-        raise ValueError(f"fused_step_imb_static_multi: f (9, {cfg.ny}, "
-                         f"{cfg.nx}) and solid (3, {cfg.ny}, {cfg.nx}), got "
-                         f"{tuple(f.shape)} and {tuple(solid.shape)}")
-    if out.shape != f.shape or out.data_ptr() == f.data_ptr():
-        raise ValueError("fused_step_imb_static_multi: `out` must be a "
-                         "second f-shaped buffer")
+    shape = fused_fluid.frame_shape(cfg, mode)
+    if tuple(f.shape) != shape or tuple(solid.shape) != (3,) + shape[1:]:
+        raise ValueError(f"fused_step_imb_static_multi: f {shape} and solid "
+                         f"{(3,) + shape[1:]}, got {tuple(f.shape)} and "
+                         f"{tuple(solid.shape)}")
+    if (tuple(out.shape) != (9, cfg.ny, cfg.nx)
+            or out.data_ptr() == f.data_ptr()):
+        raise ValueError(f"fused_step_imb_static_multi: `out` must be a "
+                         f"second (9, {cfg.ny}, {cfg.nx}) f buffer")
     if f.device.type == "cpu":
+        if mode:
+            return fused_step_imb_static_multi_prehalo_plain(
+                f, solid, cfg, k, mode, edges, ny_glob, out)
         return fused_step_imb_static_multi_plain(f, solid, cfg, k, out)
     what = "static-solid temporal-block kernel (K7)"
     want = fused_fluid.check_storage(what, cfg, f, out)
     kernels.require_cuda_f32(what, solid)
     if solid.device != f.device or solid.dtype != torch.float32:
         raise ValueError(f"{what}: solid must be float32 on f's device")
-    u_in = (fused_fluid._inlet_profile(cfg, f.device).data_ptr()
-            if cfg.bc_west == "inlet" else None)
     lib = kernels.library()
+    tm = np.float32(imb.nt_tm(cfg.tau, cfg.nt_mode))
+    lam = int(cfg.nt_mode == "lambda")
     kernels.setting("lbm_imb_static_strip", *STRIP)
-    code = lib.lbm_imb_static_multi(
-        f.data_ptr(), solid.data_ptr(), out.data_ptr(), u_in, cfg.ny, cfg.nx,
-        k, int(want == torch.bfloat16), int(cfg.nt_mode == "lambda"),
-        fused_fluid._params(cfg), np.float32(imb.nt_tm(cfg.tau, cfg.nt_mode)),
-        kernels.stream())
+    if mode:
+        pitch, hx = fused_fluid._frame_args(f, cfg, mode)
+        p, u_in = fused_fluid.edge_params(cfg, edges, ny_glob, f.device)
+        with torch.cuda.device(f.device):
+            code = lib.lbm_imb_static_multi_prehalo(
+                f.data_ptr(), solid.data_ptr(), out.data_ptr(), u_in, cfg.ny,
+                cfg.nx, pitch, hx, k, lam, p, tm, kernels.stream())
+    else:
+        u_in = (fused_fluid._inlet_profile(cfg, f.device).data_ptr()
+                if cfg.bc_west == "inlet" else None)
+        code = lib.lbm_imb_static_multi(
+            f.data_ptr(), solid.data_ptr(), out.data_ptr(), u_in, cfg.ny,
+            cfg.nx, k, int(want == torch.bfloat16), lam,
+            fused_fluid._params(cfg), tm, kernels.stream())
     kernels.check(code, what)
     fused_step_imb_static_multi.launches += 1
     return out

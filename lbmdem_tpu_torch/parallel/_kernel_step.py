@@ -50,14 +50,14 @@ import torch
 
 from lbmdem_tpu_torch import lattice
 from lbmdem_tpu_torch.config import SimConfig, WALL
-from lbmdem_tpu_torch.ops import (fused_fluid, fused_lbm, imb, lbm,
-                                  not_ported, slab_dem, stamp)
+from lbmdem_tpu_torch.ops import (fused_fluid, fused_lbm, fused_static, imb,
+                                  lbm, not_ported, slab_dem, stamp)
 from lbmdem_tpu_torch.ops.dem import DemGrid
 from lbmdem_tpu_torch.ops.fused_fluid import HX, HY
 from lbmdem_tpu_torch.parallel.sharding import (
     Mesh, MeshState, _inlet_rows, advance_replica,
-    apply_open_boundaries_sharded, mask_open_edges, on_device, shard_dims,
-    sum_over_shards,
+    apply_open_boundaries_sharded, mask_open_edges, mesh_state_ok,
+    on_device, paranoid_commit_mesh, shard_dims, sum_over_shards,
 )
 
 # stamp tile rows, the coupled lattice tile rows of the JAX chain
@@ -320,16 +320,15 @@ class _Sharded:
         s_k = solid[:, pady - HY:pady + h + HY, :].contiguous()
         return entries_i, solid, td_i, cnt_i, s_k, bovf
 
-    def coupled_step(self, ms: MeshState, outs, ctx) -> MeshState:
-        """One coupled step (the JAX coupled_step). ctx None: every
-        replica selects ghosts and every shard bins afresh (margin 0);
-        else the rebuild's (shards, replicas), whose travel check counts
-        into overflow."""
+    def _replica_inputs(self, ms: MeshState, ctx):
+        """Every replica's disks and coupling view: (disks, aug = (x, v,
+        omega, r, active) with the ghosts appended, ghost parents,
+        binning overflow). ctx None: ghosts selected afresh (margin 0);
+        else the rebuild's selection at the current positions and its
+        travel check."""
         from lbmdem_tpu_torch.simulation import BIN_MARGIN
 
-        cfg, lc, mesh = self.cfg, self.local_cfg, self.mesh
-        h, w, pady, padx = self.h, self.w, self.pady, self.padx
-        frames = exchange(ms.f, mesh)
+        cfg, mesh = self.cfg, self.mesh
         reps, aug, gparents, bovf_r = [], [], [], []
         for r, d in enumerate(ms.disks):
             with on_device(mesh.replicas[r]):
@@ -357,6 +356,16 @@ class _Sharded:
             aug.append(a)
             gparents.append(gparent)
             bovf_r.append(bovf)
+        return reps, aug, gparents, bovf_r
+
+    def coupled_step(self, ms: MeshState, outs, ctx) -> MeshState:
+        """One coupled step (the JAX coupled_step). ctx None: every
+        replica selects ghosts and every shard bins afresh (margin 0);
+        else the rebuild's (shards, replicas), whose travel check counts
+        into overflow."""
+        cfg, lc, mesh = self.cfg, self.local_cfg, self.mesh
+        frames = exchange(ms.f, mesh)
+        reps, aug, gparents, bovf_r = self._replica_inputs(ms, ctx)
         fh_p, th_p, bovf_p = [], [], []
         for p, iy, ix in mesh.positions():
             xa, va, oma, ra, acta = aug[mesh.replica_of[p]]
@@ -406,6 +415,91 @@ class _Sharded:
                          overflow=tuple(ovfs), n_contacts=tuple(ncs),
                          fail_step=ms.fail_step)
 
+    def window_step(self, ms: MeshState, outs, ctx, k: int) -> MeshState:
+        """k coupled steps of one coupling_k window (the JAX
+        coupled_window_step): one exchange; per shard K1 on its canvas
+        and one K6 pass on its frame over those window-start solid fields
+        and binning, the walls and Zou/He closures of the shard's global
+        edges in the kernel (no edge fixups); every inner step's forces
+        gathered per shard and summed over the shards as one stacked (k,
+        ...) tensor; per replica the ghost fold, then the window DEM (K3w
+        chained over the k forces; past the slab gate the cell-list DEM
+        or the drift per inner step) and the Zou/He cull. ctx: the
+        cadence rebuild's (shards, replicas)."""
+        from lbmdem_tpu_torch.simulation import window_disks
+
+        cfg, lc, mesh = self.cfg, self.local_cfg, self.mesh
+        frames = exchange(ms.f, mesh)
+        reps, aug, gparents, bovf_r = self._replica_inputs(ms, ctx)
+        fh_p, th_p = [], []
+        for p, iy, ix in mesh.positions():
+            xa = aug[mesh.replica_of[p]][0]
+            with on_device(mesh.devices[p]):
+                entries_i, _, td_i, cnt_i, s_k, _ = self.shard_inputs(
+                    iy, ix, aug[mesh.replica_of[p]], ctx[0][p])
+                _, partials = fused_lbm.fused_step_imb_reduce_multi(
+                    frames[p], s_k, td_i, cnt_i, lc, k, outs[p],
+                    prehalo=self.mode, origin=self.interior_origin(iy, ix),
+                    edges=self.edges[p], ny_glob=cfg.ny)
+                fts = [stamp.gather_partials(partials[t], entries_i,
+                                             xa.dtype) for t in range(k)]
+            fh_p.append(torch.stack([fh for fh, _ in fts]))
+            th_p.append(torch.stack([th for _, th in fts]))
+        fhs = sum_over_shards(fh_p, mesh)
+        ths = sum_over_shards(th_p, mesh)
+        disks, ovfs, ncs = [], [], []
+        for r, d in enumerate(reps):
+            with on_device(mesh.replicas[r]):
+                forces = [(fhs[r][t], ths[r][t]) for t in range(k)]
+                if self.periodic:
+                    forces = [imb.fold_ghost_forces(fh, th, gparents[r],
+                                                    d.x.shape[0])
+                              for fh, th in forces]
+                nd, ovf, nc = window_disks(d, forces, self.grid, cfg,
+                                           self.dem_axis, self.dem_mode,
+                                           ms.n_contacts[r])
+                disks.append(nd)
+                ovfs.append(torch.maximum(ms.overflow[r],
+                                          torch.maximum(ovf, bovf_r[r])))
+                ncs.append(nc)
+        return MeshState(f=tuple(outs), disks=tuple(disks),
+                         step=tuple(s + k for s in ms.step),
+                         overflow=tuple(ovfs), n_contacts=tuple(ncs),
+                         fail_step=ms.fail_step)
+
+    # --- the static hoist ---
+    def static_prep(self, ms: MeshState):
+        """The static hoist's per-shard solid windows (the JAX
+        static_prep): every replica selects the periodic ghosts of the
+        fixed disks (margin 0), every shard bins them on its canvas, K1
+        stamps it, the Zou/He columns are zeroed, and the canvas rows
+        [pady - 8, pady + h + 8) are kept. Returns (windows, overflow):
+        the ghost and binning overflow summed over the shards, a 0-dim
+        tensor on the first replica's device for one host check."""
+        _, aug, _, govf = self._replica_inputs(ms, None)
+        wins, ovf = [], []
+        for p, iy, ix in self.mesh.positions():
+            r = self.mesh.replica_of[p]
+            with on_device(self.mesh.devices[p]):
+                _, _, _, _, s_k, bovf = self.shard_inputs(iy, ix, aug[r])
+            wins.append(s_k)
+            ovf.append(torch.maximum(bovf, govf[r]))
+        return wins, sum_over_shards(ovf, self.mesh)[0]
+
+    def static_step(self, ms: MeshState, outs, wins, k: int) -> MeshState:
+        """k all-fixed-at-rest coupled steps (the JAX static_step): one
+        exchange and one K7 pass per shard over its solid window, the
+        walls and Zou/He closures of the shard's global edges in the
+        kernel; no binning, stamp, reduce or DEM."""
+        frames = exchange(ms.f, self.mesh)
+        for p, _, _ in self.mesh.positions():
+            with on_device(self.mesh.devices[p]):
+                fused_static.fused_step_imb_static_multi(
+                    frames[p], wins[p], self.local_cfg, k, outs[p],
+                    prehalo=self.mode, edges=self.edges[p],
+                    ny_glob=self.cfg.ny)
+        return ms._replace(f=tuple(outs), step=tuple(s + k for s in ms.step))
+
 
 def _max_over_shards(vals, mesh: Mesh):
     """The max of the shards' 0-dim counters, on every replica's device
@@ -442,23 +536,76 @@ def make_sharded_coupled_chunk(cfg: SimConfig, grid: Optional[DemGrid],
                                dem_mode: str = "subcycle") -> Callable:
     """chunk(ms, spare) -> (ms, spare): n coupled steps in Verlet-cadence
     blocks of BIN_CADENCE (the last one shorter), each a rebuild then its
-    steps, the two f buffers of every shard trading places each step."""
+    b steps as b // coupling_k windows (window_step) and b % coupling_k
+    single steps, the two f buffers of every shard trading places each
+    call. Under paranoia="chunk" each block is validated at its end
+    (state_ok per shard, the minimum over the shards) and the state
+    frozen at the first failing block (paranoid_commit)."""
     from lbmdem_tpu_torch.simulation import BIN_CADENCE
 
     parts = _Sharded(cfg, grid, mesh, dem_axis, dem_mode)
     if not parts.coupled:
         raise ValueError("the coupled chunk needs a coupled scene")
+    par_chunk = cfg.paranoia_mode == "chunk"
+    ck = cfg.coupling_k
 
     def chunk(ms: MeshState, spare):
         done = 0
         while done < n:
-            k = min(BIN_CADENCE, n - done)
+            b = min(BIN_CADENCE, n - done)
+            if par_chunk:
+                # the block's steps overwrite both f buffers: keep the
+                # block-start shards for a commit that stays frozen
+                ms_in = ms._replace(f=tuple(f.clone() for f in ms.f))
             ms, ctx = parts.rebuild(ms)
-            for _ in range(k):
+            nwin, rem = divmod(b, ck) if ck > 1 else (0, b)
+            for i in range(nwin + rem):
                 old = ms.f
-                ms = parts.coupled_step(ms, spare, ctx)
+                ms = (parts.window_step(ms, spare, ctx, ck) if i < nwin
+                      else parts.coupled_step(ms, spare, ctx))
                 spare = old
-            done += k
+            if par_chunk:
+                ms = paranoid_commit_mesh(ms_in, ms,
+                                          mesh_state_ok(cfg, ms, mesh), mesh)
+            done += b
         return ms, spare
 
     return chunk
+
+
+def make_sharded_static_chunk(cfg: SimConfig, mesh: Mesh, n: int,
+                              wins) -> Callable:
+    """chunk(ms, spare) -> (ms, spare): n all-fixed-at-rest coupled steps
+    of the static hoist over the shards' solid windows (`_Sharded.
+    static_prep`, made once): n // TEMPORAL_K K7 passes of TEMPORAL_K
+    steps, then n % TEMPORAL_K passes of one step (the JAX
+    make_sharded_static_chunk). Under paranoia="chunk" every pass is
+    validated at its end."""
+    from lbmdem_tpu_torch.simulation import TEMPORAL_K
+
+    parts = _Sharded(cfg, None, mesh, "y", "drift")
+    par_chunk = cfg.paranoia_mode == "chunk"
+    passes, singles = divmod(n, TEMPORAL_K)
+
+    def chunk(ms: MeshState, spare):
+        for k in [TEMPORAL_K] * passes + [1] * singles:
+            new = parts.static_step(ms, spare, wins, k)
+            if par_chunk:
+                new = paranoid_commit_mesh(ms, new,
+                                           mesh_state_ok(cfg, new, mesh), mesh)
+            ms, spare = new, ms.f
+        return ms, spare
+
+    return chunk
+
+
+def sharded_static_solid(cfg: SimConfig, mesh: Mesh, ms: MeshState):
+    """The static hoist's per-shard solid windows of the fixed disks at
+    rest in `ms` (`_Sharded.static_prep`), after one host check of their
+    ghost and binning overflow (as `simulation.static_solid_stack`)."""
+    wins, ovf = _Sharded(cfg, None, mesh, "y", "drift").static_prep(ms)
+    if int(ovf) != 0:
+        raise ValueError(
+            "static-solid binning overflow: raise cfg.tile_cap (or "
+            "cfg.ghost_cap for periodic obstacle arrays)")
+    return wins

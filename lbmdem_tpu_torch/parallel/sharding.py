@@ -324,6 +324,57 @@ def advance_replica(d: DiskState, fh, th, grid: DemGrid, cfg: SimConfig,
     return disks, ovf, nc
 
 
+def _position_state(ms: MeshState, mesh: Mesh, p: int):
+    """The SimState of position p: its shard of f with its replica's
+    disks and counters."""
+    from lbmdem_tpu_torch.simulation import SimState
+
+    r = mesh.replica_of[p]
+    return SimState(f=ms.f[p], disks=ms.disks[r], step=ms.step[r],
+                    overflow=ms.overflow[r], n_contacts=ms.n_contacts[r],
+                    fail_step=ms.fail_step[r])
+
+
+def mesh_state_ok(cfg: SimConfig, ms: MeshState, mesh: Mesh):
+    """Paranoid mode's validity of a MeshState, one 0-dim bool per
+    replica (the same value on each): simulation.state_ok of every
+    position, the minimum over the shards (the JAX pmin), so every shard
+    freezes or none."""
+    from lbmdem_tpu_torch.simulation import state_ok
+
+    oks = [state_ok(cfg, _position_state(ms, mesh, p))
+           for p in range(mesh.size)]
+    out = []
+    for d in mesh.replicas:
+        ok = oks[0].to(d)
+        for o in oks[1:]:
+            ok = ok & o.to(d)
+        out.append(ok)
+    return out
+
+
+def paranoid_commit_mesh(old: MeshState, new: MeshState, oks,
+                         mesh: Mesh) -> MeshState:
+    """simulation.paranoid_commit of every position with its replica's
+    validity `oks` (mesh_state_ok): each shard's f is selected into
+    new.f's buffer, so the two f buffers keep trading places; a
+    replica's fields are those its first position committed (every
+    position of a replica commits the same values)."""
+    from lbmdem_tpu_torch.simulation import paranoid_commit
+
+    per = [paranoid_commit(_position_state(old, mesh, p),
+                           _position_state(new, mesh, p),
+                           oks[mesh.replica_of[p]])
+           for p in range(mesh.size)]
+    first = [per[mesh.replica_of.index(r)] for r in range(len(mesh.replicas))]
+    return MeshState(f=tuple(c.f for c in per),
+                     disks=tuple(c.disks for c in first),
+                     step=tuple(c.step for c in first),
+                     overflow=tuple(c.overflow for c in first),
+                     n_contacts=tuple(c.n_contacts for c in first),
+                     fail_step=tuple(c.fail_step for c in first))
+
+
 def make_sharded_step(cfg: SimConfig, grid: Optional[DemGrid], mesh: Mesh,
                       use_kernels: bool = False, dem_axis: str = "y",
                       temporal_k: int = 1,
@@ -336,7 +387,27 @@ def make_sharded_step(cfg: SimConfig, grid: Optional[DemGrid], mesh: Mesh,
     through K4 (temporal_k 1) or K5 (temporal_k > 1) on pre-haloed
     shards, coupled scenes one step of K1 on the shard's canvas and K2
     with a fresh binning; the step writes the new shards into the
-    per-shard buffers f_out."""
+    per-shard buffers f_out.
+
+    With cfg.paranoia the step is followed by mesh_state_ok and
+    paranoid_commit_mesh (the JAX paranoid_wrap of the sharded step)."""
+    step = _sharded_step(cfg, grid, mesh, use_kernels, dem_axis, temporal_k,
+                         dem_mode)
+    if not cfg.paranoia:
+        return step
+
+    def wrapped(ms: MeshState, f_out=None) -> MeshState:
+        new = step(ms, f_out)
+        return paranoid_commit_mesh(ms, new, mesh_state_ok(cfg, new, mesh),
+                                    mesh)
+
+    return wrapped
+
+
+def _sharded_step(cfg: SimConfig, grid: Optional[DemGrid], mesh: Mesh,
+                  use_kernels: bool, dem_axis: str, temporal_k: int,
+                  dem_mode: str) -> Callable:
+    """make_sharded_step without paranoid mode."""
     if use_kernels:
         from lbmdem_tpu_torch.parallel._kernel_step import (
             make_sharded_step_kernels,

@@ -82,12 +82,16 @@ after every step. `run` raises SimulationDiverged after the chunk.
 With `mesh` (parallel.make_mesh) the lattice is sharded over the mesh's
 devices and the disks replicated per device, as the JAX Simulation(mesh=
 ...) does: coupled scenes run the sharded Verlet-cadence chunk (K1 on
-each shard's canvas, K2 pre-haloed, K3 per replica), pure fluid K5 on
-pre-haloed shards in blocks of TEMPORAL_K steps and then K4 singles, and
-use_kernels=False the plain sharded step. `state` then gathers the
-global state (and setting it shards one); the observation methods work
-on the gathered state. What the mesh does not take yet - coupling_k > 1,
-the static hoist, bf16 storage, paranoid mode - raises
+each shard's canvas, K2 pre-haloed, K3 per replica; with coupling_k > 1
+its windows, K1 and K6 pre-haloed per shard and K3w per replica), the
+static hoist K7 pre-haloed per shard over solid windows stamped once,
+pure fluid K5 on pre-haloed shards in blocks of TEMPORAL_K steps and
+then K4 singles, and use_kernels=False the plain sharded step. Paranoid
+mode validates every shard and takes the minimum over the shards: per
+step (paranoia="step", on the per-step sharded step), or per cadence
+block and per K7 pass ("chunk"). `state` then gathers the global state
+(and setting it shards one); the observation methods work on the
+gathered state. bf16 storage on a mesh (16-row halos) raises
 NotImplementedError naming its ROADMAP.md item.
 
     sim = Simulation(cfg, disks, device="cuda")
@@ -208,7 +212,10 @@ def kernels_supported(cfg: SimConfig, device="cuda",
     With `mesh` (as pallas_supported with one): the lattice must tile
     the mesh, each shard be a multiple of 8 rows and 128 columns (the
     pre-haloed kernels' halos), and the stamp window plus the margin fit
-    the stamp tile of the shard's canvas (parallel/_kernel_step)."""
+    the stamp tile of the shard's canvas (parallel/_kernel_step). K6 and
+    K7 read K2's frame and solid window, whose 8 halo rows hold the
+    dependency cone of every coupling_k the config takes (1..8) and of
+    the static hoist's TEMPORAL_K, so they need nothing more."""
     if mesh is not None:
         device = mesh.devices[0]
     if torch.device(device).type == "cuda" and cfg.dtype != "float32":
@@ -330,6 +337,27 @@ def _advance_disks(d: DiskState, fh, th, grid: DemGrid, cfg: SimConfig,
         return d._replace(x=d.x + d.v * act[:, None],
                           theta=d.theta + d.omega * act), z, z
     return dem.dem_subcycle(d, fh, th, grid, cfg)
+
+
+def window_disks(d: DiskState, forces, grid: DemGrid, cfg: SimConfig,
+                 dem_axis: str, dem_mode: str, n_contacts):
+    """A coupling_k window's disk motion from its inner steps' (F, T):
+    K3w chained over the forces on one slab build, or past the slab gate
+    (and under the drift) one cell-list advance per inner step; then the
+    Zou/He cull. Returns (d, overflow, n_contacts). The one-device and
+    the mesh window steps share it."""
+    if dem_mode == "subcycle" and slab_dem.slab_supported(
+            grid, dem_axis, kt=cfg.kt > 0.0, device=d.x.device):
+        d, ovf, nc = slab_dem.dem_subcycle_window(d, forces, grid, cfg,
+                                                  dem_axis)
+    else:
+        ovf, nc = _zero_i32(d.x.device), n_contacts
+        for fh, th in forces:
+            d, ovf_t, nc = _advance_disks(d, fh, th, grid, cfg, dem_mode)
+            ovf = torch.maximum(ovf, ovf_t)
+    if cfg.bc_west == "inlet":
+        d = dem.cull_open_boundaries(d, cfg)
+    return d, ovf, nc
 
 
 def make_plain_step_fn(cfg: SimConfig, grid: Optional[DemGrid],
@@ -475,16 +503,8 @@ def _kernel_step_fn(cfg: SimConfig, grid: Optional[DemGrid], tile_lists,
                 state.f, solid, tile_data, counts, cfg, coupling_k, f_out)
             forces = [hydro(parts[t], entry_slots, gparent, n_real, d.x.dtype)
                       for t in range(coupling_k)]
-            if use_slab_dem(d):
-                disks, ovf, nc = slab_dem.dem_subcycle_window(
-                    d, forces, grid, cfg, dem_axis)
-            else:  # the drift or the cell-list DEM, per inner step
-                disks, ovf, nc = d, bovf, state.n_contacts
-                for fh, th in forces:
-                    disks, ovf_t, nc = advance_disks(disks, fh, th)
-                    ovf = torch.maximum(ovf, ovf_t)
-            if open_cull:
-                disks = dem.cull_open_boundaries(disks, cfg)
+            disks, ovf, nc = window_disks(d, forces, grid, cfg, dem_axis,
+                                          dem_mode, state.n_contacts)
             return SimState(
                 f=fnew, disks=disks, step=state.step + coupling_k,
                 overflow=torch.maximum(state.overflow,
@@ -568,7 +588,7 @@ class Simulation:
         disks = list(disks)
         self.mesh = mesh
         if mesh is not None:
-            self._refuse_on_mesh(cfg, disks, use_kernels, mesh)
+            self._refuse_on_mesh(cfg, mesh)
             device = mesh.devices[0]
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -631,8 +651,7 @@ class Simulation:
             self._kstep = make_step_fn(cfg, None, temporal_k=TEMPORAL_K)
 
     @staticmethod
-    def _refuse_on_mesh(cfg: SimConfig, disks, use_kernels: bool,
-                        mesh) -> None:
+    def _refuse_on_mesh(cfg: SimConfig, mesh) -> None:
         """Raise for what a mesh does not take yet (ROADMAP.md item 12),
         before any device work."""
         from lbmdem_tpu_torch.parallel import Mesh
@@ -643,16 +662,6 @@ class Simulation:
         if cfg.f_storage != "float32":
             raise not_ported("bf16 storage on a lattice mesh (16-row "
                              "halos)", 12)
-        if cfg.paranoia:
-            raise not_ported("paranoid mode on a lattice mesh", 12)
-        coupled = cfg.max_disks > 0 or bool(disks)
-        if use_kernels and coupled and cfg.coupling_k > 1:
-            raise not_ported("coupling_k > 1 on a lattice mesh (K6 with "
-                             "origin, edges and ny_glob)", 12)
-        if (use_kernels and disks and all(d.fixed for d in disks)
-                and _at_rest(disks)):
-            raise not_ported("the static-solid hoist on a lattice mesh (K7 "
-                             "with edges)", 12)
 
     # --- the state (gathered from the shards on a mesh) ---
     @property
@@ -699,19 +708,30 @@ class Simulation:
         paranoia="step") instead takes n // TEMPORAL_K K7 passes of
         TEMPORAL_K steps and n % TEMPORAL_K of one step over the solid
         stack stamped once. Pure fluid: n // TEMPORAL_K K5 passes, then
-        n % TEMPORAL_K K4 steps (the JAX pure-fluid chunk)."""
-        if not self.use_kernels:
+        n % TEMPORAL_K K4 steps (the JAX pure-fluid chunk). On a mesh the
+        coupled chunks are parallel/_kernel_step's (the cadence chunk with
+        its windows, the static chunk), and paranoia="step" takes the
+        per-step sharded step."""
+        if not self.use_kernels or (self.mesh is not None
+                                    and self.grid is not None
+                                    and self.cfg.paranoia_mode == "step"):
+            # on a mesh paranoia="step" validates at the sharded step's
+            # boundary (the JAX paranoid_wrap of the sharded step)
             for _ in range(n):
                 self._advance(self._step)
             return
         if self.mesh is not None and self.grid is not None:
             from lbmdem_tpu_torch.parallel._kernel_step import (
-                make_sharded_coupled_chunk,
+                make_sharded_coupled_chunk, make_sharded_static_chunk,
             )
 
-            chunk = make_sharded_coupled_chunk(
-                self.cfg, self.grid, self.mesh, n, self.dem_axis,
-                self.dem_mode)
+            if self.static_solid:
+                chunk = make_sharded_static_chunk(
+                    self.cfg, self.mesh, n, self._static_solid_operands())
+            else:
+                chunk = make_sharded_coupled_chunk(
+                    self.cfg, self.grid, self.mesh, n, self.dem_axis,
+                    self.dem_mode)
             self._state, self._f_spare = chunk(self._state, self._f_spare)
             return
         if self.grid is None:
@@ -776,11 +796,21 @@ class Simulation:
                                              state_ok(cfg, self.state))
             done += k
 
-    def _static_solid_operands(self) -> torch.Tensor:
-        """The static hoist's solid stack (`static_solid_stack`), stamped
-        once and cached."""
+    def _static_solid_operands(self):
+        """The static hoist's solid stack (`static_solid_stack`), or on a
+        mesh the shards' solid windows (`_kernel_step.
+        sharded_static_solid`), stamped once and cached."""
         if self._solid_stack is None:
-            self._solid_stack = static_solid_stack(self.cfg, self.state.disks)
+            if self.mesh is None:
+                self._solid_stack = static_solid_stack(self.cfg,
+                                                       self.state.disks)
+            else:
+                from lbmdem_tpu_torch.parallel._kernel_step import (
+                    sharded_static_solid,
+                )
+
+                self._solid_stack = sharded_static_solid(
+                    self.cfg, self.mesh, self._state)
         return self._solid_stack
 
     def run(self, steps: Optional[int] = None,

@@ -13,14 +13,15 @@ loads that tree's kernels (`kernels.library()`) and calls only the
 wrappers a user calls, whose signatures outlive the C entry points':
 `stamp_fields`, `fused_step_fluid`, `fused_step_fluid_multi`,
 `fused_step_imb_reduce`, `fused_step_imb_reduce_multi`,
-`fused_step_imb_static_multi`, `subcycle_slabs` and
+`fused_step_imb_static_multi`, `fused_step_imb`, `subcycle_slabs` and
 `subcycle_slabs_window`.
 
 Cases: K4 and K5 (k = 4, 8; bf16 also 16) at 4096^2 (tau 0.8, gx 1e-6,
 periodic x, f = w_i (1 + 0.02 N(0, 1))), f32 and bf16; K1 (the stamp),
 K2 and K6 (k = 4) on the 4096^2 / 10k-disk column packed into contact
 (positions scaled by 0.94) and K7 (k = 4) on a 4096^2 porous bed of
-4096 fixed disks of r = 4, f32 and bf16 (K1 f32 only); K3, K3w, both
+4096 fixed disks of r = 4, f32 and bf16 (K1 and K8, the split step
+on the packed column, f32 only); K3, K3w, both
 with springs (kt = 25, two subcycles first so live springs are
 carried), and K3 on a periodic x axis, on the packed column with seeded
 velocities and forces. The inputs are made by each tree's own code and
@@ -104,7 +105,7 @@ def _packed_column():
 
 
 def block_cases():
-    """K1; K2, K6 and K7 (k = 4), f32 and bf16."""
+    """K1; K2, K6 and K7 (k = 4), f32 and bf16; K8, f32."""
     from lbmdem_tpu_torch import Simulation
     from lbmdem_tpu_torch.models import porous_bed
     from lbmdem_tpu_torch.ops import fused_lbm, fused_static, lbm, stamp
@@ -158,6 +159,15 @@ def block_cases():
                     return (out,)
             tag = "" if name == "K2" else " k=4"
             yield f"{name} {storage}{tag}", (f, *ins), run, outs
+            if name == "K2" and storage == "float32":
+                res8 = {}
+
+                def run8(fresh=False, f=f, c=c, out=out, res=res8):
+                    res["phi"] = fused_lbm.fused_step_imb(
+                        f, solid[0], solid[1], solid[2], c, out)[1:]
+
+                yield ("K8 float32", (f, solid), run8,
+                       lambda out=out, res=res8: (out, *res["phi"]))
 
 
 def slab_cases():

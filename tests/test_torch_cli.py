@@ -131,17 +131,24 @@ def test_cli_kernels_and_plain_path(tmp_path, capsys):
 def test_cli_refuses_what_it_cannot_run(tmp_path, capsys):
     """--kernels on a deck the kernels cannot take is an error naming
     the reason; --distributed, and on a --mesh what the mesh does not
-    take yet (paranoid mode), name ROADMAP item 12."""
+    take yet (bf16 storage), name ROADMAP item 12. Paranoid mode, which a
+    mesh refused so before, runs there (2 steps on the plain sharded
+    step)."""
     deck = os.path.join(EXAMPLES, "schafer_turek.par")
     with pytest.raises(SystemExit) as e:
         cli.main([deck, "--kernels", "--device", "cpu", "--out",
                   str(tmp_path / "x")])
     assert e.value.code == 2
     assert "exceeds the" in capsys.readouterr().err
-    for flag in (["--mesh", "2x2", "--device", "cpu", "--paranoid"],
-                 ["--distributed"]):
+    assert cli.main([deck, "--mesh", "2x2", "--device", "cpu", "--paranoid",
+                     "--steps", "2", "--out", str(tmp_path / "p")]) == 0
+    assert "done: 2 steps" in capsys.readouterr().out
+    bf16 = tmp_path / "bf16.par"
+    bf16.write_text("nx 256\nny 64\ntau 0.8\nsteps 4\nf_storage bfloat16\n")
+    for argv in ([str(bf16), "--mesh", "2x2", "--device", "cpu"],
+                 [deck, "--distributed"]):
         with pytest.raises(NotImplementedError, match="item 12"):
-            cli.main([deck, *flag, "--out", str(tmp_path / "x")])
+            cli.main([*argv, "--out", str(tmp_path / "x")])
 
 
 def test_cli_paranoid_and_profile(tmp_path, capsys):

@@ -1303,3 +1303,102 @@ def test_mesh_runs_on_one_card(dev):
     one.run(9)
     sh.run(9)
     torch.testing.assert_close(sh.state.f, one.state.f, rtol=0, atol=1e-7)
+
+
+@pytest.mark.parametrize("mode", ["y", "yx"])
+def test_prehalo_window_kernels_match_plain(dev, mode):
+    """K6 and K7 (k = 2 and 4, the edge flags of corner, edge and
+    interior shards, walls and Zou/He) and K8 on pre-haloed shards of a
+    512^2 column collapse (the lattice mesh's window and static paths)
+    against their plain versions on CPU copies of the inputs: K6 f' 5e-6
+    and forces 1e-6 of the largest |F| per inner step, K7 rtol 1e-5 /
+    atol 2e-6, K8 f' rtol 1e-6 / atol 1e-7 and phi rtol 1e-5 / atol
+    5e-8."""
+    from lbmdem_tpu_torch.parallel import make_mesh
+    from lbmdem_tpu_torch.parallel._kernel_step import _Sharded, exchange
+
+    cpu = torch.device("cpu")
+    cfg, disks = column_collapse(nx=512, ny=512, n_disks=240)
+    disks = [DiskSpec(d.x * 0.94, d.y * 0.94, d.r) for d in disks]
+    dims = (2, 2) if mode == "yx" else (4, 1)
+    mesh = make_mesh([dev] * 4, dims)
+    for kw in (dict(), dict(bc_west="inlet", bc_east="outlet",
+                            u_inlet=0.04, inlet_profile="poiseuille")):
+        sim = Simulation(cfg.replace(**kw), disks, mesh=mesh)
+        parts = _Sharded(sim.cfg, sim.grid, mesh, sim.dem_axis, sim.dem_mode)
+        lc = parts.local_cfg
+        d = sim._state.disks[0]
+        g = torch.Generator(device=dev).manual_seed(5)
+        fs = [f * (1.0 + 0.02 * torch.randn(f.shape, generator=g,
+                                             device=dev))
+              for f in sim._state.f]
+        frames = exchange(fs, mesh)
+        for p, iy, ix in mesh.positions():
+            entries, _, td, cnt, s_k, _ = parts.shard_inputs(
+                iy, ix, (d.x, d.v, d.omega, d.r, d.active))
+            origin, edges = parts.interior_origin(iy, ix), parts.edges[p]
+            c = [t.to(cpu) for t in (frames[p], s_k, td, cnt)]
+            a = torch.empty((9, lc.ny, lc.nx), device=dev)
+            b = torch.empty((9, lc.ny, lc.nx))
+            for k in (2, 4):
+                _, pk = fused_lbm.fused_step_imb_reduce_multi(
+                    frames[p], s_k, td, cnt, lc, k, a, prehalo=mode,
+                    origin=origin, edges=edges, ny_glob=sim.cfg.ny)
+                _, pp = fused_lbm.fused_step_imb_reduce_multi(
+                    *c, lc, k, b, prehalo=mode, origin=origin, edges=edges,
+                    ny_glob=sim.cfg.ny)
+                torch.testing.assert_close(a.cpu(), b, rtol=0, atol=5e-6)
+                for t in range(k):
+                    F, _ = stamp.gather_partials(pk[t], entries,
+                                                 torch.float32)
+                    Fp, _ = stamp.gather_partials(pp[t].to(dev), entries,
+                                                  torch.float32)
+                    scale = max(float(Fp.abs().max()), 1e-30)
+                    assert float((F - Fp).abs().max()) <= 1e-6 * scale
+                fused_static.fused_step_imb_static_multi(
+                    frames[p], s_k, lc, k, a, prehalo=mode, edges=edges,
+                    ny_glob=sim.cfg.ny)
+                fused_static.fused_step_imb_static_multi(
+                    c[0], c[1], lc, k, b, prehalo=mode, edges=edges,
+                    ny_glob=sim.cfg.ny)
+                torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=2e-6)
+        _, px, py = fused_lbm.fused_step_imb(frames[p], s_k[0], s_k[1],
+                                             s_k[2], lc, a, prehalo=mode)
+        _, qx, qy = fused_lbm.fused_step_imb(c[0], c[1][0], c[1][1],
+                                             c[1][2], lc, b, prehalo=mode)
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-6, atol=1e-7)
+        torch.testing.assert_close(px.cpu(), qx, rtol=1e-5, atol=5e-8)
+        torch.testing.assert_close(py.cpu(), qy, rtol=1e-5, atol=5e-8)
+
+
+def test_mesh_window_and_static_on_one_card(dev):
+    """A 2 x 2 mesh whose shards share the card: the coupling_k = 4 run(11)
+    (K1 and K6 pre-haloed per window and shard) at the chunk bars (f
+    5e-6, x 1e-5, v 1e-6), and the static hoist's run(7) (K7 pre-haloed:
+    one pass of 4 and 3 of 1 per shard) within 2e-6 with disk x equal,
+    against one device."""
+    from lbmdem_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh([dev] * 4, (2, 2))
+    cfg, disks = column_collapse(nx=256, ny=256, n_disks=60)
+    cfg = cfg.replace(coupling_k=4)
+    one = Simulation(cfg, disks, device=dev)
+    sh = Simulation(cfg, disks, mesh=mesh)
+    one.run(11)
+    n6 = fused_lbm.fused_step_imb_reduce_multi.launches
+    sh.run(11)
+    assert fused_lbm.fused_step_imb_reduce_multi.launches - n6 == 2 * 4
+    torch.testing.assert_close(sh.state.f, one.state.f, rtol=0, atol=5e-6)
+    torch.testing.assert_close(sh.state.disks.x, one.state.disks.x, rtol=0,
+                               atol=1e-5)
+    torch.testing.assert_close(sh.state.disks.v, one.state.disks.v, rtol=0,
+                               atol=1e-6)
+    scfg, sdisks = porous_bed(nx=256, ny=256, pitch=32, r=6.0)
+    one = Simulation(scfg, sdisks, device=dev)
+    sh = Simulation(scfg, sdisks, mesh=mesh)
+    one.run(7)
+    n7 = fused_static.fused_step_imb_static_multi.launches
+    sh.run(7)
+    assert fused_static.fused_step_imb_static_multi.launches - n7 == 4 * 4
+    torch.testing.assert_close(sh.state.f, one.state.f, rtol=0, atol=2e-6)
+    assert torch.equal(sh.state.disks.x, one.state.disks.x)

@@ -23,7 +23,10 @@ CPU, its shards on `["cpu"] * n`, against the JAX package.
   the seam; Simulation(mesh=...).run(11) (8 + 3 cadence steps) at the
   chunk bars (f 5e-6, x 1e-5, v 1e-6) and the fluid run(9) (two K5
   blocks and a K4 step).
-- The CLI's --mesh on the CPU, and what a mesh does not take yet."""
+- The CLI's --mesh on the CPU, and what a mesh does not take yet (bf16
+  storage, --distributed); what it took in the next slice (coupling_k >
+  1, the static hoist, paranoid mode, K8's prehalo) runs against one
+  device (tests/test_torch_mesh_window.py holds those paths)."""
 
 import os
 import subprocess
@@ -417,22 +420,46 @@ def _refusals():
 @pytest.mark.parametrize("what,cfg,disks,kw", _refusals(),
                          ids=[r[0] for r in _refusals()])
 def test_mesh_refusals_name_item_12(what, cfg, disks, kw):
-    with pytest.raises(NotImplementedError, match="item 12"):
-        Simulation(cfg, disks, mesh=_cpu_mesh((2, 2)), **kw)
+    """bf16 storage on a mesh raises naming item 12. What else raised so
+    until the mesh took it - coupling_k > 1, the static hoist, paranoid
+    mode on the kernels and on the plain sharded step - runs 4 steps on
+    the 2 x 2 mesh healthily and lands on the one-device run at the chunk
+    bars (f 5e-6, x 1e-5, v 1e-6)."""
+    if what == "bf16":
+        with pytest.raises(NotImplementedError, match="item 12"):
+            Simulation(cfg, disks, mesh=_cpu_mesh((2, 2)), **kw)
+        return
+    cfg = cfg.replace(out_interval=4)
+    one = Simulation(cfg, disks, device="cpu", **kw)
+    sh = Simulation(cfg, disks, mesh=_cpu_mesh((2, 2)), **kw)
+    one.run(4)
+    sh.run(4)
+    _assert_close(one.state, sh.state, 5e-6, 1e-5, 1e-6)
+    assert int(sh.state.fail_step) == -1
 
 
 def test_other_item_12_refusals(tmp_path):
-    """K8's prehalo, K5 pre-haloed deeper than one sweep, bf16 frames, the
+    """K5 pre-haloed deeper than one sweep, bf16 frames, the
     multi-process layer and --distributed raise naming item 12; a mesh
-    must be a Mesh."""
+    must be a Mesh. K8's prehalo, which raised so too, runs: on a frame
+    its f' equals K2's pre-haloed f' exactly and its phi is the
+    interior's."""
     from lbmdem_tpu_torch.parallel import init_distributed, process_info
 
     tcfg = _tcfg(nx=128, ny=64)
     f = torch.zeros(fused_fluid.frame_shape(tcfg, "y"))
     out = torch.empty((9, 64, 128))
+    cfg, origin, td, cnt, _, s_k = _canvas_inputs("y", 5)
+    fr = tt(_frame("y", 6))
+    f8, phix, phiy = fused_lbm.fused_step_imb(
+        fr, s_k[0], s_k[1], s_k[2], to_torch_cfg(cfg), out, prehalo=True)
+    f2, _ = fused_lbm.fused_step_imb_reduce(
+        fr, s_k, td, cnt, to_torch_cfg(cfg), torch.empty_like(out),
+        prehalo=True, origin=origin)
+    assert torch.equal(f8, f2)
+    assert phix.shape == phiy.shape == (64, 128)
+    assert float(phix.abs().max()) > 0.0
     for call in (
-            lambda: fused_lbm.fused_step_imb(f, f[0], f[0], f[0], tcfg, out,
-                                             prehalo=True),
             lambda: fused_fluid.fused_step_fluid_multi(
                 f, tcfg, 8, out, prehalo="y", edges=(1, 1, 1, 1)),
             lambda: fused_fluid.fused_step_fluid(

@@ -211,16 +211,16 @@ def _ported_options():
 
 def _out_of_slice():
     """(what, cfg, disks, constructor keywords) of what raised naming its
-    ROADMAP.md item before the plain path and paranoid mode were ported:
-    of the mesh only coupling_k > 1 still does (its other refusals:
-    tests/test_torch_mesh.py); the rest constructs on the CPU (float64
-    and the coupled scene without disks on the plain path)."""
+    ROADMAP.md item before the plain path, paranoid mode and the mesh's
+    windows were ported: all of it constructs on the CPU now (float64 and
+    the coupled scene without disks on the plain path, coupling_k > 1 on
+    a (2, 1) mesh of CPU shards)."""
     from lbmdem_tpu_torch.parallel import make_mesh
 
     cfg, disks = _scene("float32")
     return [
         ("mesh", cfg.replace(coupling_k=2), disks,
-         dict(mesh=make_mesh(["cpu"] * 4, (2, 2)))),
+         dict(mesh=make_mesh(["cpu"] * 2, (2, 1)))),
         ("coupled without disks", cfg.replace(max_disks=10), [],
          dict(use_kernels=False)),
         ("pure-fluid float64", cfg.replace(max_disks=0, dtype="float64"), [],
@@ -271,15 +271,9 @@ def test_ported_options_match_oracle(what, cfg, disks):
 @pytest.mark.parametrize("what,cfg,disks,kw", _out_of_slice(),
                          ids=[c[0] for c in _out_of_slice()])
 def test_out_of_slice_raises_naming_the_roadmap(what, cfg, disks, kw):
-    """coupling_k > 1 on a device mesh raises naming its ROADMAP.md item
-    (12); what else raised so before (coupled scenes without disks,
-    float64, paranoid mode) now constructs and steps healthily."""
-    if what == "mesh":
-        with pytest.raises(NotImplementedError, match="ROADMAP.md") as e:
-            Simulation(to_torch_cfg(cfg), to_torch_disks(disks),
-                       **{"device": "cpu", **kw})
-        assert "item 12" in str(e.value)
-        return
+    """What raised naming its ROADMAP.md item before (coupling_k > 1 on a
+    device mesh, coupled scenes without disks, float64, paranoid mode)
+    now constructs and steps healthily."""
     sim = Simulation(to_torch_cfg(cfg), to_torch_disks(disks), device="cpu",
                      **kw)
     sim.run(2)
