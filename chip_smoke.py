@@ -138,8 +138,9 @@ nothing falls back to the CPU):
    springs, K3w, K3w with springs, K3 on a periodic axis) at 4096^2/10k
    packed into contact, against its plain version (bit for bit without
    springs, 3e-5 with them, contacts equal), timed at each grid cap (the
-   same result bit for bit), with device ms and CUDA launches per call
-   from the profiler (one launch per call, or the phase fails);
+   same result bit for bit), with device ms per call from the profiler
+   and device operations per call from a CUDA graph capture of one call
+   (one kernel launch and nothing else, or the phase fails);
 29. K5 redesign (after phase 6): the row-sweep K5(k) equal to k chained
    K4 steps bit for bit over the f32 cases of FLUID_MATRIX at 256x64 and
    240x80, k = 2, 4, 7, 8, and at every strip of IDENTITY_STRIPS; bf16 K5
@@ -194,10 +195,11 @@ nothing falls back to the CPU):
    interior shards) and a 3 x 1 ("y") mesh of one card, against their
    plain versions on CPU copies (K6 f' 5e-6 and every inner step's
    forces 1e-6 of the largest |F|, K7 rtol 1e-5 + atol 2e-6, K8 f' 5e-6
-   and phi 1e-6); the identity - with no edge flags on a fully periodic
-   lattice, frames filled from the lattice, pre-haloed K6(k) f' and
-   partials and K7(k) f' against the halo-free kernels on the shards'
-   rows, torch.equal, any difference printed; then at the 2 x 2 and 4 x
+   and phi 1e-6); the identity (mesh_identity) - with no edge flags on a
+   fully periodic lattice, frames filled from the lattice, pre-haloed
+   K4, K5(k), K2, K6(k) (f' and partials) and K7(k) against the
+   halo-free kernels on the shards' rows, torch.equal, any difference
+   printed; then at the 2 x 2 and 4 x
    1 shards of the 4096^2 window and static scenes K6 (k = 4), K8 and K7
    (k = 4) timed with CUDA events beside the halo-free kernel on the
    shard's interior and their bounds (a ring of k, or 1, read);
@@ -211,13 +213,38 @@ nothing falls back to the CPU):
    shard), run(400) in three alternating pairs (K7 100 per shard);
 40. paranoia on a mesh: a NaN injected after step 4 of a 128 x 256
    channel with a fixed disk on a 2 x 2 mesh reports the one-device
-   fail_step under "step" (5) and "chunk" (8), frozen there.
-Each phase of 37-40 prints its seconds.
+   fail_step under "step" (5) and "chunk" (8), frozen there;
+41. mesh kernels bf16: K2, K4, K5 (k = 1, 2, 4), K6 and K7 (k = 1, 2, 4,
+   8) on bf16 frames (16 halo rows, the solid window 8) against their
+   plain versions on the card (f' 3e-4, forces 5e-6 of the largest |F|):
+   K4/K5 over phase 34's matrix and edge flags, K2/K6 over phase 18's,
+   K7 over phase 10's, on corner, edge and interior shards of 3 x 3
+   ("yx") and 3 x 1 ("y") meshes; each against its halo-free bf16 kernel
+   on a fully periodic lattice framed from itself (torch.equal); then
+   timed at the 2 x 2 and 4 x 1 shards of the 4096^2 fluid, slice
+   (sample), window (ramp) and static scenes beside the halo-free bf16
+   kernel on the shard's interior and their bounds;
+42. mesh bf16 slice: BASELINE config 5 in bf16 (bench.py's
+   4096x4096/bfloat16/sample) on 2 x 2 and 4 x 1: run(16) against one
+   device's bf16 run (f 3e-4, x 1e-5, v 1e-6), run(100) in three pairs,
+   launches K1 and K2 per shard and K3 per replica per step, mass drift
+   < 1e-4;
+43. mesh bf16 window: the same with eps_method ramp and coupling_k 8
+   (bench.py's .../bfloat16/ramp/k8): launches per run(100) 12 windows
+   (K1 + K6 per shard, K3w 8 per replica) and 4 single steps;
+44. mesh bf16 fluid: phase 36 in bf16 on 2 x 2 (f within one bf16 ulp of
+   one device, rtol 1e-2 + atol 1e-6, equality printed);
+45. mesh bf16 static: phase 39 in bf16 on 2 x 2 (f within one bf16 ulp);
+46. mesh bf16 CLI: examples/column_collapse.par with f_storage bfloat16
+   through the CLI with --mesh 2x2 (24 steps), its launches and its disk
+   state bit for bit against Simulation(mesh=...).run(24).
+Each phase of 37-46 prints its seconds.
 
 The second-to-last line holds the per-kernel JSON record (the ten
 kernels, then the bf16, TRT + LES, kt and periodic instantiations of K2,
-K6, K3 and K3w and the pre-haloed K2, K4, K5, K6, K7 and K8 as records
-of their own; with each kernel's bound: the
+K6, K3 and K3w, the pre-haloed K2, K4, K5, K6, K7 and K8, and the
+pre-haloed K2, K4, K5, K6 and K7 on bf16 frames as records of their own;
+with each kernel's bound: the
 larger of its bytes over 3.35 TB/s and its f32 operations over 67
 TFLOP/s; an NT collide counts 350 operations at a cell with eps_raw > 0
 and 180 on its fluid branch), the line before it the card's name and
@@ -365,17 +392,18 @@ def build() -> None:
                              ("float", bf)] if s == bf else [])
         names += [f"temporal_block_kernel<{a},{b},{sh},2,2,FluidCell<0,0,"
                   f"{fo}>>" for a, b in pairs for fo in (0, 1)]
-        if s == "float":  # the pre-haloed modes ("y" 1, "yx" 2), f32 only
-            names += [f"temporal_block_prehalo_kernel<float,float,false,2,2,"
-                      f"FluidCell<0,0,{fo}>,{pre}>" for fo in (0, 1)
-                      for pre in (1, 2)]
-            names += [f"coupled_step_prehalo_kernel<false,false,false,WSink,"
-                      f"{pre}>" for pre in (1, 2)]
-            # K6, K7 and K8 pre-haloed
-            names += [f"temporal_block_prehalo_kernel<float,float,false,1,2,"
-                      f"NTCell<false,false,false,{sink}>,{pre}>"
-                      for sink in ("WSteps", "NoSink") for pre in (1, 2)]
-            names += [f"coupled_step_prehalo_kernel<false,false,false,"
+        # the pre-haloed modes ("y" 1, "yx" 2) of K5, K2, K6, K7 (f32 and
+        # bf16 frames) and K8 (f32)
+        names += [f"temporal_block_prehalo_kernel<{s},{s},{sh},2,2,"
+                  f"FluidCell<0,0,{fo}>,{pre}>" for fo in (0, 1)
+                  for pre in (1, 2)]
+        names += [f"coupled_step_prehalo_kernel<{s},false,false,false,WSink,"
+                  f"{pre}>" for pre in (1, 2)]
+        names += [f"temporal_block_prehalo_kernel<{s},{s},{sh},1,2,"
+                  f"NTCell<false,false,false,{sink}>,{pre}>"
+                  for sink in ("WSteps", "NoSink") for pre in (1, 2)]
+        if s == "float":
+            names += [f"coupled_step_prehalo_kernel<float,false,false,false,"
                       f"PhiSink,{pre}>" for pre in (1, 2)]
         for name in names:
             assert spills.get(name) == 0, f"{name}: spills {spills.get(name)}"
@@ -1108,9 +1136,8 @@ def k5_timed(n: int = 4096) -> None:
                 f"turns: chain, K5, K5, chain): K5 {t5[0]:.4f}, {t5[1]:.4f}; "
                 f"4 chained K4 {tc[0]:.4f}, {tc[1]:.4f}; bound {bms:.4f} ms "
                 f"by {by}; device ms per call (torch.profiler) K5 "
-                + ", ".join(f"{k} {v:.4f}" for k, v in sorted(dev5.items()))
-                + "; 4 x K4 " + ", ".join(f"{k} {v:.4f}" for k, v in sorted(
-                    dev4.items())))
+                + dev_str(dev5)
+                + "; 4 x K4 " + dev_str(dev4))
             bf16 = int(storage == "bfloat16")
 
             def sweep1():
@@ -1152,35 +1179,6 @@ def k5_timed(n: int = 4096) -> None:
         fused_fluid.STRIP = saved
 
 
-def launches_per_call(fn, calls: int = 10, sessions: int = 3) -> float:
-    """CUDA kernel launches per call of fn() under torch.profiler. A spin
-    kernel (torch.cuda._sleep) before and after the calls keeps the
-    profiler's first and last device records on kernels that are not
-    counted, and shows whether the session kept its device records: a
-    session that lost either spin kernel's record is read as no
-    measurement and taken again, at most `sessions` times."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(sessions):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            torch.cuda._sleep(1000)
-            for _ in range(calls):
-                fn()
-            torch.cuda._sleep(1000)
-            torch.cuda.synchronize()
-        dev = [a for a in prof.key_averages()
-               if a.device_type == DeviceType.CUDA]
-        if sum(a.count for a in dev if "spin" in a.key) == 2:
-            return sum(a.count for a in dev if "spin" not in a.key) / calls
-        log("profile", "a session lost its device records; taken again")
-    raise AssertionError(f"torch.profiler kept no device records in "
-                         f"{sessions} sessions")
-
-
 def k3_timed(cfg, disks, label: str, seed: int = 3) -> None:
     """Every K3/K3w instantiation at the slice's shapes (4096^2, 10k disks
     packed into contact, seeded velocities and forces): K3, K3 with
@@ -1188,10 +1186,11 @@ def k3_timed(cfg, disks, label: str, seed: int = 3) -> None:
     on a periodic x axis. Each: one call against its plain version on the
     card (every slab channel; equal contacts), CUDA-event ms per call at
     the default cooperative grid and at grids capped to 132, 264 and 528
-    blocks (the same result bit for bit), device ms and CUDA launches per
-    call (torch.profiler), beside its bound; K3 also at n_sub = 5, 10 and
-    20, for the cost of one phase."""
-    from lbmdem_tpu_torch import DiskSpec, Simulation
+    blocks (the same result bit for bit), device ms per call
+    (torch.profiler) and device operations per call (a CUDA graph capture
+    of one call), beside its bound; K3 also at n_sub = 5, 10 and 20, for
+    the cost of one phase."""
+    from lbmdem_tpu_torch import DiskSpec, Simulation, kernels
     from lbmdem_tpu_torch.ops import dem, slab_dem
 
     rng = np.random.default_rng(seed)
@@ -1266,7 +1265,8 @@ def k3_timed(cfg, disks, label: str, seed: int = 3) -> None:
                 times.append(f"{cap or 'occupancy'} "
                              f"{cuda_ms(lambda: call(scratch), 20):.4f}")
             slab_dem.GRID_CAP = cap0
-            per = launches_per_call(lambda: call(scratch))
+            per = sum(kernels.captured_launches(
+                lambda: call(scratch)).values())
             dev = kernel_device_ms(lambda: call(scratch))
             bms, by = bound(work(None, None, None, 2 * nbytes(slabs)
                                  + (nbytes(f3) if f3 is not None else 0),
@@ -1276,10 +1276,11 @@ def k3_timed(cfg, disks, label: str, seed: int = 3) -> None:
                 f"{err:.3e}, equal {same}; contacts {int(nc)}; ms per call at"
                 f" grid (blocks): " + ", ".join(times)
                 + " (CUDA events); "
-                f"{per:g} CUDA launches per call, device ms per call "
-                + ", ".join(f"{k} {v:.4f}" for k, v in sorted(dev.items()))
+                f"{per} device operations per call (CUDA graph capture), "
+                f"device ms per call "
+                + dev_str(dev)
                 + f" (torch.profiler); bound {bms:.4f} ms by {by}")
-            assert per == 1.0, f"{name}: {per} launches per call"
+            assert per == 1, f"{name}: {per} device operations per call"
             # bit for bit where the 31-launch kernel was: without springs
             assert same or c.kt > 0, f"{name}: differs from the plain version"
             if name == "K3":  # the cost of one phase: n_sub + 1 phases
@@ -1440,7 +1441,17 @@ def device_profile(sim, steps: int = 40):
             if a.device_type == DeviceType.CUDA]
     dev_us = sum(t for _, t in kern)
     top = sorted(kern, key=lambda x: -x[1])[:3]
-    return dev_us / 1e3 / steps, wall * 1e3 / steps, top
+    return (dev_us / 1e3 / steps if kern else None), wall * 1e3 / steps, top
+
+
+def idle_str(dev_ms, wall_ms: float, of: str) -> str:
+    """Device ms per step and the idle share of `of`'s wall ms per step;
+    "not measured" when torch.profiler kept no device records."""
+    if dev_ms is None:
+        return ("device time not measured (torch.profiler kept no device "
+                "records)")
+    return (f"device {dev_ms:.4f} ms per step, idle share "
+            f"{100 * max(0.0, 1 - dev_ms / wall_ms):.1f} % of {of}")
 
 
 def static_slice(smi: str, storage: str):
@@ -1478,11 +1489,10 @@ def static_slice(smi: str, storage: str):
         f"{timed}; steps {int(sim.state.step)}; overflow "
         f"{int(sim.state.overflow)}; finite {finite}; |sum f/(nx ny) - 1| "
         f"{mass_err:.3e} (bar {bar:g}); mean ux {ux:.4e}")
-    log("static-slice", f"profiler run(40): device {dev_ms:.4f} ms per step"
-        f" against {prof_ms:.4f} ms wall per step (profiled) and "
-        f"{wall_ms:.4f} ms (timed run): idle share "
-        f"{100 * max(0.0, 1 - dev_ms / wall_ms):.1f} % of the timed run; "
-        f"top kernels {[(k[:40], round(t / 1e3, 3)) for k, t in top]} ms")
+    log("static-slice", f"profiler run(40): {prof_ms:.4f} ms wall per step "
+        f"(profiled), {wall_ms:.4f} ms (timed run); "
+        + idle_str(dev_ms, wall_ms, "the timed run")
+        + f"; top kernels {[(k[:40], round(t / 1e3, 3)) for k, t in top]} ms")
     zero = {k: 0 for k in first}
     assert first == {**zero, "K1": 1, "K7": 100}, first
     assert timed == {**zero, "K7": 100}, timed
@@ -2259,6 +2269,13 @@ def kernel_device_ms(fn, calls: int = 10) -> dict:
     return {k: v / calls for k, v in out.items()}
 
 
+def dev_str(dev: dict) -> str:
+    """kernel_device_ms's result as "kernel ms, ..."; "not measured" when
+    torch.profiler kept no device records."""
+    return (", ".join(f"{k} {v:.4f}" for k, v in sorted(dev.items()))
+            or "not measured (torch.profiler kept no device records)")
+
+
 def block_times(fn) -> str:
     """CUDA-event times of fn() at the step kernel's block sizes 128, 256
     and 512 threads, in one string."""
@@ -2316,7 +2333,7 @@ def redesign_timed(cfg, disks, label: str):
         bms, by = bound(w)
         log("redesign", f"{label} K1 {method}: max err {e1:.3e} against "
             f"the plain version (bar 1e-6); kernel {w['ms']:.4f} ms (device "
-            f"{k1_dev.get('stamp_kernel', 0.0):.4f} ms, torch.profiler), "
+            f"{dev_str(k1_dev)}, torch.profiler), "
             f"plain {w['plain_ms']:.4f} ms (CUDA events); bound {bms:.4f} ms "
             f"by {by}")
     solid = stamp.stamp_fields(td, cnt, base)
@@ -2338,7 +2355,7 @@ def redesign_timed(cfg, disks, label: str):
         log("redesign", f"{label} K2 {name}: " + block_times(run)
             + f"; bound {bms:.4f} ms by {by}; device ms per call by kernel "
             "(torch.profiler): "
-            + ", ".join(f"{k} {v:.4f}" for k, v in sorted(dev.items())))
+            + dev_str(dev))
     fo = torch.empty_like(f32)
     _, phx, phy = fused_lbm.fused_step_imb(f32, solid[0], solid[1], solid[2],
                                            base, fo)
@@ -2348,9 +2365,9 @@ def redesign_timed(cfg, disks, label: str):
         d.x, d.r, d.active, solid[0], phx, phy, base, td, cnt, es))
     log("redesign", f"{label} device ms per call by kernel (torch.profiler): "
         f"K8 (launch (a) with a phi sink) "
-        + ", ".join(f"{k} {v:.4f}" for k, v in sorted(dev8.items()))
+        + dev_str(dev8)
         + "; K9 (launch (b)'s kernels with phi for w, and its gather) "
-        + ", ".join(f"{k} {v:.4f}" for k, v in sorted(dev9.items()))
+        + dev_str(dev9)
         + f"; {int(cnt.sum())} occupied slots in {cnt.numel()} tiles, "
         f"{int((solid[0] > 0).sum())} covered cells of {cells}")
     return out
@@ -2562,9 +2579,9 @@ def tblock_timed(cfg, disks, label: str):
             f"pass; 4 chained K2 {t2:.4f}, {t2b:.4f} ms (CUDA events, "
             f"alternating); bound {bms:.4f} ms by {by}; device ms by kernel "
             f"(torch.profiler) K6 "
-            + ", ".join(f"{k} {v:.4f}" for k, v in sorted(dev6.items()))
+            + dev_str(dev6)
             + "; 4 x K2 "
-            + ", ".join(f"{k} {v:.4f}" for k, v in sorted(dev2.items())))
+            + dev_str(dev2))
         if name == "f32":
             log("tblock", f"{label} K6 f32 strip sweep: " + strip_times(
                 run6, 4, (fused_lbm, "MULTI_STRIP")))
@@ -2600,11 +2617,8 @@ def tblock_timed(cfg, disks, label: str):
             t8, t7b, t8b = (cuda_ms(fn, 10) for fn in (run8, run7, run8))
             line += (f"; again {t7b:.4f}; 4 chained K8 {t8:.4f}, {t8b:.4f} "
                      f"ms (alternating); device ms (torch.profiler) K7 "
-                     + ", ".join(f"{k} {v:.4f}" for k, v in sorted(
-                         kernel_device_ms(run7).items()))
-                     + "; 4 x K8 " + ", ".join(
-                         f"{k} {v:.4f}" for k, v in sorted(
-                             kernel_device_ms(run8).items())))
+                     + dev_str(kernel_device_ms(run7))
+                     + "; 4 x K8 " + dev_str(kernel_device_ms(run8)))
         log("tblock", line)
         if name == "f32":
             log("tblock", "4096x4096 static K7 f32 strip sweep: "
@@ -2620,9 +2634,9 @@ def tblock_on_run_state(sim) -> None:
 
     dev_ms, wall_ms, top = device_profile(sim)
     log("tblock", f"window slice ({sim.cfg.f_storage}) profiler run(40): "
-        f"device {dev_ms:.4f} ms per step against {wall_ms:.4f} ms wall "
-        f"(profiled): idle share {100 * max(0.0, 1 - dev_ms / wall_ms):.1f} "
-        f"%; top kernels {[(k[:40], round(t / 1e3, 3)) for k, t in top]} ms")
+        f"{wall_ms:.4f} ms wall per step (profiled); "
+        + idle_str(dev_ms, wall_ms, "the profiled run")
+        + f"; top kernels {[(k[:40], round(t / 1e3, 3)) for k, t in top]} ms")
     cfg = sim.cfg
     d = sim.state.disks
     td, cnt, _, _ = stamp.bin_disks_to_tiles(d.x, d.v, d.omega, d.r,
@@ -3259,21 +3273,33 @@ MESH_EDGES = [(1, 1, 1, 1, 0), (1, 0, 1, 0, 0), (0, 1, 0, 1, 768),
 
 
 def mesh_frame(cfg, mode: str, seed: int, amp: float = 0.05):
-    """A shard's pre-haloed frame f = w_i (1 + amp N(0, 1)) on the card."""
+    """A shard's pre-haloed frame f = w_i (1 + amp N(0, 1)) on the card,
+    in cfg's storage form (bf16: the shifted populations, 16 halo
+    rows)."""
     from lbmdem_tpu_torch import lattice
-    from lbmdem_tpu_torch.ops import fused_fluid
+    from lbmdem_tpu_torch.ops import fused_fluid, lbm
 
     g = torch.Generator(device="cuda").manual_seed(seed)
     w = torch.as_tensor(lattice.W, dtype=torch.float32, device="cuda")
     shape = fused_fluid.frame_shape(cfg, mode)
-    return w[:, None, None] * (1.0 + amp * torch.randn(shape, generator=g,
-                                                       device="cuda"))
+    return lbm.to_storage(w[:, None, None] * (1.0 + amp * torch.randn(
+        shape, generator=g, device="cuda")), cfg)
+
+
+def storage_empty(cfg, *shape):
+    """An empty (9, ny, nx)-like buffer of cfg's f storage on the card."""
+    from lbmdem_tpu_torch.ops import fused_fluid
+
+    return torch.empty(shape, dtype=fused_fluid.storage_dtype(cfg),
+                       device="cuda")
 
 
 def mesh_fluid_check(cfg, mode: str, k: int, edges, seed: int, label: str,
-                     timed: bool = False, amp: float = 0.05):
-    """K4 (k == 1) or K5 (k steps, `edges`) on a pre-haloed frame against
-    its plain version on the same card input, at fluid_bar's bars.
+                     timed: bool = False, amp: float = 0.05,
+                     k5: bool = False):
+    """K4 (k == 1 and not k5) or K5 (k steps, `edges`) on a pre-haloed
+    frame against its plain version on the same card input, at
+    fluid_bar's bars.
     Returns work(max_abs_err, ms, plain_ms, bytes, flops): the bytes are
     the frame's cells the k steps need read once (frame_bytes: a ring of
     k around the interior) and the interior, and K4's edge populations,
@@ -3281,13 +3307,14 @@ def mesh_fluid_check(cfg, mode: str, k: int, edges, seed: int, label: str,
     from lbmdem_tpu_torch.ops import fused_fluid
 
     f = mesh_frame(cfg, mode, seed, amp)
-    a = torch.empty((9, cfg.ny, cfg.nx), device="cuda")
+    a = storage_empty(cfg, 9, cfg.ny, cfg.nx)
     b = torch.empty_like(a)
     nyg = 4 * cfg.ny
     ea = (torch.empty((9, 2, cfg.nx), device="cuda"),
           torch.empty((9, cfg.ny, 2), device="cuda"))
     eb = tuple(torch.empty_like(t) for t in ea)
-    if k == 1:
+    k4 = k == 1 and not k5
+    if k4:
         wrapper = fused_fluid.fused_step_fluid
         run = lambda: wrapper(f, cfg, a, prehalo=mode,  # noqa: E731
                               edge_post=ea)
@@ -3304,23 +3331,42 @@ def mesh_fluid_check(cfg, mode: str, k: int, edges, seed: int, label: str,
     assert wrapper.launches == n0 + 1, "the kernel did not launch"
     plain()
     torch.cuda.synchronize()
-    err = float((a - b).abs().max())
+    d = (a.float() - b.float()).abs()
+    err = float(d.max())
     atol, rtol = fluid_bar(cfg, k)
-    excess = float(((a - b).abs() - rtol * b.abs()).max())
-    if k == 1:  # the edge rows' and columns' post-collision populations
+    excess = float((d - rtol * b.float().abs()).max())
+    if k4:  # the edge rows' and columns' post-collision populations
         for x, y in zip(ea, eb):
             err = max(err, float((x - y).abs().max()))
             excess = max(excess, float(((x - y).abs() - rtol * y.abs()).max()))
-    name = "K4" if k == 1 else f"K5 k={k} edges={edges}"
-    log("mesh-kernels", f"{label} prehalo={mode} {name}: max err {err:.3e} "
-        f"(bar atol {atol:g} + rtol {rtol:g})")
+    name = "K4" if k4 else f"K5 k={k} edges={edges}"
+    log("mesh-kernels", f"{label} prehalo={mode} {cfg.f_storage} {name}: max "
+        f"err {err:.3e} (bar atol {atol:g} + rtol {rtol:g})")
     assert bool(torch.isfinite(a).all()), f"{label} {name}: non-finite"
     assert excess <= atol, f"{label} {name}: err {err} over the bar"
     t = (cuda_ms(run, 20), cuda_ms(plain, 2)) if timed else (None, None)
     moved = frame_bytes(f, cfg.ny, cfg.nx, mode, k) + nbytes(a)
-    if k == 1:
+    if k4:
         moved += nbytes(*ea)
     return work(err, *t, moved, k * FLOPS_FLUID * cfg.nx * cfg.ny)
+
+
+def perturbed(f, cfg, g):
+    """f (storage form) with its physical populations times 1 + 0.02 N(0,
+    1) from generator g, back in storage form (bf16 at rest stores 0)."""
+    from lbmdem_tpu_torch.ops import lbm
+
+    ph = lbm.from_storage(f, cfg)
+    return lbm.to_storage(ph * (1.0 + 0.02 * torch.randn(
+        f.shape, generator=g, device=f.device)), cfg)
+
+
+def coupled_bars(cfg):
+    """(f' atol, force bar relative to the largest |F|) of a coupled
+    kernel against its plain version: 5e-6 and 1e-6 on f32; 3e-4 and
+    5e-6 on bf16 (ROADMAP.md section 3; the kernel's shifted arithmetic
+    rounds otherwise than the plain version's physical form)."""
+    return (3e-4, 5e-6) if cfg.f_storage == "bfloat16" else (5e-6, 1e-6)
 
 
 def mesh_coupled_inputs(cfg, disks, dims, seed: int):
@@ -3344,8 +3390,7 @@ def mesh_coupled_inputs(cfg, disks, dims, seed: int):
     om = torch.as_tensor(rng.uniform(-2e-3, 2e-3, n), dtype=torch.float32,
                          device="cuda")
     g = torch.Generator(device="cuda").manual_seed(seed)
-    fs = [f * (1.0 + 0.02 * torch.randn(f.shape, generator=g, device="cuda"))
-          for f in sim._state.f]
+    fs = [perturbed(f, sim.cfg, g) for f in sim._state.f]
     frames = exchange(fs, mesh)
     ins = []
     for p, iy, ix in mesh.positions():
@@ -3360,7 +3405,8 @@ def mesh_coupled_inputs(cfg, disks, dims, seed: int):
 def mesh_k2_check(parts, frame, inp, label: str, timed: bool = False):
     """K2 on a shard's frame against its plain version on the same card
     input: f' atol 5e-6, forces (gather_partials over the interior entry
-    slots) 1e-6 of the largest |F| (phase 3's K2 bars). Its bytes: f and
+    slots) 1e-6 of the largest |F| (phase 3's K2 bars; bf16 coupled_bars).
+    Its bytes: f and
     the solid window over the interior and its ring of one cell
     (frame_bytes), the binning, and f', the partials and the edge
     populations written."""
@@ -3368,11 +3414,12 @@ def mesh_k2_check(parts, frame, inp, label: str, timed: bool = False):
 
     cfg, mode = parts.local_cfg, parts.mode
     entries, _, td, cnt, s_k, origin = inp
-    a = torch.empty((9, cfg.ny, cfg.nx), device="cuda")
+    a = storage_empty(cfg, 9, cfg.ny, cfg.nx)
     b = torch.empty_like(a)
     ea = (torch.empty((9, 2, cfg.nx), device="cuda"),
           torch.empty((9, cfg.ny, 2), device="cuda"))
     eb = tuple(torch.empty_like(t) for t in ea)
+    fbar, rbar = coupled_bars(cfg)
     run = lambda: fused_lbm.fused_step_imb_reduce(  # noqa: E731
         frame, s_k, td, cnt, cfg, a, prehalo=mode, origin=origin,
         edge_post=ea)
@@ -3383,20 +3430,20 @@ def mesh_k2_check(parts, frame, inp, label: str, timed: bool = False):
     assert fused_lbm.fused_step_imb_reduce.launches == n0 + 1
     _, pp = plain()
     torch.cuda.synchronize()
-    e2 = max(float((x - y).abs().max()) for x, y in
+    e2 = max(float((x.float() - y.float()).abs().max()) for x, y in
              zip((a,) + ea, (b,) + eb))
     F, T = stamp.gather_partials(pk, entries, torch.float32)
     Fp, Tp = stamp.gather_partials(pp, entries, torch.float32)
     fmax = float(Fp.abs().max())
     e2f = float((F - Fp).abs().max())
-    log("mesh-kernels", f"{label} prehalo={mode} origin={origin} K2: f' "
-        f"(and edge post-collision populations) max "
-        f"err {e2:.3e} (bar 5e-6); force err {e2f:.3e} vs max|F| "
-        f"{fmax:.3e} (bar 1e-6 relative); torque err "
+    log("mesh-kernels", f"{label} prehalo={mode} {cfg.f_storage} origin="
+        f"{origin} K2: f' (and edge post-collision populations) max "
+        f"err {e2:.3e} (bar {fbar:g}); force err {e2f:.3e} vs max|F| "
+        f"{fmax:.3e} (bar {rbar:g} relative); torque err "
         f"{float((T - Tp).abs().max()):.3e}; binned disks "
         f"{int((entries >= 0).any(1).sum())}")
-    assert e2 <= 5e-6, f"K2 {label}: f' max err {e2}"
-    assert e2f <= 1e-6 * max(fmax, 1e-30), f"K2 {label}: force err {e2f}"
+    assert e2 <= fbar, f"K2 {label}: f' max err {e2}"
+    assert e2f <= rbar * max(fmax, 1e-30), f"K2 {label}: force err {e2f}"
     assert bool(torch.isfinite(a).all())
     cov = cov_flops_of(cfg, cnt)
     t = (cuda_ms(run, 20), cuda_ms(plain, 2)) if timed else (None, None)
@@ -3529,22 +3576,27 @@ def mesh_cards(mesh) -> str:
             f"{len(mesh.replicas)} card(s) {[str(d) for d in mesh.replicas]}")
 
 
-def mesh_slice(smi: str, dims, devices=None):
+def mesh_slice(smi: str, dims, devices=None, storage: str = "float32",
+               eps_method: str = "sample", coupling_k: int = 1):
     """BASELINE config 5, the column collapse at 4096^2 with 10 000 disks
-    (f32, BGK, sample, walls, coupling_k = 1), through Simulation(...,
-    mesh=...): run(16) against the single-device run(16) at the JAX
-    chunk test's bars (f 5e-6, x 1e-5, v 1e-6), then run(100) timed in
-    pairs with the single-device run(100) (paired_runs): MLUPS, launches
-    per step per kernel, overflow 0 and mass drift < 1e-5. Returns
-    (launch counts of the first timed run, median MLUPS, single-device
-    median MLUPS)."""
+    (BGK, walls; f32 or bf16 storage, sample or ramp, coupling_k: the
+    bench.py stages 4096x4096/{storage}/{eps}[/k{ck}]) through
+    Simulation(..., mesh=...): run(16) against the single-device run(16)
+    at tests/test_sharding.py's chunk bars (f 5e-6, bf16 3e-4; x 1e-5; v
+    1e-6), then run(100) timed in pairs with the single-device run(100)
+    (paired_runs): MLUPS, launches (mesh_chunk_counts), overflow 0 and
+    mass drift < 1e-5 (bf16 1e-4). Returns (launch counts of the first
+    timed run, median MLUPS, single-device median MLUPS)."""
     from lbmdem_tpu_torch import Simulation
     from lbmdem_tpu_torch.models import column_collapse
     from lbmdem_tpu_torch.ops import lbm
     from lbmdem_tpu_torch.parallel import make_mesh
 
     cfg, disks = column_collapse()
-    cfg = cfg.replace(out_interval=10**9)
+    cfg = cfg.replace(out_interval=10**9, f_storage=storage,
+                      eps_method=eps_method, coupling_k=coupling_k)
+    bf16 = storage == "bfloat16"
+    fbar, mbar = (3e-4, 1e-4) if bf16 else (5e-6, 1e-5)
     n = dims[0] * dims[1]
     mesh = make_mesh(devices or ["cuda"] * n, dims)
     one = Simulation(cfg, disks, device="cuda")
@@ -3552,42 +3604,64 @@ def mesh_slice(smi: str, dims, devices=None):
     one.run(16)
     sh.run(16)
     a, b = one.state, sh.state
-    ef = float((a.f - b.f.to(a.f.device)).abs().max())
-    ex = float((a.disks.x - b.disks.x.to(a.f.device)).abs().max())
-    ev = float((a.disks.v - b.disks.v.to(a.f.device)).abs().max())
-    log("mesh-slice", f"{cfg.nx}x{cfg.ny}, {len(disks)} disks, "
+    bf, bx, bv = (t.to(a.f.device) for t in (b.f, b.disks.x, b.disks.v))
+    assert bf.dtype == a.f.dtype
+    ef = float((a.f.float() - bf.float()).abs().max())
+    ex = float((a.disks.x - bx).abs().max())
+    ev = float((a.disks.v - bv).abs().max())
+    tag = f"{storage}/{eps_method}/k{coupling_k}"
+    log("mesh-slice", f"{cfg.nx}x{cfg.ny}, {len(disks)} disks, {tag}, "
         f"{mesh_cards(mesh)}: run(16) against one device: f max err "
-        f"{ef:.3e} (bar 5e-6), x {ex:.3e} (bar 1e-5), v {ev:.3e} (bar 1e-6)")
-    assert ef <= 5e-6 and ex <= 1e-5 and ev <= 1e-6, (ef, ex, ev)
-    del a
+        f"{ef:.3e} (bar {fbar:g}; f equal {torch.equal(a.f, bf)}), x "
+        f"{ex:.3e} (bar 1e-5), v {ev:.3e} (bar 1e-6)")
+    assert ef <= fbar and ex <= 1e-5 and ev <= 1e-6, (ef, ex, ev)
+    del a, b, bf
     counts, m, o, r = paired_runs(sh, one, 100)
     st = sh.state
     f = lbm.from_storage(st.f, cfg)
     mass_err = abs(float(f.double().sum()) / (cfg.nx * cfg.ny) - 1.0)
-    per_step = {k: v / 100 for k, v in counts.items() if v}
-    log("mesh-slice", paired_line(mesh, m, o, r, 100, smi))
-    log("mesh-slice", f"launches per step {per_step}; overflow "
+    log("mesh-slice", f"{tag}: " + paired_line(mesh, m, o, r, 100, smi))
+    log("mesh-slice", f"{tag}: launches of the first timed run(100) "
+        f"{ {k: v for k, v in counts.items() if v} }; overflow "
         f"{int(st.overflow)}; n_contacts {int(st.n_contacts)}; "
-        f"|sum f/(nx ny) - 1| {mass_err:.3e} (bar 1e-5)")
-    assert counts == {**_NONE, "K1": 100 * n, "K2": 100 * n,
-                      "K3": 100 * len(mesh.replicas)}, counts
+        f"|sum f/(nx ny) - 1| {mass_err:.3e} (bar {mbar:g})")
+    assert counts == mesh_chunk_counts(100, coupling_k, n,
+                                       len(mesh.replicas)), counts
     assert int(st.overflow) == 0, f"overflow {int(st.overflow)}"
     assert bool(torch.isfinite(f).all()), "non-finite f"
-    assert mass_err < 1e-5, f"mass drift {mass_err}"
+    assert mass_err < mbar, f"mass drift {mass_err}"
     return counts, float(np.median(m)), float(np.median(o))
 
 
-def mesh_fluid(smi: str, dims=(2, 2), devices=None, n: int = 4096):
-    """n^2 pure fluid (f32, tau 0.8, gx 1e-6, periodic x) on a mesh:
-    run(19) (4 K5 blocks, 3 K4 steps) against the single-device run(19)
-    within 1e-7, then run(400) timed in pairs with the single-device
-    run(400) (paired_runs). Returns (launch counts of the mesh's run(19),
-    median MLUPS)."""
+def mesh_chunk_counts(n: int, ck: int, shards: int, replicas: int) -> dict:
+    """The launches of a mesh's coupled run(n): Verlet-cadence blocks of
+    BIN_CADENCE steps, each b // ck windows (K1 and K6 per shard, K3w per
+    inner step and replica) and b % ck single steps (K1 and K2 per shard,
+    K3 per replica)."""
+    from lbmdem_tpu_torch.simulation import BIN_CADENCE
+
+    wins = singles = 0
+    for b in [BIN_CADENCE] * (n // BIN_CADENCE) + [n % BIN_CADENCE]:
+        nw, r = divmod(b, ck) if ck > 1 else (0, b)
+        wins, singles = wins + nw, singles + r
+    return {**_NONE, "K1": (wins + singles) * shards, "K2": singles * shards,
+            "K6": wins * shards, "K3": singles * replicas,
+            "K3w": wins * ck * replicas}
+
+
+def mesh_fluid(smi: str, dims=(2, 2), devices=None, n: int = 4096,
+               storage: str = "float32"):
+    """n^2 pure fluid (bench.py's fluid/4096 stages: tau 0.8, gx 1e-6,
+    periodic x, walls in y) on a mesh: run(19) (4 K5 blocks, 3 K4 steps)
+    against the single-device run(19) within 1e-7 (bf16: one bf16 ulp,
+    rtol 1e-2 with atol 1e-6, and whether f is equal), then run(400)
+    timed in pairs with the single-device run(400) (paired_runs).
+    Returns (launch counts of the mesh's run(19), median MLUPS)."""
     from lbmdem_tpu_torch import SimConfig, Simulation
     from lbmdem_tpu_torch.parallel import make_mesh
 
     cfg = SimConfig(nx=n, ny=n, tau=0.8, gx=1e-6, dtype="float32",
-                    out_interval=10**9)
+                    out_interval=10**9, f_storage=storage)
     mesh = make_mesh(devices or ["cuda"] * (dims[0] * dims[1]), dims)
     one = Simulation(cfg, device="cuda")
     sh = Simulation(cfg, mesh=mesh)
@@ -3595,14 +3669,18 @@ def mesh_fluid(smi: str, dims=(2, 2), devices=None, n: int = 4096):
     reset_counts()
     sh.run(19)
     c19 = launch_counts()
-    err = float((one.state.f - sh.state.f.to(one.device)).abs().max())
-    log("mesh-fluid", f"{n}x{n} f32, {mesh_cards(mesh)}: run(19) against one "
-        f"device: f max err {err:.3e} (bar 1e-7); launches of the mesh's "
+    a, b = one.state.f.float(), sh.state.f.to(one.device).float()
+    err = float((a - b).abs().max())
+    atol, rtol = (1e-6, 1e-2) if storage == "bfloat16" else (1e-7, 0.0)
+    excess = float(((a - b).abs() - rtol * a.abs()).max())
+    log("mesh-fluid", f"{n}x{n} {storage}, {mesh_cards(mesh)}: run(19) "
+        f"against one device: f max err {err:.3e} (bar atol {atol:g} + rtol "
+        f"{rtol:g}; f equal {torch.equal(a, b)}); launches of the mesh's "
         f"run(19) {c19}")
-    assert err <= 1e-7, err
+    assert excess <= atol, err
     assert c19 == {**_NONE, "K5": 4 * mesh.size, "K4": 3 * mesh.size}, c19
     counts, m, o, r = paired_runs(sh, one, 400)
-    log("mesh-fluid", paired_line(mesh, m, o, r, 400, smi)
+    log("mesh-fluid", f"{storage}: " + paired_line(mesh, m, o, r, 400, smi)
         + f"; launches of the first mesh run {counts}")
     assert counts == {**_NONE, "K5": 100 * mesh.size}, counts
     return c19, float(np.median(m))
@@ -3632,25 +3710,31 @@ def mesh_k6_check(parts, frame, inp, p: int, k: int, label: str,
     """K6 pre-haloed on shard p's frame against its plain version on CPU
     copies of the same inputs (the plain version on the card multiplies
     by 1/tau): f' 5e-6, every inner step's forces 1e-6 of the largest |F|
-    (K6's bars). Its bytes: f and the solid window over the interior and
-    its ring of k cells (frame_bytes), the binning, f' and the partials
-    written; its operations k NT collides and reduces."""
+    (K6's bars). On bf16 (coupled_bars) the plain version runs on the
+    card, to keep phase 41 short; its multiply by 1/tau adds its own
+    rounding to the difference. Its bytes: f and the
+    solid window over the interior and its ring of k cells
+    (frame_bytes), the binning, f' and the partials written; its
+    operations k NT collides and reduces."""
     from lbmdem_tpu_torch.ops import fused_lbm, stamp
 
     cfg, mode = parts.local_cfg, parts.mode
     entries, _, td, cnt, s_k, origin = inp
     edges, nyg = parts.edges[p], parts.cfg.ny
-    a = torch.empty((9, cfg.ny, cfg.nx), device="cuda")
+    fbar, rbar = coupled_bars(cfg)
+    a = storage_empty(cfg, 9, cfg.ny, cfg.nx)
     k6 = fused_lbm.fused_step_imb_reduce_multi
     run = lambda: k6(frame, s_k, td, cnt, cfg, k, a,  # noqa: E731
                      prehalo=mode, origin=origin, edges=edges, ny_glob=nyg)
     n0 = k6.launches
     _, pk = run()
     assert k6.launches == n0 + 1, "K6 did not launch"
-    c = [t.cpu() for t in (frame, s_k, td, cnt)]
-    b, pp = k6(*c, cfg, k, torch.empty((9, cfg.ny, cfg.nx)), prehalo=mode,
-               origin=origin, edges=edges, ny_glob=nyg)
-    err = float((a.cpu() - b).abs().max())
+    on = "cuda" if cfg.f_storage == "bfloat16" else "cpu"
+    c = [t.to(on) for t in (frame, s_k, td, cnt)]
+    b, pp = fused_lbm.fused_step_imb_reduce_multi_prehalo_plain(
+        *c, cfg, k, mode, origin, edges, nyg, torch.empty_like(a, device=on))
+    b, pp = b.cpu().float(), pp.cpu()
+    err = float((a.cpu().float() - b).abs().max())
     ef, fmax = 0.0, 0.0
     es = entries.cpu()
     for t in range(k):
@@ -3660,8 +3744,8 @@ def mesh_k6_check(parts, frame, inp, p: int, k: int, label: str,
         fmax = max(fmax, m)
         ef = max(ef, float((F - Fp).abs().max()) / m)
     assert bool(torch.isfinite(a).all()), f"K6 {label}: non-finite"
-    assert err <= 5e-6, f"K6 k={k} {label}: f' err {err}"
-    assert ef <= 1e-6, f"K6 k={k} {label}: force err {ef} relative"
+    assert err <= fbar, f"K6 k={k} {label}: f' err {err}"
+    assert ef <= rbar, f"K6 k={k} {label}: force err {ef} relative"
     t = (None, None)
     if timed:
         bb = torch.empty_like(a)
@@ -3680,26 +3764,31 @@ def mesh_k6_check(parts, frame, inp, p: int, k: int, label: str,
 def mesh_k7_check(parts, frame, s_k, p: int, k: int, label: str,
                   timed: bool = False):
     """K7 pre-haloed on shard p's frame against its plain version on CPU
-    copies of the same inputs: rtol 1e-5 with atol 2e-6 (K7's bar). Its
-    bytes: f and the solid window over the interior and its ring of k
-    cells, f' written."""
+    copies of the same inputs: rtol 1e-5 with atol 2e-6 (K7's bar; bf16:
+    atol 3e-4 against the plain version on the card). Its bytes: f and
+    the solid window over the interior and its ring of k cells, f'
+    written."""
     from lbmdem_tpu_torch.ops import fused_static
 
     cfg, mode = parts.local_cfg, parts.mode
     edges, nyg = parts.edges[p], parts.cfg.ny
-    a = torch.empty((9, cfg.ny, cfg.nx), device="cuda")
+    bf16 = cfg.f_storage == "bfloat16"
+    a = storage_empty(cfg, 9, cfg.ny, cfg.nx)
     k7 = fused_static.fused_step_imb_static_multi
     run = lambda: k7(frame, s_k, cfg, k, a, prehalo=mode,  # noqa: E731
                      edges=edges, ny_glob=nyg)
     n0 = k7.launches
     run()
     assert k7.launches == n0 + 1, "K7 did not launch"
-    b = k7(frame.cpu(), s_k.cpu(), cfg, k, torch.empty((9, cfg.ny, cfg.nx)),
-           prehalo=mode, edges=edges, ny_glob=nyg)
-    d = (a.cpu() - b).abs()
+    on = "cuda" if bf16 else "cpu"
+    b = fused_static.fused_step_imb_static_multi_prehalo_plain(
+        frame.to(on), s_k.to(on), cfg, k, mode, edges, nyg,
+        torch.empty_like(a, device=on)).cpu().float()
+    d = (a.cpu().float() - b).abs()
     err = float(d.max())
+    atol, rtol = (3e-4, 0.0) if bf16 else (2e-6, 1e-5)
     assert bool(torch.isfinite(a).all()), f"K7 {label}: non-finite"
-    assert float((d - 1e-5 * b.abs()).max()) <= 2e-6, \
+    assert float((d - rtol * b.abs()).max()) <= atol, \
         f"K7 k={k} {label}: err {err} over the bar"
     t = (None, None)
     if timed:
@@ -3798,93 +3887,6 @@ def mesh_tblock_matrix() -> None:
             f" (bar 1e-6); plain versions on CPU tensors")
 
 
-def mesh_tblock_identity() -> None:
-    """Pre-haloed K6(k) and K7(k), k = 1, 2, 4, 8, with no wall or Zou/He
-    edge (a fully periodic lattice), the frames' halos filled from the
-    lattice's own f and solid stack, against the halo-free K6(k) and
-    K7(k) on the whole lattice: the shards' rows of f' and (K6) the
-    partials of the shards' tiles, under torch.equal; where they differ
-    the largest difference is printed (the bars of phase 37's matrix
-    hold either way)."""
-    from lbmdem_tpu_torch import SimConfig, Simulation
-    from lbmdem_tpu_torch.ops import fused_lbm, fused_static, imb, stamp
-    from lbmdem_tpu_torch.ops.fused_fluid import HX, HY
-
-    for mode, dims in (("yx", (2, 2)), ("y", (2, 1))):
-        ny, nx = 256 * dims[0], 128 * dims[1]
-        cfg = SimConfig(nx=nx, ny=ny, tau=0.8, dtype="float32", gx=1e-5,
-                        bc_west="periodic", bc_east="periodic",
-                        bc_south="periodic", bc_north="periodic")
-        disks = mesh_grid_disks(ny, nx, seed=7)
-        sim = Simulation(cfg, disks, device="cuda")
-        cfg, d = sim.cfg, sim.state.disks
-        _, aug, _, _, govf = imb.periodic_ghosts(d.x, d.v, d.omega, d.r,
-                                                 d.active, cfg)
-        td, cnt, _, bovf = stamp.bin_disks_to_tiles(*aug, cfg)
-        assert int(govf) == int(bovf) == 0
-        solid = stamp.stamp_fields(td, cnt, cfg)
-        f = mesh_frame(cfg, "", 31, 0.05)
-        h, w = ny // dims[0], nx // dims[1]
-        lc = cfg.replace(ny=h, nx=w)
-        th, tw = stamp.tile_dims(cfg)
-        assert stamp.tile_dims(lc) == (th, tw)
-        cap = cfg.tile_cap
-        nty, ntx = ny // th, nx // tw
-        hx = HX if mode == "yx" else 0
-        same, diffs = [], []
-        for k in (1, 2, 4, 8):
-            a = torch.empty_like(f)
-            _, pa = fused_lbm.fused_step_imb_reduce_multi(f, solid, td, cnt,
-                                                          cfg, k, a)
-            a7 = torch.empty_like(f)
-            fused_static.fused_step_imb_static_multi(f, solid, cfg, k, a7)
-            pa = pa.reshape(k, nty, ntx, cap, 4)
-            for iy in range(dims[0]):
-                for ix in range(dims[1]):
-                    rows = (torch.arange(-HY, h + HY, device="cuda")
-                            + iy * h) % ny
-                    cols = ((torch.arange(-hx, w + hx, device="cuda")
-                             + ix * w) % nx)
-                    fr = f[:, rows][:, :, cols].contiguous()
-                    sw = solid[:, rows][:, :, cols].contiguous()
-                    ty, tx = iy * h // th, ix * w // tw
-                    tiles = (slice(ty, ty + h // th), slice(tx, tx + w // tw))
-                    td_i = td.reshape(nty, ntx, -1)[tiles].reshape(
-                        -1, 1, cap * 8).contiguous()
-                    cnt_i = cnt.reshape(nty, ntx)[tiles].reshape(
-                        -1, 1, 1).contiguous()
-                    edges = (0, 0, int(mode == "y"), int(mode == "y"), iy * h)
-                    b = torch.empty((9, h, w), device="cuda")
-                    _, pb = fused_lbm.fused_step_imb_reduce_multi(
-                        fr, sw, td_i, cnt_i, lc, k, b, prehalo=mode,
-                        origin=(iy * h, ix * w), edges=edges, ny_glob=ny)
-                    b7 = torch.empty_like(b)
-                    fused_static.fused_step_imb_static_multi(
-                        fr, sw, lc, k, b7, prehalo=mode, edges=edges,
-                        ny_glob=ny)
-                    ref = a[:, iy * h:(iy + 1) * h, ix * w:(ix + 1) * w]
-                    ref7 = a7[:, iy * h:(iy + 1) * h, ix * w:(ix + 1) * w]
-                    refp = pa[:, tiles[0], tiles[1]].reshape(k, -1, 4)
-                    for what, x, y in (("K6 f'", b, ref),
-                                       ("K6 partials", pb, refp),
-                                       ("K7 f'", b7, ref7)):
-                        eq = torch.equal(x, y)
-                        same.append(eq)
-                        if not eq:
-                            diffs.append((what, k, (iy, ix), float(
-                                (x - y).abs().max())))
-            assert float((a - f).abs().max()) > 0.0
-        log("mesh-kernels-2", f"identity prehalo={mode} {dims} (no edge "
-            f"flags, fully periodic {ny}x{nx}, {len(disks)} disks): K6(k) f'"
-            f" and partials and K7(k) f', k = 1, 2, 4, 8, against the "
-            f"halo-free kernels on the shards' rows: {sum(same)} of "
-            f"{len(same)} torch.equal; differences {diffs}")
-        for what, k, pos, dmax in diffs:
-            bar = 5e-6 if what == "K6 f'" else (2e-6 if what == "K7 f'"
-                                                else 1e-6)
-            assert dmax <= bar, (what, k, pos, dmax)
-
-
 def mesh_tblock_timed(n: int = 4096):
     """At the 2 x 2 (n/2 square) and 4 x 1 shards of the n^2 window and
     static scenes: K6 (k = 4) and K8 on shard 0 of the column collapse
@@ -3969,70 +3971,24 @@ def mesh_tblock_timed(n: int = 4096):
 def mesh_kernels_2():
     """Phase 37: the matrix, the identity, the timed shards."""
     mesh_tblock_matrix()
-    mesh_tblock_identity()
+    mesh_identity("float32")
     return mesh_tblock_timed()
 
 
-def mesh_window_slice(smi: str, dims):
-    """BASELINE config 5 with coupling_k = 4 (the column collapse at
-    4096^2, 10 000 disks, f32, BGK, sample, walls) through Simulation(...,
-    mesh=...) on one card: run(16) against the single-device run(16) (f
-    5e-6, x 1e-5, v 1e-6), then run(100) in pairs with one device
-    (paired_runs), its launches (K1 and K6 once per shard and window, K3w
-    once per inner step and replica, nothing else), overflow 0, mass
-    drift < 1e-5. Returns (launch counts of the first timed run, median
-    MLUPS, one device's median MLUPS)."""
-    from lbmdem_tpu_torch import Simulation
-    from lbmdem_tpu_torch.models import column_collapse
-    from lbmdem_tpu_torch.ops import lbm
-    from lbmdem_tpu_torch.parallel import make_mesh
-
-    cfg, disks = column_collapse()
-    cfg = cfg.replace(out_interval=10**9, coupling_k=4)
-    n = dims[0] * dims[1]
-    mesh = make_mesh(["cuda"] * n, dims)
-    one = Simulation(cfg, disks, device="cuda")
-    sh = Simulation(cfg, disks, mesh=mesh)
-    one.run(16)
-    sh.run(16)
-    a, b = one.state, sh.state
-    ef = float((a.f - b.f).abs().max())
-    ex = float((a.disks.x - b.disks.x).abs().max())
-    ev = float((a.disks.v - b.disks.v).abs().max())
-    log("mesh-window", f"{cfg.nx}x{cfg.ny}, {len(disks)} disks, coupling_k "
-        f"4, {mesh_cards(mesh)}: run(16) against one device: f max err "
-        f"{ef:.3e} (bar 5e-6), x {ex:.3e} (bar 1e-5), v {ev:.3e} (bar 1e-6)")
-    assert ef <= 5e-6 and ex <= 1e-5 and ev <= 1e-6, (ef, ex, ev)
-    del a, b
-    counts, m, o, r = paired_runs(sh, one, 100)
-    st = sh.state
-    f = lbm.from_storage(st.f, cfg)
-    mass_err = abs(float(f.double().sum()) / (cfg.nx * cfg.ny) - 1.0)
-    log("mesh-window", paired_line(mesh, m, o, r, 100, smi))
-    log("mesh-window", f"launches of the first timed run(100) (25 windows) "
-        f"{ {k: v for k, v in counts.items() if v} }; overflow "
-        f"{int(st.overflow)}; n_contacts {int(st.n_contacts)}; "
-        f"|sum f/(nx ny) - 1| {mass_err:.3e} (bar 1e-5)")
-    assert counts == {**_NONE, "K1": 25 * n, "K6": 25 * n,
-                      "K3w": 100 * len(mesh.replicas)}, counts
-    assert int(st.overflow) == 0, f"overflow {int(st.overflow)}"
-    assert bool(torch.isfinite(f).all()), "non-finite f"
-    assert mass_err < 1e-5, f"mass drift {mass_err}"
-    return counts, float(np.median(m)), float(np.median(o))
-
-
-def mesh_static_slice(smi: str, dims, steps: int = 400):
+def mesh_static_slice(smi: str, dims, steps: int = 400,
+                      storage: str = "float32"):
     """The static/4096 scene (4096^2, 4096 fixed disks at rest) through
     Simulation(..., mesh=...) on one card: run(19) against the
-    single-device run(19) (f 2e-6, disk x equal) with its launches (K1
-    once per shard for the solid windows, K7 4 passes of 4 and 3 of 1 per
-    shard), then run(steps) in pairs with one device. Returns (launch
-    counts of the first timed run, median MLUPS, one device's)."""
+    single-device run(19) (f 2e-6, disk x equal; bf16 f within one bf16
+    ulp, rtol 1e-2 with atol 1e-6) with its launches (K1 once per shard
+    for the solid windows, K7 4 passes of 4 and 3 of 1 per shard), then
+    run(steps) in pairs with one device. Returns (launch counts of the
+    first timed run, median MLUPS, one device's)."""
     from lbmdem_tpu_torch import Simulation
     from lbmdem_tpu_torch.ops import lbm
     from lbmdem_tpu_torch.parallel import make_mesh
 
-    cfg, disks = static_bed()
+    cfg, disks = static_bed(storage=storage)
     n = dims[0] * dims[1]
     mesh = make_mesh(["cuda"] * n, dims)
     one = Simulation(cfg, disks, device="cuda")
@@ -4043,25 +3999,31 @@ def mesh_static_slice(smi: str, dims, steps: int = 400):
     sh.run(19)
     c19 = launch_counts()
     a, b = one.state, sh.state
-    ef = float((a.f - b.f).abs().max())
+    d = (a.f.float() - b.f.float()).abs()
+    ef = float(d.max())
+    atol, rtol = (1e-6, 1e-2) if storage == "bfloat16" else (2e-6, 0.0)
+    excess = float((d - rtol * a.f.float().abs()).max())
     xeq = torch.equal(a.disks.x, b.disks.x)
-    log("mesh-static", f"{cfg.nx}x{cfg.ny}, {len(disks)} fixed disks, "
-        f"{mesh_cards(mesh)}: run(19) against one device: f max err "
-        f"{ef:.3e} (bar 2e-6), disk x equal {xeq}; launches {c19}")
-    assert ef <= 2e-6 and xeq, (ef, xeq)
+    log("mesh-static", f"{cfg.nx}x{cfg.ny} {storage}, {len(disks)} fixed "
+        f"disks, {mesh_cards(mesh)}: run(19) against one device: f max err "
+        f"{ef:.3e} (bar atol {atol:g} + rtol {rtol:g}; f equal "
+        f"{torch.equal(a.f, b.f)}), disk x equal {xeq}; launches {c19}")
+    assert excess <= atol and xeq, (ef, xeq)
     assert c19 == {**_NONE, "K1": n, "K7": 7 * n}, c19
     del a, b
     counts, m, o, r = paired_runs(sh, one, steps)
     st = sh.state
     f = lbm.from_storage(st.f, cfg)
     mass_err = abs(float(f.double().sum()) / (cfg.nx * cfg.ny) - 1.0)
-    log("mesh-static", paired_line(mesh, m, o, r, steps, smi))
+    log("mesh-static", f"{storage}: " + paired_line(mesh, m, o, r, steps,
+                                                    smi))
+    mbar = 1e-4 if storage == "bfloat16" else 1e-5
     log("mesh-static", f"launches of the first timed run({steps}) {counts}; "
         f"overflow {int(st.overflow)}; |sum f/(nx ny) - 1| {mass_err:.3e} "
-        f"(bar 1e-5)")
+        f"(bar {mbar:g})")
     assert counts == {**_NONE, "K7": steps // 4 * n}, counts
     assert int(st.overflow) == 0 and bool(torch.isfinite(f).all())
-    assert mass_err < 1e-5, f"mass drift {mass_err}"
+    assert mass_err < mbar, f"mass drift {mass_err}"
     return counts, float(np.median(m)), float(np.median(o))
 
 
@@ -4104,6 +4066,368 @@ def mesh_paranoia() -> None:
             f"want {want}); mesh launches {counts}")
         assert got["mesh"] == got["one"] == (want, want, want), got
         assert counts[kern] > 0, counts
+
+
+# --- the lattice mesh III: bf16 storage (16-row frames) -----------------
+
+# the shards of the bf16 matrix checks: corner, edge and interior of a
+# 3 x 3 mesh ("yx"); the corner and the middle of a 3 x 1 mesh ("y")
+MESH_BF16_SHARDS = {"yx": ((3, 3), (0, 1, 4)), "y": ((3, 1), (0, 1))}
+BF16 = dict(f_storage="bfloat16")
+
+
+def mesh_bf16_matrix() -> None:
+    """The five kernels on bf16 frames (16 halo rows, the solid window
+    8) against their plain versions: K4 and K5 (k = 1, 2, 4; MESH_EDGES)
+    over MESH_MATRIX at a 256 x 128 shard in "y" and "yx" modes; K2 and
+    K6 (k = 1, 2, 4, 8) over phase 18's BREADTH_MATRIX and K7 (k = 1, 2,
+    4, 8) over phase 10's STATIC_MATRIX on the 256 x 128 shards of
+    MESH_BF16_SHARDS. Bars: f' 3e-4, forces 5e-6 of the largest |F|
+    (coupled_bars); the plain versions on the card."""
+    from lbmdem_tpu_torch import SimConfig
+
+    worst = {"K4": 0.0, "K5": 0.0, "K2": [0.0, 0.0], "K6": [0.0, 0.0],
+             "K7": 0.0}
+    for i, (label, kw) in enumerate(MESH_MATRIX):
+        cfg = SimConfig(**{"nx": 128, "ny": 256, "tau": 0.8,
+                           "dtype": "float32", **BF16, **kw})
+        for mode in ("y", "yx"):
+            w = mesh_fluid_check(cfg, mode, 1, None, 500 + i,
+                                 f"{label} {cfg.ny}x{cfg.nx}")
+            worst["K4"] = max(worst["K4"], w["err"])
+            for j, e in enumerate(MESH_EDGES):
+                if mode == "y":  # a "y" shard spans the width
+                    e = e[:2] + (1, 1) + e[4:]
+                for k in (1, 2, 4):
+                    w = mesh_fluid_check(cfg, mode, k, e, 510 + i + j,
+                                         f"{label} {cfg.ny}x{cfg.nx}",
+                                         k5=True)
+                    worst["K5"] = max(worst["K5"], w["err"])
+    opts = ([("K6", lb, kw) for lb, kw in BREADTH_MATRIX]
+            + [("K7", lb, kw) for lb, kw in STATIC_MATRIX])
+    for mode, (dims, shards) in MESH_BF16_SHARDS.items():
+        ny, nx = 256 * dims[0], 128 * dims[1]
+        disks = mesh_grid_disks(ny, nx, seed=len(mode))
+        for i, (kern, label, kw) in enumerate(opts):
+            cfg = SimConfig(**{"nx": nx, "ny": ny, "tau": 0.8,
+                               "dtype": "float32", **BF16, **kw})
+            parts, frames, ins = mesh_coupled_inputs(cfg, disks, dims,
+                                                     600 + i)
+            assert frames[0].dtype == torch.bfloat16
+            for p in shards:
+                tag = f"bf16 {label} {mode} shard {p} edges {parts.edges[p]}"
+                if kern == "K7":
+                    for k in (1, 2, 4, 8):
+                        w = mesh_k7_check(parts, frames[p], ins[p][4], p, k,
+                                          tag)
+                        worst["K7"] = max(worst["K7"], w["err"])
+                    continue
+                w = mesh_k2_check(parts, frames[p], ins[p], tag)
+                worst["K2"][0] = max(worst["K2"][0], w["err"])
+                for k in (1, 2, 4, 8):
+                    w, ef, _ = mesh_k6_check(parts, frames[p], ins[p], p, k,
+                                             tag)
+                    worst["K6"] = [max(worst["K6"][0], w["err"]),
+                                   max(worst["K6"][1], ef)]
+    log("mesh-bf16", f"bf16 frames, plain versions on the card: K4 over "
+        f"{len(MESH_MATRIX)} options worst f' err {worst['K4']:.3e}, K5 k=1,"
+        f"2,4 x {len(MESH_EDGES)} edge flags {worst['K5']:.3e}; on shards "
+        f"{ {m: list(s) for m, (_, s) in MESH_BF16_SHARDS.items()} }: K2 "
+        f"{worst['K2'][0]:.3e}, K6 k=1,2,4,8 over {len(BREADTH_MATRIX)} "
+        f"options {worst['K6'][0]:.3e} (force err {worst['K6'][1]:.3e} of "
+        f"max|F|), K7 k=1,2,4,8 over {len(STATIC_MATRIX)} options "
+        f"{worst['K7']:.3e} (bars f' 3e-4, forces 5e-6)")
+
+
+def mesh_identity(storage: str) -> None:
+    """Each pre-haloed kernel against its halo-free kernel on a fully
+    periodic lattice whose shard frames are filled from the lattice
+    itself (f rows -hy .. h + hy - 1, hy = 8 on f32 and 16 on bf16; the
+    solid window's -8 .. h + 7), no edge flags, on a 2 x 2 ("yx") and a
+    2 x 1 ("y") mesh of 256 x 128 shards: K4 (on bf16 the one-step body
+    on the frame, K5's sweep at k = 1 on the lattice), K5 (k = 1, 2, 4),
+    K2 (f' and the shard's partials), K6 (k = 1, 2, 4, 8: f' and
+    partials) and K7 (k = 1, 2, 4, 8). The same arithmetic, one rounding
+    per pass on bf16: torch.equal, every difference printed and held to
+    the bars (f' 5e-6 f32, 3e-4 bf16; partials 1e-6, 5e-6)."""
+    from lbmdem_tpu_torch import SimConfig, Simulation
+    from lbmdem_tpu_torch.ops import (fused_fluid, fused_lbm, fused_static,
+                                      imb, stamp)
+    from lbmdem_tpu_torch.ops.fused_fluid import HX, HY
+
+    same, diffs = [], []
+    for mode, dims in (("yx", (2, 2)), ("y", (2, 1))):
+        ny, nx = 256 * dims[0], 128 * dims[1]
+        cfg = SimConfig(nx=nx, ny=ny, tau=0.8, dtype="float32", gx=1e-5,
+                        bc_west="periodic", bc_east="periodic",
+                        bc_south="periodic", bc_north="periodic",
+                        f_storage=storage)
+        disks = mesh_grid_disks(ny, nx, seed=8)
+        sim = Simulation(cfg, disks, device="cuda")
+        cfg, d = sim.cfg, sim.state.disks
+        _, aug, _, _, govf = imb.periodic_ghosts(d.x, d.v, d.omega, d.r,
+                                                 d.active, cfg)
+        td, cnt, _, bovf = stamp.bin_disks_to_tiles(*aug, cfg)
+        assert int(govf) == int(bovf) == 0
+        solid = stamp.stamp_fields(td, cnt, cfg)
+        f = mesh_frame(cfg, "", 41, 0.05)
+        h, w = ny // dims[0], nx // dims[1]
+        lc = cfg.replace(ny=h, nx=w)
+        hy = fused_fluid.frame_hy(lc)
+        th, tw = stamp.tile_dims(cfg)
+        assert stamp.tile_dims(lc) == (th, tw)
+        cap = cfg.tile_cap
+        nty, ntx = ny // th, nx // tw
+        hx = HX if mode == "yx" else 0
+        fcfg = cfg.replace(max_disks=0)
+        lfc = fcfg.replace(ny=h, nx=w)
+        outs = {}
+        for kern, k in ([("K4", 1)] + [("K5", k) for k in (1, 2, 4)]
+                        + [("K2", 1)] + [("K6", k) for k in (1, 2, 4, 8)]
+                        + [("K7", k) for k in (1, 2, 4, 8)]):
+            a = torch.empty_like(f)
+            pa = None
+            if kern == "K4":
+                fused_fluid.fused_step_fluid(f, fcfg, a)
+            elif kern == "K5":
+                fused_fluid.fused_step_fluid_multi(f, fcfg, k, a)
+            elif kern == "K2":
+                _, pa = fused_lbm.fused_step_imb_reduce(f, solid, td, cnt,
+                                                        cfg, a)
+                pa = pa[None]
+            elif kern == "K6":
+                _, pa = fused_lbm.fused_step_imb_reduce_multi(
+                    f, solid, td, cnt, cfg, k, a)
+            else:
+                fused_static.fused_step_imb_static_multi(f, solid, cfg, k, a)
+            outs[kern, k] = (a, None if pa is None
+                             else pa.reshape(-1, nty, ntx, cap, 4))
+        for iy in range(dims[0]):
+            for ix in range(dims[1]):
+                cols = (torch.arange(-hx, w + hx, device="cuda") + ix * w) % nx
+                frows = (torch.arange(-hy, h + hy, device="cuda") + iy * h) % ny
+                srows = (torch.arange(-HY, h + HY, device="cuda") + iy * h) % ny
+                fr = f[:, frows][:, :, cols].contiguous()
+                sw = solid[:, srows][:, :, cols].contiguous()
+                ty, tx = iy * h // th, ix * w // tw
+                tiles = (slice(ty, ty + h // th), slice(tx, tx + w // tw))
+                td_i = td.reshape(nty, ntx, -1)[tiles].reshape(
+                    -1, 1, cap * 8).contiguous()
+                cnt_i = cnt.reshape(nty, ntx)[tiles].reshape(
+                    -1, 1, 1).contiguous()
+                edges = (0, 0, int(mode == "y"), int(mode == "y"), iy * h)
+                origin = (iy * h, ix * w)
+                for (kern, k), (ref, pa) in outs.items():
+                    b = storage_empty(lc, 9, h, w)
+                    pb = None
+                    if kern == "K4":
+                        fused_fluid.fused_step_fluid(fr, lfc, b, prehalo=mode)
+                    elif kern == "K5":
+                        fused_fluid.fused_step_fluid_multi(
+                            fr, lfc, k, b, prehalo=mode, edges=edges,
+                            ny_glob=ny)
+                    elif kern == "K2":
+                        _, pb = fused_lbm.fused_step_imb_reduce(
+                            fr, sw, td_i, cnt_i, lc, b, prehalo=mode,
+                            origin=origin)
+                        pb = pb[None]
+                    elif kern == "K6":
+                        _, pb = fused_lbm.fused_step_imb_reduce_multi(
+                            fr, sw, td_i, cnt_i, lc, k, b, prehalo=mode,
+                            origin=origin, edges=edges, ny_glob=ny)
+                    else:
+                        fused_static.fused_step_imb_static_multi(
+                            fr, sw, lc, k, b, prehalo=mode, edges=edges,
+                            ny_glob=ny)
+                    pairs = [("f'", b, ref[:, iy * h:(iy + 1) * h,
+                                           ix * w:(ix + 1) * w])]
+                    if pb is not None:
+                        pairs.append(("partials", pb, pa[:, tiles[0],
+                                                         tiles[1]].reshape(
+                                                             pb.shape)))
+                    for what, x, y in pairs:
+                        eq = torch.equal(x, y)
+                        same.append(eq)
+                        if not eq:
+                            diffs.append((kern, k, what, mode, (iy, ix), float(
+                                (x.float() - y.float()).abs().max())))
+    log("mesh-identity", f"identity on {storage} frames (fully periodic "
+        f"512x256 and 512x128, no edge flags, frames filled from the "
+        f"lattice): K4, K5 k=1,2,4, K2, K6 and K7 k=1,2,4,8 against the "
+        f"halo-free kernels on the shards' rows: {sum(same)} of "
+        f"{len(same)} torch.equal; differences {diffs}")
+    fbar, rbar = coupled_bars(cfg)
+    for kern, k, what, mode, pos, dmax in diffs:
+        assert dmax <= (fbar if what == "f'" else rbar), (kern, k, what,
+                                                          mode, pos, dmax)
+
+
+def mesh_bf16_timed(n: int = 4096):
+    """At the 2 x 2 (n/2 square) and 4 x 1 shards of the n^2 scenes in
+    bf16: K4 and K5 (k = 4) on the fluid frames, K2 on shard 0 of the
+    column collapse (10 000 disks), K6 (k = 4 and 8, the bf16 window's
+    coupling_k) on shard 0 of its window scene, K7 (k = 4) on shard 0 of
+    the static bed, each against its plain version and timed with CUDA
+    events beside the same bf16 kernel without a halo on the shard's
+    interior and its bound (the cells it reads: a ring of 1 or k).
+    Returns {"K2"|"K4"|"K5"|"K6"|"K7": work} of the 2 x 2 shards."""
+    from lbmdem_tpu_torch import SimConfig, Simulation
+    from lbmdem_tpu_torch.models import column_collapse
+    from lbmdem_tpu_torch.ops import fused_fluid, fused_lbm, fused_static
+    from lbmdem_tpu_torch.parallel import make_mesh
+    from lbmdem_tpu_torch.parallel._kernel_step import (
+        _Sharded, exchange, sharded_static_solid,
+    )
+
+    out = {}
+
+    def line(shape, mode, key, wk, t):
+        bms, by = bound(wk)
+        log("mesh-bf16", f"{shape[0]}x{shape[1]} shard prehalo={mode} bf16 "
+            f"{key}: kernel {wk['ms']:.4f} ms, plain {wk['plain_ms']:.4f} ms"
+            f", the same bf16 kernel without a halo on {shape[0]}x"
+            f"{shape[1]} {t:.4f} ms (CUDA events); bound {bms:.4f} ms by {by}"
+            f" ({wk['bytes'] / 1e9:.4f} GB, the halo cells it reads "
+            f"included)")
+
+    h = n // 2
+    for mode, shape in (("yx", (h, h)), ("y", (n // 4, n))):
+        cfg = SimConfig(nx=shape[1], ny=shape[0], tau=0.8, gx=1e-6,
+                        dtype="float32", **BF16)
+        w4 = mesh_fluid_check(cfg, mode, 1, None, 51, f"{shape}", timed=True,
+                              amp=0.02)
+        w5 = mesh_fluid_check(cfg, mode, 4, (1, 0, 1, int(mode == "y"), 0),
+                              52, f"{shape}", timed=True, amp=0.02)
+        f = mesh_frame(cfg, "", 53, 0.02)
+        a = torch.empty_like(f)
+        t4 = cuda_ms(lambda: fused_fluid.fused_step_fluid(f, cfg, a), 20)
+        t5 = cuda_ms(lambda: fused_fluid.fused_step_fluid_multi(f, cfg, 4, a),
+                     20)
+        line(shape, mode, "K4", w4, t4)
+        line(shape, mode, "K5 k=4", w5, t5)
+        if mode == "yx":
+            out["K4"], out["K5"] = w4, w5
+    cfg, disks = column_collapse()
+    # the slice (sample: K2) and the window (ramp, coupling_k 8: K6)
+    for eps, ks in (("sample", (1,)), ("ramp", (4, 8))):
+        ccfg = cfg.replace(f_storage="bfloat16", eps_method=eps)
+        for dims in ((2, 2), (4, 1)):
+            parts, frames, ins = mesh_coupled_inputs(
+                ccfg, compressed(disks, 0.94), dims, 54)
+            lc, hx, mode = parts.local_cfg, parts.padx, parts.mode
+            shape = (lc.ny, lc.nx)
+            _, _, td, cnt, s_k, origin = ins[0]
+            assert origin == (0, 0)
+            hy = fused_fluid.frame_hy(lc)
+            f = frames[0][:, hy:hy + lc.ny, hx:hx + lc.nx].contiguous()
+            solid = s_k[:, 8:8 + lc.ny, hx:hx + lc.nx].contiguous()
+            a = torch.empty_like(f)
+            tag = f"bf16 {eps} {n}^2 {dims} shard 0"
+            for k in ks:
+                if k == 1:
+                    wk = mesh_k2_check(parts, frames[0], ins[0], tag,
+                                       timed=True)
+                    t = cuda_ms(lambda: fused_lbm.fused_step_imb_reduce(
+                        f, solid, td, cnt, lc, a), 20)
+                    key = "K2"
+                else:
+                    wk, ef, fmax = mesh_k6_check(parts, frames[0], ins[0], 0,
+                                                 k, tag, timed=True)
+                    t = cuda_ms(lambda: fused_lbm.fused_step_imb_reduce_multi(
+                        f, solid, td, cnt, lc, k, a), 10)
+                    key = f"K6 k={k}"
+                    log("mesh-bf16", f"{tag} K6 k={k}: force err {ef:.3e} of "
+                        f"max|F| {fmax:.3e}")
+                line(shape, mode, f"{eps} {key}", wk, t)
+                if dims == (2, 2) and k in (1, 8):
+                    out["K2" if k == 1 else "K6"] = wk
+            del parts, frames, ins
+    scfg, sdisks = static_bed(storage="bfloat16")
+    for dims in ((2, 2), (4, 1)):
+        mesh = make_mesh(["cuda"] * (dims[0] * dims[1]), dims)
+        sim = Simulation(scfg, sdisks, mesh=mesh)
+        wins = sharded_static_solid(sim.cfg, mesh, sim._state)
+        parts = _Sharded(sim.cfg, None, mesh, "y", "drift")
+        g = torch.Generator(device="cuda").manual_seed(55)
+        frames = exchange([perturbed(f, sim.cfg, g) for f in sim._state.f],
+                          mesh)
+        lc, hx = parts.local_cfg, parts.padx
+        w7 = mesh_k7_check(parts, frames[0], wins[0], 0, 4,
+                           f"bf16 static {n}^2 {dims} shard 0", timed=True)
+        f = frames[0][:, 16:16 + lc.ny, hx:hx + lc.nx].contiguous()
+        solid = wins[0][:, 8:8 + lc.ny, hx:hx + lc.nx].contiguous()
+        a = torch.empty_like(f)
+        t7 = cuda_ms(lambda: fused_static.fused_step_imb_static_multi(
+            f, solid, lc, 4, a), 10)
+        line((lc.ny, lc.nx), parts.mode, "K7 k=4", w7, t7)
+        if dims == (2, 2):
+            out["K7"] = w7
+        del sim, wins, frames
+    return out
+
+
+def mesh_kernels_bf16():
+    """Phase 41: the bf16 matrix, the identity, the timed shards."""
+    mesh_bf16_matrix()
+    mesh_identity("bfloat16")
+    return mesh_bf16_timed()
+
+
+def mesh_cli_bf16(smi: str, steps: int = 24):
+    """The user's entry point on a bf16 mesh: examples/column_collapse.par
+    with f_storage bfloat16 through `python -m lbmdem_tpu_torch.cli deck
+    --mesh 2x2 --steps 24` in this process (the auto path: the kernels on
+    the one card's four shards), its launches (mesh_chunk_counts), and
+    its step-24 disk state from trajectories.csv against
+    Simulation(..., mesh=...).run(24) of the deck, bit for bit. Returns
+    the launch counts."""
+    import shutil
+    import tempfile
+
+    from lbmdem_tpu_torch import Simulation
+    from lbmdem_tpu_torch.parallel import make_mesh
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "examples")
+    out = tempfile.mkdtemp(prefix="lbmdem_cli_bf16_")
+    try:
+        text = open(os.path.join(root, "column_collapse.par")).read()
+        text = text.replace("particles column_collapse_disks.txt",
+                            "particles " + os.path.join(
+                                root, "column_collapse_disks.txt"))
+        deck = os.path.join(out, "column_collapse_bf16.par")
+        with open(deck, "w") as fh:
+            fh.write(text + "f_storage bfloat16\n")
+        res = os.path.join(out, "res")
+        reset_counts()
+        rc, stdout, err, secs = _cli([deck, "--mesh", "2x2", "--steps",
+                                      str(steps), "--out", res])
+        counts = launch_counts()
+        assert rc == 0 and "note:" not in err and "kernels" in err, (rc, err)
+        assert counts == mesh_chunk_counts(steps, 1, 4, 1), counts
+        rows = np.loadtxt(os.path.join(res, "trajectories.csv"),
+                          delimiter=",", skiprows=1, ndmin=2)
+        cfg, disks = _deck("column_collapse")
+        sim = Simulation(cfg.replace(f_storage="bfloat16"), disks,
+                         mesh=make_mesh(["cuda"] * 4, (2, 2)))
+        sim.run(steps)
+        d = sim.disk_arrays()
+        ids = rows[:, 1].astype(np.int64)
+        assert (rows[:, 0] == steps).all() and len(ids) == len(disks)
+        got = rows[:, 2:].astype(np.float32)
+        ref = np.column_stack([d["x"][ids], d["v"][ids], d["theta"][ids],
+                               d["omega"][ids]]).astype(np.float32)
+        err_d = float(np.abs(got - ref).max())
+        log("mesh-bf16-cli", f"column_collapse.par + f_storage bfloat16 "
+            f"through the CLI with --mesh 2x2: {rc=}, {steps} steps in "
+            f"{secs:.2f} s ({_done_mlups(stdout):.1f} MLUPS, one 4096^2 "
+            f"snapshot included) on {smi}; launches {counts}; step-{steps} "
+            f"disk state vs Simulation(mesh=2x2).run({steps}): max |diff| "
+            f"{err_d:.3e} (bit for bit: {bool(np.array_equal(got, ref))})")
+        assert np.array_equal(got, ref), f"CLI != in-process run ({err_d})"
+        return counts
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
 
 
 def timed_phase(label: str, fn, *args):
@@ -4214,13 +4538,28 @@ def main() -> int:
             f"mesh phase put all its shards on cuda:0 (distinct cards need "
             f"4)")
     mres2 = timed_phase("37 mesh kernels II", mesh_kernels_2)
-    wmcounts, _, _ = timed_phase("38 mesh window 2x2", mesh_window_slice,
-                                 smi, (2, 2))
-    timed_phase("38 mesh window 4x1", mesh_window_slice, smi, (4, 1))
+    wmcounts, _, _ = timed_phase("38 mesh window 2x2", mesh_slice, smi,
+                                 (2, 2), None, "float32", "sample", 4)
+    timed_phase("38 mesh window 4x1", mesh_slice, smi, (4, 1), None,
+                "float32", "sample", 4)
     smcounts, _, _ = timed_phase("39 mesh static 2x2", mesh_static_slice,
                                  smi, (2, 2))
     timed_phase("39 mesh static 4x1", mesh_static_slice, smi, (4, 1))
     timed_phase("40 mesh paranoia", mesh_paranoia)
+    mres3 = timed_phase("41 mesh kernels bf16", mesh_kernels_bf16)
+    bmcounts, _, _ = timed_phase("42 mesh bf16 slice 2x2", mesh_slice, smi,
+                                 (2, 2), None, "bfloat16")
+    timed_phase("42 mesh bf16 slice 4x1", mesh_slice, smi, (4, 1), None,
+                "bfloat16")
+    bwmcounts, _, _ = timed_phase("43 mesh bf16 window 2x2", mesh_slice,
+                                  smi, (2, 2), None, "bfloat16", "ramp", 8)
+    timed_phase("43 mesh bf16 window 4x1", mesh_slice, smi, (4, 1), None,
+                "bfloat16", "ramp", 8)
+    bfmcounts, _ = timed_phase("44 mesh bf16 fluid", mesh_fluid, smi, (2, 2),
+                               None, 4096, "bfloat16")
+    bsmcounts, _, _ = timed_phase("45 mesh bf16 static", mesh_static_slice,
+                                  smi, (2, 2), 400, "bfloat16")
+    timed_phase("46 mesh bf16 CLI", mesh_cli_bf16, smi)
     counts.update({k: acounts[k] for k in ("K8", "K9")})
     counts.update({k: fcounts[k] for k in ("K4", "K5")})
     counts.update({k: wcounts[k] for k in ("K6", "K3w")})
@@ -4265,7 +4604,12 @@ def main() -> int:
              ("K7", "prehalo yx", mres2["K7"], smcounts["K7"]),
              # no path runs K8 on a frame (the JAX package's neither):
              # the mesh paths' runs read none
-             ("K8", "prehalo yx", mres2["K8"], k8_mesh)]
+             ("K8", "prehalo yx", mres2["K8"], k8_mesh),
+             ("K2", "bf16 prehalo yx", mres3["K2"], bmcounts["K2"]),
+             ("K4", "bf16 prehalo yx", mres3["K4"], bfmcounts["K4"]),
+             ("K5", "bf16 prehalo yx", mres3["K5"], bfmcounts["K5"]),
+             ("K6", "bf16 prehalo yx", mres3["K6"], bwmcounts["K6"]),
+             ("K7", "bf16 prehalo yx", mres3["K7"], bsmcounts["K7"])]
     kernels = []
     rows = [(k, "", res[k], counts[k]) for k in (
         "K1", "K2", "K3", "K4", "K5", "K6", "K3w", "K7", "K8", "K9")] + extra

@@ -115,17 +115,26 @@ struct FluidParams {
                     // shard's frame: bit 0 the inlet, bit 1 the outlet)
 };
 
-// A shard's pre-haloed frame on the lattice mesh (ops/fused_fluid
-// prehalo): kHaloRows exchanged rows above and below its ny x nx
-// interior and, in "yx" mode, kHaloCols columns on either side (hx =
-// kHaloCols, else 0); pitch is the frame's row length. Row r of the
-// interior is frame row r + kHaloRows.
-constexpr int kHaloRows = 8;
+// A shard's pre-haloed frame of f on the lattice mesh (ops/fused_fluid
+// prehalo): hy exchanged rows above and below its ny x nx interior (8 on
+// f32 storage, 16 on bf16: the JAX package's row granule of each, its
+// pallas_lbm._storage) and, in "yx" mode, kHaloCols columns on either
+// side (hx = kHaloCols, else 0); pitch is the frame's row length. Row r
+// of the interior is frame row r + hy. The coupled kernels' solid window
+// is a frame of the same pitch with kSolidHaloRows rows per side in both
+// storages (the JAX f32 granule): its row r at r + kSolidHaloRows.
+constexpr int kSolidHaloRows = 8;
 constexpr int kHaloCols = 128;
 struct Frame {
   int pitch;
   int hx;
+  int hy;
 };
+
+// The f frame's halo rows of a storage: 16 for bf16 (bf16 = 1), else 8
+__host__ __device__ constexpr int frame_hy(int bf16) {
+  return bf16 ? 16 : kSolidHaloRows;
+}
 
 // The post-collision populations of a shard's interior edges, which the
 // one-step pre-haloed kernels (K4, K2) hand to the caller's wall fixups
@@ -314,8 +323,9 @@ __device__ __forceinline__ void store_f(__nv_bfloat16* p, float v) {
 // of the cell (gy + dy, gx + dx). On a shard of the lattice mesh (PRE)
 // (gy, gx) are its local unwrapped coordinates, p.walls and p.open hold
 // only the global edges the shard has (p.open: bit 0 the inlet, bit 1
-// the outlet), and u_in is the inlet profile of the shard's frame rows
-// (row gy at u_in[gy + kHaloRows], the global rows wrapped by the host).
+// the outlet), and u_in points at interior row 0 of the inlet profile of
+// the shard's frame rows (row gy at u_in[gy], the global rows wrapped by
+// the host).
 template <bool PRE = false, class Post>
 __device__ __forceinline__ void stream_pull(const Post& post, int gy, int gx,
                                             int ny, int nx,
@@ -346,7 +356,7 @@ __device__ __forceinline__ void stream_pull(const Post& post, int gy, int gx,
   }
   if constexpr (PRE) {
     if ((p.open & 1) && gx == 0)
-      zou_he_inlet(v, u_in[gy + kHaloRows], shift);
+      zou_he_inlet(v, u_in[gy], shift);
     if ((p.open & 2) && gx == nx - 1) zou_he_outlet(v, p.rho_out, shift);
   } else if (p.open) {
     if (gx == 0) zou_he_inlet(v, u_in[wrap(gy, ny)], shift);

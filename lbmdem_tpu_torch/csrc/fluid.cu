@@ -12,7 +12,10 @@
 // and a one-cell halo (periodic wrap at the domain edge, as the plain
 // version's torch.roll), collides it into shared memory and streams the
 // tile into `out`, the caller's second f buffer; on bf16, K5's row sweep
-// at k = 1, faster there (PERF.md section 6). Bounded by device memory:
+// at k = 1, faster there (PERF.md section 6), but on a shard's frame the
+// one-step body in both storages (it hands out the edge populations; the
+// same f' as the sweep's, the same operations in the same order).
+// Bounded by device memory:
 // per cell a step reads f and writes f' (72 B in f32, 36 B in bf16),
 // 1.2 GB per step at 4096^2, ~0.36 ms at 3.35 TB/s.
 //
@@ -60,9 +63,13 @@
 // walls ("yx") and no Zou/He: the caller fixes the shards at a global
 // edge. K5 runs the walls and closures of the shard's global edges at
 // every inner step (p.walls, p.open and the frame rows' inlet profile
-// from the host). f32 only. A pass reads the interior and the halo
-// cells its steps need - K4 a ring of one cell, K5 a ring of k (rows
-// only in "y" mode, where x wraps) - and writes the interior: 9 x 4 B x
+// from the host). On f32 and on shifted bf16, whose frames carry 16
+// halo rows (Frame.hy; the JAX bf16 row granule); bf16 rounds once per
+// pass at the store, as on the lattice, and K4's edge populations are
+// the f32 shifted ones, unrounded, so that the caller's bounce-back
+// rounds once. A pass reads the interior and the halo cells its steps
+// need - K4 a ring of one cell, K5 a ring of k (rows only in "y" mode,
+// where x wraps) - and writes the interior: 9 x 4 B (2 B in bf16) x
 // ((ny + 2k) (nx [+ 2k]) + ny nx); the frame's other halo cells are
 // exchanged but not read.
 #include <cuda_bf16.h>
@@ -76,7 +83,8 @@ constexpr int kTX = 32;
 constexpr int kTY = 16;
 constexpr int kThreads = kTX * kTY;
 
-// K4 on f32: one step of a 16 x 32 tile (see the header). PRE: 0 on
+// K4's one-step body: one step of a 16 x 32 tile (see the header), f32
+// on the lattice, f32 or bf16 on a frame. PRE: 0 on
 // the lattice, 1 ("y") or 2 ("yx") on a shard's frame `fr`, whose rows
 // (and in "yx" mode columns) past the ring of one cell are clamped: no
 // output pulls from them; there the interior's first and last rows and
@@ -94,8 +102,7 @@ __global__ void __launch_bounds__(kThreads)
   const int gy0 = blockIdx.y * kTY - 1;  // global row of window row 0
   const int gx0 = blockIdx.x * kTX - 1;
   const size_t plane = (size_t)ny * nx;
-  const size_t fplane =
-      PRE ? (size_t)(ny + 2 * kHaloRows) * fr.pitch : plane;
+  const size_t fplane = PRE ? (size_t)(ny + 2 * fr.hy) * fr.pitch : plane;
   for (int c = threadIdx.x; c < n; c += kThreads) {
     const int ly = c / w, lx = c - ly * w;
     size_t cell;
@@ -104,7 +111,7 @@ __global__ void __launch_bounds__(kThreads)
     } else {
       const int col = PRE == 2 ? min(gx0 + lx, nx) + fr.hx
                                : wrap(gx0 + lx, nx);
-      cell = (size_t)(min(gy0 + ly, ny) + kHaloRows) * fr.pitch + col;
+      cell = (size_t)(min(gy0 + ly, ny) + fr.hy) * fr.pitch + col;
     }
     float v[9];
 #pragma unroll
@@ -192,7 +199,7 @@ int launch_multi(const void* f, float* mid, void* out, const float* u_in,
 template <typename S, int PRE = 0>
 int launch_step(const void* f, void* out, const float* u_in, int ny, int nx,
                 const FluidParams& p, cudaStream_t stream,
-                Frame fr = Frame{0, 0},
+                Frame fr = Frame{0, 0, 0},
                 EdgePost edge = EdgePost{nullptr, nullptr}) {
   const dim3 grid((nx + kTX - 1) / kTX, (ny + kTY - 1) / kTY);
   fluid_step_kernel<S, PRE><<<grid, kThreads, 0, stream>>>(
@@ -201,27 +208,28 @@ int launch_step(const void* f, void* out, const float* u_in, int ny, int nx,
   return (int)cudaGetLastError();
 }
 
-// K5 on a frame: one f32 sweep (k <= kSweepK) of the options
-template <int PRE, int TRT, int LES, int FORCED>
+// K5 on a frame: one sweep (k <= kSweepK) of the options, S -> S
+template <typename S, int PRE, int TRT, int LES, int FORCED>
 int launch_sweep_prehalo(const void* f, void* out, const float* u_in, int ny,
                          int nx, int k, const FluidParams& p, Frame fr,
                          cudaStream_t stream) {
-  return launch_temporal_block<float, float, false, kRows,
+  return launch_temporal_block<S, S, sizeof(S) == 2, kRows,
                                (TRT || LES) ? 1 : 2,
                                FluidCell<TRT, LES, FORCED>, PRE>(
       f, u_in, out, FluidCell<TRT, LES, FORCED>{}, ny, nx, k, strip, p,
       stream, fr);
 }
 
-template <int PRE>
+template <typename S, int PRE>
 int launch_multi_prehalo(const void* f, void* out, const float* u_in, int ny,
                          int nx, int k, const FluidParams& p, Frame fr,
                          cudaStream_t stream) {
-#define LBM_FP(TRT, LES)                                                    \
-  (p.forced ? launch_sweep_prehalo<PRE, TRT, LES, 1>(f, out, u_in, ny, nx, \
-                                                     k, p, fr, stream)     \
-            : launch_sweep_prehalo<PRE, TRT, LES, 0>(f, out, u_in, ny, nx, \
-                                                     k, p, fr, stream))
+#define LBM_FP(TRT, LES)                                                     \
+  (p.forced ? launch_sweep_prehalo<S, PRE, TRT, LES, 1>(f, out, u_in, ny,   \
+                                                        nx, k, p, fr,       \
+                                                        stream)             \
+            : launch_sweep_prehalo<S, PRE, TRT, LES, 0>(f, out, u_in, ny,   \
+                                                        nx, k, p, fr, stream))
   if (p.trt) return p.les ? LBM_FP(1, 1) : LBM_FP(1, 0);
   return p.les ? LBM_FP(0, 1) : LBM_FP(0, 0);
 #undef LBM_FP
@@ -259,39 +267,52 @@ extern "C" int lbm_fluid_multi(const void* f, void* out, float* mid,
               : launch_multi<float>(f, mid, out, u_in, ny, nx, k, p, stream);
 }
 
-// K4 on a shard's pre-haloed frame (f32): f (9, ny + 16, pitch), the
-// interior at column hx (128 in "yx" mode, else 0; pitch = nx + 2 hx);
-// out (9, ny, nx); erow (9, 2, nx) and ecol (9, ny, 2) f32, or null: the
-// post-collision populations of the interior's first and last rows and
-// columns. p carries only the walls the kernel runs (the x walls in "y"
-// mode, none in "yx") and no Zou/He.
+// K4 on a shard's pre-haloed frame: f (9, ny + 2 hy, pitch) f32 (hy = 8)
+// or shifted bf16 (bf16 = 1, hy = 16), the interior at column hx (128 in
+// "yx" mode, else 0; pitch = nx + 2 hx); out (9, ny, nx) of f's type;
+// erow (9, 2, nx) and ecol (9, ny, 2) f32, or null: the post-collision
+// populations of the interior's first and last rows and columns (on
+// bf16 the shifted ones, unrounded). p carries only the walls the kernel
+// runs (the x walls in "y" mode, none in "yx") and no Zou/He.
 extern "C" int lbm_fluid_step_prehalo(const void* f, void* out, float* erow,
                                       float* ecol, int ny, int nx, int pitch,
-                                      int hx, FluidParams p,
+                                      int hx, int bf16, FluidParams p,
                                       cudaStream_t stream) {
   if (p.open || pitch != nx + 2 * hx || (hx != 0 && hx != kHaloCols))
     return (int)cudaErrorInvalidValue;
-  const Frame fr{pitch, hx};
+  const Frame fr{pitch, hx, frame_hy(bf16)};
   const EdgePost edge{erow, ecol};
+  if (bf16)
+    return hx ? launch_step<__nv_bfloat16, 2>(f, out, nullptr, ny, nx, p,
+                                              stream, fr, edge)
+              : launch_step<__nv_bfloat16, 1>(f, out, nullptr, ny, nx, p,
+                                              stream, fr, edge);
   return hx ? launch_step<float, 2>(f, out, nullptr, ny, nx, p, stream, fr,
                                     edge)
             : launch_step<float, 1>(f, out, nullptr, ny, nx, p, stream, fr,
                                     edge);
 }
 
-// K5 on a shard's pre-haloed frame (f32): k <= 4 steps in one sweep, the
-// frame as lbm_fluid_step_prehalo's; p carries the walls and Zou/He sides
+// K5 on a shard's pre-haloed frame: k <= 4 steps in one sweep, f, out and
+// bf16 as lbm_fluid_step_prehalo's; p carries the walls and Zou/He sides
 // of the shard's global edges (p.open: bit 0 inlet, bit 1 outlet); u_in:
-// (ny + 16,) f32, the inlet profile at the frame's global rows (read only
-// when p.open).
+// (ny + 2 hy,) f32, the inlet profile at the frame's global rows (read
+// only when p.open).
 extern "C" int lbm_fluid_multi_prehalo(const void* f, void* out,
                                        const float* u_in, int ny, int nx,
-                                       int pitch, int hx, int k,
+                                       int pitch, int hx, int k, int bf16,
                                        FluidParams p, cudaStream_t stream) {
   if (k < 1 || k > kSweepK || pitch != nx + 2 * hx ||
       (hx != 0 && hx != kHaloCols) || (p.open && u_in == nullptr))
     return (int)cudaErrorInvalidValue;
-  const Frame fr{pitch, hx};
-  return hx ? launch_multi_prehalo<2>(f, out, u_in, ny, nx, k, p, fr, stream)
-            : launch_multi_prehalo<1>(f, out, u_in, ny, nx, k, p, fr, stream);
+  const Frame fr{pitch, hx, frame_hy(bf16)};
+  if (bf16)
+    return hx ? launch_multi_prehalo<__nv_bfloat16, 2>(f, out, u_in, ny, nx,
+                                                       k, p, fr, stream)
+              : launch_multi_prehalo<__nv_bfloat16, 1>(f, out, u_in, ny, nx,
+                                                       k, p, fr, stream);
+  return hx ? launch_multi_prehalo<float, 2>(f, out, u_in, ny, nx, k, p, fr,
+                                             stream)
+            : launch_multi_prehalo<float, 1>(f, out, u_in, ny, nx, k, p, fr,
+                                             stream);
 }

@@ -350,9 +350,10 @@ __global__ void zou_he_edges_kernel(const float* __restrict__ edge,
 }
 
 // The one-step push kernel on a shard's pre-haloed frame (K2 and K8 on
-// the lattice mesh; f32): f and the solid fields eps, usx, usy are
-// frames (d2q9.cuh Frame, all of pitch fr.pitch), fout the (9, ny, nx)
-// interior. One
+// the lattice mesh): f is a frame (d2q9.cuh Frame: fr.hy halo rows, f32
+// or shifted bf16, S as in coupled_step_kernel), the solid fields eps,
+// usx, usy the solid window's planes (kSolidHaloRows rows, the same
+// pitch), fout the (9, ny, nx) interior in f's type. One
 // thread per cell of the interior and its ring of one cell (the ring's
 // rows always; its columns in "yx" mode, PRE = 2 - in "y" mode, PRE = 1,
 // x wraps over the shard's full width). Each collides once; the
@@ -363,28 +364,31 @@ __global__ void zou_he_edges_kernel(const float* __restrict__ edge,
 // walls ("y" mode) or none ("yx"), p.open is 0: the caller fixes the
 // global edges of the shards that hold them (the JAX _stream_and_bb with
 // prehalo), from the post-collision populations of the interior's edge
-// rows and columns that `edge` receives.
-template <bool TRT, bool LES, bool LAMBDA, class Sink, int PRE>
+// rows and columns that `edge` receives (f32; on bf16 the shifted ones,
+// unrounded, so that the fixup rounds once, as the in-kernel wall does).
+template <typename S, bool TRT, bool LES, bool LAMBDA, class Sink, int PRE>
 __global__ void __launch_bounds__(kStepMaxThreads)
-    coupled_step_prehalo_kernel(const float* __restrict__ f,
+    coupled_step_prehalo_kernel(const S* __restrict__ f,
                                 const float* __restrict__ eps,
                                 const float* __restrict__ usx,
                                 const float* __restrict__ usy,
-                                float* __restrict__ fout, Sink sink, int ny,
+                                S* __restrict__ fout, Sink sink, int ny,
                                 int nx, Frame fr, FluidParams p, float tm,
                                 EdgePost edge) {
+  constexpr bool kShift = sizeof(S) == 2;
   constexpr int kRing = PRE == 2 ? 1 : 0;  // ring columns per side
   const int gx = blockIdx.x * 32 + threadIdx.x - kRing;
   const int gy = blockIdx.y * blockDim.y + threadIdx.y - 1;
   if (gx >= nx + kRing || gy > ny) return;
-  const size_t fplane = (size_t)(ny + 2 * kHaloRows) * fr.pitch;
-  const size_t src = (size_t)(gy + kHaloRows) * fr.pitch + gx + fr.hx;
+  const size_t fplane = (size_t)(ny + 2 * fr.hy) * fr.pitch;
+  const size_t src = (size_t)(gy + fr.hy) * fr.pitch + gx + fr.hx;
+  const size_t ssrc = (size_t)(gy + kSolidHaloRows) * fr.pitch + gx + fr.hx;
   float fc[9], fp[9], phix, phiy;
 #pragma unroll
-  for (int i = 0; i < 9; ++i) fc[i] = f[i * fplane + src];
-  const float eps_raw = eps[src];
-  collide_cell<false, TRT, LES, LAMBDA>(fc, eps_raw, usx[src], usy[src], p,
-                                        tm, fp, &phix, &phiy);
+  for (int i = 0; i < 9; ++i) fc[i] = load_f(f + i * fplane + src);
+  const float eps_raw = eps[ssrc];
+  collide_cell<kShift, TRT, LES, LAMBDA>(fc, eps_raw, usx[ssrc], usy[ssrc],
+                                         p, tm, fp, &phix, &phiy);
   const size_t plane = (size_t)ny * nx;
   const bool inside = gy >= 0 && gy < ny && gx >= 0 && gx < nx;
   if (inside) {
@@ -407,7 +411,7 @@ __global__ void __launch_bounds__(kStepMaxThreads)
       dx = dx < 0 ? nx - 1 : (dx == nx ? 0 : dx);
     }
     if (dy < 0 || dy >= ny || dx < 0 || dx >= nx) continue;
-    fout[slot * plane + (size_t)dy * nx + dx] = v;
+    store_f(fout + slot * plane + (size_t)dy * nx + dx, v);
   }
 }
 
@@ -433,10 +437,10 @@ int launch_coupled_step(const void* f, const float* eps, const float* usx,
   return (int)cudaGetLastError();
 }
 
-template <bool TRT, bool LES, bool LAMBDA, class Sink>
-int launch_coupled_step_prehalo(const float* f, const float* eps,
+template <typename S, bool TRT, bool LES, bool LAMBDA, class Sink>
+int launch_coupled_step_prehalo(const void* f, const float* eps,
                                 const float* usx, const float* usy,
-                                float* fout, Sink sink, int ny, int nx,
+                                void* fout, Sink sink, int ny, int nx,
                                 Frame fr, const FluidParams& p, float tm,
                                 EdgePost edge, int threads,
                                 cudaStream_t stream) {
@@ -445,13 +449,15 @@ int launch_coupled_step_prehalo(const float* f, const float* eps,
     return (int)cudaErrorInvalidValue;
   const int by = threads / 32, ring = fr.hx ? 2 : 0;
   const dim3 grid((nx + ring + 31) / 32, (ny + 2 + by - 1) / by);
+  const S* fs = static_cast<const S*>(f);
+  S* fo = static_cast<S*>(fout);
   if (fr.hx)
-    coupled_step_prehalo_kernel<TRT, LES, LAMBDA, Sink, 2>
-        <<<grid, dim3(32, by), 0, stream>>>(f, eps, usx, usy, fout, sink, ny,
+    coupled_step_prehalo_kernel<S, TRT, LES, LAMBDA, Sink, 2>
+        <<<grid, dim3(32, by), 0, stream>>>(fs, eps, usx, usy, fo, sink, ny,
                                             nx, fr, p, tm, edge);
   else
-    coupled_step_prehalo_kernel<TRT, LES, LAMBDA, Sink, 1>
-        <<<grid, dim3(32, by), 0, stream>>>(f, eps, usx, usy, fout, sink, ny,
+    coupled_step_prehalo_kernel<S, TRT, LES, LAMBDA, Sink, 1>
+        <<<grid, dim3(32, by), 0, stream>>>(fs, eps, usx, usy, fo, sink, ny,
                                             nx, fr, p, tm, edge);
   return (int)cudaGetLastError();
 }
@@ -478,15 +484,15 @@ int dispatch_coupled_step(const void* f, const float* eps, const float* usx,
 #undef LBM_STEP
 }
 
-template <class Sink>
-int dispatch_coupled_step_prehalo(const float* f, const float* eps,
+template <typename S, class Sink>
+int dispatch_coupled_step_prehalo(const void* f, const float* eps,
                                   const float* usx, const float* usy,
-                                  float* fout, Sink sink, int ny, int nx,
+                                  void* fout, Sink sink, int ny, int nx,
                                   Frame fr, int lambda, const FluidParams& p,
                                   float tm, EdgePost edge, int threads,
                                   cudaStream_t stream) {
 #define LBM_STEP(TRT, LES, LAMBDA)                                         \
-  launch_coupled_step_prehalo<TRT, LES, LAMBDA, Sink>(                     \
+  launch_coupled_step_prehalo<S, TRT, LES, LAMBDA, Sink>(                  \
       f, eps, usx, usy, fout, sink, ny, nx, fr, p, tm, edge, threads,      \
       stream)
   if (p.trt) {

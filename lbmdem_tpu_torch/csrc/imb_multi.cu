@@ -32,9 +32,10 @@
 // No atomics: f' and the partials are deterministic.
 //
 // Pre-haloed mode (lbm_imb_multi_prehalo, the lattice mesh's coupling_k
-// window): launch (a) reads a shard's f frame and solid window (d2q9.cuh
-// Frame: 8 halo rows and, in "yx" mode, 128 halo columns per side, the
-// dependency cone of k <= 8 steps) and writes the interior; the walls and
+// window): launch (a) reads a shard's f frame (d2q9.cuh Frame: 8 halo
+// rows in f32, 16 in bf16) and solid window (8 rows in both, the
+// dependency cone of k <= 8 steps) with, in "yx" mode, 128 halo columns
+// per side, and writes the interior; the walls and
 // the Zou/He closures of the shard's global edges run at every inner
 // step (p.walls, p.open and the frame rows' inlet profile from the
 // host). Launch (b) is K2's pre-haloed reduce over k inner steps: the
@@ -92,37 +93,39 @@ extern "C" int lbm_imb_multi(const void* f, const float* solid,
                        window, cp, k, stream);
 }
 
-// K6 on a shard's pre-haloed frame (f32): f (9, ny + 16, pitch) and solid
-// (3, ny + 16, pitch), the interior at column hx (128 in "yx" mode, else
-// 0; pitch = nx + 2 hx); out (9, ny, nx); w (k, 2, ny, nx) scratch; the
+// K6 on a shard's pre-haloed frame: f (9, ny + 2 hy, pitch) f32 (hy = 8)
+// or shifted bf16 (bf16 = 1, hy = 16) and solid (3, ny + 16, pitch) f32,
+// the interior at column hx (128 in "yx" mode, else 0; pitch = nx +
+// 2 hx); out (9, ny, nx) of f's type; w (k, 2, ny, nx) scratch; the
 // binning of the interior's th x tw tiles with disk records whose frame
 // puts the interior's (0, 0) at (oy, ox); p carries the walls and Zou/He
 // sides of the shard's global edges (p.open: bit 0 inlet, bit 1 outlet);
-// u_in: (ny + 16,) f32, the inlet profile at the frame's global rows
+// u_in: (ny + 2 hy,) f32, the inlet profile at the frame's global rows
 // (read only when p.open). 1 <= k <= 8.
 extern "C" int lbm_imb_multi_prehalo(
-    const float* f, const float* solid, const float* u_in,
-    const float* tile_data, const int* counts, float* out, float* w,
+    const void* f, const float* solid, const float* u_in,
+    const float* tile_data, const int* counts, void* out, float* w,
     float* partials, int* offsets, int ny, int nx, int pitch, int hx, int oy,
     int ox, int th, int tw, int ntx, int n_tiles, int cap, int window,
-    CovParams cp, int k, int lambda, FluidParams p, float tm, float eps_min,
-    cudaStream_t stream) {
+    CovParams cp, int k, int bf16, int lambda, FluidParams p, float tm,
+    float eps_min, cudaStream_t stream) {
   if (pitch != nx + 2 * hx || (hx != 0 && hx != kHaloCols) ||
       (p.open && u_in == nullptr))
     return (int)cudaErrorInvalidValue;
   const size_t plane = (size_t)ny * nx;
   const WSteps sink{w, plane, eps_min};
-  const Frame fr{pitch, hx};
-  const int err =
-      hx ? dispatch_temporal_block<float, WSteps, 2>(
-               f, solid, u_in, out, sink, ny, nx, k, lambda, strip, p, tm,
-               stream, fr)
-         : dispatch_temporal_block<float, WSteps, 1>(
-               f, solid, u_in, out, sink, ny, nx, k, lambda, strip, p, tm,
-               stream, fr);
+  const Frame fr{pitch, hx, frame_hy(bf16)};
+#define LBM_K6P(S, PRE)                                                   \
+  dispatch_temporal_block<S, WSteps, PRE>(f, solid, u_in, out, sink, ny,  \
+                                          nx, k, lambda, strip, p, tm,    \
+                                          stream, fr)
+  const int err = bf16 ? (hx ? LBM_K6P(__nv_bfloat16, 2)
+                             : LBM_K6P(__nv_bfloat16, 1))
+                       : (hx ? LBM_K6P(float, 2) : LBM_K6P(float, 1));
+#undef LBM_K6P
   if (err != 0) return err;
   return launch_reduce(WPlanes{w, plane},
-                       solid + (size_t)kHaloRows * pitch + hx, tile_data,
+                       solid + (size_t)kSolidHaloRows * pitch + hx, tile_data,
                        counts, offsets, partials, nx, th, tw, ntx, n_tiles,
                        cap, window, cp, k, stream, pitch, oy, ox);
 }

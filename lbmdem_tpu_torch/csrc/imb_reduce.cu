@@ -45,10 +45,14 @@
 // the origin (oy, ox) of the shard's stamp canvas, where the disk records
 // live, and reads eps_raw from the window. It replaces the prehalo and
 // origin branches of the TPU kernel (_imb_reduce_kernel's pre-haloed
-// windows and oy/ox, pallas_lbm.py:1048). Bytes per step: f and the
-// solid window over the interior and its ring of one cell (48 B per cell
-// of (ny + 2)(nx [+ 2])) read, f' (36 B per interior cell) written, f32
-// only.
+// windows and oy/ox, pallas_lbm.py:1048). f is an f32 frame of 8 halo
+// rows or a shifted-bf16 frame of 16 (d2q9.cuh Frame.hy, the JAX bf16
+// granule), the solid window 8 rows in both: the step reads the f frame
+// at its rows and the window at its own, as the JAX kernel reads
+// win[hy - 1 ...] beside swin[_HY - 1 ...] (pallas_lbm.py:1093-1096).
+// Bytes per step: f and the solid window over the interior and its ring
+// of one cell (48 B per cell of (ny + 2)(nx [+ 2]), 30 B in bf16) read,
+// f' (36 B per interior cell, 18 B in bf16) written.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -87,34 +91,41 @@ extern "C" int lbm_imb_step(const void* f, const float* solid,
                        stream);
 }
 
-// K2 on a shard's pre-haloed frame (f32): f (9, ny + 16, pitch) and solid
-// (3, ny + 16, pitch), the interior at column hx (128 in "yx" mode, else
-// 0; pitch = nx + 2 hx); fout (9, ny, nx); w (2, ny, nx) scratch; the
+// K2 on a shard's pre-haloed frame: f (9, ny + 2 hy, pitch) f32 (hy = 8)
+// or shifted bf16 (bf16 = 1, hy = 16) and solid (3, ny + 16, pitch) f32,
+// the interior at column hx (128 in "yx" mode, else 0; pitch = nx +
+// 2 hx); fout (9, ny, nx) of f's type; w (2, ny, nx) scratch; the
 // binning of the interior's th x tw tiles with disk records in canvas
 // coordinates, the interior's (0, 0) at canvas cell (oy, ox); p carries
 // only the x walls ("y" mode) or none ("yx"), and no Zou/He; erow (9, 2,
 // nx) and ecol (9, ny, 2) f32, or null: the post-collision populations of
-// the interior's first and last rows and columns.
+// the interior's first and last rows and columns (bf16: the shifted
+// ones, unrounded).
 extern "C" int lbm_imb_step_prehalo(
-    const float* f, const float* solid, const float* tile_data,
-    const int* counts, float* fout, float* w, float* erow, float* ecol,
+    const void* f, const float* solid, const float* tile_data,
+    const int* counts, void* fout, float* w, float* erow, float* ecol,
     float* partials, int* offsets,
     int ny, int nx, int pitch, int hx, int oy, int ox, int th, int tw,
-    int ntx, int n_tiles, int cap, int window, CovParams cp, int lambda,
-    FluidParams p, float tm, float eps_min, int threads,
+    int ntx, int n_tiles, int cap, int window, CovParams cp, int bf16,
+    int lambda, FluidParams p, float tm, float eps_min, int threads,
     cudaStream_t stream) {
   if (pitch != nx + 2 * hx || (hx != 0 && hx != kHaloCols))
     return (int)cudaErrorInvalidValue;
   const size_t plane = (size_t)ny * nx;
-  const size_t fplane = (size_t)(ny + 2 * kHaloRows) * pitch;
-  const Frame fr{pitch, hx};
-  const int err = dispatch_coupled_step_prehalo(
-      f, solid, solid + fplane, solid + 2 * fplane, fout,
-      WSink{w, plane, eps_min}, ny, nx, fr, lambda, p, tm,
-      EdgePost{erow, ecol}, threads, stream);
+  const size_t splane = (size_t)(ny + 2 * kSolidHaloRows) * pitch;
+  const Frame fr{pitch, hx, frame_hy(bf16)};
+  const WSink sink{w, plane, eps_min};
+  const EdgePost edge{erow, ecol};
+  const int err =
+      bf16 ? dispatch_coupled_step_prehalo<__nv_bfloat16>(
+                 f, solid, solid + splane, solid + 2 * splane, fout, sink, ny,
+                 nx, fr, lambda, p, tm, edge, threads, stream)
+           : dispatch_coupled_step_prehalo<float>(
+                 f, solid, solid + splane, solid + 2 * splane, fout, sink, ny,
+                 nx, fr, lambda, p, tm, edge, threads, stream);
   if (err != 0) return err;
   return launch_reduce(WPlanes{w, plane},
-                       solid + (size_t)kHaloRows * pitch + hx, tile_data,
+                       solid + (size_t)kSolidHaloRows * pitch + hx, tile_data,
                        counts, offsets, partials, nx, th, tw, ntx, n_tiles,
                        cap, window, cp, 1, stream, pitch, oy, ox);
 }

@@ -69,9 +69,10 @@ extern "C" int lbm_imb_split_step_prehalo(
     cudaStream_t stream) {
   if (pitch != nx + 2 * hx || (hx != 0 && hx != kHaloCols))
     return (int)cudaErrorInvalidValue;
-  return dispatch_coupled_step_prehalo(
+  return dispatch_coupled_step_prehalo<float>(
       f, eps, usx, usy, fout, PhiSink{phi, (size_t)ny * nx}, ny, nx,
-      Frame{pitch, hx}, lambda, p, tm, EdgePost{erow, ecol}, threads, stream);
+      Frame{pitch, hx, frame_hy(0)}, lambda, p, tm, EdgePost{erow, ecol},
+      threads, stream);
 }
 
 // K9. eps, phix, phiy: (ny, nx) f32; tile_data/counts: the stamp binning

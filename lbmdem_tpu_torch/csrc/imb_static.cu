@@ -24,9 +24,13 @@
 // lattice mesh): the same sweep on a shard's f frame and solid window
 // (d2q9.cuh Frame), the walls and Zou/He closures of the shard's global
 // edges at every inner step; it replaces the prehalo, edges and ny_glob
-// branches of the TPU kernel (pallas_lbm.py:911). Bytes per pass: f and
-// the solid window over the interior and its ring of k cells (rows only
-// in "y" mode) read, f' written.
+// branches of the TPU kernel (pallas_lbm.py:911). The f frame has 8 halo
+// rows in f32 and 16 in bf16, the solid window 8 in both (the JAX kernel
+// pads it by hy - 8 rows to the f window, pallas_lbm.py:952-958; here the
+// sweep reads it at its own rows), so k <= 8 in both storages, as the JAX
+// kernel keeps (:988). Bytes per pass: f and the solid window over the
+// interior and its ring of k cells (rows only in "y" mode) read, f'
+// written.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -61,26 +65,30 @@ extern "C" int lbm_imb_static_multi(const void* f, const float* solid,
                                                stream);
 }
 
-// K7 on a shard's pre-haloed frame (f32): f (9, ny + 16, pitch) and solid
-// (3, ny + 16, pitch), the interior at column hx (128 in "yx" mode, else
-// 0; pitch = nx + 2 hx); out (9, ny, nx); p carries the walls and Zou/He
+// K7 on a shard's pre-haloed frame: f (9, ny + 2 hy, pitch) f32 (hy = 8)
+// or shifted bf16 (bf16 = 1, hy = 16) and solid (3, ny + 16, pitch) f32,
+// the interior at column hx (128 in "yx" mode, else 0; pitch = nx +
+// 2 hx); out (9, ny, nx) of f's type; p carries the walls and Zou/He
 // sides of the shard's global edges (p.open: bit 0 inlet, bit 1 outlet);
-// u_in: (ny + 16,) f32, the inlet profile at the frame's global rows
+// u_in: (ny + 2 hy,) f32, the inlet profile at the frame's global rows
 // (read only when p.open); 1 <= k <= 8.
-extern "C" int lbm_imb_static_multi_prehalo(const float* f,
-                                            const float* solid, float* out,
+extern "C" int lbm_imb_static_multi_prehalo(const void* f,
+                                            const float* solid, void* out,
                                             const float* u_in, int ny, int nx,
                                             int pitch, int hx, int k,
-                                            int lambda, FluidParams p,
-                                            float tm, cudaStream_t stream) {
+                                            int bf16, int lambda,
+                                            FluidParams p, float tm,
+                                            cudaStream_t stream) {
   if (pitch != nx + 2 * hx || (hx != 0 && hx != kHaloCols) ||
       (p.open && u_in == nullptr))
     return (int)cudaErrorInvalidValue;
-  const Frame fr{pitch, hx};
-  return hx ? dispatch_temporal_block<float, NoSink, 2>(
-                  f, solid, u_in, out, NoSink{}, ny, nx, k, lambda, strip, p,
-                  tm, stream, fr)
-            : dispatch_temporal_block<float, NoSink, 1>(
-                  f, solid, u_in, out, NoSink{}, ny, nx, k, lambda, strip, p,
-                  tm, stream, fr);
+  const Frame fr{pitch, hx, frame_hy(bf16)};
+#define LBM_K7P(S, PRE)                                                     \
+  dispatch_temporal_block<S, NoSink, PRE>(f, solid, u_in, out, NoSink{},    \
+                                          ny, nx, k, lambda, strip, p, tm,  \
+                                          stream, fr)
+  if (bf16)
+    return hx ? LBM_K7P(__nv_bfloat16, 2) : LBM_K7P(__nv_bfloat16, 1);
+  return hx ? LBM_K7P(float, 2) : LBM_K7P(float, 1);
+#undef LBM_K7P
 }

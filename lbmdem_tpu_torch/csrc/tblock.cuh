@@ -185,14 +185,16 @@ inline size_t tblock_smem(int k, int threads) {
 // collides per thread between barriers, half the barriers). PRE: 0 on
 // the lattice; 1 ("y") or 2 ("yx") on a shard's pre-haloed frame `fr`
 // (d2q9.cuh Frame): level 0 reads row y of the interior from frame row
-// y + kHaloRows, which holds exchanged data for the k <= kHaloRows rows
-// above and below the interior, and column x from frame column x + hx
-// in "yx" mode (wrapped in x in "y" mode, where the shard spans the
-// lattice's width); the walls and Zou/He closures that fire are those
-// of p (the shard's global edges). An NTCell reads its solid stack from
-// a frame of the same shape (3 planes of the frame's plane, the JAX
-// solid window of 8 halo rows and, in "yx" mode, 128 halo columns) at
-// the f frame's index. The body is one device function; the lattice's
+// y + fr.hy (8 halo rows on f32, 16 on bf16), which holds exchanged data
+// for the k <= fr.hy rows above and below the interior, and column x
+// from frame column x + hx in "yx" mode (wrapped in x in "y" mode, where
+// the shard spans the lattice's width); the walls and Zou/He closures
+// that fire are those of p (the shard's global edges), and u_in is the
+// inlet profile of the frame's rows. An NTCell reads its solid stack
+// from the JAX solid window: 3 planes of the frame's pitch with
+// kSolidHaloRows = 8 halo rows in both storages (row y at y + 8; k <= 8
+// keeps the cone inside) and, in "yx" mode, 128 halo columns, at the f
+// frame's column. The body is one device function; the lattice's
 // kernel (temporal_block_kernel) and the frame's
 // (temporal_block_prehalo_kernel) are two entries, so the lattice's
 // keeps its own signature and code.
@@ -213,12 +215,15 @@ __device__ __forceinline__ void temporal_block_body(
   const int gx = blockIdx.x * (T - 2 * k) - k + lx;  // global unwrapped
   const int cx = wrap(gx, nx);
   const size_t plane = (size_t)ny * nx;
-  // PRE: the frame's plane (of f and of the solid stack), and the lane's
-  // frame column (lanes past the 2k-column cone that no output needs
-  // read a clamped column)
-  const size_t fplane =
-      PRE ? (size_t)(ny + 2 * kHaloRows) * fr.pitch : plane;
+  // PRE: the planes of the f frame and of the solid window, and the
+  // lane's frame column (lanes past the 2k-column cone that no output
+  // needs read a clamped column); u_in from interior row 0 of the frame's
+  // profile (d2q9.cuh stream_pull)
+  const size_t fplane = PRE ? (size_t)(ny + 2 * fr.hy) * fr.pitch : plane;
+  const size_t splane =
+      PRE ? (size_t)(ny + 2 * kSolidHaloRows) * fr.pitch : plane;
   const int fx = PRE == 2 ? min(gx, nx + kHaloCols - 1) + fr.hx : cx;
+  if (PRE && u_in != nullptr) u_in += fr.hy;
   const float shift = kShift ? p.rho0 : 0.0f;
   const int R = 2 * k - 1;
   // NTCell: [R][eps_raw, us_x, us_y][T]
@@ -247,15 +252,17 @@ __device__ __forceinline__ void temporal_block_body(
       float v[9], e = 0.f, sx = 0.f, sy = 0.f;
       float* sr = sol + (size_t)rs * 3 * T + lx;
       if (t == 0) {  // row j from device memory
-        const size_t c =
-            PRE ? (size_t)(y0 - k + j + kHaloRows) * fr.pitch + fx
-                : (size_t)wrap(y0 - k + j, ny) * nx + cx;
+        const int y = y0 - k + j;
+        const size_t c = PRE ? (size_t)(y + fr.hy) * fr.pitch + fx
+                             : (size_t)wrap(y, ny) * nx + cx;
 #pragma unroll
         for (int i = 0; i < 9; ++i) v[i] = load_f(f + i * fplane + c);
         if constexpr (Cell::kSolid) {
-          e = __ldg(cell.solid + c);  // read-only, as a __restrict__ one
-          sx = __ldg(cell.solid + fplane + c);
-          sy = __ldg(cell.solid + 2 * fplane + c);
+          const size_t cs =
+              PRE ? (size_t)(y + kSolidHaloRows) * fr.pitch + fx : c;
+          e = __ldg(cell.solid + cs);  // read-only, as a __restrict__ one
+          sx = __ldg(cell.solid + splane + cs);
+          sy = __ldg(cell.solid + 2 * splane + cs);
           if (k > 1) {
             sr[0] = e;
             sr[T] = sx;
@@ -307,7 +314,8 @@ __global__ void __launch_bounds__(kTBMaxThreads, MINB)
                           Cell cell, int ny, int nx, int k, int rows,
                           FluidParams p) {
   temporal_block_body<S, SO, SHIFT, ROWS, Cell, 0>(f, u_in, out, cell, ny, nx,
-                                                   k, rows, p, Frame{0, 0});
+                                                   k, rows, p,
+                                                   Frame{0, 0, 0});
 }
 
 template <typename S, typename SO, bool SHIFT, int ROWS, int MINB,
@@ -339,7 +347,7 @@ template <typename S, typename SO, bool SHIFT, int ROWS, int MINB,
 int launch_temporal_block(const void* f, const float* u_in, void* out,
                           Cell cell, int ny, int nx, int k, StripConfig strip,
                           const FluidParams& p, cudaStream_t stream,
-                          Frame fr = Frame{0, 0}) {
+                          Frame fr = Frame{0, 0, 0}) {
   auto kernel = [] {
     if constexpr (PRE == 0)
       return temporal_block_kernel<S, SO, SHIFT, ROWS, MINB, Cell>;
@@ -347,7 +355,7 @@ int launch_temporal_block(const void* f, const float* u_in, void* out,
       return temporal_block_prehalo_kernel<S, SO, SHIFT, ROWS, MINB, Cell,
                                            PRE>;
   }();
-  if (k < 1 || k > kTBMaxK || (PRE && k > kHaloRows))
+  if (k < 1 || k > kTBMaxK || (PRE && k > fr.hy))
     return (int)cudaErrorInvalidValue;
   const int max_smem = max_block_smem();
   int threads = strip.threads;
@@ -386,13 +394,14 @@ int launch_temporal_block(const void* f, const float* u_in, void* out,
 // K6 and K7: the NTCell instantiation for the options (LAMBDA matters only
 // with LES, else the caller's tm already has the lambda form); 1 <= k <= 8.
 // PRE: 0 on the lattice, 1 ("y") or 2 ("yx") on a shard's frame `fr`,
-// whose solid stack is a frame too (f32 only)
+// whose solid stack is the 8-row solid window (f32 or bf16 f)
 template <typename S, class Sink, int PRE = 0>
 int dispatch_temporal_block(const void* f, const float* solid,
                             const float* u_in, void* out, Sink sink, int ny,
                             int nx, int k, int lambda, StripConfig strip,
                             const FluidParams& p, float tm,
-                            cudaStream_t stream, Frame fr = Frame{0, 0}) {
+                            cudaStream_t stream,
+                            Frame fr = Frame{0, 0, 0}) {
 #define LBM_TB(TRT, LES, LAMBDA)                                          \
   launch_temporal_block<S, S, sizeof(S) == 2, 1, (TRT || LES) ? 1 : 2,    \
                         NTCell<TRT, LES, LAMBDA, Sink>, PRE>(             \

@@ -100,21 +100,22 @@ _SIGNATURES = {
     "lbm_fluid_step": [_P, _P, _P, _I, _I, _I, FluidParams, _P],
     "lbm_fluid_multi": [_P, _P, _P, _P, _I, _I, _I, _I, FluidParams, _P],
     "lbm_fluid_strip": [_I, _I],
-    "lbm_fluid_step_prehalo": [_P, _P, _P, _P, _I, _I, _I, _I, FluidParams,
-                               _P],
-    "lbm_fluid_multi_prehalo": [_P, _P, _P, _I, _I, _I, _I, _I, FluidParams,
-                                _P],
+    "lbm_fluid_step_prehalo": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                               FluidParams, _P],
+    "lbm_fluid_multi_prehalo": [_P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                FluidParams, _P],
     "lbm_imb_step_prehalo": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                              _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                             CovParams, _I, FluidParams, _F, _F, _I, _P],
+                             CovParams, _I, _I, FluidParams, _F, _F, _I, _P],
     "lbm_imb_multi_prehalo": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                               _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                              CovParams, _I, _I, FluidParams, _F, _F, _P],
+                              CovParams, _I, _I, _I, FluidParams, _F, _F,
+                              _P],
     "lbm_imb_multi_strip": [_I, _I],
     "lbm_imb_static_multi": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
                              FluidParams, _F, _P],
     "lbm_imb_static_multi_prehalo": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                     _I, FluidParams, _F, _P],
+                                     _I, _I, FluidParams, _F, _P],
     "lbm_imb_static_strip": [_I, _I],
     "lbm_imb_split_step": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                            FluidParams, _F, _I, _P],
@@ -248,6 +249,55 @@ def setting(name: str, *args) -> None:
 def stream() -> int:
     """Handle of PyTorch's current CUDA stream, for the C launchers."""
     return torch.cuda.current_stream().cuda_stream
+
+
+# CUgraphNodeType values of the driver API that are device operations
+_GRAPH_OPS = {0: "kernel", 1: "memcpy", 2: "memset"}
+
+
+def captured_launches(fn) -> dict:
+    """The device operations one call of fn() enqueues, counted without
+    running them: fn() is captured into a CUDA graph on a side stream
+    (relaxed capture mode, so the caching allocator may still allocate)
+    and the graph's nodes are counted by type with the driver API.
+    fn() must not synchronise with the host. Returns
+    {"kernel": n, "memcpy": n, "memset": n}."""
+    cu = ctypes.CDLL("libcuda.so.1")
+
+    def drv(code: int, what: str) -> None:
+        if code != 0:
+            raise RuntimeError(f"{what}: CUDA driver error {code}")
+
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    handle = ctypes.c_void_p(side.cuda_stream)
+    graph = ctypes.c_void_p()
+    with torch.cuda.stream(side):
+        drv(cu.cuStreamBeginCapture_v2(handle, 2), "cuStreamBeginCapture")
+        try:
+            fn()
+        finally:
+            end = cu.cuStreamEndCapture(handle, ctypes.byref(graph))
+    try:
+        drv(end, "cuStreamEndCapture")
+        n = ctypes.c_size_t()
+        drv(cu.cuGraphGetNodes(graph, None, ctypes.byref(n)),
+            "cuGraphGetNodes")
+        nodes = (ctypes.c_void_p * n.value)()
+        drv(cu.cuGraphGetNodes(graph, nodes, ctypes.byref(n)),
+            "cuGraphGetNodes")
+        counts = dict.fromkeys(_GRAPH_OPS.values(), 0)
+        kind = ctypes.c_int()
+        for node in nodes:
+            drv(cu.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                      ctypes.byref(kind)),
+                "cuGraphNodeGetType")
+            if kind.value in _GRAPH_OPS:
+                counts[_GRAPH_OPS[kind.value]] += 1
+        return counts
+    finally:
+        if graph.value:
+            cu.cuGraphDestroy(graph)
 
 
 def require_cuda_f32(what: str, *tensors: torch.Tensor) -> None:

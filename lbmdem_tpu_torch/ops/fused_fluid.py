@@ -13,16 +13,18 @@ to the storage type once per call, so its plain version is k f32 steps
 between one `from_storage` and one `to_storage`.
 
 Pre-haloed mode (`prehalo`, the lattice mesh of `parallel/`): f is a
-shard's frame with HY = 8 exchanged halo rows per side ("y"), and also
-HX = 128 halo columns per side ("yx"); cfg is the shard's local config
-and the output is the (9, ny, nx) interior. K4 skips the y walls ("y")
-or every wall ("yx") and the Zou/He closures: the caller fixes the
-shards that hold a global edge afterwards. K5 runs every wall and the
-Zou/He closures itself at each inner step, gated by `edges` = (south,
-north, west, east, global row offset of the shard), with the inlet
-profile taken at the global row (`ny_glob` rows in all). Both keep the
-JAX shapes, so the parity tests feed both packages one array; f32
-storage only.
+shard's frame with `frame_hy(cfg)` exchanged halo rows per side (HY = 8
+on f32 storage, HY_BF16 = 16 on shifted bf16: the JAX row granule of
+each) and, in "yx" mode, HX = 128 halo columns per side; cfg is the
+shard's local config and the output is the (9, ny, nx) interior. K4
+skips the y walls ("y") or every wall ("yx") and the Zou/He closures:
+the caller fixes the shards that hold a global edge afterwards, from the
+post-collision populations K4 hands out (on bf16 the shifted ones, in
+f32). K5 runs every wall and the Zou/He closures itself at each inner
+step, gated by `edges` = (south, north, west, east, global row offset of
+the shard), with the inlet profile taken at the global row (`ny_glob`
+rows in all); on a frame it takes k <= SWEEP_K. Both keep the JAX
+shapes, so the parity tests feed both packages one array.
 """
 
 from __future__ import annotations
@@ -49,10 +51,19 @@ SWEEP_K = 4
 # chip_smoke.py's sweep at 4096^2
 STRIP = (128, 64)
 
-# halo of a pre-haloed frame: rows per side, and columns per side in
-# "yx" mode (the JAX shapes: its f32 DMA row granule and lane granule)
+# halo of a pre-haloed frame (the JAX shapes: its DMA row granules and
+# lane granule): rows per side of an f32 frame and of the coupled
+# kernels' solid window in both storages, of a bf16 frame, and columns
+# per side in "yx" mode
 HY = 8
+HY_BF16 = 16
 HX = 128
+
+
+def frame_hy(cfg: SimConfig) -> int:
+    """Halo rows per side of cfg's pre-haloed f frame: HY_BF16 on bf16
+    storage, else HY (the JAX pallas_lbm._storage's hy)."""
+    return HY_BF16 if cfg.f_storage == "bfloat16" else HY
 
 
 def prehalo_mode(prehalo) -> str:
@@ -71,25 +82,28 @@ def prehalo_mode(prehalo) -> str:
 def frame_shape(cfg: SimConfig, mode: str):
     """The (9, rows, cols) input frame of a shard of cfg's (local) size
     in pre-halo mode `mode` ("" is the lattice itself)."""
-    return (9, cfg.ny + (2 * HY if mode else 0),
+    return (9, cfg.ny + (2 * frame_hy(cfg) if mode else 0),
+            cfg.nx + (2 * HX if mode == "yx" else 0))
+
+
+def solid_shape(cfg: SimConfig, mode: str):
+    """The (3, rows, cols) solid window of a shard in pre-halo mode
+    `mode`: HY rows per side in both storages."""
+    return (3, cfg.ny + (2 * HY if mode else 0),
             cfg.nx + (2 * HX if mode == "yx" else 0))
 
 
 def check_fluid_cfg(cfg: SimConfig, prehalo=False, edges=None,
                     k: int = 1) -> str:
     """The pre-halo mode of the arguments; raise for what the fluid
-    kernels do not take: edges without a pre-haloed frame, bf16 storage
-    on a frame (its 16-row halo), K5 on a frame deeper than one row sweep
-    (k > SWEEP_K)."""
+    kernels do not take: edges without a pre-haloed frame, K5 on a frame
+    deeper than one row sweep (k > SWEEP_K)."""
     mode = prehalo_mode(prehalo)
     if not mode:
         if edges is not None:
             raise ValueError("edges are the mesh position of a pre-haloed "
                              "shard (prehalo='y' or 'yx')")
         return mode
-    if cfg.f_storage != "float32":
-        raise not_ported("bf16 storage on a lattice mesh (16-row halos)",
-                         12)
     if k > SWEEP_K:
         raise not_ported(f"K5 on a pre-haloed shard with k = {k} > "
                          f"{SWEEP_K} (more than one row sweep)", 12)
@@ -172,15 +186,21 @@ def x_walls_frame(fnew, fpost, cfg: SimConfig, h: int):
     return fnew
 
 
-def edge_post_plain(fpost, mode: str, h: int, w: int, edge_post) -> None:
+def edge_post_plain(fpost, mode: str, h: int, w: int, edge_post,
+                    cfg: SimConfig) -> None:
     """Fill `edge_post` = (rows (9, 2, w), cols (9, h, 2)) with the
     post-collision populations of the interior's first and last rows and
-    columns, fpost as in stream_frame."""
+    columns, fpost as in stream_frame; on bf16 storage the shifted ones
+    fpost - w rho0 in f32, unrounded, as the kernels hand them out (the
+    bounce-back is shift-invariant: w_opp(i) = w_i)."""
     if edge_post is None:
         return
     rows, cols = edge_post
     c = slice(1, 1 + w) if mode == "yx" else slice(None)
     inner = fpost[:, 1:1 + h, c]
+    shift = lbm.storage_shift(cfg)
+    if shift is not None:
+        inner = inner - shift.to(inner.device)
     rows[:, 0] = inner[:, 0]
     rows[:, 1] = inner[:, -1]
     cols[:, :, 0] = inner[:, :, 0]
@@ -194,15 +214,15 @@ def fused_step_fluid_prehalo_plain(f, cfg: SimConfig, mode: str, out,
     "y" mode, into `out` (9, ny, nx), the edges' post-collision
     populations into `edge_post`. No y walls and no Zou/He: the sharded
     caller fixes the global edges."""
-    h, w = cfg.ny, cfg.nx
-    g = lbm.from_storage(f, cfg)[:, HY - 1:HY + h + 1]
+    h, w, hy = cfg.ny, cfg.nx, frame_hy(cfg)
+    g = lbm.from_storage(f, cfg)[:, hy - 1:hy + h + 1]
     if mode == "yx":
         g = g[:, :, HX - 1:HX + w + 1]
     fpost = _collide(g, cfg)
     fnew = stream_frame(fpost, mode, h, w)
     if mode == "y":
         x_walls_frame(fnew, fpost, cfg, h)
-    edge_post_plain(fpost, mode, h, w, edge_post)
+    edge_post_plain(fpost, mode, h, w, edge_post, cfg)
     return out.copy_(lbm.to_storage(fnew, cfg))
 
 
@@ -216,15 +236,29 @@ def fused_step_fluid_multi_prehalo_plain(f, cfg: SimConfig, k: int, mode: str,
     return out.copy_(lbm.to_storage(frame_interior(g, cfg, mode), cfg))
 
 
-def frame_interior(g, cfg: SimConfig, mode: str):
-    """The (planes, ny, nx) interior of a pre-haloed frame."""
+def frame_interior(g, cfg: SimConfig, mode: str, hy=None):
+    """The (planes, ny, nx) interior of a pre-haloed frame of hy halo
+    rows (default: cfg's f frame's, frame_hy; the solid window's: HY)."""
+    hy = frame_hy(cfg) if hy is None else hy
     hx = HX if mode == "yx" else 0
-    return g[:, HY:HY + cfg.ny, hx:hx + cfg.nx]
+    return g[:, hy:hy + cfg.ny, hx:hx + cfg.nx]
+
+
+def solid_frame(solid, cfg: SimConfig):
+    """The solid window (3, ny + 2 HY, cols) on the f frame's rows: on
+    bf16 padded with frame_hy - HY zero rows (pure fluid) per side, as
+    the JAX kernels pad it (pallas_lbm.py:952-958); no step of a cone of
+    k <= HY reaches those rows."""
+    pad = frame_hy(cfg) - HY
+    if not pad:
+        return solid
+    z = solid.new_zeros((solid.shape[0], pad, solid.shape[2]))
+    return torch.cat([z, solid, z], dim=1)
 
 
 def frame_steps_plain(g, cfg: SimConfig, k: int, mode: str, edges,
                       ny_glob: int, collide):
-    """k steps of a whole pre-haloed frame g (9, ny + 16, nx [+ 256]), the
+    """k steps of a whole pre-haloed frame g (9, ny + 2 hy, nx [+ 256]), the
     plain form of the pre-haloed temporal blocks (K5, K6, K7): each step
     collide(g, t) -> post-collision frame, streamed with periodic rolls
     (the garbage that wraps in at the frame's edge stays in the halo, one
@@ -233,7 +267,7 @@ def frame_steps_plain(g, cfg: SimConfig, k: int, mode: str, edges,
     global row offset]) says it holds that global edge, and the Zou/He
     closures on every frame row at the global row offset (the inlet
     profile of ny_glob rows). Returns the frame after k steps."""
-    h, w = cfg.ny, cfg.nx
+    h, w, hy = cfg.ny, cfg.nx, frame_hy(cfg)
     hx = HX if mode == "yx" else 0
     s_on, n_on, w_on, e_on = (bool(e) for e in edges[:4])
     oy = int(edges[4]) if len(edges) > 4 else 0
@@ -249,9 +283,9 @@ def frame_steps_plain(g, cfg: SimConfig, k: int, mode: str, edges,
         fpost = collide(g, t)
         g = lbm.stream(fpost)
         for on, side, idxs, sl, uwx, uwy in (
-                (s_on, cfg.bc_south, lattice.IN_N, (HY, slice(None)),
+                (s_on, cfg.bc_south, lattice.IN_N, (hy, slice(None)),
                  cfg.uw_south, 0.0),
-                (n_on, cfg.bc_north, lattice.IN_S, (HY + h - 1, slice(None)),
+                (n_on, cfg.bc_north, lattice.IN_S, (hy + h - 1, slice(None)),
                  cfg.uw_north, 0.0),
                 (w_on, cfg.bc_west, lattice.IN_E, (slice(None), hx), 0.0,
                  cfg.uw_west),
@@ -353,10 +387,11 @@ def _inlet_profile(cfg: SimConfig, device: torch.device):
 
 
 def frame_profile_rows(cfg: SimConfig, oy: int, ny_glob: int):
-    """The global rows of a shard's frame rows -HY .. ny + HY - 1 whose
+    """The global rows of a shard's frame rows -hy .. ny + hy - 1 whose
     local row 0 is global row oy, wrapped on a periodic y axis and
     clamped on a wall axis (whose halo rows no output needs)."""
-    rows = np.arange(cfg.ny + 2 * HY) - HY + oy
+    hy = frame_hy(cfg)
+    rows = np.arange(cfg.ny + 2 * hy) - hy + oy
     if cfg.bc_south != WALL:
         return np.mod(rows, ny_glob)
     return np.clip(rows, 0, ny_glob - 1)
@@ -365,7 +400,7 @@ def frame_profile_rows(cfg: SimConfig, oy: int, ny_glob: int):
 @functools.lru_cache(maxsize=256)
 def _frame_profile(cfg: SimConfig, oy: int, ny_glob: int,
                    device: torch.device):
-    """The (ny + 16,) f32 inlet profile at a shard's frame rows, on the
+    """The (ny + 2 hy,) f32 inlet profile at a shard's frame rows, on the
     card, made once per shard."""
     u = lbm.inlet_profile_array(cfg.replace(ny=ny_glob))
     return torch.as_tensor(u[frame_profile_rows(cfg, oy, ny_glob)],
@@ -408,14 +443,14 @@ def _launch(f, cfg: SimConfig, k: int, out, what: str, mode: str = "",
             erow, ecol = edge_ptrs(edge_post, cfg, f.device)
             code = lib.lbm_fluid_step_prehalo(
                 f.data_ptr(), out.data_ptr(), erow, ecol, cfg.ny, cfg.nx,
-                pitch, hx, _params(cfg, 12 if mode == "y" else 0, 0),
+                pitch, hx, bf16, _params(cfg, 12 if mode == "y" else 0, 0),
                 kernels.stream())
         elif mode:
             pitch, hx = _frame_args(f, cfg, mode)
             p, u_in = edge_params(cfg, edges, ny_glob, f.device)
             code = lib.lbm_fluid_multi_prehalo(
                 f.data_ptr(), out.data_ptr(), u_in, cfg.ny, cfg.nx, pitch,
-                hx, k, p, kernels.stream())
+                hx, k, bf16, p, kernels.stream())
         elif k is None:
             code = lib.lbm_fluid_step(f.data_ptr(), out.data_ptr(), u_in,
                                       cfg.ny, cfg.nx, bf16, _params(cfg),
@@ -450,7 +485,8 @@ def fused_step_fluid(f, cfg: SimConfig, out, prehalo=False, edge_post=None):
     all walls ("yx") and the Zou/He closures are left to the caller,
     which may ask for the post-collision populations of the interior's
     first and last rows and columns in edge_post = (rows (9, 2, nx),
-    cols (9, ny, 2)) f32 buffers (the bounce-back's sources).
+    cols (9, ny, 2)) f32 buffers (the bounce-back's sources; on bf16 the
+    shifted populations, unrounded).
 
     CPU tensors take the plain version; CUDA tensors take the kernel
     csrc/fluid.cu (lbm_fluid_step, or lbm_fluid_step_prehalo on a

@@ -31,9 +31,11 @@ f buffer `out`, never into `f`.
 
 K2, K6 and K8 also take a shard of the lattice mesh (`prehalo` and, for
 K2 and K6, `origin`: the JAX entries' multi-chip arguments): f is the
-shard's pre-haloed frame and the solid stack its window (3, ny + 16, nx
-[+ 256]), both in the shapes of `fused_fluid.frame_shape`; cfg is the
-shard's local config. The one-step kernels (K2, K8) skip the y walls
+shard's pre-haloed frame (`fused_fluid.frame_shape`: 8 halo rows per
+side on f32, 16 on bf16) and the solid stack its window (3, ny + 16, nx
+[+ 256]) (`fused_fluid.solid_shape`, 8 rows in both storages, as the
+JAX solid window keeps the f32 granule); cfg is the shard's local
+config. The one-step kernels (K2, K8) skip the y walls
 ("y") or all walls ("yx") and the Zou/He closures, which the caller
 fixes on the shards at a global edge; K6 runs the walls and closures of
 the shard's global edges itself at every inner step, gated by `edges`
@@ -41,7 +43,8 @@ the shard's global edges itself at every inner step, gated by `edges`
 of `ny_glob` rows. The binning is that of the interior tiles of the
 shard's stamp canvas: the interior's cell (0, 0) is the cell `origin` of
 the disk records' frame. The partials keep K2's slot numbering over the
-interior tiles. f32 storage only.
+interior tiles. K2 and K6 take f32 or shifted-bf16 frames, K8 f32 (as
+the JAX kernel).
 """
 
 from __future__ import annotations
@@ -52,7 +55,7 @@ import torch
 from lbmdem_tpu_torch import kernels
 from lbmdem_tpu_torch.config import SimConfig
 from lbmdem_tpu_torch.ops import fused_fluid, imb, lbm
-from lbmdem_tpu_torch.ops.fused_fluid import HX, HY
+from lbmdem_tpu_torch.ops.fused_fluid import HX, HY, frame_hy
 from lbmdem_tpu_torch.ops.stamp import (cov_params, hydro_partials_plain,
                                         tile_dims)
 
@@ -101,21 +104,23 @@ def fused_step_imb_reduce_multi_plain(f, solid, tile_data, counts,
 
 def fused_step_imb_prehalo_plain(f, eps, usx, usy, cfg: SimConfig,
                                  mode: str, out, edge_post=None):
-    """Plain version of K8 on a pre-haloed frame (f and the solid fields
-    frames): imb.collide_imb of the interior and its ring of one cell,
-    pull streaming, the x walls in "y" mode, into `out` (9, ny, nx), the
-    edges' post-collision populations into `edge_post`. Returns (out,
-    phi_x, phi_y) of the interior."""
-    h, w = cfg.ny, cfg.nx
-    rows = slice(HY - 1, HY + h + 1)
+    """Plain version of K8 on a pre-haloed frame (f a frame, the solid
+    fields the solid window's planes; the K2 plain version's step, in
+    either storage): imb.collide_imb of the interior and its ring of one
+    cell, pull streaming, the x walls in "y" mode, into `out` (9, ny,
+    nx), the edges' post-collision populations into `edge_post`. Returns
+    (out, phi_x, phi_y) of the interior."""
+    h, w, hy = cfg.ny, cfg.nx, frame_hy(cfg)
+    rows = slice(hy - 1, hy + h + 1)
+    srows = slice(HY - 1, HY + h + 1)
     cols = slice(HX - 1, HX + w + 1) if mode == "yx" else slice(None)
     fpost, phix, phiy = imb.collide_imb(
-        lbm.from_storage(f, cfg)[:, rows, cols], eps[rows, cols],
-        usx[rows, cols], usy[rows, cols], cfg)
+        lbm.from_storage(f, cfg)[:, rows, cols], eps[srows, cols],
+        usx[srows, cols], usy[srows, cols], cfg)
     fnew = fused_fluid.stream_frame(fpost, mode, h, w)
     if mode == "y":
         fused_fluid.x_walls_frame(fnew, fpost, cfg, h)
-    fused_fluid.edge_post_plain(fpost, mode, h, w, edge_post)
+    fused_fluid.edge_post_plain(fpost, mode, h, w, edge_post, cfg)
     out.copy_(lbm.to_storage(fnew, cfg))
     c = slice(1, 1 + w) if mode == "yx" else slice(None)
     return out, phix[1:1 + h, c], phiy[1:1 + h, c]
@@ -130,7 +135,7 @@ def fused_step_imb_reduce_prehalo_plain(f, solid, tile_data, counts,
     Returns (out, partials)."""
     out, phix, phiy = fused_step_imb_prehalo_plain(
         f, solid[0], solid[1], solid[2], cfg, mode, out, edge_post)
-    eps = fused_fluid.frame_interior(solid, cfg, mode)[0]
+    eps = fused_fluid.frame_interior(solid, cfg, mode, HY)[0]
     partials = hydro_partials_plain(eps, phix, phiy, tile_data, counts, cfg,
                                     origin)
     return out, partials
@@ -145,13 +150,14 @@ def fused_step_imb_reduce_multi_prehalo_plain(f, solid, tile_data, counts,
     fused_fluid.frame_steps_plain with imb.collide_imb over the solid
     window, the plain reduce of the interior's momentum exchange over the
     interior tiles at `origin` after every collide, then the interior
-    into `out`. Returns (out, partials (k, n_tiles * cap, 4))."""
-    eps_i = fused_fluid.frame_interior(solid, cfg, mode)[0]
+    into `out` (the solid window on the f frame's rows: solid_frame).
+    Returns (out, partials (k, n_tiles * cap, 4))."""
+    eps_i = fused_fluid.frame_interior(solid, cfg, mode, HY)[0]
+    sf = fused_fluid.solid_frame(solid, cfg)
     parts = []
 
     def collide(g, t):
-        fpost, phix, phiy = imb.collide_imb(g, solid[0], solid[1], solid[2],
-                                            cfg)
+        fpost, phix, phiy = imb.collide_imb(g, sf[0], sf[1], sf[2], cfg)
         parts.append(hydro_partials_plain(
             eps_i, fused_fluid.frame_interior(phix[None], cfg, mode)[0],
             fused_fluid.frame_interior(phiy[None], cfg, mode)[0], tile_data,
@@ -175,9 +181,11 @@ def _prehalo_buffers(f, solid, tile_data, counts, cfg: SimConfig,
     scratch, partials (nk, n_tiles * cap, 4) and tile offsets. Returns
     (partials, phi scratch, offsets, dims, tm) for the C entries."""
     fused_fluid.check_storage(what, cfg, f, out)
-    kernels.require_cuda_f32(what, f, solid, tile_data, counts, out)
-    if solid.dtype != torch.float32 or counts.dtype != torch.int32:
-        raise ValueError(f"{what}: f32 solid window, i32 counts")
+    kernels.require_cuda_f32(what, solid, tile_data, counts)
+    if (solid.device != f.device or solid.dtype != torch.float32
+            or counts.dtype != torch.int32):
+        raise ValueError(f"{what}: f32 solid window on f's device, i32 "
+                         f"counts")
     th, tw = tile_dims(cfg)
     n_tiles = tile_data.shape[0]
     cap = tile_data.shape[2] // 8
@@ -207,7 +215,8 @@ def _launch_k2_prehalo(f, solid, tile_data, counts, cfg: SimConfig,
         code = kernels.library().lbm_imb_step_prehalo(
             f.data_ptr(), solid.data_ptr(), tile_data.data_ptr(),
             counts.data_ptr(), out.data_ptr(), w.data_ptr(), erow, ecol,
-            partials.data_ptr(), offsets.data_ptr(), *dims, lam,
+            partials.data_ptr(), offsets.data_ptr(), *dims,
+            int(f.dtype == torch.bfloat16), lam,
             fused_fluid._params(cfg, 12 if mode == "y" else 0, 0), *tm,
             STEP_THREADS, kernels.stream())
     kernels.check(code, what)
@@ -229,7 +238,8 @@ def _launch_k6_prehalo(f, solid, tile_data, counts, cfg: SimConfig,
         code = kernels.library().lbm_imb_multi_prehalo(
             f.data_ptr(), solid.data_ptr(), u_in, tile_data.data_ptr(),
             counts.data_ptr(), out.data_ptr(), w.data_ptr(),
-            partials.data_ptr(), offsets.data_ptr(), *dims, k, lam, p, *tm,
+            partials.data_ptr(), offsets.data_ptr(), *dims, k,
+            int(f.dtype == torch.bfloat16), lam, p, *tm,
             kernels.stream())
     kernels.check(code, what)
     return partials
@@ -337,9 +347,10 @@ def fused_step_imb_reduce(f, solid, tile_data, counts, cfg: SimConfig, out,
 def _check_prehalo_shapes(f, solid, cfg: SimConfig, mode: str, out,
                           what: str) -> None:
     shape = fused_fluid.frame_shape(cfg, mode)
-    if tuple(f.shape) != shape or tuple(solid.shape) != (3,) + shape[1:]:
+    sshape = fused_fluid.solid_shape(cfg, mode)
+    if tuple(f.shape) != shape or tuple(solid.shape) != sshape:
         raise ValueError(f"{what}: a pre-haloed f {shape} and solid window "
-                         f"{(3,) + shape[1:]}, got {tuple(f.shape)} and "
+                         f"{sshape}, got {tuple(f.shape)} and "
                          f"{tuple(solid.shape)}")
     if (tuple(out.shape) != (9, cfg.ny, cfg.nx)
             or out.data_ptr() == f.data_ptr()):

@@ -14,11 +14,13 @@ buffer `out`, never into `f`, and keep the k inner steps in float32,
 rounding to the storage type once per call (as K5 does).
 
 On a shard of the lattice mesh (`prehalo`, `edges`, `ny_glob`: the JAX
-entry's multi-chip arguments) f is the shard's pre-haloed frame and the
-solid stack its window, both in the shapes of `fused_fluid.frame_shape`,
-`out` the (9, ny, nx) interior; the walls and Zou/He closures of the
-shard's global edges run at every inner step, as in K5's pre-haloed
-mode. f32 storage only.
+entry's multi-chip arguments) f is the shard's pre-haloed frame
+(`fused_fluid.frame_shape`: 8 halo rows per side on f32, 16 on bf16) and
+the solid stack its window (`fused_fluid.solid_shape`: 8 rows in both
+storages), `out` the (9, ny, nx) interior; the walls and Zou/He closures
+of the shard's global edges run at every inner step, as in K5's
+pre-haloed mode. k <= 8 in both storages, the solid window's cone (the
+JAX kernel's bound).
 """
 
 from __future__ import annotations
@@ -44,7 +46,7 @@ def check_static_cfg(cfg: SimConfig, prehalo=False, edges=None,
     """The pre-halo mode of the arguments; raise for what the
     static-solid kernel does not take: edges without a pre-haloed frame,
     a frame without edges (or, where ny_glob is passed, without the
-    global height), bf16 storage on a frame (its 16-row halo)."""
+    global height)."""
     mode = fused_fluid.check_fluid_cfg(cfg, prehalo, edges)
     if mode:
         fused_fluid.check_edges(mode, edges, ny_glob)
@@ -70,11 +72,12 @@ def fused_step_imb_static_multi_prehalo_plain(f, solid, cfg: SimConfig,
     """Plain version of K7 on a pre-haloed frame (the JAX
     _imb_static_multi_kernel with its mesh-position flags):
     fused_fluid.frame_steps_plain with imb.collide_imb over the solid
-    window, then the interior into `out`."""
+    window on the f frame's rows (fused_fluid.solid_frame), then the
+    interior into `out`."""
+    sf = fused_fluid.solid_frame(solid, cfg)
     g = fused_fluid.frame_steps_plain(
         lbm.from_storage(f, cfg), cfg, k, mode, edges, ny_glob,
-        lambda g, t: imb.collide_imb(g, solid[0], solid[1], solid[2],
-                                     cfg)[0])
+        lambda g, t: imb.collide_imb(g, sf[0], sf[1], sf[2], cfg)[0])
     return out.copy_(lbm.to_storage(fused_fluid.frame_interior(g, cfg, mode),
                                     cfg))
 
@@ -99,9 +102,10 @@ def fused_step_imb_static_multi(f, solid, cfg: SimConfig, k: int, out,
         raise ValueError(f"static-solid temporal block k={k} outside "
                          f"1..{MAX_K}")
     shape = fused_fluid.frame_shape(cfg, mode)
-    if tuple(f.shape) != shape or tuple(solid.shape) != (3,) + shape[1:]:
+    sshape = fused_fluid.solid_shape(cfg, mode)
+    if tuple(f.shape) != shape or tuple(solid.shape) != sshape:
         raise ValueError(f"fused_step_imb_static_multi: f {shape} and solid "
-                         f"{(3,) + shape[1:]}, got {tuple(f.shape)} and "
+                         f"{sshape}, got {tuple(f.shape)} and "
                          f"{tuple(solid.shape)}")
     if (tuple(out.shape) != (9, cfg.ny, cfg.nx)
             or out.data_ptr() == f.data_ptr()):
@@ -120,6 +124,7 @@ def fused_step_imb_static_multi(f, solid, cfg: SimConfig, k: int, out,
     lib = kernels.library()
     tm = np.float32(imb.nt_tm(cfg.tau, cfg.nt_mode))
     lam = int(cfg.nt_mode == "lambda")
+    bf16 = int(want == torch.bfloat16)
     kernels.setting("lbm_imb_static_strip", *STRIP)
     if mode:
         pitch, hx = fused_fluid._frame_args(f, cfg, mode)
@@ -127,14 +132,14 @@ def fused_step_imb_static_multi(f, solid, cfg: SimConfig, k: int, out,
         with torch.cuda.device(f.device):
             code = lib.lbm_imb_static_multi_prehalo(
                 f.data_ptr(), solid.data_ptr(), out.data_ptr(), u_in, cfg.ny,
-                cfg.nx, pitch, hx, k, lam, p, tm, kernels.stream())
+                cfg.nx, pitch, hx, k, bf16, lam, p, tm, kernels.stream())
     else:
         u_in = (fused_fluid._inlet_profile(cfg, f.device).data_ptr()
                 if cfg.bc_west == "inlet" else None)
         code = lib.lbm_imb_static_multi(
             f.data_ptr(), solid.data_ptr(), out.data_ptr(), u_in, cfg.ny,
-            cfg.nx, k, int(want == torch.bfloat16), lam,
-            fused_fluid._params(cfg), tm, kernels.stream())
+            cfg.nx, k, bf16, lam, fused_fluid._params(cfg), tm,
+            kernels.stream())
     kernels.check(code, what)
     fused_step_imb_static_multi.launches += 1
     return out

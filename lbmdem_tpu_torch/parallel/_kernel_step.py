@@ -1,13 +1,15 @@
 """The kernel path on a lattice mesh: K4, K5 and K2 in their pre-haloed
 modes, K1 on each shard's stamp canvas, K3 per replica.
 
-Counterpart of the JAX package's `lbmdem_tpu/parallel/_pallas_step.py`
-for coupling_k = 1 and f32 storage. Each step exchanges the shards'
-pre-collision populations into frames of HY = 8 halo rows per side and,
-on a mesh with more than one column of shards ("yx" mode), HX = 128 halo
-columns per side: x after y, so that the corner blocks hold the diagonal
+Counterpart of the JAX package's `lbmdem_tpu/parallel/_pallas_step.py`,
+on f32 and shifted-bf16 storage. Each step exchanges the shards'
+pre-collision populations into frames of HY = 8 halo rows per side on
+f32 and HY_BF16 = 16 on bf16 (the JAX row granules) and, on a mesh with
+more than one column of shards ("yx" mode), HX = 128 halo columns per
+side: x after y, so that the corner blocks hold the diagonal
 neighbours' cells. The fused kernels run on the frames; the collide is
-pointwise, so they collide the halo cells they need themselves.
+pointwise, so they collide the halo cells they need themselves. The
+coupled kernels' solid window keeps 8 halo rows in both storages.
 
 - Pure fluid: one step is K4 on the frame, then the walls of the shards
   at a global edge are fixed outside the kernel and the Zou/He closures
@@ -18,7 +20,12 @@ pointwise, so they collide the halo cells they need themselves.
   hands out for the interior's edge rows and columns (`edge_post`): the
   JAX path collides those rows again with the plain collide, whose
   division rounds otherwise on the card, and in 16 steps of the 4096^2
-  column collapse that put the mesh 1e-5 from one device.
+  column collapse that put the mesh 1e-5 from one device. On bf16 those
+  populations are the kernel's shifted ones in f32, unrounded, and the
+  bounce-back (shift-invariant: w_opp(i) = w_i) rounds once at the store,
+  as the one-device kernel does; the Zou/He fixup runs in f32 on the
+  stored shifted populations and rounds once
+  (`apply_open_boundaries_sharded`).
 - Coupled: the disks are binned and stamped (K1) on the shard's canvas,
   its frame padded by pady rows (the stamp tile's height) and, in "yx"
   mode, padx = 128 columns, so that a disk straddling the shard's edge
@@ -53,7 +60,7 @@ from lbmdem_tpu_torch.config import SimConfig, WALL
 from lbmdem_tpu_torch.ops import (fused_fluid, fused_lbm, fused_static, imb,
                                   lbm, not_ported, slab_dem, stamp)
 from lbmdem_tpu_torch.ops.dem import DemGrid
-from lbmdem_tpu_torch.ops.fused_fluid import HX, HY
+from lbmdem_tpu_torch.ops.fused_fluid import HX, HY, HY_BF16
 from lbmdem_tpu_torch.parallel.sharding import (
     Mesh, MeshState, _inlet_rows, advance_replica,
     apply_open_boundaries_sharded, mask_open_edges, mesh_state_ok,
@@ -77,23 +84,25 @@ def canvas_pads(h: int, two_d: bool):
 
 
 def exchange(fs, mesh: Mesh) -> List[torch.Tensor]:
-    """(9, h, w) shards -> their (9, h + 16, w [+ 256]) pre-collision
-    frames: HY rows from the south and north neighbours, then on a 2D
+    """(9, h, w) shards -> their (9, h + 2 hy, w [+ 256]) pre-collision
+    frames: hy rows from the south and north neighbours (HY on f32
+    shards, HY_BF16 on bf16: keyed on the shards' dtype), then on a 2D
     mesh HX columns of the y-extended frames from the west and east
     neighbours (so the corners carry the diagonal neighbours' cells).
     The ring wrap is the periodic boundary; the halo beyond a wall is
     never used. Copies on a card, or device to device between cards."""
     two_d = mesh.shape["x"] > 1
     hx = HX if two_d else 0
+    hy = HY_BF16 if fs[0].dtype == torch.bfloat16 else HY
     frames = []
     for p, iy, ix in mesh.positions():
         f = fs[p]
         q, h, w = f.shape
-        fr = torch.empty((q, h + 2 * HY, w + 2 * hx), dtype=f.dtype,
+        fr = torch.empty((q, h + 2 * hy, w + 2 * hx), dtype=f.dtype,
                          device=f.device)
-        fr[:, HY:HY + h, hx:hx + w] = f
-        fr[:, :HY, hx:hx + w] = fs[mesh.index(iy - 1, ix)][:, -HY:, :]
-        fr[:, HY + h:, hx:hx + w] = fs[mesh.index(iy + 1, ix)][:, :HY, :]
+        fr[:, hy:hy + h, hx:hx + w] = f
+        fr[:, :hy, hx:hx + w] = fs[mesh.index(iy - 1, ix)][:, -hy:, :]
+        fr[:, hy + h:, hx:hx + w] = fs[mesh.index(iy + 1, ix)][:, :hy, :]
         frames.append(fr)
     if two_d:
         for p, iy, ix in mesh.positions():
@@ -112,12 +121,12 @@ class _Sharded:
 
     def __init__(self, cfg: SimConfig, grid: Optional[DemGrid], mesh: Mesh,
                  dem_axis: str, dem_mode: str):
-        if cfg.f_storage != "float32":
-            raise not_ported("bf16 storage on a lattice mesh (16-row halos)",
-                             12)
         self.cfg, self.grid, self.mesh = cfg, grid, mesh
         self.dem_axis, self.dem_mode = dem_axis, dem_mode
         self.h, self.w = h, w = shard_dims(cfg, mesh)
+        if cfg.f_storage == "bfloat16" and h % HY_BF16:
+            raise ValueError(f"f_storage='bfloat16' on a mesh needs per-shard "
+                             f"ny%16==0 (the 16-row bf16 halo; got {h})")
         self.two_d = mesh.shape["x"] > 1
         self.mode = "yx" if self.two_d else "y"
         self.local_cfg = cfg.replace(ny=h, nx=w)
@@ -174,7 +183,8 @@ class _Sharded:
         then (2D mesh) x walls from columns 0 and w - 1, in the oracle's
         order. edge_post = (rows (9, 2, w), cols (9, h, 2)): the
         post-collision populations of those rows and columns that the
-        kernel handed out (edge_buffers). In place."""
+        kernel handed out (edge_buffers; on bf16 the shifted ones, so
+        the f32 sum rounds once into fnew). In place."""
         cfg = self.cfg
         opp = lattice.OPP
         rows, cols = edge_post

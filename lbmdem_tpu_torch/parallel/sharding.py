@@ -273,21 +273,31 @@ def apply_open_boundaries_sharded(fnew, cfg: SimConfig, iy: int, ix: int,
     east-edge shards, in the oracle's order (lbm.apply_open_boundaries),
     with the inlet profile at the shard's global rows (`u_rows`, or
     sliced here from the global profile) and the outlet density `rho_o`
-    (default cfg's). f32 or f64 storage. In place."""
+    (default cfg's). f32 or f64 storage, or shifted bf16 (the JAX
+    package's storage-aware fixup, keyed on the tensor's dtype): the
+    closures run in f32 on the stored g = f - w rho0 with the density
+    shift rho0, and their results round back to bf16 once, at the
+    store. In place."""
     if cfg.bc_west != "inlet":
         return fnew
     nx_sh = mesh.shape["x"]
+    shifted = fnew.dtype == torch.bfloat16
+    shift = cfg.rho0 if shifted else 0.0
+
+    def col(c):
+        return tuple(fnew[i, :, c].float() if shifted else fnew[i, :, c]
+                     for i in range(9))
+
     if ix == 0:
         if u_rows is None:
-            u_rows = _inlet_rows(cfg, iy, fnew.shape[1], fnew)
-        n1, n5, n8 = lbm.zou_he_inlet(tuple(fnew[i, :, 0] for i in range(9)),
-                                      u_rows)
+            like = fnew.new_empty(0, dtype=torch.float32) if shifted else fnew
+            u_rows = _inlet_rows(cfg, iy, fnew.shape[1], like)
+        n1, n5, n8 = lbm.zou_he_inlet(col(0), u_rows, shift)
         fnew[1, :, 0], fnew[5, :, 0], fnew[8, :, 0] = n1, n5, n8
     if ix == nx_sh - 1:
         if rho_o is None:
             rho_o = cfg.rho_outlet or cfg.rho0
-        n3, n7, n6 = lbm.zou_he_outlet(
-            tuple(fnew[i, :, -1] for i in range(9)), rho_o)
+        n3, n7, n6 = lbm.zou_he_outlet(col(-1), rho_o, shift)
         fnew[3, :, -1], fnew[7, :, -1], fnew[6, :, -1] = n3, n7, n6
     return fnew
 

@@ -108,7 +108,7 @@ import torch
 
 from lbmdem_tpu_torch.config import DiskSpec, SimConfig, window_for_radius
 from lbmdem_tpu_torch.ops import (dem, fused_fluid, fused_lbm, fused_static,
-                                  imb, lbm, not_ported, slab_dem)
+                                  imb, lbm, slab_dem)
 from lbmdem_tpu_torch.ops import stamp
 from lbmdem_tpu_torch.ops.dem import DemGrid, DiskState, make_disk_state
 
@@ -210,12 +210,14 @@ def kernels_supported(cfg: SimConfig, device="cuda",
     alignment on one device.
 
     With `mesh` (as pallas_supported with one): the lattice must tile
-    the mesh, each shard be a multiple of 8 rows and 128 columns (the
-    pre-haloed kernels' halos), and the stamp window plus the margin fit
-    the stamp tile of the shard's canvas (parallel/_kernel_step). K6 and
-    K7 read K2's frame and solid window, whose 8 halo rows hold the
+    the mesh, each shard be a multiple of 8 rows (16 on bf16 storage,
+    whose frames carry 16 halo rows) and 128 columns (the pre-haloed
+    kernels' halos), and the stamp window plus the margin fit the stamp
+    tile of the shard's canvas (parallel/_kernel_step). K6 and K7 read
+    K2's frame and solid window, whose 8 solid halo rows hold the
     dependency cone of every coupling_k the config takes (1..8) and of
-    the static hoist's TEMPORAL_K, so they need nothing more."""
+    the static hoist's TEMPORAL_K, so they need nothing more. One device
+    keeps its looser rule (no row granule)."""
     if mesh is not None:
         device = mesh.devices[0]
     if torch.device(device).type == "cuda" and cfg.dtype != "float32":
@@ -233,6 +235,9 @@ def kernels_supported(cfg: SimConfig, device="cuda",
         if h % 8 or w % 128:
             return (f"the pre-haloed kernels need per-shard ny%8==0 and "
                     f"nx%128==0 (shard {h}x{w})")
+        if cfg.f_storage == "bfloat16" and h % 16:
+            return (f"f_storage='bfloat16' needs per-shard ny%16==0 (the "
+                    f"16-row bf16 halo; got {h})")
         if cfg.max_disks > 0:
             pady, padx = canvas_pads(h, nx_sh > 1)
             ny, nx = h + 2 * pady, w + 2 * padx
@@ -588,7 +593,7 @@ class Simulation:
         disks = list(disks)
         self.mesh = mesh
         if mesh is not None:
-            self._refuse_on_mesh(cfg, mesh)
+            self._refuse_on_mesh(cfg, mesh, use_kernels)
             device = mesh.devices[0]
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -651,17 +656,19 @@ class Simulation:
             self._kstep = make_step_fn(cfg, None, temporal_k=TEMPORAL_K)
 
     @staticmethod
-    def _refuse_on_mesh(cfg: SimConfig, mesh) -> None:
-        """Raise for what a mesh does not take yet (ROADMAP.md item 12),
-        before any device work."""
+    def _refuse_on_mesh(cfg: SimConfig, mesh, use_kernels: bool) -> None:
+        """Raise for what a mesh does not take, before any device work:
+        a mesh that is not a Mesh, and bf16 storage on the plain sharded
+        step (the JAX package's refusal: it consumes raw f32 f)."""
         from lbmdem_tpu_torch.parallel import Mesh
 
         if not isinstance(mesh, Mesh):
             raise TypeError(f"mesh must be a parallel.Mesh (make_mesh), got "
                             f"{type(mesh).__name__}")
-        if cfg.f_storage != "float32":
-            raise not_ported("bf16 storage on a lattice mesh (16-row "
-                             "halos)", 12)
+        if cfg.f_storage == "bfloat16" and not use_kernels:
+            raise ValueError(
+                "f_storage='bfloat16' on a mesh needs use_kernels=True (the "
+                "plain sharded step consumes raw f32 f)")
 
     # --- the state (gathered from the shards on a mesh) ---
     @property

@@ -263,7 +263,8 @@ def make_sim(nx: int = 4096, n_disks: int = 10000, device="cuda",
 
 def _device_ms(fn):
     """(fn(), the summed kernel time in ms of the call) under
-    torch.profiler."""
+    torch.profiler; the time is None when the profiler kept no device
+    records."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -272,9 +273,9 @@ def _device_ms(fn):
                              ProfilerActivity.CUDA]) as prof:
         out = fn()
         torch.cuda.synchronize()
-    us = sum(a.self_device_time_total for a in prof.key_averages()
-             if a.device_type == DeviceType.CUDA)
-    return out, us / 1e3
+    us = [a.self_device_time_total for a in prof.key_averages()
+          if a.device_type == DeviceType.CUDA]
+    return out, (sum(us) / 1e3 if us else None)
 
 
 def run_variants(sim: Simulation, chunk: int = 50, names=None,
@@ -343,7 +344,7 @@ def run_variants(sim: Simulation, chunk: int = 50, names=None,
             n_prof = min(chunk, PROFILED_STEPS)
             (state, spare), dms = _device_ms(
                 lambda: run_chunk(state, spare, n_prof))
-            dev = dms / n_prof / spc
+            dev = None if dms is None else dms / n_prof / spc
         results[name] = {"ms": min(per), "chunks": per, "device_ms": dev,
                          "launches": launches}
         dtxt = "" if dev is None else f"; device {dev:.3f} ms/step"

@@ -130,10 +130,11 @@ def test_cli_kernels_and_plain_path(tmp_path, capsys):
 
 def test_cli_refuses_what_it_cannot_run(tmp_path, capsys):
     """--kernels on a deck the kernels cannot take is an error naming
-    the reason; --distributed, and on a --mesh what the mesh does not
-    take yet (bf16 storage), name ROADMAP item 12. Paranoid mode, which a
-    mesh refused so before, runs there (2 steps on the plain sharded
-    step)."""
+    the reason; --distributed names ROADMAP item 12. Paranoid mode and
+    bf16 storage, which a mesh refused so before, run there (2 steps on
+    the plain sharded step; 4 bf16 steps on the kernels' plain
+    versions); bf16 on the CPU's auto path, the plain sharded step,
+    raises ValueError, as the JAX CLI does."""
     deck = os.path.join(EXAMPLES, "schafer_turek.par")
     with pytest.raises(SystemExit) as e:
         cli.main([deck, "--kernels", "--device", "cpu", "--out",
@@ -145,10 +146,14 @@ def test_cli_refuses_what_it_cannot_run(tmp_path, capsys):
     assert "done: 2 steps" in capsys.readouterr().out
     bf16 = tmp_path / "bf16.par"
     bf16.write_text("nx 256\nny 64\ntau 0.8\nsteps 4\nf_storage bfloat16\n")
-    for argv in ([str(bf16), "--mesh", "2x2", "--device", "cpu"],
-                 [deck, "--distributed"]):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            cli.main([*argv, "--out", str(tmp_path / "x")])
+    assert cli.main([str(bf16), "--mesh", "2x2", "--device", "cpu",
+                     "--kernels", "--out", str(tmp_path / "b")]) == 0
+    assert "done: 4 steps" in capsys.readouterr().out
+    with pytest.raises(ValueError, match="raw f32"):
+        cli.main([str(bf16), "--mesh", "2x2", "--device", "cpu", "--out",
+                  str(tmp_path / "x")])
+    with pytest.raises(NotImplementedError, match="item 12"):
+        cli.main([deck, "--distributed", "--out", str(tmp_path / "x")])
 
 
 def test_cli_paranoid_and_profile(tmp_path, capsys):

@@ -1200,26 +1200,15 @@ def test_slab_kernel_capped_grid_matches(dev, cap, monkeypatch):
 
 def test_slab_kernel_is_one_launch(dev):
     """One K3 or K3w call is one CUDA kernel launch, the contact count
-    included (torch.profiler; a spin kernel before and after keeps the
-    first and last device records on kernels that are not counted)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    included, and enqueues no other device operation (a CUDA graph
+    capture of one call, counted by node type)."""
+    from lbmdem_tpu_torch import kernels
 
     for case in _slab_cases(dev)[:2]:
         s = case[4].clone()
         _slab_call(case, s)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            torch.cuda._sleep(1000)
-            for _ in range(3):
-                _slab_call(case, s)
-            torch.cuda._sleep(1000)
-            torch.cuda.synchronize()
-        run = [a for a in prof.key_averages()
-               if a.device_type == DeviceType.CUDA and "spin" not in a.key]
-        assert sum(a.count for a in run) == 3, (
-            case[0], [(a.key, a.count) for a in run])
+        ops = kernels.captured_launches(lambda c=case, t=s: _slab_call(c, t))
+        assert ops == {"kernel": 1, "memcpy": 0, "memset": 0}, (case[0], ops)
 
 
 @pytest.mark.parametrize("mode", ["y", "yx"])
@@ -1402,3 +1391,227 @@ def test_mesh_window_and_static_on_one_card(dev):
     assert fused_static.fused_step_imb_static_multi.launches - n7 == 4 * 4
     torch.testing.assert_close(sh.state.f, one.state.f, rtol=0, atol=2e-6)
     assert torch.equal(sh.state.disks.x, one.state.disks.x)
+
+
+def _bf16_frames(sim, mesh, dev, seed):
+    """The mesh's bf16 pre-collision frames of f perturbed in its physical
+    form (bf16 at rest stores 0), 16 halo rows."""
+    from lbmdem_tpu_torch.parallel._kernel_step import exchange
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    fs = [lbm.to_storage(lbm.from_storage(f, sim.cfg) * (1.0 + 0.02 * torch.randn(
+        f.shape, generator=g, device=dev)), sim.cfg) for f in sim._state.f]
+    return exchange(fs, mesh)
+
+
+@pytest.mark.parametrize("mode", ["y", "yx"])
+def test_prehalo_bf16_kernels_match_plain(dev, mode):
+    """The five pre-haloed kernels on bf16 frames (16 halo rows, the solid
+    window 8) against their plain versions at the bf16 bars (f' 3e-4,
+    forces 5e-6 of the largest |F|): K4 and K5 (k = 1, 2, 4, corner, edge
+    and interior edge flags) on a 256 x 128 shard with walls and with
+    Zou/He, the plain versions on the card; K2, K6 (k = 2, 4) and K7 (k =
+    2, 4) on every shard of a 512^2 column collapse whose disks move at
+    seeded velocities (the forces' scale of the bar; chip_smoke.py phase
+    41's inputs), the plain versions on CPU copies of the inputs (the
+    card's multiplies by 1/tau)."""
+    from lbmdem_tpu_torch.parallel import make_mesh
+    from lbmdem_tpu_torch.parallel._kernel_step import _Sharded
+
+    w = torch.as_tensor(lattice.W, dtype=torch.float32, device=dev)
+    for kw in (dict(bc_west="wall", bc_east="wall", uw_north=0.05, gy=-1e-5),
+               dict(bc_west="inlet", bc_east="outlet", u_inlet=0.06,
+                    inlet_profile="poiseuille")):
+        cfg = SimConfig(nx=128, ny=256, tau=0.7, dtype="float32",
+                        f_storage="bfloat16", **kw)
+        g = torch.Generator(device=dev).manual_seed(3)
+        f = lbm.to_storage(w[:, None, None] * (1.0 + 0.05 * torch.randn(
+            fused_fluid.frame_shape(cfg, mode), generator=g, device=dev)), cfg)
+        assert f.shape[1] == 256 + 32
+        a = torch.empty((9, 256, 128), dtype=torch.bfloat16, device=dev)
+        b = torch.empty_like(a)
+        fused_fluid.fused_step_fluid(f, cfg, a, prehalo=mode)
+        fused_fluid.fused_step_fluid_prehalo_plain(f, cfg, mode, b)
+        torch.testing.assert_close(a.float(), b.float(), rtol=0, atol=3e-4)
+        for edges in ((1, 1, 1, 1, 0), (0, 1, 0, 1, 768), (0, 0, 1, 0, 256)):
+            if mode == "y":  # a "y" shard spans the width
+                edges = edges[:2] + (1, 1) + edges[4:]
+            for k in (1, 2, 4):
+                fused_fluid.fused_step_fluid_multi(f, cfg, k, a, prehalo=mode,
+                                                   edges=edges, ny_glob=1024)
+                fused_fluid.fused_step_fluid_multi_prehalo_plain(
+                    f, cfg, k, mode, edges, 1024, b)
+                torch.testing.assert_close(a.float(), b.float(), rtol=0,
+                                           atol=3e-4)
+    cfg, disks = column_collapse(nx=512, ny=512, n_disks=240)
+    disks = [DiskSpec(d.x * 0.94, d.y * 0.94, d.r) for d in disks]
+    dims = (2, 2) if mode == "yx" else (4, 1)
+    mesh = make_mesh([dev] * 4, dims)
+    sim = Simulation(cfg.replace(f_storage="bfloat16"), disks, mesh=mesh)
+    parts = _Sharded(sim.cfg, sim.grid, mesh, sim.dem_axis, sim.dem_mode)
+    lc = parts.local_cfg
+    d = sim._state.disks[0]
+    rng = np.random.default_rng(6)
+    n = d.x.shape[0]
+    v = torch.as_tensor(rng.uniform(-0.02, 0.02, (n, 2)), dtype=torch.float32,
+                        device=dev)
+    om = torch.as_tensor(rng.uniform(-2e-3, 2e-3, n), dtype=torch.float32,
+                         device=dev)
+    frames = _bf16_frames(sim, mesh, dev, 4)
+    cpu = torch.device("cpu")
+    for p, iy, ix in mesh.positions():
+        entries, _, td, cnt, s_k, _ = parts.shard_inputs(
+            iy, ix, (d.x, v, om, d.r, d.active))
+        origin, edges = parts.interior_origin(iy, ix), parts.edges[p]
+        c = [t.to(cpu) for t in (frames[p], s_k, td, cnt)]
+        a = torch.empty((9, lc.ny, lc.nx), dtype=torch.bfloat16, device=dev)
+        b = torch.empty((9, lc.ny, lc.nx), dtype=torch.bfloat16)
+        _, pk = fused_lbm.fused_step_imb_reduce(frames[p], s_k, td, cnt, lc,
+                                                a, prehalo=mode,
+                                                origin=origin)
+        _, pp = fused_lbm.fused_step_imb_reduce(*c, lc, b, prehalo=mode,
+                                                origin=origin)
+        torch.testing.assert_close(a.cpu().float(), b.float(), rtol=0,
+                                   atol=3e-4)
+        pks, pps = [pk], [pp]
+        for k in (2, 4):
+            _, pk = fused_lbm.fused_step_imb_reduce_multi(
+                frames[p], s_k, td, cnt, lc, k, a, prehalo=mode,
+                origin=origin, edges=edges, ny_glob=sim.cfg.ny)
+            _, pp = fused_lbm.fused_step_imb_reduce_multi(
+                *c, lc, k, b, prehalo=mode, origin=origin, edges=edges,
+                ny_glob=sim.cfg.ny)
+            torch.testing.assert_close(a.cpu().float(), b.float(), rtol=0,
+                                       atol=3e-4)
+            pks += list(pk)
+            pps += list(pp)
+            fused_static.fused_step_imb_static_multi(
+                frames[p], s_k, lc, k, a, prehalo=mode, edges=edges,
+                ny_glob=sim.cfg.ny)
+            fused_static.fused_step_imb_static_multi(
+                c[0], c[1], lc, k, b, prehalo=mode, edges=edges,
+                ny_glob=sim.cfg.ny)
+            torch.testing.assert_close(a.cpu().float(), b.float(), rtol=0,
+                                       atol=3e-4)
+        for x, y in zip(pks, pps):
+            F, _ = stamp.gather_partials(x, entries, torch.float32)
+            Fp, _ = stamp.gather_partials(y.to(dev), entries, torch.float32)
+            scale = max(float(Fp.abs().max()), 1e-30)
+            assert float((F - Fp).abs().max()) <= 5e-6 * scale
+
+
+def test_prehalo_bf16_kernels_equal_halo_free(dev):
+    """On a fully periodic bf16 lattice whose 2 x 2 shard frames are
+    filled from the lattice itself (f rows -16 .. h + 15, the solid
+    window's -8 .. h + 7), K4, K5 (k = 2), K2, K6 (k = 4) and K7 (k = 4)
+    pre-haloed equal the halo-free bf16 kernels on the shards' rows, f'
+    and partials, by torch.equal: both round once per pass."""
+    cfg = SimConfig(nx=256, ny=512, tau=0.8, dtype="float32", gx=1e-5,
+                    f_storage="bfloat16", bc_west="periodic",
+                    bc_east="periodic", bc_south="periodic",
+                    bc_north="periodic")
+    rng = np.random.default_rng(9)
+    disks = [DiskSpec(x + rng.uniform(-8, 8), y + rng.uniform(-8, 8), 3.0,
+                      *rng.uniform(-0.02, 0.02, 2))
+             for y in range(20, 512, 40) for x in range(20, 256, 40)]
+    sim = Simulation(cfg, disks, device=dev)
+    cfg, d = sim.cfg, sim.state.disks
+    _, aug, _, _, _ = imb.periodic_ghosts(d.x, d.v, d.omega, d.r, d.active,
+                                          cfg)
+    td, cnt, _, bovf = stamp.bin_disks_to_tiles(*aug, cfg)
+    assert int(bovf) == 0
+    solid = stamp.stamp_fields(td, cnt, cfg)
+    w = torch.as_tensor(lattice.W, dtype=torch.float32, device=dev)
+    g = torch.Generator(device=dev).manual_seed(10)
+    f = lbm.to_storage(w[:, None, None] * (1.0 + 0.05 * torch.randn(
+        (9, 512, 256), generator=g, device=dev)), cfg)
+    h, wd = 256, 128
+    lc = cfg.replace(ny=h, nx=wd)
+    th, tw = stamp.tile_dims(cfg)
+    cap, nty, ntx = cfg.tile_cap, 512 // th, 256 // tw
+    ref = {}
+    for kern, k in (("K4", 1), ("K5", 2), ("K2", 1), ("K6", 4), ("K7", 4)):
+        a = torch.empty_like(f)
+        pa = None
+        if kern in ("K4", "K5"):
+            fused_fluid.fused_step_fluid_multi(f, cfg, k, a)
+        elif kern == "K2":
+            _, pa = fused_lbm.fused_step_imb_reduce(f, solid, td, cnt, cfg, a)
+            pa = pa[None]
+        elif kern == "K6":
+            _, pa = fused_lbm.fused_step_imb_reduce_multi(f, solid, td, cnt,
+                                                          cfg, k, a)
+        else:
+            fused_static.fused_step_imb_static_multi(f, solid, cfg, k, a)
+        ref[kern] = (k, a, pa)
+    for iy in range(2):
+        for ix in range(2):
+            cols = (torch.arange(-128, wd + 128, device=dev) + ix * wd) % 256
+            frows = (torch.arange(-16, h + 16, device=dev) + iy * h) % 512
+            srows = (torch.arange(-8, h + 8, device=dev) + iy * h) % 512
+            fr = f[:, frows][:, :, cols].contiguous()
+            sw = solid[:, srows][:, :, cols].contiguous()
+            tiles = (slice(iy * h // th, (iy + 1) * h // th),
+                     slice(ix * wd // tw, (ix + 1) * wd // tw))
+            td_i = td.reshape(nty, ntx, -1)[tiles].reshape(
+                -1, 1, cap * 8).contiguous()
+            cnt_i = cnt.reshape(nty, ntx)[tiles].reshape(-1, 1, 1).contiguous()
+            edges, origin = (0, 0, 0, 0, iy * h), (iy * h, ix * wd)
+            for kern, (k, a, pa) in ref.items():
+                b = torch.empty((9, h, wd), dtype=torch.bfloat16, device=dev)
+                pb = None
+                if kern == "K4":
+                    fused_fluid.fused_step_fluid(fr, lc, b, prehalo="yx")
+                elif kern == "K5":
+                    fused_fluid.fused_step_fluid_multi(
+                        fr, lc, k, b, prehalo="yx", edges=edges, ny_glob=512)
+                elif kern == "K2":
+                    _, pb = fused_lbm.fused_step_imb_reduce(
+                        fr, sw, td_i, cnt_i, lc, b, prehalo="yx",
+                        origin=origin)
+                    pb = pb[None]
+                elif kern == "K6":
+                    _, pb = fused_lbm.fused_step_imb_reduce_multi(
+                        fr, sw, td_i, cnt_i, lc, k, b, prehalo="yx",
+                        origin=origin, edges=edges, ny_glob=512)
+                else:
+                    fused_static.fused_step_imb_static_multi(
+                        fr, sw, lc, k, b, prehalo="yx", edges=edges,
+                        ny_glob=512)
+                assert torch.equal(b, a[:, iy * h:(iy + 1) * h,
+                                        ix * wd:(ix + 1) * wd]), (kern, iy, ix)
+                if pb is not None:
+                    want = pa.reshape(-1, nty, ntx, cap, 4)[
+                        :, tiles[0], tiles[1]].reshape(pb.shape)
+                    assert torch.equal(pb, want), (kern, iy, ix)
+
+
+def test_mesh_bf16_on_one_card(dev):
+    """A 2 x 2 bf16 mesh whose shards share the card against one device:
+    the fluid run(9) (two K5 blocks, one K4 step with the fixups) within
+    one bf16 ulp (rtol 1e-2, atol 1e-6), the coupled run(11) at f 3e-4,
+    x 1e-5, v 1e-6."""
+    from lbmdem_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh([dev] * 4, (2, 2))
+    fcfg = SimConfig(nx=512, ny=256, tau=0.8, gx=1e-6, dtype="float32",
+                     f_storage="bfloat16")
+    one = Simulation(fcfg, device=dev)
+    sh = Simulation(fcfg, mesh=mesh)
+    one.run(9)
+    sh.run(9)
+    assert sh.state.f.dtype == torch.bfloat16
+    torch.testing.assert_close(sh.state.f.float(), one.state.f.float(),
+                               rtol=1e-2, atol=1e-6)
+    cfg, disks = column_collapse(nx=256, ny=256, n_disks=60)
+    cfg = cfg.replace(f_storage="bfloat16")
+    one = Simulation(cfg, disks, device=dev)
+    sh = Simulation(cfg, disks, mesh=mesh)
+    one.run(11)
+    sh.run(11)
+    torch.testing.assert_close(sh.state.f.float(), one.state.f.float(),
+                               rtol=0, atol=3e-4)
+    torch.testing.assert_close(sh.state.disks.x, one.state.disks.x, rtol=0,
+                               atol=1e-5)
+    torch.testing.assert_close(sh.state.disks.v, one.state.disks.v, rtol=0,
+                               atol=1e-6)

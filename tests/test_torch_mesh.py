@@ -23,10 +23,12 @@ CPU, its shards on `["cpu"] * n`, against the JAX package.
   the seam; Simulation(mesh=...).run(11) (8 + 3 cadence steps) at the
   chunk bars (f 5e-6, x 1e-5, v 1e-6) and the fluid run(9) (two K5
   blocks and a K4 step).
-- The CLI's --mesh on the CPU, and what a mesh does not take yet (bf16
-  storage, --distributed); what it took in the next slice (coupling_k >
-  1, the static hoist, paranoid mode, K8's prehalo) runs against one
-  device (tests/test_torch_mesh_window.py holds those paths)."""
+- The CLI's --mesh on the CPU, and what a mesh does not take yet (K5
+  deeper than one sweep on a frame, --distributed); what it took in the
+  later slices (coupling_k > 1, the static hoist, paranoid mode, K8's
+  prehalo, bf16 storage) runs against one device
+  (tests/test_torch_mesh_window.py and tests/test_torch_mesh_bf16.py
+  hold those paths)."""
 
 import os
 import subprocess
@@ -420,29 +422,32 @@ def _refusals():
 @pytest.mark.parametrize("what,cfg,disks,kw", _refusals(),
                          ids=[r[0] for r in _refusals()])
 def test_mesh_refusals_name_item_12(what, cfg, disks, kw):
-    """bf16 storage on a mesh raises naming item 12. What else raised so
-    until the mesh took it - coupling_k > 1, the static hoist, paranoid
-    mode on the kernels and on the plain sharded step - runs 4 steps on
-    the 2 x 2 mesh healthily and lands on the one-device run at the chunk
-    bars (f 5e-6, x 1e-5, v 1e-6)."""
-    if what == "bf16":
-        with pytest.raises(NotImplementedError, match="item 12"):
-            Simulation(cfg, disks, mesh=_cpu_mesh((2, 2)), **kw)
-        return
+    """What raised naming item 12 until the mesh took it - coupling_k >
+    1, the static hoist, bf16 storage, paranoid mode on the kernels and
+    on the plain sharded step - runs 4 steps on the 2 x 2 mesh healthily
+    and lands on the one-device run at the chunk bars (f 5e-6, x 1e-5, v
+    1e-6; bf16 f compared in float32)."""
     cfg = cfg.replace(out_interval=4)
     one = Simulation(cfg, disks, device="cpu", **kw)
     sh = Simulation(cfg, disks, mesh=_cpu_mesh((2, 2)), **kw)
     one.run(4)
     sh.run(4)
+    if what == "bf16":
+        assert sh.state.f.dtype == torch.bfloat16
+        np.testing.assert_allclose(npy(sh.state.f.float()),
+                                   npy(one.state.f.float()), rtol=0,
+                                   atol=5e-6)
+        assert int(sh.state.step) == 4 and int(sh.state.fail_step) == -1
+        return
     _assert_close(one.state, sh.state, 5e-6, 1e-5, 1e-6)
     assert int(sh.state.fail_step) == -1
 
 
 def test_other_item_12_refusals(tmp_path):
-    """K5 pre-haloed deeper than one sweep, bf16 frames, the
-    multi-process layer and --distributed raise naming item 12; a mesh
-    must be a Mesh. K8's prehalo, which raised so too, runs: on a frame
-    its f' equals K2's pre-haloed f' exactly and its phi is the
+    """K5 pre-haloed deeper than one sweep (on f32 and on bf16 frames),
+    the multi-process layer and --distributed raise naming item 12; a
+    mesh must be a Mesh. K8's prehalo, which raised so too, runs: on a
+    frame its f' equals K2's pre-haloed f' exactly and its phi is the
     interior's."""
     from lbmdem_tpu_torch.parallel import init_distributed, process_info
 
@@ -459,11 +464,14 @@ def test_other_item_12_refusals(tmp_path):
     assert torch.equal(f8, f2)
     assert phix.shape == phiy.shape == (64, 128)
     assert float(phix.abs().max()) > 0.0
+    bcfg = tcfg.replace(f_storage="bfloat16")
+    fb = torch.zeros(fused_fluid.frame_shape(bcfg, "y"), dtype=torch.bfloat16)
     for call in (
             lambda: fused_fluid.fused_step_fluid_multi(
                 f, tcfg, 8, out, prehalo="y", edges=(1, 1, 1, 1)),
-            lambda: fused_fluid.fused_step_fluid(
-                f, tcfg.replace(f_storage="bfloat16"), out, prehalo="y"),
+            lambda: fused_fluid.fused_step_fluid_multi(
+                fb, bcfg, 8, out.to(torch.bfloat16), prehalo="y",
+                edges=(1, 1, 1, 1)),
             init_distributed, process_info,
             lambda: cli.main(["x.par", "--distributed"])):
         with pytest.raises(NotImplementedError, match="item 12"):

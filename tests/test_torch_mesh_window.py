@@ -194,8 +194,9 @@ def test_k8_prehalo_matches_pallas(mode):
 
 def test_prehalo_arguments_are_checked():
     """The pre-haloed K6/K7 need edges (a "y" shard holds both x edges),
-    the global height ny_glob and frames of the frame's shape; bf16
-    frames name item 12; origin and edges without a frame raise."""
+    the global height ny_glob and frames of the frame's shape (a bf16
+    frame has 16 halo rows, its solid window 8); origin and edges without
+    a frame raise."""
     tcfg = SimConfig(nx=W, ny=H, tau=0.8)
     f = torch.zeros(fused_fluid.frame_shape(tcfg, "y"))
     s = torch.zeros((3,) + tuple(f.shape[1:]))
@@ -230,11 +231,17 @@ def test_prehalo_arguments_are_checked():
             out, s[:, 8:-8], td, cnt, tcfg, 2, torch.empty_like(out),
             origin=(8, 0))
     bf = tcfg.replace(f_storage="bfloat16")
+    assert fused_static.check_static_cfg(bf, "y", (1, 1, 1, 1)) == "y"
+    assert fused_fluid.frame_shape(bf, "y") == (9, H + 32, W)
+    fb = f.to(torch.bfloat16)  # an f32 frame's 8 halo rows
     for call in (
-            lambda: fused_static.check_static_cfg(bf, "y", (1, 1, 1, 1)),
+            lambda: fused_static.fused_step_imb_static_multi(
+                fb, s, bf, 2, out.to(torch.bfloat16), prehalo="y",
+                edges=(1,) * 4, ny_glob=H),
             lambda: fused_lbm.fused_step_imb_reduce_multi(
-                f, s, td, cnt, bf, 2, out, prehalo="y", edges=(1,) * 4)):
-        with pytest.raises(NotImplementedError, match="item 12"):
+                fb, s, td, cnt, bf, 2, out.to(torch.bfloat16), prehalo="y",
+                edges=(1,) * 4, ny_glob=H)):
+        with pytest.raises(ValueError, match="pre-haloed f|f \\("):
             call()
 
 
