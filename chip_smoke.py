@@ -237,13 +237,32 @@ nothing falls back to the CPU):
 45. mesh bf16 static: phase 39 in bf16 on 2 x 2 (f within one bf16 ulp);
 46. mesh bf16 CLI: examples/column_collapse.par with f_storage bfloat16
    through the CLI with --mesh 2x2 (24 steps), its launches and its disk
-   state bit for bit against Simulation(mesh=...).run(24).
-Each phase of 37-46 prints its seconds.
+   state bit for bit against Simulation(mesh=...).run(24);
+47. mesh deep K5: K5 on frames deeper than one row sweep (f32 k = 5-8,
+   bf16 k = 5-16; the sweeps between through f32 scratch frames) against
+   its plain version on the card over phase 34's matrix on the corner,
+   edge and interior shards of 3 x 3 ("yx") and 3 x 1 ("y") meshes
+   (phase 34's bars, bf16 3e-4); against the halo-free K5(k) on a fully
+   periodic lattice framed from itself (torch.equal, every case); f32
+   k = 8 and bf16 k = 16 timed at the 2 x 2 and 4 x 1 shards of the
+   4096^2 fluid beside the halo-free K5(k) and their bounds;
+48. mesh fluid k = 8 (bf16 k = 16): the 4096^2 fluid on 2 x 2 through
+   make_sharded_step(temporal_k=k), one exchange per k steps: f after 2
+   calls equal to one device's 2 passes of K5(k), then 400 steps timed
+   in turns with the mesh's own run (k = 4) and one device's run, K5 4
+   launches per call;
+49. distributed CLI: examples/column_collapse.par through the CLI with
+   --distributed --mesh 2x2 (24 steps) as one NCCL rank in a subprocess
+   started as torchrun starts it: its files equal the one-process
+   --mesh 2x2 run's byte for byte (metrics.csv but for the MLUPS), the
+   MLUPS of both.
+Each phase of 37-49 prints its seconds.
 
 The second-to-last line holds the per-kernel JSON record (the ten
 kernels, then the bf16, TRT + LES, kt and periodic instantiations of K2,
-K6, K3 and K3w, the pre-haloed K2, K4, K5, K6, K7 and K8, and the
-pre-haloed K2, K4, K5, K6 and K7 on bf16 frames as records of their own;
+K6, K3 and K3w, the pre-haloed K2, K4, K5, K6, K7 and K8, the
+pre-haloed K2, K4, K5, K6 and K7 on bf16 frames, and K5 on frames deeper
+than one sweep (f32 k = 8, bf16 k = 16) as records of their own;
 with each kernel's bound: the
 larger of its bytes over 3.35 TB/s and its f32 operations over 67
 TFLOP/s; an NT collide counts 350 operations at a cell with eps_raw > 0
@@ -3296,10 +3315,10 @@ def storage_empty(cfg, *shape):
 
 def mesh_fluid_check(cfg, mode: str, k: int, edges, seed: int, label: str,
                      timed: bool = False, amp: float = 0.05,
-                     k5: bool = False):
-    """K4 (k == 1 and not k5) or K5 (k steps, `edges`) on a pre-haloed
-    frame against its plain version on the same card input, at
-    fluid_bar's bars.
+                     k5: bool = False, nyg: int = 0):
+    """K4 (k == 1 and not k5) or K5 (k steps, `edges`; the inlet profile
+    of nyg global rows, default 4 shards) on a pre-haloed frame against
+    its plain version on the same card input, at fluid_bar's bars.
     Returns work(max_abs_err, ms, plain_ms, bytes, flops): the bytes are
     the frame's cells the k steps need read once (frame_bytes: a ring of
     k around the interior) and the interior, and K4's edge populations,
@@ -3309,7 +3328,7 @@ def mesh_fluid_check(cfg, mode: str, k: int, edges, seed: int, label: str,
     f = mesh_frame(cfg, mode, seed, amp)
     a = storage_empty(cfg, 9, cfg.ny, cfg.nx)
     b = torch.empty_like(a)
-    nyg = 4 * cfg.ny
+    nyg = nyg or 4 * cfg.ny
     ea = (torch.empty((9, 2, cfg.nx), device="cuda"),
           torch.empty((9, cfg.ny, 2), device="cuda"))
     eb = tuple(torch.empty_like(t) for t in ea)
@@ -4430,6 +4449,288 @@ def mesh_cli_bf16(smi: str, steps: int = 24):
         shutil.rmtree(out, ignore_errors=True)
 
 
+# --- the lattice mesh IV: K5 on frames deeper than one sweep, and
+# --distributed -----------------------------------------------------------
+
+# K5's depths past one row sweep on a frame, per storage (the frame's
+# halo rows bound them)
+DEEP_K = {"float32": range(5, 9), "bfloat16": range(5, 17)}
+
+
+def mesh_deep_matrix() -> None:
+    """K5 on frames deeper than one sweep (f32 k = 5-8, bf16 k = 5-16)
+    against its plain version on the card, over MESH_MATRIX at the 256 x
+    128 shards of MESH_BF16_SHARDS (corner, edge and interior of a 3 x 3
+    mesh, "yx"; corner and middle of a 3 x 1 mesh, "y"), each with the
+    walls and closures of its global edges and the inlet profile of the
+    mesh's 3 shard rows. Bars: fluid_bar's (f32 5e-7 + 1e-5 relative,
+    2e-6 with Zou/He; bf16 3e-4)."""
+    from lbmdem_tpu_torch import SimConfig
+
+    worst, n = {}, 0
+    for storage, ks in DEEP_K.items():
+        for i, (label, kw) in enumerate(MESH_MATRIX):
+            cfg = SimConfig(**{"nx": 128, "ny": 256, "tau": 0.8,
+                               "dtype": "float32", "f_storage": storage,
+                               **kw})
+            for mode, (dims, shards) in MESH_BF16_SHARDS.items():
+                for p in shards:
+                    iy, ix = divmod(p, dims[1])
+                    e = (int(iy == 0), int(iy == dims[0] - 1), int(ix == 0),
+                         int(ix == dims[1] - 1), iy * cfg.ny)
+                    for k in ks:
+                        w = mesh_fluid_check(cfg, mode, k, e, 700 + 16 * i + k,
+                                             f"deep {label} shard {p}",
+                                             k5=True, nyg=dims[0] * cfg.ny)
+                        worst[storage] = max(worst.get(storage, 0.0),
+                                             w["err"])
+                        n += 1
+    log("mesh-deep", f"K5 on frames deeper than one sweep, plain versions on "
+        f"the card: {n} checks over {len(MESH_MATRIX)} options x shards "
+        f"{ {m: list(s) for m, (_, s) in MESH_BF16_SHARDS.items()} }: f32 "
+        f"k=5..8 worst err {worst['float32']:.3e} (bar 5e-7 + 1e-5 rel, "
+        f"2e-6 Zou/He), bf16 k=5..16 {worst['bfloat16']:.3e} (bar 3e-4)")
+
+
+def mesh_identity_deep(storage: str) -> None:
+    """K5 on frames deeper than one sweep (DEEP_K) against the halo-free
+    K5(k) on a fully periodic lattice whose shard frames are filled from
+    the lattice itself (mesh_identity's construction), on a 2 x 2 ("yx")
+    and a 2 x 1 ("y") mesh of 256 x 128 shards: the same sweeps over the
+    same cells, one rounding per pass on bf16, so torch.equal on every
+    case."""
+    from lbmdem_tpu_torch import SimConfig
+    from lbmdem_tpu_torch.ops import fused_fluid
+    from lbmdem_tpu_torch.ops.fused_fluid import HX
+
+    same, diffs = 0, []
+    for mode, dims in (("yx", (2, 2)), ("y", (2, 1))):
+        ny, nx = 256 * dims[0], 128 * dims[1]
+        cfg = SimConfig(nx=nx, ny=ny, tau=0.8, dtype="float32", gx=1e-5,
+                        bc_west="periodic", bc_east="periodic",
+                        bc_south="periodic", bc_north="periodic",
+                        f_storage=storage)
+        f = mesh_frame(cfg, "", 43, 0.05)
+        h, w = ny // dims[0], nx // dims[1]
+        lc = cfg.replace(ny=h, nx=w)
+        hy, hx = fused_fluid.frame_hy(lc), HX if mode == "yx" else 0
+        for k in DEEP_K[storage]:
+            ref = torch.empty_like(f)
+            fused_fluid.fused_step_fluid_multi(f, cfg, k, ref)
+            for iy in range(dims[0]):
+                for ix in range(dims[1]):
+                    cols = (torch.arange(-hx, w + hx, device="cuda")
+                            + ix * w) % nx
+                    rows = (torch.arange(-hy, h + hy, device="cuda")
+                            + iy * h) % ny
+                    fr = f[:, rows][:, :, cols].contiguous()
+                    b = storage_empty(lc, 9, h, w)
+                    fused_fluid.fused_step_fluid_multi(
+                        fr, lc, k, b, prehalo=mode,
+                        edges=(0, 0, int(mode == "y"), int(mode == "y"),
+                               iy * h), ny_glob=ny)
+                    y = ref[:, iy * h:(iy + 1) * h, ix * w:(ix + 1) * w]
+                    if torch.equal(b, y):
+                        same += 1
+                    else:
+                        diffs.append((k, mode, (iy, ix), float(
+                            (b.float() - y.float()).abs().max())))
+    log("mesh-identity", f"identity on {storage} frames deeper than one "
+        f"sweep (fully periodic 512x256 and 512x128, frames filled from the "
+        f"lattice): K5 k={DEEP_K[storage].start}..{DEEP_K[storage].stop - 1}"
+        f" against the halo-free K5(k) on the shards' rows: {same} of "
+        f"{same + len(diffs)} torch.equal; differences {diffs}")
+    assert not diffs, diffs
+
+
+def mesh_deep_timed(n: int = 4096):
+    """f32 K5 k = 8 and bf16 k = 16 on frames at the 2 x 2 shard of the
+    n^2 fluid (n/2 square plus halos) and the 4 x 1 one, against their
+    plain versions, timed with CUDA events beside the halo-free K5(k) on
+    the shard's interior, with their bounds (the interior and the ring of
+    k it reads, read once, the interior written once; k steps of
+    FLOPS_FLUID per interior cell: no scratch traffic). Returns
+    {storage: work} of the 2 x 2 shards."""
+    from lbmdem_tpu_torch import SimConfig
+    from lbmdem_tpu_torch.ops import fused_fluid
+
+    out = {}
+    h = n // 2
+    for storage, k in (("float32", 8), ("bfloat16", 16)):
+        for mode, shape in (("yx", (h, h)), ("y", (n // 4, n))):
+            cfg = SimConfig(nx=shape[1], ny=shape[0], tau=0.8, gx=1e-6,
+                            dtype="float32", f_storage=storage)
+            wk = mesh_fluid_check(cfg, mode, k, (1, 0, 1, int(mode == "y"),
+                                                 0), 61, f"{shape}",
+                                  timed=True, amp=0.02)
+            f = mesh_frame(cfg, "", 62, 0.02)
+            a = torch.empty_like(f)
+            t = cuda_ms(lambda: fused_fluid.fused_step_fluid_multi(
+                f, cfg, k, a), 20)
+            bms, by = bound(wk)
+            log("mesh-deep", f"{shape[0]}x{shape[1]} shard prehalo={mode} "
+                f"{storage} K5 k={k}: kernel {wk['ms']:.4f} ms, plain "
+                f"{wk['plain_ms']:.4f} ms, the same kernel without a halo on "
+                f"{shape[0]}x{shape[1]} {t:.4f} ms ({wk['ms'] / t:.4f}x; CUDA "
+                f"events); bound {bms:.4f} ms by {by} "
+                f"({wk['bytes'] / 1e9:.4f} GB, {wk['flops'] / 1e9:.2f} "
+                f"GFLOP)")
+            if mode == "yx":
+                out[storage] = wk
+            del f, a
+    return out
+
+
+def mesh_kernels_deep():
+    """Phase 47: the deep-frame matrix, the identities, the timed
+    shards."""
+    mesh_deep_matrix()
+    for storage in DEEP_K:
+        mesh_identity_deep(storage)
+    return mesh_deep_timed()
+
+
+def mesh_fluid_deep(smi: str, storage: str, k: int, n: int = 4096,
+                    calls: int = 50):
+    """n^2 pure fluid (bench.py's fluid/4096 stages) on a 2 x 2 mesh of
+    the one card through make_sharded_step(..., True, temporal_k=k), one
+    exchange per k steps: f after 2 calls equal (torch.equal) to one
+    device's 2 passes of K5(k) (f32: K5(k) is k chained K4 steps bit for
+    bit, so also one device's run), then `calls` calls timed in turns
+    with the mesh's own run (K5 at TEMPORAL_K) and one device's run of
+    as many steps: mesh k, mesh run, one, one, mesh run, mesh k, mesh k,
+    mesh run, one. Returns (launch counts of the first timed mesh-k
+    calls, median MLUPS)."""
+    from lbmdem_tpu_torch import SimConfig, Simulation
+    from lbmdem_tpu_torch.parallel import make_mesh, make_sharded_step
+    from lbmdem_tpu_torch.simulation import make_step_fn
+
+    cfg = SimConfig(nx=n, ny=n, tau=0.8, gx=1e-6, dtype="float32",
+                    out_interval=10**9, f_storage=storage)
+    mesh = make_mesh(["cuda"] * 4, (2, 2))
+    one = Simulation(cfg, device="cuda")
+    sh = Simulation(cfg, mesh=mesh)
+    step1 = make_step_fn(one.cfg, None, temporal_k=k)
+    stepm = make_sharded_step(sh.cfg, None, mesh, True, temporal_k=k)
+    for _ in range(2):
+        one._advance(step1)
+        sh._advance(stepm)
+    a, b = one.state.f, sh.state.f
+    eq = torch.equal(a, b)
+    err = float((a.float() - b.float()).abs().max())
+    log("mesh-deep-fluid", f"{n}x{n} {storage}, {mesh_cards(mesh)}, "
+        f"make_sharded_step(temporal_k={k}): 2 calls ({2 * k} steps) against "
+        f"one device's 2 passes of K5({k}): f equal {eq} (max err "
+        f"{err:.3e})")
+    assert eq, err
+    del a, b
+    steps = calls * k
+
+    def mesh_k():
+        for _ in range(calls):
+            sh._advance(stepm)
+        sh._sync()
+
+    reads = {"mesh k": [], "mesh run": [], "one": []}
+    counts = None
+    for who in ("mesh k", "mesh run", "one", "one", "mesh run", "mesh k",
+                "mesh k", "mesh run", "one"):
+        if who == "mesh k" and counts is None:
+            reset_counts()
+        t0 = time.perf_counter()
+        if who == "mesh k":
+            mesh_k()
+        else:
+            (sh if who == "mesh run" else one).run(steps)
+        reads[who].append(n * n * steps / (time.perf_counter() - t0) / 1e6)
+        if counts is None:
+            counts = launch_counts()
+    ratio = [m / o for m, o in zip(reads["mesh k"], reads["one"])]
+    ratio4 = [m / o for m, o in zip(reads["mesh run"], reads["one"])]
+    log("mesh-deep-fluid", f"{storage}: {steps} steps per run, in turns "
+        f"(mesh k, mesh run, one, one, mesh run, mesh k, mesh k, mesh run, "
+        f"one), wall clock: mesh at temporal_k={k} {reads['mesh k']} MLUPS, "
+        f"the mesh's run (K5 at k=4) {reads['mesh run']} MLUPS, one device's "
+        f"run {reads['one']} MLUPS; mesh k={k} / one per turn "
+        f"{[round(x, 4) for x in ratio]} (median "
+        f"{float(np.median(ratio)):.4f}x), mesh run / one "
+        f"{[round(x, 4) for x in ratio4]} (median "
+        f"{float(np.median(ratio4)):.4f}x) on {smi}; launches of the first "
+        f"mesh-k run {counts}")
+    assert counts == {**_NONE, "K5": 4 * calls}, counts
+    assert bool(torch.isfinite(sh.state.f.float()).all()), "non-finite f"
+    return counts, float(np.median(reads["mesh k"]))
+
+
+def _file_rows(path):
+    """A metrics.csv's rows without the wall-clock MLUPS column."""
+    import csv
+
+    with open(path, newline="") as fh:
+        return [{k: v for k, v in row.items() if k != "mlups"}
+                for row in csv.DictReader(fh)]
+
+
+def mesh_cli_distributed(smi: str, steps: int = 24):
+    """--distributed on the card: `python -m lbmdem_tpu_torch.cli
+    examples/column_collapse.par --distributed --mesh 2x2 --steps 24` in a
+    subprocess started as torchrun starts a rank (RANK 0, WORLD_SIZE 1,
+    MASTER_ADDR 127.0.0.1, a free MASTER_PORT, LOCAL_RANK 0: one NCCL
+    rank, whose four shards share the card), against the one-process
+    `--mesh 2x2` run of the deck in this process: the rank's line on
+    stderr, the kernel path, and every output file byte for byte
+    (metrics.csv row for row but for its MLUPS column: the disk state of
+    trajectories.csv bit for bit); the MLUPS of both."""
+    import shutil
+    import socket
+    import tempfile
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    deck = os.path.join(root, "examples", "column_collapse.par")
+    out = tempfile.mkdtemp(prefix="lbmdem_cli_dist_")
+    try:
+        one, two = os.path.join(out, "one"), os.path.join(out, "rank")
+        rc, stdout, err, secs = _cli([deck, "--mesh", "2x2", "--steps",
+                                      str(steps), "--out", one])
+        assert rc == 0 and "note:" not in err and "kernels" in err, (rc, err)
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        env = dict(os.environ, RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "lbmdem_tpu_torch.cli",
+                            deck, "--distributed", "--mesh", "2x2",
+                            "--steps", str(steps), "--out", two],
+                           capture_output=True, text=True, env=env,
+                           cwd=root, timeout=600)
+        rsecs = time.perf_counter() - t0
+        for line in (r.stdout + r.stderr).splitlines():
+            log("cli-dist", f"  | {line}")
+        assert r.returncode == 0, r.stderr[-3000:]
+        want = "distributed: process 0/1, 1 local / 1 global devices"
+        assert want in r.stderr and "kernels" in r.stderr, r.stderr
+        names = sorted(os.listdir(one))
+        assert names == sorted(os.listdir(two)), (names, os.listdir(two))
+        assert "trajectories.csv" in names
+        for name in names:
+            a, b = os.path.join(one, name), os.path.join(two, name)
+            if name == "metrics.csv":
+                assert _file_rows(a) == _file_rows(b), name
+            else:
+                with open(a, "rb") as fa, open(b, "rb") as fb:
+                    assert fa.read() == fb.read(), name
+        log("mesh-cli-dist", f"column_collapse.par through the CLI with "
+            f"--distributed --mesh 2x2 (one NCCL rank, a subprocess: "
+            f"{rsecs:.1f} s with its start, its build load and the process "
+            f"group) against --mesh 2x2 in this process: files {names} equal "
+            f"(metrics.csv but for MLUPS); {steps} steps, one 4096^2 snapshot "
+            f"included: rank {_done_mlups(r.stdout):.1f} MLUPS, one process "
+            f"{_done_mlups(stdout):.1f} MLUPS on {smi}")
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+
+
 def timed_phase(label: str, fn, *args):
     """fn(*args), logging the phase's seconds."""
     t0 = time.perf_counter()
@@ -4560,6 +4861,12 @@ def main() -> int:
     bsmcounts, _, _ = timed_phase("45 mesh bf16 static", mesh_static_slice,
                                   smi, (2, 2), 400, "bfloat16")
     timed_phase("46 mesh bf16 CLI", mesh_cli_bf16, smi)
+    mres4 = timed_phase("47 mesh deep K5", mesh_kernels_deep)
+    deep8, _ = timed_phase("48 mesh fluid k=8", mesh_fluid_deep, smi,
+                           "float32", 8)
+    deep16, _ = timed_phase("48 mesh bf16 fluid k=16", mesh_fluid_deep, smi,
+                            "bfloat16", 16, 4096, 25)
+    timed_phase("49 distributed CLI", mesh_cli_distributed, smi)
     counts.update({k: acounts[k] for k in ("K8", "K9")})
     counts.update({k: fcounts[k] for k in ("K4", "K5")})
     counts.update({k: wcounts[k] for k in ("K6", "K3w")})
@@ -4609,7 +4916,12 @@ def main() -> int:
              ("K4", "bf16 prehalo yx", mres3["K4"], bfmcounts["K4"]),
              ("K5", "bf16 prehalo yx", mres3["K5"], bfmcounts["K5"]),
              ("K6", "bf16 prehalo yx", mres3["K6"], bwmcounts["K6"]),
-             ("K7", "bf16 prehalo yx", mres3["K7"], bsmcounts["K7"])]
+             ("K7", "bf16 prehalo yx", mres3["K7"], bsmcounts["K7"]),
+             # K5 on frames deeper than one sweep: the mesh fluid at
+             # temporal_k 8 (f32) and 16 (bf16)
+             ("K5", "prehalo yx k=8", mres4["float32"], deep8["K5"]),
+             ("K5", "bf16 prehalo yx k=16", mres4["bfloat16"],
+              deep16["K5"])]
     kernels = []
     rows = [(k, "", res[k], counts[k]) for k in (
         "K1", "K2", "K3", "K4", "K5", "K6", "K3w", "K7", "K8", "K9")] + extra

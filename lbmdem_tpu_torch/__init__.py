@@ -12,7 +12,9 @@ SimulationDiverged at the first failing step. The user's entry point is
 the CLI, `python -m lbmdem_tpu_torch.cli run.par --out out/`, with
 checkpoints, metrics, VTK output and profiling in `utils/`. `parallel/`
 shards the lattice over a mesh of devices in one process
-(`Simulation(..., mesh=parallel.make_mesh(...))`, the CLI's --mesh YxX).
+(`Simulation(..., mesh=parallel.make_mesh(...))`, the CLI's --mesh YxX)
+or across processes (`parallel.init_distributed`, the CLI's
+--distributed).
 
     from lbmdem_tpu_torch import Simulation
     from lbmdem_tpu_torch.models import column_collapse

@@ -20,7 +20,19 @@ taken in turn, so a mesh larger than the host's cards puts several
 shards on a card; with --device cpu every shard on the CPU. --mesh auto
 takes every visible card. On a mesh the auto path takes the pre-haloed
 kernels where `kernels_supported(..., mesh)` passes, else the plain
-sharded step. --distributed (several processes) is not ported.
+sharded step.
+
+--distributed joins a torch.distributed group first
+(`parallel.init_distributed`: the topology from what torchrun sets;
+NCCL on the card, gloo with --device cpu) and the mesh then spans every
+process's devices in rank order (--mesh auto: every global card), one
+process per card:
+
+    torchrun --nproc-per-node 4 -m lbmdem_tpu_torch.cli run.par \
+        --distributed --mesh 2x2
+
+Every rank runs the same loop; rank 0 alone writes the output files and
+prints the step lines, which equal a one-process mesh's.
 """
 
 from __future__ import annotations
@@ -70,10 +82,16 @@ def main(argv=None) -> int:
                          "reported step is the end of the failing block)")
     ap.add_argument("--mesh", default=None, metavar="YxX",
                     help="shard the lattice over a Y x X mesh of devices "
-                         "in this process ('auto': every visible card; with "
-                         "--device cpu the shards share the CPU)")
+                         "('auto': every visible card, with --distributed "
+                         "every process's; with --device cpu the shards "
+                         "share the CPU)")
     ap.add_argument("--distributed", action="store_true",
-                    help="multi-process run (not ported)")
+                    help="join a torch.distributed group first (one process "
+                         "per card on NCCL, gloo with --device cpu; the "
+                         "topology from torchrun's RANK, WORLD_SIZE, "
+                         "MASTER_ADDR, MASTER_PORT, LOCAL_RANK; see "
+                         "parallel/launch.py); the mesh spans every "
+                         "process's devices and rank 0 writes the files")
     ap.add_argument("--profile", default=None, metavar="LOGDIR",
                     help="record a torch.profiler trace of the run into "
                          "LOGDIR/trace.json")
@@ -83,11 +101,15 @@ def main(argv=None) -> int:
                          "column_collapse); paramfile arg is ignored")
     args = ap.parse_args(argv)
 
-    from lbmdem_tpu_torch.ops import not_ported
-
+    rank = 0
     if args.distributed:
-        raise not_ported("--distributed (multi-process runs on "
-                         "torch.distributed)", 12)
+        from lbmdem_tpu_torch.parallel import init_distributed, process_info
+
+        init_distributed(device=args.device)
+        rank, pn, loc, glob = process_info()
+        print(f"distributed: process {rank}/{pn}, {loc} local / "
+              f"{glob} global devices", file=sys.stderr)
+    writes = rank == 0  # the one rank that prints and writes the files
     mesh = None
     if args.mesh:
         from lbmdem_tpu_torch.parallel import make_mesh
@@ -154,15 +176,23 @@ def main(argv=None) -> int:
     cfg = sim.cfg  # Simulation derives max_disks/window/tile_cap
     if args.restore:
         sim.state = ckpt.load_state(args.restore, sim.state)
-        print(f"restored from {args.restore} at step {int(sim.state.step)}")
+        step = int(sim.state.step)
+        if writes:
+            print(f"restored from {args.restore} at step {step}")
 
-    os.makedirs(args.out, exist_ok=True)
-    logger = MetricsLogger(os.path.join(args.out, "metrics.csv"))
+    if writes:
+        os.makedirs(args.out, exist_ok=True)
+    logger = MetricsLogger(os.path.join(args.out, "metrics.csv")
+                           if writes else None)
     writer = AsyncWriter(max_pending=0 if args.sync_io else 2)
 
     def emit(fn, *a, **kw):
         # --sync-io: run inline; default: overlap file work with the next
-        # chunk (the arguments are host copies, never the live state)
+        # chunk (the arguments are host copies, never the live state).
+        # Across processes every rank makes the snapshot's reads (each a
+        # collective gather) and rank 0 alone writes.
+        if not writes:
+            return
         if args.sync_io:
             fn(*a, **kw)
         else:
@@ -171,12 +201,12 @@ def main(argv=None) -> int:
     def snapshot(s: Simulation):
         step = int(s.state.step)
         row = logger.log(s)
-        print(
-            f"step {step:8d}  mass={row['mass']:.6e}  max_u={row['max_u']:.4f}"
-            f"  contacts={int(row['n_contacts'])}  overflow={int(row['overflow'])}"
-            f"  {row['mlups']:.0f} MLUPS",
-            flush=True,
-        )
+        if writes:
+            print(f"step {step:8d}  mass={row['mass']:.6e}  "
+                  f"max_u={row['max_u']:.4f}  "
+                  f"contacts={int(row['n_contacts'])}  "
+                  f"overflow={int(row['overflow'])}  "
+                  f"{row['mlups']:.0f} MLUPS", flush=True)
         if row["nan"]:
             raise RuntimeError(f"NaN in distributions at step {step}")
         rho, ux, uy = s.macroscopic()
@@ -220,7 +250,7 @@ def main(argv=None) -> int:
         return 0
     run_failed = False
     try:
-        if args.profile:
+        if args.profile and writes:
             from lbmdem_tpu_torch.utils.profiling import trace
 
             with trace(args.profile):
@@ -236,9 +266,21 @@ def main(argv=None) -> int:
         except Exception:
             if not run_failed:  # never mask a run() failure
                 raise
-    print(f"done: {remaining} steps, {mlups:.0f} MLUPS overall")
+    if writes:
+        print(f"done: {remaining} steps, {mlups:.0f} MLUPS overall")
     return 0
 
 
+def _main(argv=None) -> int:
+    """main, then leave the process group that --distributed joined."""
+    try:
+        return main(argv)
+    finally:
+        import torch.distributed as dist
+
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(_main())

@@ -71,7 +71,12 @@
 // need - K4 a ring of one cell, K5 a ring of k (rows only in "y" mode,
 // where x wraps) - and writes the interior: 9 x 4 B (2 B in bf16) x
 // ((ny + 2k) (nx [+ 2k]) + ny nx); the frame's other halo cells are
-// exchanged but not read.
+// exchanged but not read. K5 takes k up to the frame's halo (8 on f32,
+// 16 on bf16), the JAX kernel's limit: as on the lattice, ceil(k / 4)
+// sweeps, each but the last writing an f32 scratch frame that holds the
+// interior and the rings the later sweeps' cone reads (tblock.cuh's
+// frame output), stepped with the walls and closures at every inner
+// step as one deep pass steps them; bf16 rounds once, at the last store.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -208,31 +213,71 @@ int launch_step(const void* f, void* out, const float* u_in, int ny, int nx,
   return (int)cudaGetLastError();
 }
 
-// K5 on a frame: one sweep (k <= kSweepK) of the options, S -> S
-template <typename S, int PRE, int TRT, int LES, int FORCED>
+// K5 on a frame: one sweep (k <= kSweepK) of the options, S -> SO; ext
+// = 0 writes the interior into `out`, ext > 0 the interior and ext rings
+// around it into an f32 frame of fr's shape (tblock.cuh)
+template <typename S, typename SO, bool SHIFT, int PRE, int TRT, int LES,
+          int FORCED>
 int launch_sweep_prehalo(const void* f, void* out, const float* u_in, int ny,
-                         int nx, int k, const FluidParams& p, Frame fr,
-                         cudaStream_t stream) {
-  return launch_temporal_block<S, S, sizeof(S) == 2, kRows,
-                               (TRT || LES) ? 1 : 2,
+                         int nx, int k, int ext, const FluidParams& p,
+                         Frame fr, cudaStream_t stream) {
+  return launch_temporal_block<S, SO, SHIFT, kRows, (TRT || LES) ? 1 : 2,
                                FluidCell<TRT, LES, FORCED>, PRE>(
       f, u_in, out, FluidCell<TRT, LES, FORCED>{}, ny, nx, k, strip, p,
-      stream, fr);
+      stream, fr, ext, ext ? fr : Frame{0, 0, 0});
 }
 
-template <typename S, int PRE>
-int launch_multi_prehalo(const void* f, void* out, const float* u_in, int ny,
-                         int nx, int k, const FluidParams& p, Frame fr,
-                         cudaStream_t stream) {
-#define LBM_FP(TRT, LES)                                                     \
-  (p.forced ? launch_sweep_prehalo<S, PRE, TRT, LES, 1>(f, out, u_in, ny,   \
-                                                        nx, k, p, fr,       \
-                                                        stream)             \
-            : launch_sweep_prehalo<S, PRE, TRT, LES, 0>(f, out, u_in, ny,   \
-                                                        nx, k, p, fr, stream))
+template <typename S, typename SO, bool SHIFT, int PRE>
+int launch_pass_prehalo(const void* f, void* out, const float* u_in, int ny,
+                        int nx, int k, int ext, const FluidParams& p,
+                        Frame fr, cudaStream_t stream) {
+#define LBM_FP(TRT, LES)                                                  \
+  (p.forced ? launch_sweep_prehalo<S, SO, SHIFT, PRE, TRT, LES, 1>(      \
+                  f, out, u_in, ny, nx, k, ext, p, fr, stream)           \
+            : launch_sweep_prehalo<S, SO, SHIFT, PRE, TRT, LES, 0>(      \
+                  f, out, u_in, ny, nx, k, ext, p, fr, stream))
   if (p.trt) return p.les ? LBM_FP(1, 1) : LBM_FP(1, 0);
   return p.les ? LBM_FP(0, 1) : LBM_FP(0, 0);
 #undef LBM_FP
+}
+
+// K5 on a frame, k <= fr.hy steps: ceil(k / kSweepK) sweeps of near equal
+// depth, as launch_multi; sweep i < n - 1 writes into the f32 scratch
+// frame mid[i % 2] the interior and the rings that the later sweeps'
+// cone reads (their depth: `rest`), the next reads it as its frame
+template <typename S, int PRE>
+int launch_multi_prehalo(const void* f, float* mid, void* out,
+                         const float* u_in, int ny, int nx, int k,
+                         const FluidParams& p, Frame fr,
+                         cudaStream_t stream) {
+  constexpr bool kShift = sizeof(S) == 2;
+  const int n = (k + kSweepK - 1) / kSweepK;
+  if (n == 1)
+    return launch_pass_prehalo<S, S, kShift, PRE>(f, out, u_in, ny, nx, k, 0,
+                                                  p, fr, stream);
+  if (mid == nullptr) return (int)cudaErrorInvalidValue;
+  const size_t frame = (size_t)9 * (ny + 2 * fr.hy) * fr.pitch;
+  const float* src = nullptr;
+  int rest = k;
+  for (int i = 0; i < n; ++i) {
+    const int ki = k / n + (i < k % n);
+    rest -= ki;
+    float* dst = mid + (i & 1) * frame;
+    int err;
+    if (i == 0)
+      err = launch_pass_prehalo<S, float, kShift, PRE>(f, dst, u_in, ny, nx,
+                                                       ki, rest, p, fr,
+                                                       stream);
+    else if (i < n - 1)
+      err = launch_pass_prehalo<float, float, kShift, PRE>(
+          src, dst, u_in, ny, nx, ki, rest, p, fr, stream);
+    else
+      err = launch_pass_prehalo<float, S, kShift, PRE>(src, out, u_in, ny, nx,
+                                                       ki, 0, p, fr, stream);
+    if (err != 0) return err;
+    src = dst;
+  }
+  return 0;
 }
 
 }  // namespace
@@ -293,26 +338,28 @@ extern "C" int lbm_fluid_step_prehalo(const void* f, void* out, float* erow,
                                     edge);
 }
 
-// K5 on a shard's pre-haloed frame: k <= 4 steps in one sweep, f, out and
-// bf16 as lbm_fluid_step_prehalo's; p carries the walls and Zou/He sides
-// of the shard's global edges (p.open: bit 0 inlet, bit 1 outlet); u_in:
-// (ny + 2 hy,) f32, the inlet profile at the frame's global rows (read
-// only when p.open).
-extern "C" int lbm_fluid_multi_prehalo(const void* f, void* out,
+// K5 on a shard's pre-haloed frame: 1 <= k <= hy steps (8 on f32, 16 on
+// bf16), f, out and bf16 as lbm_fluid_step_prehalo's; p carries the walls
+// and Zou/He sides of the shard's global edges (p.open: bit 0 inlet, bit
+// 1 outlet); u_in: (ny + 2 hy,) f32, the inlet profile at the frame's
+// global rows (read only when p.open); mid: f32 scratch of
+// (min(n - 1, 2), 9, ny + 2 hy, pitch) for n = ceil(k / 4) sweeps,
+// unused (may be null) for k <= 4.
+extern "C" int lbm_fluid_multi_prehalo(const void* f, void* out, float* mid,
                                        const float* u_in, int ny, int nx,
                                        int pitch, int hx, int k, int bf16,
                                        FluidParams p, cudaStream_t stream) {
-  if (k < 1 || k > kSweepK || pitch != nx + 2 * hx ||
+  if (k < 1 || k > frame_hy(bf16) || pitch != nx + 2 * hx ||
       (hx != 0 && hx != kHaloCols) || (p.open && u_in == nullptr))
     return (int)cudaErrorInvalidValue;
   const Frame fr{pitch, hx, frame_hy(bf16)};
   if (bf16)
-    return hx ? launch_multi_prehalo<__nv_bfloat16, 2>(f, out, u_in, ny, nx,
-                                                       k, p, fr, stream)
-              : launch_multi_prehalo<__nv_bfloat16, 1>(f, out, u_in, ny, nx,
-                                                       k, p, fr, stream);
-  return hx ? launch_multi_prehalo<float, 2>(f, out, u_in, ny, nx, k, p, fr,
-                                             stream)
-            : launch_multi_prehalo<float, 1>(f, out, u_in, ny, nx, k, p, fr,
-                                             stream);
+    return hx ? launch_multi_prehalo<__nv_bfloat16, 2>(f, mid, out, u_in, ny,
+                                                       nx, k, p, fr, stream)
+              : launch_multi_prehalo<__nv_bfloat16, 1>(f, mid, out, u_in, ny,
+                                                       nx, k, p, fr, stream);
+  return hx ? launch_multi_prehalo<float, 2>(f, mid, out, u_in, ny, nx, k, p,
+                                             fr, stream)
+            : launch_multi_prehalo<float, 1>(f, mid, out, u_in, ny, nx, k, p,
+                                             fr, stream);
 }

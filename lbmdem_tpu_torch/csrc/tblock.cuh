@@ -198,11 +198,19 @@ inline size_t tblock_smem(int k, int threads) {
 // kernel (temporal_block_kernel) and the frame's
 // (temporal_block_prehalo_kernel) are two entries, so the lattice's
 // keeps its own signature and code.
+//
+// On a frame the output is the (planes, ny, nx) interior (fo = {nx, 0,
+// 0}) or, for a K5 sweep that feeds another (fluid.cu), a frame of fr's
+// shape (fo = fr) that receives the interior and `ext` rings of cells
+// around it ("y" mode: rows only): the cone the later sweeps read. Those
+// cells are stepped as the interior is (each carries its local unwrapped
+// coordinate), so the chained sweeps compute what one deep sweep would.
+// The cone of the pass, k + ext, stays inside the frame's halo.
 template <typename S, typename SO, bool SHIFT, int ROWS, class Cell, int PRE>
 __device__ __forceinline__ void temporal_block_body(
     const S* __restrict__ f, const float* __restrict__ u_in,
     SO* __restrict__ out, Cell cell, int ny, int nx, int k, int rows,
-    FluidParams p, Frame fr) {
+    FluidParams p, Frame fr, int ext, Frame fo) {
   constexpr bool kShift = SHIFT;
   constexpr int RING = ring_rows<ROWS>();
   constexpr int LAG = ROWS + 1;
@@ -210,11 +218,14 @@ __device__ __forceinline__ void temporal_block_body(
   extern __shared__ float smem[];
   const int T = blockDim.x, lx = threadIdx.x;
   const int g = threadIdx.y;                     // group g runs level g
-  const int y0 = blockIdx.y * rows;              // first output row
-  const int h = min(rows, ny - y0);              // output rows
-  const int gx = blockIdx.x * (T - 2 * k) - k + lx;  // global unwrapped
+  const int ery = PRE ? ext : 0;                 // output rings past the
+  const int erx = PRE == 2 ? ery : 0;            // interior, rows and cols
+  const int y0 = blockIdx.y * rows - ery;        // first output row
+  const int h = min(rows, ny + ery - y0);        // output rows
+  const int gx = blockIdx.x * (T - 2 * k) - k + lx - erx;  // unwrapped
   const int cx = wrap(gx, nx);
   const size_t plane = (size_t)ny * nx;
+  const size_t oplane = PRE ? (size_t)(ny + 2 * fo.hy) * fo.pitch : plane;
   // PRE: the planes of the f frame and of the solid window, and the
   // lane's frame column (lanes past the 2k-column cone that no output
   // needs read a clamped column); u_in from interior row 0 of the frame's
@@ -228,7 +239,7 @@ __device__ __forceinline__ void temporal_block_body(
   const int R = 2 * k - 1;
   // NTCell: [R][eps_raw, us_x, us_y][T]
   float* sol = smem + (size_t)9 * RING * k * T;
-  const bool out_col = lx >= k && lx < T - k && gx < nx;
+  const bool out_col = lx >= k && lx < T - k && gx < nx + erx;
   const bool stores = out_col && g == k - 1;  // level k: the store
   // Row j of the sweep is global row y0 - k + j. Level t collides rows j
   // in [t, h + 2k - t) (at phase (j + LAG t) / ROWS) into ring slot
@@ -294,9 +305,11 @@ __device__ __forceinline__ void temporal_block_body(
         if (jo < k || jo >= k + h) continue;
         float v[9];
         pull(k, jo, v);
-        const size_t c = (size_t)(y0 - k + jo) * nx + gx;
+        const size_t c =
+            PRE ? (size_t)(y0 - k + jo + fo.hy) * fo.pitch + gx + fo.hx
+                : (size_t)(y0 - k + jo) * nx + gx;
 #pragma unroll
-        for (int i = 0; i < 9; ++i) store_f(out + i * plane + c, v[i]);
+        for (int i = 0; i < 9; ++i) store_f(out + i * oplane + c, v[i]);
       }
     }
     if constexpr (Cell::kSolid) {
@@ -313,9 +326,9 @@ __global__ void __launch_bounds__(kTBMaxThreads, MINB)
                           const float* __restrict__ u_in, SO* __restrict__ out,
                           Cell cell, int ny, int nx, int k, int rows,
                           FluidParams p) {
-  temporal_block_body<S, SO, SHIFT, ROWS, Cell, 0>(f, u_in, out, cell, ny, nx,
-                                                   k, rows, p,
-                                                   Frame{0, 0, 0});
+  temporal_block_body<S, SO, SHIFT, ROWS, Cell, 0>(
+      f, u_in, out, cell, ny, nx, k, rows, p, Frame{0, 0, 0}, 0,
+      Frame{nx, 0, 0});
 }
 
 template <typename S, typename SO, bool SHIFT, int ROWS, int MINB,
@@ -325,9 +338,10 @@ __global__ void __launch_bounds__(kTBMaxThreads, MINB)
                                   const float* __restrict__ u_in,
                                   SO* __restrict__ out, Cell cell, int ny,
                                   int nx, int k, int rows, FluidParams p,
-                                  Frame fr) {
+                                  Frame fr, int ext, Frame fo) {
   temporal_block_body<S, SO, SHIFT, ROWS, Cell, PRE>(f, u_in, out, cell, ny,
-                                                     nx, k, rows, p, fr);
+                                                     nx, k, rows, p, fr, ext,
+                                                     fo);
 }
 
 // The device's opt-in shared memory per block, read once
@@ -342,12 +356,16 @@ inline int max_block_smem() {
   return max_smem;
 }
 
+// ext, fo: the frame-output mode of temporal_block_body (fo.pitch = 0:
+// the interior); K5 only (a cell with a solid stack or a sink keeps the
+// interior)
 template <typename S, typename SO, bool SHIFT, int ROWS, int MINB,
           class Cell, int PRE = 0>
 int launch_temporal_block(const void* f, const float* u_in, void* out,
                           Cell cell, int ny, int nx, int k, StripConfig strip,
                           const FluidParams& p, cudaStream_t stream,
-                          Frame fr = Frame{0, 0, 0}) {
+                          Frame fr = Frame{0, 0, 0}, int ext = 0,
+                          Frame fo = Frame{0, 0, 0}) {
   auto kernel = [] {
     if constexpr (PRE == 0)
       return temporal_block_kernel<S, SO, SHIFT, ROWS, MINB, Cell>;
@@ -355,8 +373,11 @@ int launch_temporal_block(const void* f, const float* u_in, void* out,
       return temporal_block_prehalo_kernel<S, SO, SHIFT, ROWS, MINB, Cell,
                                            PRE>;
   }();
-  if (k < 1 || k > kTBMaxK || (PRE && k > fr.hy))
+  if (k < 1 || k > kTBMaxK || ext < 0 || (PRE && k + ext > fr.hy) ||
+      (ext > 0 && (PRE == 0 || Cell::kSolid || fo.pitch != fr.pitch ||
+                   fo.hx != fr.hx || fo.hy != fr.hy)))
     return (int)cudaErrorInvalidValue;
+  if (fo.pitch == 0) fo = Frame{nx, 0, 0};
   const int max_smem = max_block_smem();
   int threads = strip.threads;
   while (threads > 64 &&
@@ -378,8 +399,9 @@ int launch_temporal_block(const void* f, const float* u_in, void* out,
     opted_in[dev] = bytes;
   }
   const int w = threads - 2 * k;
-  const int nbx = (nx + w - 1) / w, rows = strip.rows;
-  const dim3 grid(nbx, (ny + rows - 1) / rows);
+  const int oy = ext, ox = PRE == 2 ? ext : 0;  // output rings
+  const int nbx = (nx + 2 * ox + w - 1) / w, rows = strip.rows;
+  const dim3 grid(nbx, (ny + 2 * oy + rows - 1) / rows);
   if constexpr (PRE == 0)
     kernel<<<grid, dim3(threads, k), bytes, stream>>>(
         static_cast<const S*>(f), u_in, static_cast<SO*>(out), cell, ny, nx,
@@ -387,7 +409,7 @@ int launch_temporal_block(const void* f, const float* u_in, void* out,
   else
     kernel<<<grid, dim3(threads, k), bytes, stream>>>(
         static_cast<const S*>(f), u_in, static_cast<SO*>(out), cell, ny, nx,
-        k, rows, p, fr);
+        k, rows, p, fr, ext, fo);
   return (int)cudaGetLastError();
 }
 

@@ -60,6 +60,17 @@ def state_from_numpy(d: dict, device="cuda") -> SimState:
     return SimState(f=_f_from_numpy(d, device), disks=disks, **counters)
 
 
+def mesh_state_from_numpy(d: dict, mesh):
+    """A MeshState on `mesh` (parallel.make_mesh) from the numpy form:
+    the state is built on the CPU and each rank takes its own shards onto
+    its devices (`parallel.shard_state`), so nothing of another rank's
+    shards reaches a card. A JAX state crosses onto a mesh of the port,
+    one process or several, this way."""
+    from lbmdem_tpu_torch.parallel import shard_state
+
+    return shard_state(state_from_numpy(d, "cpu"), mesh)
+
+
 def state_to_numpy(state: SimState) -> dict:
     """The numpy form of a SimState."""
     f = state.f.cpu()

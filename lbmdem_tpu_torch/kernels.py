@@ -102,7 +102,7 @@ _SIGNATURES = {
     "lbm_fluid_strip": [_I, _I],
     "lbm_fluid_step_prehalo": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
                                FluidParams, _P],
-    "lbm_fluid_multi_prehalo": [_P, _P, _P, _I, _I, _I, _I, _I, _I,
+    "lbm_fluid_multi_prehalo": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                 FluidParams, _P],
     "lbm_imb_step_prehalo": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                              _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,

@@ -23,8 +23,10 @@ post-collision populations K4 hands out (on bf16 the shifted ones, in
 f32). K5 runs every wall and the Zou/He closures itself at each inner
 step, gated by `edges` = (south, north, west, east, global row offset of
 the shard), with the inlet profile taken at the global row (`ny_glob`
-rows in all); on a frame it takes k <= SWEEP_K. Both keep the JAX
-shapes, so the parity tests feed both packages one array.
+rows in all); on a frame it takes k up to the frame's halo rows (MAX_K:
+8 on f32, 16 on bf16), deeper than one row sweep through f32 scratch
+frames. Both keep the JAX shapes, so the parity tests feed both
+packages one array.
 """
 
 from __future__ import annotations
@@ -37,14 +39,15 @@ import torch
 
 from lbmdem_tpu_torch import kernels, lattice
 from lbmdem_tpu_torch.config import SimConfig, WALL
-from lbmdem_tpu_torch.ops import lbm, not_ported
+from lbmdem_tpu_torch.ops import lbm
 
-# largest k per pass, the TPU kernel's: f32 8, bf16 16
+# largest k per pass, the TPU kernel's (on a frame its halo rows): f32 8,
+# bf16 16
 MAX_K = {"float32": 8, "bfloat16": 16}
 
 # steps per row sweep (csrc/fluid.cu kSweepK): a larger k runs as
-# ceil(k / SWEEP_K) sweeps through f32 scratch planes, one pass bit for
-# bit
+# ceil(k / SWEEP_K) sweeps through f32 scratch planes (on a frame scratch
+# frames), one pass bit for bit
 SWEEP_K = 4
 
 # K5's strip, threads per level and output rows per block, from
@@ -93,20 +96,13 @@ def solid_shape(cfg: SimConfig, mode: str):
             cfg.nx + (2 * HX if mode == "yx" else 0))
 
 
-def check_fluid_cfg(cfg: SimConfig, prehalo=False, edges=None,
-                    k: int = 1) -> str:
-    """The pre-halo mode of the arguments; raise for what the fluid
-    kernels do not take: edges without a pre-haloed frame, K5 on a frame
-    deeper than one row sweep (k > SWEEP_K)."""
+def check_fluid_cfg(cfg: SimConfig, prehalo=False, edges=None) -> str:
+    """The pre-halo mode of the arguments; raise for edges without a
+    pre-haloed frame."""
     mode = prehalo_mode(prehalo)
-    if not mode:
-        if edges is not None:
-            raise ValueError("edges are the mesh position of a pre-haloed "
-                             "shard (prehalo='y' or 'yx')")
-        return mode
-    if k > SWEEP_K:
-        raise not_ported(f"K5 on a pre-haloed shard with k = {k} > "
-                         f"{SWEEP_K} (more than one row sweep)", 12)
+    if not mode and edges is not None:
+        raise ValueError("edges are the mesh position of a pre-haloed "
+                         "shard (prehalo='y' or 'yx')")
     return mode
 
 
@@ -427,6 +423,15 @@ def _frame_args(f, cfg: SimConfig, mode: str):
     return f.shape[2], (HX if mode == "yx" else 0)
 
 
+def _scratch(f, k: int):
+    """K5's f32 scratch for k steps: ceil(k / SWEEP_K) - 1 planes (at most
+    two, used in turn) of f's shape, the lattice's or the frame's; None
+    for one sweep."""
+    n_mid = min(-(-k // SWEEP_K) - 1, 2)
+    return (torch.empty((n_mid, *f.shape), dtype=torch.float32,
+                        device=f.device) if n_mid else None)
+
+
 def _launch(f, cfg: SimConfig, k: int, out, what: str, mode: str = "",
             edges=None, ny_glob: int = 0, edge_post=None) -> None:
     """Launch K4 (k None) or K5 (k steps) on the lattice or, in pre-halo
@@ -448,17 +453,17 @@ def _launch(f, cfg: SimConfig, k: int, out, what: str, mode: str = "",
         elif mode:
             pitch, hx = _frame_args(f, cfg, mode)
             p, u_in = edge_params(cfg, edges, ny_glob, f.device)
+            mid = _scratch(f, k)
             code = lib.lbm_fluid_multi_prehalo(
-                f.data_ptr(), out.data_ptr(), u_in, cfg.ny, cfg.nx, pitch,
-                hx, k, bf16, p, kernels.stream())
+                f.data_ptr(), out.data_ptr(),
+                None if mid is None else mid.data_ptr(), u_in, cfg.ny,
+                cfg.nx, pitch, hx, k, bf16, p, kernels.stream())
         elif k is None:
             code = lib.lbm_fluid_step(f.data_ptr(), out.data_ptr(), u_in,
                                       cfg.ny, cfg.nx, bf16, _params(cfg),
                                       kernels.stream())
         else:
-            n_mid = min(-(-k // SWEEP_K) - 1, 2)  # scratch planes in turn
-            mid = (torch.empty((n_mid, *f.shape), dtype=torch.float32,
-                               device=f.device) if n_mid else None)
+            mid = _scratch(f, k)
             code = lib.lbm_fluid_multi(f.data_ptr(), out.data_ptr(),
                                        None if mid is None else mid.data_ptr(),
                                        u_in, cfg.ny, cfg.nx, k, bf16,
@@ -512,15 +517,17 @@ def fused_step_fluid_multi(f, cfg: SimConfig, k: int, out, prehalo=False,
     written into `out`. Returns out. k == 1 is K4, as in the JAX entry.
 
     prehalo ("y" or True, "yx"): f is a shard's pre-haloed frame, `out`
-    its interior, k <= SWEEP_K; `edges` = (south, north, west, east[,
-    global row offset]) flags the global edges the shard holds, where
-    the walls and the Zou/He closures run at every inner step, and
-    `ny_glob` is the global lattice height (the inlet profile's).
+    its interior (k up to the frame's halo rows, MAX_K); `edges` =
+    (south, north, west, east[, global row offset]) flags the global
+    edges the shard holds, where the walls and the Zou/He closures run
+    at every inner step, and `ny_glob` is the global lattice height (the
+    inlet profile's).
 
     CPU tensors take the plain version; CUDA tensors take the kernel
     csrc/fluid.cu (lbm_fluid_multi, or lbm_fluid_multi_prehalo on a
-    frame)."""
-    mode = check_fluid_cfg(cfg, prehalo, edges, k)
+    frame; k > SWEEP_K as several row sweeps, through f32 scratch planes
+    or, on a frame, scratch frames)."""
+    mode = check_fluid_cfg(cfg, prehalo, edges)
     if not 1 <= k <= MAX_K[cfg.f_storage]:
         raise ValueError(f"temporal block k={k} outside "
                          f"1..{MAX_K[cfg.f_storage]} for f_storage="

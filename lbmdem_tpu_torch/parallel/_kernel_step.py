@@ -58,13 +58,14 @@ import torch
 from lbmdem_tpu_torch import lattice
 from lbmdem_tpu_torch.config import SimConfig, WALL
 from lbmdem_tpu_torch.ops import (fused_fluid, fused_lbm, fused_static, imb,
-                                  lbm, not_ported, slab_dem, stamp)
+                                  lbm, slab_dem, stamp)
 from lbmdem_tpu_torch.ops.dem import DemGrid
 from lbmdem_tpu_torch.ops.fused_fluid import HX, HY, HY_BF16
 from lbmdem_tpu_torch.parallel.sharding import (
     Mesh, MeshState, _inlet_rows, advance_replica,
-    apply_open_boundaries_sharded, mask_open_edges, mesh_state_ok,
-    on_device, paranoid_commit_mesh, shard_dims, sum_over_shards,
+    apply_open_boundaries_sharded, halo_moves, mask_open_edges,
+    max_over_shards, mesh_state_ok, on_device, paranoid_commit_mesh,
+    per_position, shard_dims, sum_over_shards,
 )
 
 # stamp tile rows, the coupled lattice tile rows of the JAX chain
@@ -83,35 +84,55 @@ def canvas_pads(h: int, two_d: bool):
     return pady, (HX if two_d else 0)
 
 
-def exchange(fs, mesh: Mesh) -> List[torch.Tensor]:
+def exchange(fs, mesh: Mesh) -> List[Optional[torch.Tensor]]:
     """(9, h, w) shards -> their (9, h + 2 hy, w [+ 256]) pre-collision
-    frames: hy rows from the south and north neighbours (HY on f32
-    shards, HY_BF16 on bf16: keyed on the shards' dtype), then on a 2D
-    mesh HX columns of the y-extended frames from the west and east
-    neighbours (so the corners carry the diagonal neighbours' cells).
+    frames (by position; None where another rank holds it): hy rows from
+    the south and north neighbours (HY on f32 shards, HY_BF16 on bf16:
+    keyed on the shards' dtype), then on a 2D mesh HX columns of the
+    y-extended frames from the west and east neighbours - the y pass
+    done first, so the corners carry the diagonal neighbours' cells.
     The ring wrap is the periodic boundary; the halo beyond a wall is
-    never used. Copies on a card, or device to device between cards."""
+    never used. Copies on a card, device to device between cards, and
+    point-to-point over the process group to a neighbour on another
+    rank (`sharding.halo_moves`)."""
     two_d = mesh.shape["x"] > 1
     hx = HX if two_d else 0
-    hy = HY_BF16 if fs[0].dtype == torch.bfloat16 else HY
-    frames = []
-    for p, iy, ix in mesh.positions():
-        f = fs[p]
-        q, h, w = f.shape
-        fr = torch.empty((q, h + 2 * hy, w + 2 * hx), dtype=f.dtype,
-                         device=f.device)
-        fr[:, hy:hy + h, hx:hx + w] = f
-        fr[:, :hy, hx:hx + w] = fs[mesh.index(iy - 1, ix)][:, -hy:, :]
-        fr[:, hy + h:, hx:hx + w] = fs[mesh.index(iy + 1, ix)][:, :hy, :]
-        frames.append(fr)
+    f0 = fs[mesh.positions()[0][0]]
+    q, h, w = f0.shape
+    hy = HY_BF16 if f0.dtype == torch.bfloat16 else HY
+
+    def frame(p, iy, ix):
+        fr = torch.empty((q, h + 2 * hy, w + 2 * hx), dtype=f0.dtype,
+                         device=fs[p].device)
+        fr[:, hy:hy + h, hx:hx + w] = fs[p]
+        return fr
+
+    frames = per_position(mesh, frame)
+
+    def put(sl):
+        def put_at(p, v):
+            frames[p][sl] = v
+        return put_at
+
+    rows_s = (slice(None), slice(0, hy), slice(hx, hx + w))
+    rows_n = (slice(None), slice(hy + h, None), slice(hx, hx + w))
+    moves = []
+    for p, iy, ix in mesh.all_positions():
+        moves += [(p, mesh.index(iy - 1, ix), lambda r: fs[r][:, -hy:, :],
+                   put(rows_s)),
+                  (p, mesh.index(iy + 1, ix), lambda r: fs[r][:, :hy, :],
+                   put(rows_n))]
+    halo_moves(mesh, moves)
     if two_d:
-        for p, iy, ix in mesh.positions():
-            fr = frames[p]
-            w = fr.shape[2] - 2 * HX
-            west = frames[mesh.index(iy, ix - 1)]
-            east = frames[mesh.index(iy, ix + 1)]
-            fr[:, :, :HX] = west[:, :, w:w + HX]
-            fr[:, :, HX + w:] = east[:, :, HX:2 * HX]
+        moves = []
+        for p, iy, ix in mesh.all_positions():
+            moves += [(p, mesh.index(iy, ix - 1),
+                       lambda r: frames[r][:, :, w:w + HX],
+                       put((slice(None), slice(None), slice(0, HX)))),
+                      (p, mesh.index(iy, ix + 1),
+                       lambda r: frames[r][:, :, HX:2 * HX],
+                       put((slice(None), slice(None), slice(HX + w, None))))]
+        halo_moves(mesh, moves)
     return frames
 
 
@@ -137,18 +158,18 @@ class _Sharded:
         # shard's global row offset
         self.edges = [(int(iy == 0), int(iy == ny_sh - 1), int(ix == 0),
                        int(ix == nx_sh - 1), iy * h)
-                      for _, iy, ix in mesh.positions()]
-        # the shards' rows of the inlet profile and the outlet density,
-        # made once per device (tensors: a division by a Python float
-        # rounds otherwise on the card than the kernels' closures)
+                      for _, iy, ix in mesh.all_positions()]
+        # the local shards' rows of the inlet profile and the outlet
+        # density, made once per shard (tensors: a division by a Python
+        # float rounds otherwise on the card than the kernels' closures)
         inlet = cfg.bc_west == "inlet"
-        like = [torch.empty(0, dtype=lbm.torch_dtype(cfg), device=d)
-                for d in mesh.devices]
-        self.u_rows = [_inlet_rows(cfg, iy, h, like[p]) if inlet else None
-                       for p, iy, _ in mesh.positions()]
-        self.rho_o = [torch.full((), cfg.rho_outlet or cfg.rho0,
-                                 dtype=t.dtype, device=t.device)
-                      if inlet else None for t in like]
+        dt = lbm.torch_dtype(cfg)
+        self.u_rows = per_position(mesh, lambda p, iy, ix: _inlet_rows(
+            cfg, iy, h, torch.empty(0, dtype=dt, device=mesh.devices[p]))
+            if inlet else None)
+        self.rho_o = per_position(mesh, lambda p, iy, ix: torch.full(
+            (), cfg.rho_outlet or cfg.rho0, dtype=dt, device=mesh.devices[p])
+            if inlet else None)
         if self.coupled:
             self.pady, self.padx = canvas_pads(h, self.two_d)
             self.canvas_cfg = cfg.replace(ny=h + 2 * self.pady,
@@ -288,16 +309,16 @@ class _Sharded:
             disks.append(d)
             ovf.append(o)
             reps.append((d.x, gparent, gaxes))
-        shards, bovf = [], []
+        shards, bovf = [None] * mesh.size, []
         for p, iy, ix in mesh.positions():
             xa, act = xb[mesh.replica_of[p]]
             with on_device(mesh.devices[p]):
                 lists, counts, entries_i, b = self._bin(iy, ix, xa, act,
                                                         BIN_MARGIN)
-            shards.append((lists, counts, entries_i))
+            shards[p] = (lists, counts, entries_i)
             bovf.append(b)
         ovf = [torch.maximum(o, b) for o, b in
-               zip(ovf, _max_over_shards(bovf, mesh))]
+               zip(ovf, max_over_shards(bovf, mesh))]
         return (ms._replace(disks=tuple(disks), overflow=tuple(ovf)),
                 (shards, reps))
 
@@ -402,7 +423,7 @@ class _Sharded:
         ths = sum_over_shards(th_p, mesh)
         if bovf_p:
             bovf_r = [torch.maximum(a, b) for a, b in
-                      zip(bovf_r, _max_over_shards(bovf_p, mesh))]
+                      zip(bovf_r, max_over_shards(bovf_p, mesh))]
         disks, ovfs, ncs = [], [], []
         for r, d in enumerate(reps):
             with on_device(mesh.replicas[r]):
@@ -487,12 +508,12 @@ class _Sharded:
         the ghost and binning overflow summed over the shards, a 0-dim
         tensor on the first replica's device for one host check."""
         _, aug, _, govf = self._replica_inputs(ms, None)
-        wins, ovf = [], []
+        wins, ovf = [None] * self.mesh.size, []
         for p, iy, ix in self.mesh.positions():
             r = self.mesh.replica_of[p]
             with on_device(self.mesh.devices[p]):
                 _, _, _, _, s_k, bovf = self.shard_inputs(iy, ix, aug[r])
-            wins.append(s_k)
+            wins[p] = s_k
             ovf.append(torch.maximum(bovf, govf[r]))
         return wins, sum_over_shards(ovf, self.mesh)[0]
 
@@ -511,18 +532,6 @@ class _Sharded:
         return ms._replace(f=tuple(outs), step=tuple(s + k for s in ms.step))
 
 
-def _max_over_shards(vals, mesh: Mesh):
-    """The max of the shards' 0-dim counters, on every replica's device
-    (in mesh order)."""
-    out = []
-    for d in mesh.replicas:
-        m = vals[0].to(d)
-        for v in vals[1:]:
-            m = torch.maximum(m, v.to(d))
-        out.append(m)
-    return out
-
-
 def make_sharded_step_kernels(cfg: SimConfig, grid: Optional[DemGrid],
                               mesh: Mesh, dem_axis: str = "y",
                               temporal_k: int = 1,
@@ -535,9 +544,10 @@ def make_sharded_step_kernels(cfg: SimConfig, grid: Optional[DemGrid],
         if temporal_k != 1:
             raise ValueError("temporal blocking is pure-fluid only")
         return lambda ms, outs: parts.coupled_step(ms, outs, None)
-    if not 1 <= temporal_k <= fused_fluid.SWEEP_K:
-        raise not_ported(f"K5 on a pre-haloed shard with k = {temporal_k} > "
-                         f"{fused_fluid.SWEEP_K}", 12)
+    kmax = fused_fluid.MAX_K[cfg.f_storage]
+    if not 1 <= temporal_k <= kmax:
+        raise ValueError(f"temporal block k={temporal_k} outside 1..{kmax} "
+                         f"for f_storage={cfg.f_storage!r}")
     return lambda ms, outs: parts.fluid_step(ms, outs, temporal_k)
 
 
@@ -566,7 +576,8 @@ def make_sharded_coupled_chunk(cfg: SimConfig, grid: Optional[DemGrid],
             if par_chunk:
                 # the block's steps overwrite both f buffers: keep the
                 # block-start shards for a commit that stays frozen
-                ms_in = ms._replace(f=tuple(f.clone() for f in ms.f))
+                ms_in = ms._replace(f=tuple(None if f is None else f.clone()
+                                            for f in ms.f))
             ms, ctx = parts.rebuild(ms)
             nwin, rem = divmod(b, ck) if ck > 1 else (0, b)
             for i in range(nwin + rem):

@@ -91,8 +91,12 @@ mode validates every shard and takes the minimum over the shards: per
 step (paranoia="step", on the per-step sharded step), or per cadence
 block and per K7 pass ("chunk"). `state` then gathers the global state
 (and setting it shards one); the observation methods work on the
-gathered state. bf16 storage on a mesh (16-row halos) raises
-NotImplementedError naming its ROADMAP.md item.
+gathered state. bf16 storage on a mesh takes 16-row halos and the
+kernel path. A mesh may span the processes of a torch.distributed group
+(`parallel.init_distributed`, then `make_mesh`): each rank runs the same
+program on its own shards and a replica of the disks, `state` is then a
+collective gather (every rank calls it) and `device` is the rank's first
+device.
 
     sim = Simulation(cfg, disks, device="cuda")
     mlups = sim.run(100)
@@ -219,7 +223,7 @@ def kernels_supported(cfg: SimConfig, device="cuda",
     the static hoist's TEMPORAL_K, so they need nothing more. One device
     keeps its looser rule (no row granule)."""
     if mesh is not None:
-        device = mesh.devices[0]
+        device = mesh.replicas[0]
     if torch.device(device).type == "cuda" and cfg.dtype != "float32":
         return (f"the kernels take float32 or bfloat16 storage "
                 f"(dtype={cfg.dtype})")
@@ -594,7 +598,7 @@ class Simulation:
         self.mesh = mesh
         if mesh is not None:
             self._refuse_on_mesh(cfg, mesh, use_kernels)
-            device = mesh.devices[0]
+            device = mesh.replicas[0]  # this rank's first device
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -674,8 +678,8 @@ class Simulation:
     @property
     def state(self) -> SimState:
         """The SimState; on a mesh the global state gathered from the
-        shards and the first replica (a copy: set `state` to change
-        it)."""
+        shards and the first replica (a copy: set `state` to change it;
+        across processes a collective that every rank calls)."""
         if self.mesh is None:
             return self._state
         from lbmdem_tpu_torch.parallel import unshard
@@ -687,10 +691,11 @@ class Simulation:
         if self.mesh is None:
             self._state = value
             return
-        from lbmdem_tpu_torch.parallel import shard_state
+        from lbmdem_tpu_torch.parallel.sharding import (empty_like_shards,
+                                                        shard_state)
 
         self._state = shard_state(value, self.mesh)
-        self._f_spare = tuple(torch.empty_like(f) for f in self._state.f)
+        self._f_spare = empty_like_shards(self._state.f)
 
     # --- stepping ---
     def _advance(self, stepfn: Callable) -> None:
@@ -845,13 +850,17 @@ class Simulation:
 
     def check_health(self) -> None:
         """Raise SimulationDiverged if paranoid validation tripped (one
-        read of fail_step from the device)."""
-        fail = int(self.state.fail_step)
+        read of fail_step from the device; on a mesh the first replica's,
+        which every replica and rank shares)."""
+        st = self._state
+        fail_step, overflow = ((st.fail_step, st.overflow) if self.mesh is None
+                               else (st.fail_step[0], st.overflow[0]))
+        fail = int(fail_step)
         if fail >= 0:
             raise SimulationDiverged(
                 f"paranoid check failed at step {fail}: non-finite f, "
                 f"rho <= 0, non-finite disk state, or capacity overflow "
-                f"(overflow={int(self.state.overflow)}); state frozen at "
+                f"(overflow={int(overflow)}); state frozen at "
                 f"the failing step for inspection", fail)
 
     def _sync(self) -> None:
@@ -865,7 +874,9 @@ class Simulation:
         `interop.state_to_numpy` (e.g. converted from the JAX package)."""
         from lbmdem_tpu_torch.interop import state_from_numpy
 
-        state = state_from_numpy(d, self.device)
+        # on a mesh through the CPU: each rank takes its own shards
+        state = state_from_numpy(d, self.device if self.mesh is None
+                                 else "cpu")
         want = fused_fluid.storage_dtype(self.cfg)
         if state.f.dtype != want:
             raise ValueError(f"load_state: f is {state.f.dtype}, but "

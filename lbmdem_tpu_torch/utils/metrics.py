@@ -64,9 +64,11 @@ def read_diagnostics(state, cfg: SimConfig) -> Dict[str, float]:
 
 class MetricsLogger:
     """Appends diagnostics to CSV (and optionally JSONL) with wall-clock
-    MLUPS computed between calls."""
+    MLUPS computed between calls; with no CSV path it only reads them
+    (a rank of a multi-process run that does not write)."""
 
-    def __init__(self, path_csv: str, path_jsonl: Optional[str] = None):
+    def __init__(self, path_csv: Optional[str],
+                 path_jsonl: Optional[str] = None):
         self.path_csv = path_csv
         self.path_jsonl = path_jsonl
         self._fields = None
@@ -84,6 +86,8 @@ class MetricsLogger:
         self._t_last = now
         self._step_last = row["step"]
 
+        if self.path_csv is None:
+            return row
         if self._fields is None:
             self._fields = list(row)
             new = not os.path.exists(self.path_csv)

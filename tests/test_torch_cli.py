@@ -130,7 +130,8 @@ def test_cli_kernels_and_plain_path(tmp_path, capsys):
 
 def test_cli_refuses_what_it_cannot_run(tmp_path, capsys):
     """--kernels on a deck the kernels cannot take is an error naming
-    the reason; --distributed names ROADMAP item 12. Paranoid mode and
+    the reason. --distributed runs (one process: its line on stderr, the
+    deck on a 2 x 2 mesh). Paranoid mode and
     bf16 storage, which a mesh refused so before, run there (2 steps on
     the plain sharded step; 4 bf16 steps on the kernels' plain
     versions); bf16 on the CPU's auto path, the plain sharded step,
@@ -152,8 +153,17 @@ def test_cli_refuses_what_it_cannot_run(tmp_path, capsys):
     with pytest.raises(ValueError, match="raw f32"):
         cli.main([str(bf16), "--mesh", "2x2", "--device", "cpu", "--out",
                   str(tmp_path / "x")])
-    with pytest.raises(NotImplementedError, match="item 12"):
-        cli.main([deck, "--distributed", "--out", str(tmp_path / "x")])
+    # --distributed: a group of one process (gloo), in a process of its
+    # own so that this one stays outside any group
+    r = subprocess.run(
+        [sys.executable, "-m", "lbmdem_tpu_torch.cli", deck, "--distributed",
+         "--mesh", "2x2", "--device", "cpu", "--paranoid", "--steps", "2",
+         "--out", str(tmp_path / "d")],
+        capture_output=True, text=True, timeout=300, cwd=ROOT)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert "distributed: process 0/1, 1 local / 1 global devices" in r.stderr
+    assert "done: 2 steps" in r.stdout
+    assert (tmp_path / "d" / "metrics.csv").exists()
 
 
 def test_cli_paranoid_and_profile(tmp_path, capsys):

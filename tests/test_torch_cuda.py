@@ -23,7 +23,8 @@ redesigned K1 bit for bit against its plain version on CPU copies for
 every coverage method, K2's push step at each block size over the
 boundary matrix with the bars above, and on f32 the row-sweep K5(k),
 K6(k) and K7(k) equal to k chained K4, K2 and K8 steps, bit for bit (K5
-on bf16 3e-4 against its plain version); the one-launch K3 and K3w bit
+on bf16 3e-4 against its plain version); K5 on frames deeper than one
+sweep equal to the halo-free K5(k) bit for bit; the one-launch K3 and K3w bit
 for bit alike at every cooperative grid, one CUDA launch per call."""
 
 import numpy as np
@@ -304,15 +305,20 @@ def test_fluid_simulation_on_card_matches_cpu(dev):
 
 def test_fluid_kernels_reject_prehalo_and_float64(dev):
     """A pre-haloed call wants the frame's shape (the modes themselves:
-    test_prehalo_kernels_match_plain), K5 on a frame at most one sweep
-    (item 12), and float64 runs on the plain path."""
+    test_prehalo_kernels_match_plain and, deeper than one sweep,
+    test_prehalo_deep_k5_matches_plain), K5 on a frame at most its halo
+    rows deep, and float64 runs on the plain path."""
     cfg = SimConfig(nx=128, ny=32, tau=0.8, dtype="float32")
     f = lbm.init_equilibrium(cfg, dev)
     out = torch.empty_like(f)
     with pytest.raises(ValueError, match="f must be"):
         fused_fluid.fused_step_fluid(f, cfg, out, prehalo=True)
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(ValueError, match="f must be"):
         fused_fluid.fused_step_fluid_multi(f, cfg, 8, out, prehalo=True,
+                                           edges=(1, 1, 1, 1))
+    fr = torch.empty(fused_fluid.frame_shape(cfg, "y"), device=dev)
+    with pytest.raises(ValueError, match="outside 1..8"):
+        fused_fluid.fused_step_fluid_multi(fr, cfg, 9, out, prehalo=True,
                                            edges=(1, 1, 1, 1))
     with pytest.raises(ValueError, match="float64"):
         Simulation(cfg.replace(dtype="float64"), device=dev)
@@ -1402,6 +1408,79 @@ def _bf16_frames(sim, mesh, dev, seed):
     fs = [lbm.to_storage(lbm.from_storage(f, sim.cfg) * (1.0 + 0.02 * torch.randn(
         f.shape, generator=g, device=dev)), sim.cfg) for f in sim._state.f]
     return exchange(fs, mesh)
+
+
+@pytest.mark.parametrize("mode", ["y", "yx"])
+def test_prehalo_deep_k5_matches_plain(dev, mode):
+    """K5 on frames deeper than one sweep (f32 k = 5 and 8, bf16 k = 8 and
+    16: two to four sweeps through f32 scratch frames) on a 256 x 128
+    shard with walls and with Zou/He, corner and interior edge flags,
+    against its plain version on the card (K5's bars, bf16 3e-4); and on
+    a fully periodic 512 x 256 lattice whose shard frames are filled
+    from the lattice, equal to the halo-free K5(k) on the shards' rows
+    (torch.equal)."""
+    w = torch.as_tensor(lattice.W, dtype=torch.float32, device=dev)
+    for storage, ks in (("float32", (5, 8)), ("bfloat16", (8, 16))):
+        for kw in (dict(bc_west="wall", bc_east="wall", uw_north=0.05,
+                        gy=-1e-5),
+                   dict(bc_west="inlet", bc_east="outlet", u_inlet=0.06,
+                        inlet_profile="poiseuille")):
+            cfg = SimConfig(nx=128, ny=256, tau=0.7, dtype="float32",
+                            f_storage=storage, **kw)
+            g = torch.Generator(device=dev).manual_seed(5)
+            f = lbm.to_storage(w[:, None, None] * (1.0 + 0.05 * torch.randn(
+                fused_fluid.frame_shape(cfg, mode), generator=g,
+                device=dev)), cfg)
+            a = torch.empty((9, 256, 128), dtype=f.dtype, device=dev)
+            b = torch.empty_like(a)
+            for edges in ((1, 1, 1, 1, 0), (0, 0, 1, 0, 256)):
+                if mode == "y":  # a "y" shard spans the width
+                    edges = edges[:2] + (1, 1) + edges[4:]
+                for k in ks:
+                    n0 = fused_fluid.fused_step_fluid_multi.launches
+                    fused_fluid.fused_step_fluid_multi(
+                        f, cfg, k, a, prehalo=mode, edges=edges, ny_glob=1024)
+                    assert fused_fluid.fused_step_fluid_multi.launches == n0 + 1
+                    fused_fluid.fused_step_fluid_multi_prehalo_plain(
+                        f, cfg, k, mode, edges, 1024, b)
+                    if storage == "bfloat16":
+                        torch.testing.assert_close(a.float(), b.float(),
+                                                   rtol=0, atol=3e-4)
+                    else:
+                        atol = 2e-6 if cfg.bc_west == "inlet" else 5e-7
+                        torch.testing.assert_close(a, b, rtol=1e-5,
+                                                   atol=atol)
+        dims = (2, 2) if mode == "yx" else (2, 1)
+        ny, nx = 256 * dims[0], 128 * dims[1]
+        cfg = SimConfig(nx=nx, ny=ny, tau=0.8, dtype="float32", gx=1e-5,
+                        bc_west="periodic", bc_east="periodic",
+                        bc_south="periodic", bc_north="periodic",
+                        f_storage=storage)
+        g = torch.Generator(device=dev).manual_seed(6)
+        f = lbm.to_storage(w[:, None, None] * (1.0 + 0.05 * torch.randn(
+            (9, ny, nx), generator=g, device=dev)), cfg)
+        lc = cfg.replace(ny=256, nx=128)
+        hy = fused_fluid.frame_hy(lc)
+        hx = fused_fluid.HX if mode == "yx" else 0
+        for k in ks:
+            ref = torch.empty_like(f)
+            fused_fluid.fused_step_fluid_multi(f, cfg, k, ref)
+            for iy in range(dims[0]):
+                for ix in range(dims[1]):
+                    rows = (torch.arange(-hy, 256 + hy, device=dev)
+                            + iy * 256) % ny
+                    cols = (torch.arange(-hx, 128 + hx, device=dev)
+                            + ix * 128) % nx
+                    fr = f[:, rows][:, :, cols].contiguous()
+                    out = torch.empty((9, 256, 128), dtype=f.dtype,
+                                      device=dev)
+                    fused_fluid.fused_step_fluid_multi(
+                        fr, lc, k, out, prehalo=mode,
+                        edges=(0, 0, int(mode == "y"), int(mode == "y"),
+                               iy * 256), ny_glob=ny)
+                    assert torch.equal(out, ref[:, iy * 256:(iy + 1) * 256,
+                                                ix * 128:(ix + 1) * 128]), (
+                        storage, k, iy, ix)
 
 
 @pytest.mark.parametrize("mode", ["y", "yx"])

@@ -252,9 +252,9 @@ def test_load_state_rejects_other_storage():
                          ids=["prehalo", "edges"])
 def test_multichip_arguments_raise(kw):
     """The multi-chip arguments of K5 are ported (tests/test_torch_mesh.py)
-    and checked: a pre-haloed K5 deeper than one sweep raises naming item
-    12, edges without a pre-haloed frame and a frame of the wrong shape
-    raise ValueError."""
+    and checked: a pre-haloed K5 deeper than one sweep runs (k = 8 on a
+    frame at rest keeps it at rest), edges without a pre-haloed frame
+    and a frame of the wrong shape raise ValueError."""
     tcfg = to_torch_cfg(JCfg(nx=32, ny=8, tau=0.8))
     f = lbm.init_equilibrium(tcfg)
     out = torch.empty_like(f)
@@ -262,9 +262,10 @@ def test_multichip_arguments_raise(kw):
         with pytest.raises(ValueError, match="pre-haloed"):
             fused_fluid.fused_step_fluid_multi(f, tcfg, 4, out, **kw)
         return
-    with pytest.raises(NotImplementedError, match="item 12"):
-        fused_fluid.fused_step_fluid_multi(f, tcfg, 8, out, edges=(1,) * 4,
-                                           **kw)
+    fr = lbm.init_equilibrium(tcfg.replace(ny=8 + 2 * fused_fluid.HY))
+    got = fused_fluid.fused_step_fluid_multi(fr, tcfg, 8, out, edges=(1,) * 4,
+                                             **kw)
+    np.testing.assert_allclose(got.numpy(), f.numpy(), rtol=0, atol=1e-7)
     with pytest.raises(ValueError, match="f must be"):
         fused_fluid.fused_step_fluid_multi(f, tcfg, 4, out, edges=(1,) * 4,
                                            **kw)

@@ -23,12 +23,13 @@ CPU, its shards on `["cpu"] * n`, against the JAX package.
   the seam; Simulation(mesh=...).run(11) (8 + 3 cadence steps) at the
   chunk bars (f 5e-6, x 1e-5, v 1e-6) and the fluid run(9) (two K5
   blocks and a K4 step).
-- The CLI's --mesh on the CPU, and what a mesh does not take yet (K5
-  deeper than one sweep on a frame, --distributed); what it took in the
-  later slices (coupling_k > 1, the static hoist, paranoid mode, K8's
-  prehalo, bf16 storage) runs against one device
+- The CLI's --mesh on the CPU, and what a mesh took in the later
+  slices: coupling_k > 1, the static hoist, paranoid mode, K8's
+  prehalo, bf16 storage run against one device
   (tests/test_torch_mesh_window.py and tests/test_torch_mesh_bf16.py
-  hold those paths)."""
+  hold those paths), K5 deeper than one sweep on a frame
+  (tests/test_torch_mesh_deep.py) and several processes
+  (tests/test_torch_distributed.py)."""
 
 import os
 import subprocess
@@ -444,15 +445,16 @@ def test_mesh_refusals_name_item_12(what, cfg, disks, kw):
 
 
 def test_other_item_12_refusals(tmp_path):
-    """K5 pre-haloed deeper than one sweep (on f32 and on bf16 frames),
-    the multi-process layer and --distributed raise naming item 12; a
-    mesh must be a Mesh. K8's prehalo, which raised so too, runs: on a
-    frame its f' equals K2's pre-haloed f' exactly and its phi is the
-    interior's."""
-    from lbmdem_tpu_torch.parallel import init_distributed, process_info
+    """What item 12's last slice took runs: K5 pre-haloed deeper than one
+    sweep (on f32 and on bf16 frames) returns k steps of the whole frame
+    (`frame_steps_plain`, its plain version) bit for bit, and
+    process_info outside a group is process 0 of 1 (the multi-process
+    runs themselves: tests/test_torch_distributed.py). A mesh must be a
+    Mesh. K8's prehalo runs too: on a frame its f' equals K2's
+    pre-haloed f' exactly and its phi is the interior's."""
+    from lbmdem_tpu_torch.parallel import process_info
 
     tcfg = _tcfg(nx=128, ny=64)
-    f = torch.zeros(fused_fluid.frame_shape(tcfg, "y"))
     out = torch.empty((9, 64, 128))
     cfg, origin, td, cnt, _, s_k = _canvas_inputs("y", 5)
     fr = tt(_frame("y", 6))
@@ -465,17 +467,19 @@ def test_other_item_12_refusals(tmp_path):
     assert phix.shape == phiy.shape == (64, 128)
     assert float(phix.abs().max()) > 0.0
     bcfg = tcfg.replace(f_storage="bfloat16")
-    fb = torch.zeros(fused_fluid.frame_shape(bcfg, "y"), dtype=torch.bfloat16)
-    for call in (
-            lambda: fused_fluid.fused_step_fluid_multi(
-                f, tcfg, 8, out, prehalo="y", edges=(1, 1, 1, 1)),
-            lambda: fused_fluid.fused_step_fluid_multi(
-                fb, bcfg, 8, out.to(torch.bfloat16), prehalo="y",
-                edges=(1, 1, 1, 1)),
-            init_distributed, process_info,
-            lambda: cli.main(["x.par", "--distributed"])):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            call()
+    fb = fused_fluid.lbm.to_storage(tt(perturbed_f(
+        fused_fluid.frame_shape(bcfg, "y"), 7, np.float32, amp=0.05)), bcfg)
+    for c, f, k in ((tcfg, fr, 8), (bcfg, fb, 16)):
+        got = fused_fluid.fused_step_fluid_multi(
+            f, c, k, torch.empty((9, 64, 128), dtype=f.dtype), prehalo="y",
+            edges=(1, 1, 1, 1))
+        g = fused_fluid.frame_steps_plain(
+            fused_fluid.lbm.from_storage(f, c), c, k, "y", (1, 1, 1, 1), 64,
+            lambda a, t: fused_fluid._collide(a, c))
+        want = fused_fluid.lbm.to_storage(
+            fused_fluid.frame_interior(g, c, "y"), c)
+        assert torch.isfinite(got.float()).all() and torch.equal(got, want)
+    assert process_info() == (0, 1, 1, 1)
     with pytest.raises(TypeError, match="Mesh"):
         Simulation(tcfg, device="cpu", mesh=object())
 

@@ -348,7 +348,8 @@ def test_mesh_bf16_refusals():
     """bf16 on a mesh needs per-shard ny % 16 == 0 (the reason names 16)
     and the kernel path (the plain sharded step consumes raw f32: a
     ValueError, as in the JAX package); K5 on a frame deeper than one
-    sweep still raises naming item 12."""
+    sweep runs (k = 8), and past the bf16 frame's 16 halo rows it is a
+    ValueError."""
     from lbmdem_tpu_torch.simulation import kernels_supported
 
     cfg = _bf16_cfg(nx=256, ny=64)
@@ -365,8 +366,12 @@ def test_mesh_bf16_refusals():
                     dtype=torch.bfloat16)
     assert tuple(f.shape) == (9, 64, 128)
     out = torch.empty((9, 32, 128), dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        fused_fluid.fused_step_fluid_multi(f, cfg.replace(ny=32, nx=128), 8,
+    got = fused_fluid.fused_step_fluid_multi(f, cfg.replace(ny=32, nx=128),
+                                             8, out, prehalo="y",
+                                             edges=(1, 1, 1, 1))
+    assert got is out and torch.isfinite(got.float()).all()
+    with pytest.raises(ValueError, match="outside 1..16"):
+        fused_fluid.fused_step_fluid_multi(f, cfg.replace(ny=32, nx=128), 17,
                                            out, prehalo="y",
                                            edges=(1, 1, 1, 1))
 
