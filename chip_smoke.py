@@ -258,11 +258,12 @@ nothing falls back to the CPU):
    MLUPS of both;
 50. validation legs: the port's tools (lbmdem_tpu_torch/tools/) on the
    card with their own gates - validate.py's settling, dkt, dktlit,
-   periodic, cavity, friction and static legs (not trt: its BGK/TRT
-   contrast gate fails on the card, validation_legs), collapse_study at
-   --tiny size (f32 on the kernels, check_scaling without the settled
-   gate), benchmark_cylinder --steps 2000 on the plain path (cD and cL
-   finite), ab_bf16's parity probe and settling parity; each leg's
+   periodic, cavity, trt (on K5: the TRT and BGK Poiseuille errors and
+   their ratio, gates < 2e-4 and > 50x), friction and static legs,
+   collapse_study at --tiny size (f32 on the kernels, check_scaling
+   without the settled gate), benchmark_cylinder --steps 2000 on the
+   plain path (cD and cL finite), ab_bf16's parity probe and settling
+   parity; each leg's
    seconds and the kernels it launched (the launch counts of its run;
    each kernel the leg's path names must have launched).
 Each phase of 37-50 prints its seconds.
@@ -296,13 +297,15 @@ import torch
 # the tensor cores (the kernels here use no tensor cores)
 HBM_BPS = 3.35e12
 F32_FLOPS = 67e12
-# f32 operations per cell and step, counted from the plain versions'
-# arithmetic (moments, 9 or 18 equilibria, relaxation, Guo forcing):
-# the pure-fluid collide, the NT-blended collide at a cell with
-# eps_raw > 0, and its fluid branch at a cell with eps_raw <= 0 (csrc/
-# imb.cuh relax_cell: moments, 9 equilibria, relaxation; no equilibria
-# at u_s, Omega_i or phi)
-FLOPS_FLUID = 200
+# f32 operations per cell and step, counted from the kernels' arithmetic
+# (moments, equilibria, relaxation, Guo forcing): the pure-fluid collide
+# (csrc/d2q9.cuh fluid_collide_t's pair form, BGK with a body force
+# along x: 29 for the moments and feq0, 34 for the four (E, O) pairs, 35
+# for the relaxation, 32 for Guo's source), the NT-blended collide at a
+# cell with eps_raw > 0, and its fluid branch at a cell with eps_raw <= 0
+# (csrc/imb.cuh relax_cell: moments, 9 equilibria, relaxation; no
+# equilibria at u_s, Omega_i or phi)
+FLOPS_FLUID = 130
 FLOPS_NT = 350
 FLOPS_NT_FLUID = 180
 # coverage operations per window cell (csrc/coverage.cuh): ns^2 sample
@@ -877,7 +880,8 @@ def fluid_check(cfg, k: int, seed: int, label: str, timed: bool = False,
     moved = float((pb - f.float()).abs().max())
     name = "K4" if k == 1 else f"K5 k={k}"
     log("fluid", f"{label} {name}: max err {err:.3e} (bar atol {atol:g} + "
-        f"rtol {rtol:g}); max |step| {moved:.3e}")
+        f"rtol {rtol:g}; f' equal {torch.equal(a, b)}); max |step| "
+        f"{moved:.3e}")
     assert bool(torch.isfinite(ka).all()), f"{label} {name}: non-finite"
     assert excess <= atol, f"{label} {name}: err {err} over the bar"
     assert moved > 0.0, f"{label} {name}: the step changed nothing"
@@ -889,11 +893,10 @@ def fluid_check(cfg, k: int, seed: int, label: str, timed: bool = False,
 def fluid_kernels(n: int = 4096):
     """K4/K5 against the plain versions over FLUID_MATRIX, then at n^2
     with CUDA-event times. Returns {kernel: work(...)} of the
-    f32 n^2 checks. At n^2 the input amplitude is 0.02: with 0.05 some
-    of the 151 M shifted bf16 values exceed |g| = 1/16, where one bf16
-    ulp (4.9e-4) is over the 3e-4 bar, and a value on a rounding
-    boundary flips between the shifted kernel and the unshifted plain
-    version."""
+    f32 n^2 checks. At n^2 the input amplitude is 0.02, the timed input
+    of every earlier run (with 0.05 some of the 151 M shifted bf16 values
+    exceed |g| = 1/16, where one bf16 ulp, 4.9e-4, is over the 3e-4
+    bar)."""
     from lbmdem_tpu_torch import SimConfig
 
     for i, (label, kw) in enumerate(FLUID_MATRIX):
@@ -1157,7 +1160,8 @@ def k5_timed(n: int = 4096) -> None:
                 kernels.setting("lbm_fluid_strip", *fused_fluid.STRIP)
                 kernels.check(lib.lbm_fluid_multi(
                     f.data_ptr(), c.data_ptr(), None, None, n, n, 1, bf16,
-                    fused_fluid._params(cfg), kernels.stream()), "K5 k=1")
+                    fused_fluid._params(cfg), fused_fluid._pair_params(cfg),
+                    kernels.stream()), "K5 k=1")
 
             def k4():
                 fused_fluid.fused_step_fluid(f, cfg, a)
@@ -4738,10 +4742,8 @@ def validation_legs(smi: str) -> None:
     """Phase 50: the port's validation and study tools on the card, each
     with its own gates (a failed gate raises): the kernels each leg's
     path names must have launched in its run (the plain path's cylinder
-    none), and its seconds. The trt leg is not among them: its BGK/TRT
-    contrast gate (> 50x) fails on an H100 (TRT 8.7e-5 against BGK
-    4.2e-3, 48x: the f32 rounding floor of K5's TRT collide), so it is
-    run on its own and recorded as failing."""
+    none), and its seconds. The trt leg runs on K5 and logs both
+    errors and their ratio (its gates: TRT < 2e-4, BGK > 50 x TRT)."""
     from lbmdem_tpu_torch.tools import (ab_bf16, benchmark_cylinder,
                                         collapse_study, validate)
 
@@ -4749,6 +4751,10 @@ def validation_legs(smi: str) -> None:
         cd, cl = benchmark_cylinder.main(["--steps", "2000"])
         assert np.isfinite(cd) and np.isfinite(cl), (cd, cl)
         return {"cd": cd, "cl": cl}
+
+    def trt():
+        res = validate.trt("cuda")
+        return {**res, "bgk / trt": res["bgk"] / res["trt"]}
 
     def collapse_tiny():
         results = collapse_study.main(["--tiny"])
@@ -4764,6 +4770,7 @@ def validation_legs(smi: str) -> None:
         ("dktlit", coupled, lambda: validate.dkt_literature("cuda")),
         ("periodic", coupled, lambda: validate.periodic("cuda")),
         ("cavity", ("K5",), lambda: validate.cavity("cuda")),
+        ("trt", ("K5",), trt),
         ("friction", ("K3",), lambda: validate.friction("cuda")),
         ("static", ("K7",), lambda: validate.static_multi("cuda")),
         ("collapse_study --tiny", coupled, collapse_tiny),

@@ -4,7 +4,8 @@
 // serve K4 and the K5/K6/K7 temporal block (tblock.cuh).
 //
 // Every helper mirrors a function of the plain PyTorch version
-// (ops/lbm.py) operation by operation, in its evaluation order and with
+// (ops/lbm.py; the pure-fluid collide ops/fused_fluid.collide_pairs)
+// operation by operation, in its evaluation order and with
 // round-to-nearest intrinsics, so that under --fmad=false a kernel
 // rounds like the plain version. Where the plain version divides a
 // Python scalar by a tensor, PyTorch computes reciprocal(t) * scalar
@@ -51,21 +52,6 @@ __device__ __forceinline__ float feq_eu(int i, float rho, float eu,
   return __fmul_rn(__fmul_rn(weight(i), rho), c);
 }
 
-__device__ __forceinline__ float feq(int i, float rho, float ux, float uy,
-                                     float usq) {
-  const float eu = __fadd_rn(__fmul_rn((float)ex(i), ux),
-                             __fmul_rn((float)ey(i), uy));
-  return feq_eu(i, rho, eu, usq);
-}
-
-// moving-wall bounce-back term 6 w_i rho0 (e_i . u_w), in float64 as
-// lattice.wall_corr computes it, then rounded
-__device__ __forceinline__ float wall_corr(int i, double uwx, double uwy,
-                                           double rho0) {
-  const double w = i == 0 ? 4.0 / 9.0 : (i < 5 ? 1.0 / 9.0 : 1.0 / 36.0);
-  return (float)(6.0 * w * rho0 * ((double)ex(i) * uwx + (double)ey(i) * uwy));
-}
-
 // e_i . u with the products by a zero component dropped (they only add a
 // signed zero): the same value as ex*ux + ey*uy in the plain version
 __device__ __forceinline__ float edot(int i, float ux, float uy) {
@@ -87,9 +73,10 @@ __device__ __forceinline__ float geq_eu(int i, float rho_b, float rho,
   return __fmul_rn(weight(i), __fadd_rn(rho_b, __fmul_rn(rho, c)));
 }
 
-// Scalars of the pure-fluid step (K4/K5); mirrored field for field by
-// kernels.FluidParams. Scalars the plain version computes in float64
-// from Python floats arrive here already rounded to float32.
+// Scalars of the pure-fluid steps (K4/K5) and of the coupled ones;
+// mirrored field for field by kernels.FluidParams. Scalars the plain
+// version computes in float64 from Python floats arrive here already
+// rounded to float32.
 struct FluidParams {
   float tau;        // BGK relaxation time (TRT: tau+)
   float tau_sq;     // tau * tau (LES closure)
@@ -113,6 +100,20 @@ struct FluidParams {
   int walls;        // bit 0 south, 1 north, 2 west, 3 east
   int open;         // west Zou/He inlet + east Zou/He outlet (on a
                     // shard's frame: bit 0 the inlet, bit 1 the outlet)
+};
+
+// The pure-fluid collide's scalars without LES, folded on the host as
+// the JAX trace folds them (K4, K5: fluid_collide_t; mirrored by
+// kernels.PairParams, filled from ops/fused_fluid.pair_consts), per pair
+// k of pair_rep. Apart from FluidParams, which the coupled kernels take,
+// so that their parameters stay as they are.
+struct PairParams {
+  float inv_tau;    // 1/tau
+  float inv_tau_m;  // TRT: 1/tau-
+  float gw[5];      // w_i (1 - 1/(2 tau)): the rest population, the pairs
+  float eg9[4];     // 9 e_i . g
+  float w3eg[4];    // w_i 3 e_i . g
+  float godd[4];    // w3eg (1 - 1/(2 tau-)), BGK (1 - 1/(2 tau))
 };
 
 // A shard's pre-haloed frame of f on the lattice mesh (ops/fused_fluid
@@ -178,100 +179,152 @@ __device__ __forceinline__ bool option(int fixed, int runtime) {
   return fixed == kRuntime ? runtime != 0 : fixed != 0;
 }
 
-// Pure-fluid collision of one cell in place (plain version:
-// ops/lbm.collide): moments with the Guo half-force shift, BGK or TRT,
-// optional Smagorinsky tau_eff, Guo forcing. SHIFT: f holds the shifted
+// The representative i < opp(i) of direction pair k: 1, 2, 5, 6 (pairs
+// (1, 3), (2, 4), (5, 7), (6, 8); ops/fused_fluid.PAIRS)
+__host__ __device__ constexpr int pair_rep(int k) {
+  return k < 2 ? k + 1 : k + 3;
+}
+// the pair of population i > 0, and whether i is its representative
+__host__ __device__ constexpr int pair_of(int i) {
+  return i == 1 || i == 3 ? 0
+                          : (i == 2 || i == 4 ? 1 : (i == 5 || i == 7 ? 2 : 3));
+}
+__host__ __device__ constexpr bool is_rep(int i) {
+  return i == 1 || i == 2 || i == 5 || i == 6;
+}
+
+// Pure-fluid collision of one cell in place (K4, K5; plain version:
+// ops/fused_fluid.collide_pairs), the pair form of the TPU kernels
+// (lbmdem_tpu/ops/pallas_lbm.py _collide_window without a solid): per
+// direction pair the sum S = f_i + f_opp and the difference D = f_i -
+// f_opp give rho and j; each equilibrium pair is E +- O, E = w (rho_b +
+// rho (4.5 eu^2 - 1.5 u^2)), O = 3 w rho eu; BGK relaxes f - (E +- O) at
+// 1/tau, TRT the even part S/2 - E at 1/tau and the odd part D/2 - O at
+// 1/tau-; Guo's source splits into even w fp (9 e.g eu - 3 u.g) and odd
+// w 3 e.g fp-. With LES tau is per cell (ops/lbm.smagorinsky_tau on the
+// nine equilibria) and so are 1/tau, 1/tau- and the prefactors; without
+// LES they are the scalars of q (PairParams). SHIFT: f holds the shifted
 // populations g = f - w rho0 (bf16 storage); the update keeps its form
-// with f_eq -> g_eq, since BGK, TRT and Guo are linear in (f - f_eq).
-// TRT, LES, FORCED: the options p.trt, p.les, p.forced fixed at compile
-// time (0/1), or kRuntime; every choice runs the same operations in the
-// same order for the same options, so the results agree bit for bit.
+// with rho_b = sum g. TRT, LES, FORCED: the options p.trt, p.les,
+// p.forced fixed at compile time (0/1), or kRuntime; every choice runs
+// the same operations in the same order for the same options, so the
+// results agree bit for bit.
 template <bool SHIFT, int TRT, int LES, int FORCED>
 __device__ __forceinline__ void fluid_collide_t(float* f,
-                                                const FluidParams& p) {
+                                                const FluidParams& p,
+                                                const PairParams& q) {
   const bool trt = option(TRT, p.trt), les = option(LES, p.les);
   const bool forced = option(FORCED, p.forced);
-  float rs = 0.f, jx = 0.f, jy = 0.f;
+  float S[4], D[4];
+  float rs = f[0];
 #pragma unroll
-  for (int i = 0; i < 9; ++i) rs = __fadd_rn(rs, f[i]);
-#pragma unroll
-  for (int i = 0; i < 9; ++i)
-    if (ex(i) != 0) jx = __fadd_rn(jx, ex(i) > 0 ? f[i] : -f[i]);
-#pragma unroll
-  for (int i = 0; i < 9; ++i)
-    if (ey(i) != 0) jy = __fadd_rn(jy, ey(i) > 0 ? f[i] : -f[i]);
+  for (int k = 0; k < 4; ++k) {
+    const int i = pair_rep(k);
+    S[k] = __fadd_rn(f[i], f[opp(i)]);
+    rs = __fadd_rn(rs, S[k]);
+    D[k] = __fsub_rn(f[i], f[opp(i)]);
+  }
+  // j = sum of e_i D over the pairs in order: e_x +1, +1, -1 (pairs 0, 2,
+  // 3), e_y +1, +1, +1 (pairs 1, 2, 3)
+  const float jx = __fsub_rn(__fadd_rn(D[0], D[2]), D[3]);
+  const float jy = __fadd_rn(__fadd_rn(D[1], D[2]), D[3]);
   const float rho = SHIFT ? __fadd_rn(rs, p.rho0) : rs;
   const float inv_rho = __frcp_rn(rho);
   const float ux = __fmul_rn(__fadd_rn(jx, p.half_gx), inv_rho);
   const float uy = __fmul_rn(__fadd_rn(jy, p.half_gy), inv_rho);
   const float usq = __fadd_rn(__fmul_rn(ux, ux), __fmul_rn(uy, uy));
-  float eu[9], fe[9];
+  const float rho_b = SHIFT ? rs : rho;
+  const float rho3 = __fmul_rn(3.0f, rho);
+  const float m15 = __fmul_rn(-1.5f, usq);
+  const float feq0 =
+      __fmul_rn(weight(0), __fadd_rn(rho_b, __fmul_rn(rho, m15)));
+  float eu[4], E[4], O[4];
 #pragma unroll
-  for (int i = 0; i < 9; ++i) {
-    eu[i] = edot(i, ux, uy);
-    fe[i] = SHIFT ? geq_eu(i, rs, rho, eu[i], usq) : feq_eu(i, rho, eu[i], usq);
+  for (int k = 0; k < 4; ++k) {
+    const int i = pair_rep(k);
+    eu[k] = edot(i, ux, uy);
+    E[k] = __fmul_rn(weight(i), __fadd_rn(rho_b, __fmul_rn(rho, __fadd_rn(
+        __fmul_rn(4.5f, __fmul_rn(eu[k], eu[k])), m15))));
+    O[k] = __fmul_rn(__fmul_rn(weight(i), rho3), eu[k]);
   }
-  float tau = p.tau;
+  float inv_tau = q.inv_tau, inv_tau_m = q.inv_tau_m, fpref = 0.f,
+        opref = 0.f;
   if (les) {  // ops/lbm.smagorinsky_tau
     float pxx = 0.f, pyy = 0.f, pxy = 0.f;
 #pragma unroll
-    for (int i = 0; i < 9; ++i) {
-      const float ne = __fsub_rn(f[i], fe[i]);
+    for (int i = 1; i < 9; ++i) {
+      const int k = pair_of(i);
+      const float fe =
+          is_rep(i) ? __fadd_rn(E[k], O[k]) : __fsub_rn(E[k], O[k]);
+      const float ne = __fsub_rn(f[i], fe);
       if (ex(i) != 0) pxx = __fadd_rn(pxx, ne);
       if (ey(i) != 0) pyy = __fadd_rn(pyy, ne);
-      if (ex(i) * ey(i) != 0) pxy = __fadd_rn(pxy, ex(i) * ey(i) > 0 ? ne : -ne);
+      if (ex(i) * ey(i) != 0) pxy = ex(i) * ey(i) > 0 ? __fadd_rn(pxy, ne)
+                                                      : __fsub_rn(pxy, ne);
     }
     const float pn = __fsqrt_rn(
         __fadd_rn(__fadd_rn(__fmul_rn(pxx, pxx), __fmul_rn(pyy, pyy)),
                   __fmul_rn(__fmul_rn(2.0f, pxy), pxy)));
-    tau = __fmul_rn(0.5f, __fadd_rn(p.tau, __fsqrt_rn(__fadd_rn(
+    const float tau = __fmul_rn(0.5f, __fadd_rn(p.tau, __fsqrt_rn(__fadd_rn(
         p.tau_sq, __fdiv_rn(__fmul_rn(p.les_c, pn), rho)))));
+    inv_tau = __frcp_rn(tau);
+    fpref = __fsub_rn(1.0f, __fmul_rn(0.5f, inv_tau));
+    opref = fpref;
+    if (trt) {  // ops/lbm.trt_tau_minus on the per-cell tau
+      inv_tau_m = __frcp_rn(__fadd_rn(
+          0.5f, __fdiv_rn(p.trt_magic, __fsub_rn(tau, 0.5f))));
+      opref = __fsub_rn(1.0f, __fmul_rn(0.5f, inv_tau_m));
+    }
   }
-  float S[9];
+  float ug3 = 0.f;
+  if (forced)
+    ug3 = __fmul_rn(3.0f, __fadd_rn(__fmul_rn(ux, p.gx), __fmul_rn(uy, p.gy)));
+  float v0 = __fsub_rn(f[0], __fmul_rn(inv_tau, __fsub_rn(f[0], feq0)));
   if (forced) {
-#pragma unroll
-    for (int i = 0; i < 9; ++i) S[i] = guo_proj(i, ux, uy, eu[i], p.gx, p.gy);
+    const float gw0 = les ? __fmul_rn(weight(0), fpref) : q.gw[0];
+    v0 = __fadd_rn(v0, __fmul_rn(gw0, -ug3));
   }
-  if (!trt) {
-    const float pref = les ? __fsub_rn(1.0f, __fmul_rn(__frcp_rn(tau), 0.5f))
-                           : p.guo_pref;
+  f[0] = v0;
 #pragma unroll
-    for (int i = 0; i < 9; ++i) {
-      float v = __fsub_rn(f[i], __fdiv_rn(__fsub_rn(f[i], fe[i]), tau));
-      if (forced) v = __fadd_rn(v, __fmul_rn(pref, S[i]));
-      f[i] = v;
+  for (int k = 0; k < 4; ++k) {
+    const int i = pair_rep(k), o = opp(i);
+    float vi, vo;
+    if (trt) {
+      const float ne_e =
+          __fmul_rn(inv_tau, __fsub_rn(__fmul_rn(0.5f, S[k]), E[k]));
+      const float ne_o =
+          __fmul_rn(inv_tau_m, __fsub_rn(__fmul_rn(0.5f, D[k]), O[k]));
+      vi = __fsub_rn(f[i], __fadd_rn(ne_e, ne_o));
+      vo = __fsub_rn(f[o], __fsub_rn(ne_e, ne_o));
+    } else {
+      vi = __fsub_rn(f[i], __fmul_rn(inv_tau, __fsub_rn(
+                                 f[i], __fadd_rn(E[k], O[k]))));
+      vo = __fsub_rn(f[o], __fmul_rn(inv_tau, __fsub_rn(
+                                 f[o], __fsub_rn(E[k], O[k]))));
     }
-    return;
-  }
-  float hp = p.trt_hp, hm = p.trt_hm, pe = p.trt_pe, po = p.trt_po;
-  if (les) {  // ops/lbm.trt_tau_minus on the per-cell tau
-    hp = __fmul_rn(__frcp_rn(tau), 0.5f);
-    const float tm = __fadd_rn(
-        __fmul_rn(__frcp_rn(__fsub_rn(tau, 0.5f)), p.trt_magic), 0.5f);
-    hm = __fmul_rn(__frcp_rn(tm), 0.5f);
-    pe = __fmul_rn(__fsub_rn(1.0f, hp), 0.5f);
-    po = __fmul_rn(__fsub_rn(1.0f, hm), 0.5f);
-  }
-  float ne[9];
-#pragma unroll
-  for (int i = 0; i < 9; ++i) ne[i] = __fsub_rn(f[i], fe[i]);
-#pragma unroll
-  for (int i = 0; i < 9; ++i) {
-    const int o = opp(i);
-    float v = __fsub_rn(__fsub_rn(f[i], __fmul_rn(hp, __fadd_rn(ne[i], ne[o]))),
-                        __fmul_rn(hm, __fsub_rn(ne[i], ne[o])));
     if (forced) {
-      v = __fadd_rn(__fadd_rn(v, __fmul_rn(pe, __fadd_rn(S[i], S[o]))),
-                    __fmul_rn(po, __fsub_rn(S[i], S[o])));
+      const float gw = les ? __fmul_rn(weight(i), fpref) : q.gw[k + 1];
+      const float even =
+          __fmul_rn(gw, __fsub_rn(__fmul_rn(q.eg9[k], eu[k]), ug3));
+      if (q.w3eg[k] != 0.f) {  // e_i . g != 0
+        const float odd = les ? __fmul_rn(q.w3eg[k], opref) : q.godd[k];
+        vi = __fadd_rn(vi, __fadd_rn(even, odd));
+        vo = __fadd_rn(vo, __fsub_rn(even, odd));
+      } else {
+        vi = __fadd_rn(vi, even);
+        vo = __fadd_rn(vo, even);
+      }
     }
-    f[i] = v;
+    f[i] = vi;
+    f[o] = vo;
   }
 }
 
 // fluid_collide_t with every option read at run time (K4)
 template <bool SHIFT>
-__device__ __forceinline__ void fluid_collide(float* f, const FluidParams& p) {
-  fluid_collide_t<SHIFT, kRuntime, kRuntime, kRuntime>(f, p);
+__device__ __forceinline__ void fluid_collide(float* f, const FluidParams& p,
+                                              const PairParams& q) {
+  fluid_collide_t<SHIFT, kRuntime, kRuntime, kRuntime>(f, p, q);
 }
 
 // Zou/He west-inlet closure (ops/lbm.zou_he_inlet): the unknown

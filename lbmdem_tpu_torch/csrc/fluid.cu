@@ -27,9 +27,10 @@
 // order), so in f32 K5(k) equals k chained K4 steps bit for bit; bf16
 // rounds once per pass. What bounds it now: not the 0.36 ms of bytes
 // (the pass reads and writes f once) but the collides' instruction
-// issue and latency: ~200 operations and nine IEEE divides per cell and
-// step (the divides must stay: the identity), 4.2 collides per output
-// cell and pass at k = 4 and T = 128, one barrier per phase. With no
+// throughput and latency: the pair-form collide (d2q9.cuh fluid_collide_t,
+// the TPU kernels' algebra) takes ~130 operations and one reciprocal per
+// cell and step with BGK and a body force, 4.2 collides per output cell
+// and pass at k = 4 and T = 128, one barrier per phase. With no
 // solid ring and no sink its rings take less shared memory and its
 // collide fewer registers than the NT one, which the design spends on
 // two rows per level and phase (a ring of 6 rows, 110.6 KB at T = 128
@@ -99,7 +100,8 @@ template <typename S, int PRE>
 __global__ void __launch_bounds__(kThreads)
     fluid_step_kernel(const S* __restrict__ f, S* __restrict__ out,
                       const float* __restrict__ u_in, int ny, int nx,
-                      FluidParams p, Frame fr, EdgePost edge) {
+                      FluidParams p, PairParams q, Frame fr,
+                      EdgePost edge) {
   constexpr bool kShift = sizeof(S) == 2;  // bf16 storage
   __shared__ float post[9 * (kTX + 2) * (kTY + 2)];
   const float shift = kShift ? p.rho0 : 0.0f;
@@ -121,7 +123,7 @@ __global__ void __launch_bounds__(kThreads)
     float v[9];
 #pragma unroll
     for (int i = 0; i < 9; ++i) v[i] = load_f(f + i * fplane + cell);
-    fluid_collide<kShift>(v, p);
+    fluid_collide<kShift>(v, p, q);
 #pragma unroll
     for (int i = 0; i < 9; ++i) post[i * n + c] = v[i];
   }
@@ -151,20 +153,22 @@ StripConfig strip{128, 64};
 // per SM (its collide needs more registers)
 template <typename S, typename SO, bool SHIFT, int TRT, int LES, int FORCED>
 int launch_sweep(const void* f, void* out, const float* u_in, int ny, int nx,
-                 int k, const FluidParams& p, cudaStream_t stream) {
+                 int k, const FluidParams& p, const PairParams& q,
+                 cudaStream_t stream) {
   return launch_temporal_block<S, SO, SHIFT, kRows, (TRT || LES) ? 1 : 2>(
-      f, u_in, out, FluidCell<TRT, LES, FORCED>{}, ny, nx, k, strip, p,
+      f, u_in, out, FluidCell<TRT, LES, FORCED>{q}, ny, nx, k, strip, p,
       stream);
 }
 
 template <typename S, typename SO, bool SHIFT>
 int launch_pass(const void* f, void* out, const float* u_in, int ny, int nx,
-                int k, const FluidParams& p, cudaStream_t stream) {
+                int k, const FluidParams& p, const PairParams& q,
+                cudaStream_t stream) {
 #define LBM_FL(TRT, LES)                                                     \
   (p.forced ? launch_sweep<S, SO, SHIFT, TRT, LES, 1>(f, out, u_in, ny, nx, \
-                                                      k, p, stream)         \
+                                                      k, p, q, stream)      \
             : launch_sweep<S, SO, SHIFT, TRT, LES, 0>(f, out, u_in, ny, nx, \
-                                                      k, p, stream))
+                                                      k, p, q, stream))
   if (p.trt) return p.les ? LBM_FL(1, 1) : LBM_FL(1, 0);
   return p.les ? LBM_FL(0, 1) : LBM_FL(0, 0);
 #undef LBM_FL
@@ -175,11 +179,11 @@ int launch_pass(const void* f, void* out, const float* u_in, int ny, int nx,
 template <typename S>
 int launch_multi(const void* f, float* mid, void* out, const float* u_in,
                  int ny, int nx, int k, const FluidParams& p,
-                 cudaStream_t stream) {
+                 const PairParams& q, cudaStream_t stream) {
   constexpr bool kShift = sizeof(S) == 2;
   const int n = (k + kSweepK - 1) / kSweepK;
   if (n == 1)
-    return launch_pass<S, S, kShift>(f, out, u_in, ny, nx, k, p, stream);
+    return launch_pass<S, S, kShift>(f, out, u_in, ny, nx, k, p, q, stream);
   if (mid == nullptr) return (int)cudaErrorInvalidValue;
   const size_t plane = (size_t)9 * ny * nx;
   const float* src = nullptr;
@@ -188,12 +192,13 @@ int launch_multi(const void* f, float* mid, void* out, const float* u_in,
     float* dst = mid + (i & 1) * plane;
     int err;
     if (i == 0)
-      err = launch_pass<S, float, kShift>(f, dst, u_in, ny, nx, ki, p, stream);
+      err = launch_pass<S, float, kShift>(f, dst, u_in, ny, nx, ki, p, q,
+                                          stream);
     else if (i < n - 1)
       err = launch_pass<float, float, kShift>(src, dst, u_in, ny, nx, ki, p,
-                                              stream);
+                                              q, stream);
     else
-      err = launch_pass<float, S, kShift>(src, out, u_in, ny, nx, ki, p,
+      err = launch_pass<float, S, kShift>(src, out, u_in, ny, nx, ki, p, q,
                                           stream);
     if (err != 0) return err;
     src = dst;
@@ -203,12 +208,12 @@ int launch_multi(const void* f, float* mid, void* out, const float* u_in,
 
 template <typename S, int PRE = 0>
 int launch_step(const void* f, void* out, const float* u_in, int ny, int nx,
-                const FluidParams& p, cudaStream_t stream,
+                const FluidParams& p, const PairParams& q, cudaStream_t stream,
                 Frame fr = Frame{0, 0, 0},
                 EdgePost edge = EdgePost{nullptr, nullptr}) {
   const dim3 grid((nx + kTX - 1) / kTX, (ny + kTY - 1) / kTY);
   fluid_step_kernel<S, PRE><<<grid, kThreads, 0, stream>>>(
-      static_cast<const S*>(f), static_cast<S*>(out), u_in, ny, nx, p, fr,
+      static_cast<const S*>(f), static_cast<S*>(out), u_in, ny, nx, p, q, fr,
       edge);
   return (int)cudaGetLastError();
 }
@@ -220,22 +225,22 @@ template <typename S, typename SO, bool SHIFT, int PRE, int TRT, int LES,
           int FORCED>
 int launch_sweep_prehalo(const void* f, void* out, const float* u_in, int ny,
                          int nx, int k, int ext, const FluidParams& p,
-                         Frame fr, cudaStream_t stream) {
+                         const PairParams& q, Frame fr, cudaStream_t stream) {
   return launch_temporal_block<S, SO, SHIFT, kRows, (TRT || LES) ? 1 : 2,
                                FluidCell<TRT, LES, FORCED>, PRE>(
-      f, u_in, out, FluidCell<TRT, LES, FORCED>{}, ny, nx, k, strip, p,
+      f, u_in, out, FluidCell<TRT, LES, FORCED>{q}, ny, nx, k, strip, p,
       stream, fr, ext, ext ? fr : Frame{0, 0, 0});
 }
 
 template <typename S, typename SO, bool SHIFT, int PRE>
 int launch_pass_prehalo(const void* f, void* out, const float* u_in, int ny,
                         int nx, int k, int ext, const FluidParams& p,
-                        Frame fr, cudaStream_t stream) {
+                        const PairParams& q, Frame fr, cudaStream_t stream) {
 #define LBM_FP(TRT, LES)                                                  \
   (p.forced ? launch_sweep_prehalo<S, SO, SHIFT, PRE, TRT, LES, 1>(      \
-                  f, out, u_in, ny, nx, k, ext, p, fr, stream)           \
+                  f, out, u_in, ny, nx, k, ext, p, q, fr, stream)        \
             : launch_sweep_prehalo<S, SO, SHIFT, PRE, TRT, LES, 0>(      \
-                  f, out, u_in, ny, nx, k, ext, p, fr, stream))
+                  f, out, u_in, ny, nx, k, ext, p, q, fr, stream))
   if (p.trt) return p.les ? LBM_FP(1, 1) : LBM_FP(1, 0);
   return p.les ? LBM_FP(0, 1) : LBM_FP(0, 0);
 #undef LBM_FP
@@ -248,13 +253,13 @@ int launch_pass_prehalo(const void* f, void* out, const float* u_in, int ny,
 template <typename S, int PRE>
 int launch_multi_prehalo(const void* f, float* mid, void* out,
                          const float* u_in, int ny, int nx, int k,
-                         const FluidParams& p, Frame fr,
+                         const FluidParams& p, const PairParams& q, Frame fr,
                          cudaStream_t stream) {
   constexpr bool kShift = sizeof(S) == 2;
   const int n = (k + kSweepK - 1) / kSweepK;
   if (n == 1)
     return launch_pass_prehalo<S, S, kShift, PRE>(f, out, u_in, ny, nx, k, 0,
-                                                  p, fr, stream);
+                                                  p, q, fr, stream);
   if (mid == nullptr) return (int)cudaErrorInvalidValue;
   const size_t frame = (size_t)9 * (ny + 2 * fr.hy) * fr.pitch;
   const float* src = nullptr;
@@ -266,14 +271,14 @@ int launch_multi_prehalo(const void* f, float* mid, void* out,
     int err;
     if (i == 0)
       err = launch_pass_prehalo<S, float, kShift, PRE>(f, dst, u_in, ny, nx,
-                                                       ki, rest, p, fr,
+                                                       ki, rest, p, q, fr,
                                                        stream);
     else if (i < n - 1)
       err = launch_pass_prehalo<float, float, kShift, PRE>(
-          src, dst, u_in, ny, nx, ki, rest, p, fr, stream);
+          src, dst, u_in, ny, nx, ki, rest, p, q, fr, stream);
     else
-      err = launch_pass_prehalo<float, S, kShift, PRE>(src, out, u_in, ny, nx,
-                                                       ki, 0, p, fr, stream);
+      err = launch_pass_prehalo<float, S, kShift, PRE>(
+          src, out, u_in, ny, nx, ki, 0, p, q, fr, stream);
     if (err != 0) return err;
     src = dst;
   }
@@ -294,10 +299,10 @@ extern "C" int lbm_fluid_strip(int threads, int rows) {
 // 4096^2 than the one-step body; on f32 it is slower.
 extern "C" int lbm_fluid_step(const void* f, void* out, const float* u_in,
                               int ny, int nx, int bf16, FluidParams p,
-                              cudaStream_t stream) {
+                              PairParams q, cudaStream_t stream) {
   return bf16 ? launch_pass<__nv_bfloat16, __nv_bfloat16, true>(
-                    f, out, u_in, ny, nx, 1, p, stream)
-              : launch_step<float>(f, out, u_in, ny, nx, p, stream);
+                    f, out, u_in, ny, nx, 1, p, q, stream)
+              : launch_step<float>(f, out, u_in, ny, nx, p, q, stream);
 }
 
 // K5: k steps in one pass by row sweeps (1 <= k <= 16; the wrappers take
@@ -306,10 +311,12 @@ extern "C" int lbm_fluid_step(const void* f, void* out, const float* u_in,
 // null) for k <= 4.
 extern "C" int lbm_fluid_multi(const void* f, void* out, float* mid,
                                const float* u_in, int ny, int nx, int k,
-                               int bf16, FluidParams p, cudaStream_t stream) {
+                               int bf16, FluidParams p, PairParams q,
+                               cudaStream_t stream) {
   return bf16 ? launch_multi<__nv_bfloat16>(f, mid, out, u_in, ny, nx, k, p,
-                                            stream)
-              : launch_multi<float>(f, mid, out, u_in, ny, nx, k, p, stream);
+                                            q, stream)
+              : launch_multi<float>(f, mid, out, u_in, ny, nx, k, p, q,
+                                    stream);
 }
 
 // K4 on a shard's pre-haloed frame: f (9, ny + 2 hy, pitch) f32 (hy = 8)
@@ -322,19 +329,19 @@ extern "C" int lbm_fluid_multi(const void* f, void* out, float* mid,
 extern "C" int lbm_fluid_step_prehalo(const void* f, void* out, float* erow,
                                       float* ecol, int ny, int nx, int pitch,
                                       int hx, int bf16, FluidParams p,
-                                      cudaStream_t stream) {
+                                      PairParams q, cudaStream_t stream) {
   if (p.open || pitch != nx + 2 * hx || (hx != 0 && hx != kHaloCols))
     return (int)cudaErrorInvalidValue;
   const Frame fr{pitch, hx, frame_hy(bf16)};
   const EdgePost edge{erow, ecol};
   if (bf16)
-    return hx ? launch_step<__nv_bfloat16, 2>(f, out, nullptr, ny, nx, p,
+    return hx ? launch_step<__nv_bfloat16, 2>(f, out, nullptr, ny, nx, p, q,
                                               stream, fr, edge)
-              : launch_step<__nv_bfloat16, 1>(f, out, nullptr, ny, nx, p,
+              : launch_step<__nv_bfloat16, 1>(f, out, nullptr, ny, nx, p, q,
                                               stream, fr, edge);
-  return hx ? launch_step<float, 2>(f, out, nullptr, ny, nx, p, stream, fr,
+  return hx ? launch_step<float, 2>(f, out, nullptr, ny, nx, p, q, stream, fr,
                                     edge)
-            : launch_step<float, 1>(f, out, nullptr, ny, nx, p, stream, fr,
+            : launch_step<float, 1>(f, out, nullptr, ny, nx, p, q, stream, fr,
                                     edge);
 }
 
@@ -348,18 +355,19 @@ extern "C" int lbm_fluid_step_prehalo(const void* f, void* out, float* erow,
 extern "C" int lbm_fluid_multi_prehalo(const void* f, void* out, float* mid,
                                        const float* u_in, int ny, int nx,
                                        int pitch, int hx, int k, int bf16,
-                                       FluidParams p, cudaStream_t stream) {
+                                       FluidParams p, PairParams q,
+                                       cudaStream_t stream) {
   if (k < 1 || k > frame_hy(bf16) || pitch != nx + 2 * hx ||
       (hx != 0 && hx != kHaloCols) || (p.open && u_in == nullptr))
     return (int)cudaErrorInvalidValue;
   const Frame fr{pitch, hx, frame_hy(bf16)};
   if (bf16)
     return hx ? launch_multi_prehalo<__nv_bfloat16, 2>(f, mid, out, u_in, ny,
-                                                       nx, k, p, fr, stream)
+                                                       nx, k, p, q, fr, stream)
               : launch_multi_prehalo<__nv_bfloat16, 1>(f, mid, out, u_in, ny,
-                                                       nx, k, p, fr, stream);
+                                                       nx, k, p, q, fr, stream);
   return hx ? launch_multi_prehalo<float, 2>(f, mid, out, u_in, ny, nx, k, p,
-                                             fr, stream)
+                                             q, fr, stream)
             : launch_multi_prehalo<float, 1>(f, mid, out, u_in, ny, nx, k, p,
-                                             fr, stream);
+                                             q, fr, stream);
 }

@@ -16,9 +16,10 @@
 // solid stack read once (12 B): 1.21 GB (K5) and 1.41 GB (K6, K7) at
 // 4096^2 in f32, 0.36 and 0.42 ms at 3.35 TB/s. The NT collide is ~350
 // operations at a cell with eps > 0 and ~180 on the fluid branch (imb.cuh
-// relax_cell), the pure-fluid collide ~200 (d2q9.cuh fluid_collide), nine
-// IEEE divides among them; at k = 4 that is 0.18-0.24 ms at the 67
-// TFLOP/s peak, twice that with no multiply-add fused under --fmad=false.
+// relax_cell) with nine IEEE divides, the pure-fluid collide ~130 and one
+// reciprocal (d2q9.cuh fluid_collide_t); at k = 4 that is 0.13 ms (pure
+// fluid) and 0.18-0.24 ms (NT) at the 67 TFLOP/s peak, twice that with no
+// multiply-add fused under --fmad=false.
 // The sweep takes several times that: the collide's dependent chains at
 // the occupancy the rings and registers allow, with one barrier per
 // phase, hold it (PERF.md sections 6 and 7).
@@ -147,15 +148,16 @@ struct NTCell {
 };
 
 // FluidCell (K5): the pure-fluid collide of K4 (d2q9.cuh
-// fluid_collide_t), the options fixed at compile time.
+// fluid_collide_t) with its scalars q, the options fixed at compile time.
 template <int TRT, int LES, int FORCED>
 struct FluidCell {
   static constexpr bool kSolid = false;
+  PairParams q;
   template <bool SHIFT>
   __device__ __forceinline__ void collide(int, float* v, float, float, float,
                                           const FluidParams& p, bool,
                                           size_t) const {
-    fluid_collide_t<SHIFT, TRT, LES, FORCED>(v, p);
+    fluid_collide_t<SHIFT, TRT, LES, FORCED>(v, p, q);
   }
 };
 

@@ -71,6 +71,17 @@ class FluidParams(ctypes.Structure):
     ]
 
 
+class PairParams(ctypes.Structure):
+    """The pure-fluid collide's scalars without LES (K4/K5, from
+    `ops/fused_fluid.pair_consts`); mirrors `struct PairParams` in
+    csrc/d2q9.cuh field for field."""
+
+    _fields_ = [
+        ("inv_tau", _F), ("inv_tau_m", _F), ("gw", _F * 5), ("eg9", _F * 4),
+        ("w3eg", _F * 4), ("godd", _F * 4),
+    ]
+
+
 class CovParams(ctypes.Structure):
     """The coverage method of a launch and the constants of the sample
     method's fast path (ops/stamp.cov_params); mirrors `struct
@@ -97,13 +108,14 @@ _SIGNATURES = {
     "lbm_dem_subcycle_window": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                 _I, _I, _I, DemParams, _P],
     "lbm_dem_grid": [_I],
-    "lbm_fluid_step": [_P, _P, _P, _I, _I, _I, FluidParams, _P],
-    "lbm_fluid_multi": [_P, _P, _P, _P, _I, _I, _I, _I, FluidParams, _P],
+    "lbm_fluid_step": [_P, _P, _P, _I, _I, _I, FluidParams, PairParams, _P],
+    "lbm_fluid_multi": [_P, _P, _P, _P, _I, _I, _I, _I, FluidParams,
+                        PairParams, _P],
     "lbm_fluid_strip": [_I, _I],
     "lbm_fluid_step_prehalo": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
-                               FluidParams, _P],
+                               FluidParams, PairParams, _P],
     "lbm_fluid_multi_prehalo": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                FluidParams, _P],
+                                FluidParams, PairParams, _P],
     "lbm_imb_step_prehalo": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                              _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                              CovParams, _I, _I, FluidParams, _F, _F, _I, _P],

@@ -9,8 +9,12 @@ shifted-bf16 storage (`cfg.f_storage`).
 CPU tensors take the plain versions; CUDA tensors take the kernels of
 `csrc/fluid.cu` or raise. Both write into the caller's second f buffer
 `out`, never into `f`. K5 keeps the k inner steps in float32 and rounds
-to the storage type once per call, so its plain version is k f32 steps
-between one `from_storage` and one `to_storage`.
+to the storage type once per call. The plain versions compute what the
+kernels compute, operation for operation: `collide_pairs` (the pair-form
+collide of the JAX kernels' `_collide_window`), then the stream, walls
+and Zou/He of `lbm.step_pure_fluid`, on bf16 storage in the shifted form
+(`compute_form`), rounded once per call. `lbm.collide` and
+`lbm.step_pure_fluid` stay the plain path's (the JAX oracle's twins).
 
 Pre-haloed mode (`prehalo`, the lattice mesh of `parallel/`): f is a
 shard's frame with `frame_hy(cfg)` exchanged halo rows per side (HY = 8
@@ -40,6 +44,7 @@ import torch
 from lbmdem_tpu_torch import kernels, lattice
 from lbmdem_tpu_torch.config import SimConfig, WALL
 from lbmdem_tpu_torch.ops import lbm
+from lbmdem_tpu_torch.ops.imb import sqrt_rn
 
 # largest k per pass, the TPU kernel's (on a frame its halo rows): f32 8,
 # bf16 16
@@ -130,25 +135,185 @@ def check_storage(what: str, cfg: SimConfig, f, out) -> torch.dtype:
     return want
 
 
+# the direction pairs (i, opp(i)) with i < opp(i): (1, 3), (2, 4), (5, 7),
+# (6, 8)
+PAIRS = tuple((i, int(lattice.OPP[i])) for i in range(1, 9)
+              if i < int(lattice.OPP[i]))
+
+
+@functools.lru_cache(maxsize=64)
+def pair_consts(cfg: SimConfig, dtype: torch.dtype = torch.float32) -> dict:
+    """The scalars of collide_pairs that the JAX kernel's trace folds from
+    Python floats, in the compute dtype (the kernels' PairParams take the
+    float32 ones): a Python float expression is evaluated in double and
+    rounded once; a product with a float32 weight is a float32 product
+    (NumPy's scalar rule). The weights are the float32 table in float32
+    and the double one in float64. Per pair representative k (PAIRS[k][0]):
+    eg9 = 9 e.g, w3eg = w 3 e.g, and without LES gw = w force_pref (gw0
+    for the rest population) and godd = w3eg opref, opref the odd Guo
+    prefactor (TRT's force_pref_m, else force_pref)."""
+    dt = np.float32 if dtype == torch.float32 else np.float64
+    w = lattice.W.astype(dt)
+    tau, trt = cfg.tau, cfg.trt_lambda
+    inv_tau = 1.0 / tau
+    inv_tau_m = 1.0 / (0.5 + trt / (tau - 0.5)) if trt > 0.0 else inv_tau
+    force_pref = 1.0 - 0.5 * inv_tau
+    opref = 1.0 - 0.5 * inv_tau_m
+    egs = [int(lattice.E[i, 0]) * cfg.gx + int(lattice.E[i, 1]) * cfg.gy
+           for i, _ in PAIRS]
+    w3eg = [w[i] * dt(3.0 * eg) for (i, _), eg in zip(PAIRS, egs)]
+    return dict(
+        inv_tau=float(dt(inv_tau)), inv_tau_m=float(dt(inv_tau_m)),
+        gw0=float(w[0] * dt(force_pref)),
+        gw=[float(w[i] * dt(force_pref)) for i, _ in PAIRS],
+        eg9=[float(dt(9.0 * eg)) for eg in egs],
+        w3eg=[float(x) for x in w3eg],
+        godd=[float(x * dt(opref)) for x in w3eg],
+        half_gx=float(dt(0.5 * cfg.gx)), half_gy=float(dt(0.5 * cfg.gy)),
+        gx=float(dt(cfg.gx)), gy=float(dt(cfg.gy)),
+        tau=float(dt(tau)), tau_sq=float(dt(tau * tau)),
+        trt=float(dt(trt)),
+        les_c=float(dt(18.0 * np.sqrt(2.0) * cfg.smagorinsky ** 2)),
+        w=[float(x) for x in w])
+
+
+def collide_pairs(g, cfg: SimConfig, shift: float = 0.0):
+    """The pure-fluid collide of K4 and K5 (csrc/d2q9.cuh
+    fluid_collide_t), operation for operation: the uncoupled branch of
+    the JAX kernels' pallas_lbm._collide_window. Per direction pair the
+    sum S = f_i + f_opp and the difference D = f_i - f_opp give rho and
+    j; the equilibria split into even and odd parts E +- O; BGK relaxes
+    f - (E +- O), TRT the even and odd parts (S/2 - E at 1/tau, D/2 - O
+    at 1/tau-); Guo's source splits the same way. Smagorinsky's tau is
+    per cell from all nine equilibria. shift != 0: g holds the shifted
+    populations f - w shift (bf16 storage) and so does the result. g is
+    (9, ...) in float32 or float64; returns the post-collision
+    populations."""
+    c = pair_consts(cfg, g.dtype)
+    w = c["w"]
+    les, trt = cfg.smagorinsky > 0.0, cfg.trt_lambda > 0.0
+    forced = cfg.gx != 0.0 or cfg.gy != 0.0
+    f = g.unbind(0)
+    S, D = {}, {}
+    rho_g, jx, jy = f[0], None, None
+    for i, o in PAIRS:
+        S[i] = f[i] + f[o]
+        rho_g = rho_g + S[i]
+        D[i] = f[i] - f[o]
+        ex, ey = int(lattice.E[i, 0]), int(lattice.E[i, 1])
+        if ex:
+            jx = (D[i] if ex > 0 else -D[i]) if jx is None else (
+                jx + D[i] if ex > 0 else jx - D[i])
+        if ey:
+            jy = (D[i] if ey > 0 else -D[i]) if jy is None else (
+                jy + D[i] if ey > 0 else jy - D[i])
+    rho = rho_g + shift if shift else rho_g
+    inv_rho = torch.reciprocal(rho)
+    ux = (jx + c["half_gx"]) * inv_rho
+    uy = (jy + c["half_gy"]) * inv_rho
+    usq = ux * ux + uy * uy
+    rho_b = rho_g if shift else rho
+    rho3 = 3.0 * rho
+    m15 = -1.5 * usq
+    feq0 = w[0] * (rho_b + rho * m15)
+    eu, E, O = {}, {}, {}
+    for i, _ in PAIRS:
+        ex, ey = int(lattice.E[i, 0]), int(lattice.E[i, 1])
+        t = None
+        if ex:
+            t = ux if ex > 0 else -ux
+        if ey:
+            t = (uy if ey > 0 else -uy) if t is None else (
+                t + uy if ey > 0 else t - uy)
+        eu[i] = t
+        E[i] = w[i] * (rho_b + rho * (4.5 * (t * t) + m15))
+        O[i] = (w[i] * rho3) * t
+    tau = c["tau"]
+    if les:  # ops/lbm.smagorinsky_tau on the pair-form equilibria
+        feq = [feq0] * 9
+        for i, o in PAIRS:
+            feq[i], feq[o] = E[i] + O[i], E[i] - O[i]
+        pxx, pyy, pxy = (torch.zeros_like(rho) for _ in range(3))
+        for i in range(1, 9):
+            ex, ey = int(lattice.E[i, 0]), int(lattice.E[i, 1])
+            ne = f[i] - feq[i]
+            if ex:
+                pxx = pxx + ne
+            if ey:
+                pyy = pyy + ne
+            if ex and ey:
+                pxy = pxy + ne if ex * ey > 0 else pxy - ne
+        pnorm = sqrt_rn(pxx * pxx + pyy * pyy + 2.0 * pxy * pxy)
+        tau = 0.5 * (tau + sqrt_rn(c["tau_sq"] + c["les_c"] * pnorm / rho))
+        inv_tau = torch.reciprocal(tau)
+        force_pref = 1.0 - 0.5 * inv_tau
+        if trt:
+            inv_tau_m = torch.reciprocal(
+                0.5 + rho.new_tensor(c["trt"]) / (tau - 0.5))
+            opref = 1.0 - 0.5 * inv_tau_m
+        else:
+            opref = force_pref
+    else:
+        inv_tau, inv_tau_m = c["inv_tau"], c["inv_tau_m"]
+    if forced:
+        ug3 = 3.0 * (ux * c["gx"] + uy * c["gy"])
+    out = [None] * 9
+    out[0] = f[0] - inv_tau * (f[0] - feq0)
+    if forced:
+        gw0 = w[0] * force_pref if les else c["gw0"]
+        out[0] = out[0] + gw0 * (-ug3)
+    for k, (i, o) in enumerate(PAIRS):
+        if trt:
+            ne_e = inv_tau * (0.5 * S[i] - E[i])
+            ne_o = inv_tau_m * (0.5 * D[i] - O[i])
+            fi, fo = f[i] - (ne_e + ne_o), f[o] - (ne_e - ne_o)
+        else:
+            fi = f[i] - inv_tau * (f[i] - (E[i] + O[i]))
+            fo = f[o] - inv_tau * (f[o] - (E[i] - O[i]))
+        if forced:
+            gw = w[i] * force_pref if les else c["gw"][k]
+            even = gw * (c["eg9"][k] * eu[i] - ug3)
+            if c["w3eg"][k] != 0.0:
+                odd = c["w3eg"][k] * opref if les else c["godd"][k]
+                fi, fo = fi + (even + odd), fo + (even - odd)
+            else:
+                fi, fo = fi + even, fo + even
+        out[i], out[o] = fi, fo
+    return torch.stack(out)
+
+
+def compute_form(f, cfg: SimConfig):
+    """(populations, shift) in the form the kernels compute in: f32
+    storage as it is; bf16 storage as its shifted populations in float32
+    with shift rho0 (the kernels never unshift); float64 as it is."""
+    if f.dtype == torch.bfloat16:
+        return f.to(torch.float32), float(np.float32(cfg.rho0))
+    return f, 0.0
+
+
+def step_pairs(g, cfg: SimConfig, shift: float = 0.0):
+    """One pure-fluid step of K4 and K5's arithmetic: collide_pairs, then
+    the stream, bounce-back and Zou/He of lbm.step_pure_fluid (on shifted
+    populations with the closures' shift)."""
+    fpost = collide_pairs(g, cfg, shift)
+    fnew = lbm.apply_bounce_back(lbm.stream(fpost), fpost, cfg)
+    return lbm.apply_open_boundaries(fnew, cfg, shift)
+
+
 def fused_step_fluid_plain(f, cfg: SimConfig, out):
-    """Plain version of K4: lbm.step_pure_fluid between from_storage and
-    to_storage, into `out`."""
-    fnew = lbm.step_pure_fluid(lbm.from_storage(f, cfg), cfg)
-    return out.copy_(lbm.to_storage(fnew, cfg))
+    """Plain version of K4: step_pairs in the kernels' compute form
+    (compute_form), rounded to storage once, into `out`."""
+    g, shift = compute_form(f, cfg)
+    return out.copy_(step_pairs(g, cfg, shift))
 
 
 def fused_step_fluid_multi_plain(f, cfg: SimConfig, k: int, out):
-    """Plain version of K5: from_storage, k x lbm.step_pure_fluid,
-    to_storage, into `out`."""
-    g = lbm.from_storage(f, cfg)
+    """Plain version of K5: k x step_pairs in the kernels' compute form
+    (compute_form), rounded to storage once, into `out`."""
+    g, shift = compute_form(f, cfg)
     for _ in range(k):
-        g = lbm.step_pure_fluid(g, cfg)
-    return out.copy_(lbm.to_storage(g, cfg))
-
-
-def _collide(g, cfg: SimConfig):
-    return lbm.collide(g, cfg.tau, cfg.gx, cfg.gy, cfg.smagorinsky,
-                       cfg.trt_lambda)
+        g = step_pairs(g, cfg, shift)
+    return out.copy_(g)
 
 
 def stream_frame(fpost, mode: str, h: int, w: int):
@@ -183,18 +348,19 @@ def x_walls_frame(fnew, fpost, cfg: SimConfig, h: int):
 
 
 def edge_post_plain(fpost, mode: str, h: int, w: int, edge_post,
-                    cfg: SimConfig) -> None:
+                    cfg: SimConfig, shifted: bool = False) -> None:
     """Fill `edge_post` = (rows (9, 2, w), cols (9, h, 2)) with the
     post-collision populations of the interior's first and last rows and
     columns, fpost as in stream_frame; on bf16 storage the shifted ones
     fpost - w rho0 in f32, unrounded, as the kernels hand them out (the
-    bounce-back is shift-invariant: w_opp(i) = w_i)."""
+    bounce-back is shift-invariant: w_opp(i) = w_i), or fpost as it is
+    where it is `shifted` already."""
     if edge_post is None:
         return
     rows, cols = edge_post
     c = slice(1, 1 + w) if mode == "yx" else slice(None)
     inner = fpost[:, 1:1 + h, c]
-    shift = lbm.storage_shift(cfg)
+    shift = None if shifted else lbm.storage_shift(cfg)
     if shift is not None:
         inner = inner - shift.to(inner.device)
     rows[:, 0] = inner[:, 0]
@@ -206,30 +372,33 @@ def edge_post_plain(fpost, mode: str, h: int, w: int, edge_post,
 def fused_step_fluid_prehalo_plain(f, cfg: SimConfig, mode: str, out,
                                    edge_post=None):
     """Plain version of K4 on a pre-haloed frame: the collide of the
-    interior and its ring (lbm.collide), pull streaming, the x walls in
-    "y" mode, into `out` (9, ny, nx), the edges' post-collision
-    populations into `edge_post`. No y walls and no Zou/He: the sharded
-    caller fixes the global edges."""
+    interior and its ring (collide_pairs in the kernels' compute form),
+    pull streaming, the x walls in "y" mode, into `out` (9, ny, nx), the
+    edges' post-collision populations into `edge_post`. No y walls and no
+    Zou/He: the sharded caller fixes the global edges."""
     h, w, hy = cfg.ny, cfg.nx, frame_hy(cfg)
-    g = lbm.from_storage(f, cfg)[:, hy - 1:hy + h + 1]
+    g, shift = compute_form(f, cfg)
+    g = g[:, hy - 1:hy + h + 1]
     if mode == "yx":
         g = g[:, :, HX - 1:HX + w + 1]
-    fpost = _collide(g, cfg)
+    fpost = collide_pairs(g, cfg, shift)
     fnew = stream_frame(fpost, mode, h, w)
     if mode == "y":
         x_walls_frame(fnew, fpost, cfg, h)
-    edge_post_plain(fpost, mode, h, w, edge_post, cfg)
-    return out.copy_(lbm.to_storage(fnew, cfg))
+    edge_post_plain(fpost, mode, h, w, edge_post, cfg, shifted=True)
+    return out.copy_(fnew)
 
 
 def fused_step_fluid_multi_prehalo_plain(f, cfg: SimConfig, k: int, mode: str,
                                          edges, ny_glob: int, out):
     """Plain version of K5 on a pre-haloed frame (the JAX
     _stream_and_bb_window with its mesh-position flags): frame_steps_plain
-    with the pure-fluid collide, then the interior into `out`."""
-    g = frame_steps_plain(lbm.from_storage(f, cfg), cfg, k, mode, edges,
-                          ny_glob, lambda g, t: _collide(g, cfg))
-    return out.copy_(lbm.to_storage(frame_interior(g, cfg, mode), cfg))
+    with collide_pairs in the kernels' compute form, then the interior
+    into `out`."""
+    g, shift = compute_form(f, cfg)
+    g = frame_steps_plain(g, cfg, k, mode, edges, ny_glob,
+                          lambda g, t: collide_pairs(g, cfg, shift), shift)
+    return out.copy_(frame_interior(g, cfg, mode))
 
 
 def frame_interior(g, cfg: SimConfig, mode: str, hy=None):
@@ -253,7 +422,7 @@ def solid_frame(solid, cfg: SimConfig):
 
 
 def frame_steps_plain(g, cfg: SimConfig, k: int, mode: str, edges,
-                      ny_glob: int, collide):
+                      ny_glob: int, collide, shift: float = 0.0):
     """k steps of a whole pre-haloed frame g (9, ny + 2 hy, nx [+ 256]), the
     plain form of the pre-haloed temporal blocks (K5, K6, K7): each step
     collide(g, t) -> post-collision frame, streamed with periodic rolls
@@ -262,7 +431,8 @@ def frame_steps_plain(g, cfg: SimConfig, k: int, mode: str, edges,
     columns across the frame where `edges` = (south, north, west, east[,
     global row offset]) says it holds that global edge, and the Zou/He
     closures on every frame row at the global row offset (the inlet
-    profile of ny_glob rows). Returns the frame after k steps."""
+    profile of ny_glob rows), with `shift` on shifted populations.
+    Returns the frame after k steps."""
     h, w, hy = cfg.ny, cfg.nx, frame_hy(cfg)
     hx = HX if mode == "yx" else 0
     s_on, n_on, w_on, e_on = (bool(e) for e in edges[:4])
@@ -296,11 +466,11 @@ def frame_steps_plain(g, cfg: SimConfig, k: int, mode: str, edges,
             cw, ce = hx, hx + w - 1
             if w_on:
                 n1, n5, n8 = lbm.zou_he_inlet(
-                    tuple(g[i, :, cw] for i in range(9)), u_rows)
+                    tuple(g[i, :, cw] for i in range(9)), u_rows, shift)
                 g[1, :, cw], g[5, :, cw], g[8, :, cw] = n1, n5, n8
             if e_on:
                 n3, n7, n6 = lbm.zou_he_outlet(
-                    tuple(g[i, :, ce] for i in range(9)), rho_o)
+                    tuple(g[i, :, ce] for i in range(9)), rho_o, shift)
                 g[3, :, ce], g[7, :, ce], g[6, :, ce] = n3, n7, n6
     return g
 
@@ -374,6 +544,17 @@ def _params(cfg: SimConfig, walls_mask: int = 15,
 
 
 @functools.lru_cache(maxsize=64)
+def _pair_params(cfg: SimConfig) -> kernels.PairParams:
+    """The kernels' PairParams of cfg: pair_consts in float32."""
+    c = pair_consts(cfg)
+    arr = lambda xs: (ctypes.c_float * len(xs))(*xs)  # noqa: E731
+    return kernels.PairParams(
+        inv_tau=c["inv_tau"], inv_tau_m=c["inv_tau_m"],
+        gw=arr([c["gw0"], *c["gw"]]), eg9=arr(c["eg9"]), w3eg=arr(c["w3eg"]),
+        godd=arr(c["godd"]))
+
+
+@functools.lru_cache(maxsize=64)
 def _inlet_profile(cfg: SimConfig, device: torch.device):
     """The (ny,) f32 inlet profile on the card (lbm.inlet_profile_array),
     made once per configuration and device: a host-to-device copy per
@@ -438,6 +619,7 @@ def _launch(f, cfg: SimConfig, k: int, out, what: str, mode: str = "",
     mode `mode`, on a shard's frame."""
     want = check_storage(what, cfg, f, out)
     bf16 = int(want == torch.bfloat16)
+    q = _pair_params(cfg)
     lib = kernels.library()
     kernels.setting("lbm_fluid_strip", *STRIP)
     u_in = (_inlet_profile(cfg, f.device).data_ptr()
@@ -448,7 +630,7 @@ def _launch(f, cfg: SimConfig, k: int, out, what: str, mode: str = "",
             erow, ecol = edge_ptrs(edge_post, cfg, f.device)
             code = lib.lbm_fluid_step_prehalo(
                 f.data_ptr(), out.data_ptr(), erow, ecol, cfg.ny, cfg.nx,
-                pitch, hx, bf16, _params(cfg, 12 if mode == "y" else 0, 0),
+                pitch, hx, bf16, _params(cfg, 12 if mode == "y" else 0, 0), q,
                 kernels.stream())
         elif mode:
             pitch, hx = _frame_args(f, cfg, mode)
@@ -457,17 +639,17 @@ def _launch(f, cfg: SimConfig, k: int, out, what: str, mode: str = "",
             code = lib.lbm_fluid_multi_prehalo(
                 f.data_ptr(), out.data_ptr(),
                 None if mid is None else mid.data_ptr(), u_in, cfg.ny,
-                cfg.nx, pitch, hx, k, bf16, p, kernels.stream())
+                cfg.nx, pitch, hx, k, bf16, p, q, kernels.stream())
         elif k is None:
             code = lib.lbm_fluid_step(f.data_ptr(), out.data_ptr(), u_in,
-                                      cfg.ny, cfg.nx, bf16, _params(cfg),
+                                      cfg.ny, cfg.nx, bf16, _params(cfg), q,
                                       kernels.stream())
         else:
             mid = _scratch(f, k)
             code = lib.lbm_fluid_multi(f.data_ptr(), out.data_ptr(),
                                        None if mid is None else mid.data_ptr(),
                                        u_in, cfg.ny, cfg.nx, k, bf16,
-                                       _params(cfg), kernels.stream())
+                                       _params(cfg), q, kernels.stream())
     kernels.check(code, what)
 
 

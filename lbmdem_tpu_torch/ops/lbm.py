@@ -221,17 +221,20 @@ def zou_he_outlet(fs, rho_o, shift=0.0):
             f8 - d24 - (1.0 / 6.0) * rue)
 
 
-def apply_open_boundaries(fnew, cfg: SimConfig):
+def apply_open_boundaries(fnew, cfg: SimConfig, shift: float = 0.0):
     """Zou/He open boundaries, applied after bounce-back so the wall
-    corners supply the tangential knowns."""
+    corners supply the tangential knowns. `shift` != 0: fnew holds
+    shifted populations (as zou_he_inlet)."""
     if cfg.bc_west != "inlet":
         return fnew
     u_in = torch.as_tensor(inlet_profile_array(cfg), dtype=fnew.dtype,
                            device=fnew.device)
-    f1, f5, f8 = zou_he_inlet(tuple(fnew[i, :, 0] for i in range(9)), u_in)
+    f1, f5, f8 = zou_he_inlet(tuple(fnew[i, :, 0] for i in range(9)), u_in,
+                              shift)
     rho_o = torch.as_tensor(cfg.rho_outlet or cfg.rho0, dtype=fnew.dtype,
                             device=fnew.device)
-    f3, f7, f6 = zou_he_outlet(tuple(fnew[i, :, -1] for i in range(9)), rho_o)
+    f3, f7, f6 = zou_he_outlet(tuple(fnew[i, :, -1] for i in range(9)), rho_o,
+                               shift)
     fnew = fnew.clone()
     for i, v in ((1, f1), (5, f5), (8, f8)):
         fnew[i, :, 0] = v

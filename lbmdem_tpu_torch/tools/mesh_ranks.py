@@ -18,11 +18,18 @@ others wait):
   at TEMPORAL_K, one halo exchange per pass) and 400 steps of
   make_sharded_step(temporal_k=8);
 - slice: BASELINE config 5, the column collapse (n^2, `--disks` disks):
-  one card's run(100) against the ranks' mesh run(100).
+  one card's run(100) against the ranks' mesh run(100);
+- window: the same column at coupling_k = 4 (K1 + K6 on every shard's
+  frame, the window DEM per rank, the stacked force sums of the k steps
+  over the ranks): run(100);
+- static: bench.py's static scene (n^2, (n / 64)^2 fixed disks of r = 4
+  on a jittered grid, tau 0.8, gx 1e-6: solid windows stamped once, K7
+  on the frames): run(400).
 
 Before the turns each mesh is held against one card after 16 steps:
-the fluid's f equal (torch.equal), the column's f within 5e-6, disk x
-within 1e-5 and v within 1e-6 (chip_smoke.py's mesh bars). MLUPS is the
+the fluid's f equal (torch.equal), the column's and the window's f
+within 5e-6, disk x within 1e-5 and v within 1e-6, the static bed's f
+within 2e-6 and its disks equal (chip_smoke.py's mesh bars). MLUPS is the
 wall clock of each turn, the ranks started together at a barrier. Writes
 rank 0's JSON record (every reading, the ratios, the checks, the cards'
 names and power limits) to --out and prints it.
@@ -39,6 +46,27 @@ import sys
 import time
 
 ORDER = ("one", "ranks", "ranks", "one", "one", "ranks")
+
+
+def static_bed(n: int, n_disks: int):
+    """bench.py's static scene: n_disks fixed disks of r = 4 at rest on a
+    jittered square grid from default_rng(0), tau 0.8, gx 1e-6, periodic
+    x, walls in y (chip_smoke.static_bed)."""
+    import numpy as np
+
+    from lbmdem_tpu_torch import DiskSpec, SimConfig
+
+    rng = np.random.default_rng(0)
+    side = int(np.ceil(np.sqrt(n_disks)))
+    pitch = (n - 40.0) / side
+    disks = []
+    for i in range(n_disks):
+        gy, gx = divmod(i, side)
+        disks.append(DiskSpec(20.0 + (gx + 0.5) * pitch + rng.uniform(-2, 2),
+                              20.0 + (gy + 0.5) * pitch + rng.uniform(-2, 2),
+                              4.0, fixed=True))
+    return SimConfig(nx=n, ny=n, tau=0.8, gx=1e-6, dtype="float32",
+                     max_disks=n_disks), disks
 
 
 def _worker(args) -> dict:
@@ -69,12 +97,17 @@ def _worker(args) -> dict:
 
     n = args.n
     out = {"ranks": world, "n": n, "device": str(dev), "checks": {}}
+    column = column_collapse(nx=n, ny=n, n_disks=args.disks)
+    # (config, disks, timed steps, bars (f, disk x, disk v) of the check)
     scenes = {
         "fluid": (SimConfig(nx=n, ny=n, tau=0.8, gx=1e-6, dtype="float32",
-                            out_interval=10**9), [], 400),
-        "slice": (*column_collapse(nx=n, ny=n, n_disks=args.disks), 100),
+                            out_interval=10**9), [], 400, None),
+        "slice": (*column, 100, (5e-6, 1e-5, 1e-6)),
+        "window": (column[0].replace(coupling_k=4), column[1], 100,
+                   (5e-6, 1e-5, 1e-6)),
+        "static": (*static_bed(n, (n // 64) ** 2), 400, (2e-6, 0.0, 0.0)),
     }
-    for name, (cfg, disks, steps) in scenes.items():
+    for name, (cfg, disks, steps, bars) in scenes.items():
         cfg = cfg.replace(out_interval=10**9)
         one = Simulation(cfg, disks, device=dev) if lead else None
         sh = Simulation(cfg, disks, mesh=mesh())
@@ -89,8 +122,10 @@ def _worker(args) -> dict:
             if disks:
                 chk["x_err"] = float((a.disks.x - got.disks.x).abs().max())
                 chk["v_err"] = float((a.disks.v - got.disks.v).abs().max())
-                chk["ok"] = (ef <= 5e-6 and chk["x_err"] <= 1e-5
-                             and chk["v_err"] <= 1e-6)
+                chk["ok"] = (ef <= bars[0] and chk["x_err"] <= bars[1]
+                             and chk["v_err"] <= bars[2])
+                if name == "static":
+                    chk["ok"] = chk["ok"] and sh.static_solid
             else:
                 chk["ok"] = chk["f_equal"]
             out["checks"][name] = chk

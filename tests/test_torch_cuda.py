@@ -277,6 +277,59 @@ def test_fluid_kernels_match_plain(dev, kw, k):
     assert float(((a - b).abs() - rtol * b.abs()).max()) <= atol
 
 
+PAIR_COMBOS = [(t, l, g) for t in (0, 1) for l in (0, 1) for g in (0, 1)]
+
+
+@pytest.mark.parametrize("storage", ["float32", "bfloat16"])
+@pytest.mark.parametrize("trt,les,forced", PAIR_COMBOS, ids=[
+    "-".join(n for n, on in zip(("trt", "les", "forced"), c) if on) or "bgk"
+    for c in PAIR_COMBOS])
+def test_fluid_kernels_equal_pair_plain(dev, trt, les, forced, storage):
+    """K4 and K5 against their plain versions (the pair-form collide
+    fused_fluid.collide_pairs, in the kernels' shifted form on bf16) on
+    the same card input, f' equal under torch.equal in both storages,
+    for every BGK/TRT x LES x forced combination (walls with a moving lid,
+    or Zou/He with periodic y): halo-free at k = 1, 4 and the deepest pass
+    (f32 8, bf16 16); on "y" and "yx" frames K4 with its edge populations
+    and K5 at k = 4 and at the frame's depth."""
+    kw = dict(f_storage=storage, collision="trt" if trt else "bgk",
+              smagorinsky=0.16 if les else 0.0,
+              gx=1e-5 if forced else 0.0, gy=-2e-5 if forced else 0.0)
+    if (trt + les + forced) % 2:
+        kw.update(bc_west="inlet", bc_east="outlet", u_inlet=0.06,
+                  inlet_profile="poiseuille", bc_south="periodic",
+                  bc_north="periodic")
+    else:
+        kw.update(bc_west="wall", bc_east="wall", uw_north=0.05)
+    cfg = SimConfig(nx=256, ny=64, tau=0.7, dtype="float32", **kw)
+    deep = fused_fluid.MAX_K[storage]
+    f = _fluid_f(cfg, dev, 11)
+    a, b = torch.empty_like(f), torch.empty_like(f)
+    for k in (1, 4, deep):
+        fused_fluid.fused_step_fluid_multi(f, cfg, k, a)
+        fused_fluid.fused_step_fluid_multi_plain(f, cfg, k, b)
+        err = float((a.float() - b.float()).abs().max())
+        assert torch.equal(a, b), (k, err)
+    rng = np.random.default_rng(5)
+    for mode in ("y", "yx"):
+        fr = lbm.to_storage(torch.as_tensor(
+            lattice.W[:, None, None] * (1.0 + 0.05 * rng.standard_normal(
+                fused_fluid.frame_shape(cfg, mode))),
+            dtype=torch.float32, device=dev), cfg)
+        ea, eb = ((torch.empty((9, 2, cfg.nx), device=dev),
+                   torch.empty((9, cfg.ny, 2), device=dev)) for _ in range(2))
+        fused_fluid.fused_step_fluid(fr, cfg, a, prehalo=mode, edge_post=ea)
+        fused_fluid.fused_step_fluid_prehalo_plain(fr, cfg, mode, b, eb)
+        assert torch.equal(a, b) and all(map(torch.equal, ea, eb)), mode
+        edges = (1, 0, 1, 1, 0) if mode == "y" else (0, 1, 0, 1, 192)
+        for k in (4, deep):
+            fused_fluid.fused_step_fluid_multi(fr, cfg, k, a, prehalo=mode,
+                                               edges=edges, ny_glob=256)
+            fused_fluid.fused_step_fluid_multi_prehalo_plain(
+                fr, cfg, k, mode, edges, 256, b)
+            assert torch.equal(a, b), (mode, k)
+
+
 def test_fluid_bf16_rest_state_exact(dev):
     cfg = SimConfig(nx=128, ny=32, tau=0.8, dtype="float32",
                     f_storage="bfloat16")

@@ -14,6 +14,11 @@ torch.equal:
 - 16 steps of a small coupled column through Simulation(mesh=...).run
   (the cadence chunk: the binning overflow, the force sums over the
   shards), and the state handed across by interop.mesh_state_from_numpy;
+- the same column at coupling_k = 4 (the window: K1 + K6 per shard, the
+  stacked force sums of its k steps over the ranks) and with
+  f_storage="bfloat16" (16-row bf16 frames), and an all-fixed bed
+  through the static hoist (K7 on frames over solid windows stamped
+  once), 5 steps;
 - the plain sharded step with paranoid mode (the halo exchange of the
   post-collision frames, the paranoid minimum over the ranks);
 - the CLI with --distributed on a small coupled deck: rank 0's files
@@ -89,6 +94,36 @@ for dims in ((2, 2), (1, 4)):
         s.run(16)
     res[f"coupled-{tag}"] = (equal(sims[0].state, sims[1].state)
                              and float(sims[0].state.disks.v.abs().max()) > 0)
+    # the window: K1 + K6 per shard, K3w per replica, the stacked (k, ...)
+    # force sums over the ranks
+    wins = [Simulation(ccfg.replace(coupling_k=4), disks, mesh=m)
+            for m in (one, many)]
+    for s in wins:
+        s.run(16)
+    res[f"window-{tag}"] = (equal(wins[0].state, wins[1].state)
+                            and not torch.equal(wins[0].state.f,
+                                                sims[0].state.f))
+    # bf16 storage: K1 + K2 on 16-row bf16 frames with the edge fixups
+    bf = [Simulation(ccfg.replace(f_storage="bfloat16"), disks, mesh=m)
+          for m in (one, many)]
+    for s in bf:
+        s.run(16)
+    res[f"bf16-{tag}"] = (equal(bf[0].state, bf[1].state)
+                          and bf[0].state.f.dtype == torch.bfloat16)
+    # an all-fixed bed: the static hoist (solid windows stamped once,
+    # K7 on frames), one disk on an x seam and one beside the y seam
+    scfg = SimConfig(nx=128 * dims[1], ny=64 * dims[0], tau=0.8,
+                     max_disks=3, kn=2.0, gamma_n=1.0, n_sub=10, gx=1e-5,
+                     g_py=0.0, bc_west="wall", bc_east="wall",
+                     uw_north=0.02, out_interval=5)
+    sdisks = [DiskSpec(128.0, 20.0, 5.0, fixed=True),
+              DiskSpec(60.0, 16.0, 4.0, fixed=True),
+              DiskSpec(200.0, 32.0 * dims[0] - 2.0, 4.0, fixed=True)]
+    stat = [Simulation(scfg, sdisks, mesh=m) for m in (one, many)]
+    for s in stat:
+        s.run(5)
+    res[f"static-{tag}"] = (equal(stat[0].state, stat[1].state)
+                            and stat[0].static_solid and stat[1].static_solid)
     moved = mesh_state_from_numpy(state_to_numpy(sims[0].state), many)
     res[f"interop-{tag}"] = (equal(unshard(moved, many), sims[0].state)
                              and all(f is None for p, f in enumerate(moved.f)
@@ -174,6 +209,18 @@ def test_two_ranks_coupled_equals_one_process(checks, dims, what):
     onto the two-rank mesh from numpy (each rank holds only its own
     shards), and 4 paranoid steps of the plain sharded step in float64:
     each equal to the one-process mesh."""
+    assert all(res[f"{what}-{dims}"] for res in checks)
+
+
+@pytest.mark.parametrize("dims", ["2x2", "1x4"])
+@pytest.mark.parametrize("what", ["window", "static", "bf16"])
+def test_two_ranks_window_static_bf16_equal_one_process(checks, dims, what):
+    """The column at coupling_k = 4 (16 steps: four windows, the stacked
+    (k, ...) force sums across the ranks), an all-fixed bed through the
+    static hoist (run(5): K7 passes of 4 and 1 over solid windows stamped
+    once) and the column with f_storage="bfloat16" (16 steps on 16-row
+    bf16 frames, on the CPU the kernels' plain versions): each equal to
+    the one-process mesh."""
     assert all(res[f"{what}-{dims}"] for res in checks)
 
 

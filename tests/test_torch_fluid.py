@@ -6,8 +6,7 @@ Bars are the JAX package's own (tests/test_pallas.py, test_lbm.py):
 K4 rtol 1e-6 / atol 1e-7 over 2 steps; K5 (k = 8) rtol 1e-5 / atol
 5e-7, atol 2e-6 with Zou/He (the TPU kernel evaluates the inlet profile
 in f32, the port passes the f64-built array); bf16 storage atol 3e-4
-(~1 bf16 ulp of |g| <~ 0.03: the kernels compute shifted, the plain
-version unshifted); float64 against the oracle 1e-12."""
+(~1 bf16 ulp of |g| <~ 0.03); float64 against the oracle 1e-12."""
 
 import jax
 import jax.numpy as jnp

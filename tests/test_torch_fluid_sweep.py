@@ -1,7 +1,8 @@
 """The row sweep of the temporal block (csrc/tblock.cuh
 temporal_block_kernel, K5's body and K6's and K7's), written plainly
-with the plain collide and pull, and held against k chained plain
-pure-fluid steps (`fused_step_fluid_plain`) bit for bit.
+with K5's plain collide (`fused_fluid.collide_pairs`, cell by cell) and
+pull, and held against k chained plain pure-fluid steps
+(`fused_step_fluid_multi_plain`) bit for bit.
 
 A block owns a strip of T - 2k output columns (plus k halo columns on
 each side) and `rows` output rows; sweep row j is global row y0 - k + j.
@@ -79,33 +80,6 @@ def _pull(post, gy, gx, cfg, bb, u_in):
     return torch.stack(v)
 
 
-def _collide(v, gy, gx, cfg):
-    """lbm.collide of the cells v (9, n) at the unwrapped global row gy
-    and columns gx, each evaluated at its own wrapped position of a
-    lattice-shaped tensor: the CPU's reductions over the populations sum
-    in an order that depends on the tensor's shape and the position in
-    it, and the plain step collides the whole lattice. Lanes that wrap
-    onto one cell go in separate calls."""
-    y, x = gy % cfg.ny, gx % cfg.nx
-    out = torch.empty_like(v)
-    todo = torch.ones(x.numel(), dtype=torch.bool)
-    while bool(todo.any()):
-        sel = torch.zeros_like(todo)
-        seen = set()
-        for i in torch.nonzero(todo)[:, 0].tolist():
-            if int(x[i]) not in seen:
-                seen.add(int(x[i]))
-                sel[i] = True
-        lat = torch.zeros((9, cfg.ny, cfg.nx), dtype=v.dtype)
-        lat[:] = torch.as_tensor(lattice.W, dtype=v.dtype)[:, None, None]
-        lat[:, y, x[sel]] = v[:, sel]
-        post = lbm.collide(lat, cfg.tau, cfg.gx, cfg.gy, cfg.smagorinsky,
-                           cfg.trt_lambda)
-        out[:, sel] = post[:, y, x[sel]]
-        todo &= ~sel
-    return out
-
-
 def sweep(f, cfg, k: int, T: int, rows: int, ROWS: int = 1):
     """The kernel's row sweep over every block: f' after k steps."""
     ny, nx = cfg.ny, cfg.nx
@@ -151,7 +125,7 @@ def sweep(f, cfg, k: int, T: int, rows: int, ROWS: int = 1):
                         else:
                             v = _pull(read(t - 1, j, lanes, ph), gy,
                                       gxs[lanes], cfg, bb, u_in)
-                        v = _collide(v, gy, gxs[lanes], cfg)
+                        v = fused_fluid.collide_pairs(v, cfg)
                         ring[t, j % RING, :, t:T - t] = v
                         tag[t][j % RING] = (j, ph, (t, T - t))
                 for r in range(ROWS):  # level k: the store

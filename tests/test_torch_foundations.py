@@ -141,6 +141,7 @@ _C_TYPES = {"float*": ctypes.c_void_p, "int*": ctypes.c_void_p,
             "float": ctypes.c_float,
             "DemParams": tkernels.DemParams,
             "FluidParams": tkernels.FluidParams,
+            "PairParams": tkernels.PairParams,
             "CovParams": tkernels.CovParams}
 
 
@@ -163,6 +164,7 @@ def test_kernel_bindings_match_c_declarations():
     assert found == tkernels._SIGNATURES
     assert ctypes.sizeof(tkernels.DemParams) == 9 * 4 + 4 * 4 + 4 * 4 + 3 * 4
     assert ctypes.sizeof(tkernels.FluidParams) == 15 * 4 + 12 * 4 + 5 * 4
+    assert ctypes.sizeof(tkernels.PairParams) == 19 * 4
     assert ctypes.sizeof(tkernels.CovParams) == 2 * 4 + 5 * 4
 
 

@@ -473,11 +473,11 @@ def test_other_item_12_refusals(tmp_path):
         got = fused_fluid.fused_step_fluid_multi(
             f, c, k, torch.empty((9, 64, 128), dtype=f.dtype), prehalo="y",
             edges=(1, 1, 1, 1))
+        g, shift = fused_fluid.compute_form(f, c)
         g = fused_fluid.frame_steps_plain(
-            fused_fluid.lbm.from_storage(f, c), c, k, "y", (1, 1, 1, 1), 64,
-            lambda a, t: fused_fluid._collide(a, c))
-        want = fused_fluid.lbm.to_storage(
-            fused_fluid.frame_interior(g, c, "y"), c)
+            g, c, k, "y", (1, 1, 1, 1), 64,
+            lambda a, t: fused_fluid.collide_pairs(a, c, shift), shift)
+        want = fused_fluid.frame_interior(g, c, "y").to(f.dtype)
         assert torch.isfinite(got.float()).all() and torch.equal(got, want)
     assert process_info() == (0, 1, 1, 1)
     with pytest.raises(TypeError, match="Mesh"):

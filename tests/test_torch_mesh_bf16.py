@@ -9,9 +9,9 @@ sharded run.
   entries in interpret mode at the smallest legal bf16 shard (64 x 128),
   on the same seeded numpy inputs: modes "y" and "yx", the edge flags of
   corner, edge and interior shards, a Zou/He case. Bars: f' rtol 1e-2
-  with atol 1e-6 (one bf16 ulp: the JAX bf16 tests' bar; the plain
-  versions compute in physical f, the Pallas kernels in the shifted
-  form), partials 5e-6 of the largest.
+  with atol 1e-6 (one bf16 ulp: the JAX bf16 tests' bar; the coupled
+  plain versions compute in physical f, the Pallas kernels and K4/K5's
+  plain versions in the shifted form), partials 5e-6 of the largest.
 - Simulation(mesh=...) against the port's one-device run on the scenes
   of tests/test_sharding.py's bf16 mesh tests and tests/test_fixed.py's
   bf16 static hoist, at those tests' bars; tests/test_sharding.py's
@@ -125,10 +125,11 @@ def test_k4_bf16_frame_matches_pallas(mode):
     # edge_post: the f32 shifted post-collision populations of the rows
     hy = fused_fluid.frame_hy(tcfg)
     assert hy == 16 and tuple(f.shape[1:2]) == (H + 32,)
-    g = fused_fluid.lbm.from_storage(f, tcfg)[:, hy:hy + 1]
+    g, shift = fused_fluid.compute_form(f, tcfg)
+    g = g[:, hy:hy + 1]
     if mode == "yx":
         g = g[:, :, fused_fluid.HX:fused_fluid.HX + W]
-    post = fused_fluid._collide(g, tcfg) - fused_fluid.lbm.storage_shift(tcfg)
+    post = fused_fluid.collide_pairs(g, tcfg, shift)
     np.testing.assert_allclose(npy(edge[0][:, 0]), npy(post[:, 0]), rtol=0,
                                atol=1e-7)
 

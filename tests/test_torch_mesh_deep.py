@@ -150,7 +150,7 @@ def test_sharded_step_k8_matches_jax_mesh(dims):
                                atol=1e-6)
 
 
-def _sweep_chain(g, cfg, k, mode, edges, ny_glob):
+def _sweep_chain(g, cfg, k, mode, edges, ny_glob, shift):
     """K5's schedule on a frame (csrc/fluid.cu launch_multi_prehalo),
     written plainly: ceil(k / SWEEP_K) sweeps of near equal depth, each
     but the last keeping only the interior and the `rest` rings the later
@@ -164,7 +164,7 @@ def _sweep_chain(g, cfg, k, mode, edges, ny_glob):
         rest -= ki
         g = fused_fluid.frame_steps_plain(
             g, cfg, ki, mode, edges, ny_glob,
-            lambda a, t: fused_fluid._collide(a, cfg))
+            lambda a, t: fused_fluid.collide_pairs(a, cfg, shift), shift)
         if rest:
             keep = torch.full_like(g, float("nan"))
             rows = slice(hy - rest, hy + cfg.ny + rest)
@@ -189,11 +189,12 @@ def test_k5_deep_frame_sweep_cones(storage, mode, opt, edges, k):
                             f_storage=storage,
                             **(ZOU_HE if opt == "zou-he" else WALLS)))
     f, _ = _frame(cfg, mode, 30 + k)
-    g = fused_fluid.lbm.from_storage(f, cfg)
+    g, shift = fused_fluid.compute_form(f, cfg)
     want = fused_fluid.frame_interior(
         fused_fluid.frame_steps_plain(
             g, cfg, k, mode, edges, 4 * H,
-            lambda a, t: fused_fluid._collide(a, cfg)), cfg, mode)
-    got = _sweep_chain(g, cfg, k, mode, edges, 4 * H)
+            lambda a, t: fused_fluid.collide_pairs(a, cfg, shift), shift),
+        cfg, mode)
+    got = _sweep_chain(g, cfg, k, mode, edges, 4 * H, shift)
     assert torch.isfinite(got).all()
     assert torch.equal(got, want)
