@@ -265,14 +265,36 @@ nothing falls back to the CPU):
    plain path (cD and cL finite), ab_bf16's parity probe and settling
    parity; each leg's
    seconds and the kernels it launched (the launch counts of its run;
-   each kernel the leg's path names must have launched).
-Each phase of 37-50 prints its seconds.
+   each kernel the leg's path names must have launched);
+51. TRT pair form: the TRT instantiations of K2, K6 (k = 4), K7 (k = 4)
+   and K8, which collide in the TPU kernels' pair form (csrc/imb.cuh
+   collide_cell_pairs), against their plain versions
+   (fused_fluid.collide_imb_pairs) on the same card inputs over the TRT
+   options of phase 18's matrix at 256x64 (f32: torch.equal printed,
+   bf16 3e-4), on 2 x 2 and 4 x 1 mesh shards under TRT + LES, and at
+   4096^2 timed; the trt leg's deck through K7 and K6 over an empty
+   solid (TRT and BGK Poiseuille errors, their ratio; gates < 2e-4 and
+   > 50x); a 256^2 TRT column on the card against CPU tensors; K8 + K9
+   per step under TRT through the ablation's split step;
+52. 8192^2 tier: bench.py's four 8192^2 / 40 000-disk stages (f32 sample
+   k = 1 and k = 4, bf16 ramp k = 1 and k = 8) through
+   tools/qualify_8192.py's functions: the slab plane, run(chunk) cold
+   and timed (MLUPS, CUDA-event and profiler ms per step, peak memory),
+   launches, overflow 0, finite, no zero population, mass; on the f32
+   k = 1 state K1, K2, K3, K3w against their plain versions and K6(4)
+   equal to 4 chained K2 steps, on the bf16 k = 8 state bf16 K6(8)
+   against its plain version; the f32 k = 1 run against the plain path
+   and the k = 4 window against its plain versions, 16 steps on the card
+   (f 1e-5, x 1e-4, also past the occupied bands).
+Each phase of 37-52 prints its seconds.
 
 The second-to-last line holds the per-kernel JSON record (the ten
 kernels, then the bf16, TRT + LES, kt and periodic instantiations of K2,
 K6, K3 and K3w, the pre-haloed K2, K4, K5, K6, K7 and K8, the
 pre-haloed K2, K4, K5, K6 and K7 on bf16 frames, and K5 on frames deeper
-than one sweep (f32 k = 8, bf16 k = 16) as records of their own;
+than one sweep (f32 k = 8, bf16 k = 16), the TRT instantiations of K2,
+K6, K7 and K8, and K1, K2, K3, K6 (f32 k = 4, bf16 k = 8) and K3w at
+8192^2 as records of their own;
 with each kernel's bound: the
 larger of its bytes over 3.35 TB/s and its f32 operations over 67
 TFLOP/s; an NT collide counts 350 operations at a cell with eps_raw > 0
@@ -463,23 +485,33 @@ def compressed(disks, s: float):
             for d in disks]
 
 
-def kernel_checks(cfg, disks, label: str, timed: bool, seed: int = 0):
+def kernel_checks(cfg, disks, label: str, timed: bool, seed: int = 0,
+                  sim=None):
     """Each kernel against its plain version on the same card inputs.
-    Returns {kernel: work(max_abs_err, ms, plain_ms, bytes, flops)}."""
+    Returns {kernel: work(max_abs_err, ms, plain_ms, bytes, flops)}.
+    sim: a run's f32 Simulation whose f and disk positions the kernels
+    take (the disks with the seeded velocities); then nothing runs on the
+    CPU (no cell-list DEM check) and K6 (k = 4) is held equal to 4
+    chained K2 steps under torch.equal beside its plain version on the
+    card."""
     from lbmdem_tpu_torch import Simulation
     from lbmdem_tpu_torch.ops import dem, fused_lbm, lbm, slab_dem, stamp
 
-    sim = Simulation(cfg, disks, device="cuda")
+    on_run = sim is not None
+    if not on_run:
+        sim = Simulation(cfg, disks, device="cuda")
     cfg, grid, axis = sim.cfg, sim.grid, sim.dem_axis
     rng = np.random.default_rng(seed)
     d = sim.state.disks
     n = d.x.shape[0]
     dev = d.x.device
+    # seeded motion (on a run's state too: the force bar is relative to
+    # the largest |F|, a bar for moving disks)
     d = d._replace(
-        v=torch.as_tensor(rng.uniform(-0.02, 0.02, (n, 2)), dtype=torch.float32,
-                          device=dev),
-        omega=torch.as_tensor(rng.uniform(-2e-3, 2e-3, n), dtype=torch.float32,
-                              device=dev))
+        v=torch.as_tensor(rng.uniform(-0.02, 0.02, (n, 2)),
+                          dtype=torch.float32, device=dev),
+        omega=torch.as_tensor(rng.uniform(-2e-3, 2e-3, n),
+                              dtype=torch.float32, device=dev))
     tile_data, counts, entry_slots, ovf = stamp.bin_disks_to_tiles(
         d.x, d.v, d.omega, d.r, d.active, cfg)
     assert int(ovf) == 0, f"binning overflow {int(ovf)}"
@@ -500,9 +532,12 @@ def kernel_checks(cfg, disks, label: str, timed: bool, seed: int = 0):
 
     # K2 fused IMB step: f' atol 5e-6; forces after gather_partials atol
     # 1e-6 relative to the largest |F|
-    f = lbm.init_equilibrium(cfg, dev) * (1.0 + 0.02 * torch.as_tensor(
-        rng.standard_normal((9, cfg.ny, cfg.nx)), dtype=torch.float32,
-        device=dev))
+    if on_run:
+        f = sim.state.f.clone()
+    else:
+        f = lbm.init_equilibrium(cfg, dev) * (1.0 + 0.02 * torch.as_tensor(
+            rng.standard_normal((9, cfg.ny, cfg.nx)), dtype=torch.float32,
+            device=dev))
     fa = torch.empty_like(f)
     fb = torch.empty_like(f)
     _, parts = fused_lbm.fused_step_imb_reduce(f, solid, tile_data, counts,
@@ -557,7 +592,13 @@ def kernel_checks(cfg, disks, label: str, timed: bool, seed: int = 0):
     log("kernels", f"{label} K3 slab DEM: x/v/omega max err {e3:.3e} (bar "
         f"2e-5); contacts {int(nc_k)} == {int(nc_p)}; kmax {int(kmax)}, "
         f"occupied bands {int(n_occ)}")
-    cell_list_vs_cpu(d, F, T, grid, cfg, label)
+    if on_run:
+        del scratch, s_k, s_p
+        out.update(k6_on_run(f, solid, tile_data, counts, entry_slots, cfg,
+                             label, fa, fb))
+        forces4 = out.pop("forces4")
+    else:
+        cell_list_vs_cpu(d, F, T, grid, cfg, label)
 
     # K6 coupled temporal block, k = 2, 4, 8: against the plain version
     # on CPU copies of the same inputs. The kernel divides as the CPU
@@ -566,11 +607,12 @@ def kernel_checks(cfg, disks, label: str, timed: bool, seed: int = 0):
     # inner steps' forces by ~1e-6 of the largest |F|. Bars: f' 5e-6,
     # each inner step's forces 1e-6 relative to the largest |F| (K2's).
     torch.set_num_threads(min(8, os.cpu_count() or 1))
-    cpu_in = [a.cpu() for a in (f, solid, tile_data, counts)]
+    cpu_in = [a.cpu() for a in (f, solid, tile_data, counts)] \
+        if not on_run else []
     es_cpu = entry_slots.cpu()
     # k = 8 against the CPU at the small scene only (at 4096^2 its plain
     # version takes two minutes of the script's time)
-    for k in ((2, 4) if timed else (2, 4, 8)):
+    for k in (() if on_run else (2, 4) if timed else (2, 4, 8)):
         _, pk = fused_lbm.fused_step_imb_reduce_multi(f, solid, tile_data,
                                                       counts, cfg, k, fa)
         fp_cpu, pp = fused_lbm.fused_step_imb_reduce_multi_plain(
@@ -756,7 +798,7 @@ def slice_run(smi: str, coupling_k: int = 1, eps_method: str = "sample",
 
 def slice_vs_cpu(coupling_k: int = 1, steps: int = 16,
                  eps_method: str = "sample", storage: str = "float32",
-                 kt: float = 0.0) -> None:
+                 kt: float = 0.0, collision: str = "bgk") -> None:
     """`steps` steps of a 256^2 column collapse on the card against the
     same run on CPU tensors (the plain versions). Bars: f 1e-5 (bf16
     storage 3e-4, one flipped rounding of the shifted populations), disk
@@ -769,7 +811,7 @@ def slice_vs_cpu(coupling_k: int = 1, steps: int = 16,
     if kt:
         disks = compressed(disks, 0.94)
     cfg = cfg.replace(coupling_k=coupling_k, eps_method=eps_method,
-                      f_storage=storage)
+                      f_storage=storage, collision=collision)
     g = Simulation(cfg, disks, device="cuda")
     c = Simulation(cfg, disks, device="cpu")
     g.run(steps)
@@ -779,7 +821,8 @@ def slice_vs_cpu(coupling_k: int = 1, steps: int = 16,
     fbar = 1e-5 if storage == "float32" else 3e-4
     springs = int((g.state.disks.ct_j >= 0).sum())
     log("vs-cpu", f"256x256, {len(disks)} disks, coupling_k={coupling_k}, "
-        f"eps_method={eps_method}, f_storage={storage}, kt={kt:g}, {steps} "
+        f"eps_method={eps_method}, f_storage={storage}, kt={kt:g}, "
+        f"collision={collision}, {steps} "
         f"steps: f max err {ef:.3e} (bar {fbar:g}), disk x max err {ex:.3e} "
         f"(bar 1e-4); contacts {int(g.state.n_contacts)} == "
         f"{int(c.state.n_contacts)}, live springs {springs}")
@@ -4797,6 +4840,455 @@ def validation_legs(smi: str) -> None:
         f"{time.perf_counter() - t_all:.1f} s on {smi}")
 
 
+# the TRT options of phase 18's matrix: TRT, TRT + LES, and all at once
+# (TRT, LES, lambda, Guo, a moving lid, Zou/He)
+TRT_MATRIX = [(lb, kw) for lb, kw in BREADTH_MATRIX
+              if kw.get("collision") == "trt"]
+
+
+def trt_case(name: str, run, plain, cfg, es=None, equal=None) -> float:
+    """One TRT instantiation against its plain version on the same card
+    inputs: run(out) and plain(out) each return (out, extra), extra the
+    partials (k, n, 4) of K2/K6 or K8's (phi_x, phi_y), or None. Bars:
+    coupled_bars (f'; forces of the partials relative to the largest
+    |F|), K8's phi 1e-6. f32 cases also log torch.equal of f' (and the
+    extra) into `equal`. Returns the f' max err."""
+    from lbmdem_tpu_torch.ops import stamp
+
+    fbar, rbar = coupled_bars(cfg)
+    a, ea = run()
+    b, eb = plain()
+    torch.cuda.synchronize()
+    err = float((a.float() - b.float()).abs().max())
+    msg = f"f' max err {err:.3e} (bar {fbar:g})"
+    same = torch.equal(a, b)
+    if isinstance(ea, tuple):  # K8's phi
+        ephi = max(float((x - y).abs().max()) for x, y in zip(ea, eb))
+        same = same and all(torch.equal(x, y) for x, y in zip(ea, eb))
+        msg += f", phi {ephi:.3e} (bar 1e-6)"
+        assert ephi <= 1e-6, f"{name}: phi err {ephi}"
+    elif ea is not None:
+        rel = 0.0
+        for t in range(ea.shape[0] if ea.dim() == 3 else 1):
+            pk, pp = (ea[t], eb[t]) if ea.dim() == 3 else (ea, eb)
+            F, _ = stamp.gather_partials(pk, es, torch.float32)
+            Fp, _ = stamp.gather_partials(pp, es, torch.float32)
+            rel = max(rel, float((F - Fp).abs().max())
+                      / max(float(Fp.abs().max()), 1e-30))
+        same = same and torch.equal(ea, eb)
+        msg += f", forces {rel:.3e} of max|F| (bar {rbar:g})"
+        assert rel <= rbar, f"{name}: force err {rel}"
+    if equal is not None and cfg.f_storage == "float32":
+        equal.append(same)
+    log("trt", f"{name}: {msg}; torch.equal {same}")
+    assert bool(torch.isfinite(a.float()).all()), f"{name}: non-finite"
+    assert err <= fbar, f"{name}: f' err {err}"
+    return err
+
+
+def trt_pair_form(smi: str):
+    """Phase 51: the coupled kernels' TRT instantiations, which collide in
+    the pair form of the TPU kernels (csrc/imb.cuh collide_cell_pairs),
+    against their plain versions (fused_fluid.collide_imb_pairs) on the
+    same card inputs: K2, K6 (k = 4), K7 (k = 4) and K8 (f32) over
+    TRT_MATRIX at 256x64, f32 and bf16; on pre-haloed shards of 2 x 2
+    ("yx") and 4 x 1 ("y") meshes of a 512^2 column under TRT + LES, K2,
+    K6 and K7 (k = 4) and K8 (f32); then the trt leg's deck through K7 and
+    K6 over an empty solid (validate.trt_coupled: TRT and BGK Poiseuille
+    errors and their ratio, gates < 2e-4 and > 50x), a 256^2 TRT column
+    on the card against CPU tensors (K2's path), K8 + K9 per step under
+    TRT (the ablation's split step), and K2, K6, K7 and K8 under TRT at
+    4096^2 beside their plain versions on the card, timed. Returns
+    ({name: work}, {name: launches of the path that ran it})."""
+    from lbmdem_tpu_torch import SimConfig, Simulation, lattice
+    from lbmdem_tpu_torch.config import window_for_radius
+    from lbmdem_tpu_torch.models import column_collapse
+    from lbmdem_tpu_torch.ops import fused_lbm, fused_static, lbm, stamp
+    from lbmdem_tpu_torch.tools import ablate, validate
+
+    torch.set_num_threads(min(8, os.cpu_count() or 1))
+    x = torch.tensor([[1.2, 20.3], [64.3, 32.1], [128.0, 40.0], [200.5, 60.2],
+                      [240.0, 12.7]], device="cuda")
+    v = torch.tensor([[0.01, -0.02], [0.0, 0.01], [-0.02, 0.0], [0.01, 0.01],
+                      [0.0, -0.01]], device="cuda")
+    om = torch.tensor([0.005, -0.003, 0.0, 0.002, 0.001], device="cuda")
+    r = torch.tensor([4.0, 4.0, 3.0, 5.0, 3.5], device="cuda")
+    act = torch.ones(5, dtype=torch.bool, device="cuda")
+    rng = np.random.default_rng(51)
+    f0 = torch.as_tensor(lattice.W[:, None, None] * (
+        1.0 + 0.05 * rng.standard_normal((9, 64, 256))), dtype=torch.float32,
+        device="cuda")
+    equal = []
+    for label, kw in TRT_MATRIX:
+        for storage in ("float32", "bfloat16"):
+            cfg = SimConfig(**{"nx": 256, "ny": 64, "tau": 0.8,
+                               "dtype": "float32", "max_disks": 5,
+                               "window": window_for_radius(5.0),
+                               "tile_cap": 8, "f_storage": storage, **kw})
+            td, cnt, es, ovf = stamp.bin_disks_to_tiles(x, v, om, r, act, cfg)
+            assert int(ovf) == 0
+            solid = stamp.stamp_fields(td, cnt, cfg)
+            if cfg.bc_west == "inlet":
+                solid[:, :, 0].zero_()
+                solid[:, :, -1].zero_()
+            f = lbm.to_storage(f0, cfg)
+            a, b = torch.empty_like(f), torch.empty_like(f)
+            tag = f"{label} {storage} 256x64"
+            trt_case(f"{tag} K2", lambda: fused_lbm.fused_step_imb_reduce(
+                f, solid, td, cnt, cfg, a),
+                lambda: fused_lbm.fused_step_imb_reduce_plain(
+                    f, solid, td, cnt, cfg, b), cfg, es, equal)
+            trt_case(f"{tag} K6 k=4", lambda: fused_lbm.
+                     fused_step_imb_reduce_multi(f, solid, td, cnt, cfg, 4, a),
+                     lambda: fused_lbm.fused_step_imb_reduce_multi_plain(
+                         f, solid, td, cnt, cfg, 4, b), cfg, es, equal)
+            trt_case(f"{tag} K7 k=4", lambda: (
+                fused_static.fused_step_imb_static_multi(f, solid, cfg, 4, a),
+                None), lambda: (fused_static.fused_step_imb_static_multi_plain(
+                    f, solid, cfg, 4, b), None), cfg, None, equal)
+            if storage == "float32":
+                trt_case(f"{tag} K8", lambda: (lambda o: (o[0], o[1:]))(
+                    fused_lbm.fused_step_imb(f, solid[0], solid[1], solid[2],
+                                             cfg, a)),
+                    lambda: (lambda o: (o[0], o[1:]))(
+                        fused_lbm.fused_step_imb_plain(
+                            f, solid[0], solid[1], solid[2], cfg, b)),
+                    cfg, None, equal)
+    log("trt", f"halo-free TRT instantiations: {sum(equal)} of {len(equal)} "
+        f"f32 cases equal their plain versions under torch.equal")
+    # pre-haloed shards under TRT + LES (phases 37 and 41 run the whole
+    # option matrices)
+    opts = dict(collision="trt", smagorinsky=0.16, gx=1e-5)
+    for storage in ("float32", "bfloat16"):
+        for dims in ((2, 2), (4, 1)):
+            cfg = SimConfig(nx=512, ny=512, tau=0.8, dtype="float32",
+                            f_storage=storage, **opts)
+            disks = mesh_grid_disks(512, 512, seed=5)
+            parts, frames, ins = mesh_coupled_inputs(cfg, disks, dims, 51)
+            tag = f"trt+les {storage} prehalo {dims} shard 0"
+            mesh_k2_check(parts, frames[0], ins[0], tag)
+            mesh_k6_check(parts, frames[0], ins[0], 0, 4, tag)
+            mesh_k7_check(parts, frames[0], ins[0][4], 0, 4, tag)
+            if storage == "float32":
+                mesh_k8_check(parts, frames[0], ins[0][4], tag)
+    launches = {}
+    # the trt leg's deck through K7 and K6
+    for kern, key in (("K7", "K7"), ("K6", "K6")):
+        res = validate.trt_coupled("cuda", kern)
+        launches[kern] = res["launches"]["trt"]
+        log("trt", f"trt deck through {res['path']}: TRT {res['trt']:.6e}, "
+            f"BGK {res['bgk']:.6e}, BGK / TRT {res['bgk'] / res['trt']:.1f}x "
+            f"(gates < 2e-4 and > 50x); {kern} launches under TRT "
+            f"{res['launches']['trt']}")
+    # K2 under TRT on a coupled run: the 256^2 column on the card against
+    # CPU tensors
+    n0 = fused_lbm.fused_step_imb_reduce.launches
+    slice_vs_cpu(collision="trt")
+    launches["K2"] = fused_lbm.fused_step_imb_reduce.launches - n0
+    # K8 (+ K9) per step under TRT: the ablation's split step
+    cfg, disks = column_collapse(nx=256, ny=256, n_disks=60)
+    asim = Simulation(cfg.replace(collision="trt", out_interval=10**9),
+                      disks, device="cuda")
+    reset_counts()
+    row = ablate.run_variants(asim, 8, names=["full"],
+                              log=lambda m: log("trt", m))["full"]
+    launches["K8"] = launch_counts()["K8"]
+    assert row["launches"].get("K8") == 1.0, row
+    # timed at 4096^2: K2, K6 (k = 4), K8 on the packed column, K7 (k = 4)
+    # on the static bed
+    out = {}
+    ccfg, cdisks = column_collapse()
+    csim = Simulation(ccfg.replace(collision="trt"), compressed(cdisks, 0.94),
+                      device="cuda")
+    c = csim.cfg
+    d = csim.state.disks
+    vel = torch.as_tensor(rng.uniform(-0.02, 0.02, (d.x.shape[0], 2)),
+                          dtype=torch.float32, device="cuda")
+    td, cnt, es, ovf = stamp.bin_disks_to_tiles(d.x, vel, d.omega, d.r,
+                                                d.active, c)
+    assert int(ovf) == 0
+    solid = stamp.stamp_fields(td, cnt, c)
+    f = lbm.init_equilibrium(c, "cuda") * (1.0 + 0.02 * torch.randn(
+        (9, c.ny, c.nx), generator=torch.Generator(device="cuda").manual_seed(
+            51), device="cuda"))
+    a, b = torch.empty_like(f), torch.empty_like(f)
+    cov = cov_flops_of(c, cnt)
+    cases = [
+        ("K2", lambda: fused_lbm.fused_step_imb_reduce(
+            f, solid, td, cnt, c, a), lambda: fused_lbm.
+         fused_step_imb_reduce_plain(f, solid, td, cnt, c, b), es,
+         nt_flops(solid) + cov),
+        ("K6", lambda: fused_lbm.fused_step_imb_reduce_multi(
+            f, solid, td, cnt, c, 4, a), lambda: fused_lbm.
+         fused_step_imb_reduce_multi_plain(f, solid, td, cnt, c, 4, b), es,
+         4 * (nt_flops(solid) + cov)),
+        ("K8", lambda: (lambda o: (o[0], o[1:]))(fused_lbm.fused_step_imb(
+            f, solid[0], solid[1], solid[2], c, a)),
+         lambda: (lambda o: (o[0], o[1:]))(fused_lbm.fused_step_imb_plain(
+             f, solid[0], solid[1], solid[2], c, b)), None, nt_flops(solid))]
+    for name, run, plain, ees, flops in cases:
+        err = trt_case(f"4096x4096 TRT {name}", run, plain, c, ees)
+        _, extra = run()
+        moved = nbytes(f, solid, a) + (
+            nbytes(td, cnt, extra) if ees is not None else nbytes(*extra))
+        out[name] = work(err, cuda_ms(run, 10), cuda_ms(plain, 1), moved,
+                         flops)
+    del csim, solid, td, cnt, f, a, b
+    bsim = Simulation(*static_bed(), device="cuda")
+    bsolid = bsim._static_solid_operands()
+    bc = bsim.cfg.replace(collision="trt")
+    gen = torch.Generator(device="cuda").manual_seed(52)
+    f = lbm.init_equilibrium(bc, "cuda") * (1.0 + 0.02 * torch.randn(
+        (9, bc.ny, bc.nx), generator=gen, device="cuda"))
+    a, b = torch.empty_like(f), torch.empty_like(f)
+    run = lambda: (fused_static.fused_step_imb_static_multi(  # noqa: E731
+        f, bsolid, bc, 4, a), None)
+    plain = lambda: (fused_static.fused_step_imb_static_multi_plain(  # noqa
+        f, bsolid, bc, 4, b), None)
+    err = trt_case("4096x4096 static bed TRT K7 k=4", run, plain, bc)
+    out["K7"] = work(err, cuda_ms(run, 10), cuda_ms(plain, 1),
+                     nbytes(f, bsolid, a), 4 * nt_flops(bsolid))
+    for name, w in out.items():
+        bms, by = bound(w)
+        log("trt", f"4096x4096 TRT {name}: kernel {w['ms']:.4f} ms, plain "
+            f"{w['plain_ms']:.4f} ms (CUDA events); bound {bms:.4f} ms by "
+            f"{by}; launches of its path under TRT {launches[name]}")
+    return out, launches
+
+
+def k6_on_run(f, solid, td, cnt, es, cfg, label: str, fa, fb) -> dict:
+    """K6 (k = 4) on a run's f32 state: equal to 4 chained K2 steps (f'
+    and every inner step's partials) under torch.equal, and beside its
+    plain version on the card (f' 2e-5: the plain version on the card
+    multiplies by 1/tau), timed. Returns {"K6 k=4": work(...), "forces4":
+    the inner steps' (F, T)}."""
+    from lbmdem_tpu_torch.ops import fused_lbm, stamp
+
+    k = 4
+    a = torch.empty_like(f)
+    run6 = lambda: fused_lbm.fused_step_imb_reduce_multi(  # noqa: E731
+        f, solid, td, cnt, cfg, k, a)
+    _, pk = run6()
+    last, p2 = chained(k2_step(solid, td, cnt, cfg), k, f, fa, fb)
+    same = [torch.equal(a, last)] + [torch.equal(pk[t], p2[t])
+                                     for t in range(k)]
+    assert all(same), f"K6 {label}: K6(4) != 4 x K2 {same}"
+    b = torch.empty_like(f)
+    plain = lambda: fused_lbm.fused_step_imb_reduce_multi_plain(  # noqa
+        f, solid, td, cnt, cfg, k, b)
+    plain()
+    err = float((a - b).abs().max())
+    assert err <= 2e-5, f"K6 {label}: f' err {err} against the plain version"
+    ms, pms = cuda_ms(run6, 10), cuda_ms(plain, 1)
+    log("kernels", f"{label} K6 k=4: equal to 4 chained K2 steps (f' and "
+        f"every inner step's partials, torch.equal); f' max err {err:.3e} "
+        f"against the plain version on the card (bar 2e-5); kernel "
+        f"{ms:.4f} ms, plain {pms:.4f} ms (CUDA events)")
+    return {"K6 k=4": work(err, ms, pms, nbytes(f, solid, td, cnt, a, pk),
+                           k * (nt_flops(solid) + cov_flops_of(cfg, cnt))),
+            "forces4": [stamp.gather_partials(pk[t], es, torch.float32)
+                        for t in range(k)]}
+
+
+# bench.py's 8192^2 / 40 000-disk stages (bench.py:274-283): coupling_k,
+# f_storage, eps_method, chunk (a multiple of the binning cadence)
+TIER_STAGES = ((1, "float32", "sample", 50), (4, "float32", "sample", 48),
+               (1, "bfloat16", "ramp", 50), (8, "bfloat16", "ramp", 48))
+# the first row and column past the column's occupied bands (its 40 000
+# disks fill x <= 1 789 and y <= 5 464): the partial-writes region
+TIER_FREE = (5600, 1900)
+
+
+def tier_counts(k: int, chunk: int) -> dict:
+    """The launches of run(chunk) at coupling_k k: K1, K2 and K3 per
+    step; at k > 1 K1 and K6 per window, K3w per inner step."""
+    if k == 1:
+        return {**_NONE, "K1": chunk, "K2": chunk, "K3": chunk}
+    return {**_NONE, "K1": chunk // k, "K6": chunk // k, "K3w": chunk}
+
+
+def tier_stage(smi: str, k: int, storage: str, eps: str, chunk: int):
+    """One 8192^2 stage (qualify_8192.make_sim): run(chunk) cold, then
+    run(chunk) timed (wall clock; CUDA events around it), the profiler's
+    device time over one more run(chunk) where it keeps records, the
+    launches of the timed run, peak memory, and qualify_8192's state
+    checks (overflow 0, finite, no zero population, mass). Returns (sim,
+    launch counts, MLUPS)."""
+    from lbmdem_tpu_torch.ops import slab_dem
+    from lbmdem_tpu_torch.tools import qualify_8192 as q
+
+    tag = f"8192 {storage} {eps} k={k}"
+    t0 = time.perf_counter()
+    sim = q.make_sim(k=k, storage=storage, eps=eps)
+    log(tag, f"{q.describe_slab(sim)}; {len(sim.state.disks.x)} disk slots,"
+        f" made in {time.perf_counter() - t0:.1f} s")
+    assert slab_dem.slab_supported(sim.grid, sim.dem_axis, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sim.run(chunk)
+    cold = time.perf_counter() - t0
+    reset_counts()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    mlups = sim.run(chunk)
+    b.record()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    ev = a.elapsed_time(b) / chunk
+    dev_ms, wall_ms, _ = device_profile(sim, chunk)
+    log(tag, f"{mlups:.1f} MLUPS (timed run({chunk}) after a cold one of "
+        f"{cold:.2f} s; wall {1e3 * q.N * q.N / mlups / 1e6:.4f} ms per "
+        f"step) on {smi}; CUDA events {ev:.4f} ms per step of the timed run "
+        f"(the stream's span); "
+        + idle_str(dev_ms, wall_ms, f"the profiled run({chunk})")
+        + f"; peak mem {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(tag, f"launches of the timed run {counts}")
+    assert counts == tier_counts(k, chunk), counts
+    q.check_state(sim, lambda m: log(tag, m))
+    return sim, counts, mlups
+
+
+def tier_vs_plain(k: int, steps: int = 16) -> None:
+    """`steps` steps of the f32 8192^2 stage at coupling_k k through the
+    kernels against the same steps without them, on the card: k = 1 the
+    plain path (Simulation(use_kernels=False): make_plain_step_fn), k > 1
+    the window with K1, K6 and K3w swapped for their plain versions (the
+    plain path takes no window). Bars of the card-against-CPU runs: f
+    1e-5, disk x 1e-4, over the whole lattice and over the rows and
+    columns past the occupied bands (the partial-writes check)."""
+    from unittest import mock
+
+    from lbmdem_tpu_torch import Simulation
+    from lbmdem_tpu_torch.ops import fused_lbm, slab_dem, stamp
+    from lbmdem_tpu_torch.tools import qualify_8192 as q
+
+    tag = f"8192 vs plain k={k}"
+    g = q.make_sim(k=k)
+    reset_counts()
+    g.run(steps)
+    assert launch_counts() == tier_counts(k, steps), launch_counts()
+    fk, xk = g.state.f, g.state.disks.x
+    del g
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    if k == 1:
+        p = Simulation(*q.scene(), device="cuda", use_kernels=False)
+        what = "the plain path (make_plain_step_fn)"
+        reset_counts()
+        p.run(steps)
+    else:
+        p = q.make_sim(k=k)
+        what = "the window with K1, K6 and K3w plain"
+        reset_counts()  # the wrappers' counts, before they are swapped
+        with mock.patch.object(stamp, "stamp_fields",
+                               stamp.stamp_fields_plain), \
+                mock.patch.object(
+                    fused_lbm, "fused_step_imb_reduce_multi",
+                    fused_lbm.fused_step_imb_reduce_multi_plain), \
+                mock.patch.object(
+                    slab_dem, "subcycle_slabs_window",
+                    lambda sl, f3, kmax, n_occ, bands, grid, cfg, axis:
+                    slab_dem.subcycle_slabs_plain(sl, kmax, cfg, grid, axis,
+                                                  f3)):
+            p.run(steps)
+    secs = time.perf_counter() - t0
+    assert launch_counts() == _NONE, f"{what} launched {launch_counts()}"
+    d = (fk - p.state.f).abs()
+    err = float(d.max())
+    free = max(float(d[:, TIER_FREE[0]:, :].max()),
+               float(d[:, :, TIER_FREE[1]:].max()))
+    ex = float((xk - p.state.disks.x).abs().max())
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(tag, f"{steps} steps, kernels against {what} on the card "
+        f"({secs:.1f} s, peak mem {peak:.2f} GiB): f max err {err:.3e} "
+        f"(bar 1e-5), past the occupied bands "
+        f"(y >= {TIER_FREE[0]} or x >= {TIER_FREE[1]}) {free:.3e}; disk x "
+        f"max err {ex:.3e} (bar 1e-4); overflow {int(p.state.overflow)}")
+    assert err <= 1e-5 and free <= 1e-5 and ex <= 1e-4
+    assert int(p.state.overflow) == 0
+
+
+def k6_bf16_on_run(sim) -> dict:
+    """bf16 K6 (k = 8) on the bf16 ramp window stage's f and disk
+    positions (the disks with kernel_checks' seeded velocities: the force
+    bar is relative to the largest |F|) against its plain version on the
+    card: f' 3e-4, every inner step's forces 5e-6 of the window's largest
+    |F|; timed. Returns work(...)."""
+    from lbmdem_tpu_torch.ops import fused_lbm, stamp
+
+    cfg, d, f = sim.cfg, sim.state.disks, sim.state.f
+    k = cfg.coupling_k
+    rng = np.random.default_rng(0)
+    n = d.x.shape[0]
+    v = torch.as_tensor(rng.uniform(-0.02, 0.02, (n, 2)), dtype=torch.float32,
+                        device=d.x.device)
+    om = torch.as_tensor(rng.uniform(-2e-3, 2e-3, n), dtype=torch.float32,
+                         device=d.x.device)
+    td, cnt, es, ovf = stamp.bin_disks_to_tiles(d.x, v, om, d.r, d.active,
+                                                cfg)
+    assert int(ovf) == 0
+    solid = stamp.stamp_fields(td, cnt, cfg)
+    a, b = torch.empty_like(f), torch.empty_like(f)
+    run = lambda: fused_lbm.fused_step_imb_reduce_multi(  # noqa: E731
+        f, solid, td, cnt, cfg, k, a)
+    plain = lambda: fused_lbm.fused_step_imb_reduce_multi_plain(  # noqa
+        f, solid, td, cnt, cfg, k, b)
+    _, pk = run()
+    _, pp = plain()
+    err = float((a.float() - b.float()).abs().max())
+    ferr, fmax, step_rel = 0.0, 0.0, 0.0
+    for t in range(k):
+        F, _ = stamp.gather_partials(pk[t], es, torch.float32)
+        Fp, _ = stamp.gather_partials(pp[t], es, torch.float32)
+        e, m = float((F - Fp).abs().max()), float(Fp.abs().max())
+        ferr, fmax = max(ferr, e), max(fmax, m)
+        step_rel = max(step_rel, e / max(m, 1e-30))
+    rel = ferr / max(fmax, 1e-30)
+    ms, pms = cuda_ms(run, 10), cuda_ms(plain, 1)
+    log("kernels", f"8192^2 bf16 ramp window state: K6 k={k} f' max err "
+        f"{err:.3e} (bar 3e-4), inner-step force err {ferr:.3e} = {rel:.3e} "
+        f"of the window's max|F| {fmax:.3e} (bar 5e-6; of each step's own "
+        f"max|F| up to {step_rel:.3e}: the seeded motion's first inner step "
+        f"carries ten times the later ones' forces, and the plain version on "
+        f"the card multiplies by 1/tau); kernel {ms:.4f} ms, plain "
+        f"{pms:.4f} ms (CUDA events)")
+    assert err <= 3e-4 and rel <= 5e-6, (err, rel)
+    return work(err, ms, pms, nbytes(f, solid, td, cnt, a, pk),
+                k * (nt_flops(solid) + cov_flops_of(cfg, cnt)))
+
+
+def tier_8192(smi: str):
+    """Phase 52: bench.py's four 8192^2 / 40 000-disk stages through
+    qualify_8192/qualify_k8's functions (tier_stage); on the f32 k = 1
+    stage's state K1, K2, K3 and K3w against their plain versions and
+    K6(4) equal to 4 chained K2 steps (kernel_checks on the run), on the
+    bf16 k = 8 stage's state bf16 K6(8) against its plain version; then
+    the f32 k = 1 and k = 4 runs against the plain path on the card
+    (tier_vs_plain). Returns (the kernels' work, the stages' launch
+    counts)."""
+    counts, res = {}, {}
+    for k, storage, eps, chunk in TIER_STAGES:
+        sim, c, _ = tier_stage(smi, k, storage, eps, chunk)
+        counts[(k, storage)] = c
+        if (k, storage) == (1, "float32"):
+            res.update(kernel_checks(sim.cfg, None, "8192x8192/40000 disks "
+                                     "(the run's state)", True, sim=sim))
+        elif (k, storage) == (8, "bfloat16"):
+            res["K6 bf16 k=8"] = k6_bf16_on_run(sim)
+        del sim
+        torch.cuda.empty_cache()
+    for k in (1, 4):
+        tier_vs_plain(k)
+    for name, w in res.items():
+        bms, by = bound(w)
+        log("kernels", f"8192^2 {name}: kernel {w['ms']:.4f} ms, plain "
+            f"{w['plain_ms']:.4f} ms (CUDA events); bound {bms:.4f} ms by "
+            f"{by} ({w['bytes'] / 1e9:.4f} GB, {w['flops'] / 1e9:.3f} GFLOP)")
+    return res, counts
+
+
 def timed_phase(label: str, fn, *args):
     """fn(*args), logging the phase's seconds."""
     t0 = time.perf_counter()
@@ -4934,6 +5426,8 @@ def main() -> int:
                             "bfloat16", 16, 4096, 25)
     timed_phase("49 distributed CLI", mesh_cli_distributed, smi)
     timed_phase("50 validation legs", validation_legs, smi)
+    tres, tlaunch = timed_phase("51 TRT pair form", trt_pair_form, smi)
+    res8, counts8 = timed_phase("52 8192^2 tier", tier_8192, smi)
     counts.update({k: acounts[k] for k in ("K8", "K9")})
     counts.update({k: fcounts[k] for k in ("K4", "K5")})
     counts.update({k: wcounts[k] for k in ("K6", "K3w")})
@@ -4988,7 +5482,24 @@ def main() -> int:
              # temporal_k 8 (f32) and 16 (bf16)
              ("K5", "prehalo yx k=8", mres4["float32"], deep8["K5"]),
              ("K5", "bf16 prehalo yx k=16", mres4["bfloat16"],
-              deep16["K5"])]
+              deep16["K5"]),
+             # the TRT instantiations (the pair-form collide): launches of
+             # the trt deck (K6, K7), the 256^2 TRT column (K2) and the
+             # ablation's split step (K8) under TRT
+             ("K2", "trt", tres["K2"], tlaunch["K2"]),
+             ("K6", "trt", tres["K6"], tlaunch["K6"]),
+             ("K7", "trt", tres["K7"], tlaunch["K7"]),
+             ("K8", "trt", tres["K8"], tlaunch["K8"]),
+             # the 8192^2 / 40 000-disk stages: launches of each stage's
+             # timed run
+             ("K1", "8192", res8["K1"], counts8[(1, "float32")]["K1"]),
+             ("K2", "8192", res8["K2"], counts8[(1, "float32")]["K2"]),
+             ("K3", "8192", res8["K3"], counts8[(1, "float32")]["K3"]),
+             ("K6", "8192 k=4", res8["K6 k=4"],
+              counts8[(4, "float32")]["K6"]),
+             ("K3w", "8192", res8["K3w"], counts8[(4, "float32")]["K3w"]),
+             ("K6", "8192 bf16 k=8", res8["K6 bf16 k=8"],
+              counts8[(8, "bfloat16")]["K6"])]
     kernels = []
     rows = [(k, "", res[k], counts[k]) for k in (
         "K1", "K2", "K3", "K4", "K5", "K6", "K3w", "K7", "K8", "K9")] + extra

@@ -1,4 +1,4 @@
-// D2Q9 lattice device code shared by the coupled steps (K2, K6, K7,
+// D2Q9 lattice device code shared by the coupled steps (K2, K6, K7, K8,
 // through imb.cuh) and the pure-fluid steps (K4/K5, fluid.cu); the
 // storage loads/stores and the pull + bounce-back + Zou/He of one cell
 // serve K4 and the K5/K6/K7 temporal block (tblock.cuh).
@@ -85,7 +85,10 @@ struct FluidParams {
   float gx, gy;     // fluid body force
   float guo_pref;   // 1 - 1/(2 tau) (BGK without LES)
   float trt_magic;  // TRT magic parameter Lambda
-  float trt_hp;     // 1/(2 tau+)          (TRT without LES)
+  // the index-order TRT scalars: no kernel reads them (every TRT collide
+  // is the pair form, on PairParams); they hold the fields after them
+  // where the BGK kernels read them
+  float trt_hp;     // 1/(2 tau+)
   float trt_hm;     // 1/(2 tau-)
   float trt_pe;     // (1 - 1/(2 tau+)) / 2
   float trt_po;     // (1 - 1/(2 tau-)) / 2
@@ -102,11 +105,12 @@ struct FluidParams {
                     // shard's frame: bit 0 the inlet, bit 1 the outlet)
 };
 
-// The pure-fluid collide's scalars without LES, folded on the host as
-// the JAX trace folds them (K4, K5: fluid_collide_t; mirrored by
-// kernels.PairParams, filled from ops/fused_fluid.pair_consts), per pair
-// k of pair_rep. Apart from FluidParams, which the coupled kernels take,
-// so that their parameters stay as they are.
+// The pair-form collide's scalars without LES, folded on the host as
+// the JAX trace folds them (K4, K5: fluid_collide_t; the TRT
+// instantiations of K2, K6, K7, K8: imb.cuh collide_cell_pairs; mirrored
+// by kernels.PairParams, filled from ops/fused_fluid.pair_consts), per
+// pair k of pair_rep. Apart from FluidParams, so that the BGK coupled
+// kernels' parameters stay as they are (they take none of it).
 struct PairParams {
   float inv_tau;    // 1/tau
   float inv_tau_m;  // TRT: 1/tau-

@@ -8,13 +8,16 @@
 // as a functor, and the per-stamp-tile hydro-force reduce with the w
 // source as a functor.
 //
-// The arithmetic mirrors the plain version (ops/imb.collide_imb,
-// ops/lbm.stream + apply_bounce_back + apply_open_boundaries,
+// The arithmetic mirrors the plain version (ops/imb.collide_imb under
+// BGK, ops/fused_fluid.collide_imb_pairs under TRT, ops/lbm.stream +
+// apply_bounce_back + apply_open_boundaries,
 // ops/stamp.hydro_partials_plain) with round-to-nearest intrinsics, under
 // --fmad=false.
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "coverage.cuh"
 #include "d2q9.cuh"
@@ -44,7 +47,7 @@ __device__ __forceinline__ float div_nz(float d, float x) {
   return d == 0.0f ? d : d / x;
 }
 
-// The relaxation of one cell after its moments, equilibria and tau
+// The BGK relaxation of one cell after its moments, equilibria and tau
 // (collide_cell): post-collision populations into fp[9] and phi. FLUID:
 // the cell has eps == 0, so B is +0 and omb = 1 - B is 1 exactly; then
 // omb * x is x, every B * Omega_i is +-0 and x + (+-0) is x (only the
@@ -54,7 +57,7 @@ __device__ __forceinline__ float div_nz(float d, float x) {
 // holds the rule on the plain version). That skips the nine equilibria at
 // u_s, Omega_i, B Omega_i and the phi sums at ~88 % of the coupled
 // cell's and ~99 % of the static cell's cells.
-template <bool SHIFT, bool TRT, bool LES, bool FLUID>
+template <bool SHIFT, bool LES, bool FLUID>
 __device__ __forceinline__ void relax_cell(const float* fc, const float* fe,
                                            float rs, float rho, float ux,
                                            float uy, float usx, float usy,
@@ -66,96 +69,51 @@ __device__ __forceinline__ void relax_cell(const float* fc, const float* fe,
   if constexpr (!FLUID)
     ssq = __fadd_rn(__fmul_rn(usx, usx), __fmul_rn(usy, usy));
   float px = 0.f, py = 0.f;
-  if constexpr (!TRT) {
-    float pref = p.guo_pref;
-    if constexpr (LES) pref = __fsub_rn(1.0f, __fmul_rn(__frcp_rn(tau), 0.5f));
+  float pref = p.guo_pref;
+  if constexpr (LES) pref = __fsub_rn(1.0f, __fmul_rn(__frcp_rn(tau), 0.5f));
 #pragma unroll
-    for (int i = 0; i < 9; ++i) {
-      const float ne = __fsub_rn(fc[i], fe[i]);
-      float v = __fsub_rn(fc[i], div_nz(FLUID ? ne : __fmul_rn(omb, ne), tau));
-      float bom = 0.f;
-      if constexpr (!FLUID) {
-        const int o = opp(i);
-        const float fes = feq_nt<SHIFT>(i, rs, rho, usx, usy, ssq);
-        const float om =
-            __fsub_rn(__fadd_rn(__fsub_rn(fc[o], fc[i]), fes), fe[o]);
-        bom = __fmul_rn(B, om);
-        v = __fadd_rn(v, bom);
-      }
-      if (p.forced) {
-        const float src = __fmul_rn(
-            pref, guo_proj(i, ux, uy, edot_full(i, ux, uy), p.gx, p.gy));
-        v = __fadd_rn(v, FLUID ? src : __fmul_rn(omb, src));
-      }
-      fp[i] = v;
-      if constexpr (!FLUID) {
-        px = __fadd_rn(px, __fmul_rn(bom, (float)ex(i)));
-        py = __fadd_rn(py, __fmul_rn(bom, (float)ey(i)));
-      }
-    }
-  } else {
-    float hp = p.trt_hp, hm = p.trt_hm, pe = p.trt_pe, po = p.trt_po;
-    if constexpr (LES) {  // ops/lbm.trt_tau_minus on the per-cell tau
-      hp = __fmul_rn(__frcp_rn(tau), 0.5f);
-      const float tmin = __fadd_rn(
-          __fmul_rn(__frcp_rn(__fsub_rn(tau, 0.5f)), p.trt_magic), 0.5f);
-      hm = __fmul_rn(__frcp_rn(tmin), 0.5f);
-      pe = __fmul_rn(__fsub_rn(1.0f, hp), 0.5f);
-      po = __fmul_rn(__fsub_rn(1.0f, hm), 0.5f);
-    }
-    float ne[9], S[9];
-#pragma unroll
-    for (int i = 0; i < 9; ++i) {
-      ne[i] = __fsub_rn(fc[i], fe[i]);
-      S[i] = p.forced ? guo_proj(i, ux, uy, edot_full(i, ux, uy), p.gx, p.gy)
-                      : 0.0f;
-    }
-#pragma unroll
-    for (int i = 0; i < 9; ++i) {
+  for (int i = 0; i < 9; ++i) {
+    const float ne = __fsub_rn(fc[i], fe[i]);
+    float v = __fsub_rn(fc[i], div_nz(FLUID ? ne : __fmul_rn(omb, ne), tau));
+    float bom = 0.f;
+    if constexpr (!FLUID) {
       const int o = opp(i);
-      const float relax = __fadd_rn(__fmul_rn(hp, __fadd_rn(ne[i], ne[o])),
-                                    __fmul_rn(hm, __fsub_rn(ne[i], ne[o])));
-      float v = __fsub_rn(fc[i], FLUID ? relax : __fmul_rn(omb, relax));
-      float bom = 0.f;
-      if constexpr (!FLUID) {
-        const float fes = feq_nt<SHIFT>(i, rs, rho, usx, usy, ssq);
-        const float om =
-            __fsub_rn(__fadd_rn(__fsub_rn(fc[o], fc[i]), fes), fe[o]);
-        bom = __fmul_rn(B, om);
-        v = __fadd_rn(v, bom);
-      }
-      if (p.forced) {
-        const float src = __fadd_rn(__fmul_rn(pe, __fadd_rn(S[i], S[o])),
-                                    __fmul_rn(po, __fsub_rn(S[i], S[o])));
-        v = __fadd_rn(v, FLUID ? src : __fmul_rn(omb, src));
-      }
-      fp[i] = v;
-      if constexpr (!FLUID) {
-        px = __fadd_rn(px, __fmul_rn(bom, (float)ex(i)));
-        py = __fadd_rn(py, __fmul_rn(bom, (float)ey(i)));
-      }
+      const float fes = feq_nt<SHIFT>(i, rs, rho, usx, usy, ssq);
+      const float om =
+          __fsub_rn(__fadd_rn(__fsub_rn(fc[o], fc[i]), fes), fe[o]);
+      bom = __fmul_rn(B, om);
+      v = __fadd_rn(v, bom);
+    }
+    if (p.forced) {
+      const float src = __fmul_rn(
+          pref, guo_proj(i, ux, uy, edot_full(i, ux, uy), p.gx, p.gy));
+      v = __fadd_rn(v, FLUID ? src : __fmul_rn(omb, src));
+    }
+    fp[i] = v;
+    if constexpr (!FLUID) {
+      px = __fadd_rn(px, __fmul_rn(bom, (float)ex(i)));
+      py = __fadd_rn(py, __fmul_rn(bom, (float)ey(i)));
     }
   }
   *phix = FLUID ? 0.0f : -px;
   *phiy = FLUID ? 0.0f : -py;
 }
 
-// NT-blended collision of one cell (plain version: imb.collide_imb,
+// NT-blended BGK collision of one cell (plain version: imb.collide_imb,
 // operation by operation). fp[9] receives the post-collision
 // populations; returns phi. p is the FluidParams of ops/fused_fluid;
 // tm is the NT blend's tau - 1/2, or 3/16 / (tau - 1/2) under
 // nt_mode="lambda", rounded from float64 as the plain version's Python
 // scalar is. The options are compile-time flags:
-//   SHIFT  fc holds g = f - w rho0 (bf16 storage); BGK, TRT, Guo and the
-//          NT operator are linear in f - f_eq, so the update keeps its
+//   SHIFT  fc holds g = f - w rho0 (bf16 storage); BGK, Guo and the NT
+//          operator are linear in f - f_eq, so the update keeps its
 //          form with g_eq for f_eq;
-//   TRT    the two-relaxation-time split of collide_imb;
-//   LES    Smagorinsky tau_eff per cell (lbm.smagorinsky_tau); B, the
-//          Guo prefactor and the TRT rates follow from it;
+//   LES    Smagorinsky tau_eff per cell (lbm.smagorinsky_tau); B and the
+//          Guo prefactor follow from it;
 //   LAMBDA with LES: tm = 3/16 / (tau_eff - 1/2) per cell.
 // The all-false instantiation is the f32 BGK collide of K2, K6, K7, K8.
 // A cell with eps == 0 (eps_raw <= 0) takes relax_cell's fluid branch.
-template <bool SHIFT, bool TRT, bool LES, bool LAMBDA>
+template <bool SHIFT, bool LES, bool LAMBDA>
 __device__ __forceinline__ void collide_cell(const float* fc, float eps_raw,
                                              float usx, float usy,
                                              const FluidParams& p, float tm,
@@ -197,14 +155,204 @@ __device__ __forceinline__ void collide_cell(const float* fc, float eps_raw,
   }
   const float eps = fminf(fmaxf(eps_raw, 0.0f), 1.0f);
   if (eps == 0.0f) {
-    relax_cell<SHIFT, TRT, LES, true>(fc, fe, rs, rho, ux, uy, usx, usy, tau,
-                                      0.0f, p, fp, phix, phiy);
+    relax_cell<SHIFT, LES, true>(fc, fe, rs, rho, ux, uy, usx, usy, tau, 0.0f,
+                                 p, fp, phix, phiy);
     return;
   }
   const float B =
       div_nz(__fmul_rn(eps, tm), __fadd_rn(__fsub_rn(1.0f, eps), tm));
-  relax_cell<SHIFT, TRT, LES, false>(fc, fe, rs, rho, ux, uy, usx, usy, tau,
-                                     B, p, fp, phix, phiy);
+  relax_cell<SHIFT, LES, false>(fc, fe, rs, rho, ux, uy, usx, usy, tau, B, p,
+                                fp, phix, phiy);
+}
+
+// NT-blended TRT collision of one cell in the pair form of the TPU
+// kernels (lbmdem_tpu/ops/pallas_lbm.py _collide_window with eps given;
+// plain version: ops/fused_fluid.collide_imb_pairs, operation by
+// operation). The moments, equilibria and LES tau are those of
+// d2q9.cuh fluid_collide_t: per direction pair S = f_i + f_opp and D =
+// f_i - f_opp, the equilibria E +- O, the even part S/2 - E relaxed at
+// 1/tau and the odd part D/2 - O at 1/tau-. Then the blend: B = eps tm /
+// ((1 - eps) + tm) (with LES tm per cell, 3/16 / tm a divide under
+// LAMBDA), the rest population f0 - (1 - B)/tau (f0 - feq0) + B (feq0_s
+// - feq0), each pair f_i - (1 - B) rt_i + B (W + Q + P) and f_opp - (1 -
+// B) rt_opp + B (P - W - Q), with the equilibria at u_s giving P = E_s -
+// E and W + Q = O_s + O - D, phi -= e_i 2 B (W + Q), and Guo's even/odd
+// source scaled by 1 - B. q holds the scalars the JAX trace folds from
+// Python floats (without LES: 1/tau, 1/tau-, the Guo factors). A cell
+// with eps == 0 takes the fluid terms alone: there B is +0 and 1 - B is
+// 1 exactly, so relax = inv_tau, every B term adds +-0 and 1 - B scales
+// nothing, and the populations equal the full path's under == for
+// finite inputs, phi 0 (tests/test_torch_coupled_pairs.py holds the rule
+// on the plain version). SHIFT, LES, LAMBDA as collide_cell's.
+template <bool SHIFT, bool LES, bool LAMBDA>
+__device__ __forceinline__ void collide_cell_pairs(
+    const float* f, float eps_raw, float usx, float usy, const FluidParams& p,
+    const PairParams& q, float tm, float* fp, float* phix, float* phiy) {
+  float S[4], D[4];
+  float rs = f[0];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int i = pair_rep(k);
+    S[k] = __fadd_rn(f[i], f[opp(i)]);
+    rs = __fadd_rn(rs, S[k]);
+    D[k] = __fsub_rn(f[i], f[opp(i)]);
+  }
+  const float jx = __fsub_rn(__fadd_rn(D[0], D[2]), D[3]);
+  const float jy = __fadd_rn(__fadd_rn(D[1], D[2]), D[3]);
+  const float rho = SHIFT ? __fadd_rn(rs, p.rho0) : rs;
+  const float inv_rho = __frcp_rn(rho);
+  const float ux = __fmul_rn(__fadd_rn(jx, p.half_gx), inv_rho);
+  const float uy = __fmul_rn(__fadd_rn(jy, p.half_gy), inv_rho);
+  const float usq = __fadd_rn(__fmul_rn(ux, ux), __fmul_rn(uy, uy));
+  const float rho_b = SHIFT ? rs : rho;
+  const float rho3 = __fmul_rn(3.0f, rho);
+  const float m15 = __fmul_rn(-1.5f, usq);
+  const float feq0 =
+      __fmul_rn(weight(0), __fadd_rn(rho_b, __fmul_rn(rho, m15)));
+  float eu[4], E[4], O[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int i = pair_rep(k);
+    eu[k] = edot(i, ux, uy);
+    E[k] = __fmul_rn(weight(i), __fadd_rn(rho_b, __fmul_rn(rho, __fadd_rn(
+        __fmul_rn(4.5f, __fmul_rn(eu[k], eu[k])), m15))));
+    O[k] = __fmul_rn(__fmul_rn(weight(i), rho3), eu[k]);
+  }
+  float inv_tau = q.inv_tau, inv_tau_m = q.inv_tau_m, fpref = 0.f,
+        opref = 0.f;
+  if constexpr (LES) {  // ops/lbm.smagorinsky_tau, as fluid_collide_t
+    float pxx = 0.f, pyy = 0.f, pxy = 0.f;
+#pragma unroll
+    for (int i = 1; i < 9; ++i) {
+      const int k = pair_of(i);
+      const float fe =
+          is_rep(i) ? __fadd_rn(E[k], O[k]) : __fsub_rn(E[k], O[k]);
+      const float ne = __fsub_rn(f[i], fe);
+      if (ex(i) != 0) pxx = __fadd_rn(pxx, ne);
+      if (ey(i) != 0) pyy = __fadd_rn(pyy, ne);
+      if (ex(i) * ey(i) != 0) pxy = ex(i) * ey(i) > 0 ? __fadd_rn(pxy, ne)
+                                                      : __fsub_rn(pxy, ne);
+    }
+    const float pn = __fsqrt_rn(
+        __fadd_rn(__fadd_rn(__fmul_rn(pxx, pxx), __fmul_rn(pyy, pyy)),
+                  __fmul_rn(__fmul_rn(2.0f, pxy), pxy)));
+    const float tau = __fmul_rn(0.5f, __fadd_rn(p.tau, __fsqrt_rn(__fadd_rn(
+        p.tau_sq, __fdiv_rn(__fmul_rn(p.les_c, pn), rho)))));
+    tm = __fsub_rn(tau, 0.5f);
+    if constexpr (LAMBDA) tm = __fdiv_rn(0.1875f, tm);
+    inv_tau = __frcp_rn(tau);
+    fpref = __fsub_rn(1.0f, __fmul_rn(0.5f, inv_tau));
+    inv_tau_m = __frcp_rn(__fadd_rn(
+        0.5f, __fdiv_rn(p.trt_magic, __fsub_rn(tau, 0.5f))));
+    opref = __fsub_rn(1.0f, __fmul_rn(0.5f, inv_tau_m));
+  }
+  float ug3 = 0.f;
+  if (p.forced)
+    ug3 = __fmul_rn(3.0f, __fadd_rn(__fmul_rn(ux, p.gx), __fmul_rn(uy, p.gy)));
+  const float eps = fminf(fmaxf(eps_raw, 0.0f), 1.0f);
+  // FLUID: eps == 0, the fluid terms alone (see above)
+  auto relax = [&](auto fluid) {
+    constexpr bool FLUID = decltype(fluid)::value;
+    float B = 0.f, omb = 1.f, m15s = 0.f, px = 0.f, py = 0.f;
+    if constexpr (!FLUID) {
+      B = __fdiv_rn(__fmul_rn(eps, tm), __fadd_rn(__fsub_rn(1.0f, eps), tm));
+      omb = __fsub_rn(1.0f, B);
+      m15s = __fmul_rn(-1.5f, __fadd_rn(__fmul_rn(usx, usx),
+                                        __fmul_rn(usy, usy)));
+    }
+    float v0 = __fsub_rn(f[0], __fmul_rn(FLUID ? inv_tau
+                                               : __fmul_rn(omb, inv_tau),
+                                         __fsub_rn(f[0], feq0)));
+    if constexpr (!FLUID) {
+      const float feq0s =
+          __fmul_rn(weight(0), __fadd_rn(rho_b, __fmul_rn(rho, m15s)));
+      v0 = __fadd_rn(v0, __fmul_rn(B, __fsub_rn(feq0s, feq0)));
+    }
+    if (p.forced) {
+      const float gw0 = LES ? __fmul_rn(weight(0), fpref) : q.gw[0];
+      const float src0 = __fmul_rn(gw0, -ug3);
+      v0 = __fadd_rn(v0, FLUID ? src0 : __fmul_rn(omb, src0));
+    }
+    fp[0] = v0;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int i = pair_rep(k), o = opp(i);
+      const float ne_e =
+          __fmul_rn(inv_tau, __fsub_rn(__fmul_rn(0.5f, S[k]), E[k]));
+      const float ne_o =
+          __fmul_rn(inv_tau_m, __fsub_rn(__fmul_rn(0.5f, D[k]), O[k]));
+      const float rt_i = __fadd_rn(ne_e, ne_o), rt_o = __fsub_rn(ne_e, ne_o);
+      float vi, vo;
+      if constexpr (FLUID) {
+        vi = __fsub_rn(f[i], rt_i);
+        vo = __fsub_rn(f[o], rt_o);
+      } else {
+        const float eus = edot(i, usx, usy);
+        const float Es = __fmul_rn(weight(i), __fadd_rn(rho_b, __fmul_rn(
+            rho, __fadd_rn(__fmul_rn(4.5f, __fmul_rn(eus, eus)), m15s))));
+        const float Os = __fmul_rn(__fmul_rn(weight(i), rho3), eus);
+        const float P = __fsub_rn(Es, E[k]);
+        const float WQ = __fsub_rn(__fadd_rn(Os, O[k]), D[k]);
+        vi = __fadd_rn(__fsub_rn(f[i], __fmul_rn(omb, rt_i)),
+                       __fmul_rn(B, __fadd_rn(WQ, P)));
+        vo = __fadd_rn(__fsub_rn(f[o], __fmul_rn(omb, rt_o)),
+                       __fmul_rn(B, __fsub_rn(P, WQ)));
+        const float pp = __fmul_rn(__fmul_rn(2.0f, B), WQ);
+        if (ex(i) != 0) px = ex(i) > 0 ? __fsub_rn(px, pp) : __fadd_rn(px, pp);
+        if (ey(i) != 0) py = ey(i) > 0 ? __fsub_rn(py, pp) : __fadd_rn(py, pp);
+      }
+      if (p.forced) {
+        const float gw = LES ? __fmul_rn(weight(i), fpref) : q.gw[k + 1];
+        const float even =
+            __fmul_rn(gw, __fsub_rn(__fmul_rn(q.eg9[k], eu[k]), ug3));
+        float si = even, so = even;
+        if (q.w3eg[k] != 0.f) {  // e_i . g != 0
+          const float odd = LES ? __fmul_rn(q.w3eg[k], opref) : q.godd[k];
+          si = __fadd_rn(even, odd);
+          so = __fsub_rn(even, odd);
+        }
+        vi = __fadd_rn(vi, FLUID ? si : __fmul_rn(omb, si));
+        vo = __fadd_rn(vo, FLUID ? so : __fmul_rn(omb, so));
+      }
+      fp[i] = vi;
+      fp[o] = vo;
+    }
+    *phix = px;
+    *phiy = py;
+  };
+  if (eps == 0.0f)
+    relax(std::true_type{});
+  else
+    relax(std::false_type{});
+}
+
+// The scalars of a collide instantiation beyond FluidParams: PairParams
+// for the TRT pair form, nothing for BGK (an empty argument, passed last,
+// so a BGK kernel's other parameters keep their places)
+struct NoPairs {};
+template <bool TRT>
+using PairArg = std::conditional_t<TRT, PairParams, NoPairs>;
+template <bool TRT>
+__host__ __device__ inline PairArg<TRT> pair_arg(const PairParams& q) {
+  if constexpr (TRT)
+    return q;
+  else
+    return NoPairs{};
+}
+
+// The coupled collide of an instantiation: the pair form under TRT, the
+// index-order BGK collide_cell otherwise
+template <bool SHIFT, bool TRT, bool LES, bool LAMBDA>
+__device__ __forceinline__ void coupled_collide(
+    const float* fc, float eps_raw, float usx, float usy,
+    const FluidParams& p, const PairArg<TRT>& q, float tm, float* fp,
+    float* phix, float* phiy) {
+  if constexpr (TRT)
+    collide_cell_pairs<SHIFT, LES, LAMBDA>(fc, eps_raw, usx, usy, p, q, tm,
+                                           fp, phix, phiy);
+  else
+    collide_cell<SHIFT, LES, LAMBDA>(fc, eps_raw, usx, usy, p, tm, fp, phix,
+                                     phiy);
 }
 
 
@@ -276,7 +424,7 @@ __global__ void __launch_bounds__(kStepMaxThreads)
                         const float* __restrict__ usx,
                         const float* __restrict__ usy, S* __restrict__ fout,
                         float* __restrict__ edge, Sink sink, int ny, int nx,
-                        FluidParams p, float tm) {
+                        FluidParams p, float tm, PairArg<TRT> q) {
   constexpr bool kShift = sizeof(S) == 2;
   const int gx = blockIdx.x * 32 + threadIdx.x;
   const int gy = blockIdx.y * blockDim.y + threadIdx.y;
@@ -287,8 +435,8 @@ __global__ void __launch_bounds__(kStepMaxThreads)
 #pragma unroll
   for (int i = 0; i < 9; ++i) fc[i] = load_f(f + i * plane + cell);
   const float eps_raw = eps[cell];
-  collide_cell<kShift, TRT, LES, LAMBDA>(fc, eps_raw, usx[cell], usy[cell], p,
-                                         tm, fp, &phix, &phiy);
+  coupled_collide<kShift, TRT, LES, LAMBDA>(fc, eps_raw, usx[cell], usy[cell],
+                                            p, q, tm, fp, &phix, &phiy);
   sink.store(cell, eps_raw, phix, phiy);
   const bool wall_s = (p.walls & 1) && gy == 0;
   const bool wall_n = (p.walls & 2) && gy == ny - 1;
@@ -374,7 +522,7 @@ __global__ void __launch_bounds__(kStepMaxThreads)
                                 const float* __restrict__ usy,
                                 S* __restrict__ fout, Sink sink, int ny,
                                 int nx, Frame fr, FluidParams p, float tm,
-                                EdgePost edge) {
+                                EdgePost edge, PairArg<TRT> q) {
   constexpr bool kShift = sizeof(S) == 2;
   constexpr int kRing = PRE == 2 ? 1 : 0;  // ring columns per side
   const int gx = blockIdx.x * 32 + threadIdx.x - kRing;
@@ -387,8 +535,9 @@ __global__ void __launch_bounds__(kStepMaxThreads)
 #pragma unroll
   for (int i = 0; i < 9; ++i) fc[i] = load_f(f + i * fplane + src);
   const float eps_raw = eps[ssrc];
-  collide_cell<kShift, TRT, LES, LAMBDA>(fc, eps_raw, usx[ssrc], usy[ssrc],
-                                         p, tm, fp, &phix, &phiy);
+  coupled_collide<kShift, TRT, LES, LAMBDA>(fc, eps_raw, usx[ssrc],
+                                            usy[ssrc], p, q, tm, fp, &phix,
+                                            &phiy);
   const size_t plane = (size_t)ny * nx;
   const bool inside = gy >= 0 && gy < ny && gx >= 0 && gx < nx;
   if (inside) {
@@ -419,7 +568,8 @@ template <typename S, bool TRT, bool LES, bool LAMBDA, class Sink>
 int launch_coupled_step(const void* f, const float* eps, const float* usx,
                         const float* usy, const float* u_in, void* fout,
                         float* edge, Sink sink, int ny, int nx,
-                        const FluidParams& p, float tm, int threads,
+                        const FluidParams& p, float tm,
+                        const PairArg<TRT>& q, int threads,
                         cudaStream_t stream) {
   if (threads < 32 || threads > kStepMaxThreads || threads % 32 != 0 ||
       (p.open && (edge == nullptr || u_in == nullptr)))
@@ -429,7 +579,7 @@ int launch_coupled_step(const void* f, const float* eps, const float* usx,
   coupled_step_kernel<S, TRT, LES, LAMBDA, Sink>
       <<<grid, dim3(32, by), 0, stream>>>(
           static_cast<const S*>(f), eps, usx, usy, static_cast<S*>(fout), edge,
-          sink, ny, nx, p, tm);
+          sink, ny, nx, p, tm, q);
   const int err = (int)cudaGetLastError();
   if (err != 0 || !p.open) return err;
   zou_he_edges_kernel<S><<<(ny + 127) / 128, 128, 0, stream>>>(
@@ -442,8 +592,8 @@ int launch_coupled_step_prehalo(const void* f, const float* eps,
                                 const float* usx, const float* usy,
                                 void* fout, Sink sink, int ny, int nx,
                                 Frame fr, const FluidParams& p, float tm,
-                                EdgePost edge, int threads,
-                                cudaStream_t stream) {
+                                EdgePost edge, const PairArg<TRT>& q,
+                                int threads, cudaStream_t stream) {
   if (threads < 32 || threads > kStepMaxThreads || threads % 32 != 0 ||
       p.open || (p.walls & 3) || (fr.hx != 0 && (p.walls & 12)))
     return (int)cudaErrorInvalidValue;
@@ -454,27 +604,28 @@ int launch_coupled_step_prehalo(const void* f, const float* eps,
   if (fr.hx)
     coupled_step_prehalo_kernel<S, TRT, LES, LAMBDA, Sink, 2>
         <<<grid, dim3(32, by), 0, stream>>>(fs, eps, usx, usy, fo, sink, ny,
-                                            nx, fr, p, tm, edge);
+                                            nx, fr, p, tm, edge, q);
   else
     coupled_step_prehalo_kernel<S, TRT, LES, LAMBDA, Sink, 1>
         <<<grid, dim3(32, by), 0, stream>>>(fs, eps, usx, usy, fo, sink, ny,
-                                            nx, fr, p, tm, edge);
+                                            nx, fr, p, tm, edge, q);
   return (int)cudaGetLastError();
 }
 
 // The instantiation of the one-step kernel for the options: LAMBDA
 // matters only with LES (else the caller's tm already has the lambda
-// form).
+// form); q: the TRT pair form's scalars.
 template <typename S, class Sink>
 int dispatch_coupled_step(const void* f, const float* eps, const float* usx,
                           const float* usy, const float* u_in, void* fout,
                           float* edge, Sink sink, int ny, int nx, int lambda,
-                          const FluidParams& p, float tm, int threads,
+                          const FluidParams& p, float tm,
+                          const PairParams& q, int threads,
                           cudaStream_t stream) {
 #define LBM_STEP(TRT, LES, LAMBDA)                                        \
-  launch_coupled_step<S, TRT, LES, LAMBDA, Sink>(f, eps, usx, usy, u_in,  \
-                                                 fout, edge, sink, ny, nx, \
-                                                 p, tm, threads, stream)
+  launch_coupled_step<S, TRT, LES, LAMBDA, Sink>(                         \
+      f, eps, usx, usy, u_in, fout, edge, sink, ny, nx, p, tm,            \
+      pair_arg<TRT>(q), threads, stream)
   if (p.trt) {
     if (!p.les) return LBM_STEP(true, false, false);
     return lambda ? LBM_STEP(true, true, true) : LBM_STEP(true, true, false);
@@ -489,12 +640,13 @@ int dispatch_coupled_step_prehalo(const void* f, const float* eps,
                                   const float* usx, const float* usy,
                                   void* fout, Sink sink, int ny, int nx,
                                   Frame fr, int lambda, const FluidParams& p,
-                                  float tm, EdgePost edge, int threads,
+                                  float tm, const PairParams& q,
+                                  EdgePost edge, int threads,
                                   cudaStream_t stream) {
 #define LBM_STEP(TRT, LES, LAMBDA)                                         \
   launch_coupled_step_prehalo<S, TRT, LES, LAMBDA, Sink>(                  \
-      f, eps, usx, usy, fout, sink, ny, nx, fr, p, tm, edge, threads,      \
-      stream)
+      f, eps, usx, usy, fout, sink, ny, nx, fr, p, tm, edge,               \
+      pair_arg<TRT>(q), threads, stream)
   if (p.trt) {
     if (!p.les) return LBM_STEP(true, false, false);
     return lambda ? LBM_STEP(true, true, true) : LBM_STEP(true, true, false);

@@ -69,7 +69,8 @@ extern "C" int lbm_imb_multi_strip(int threads, int rows) {
 // ((n_tiles, cap * 8), (n_tiles,)) of th x tw tiles, ntx per row;
 // partials: (k, n_tiles * cap, 4) f32; offsets: (n_tiles + 1,) i32
 // scratch; cp: the coverage method and its
-// constants; tm: the NT blend constant (tau - 1/2, or 3/16 /
+// constants; q: the TRT pair form's scalars (d2q9.cuh PairParams;
+// unread under BGK); tm: the NT blend constant (tau - 1/2, or 3/16 /
 // (tau - 1/2) when lambda = 1). 1 <= k <= 8.
 extern "C" int lbm_imb_multi(const void* f, const float* solid,
                              const float* u_in, const float* tile_data,
@@ -78,15 +79,16 @@ extern "C" int lbm_imb_multi(const void* f, const float* solid,
                              int th, int tw, int ntx, int n_tiles, int cap,
                              int window,
                              CovParams cp, int k, int bf16, int lambda,
-                             FluidParams p, float tm, float eps_min,
-                             cudaStream_t stream) {
+                             FluidParams p, PairParams q, float tm,
+                             float eps_min, cudaStream_t stream) {
   const WSteps sink{w, (size_t)ny * nx, eps_min};
   const int err =
       bf16 ? dispatch_temporal_block<__nv_bfloat16>(
-                 f, solid, u_in, out, sink, ny, nx, k, lambda, strip, p, tm,
+                 f, solid, u_in, out, sink, ny, nx, k, lambda, strip, p, tm, q,
                  stream)
            : dispatch_temporal_block<float>(f, solid, u_in, out, sink, ny, nx,
-                                            k, lambda, strip, p, tm, stream);
+                                            k, lambda, strip, p, tm, q,
+                                            stream);
   if (err != 0) return err;
   return launch_reduce(WPlanes{w, (size_t)ny * nx}, solid, tile_data, counts,
                        offsets, partials, nx, th, tw, ntx, n_tiles, cap,
@@ -107,8 +109,8 @@ extern "C" int lbm_imb_multi_prehalo(
     const float* tile_data, const int* counts, void* out, float* w,
     float* partials, int* offsets, int ny, int nx, int pitch, int hx, int oy,
     int ox, int th, int tw, int ntx, int n_tiles, int cap, int window,
-    CovParams cp, int k, int bf16, int lambda, FluidParams p, float tm,
-    float eps_min, cudaStream_t stream) {
+    CovParams cp, int k, int bf16, int lambda, FluidParams p, PairParams q,
+    float tm, float eps_min, cudaStream_t stream) {
   if (pitch != nx + 2 * hx || (hx != 0 && hx != kHaloCols) ||
       (p.open && u_in == nullptr))
     return (int)cudaErrorInvalidValue;
@@ -117,7 +119,7 @@ extern "C" int lbm_imb_multi_prehalo(
   const Frame fr{pitch, hx, frame_hy(bf16)};
 #define LBM_K6P(S, PRE)                                                   \
   dispatch_temporal_block<S, WSteps, PRE>(f, solid, u_in, out, sink, ny,  \
-                                          nx, k, lambda, strip, p, tm,    \
+                                          nx, k, lambda, strip, p, tm, q, \
                                           stream, fr)
   const int err = bf16 ? (hx ? LBM_K6P(__nv_bfloat16, 2)
                              : LBM_K6P(__nv_bfloat16, 1))

@@ -65,26 +65,28 @@
 // binning ((n_tiles, cap * 8), (n_tiles,)) of th x tw tiles, ntx per row;
 // partials: (n_tiles * cap, 4) f32; offsets: (n_tiles + 1,) i32
 // scratch; cp: the coverage method and its
-// constants; tm: the NT blend constant (tau - 1/2, or 3/16 / (tau - 1/2)
-// when lambda = 1); threads: the step kernel's block size (a multiple of
-// 32, at most 512).
+// constants; q: the TRT pair form's scalars (d2q9.cuh PairParams;
+// unread under BGK); tm: the NT blend constant (tau - 1/2, or 3/16 /
+// (tau - 1/2) when lambda = 1); threads: the step kernel's block size (a
+// multiple of 32, at most 512).
 extern "C" int lbm_imb_step(const void* f, const float* solid,
                             const float* u_in, const float* tile_data,
                             const int* counts, void* fout, float* w,
                             float* edge, float* partials, int* offsets,
                             int ny, int nx, int th, int tw, int ntx,
                             int n_tiles, int cap, int window, CovParams cp,
-                            int bf16, int lambda, FluidParams p, float tm,
-                            float eps_min, int threads, cudaStream_t stream) {
+                            int bf16, int lambda, FluidParams p, PairParams q,
+                            float tm, float eps_min, int threads,
+                            cudaStream_t stream) {
   const size_t plane = (size_t)ny * nx;
   const WSink sink{w, plane, eps_min};
   const int err =
       bf16 ? dispatch_coupled_step<__nv_bfloat16>(
                  f, solid, solid + plane, solid + 2 * plane, u_in, fout, edge,
-                 sink, ny, nx, lambda, p, tm, threads, stream)
+                 sink, ny, nx, lambda, p, tm, q, threads, stream)
            : dispatch_coupled_step<float>(
                  f, solid, solid + plane, solid + 2 * plane, u_in, fout, edge,
-                 sink, ny, nx, lambda, p, tm, threads, stream);
+                 sink, ny, nx, lambda, p, tm, q, threads, stream);
   if (err != 0) return err;
   return launch_reduce(WPlanes{w, plane}, solid, tile_data, counts, offsets,
                        partials, nx, th, tw, ntx, n_tiles, cap, window, cp, 1,
@@ -107,8 +109,8 @@ extern "C" int lbm_imb_step_prehalo(
     float* partials, int* offsets,
     int ny, int nx, int pitch, int hx, int oy, int ox, int th, int tw,
     int ntx, int n_tiles, int cap, int window, CovParams cp, int bf16,
-    int lambda, FluidParams p, float tm, float eps_min, int threads,
-    cudaStream_t stream) {
+    int lambda, FluidParams p, PairParams q, float tm, float eps_min,
+    int threads, cudaStream_t stream) {
   if (pitch != nx + 2 * hx || (hx != 0 && hx != kHaloCols))
     return (int)cudaErrorInvalidValue;
   const size_t plane = (size_t)ny * nx;
@@ -119,10 +121,10 @@ extern "C" int lbm_imb_step_prehalo(
   const int err =
       bf16 ? dispatch_coupled_step_prehalo<__nv_bfloat16>(
                  f, solid, solid + splane, solid + 2 * splane, fout, sink, ny,
-                 nx, fr, lambda, p, tm, edge, threads, stream)
+                 nx, fr, lambda, p, tm, q, edge, threads, stream)
            : dispatch_coupled_step_prehalo<float>(
                  f, solid, solid + splane, solid + 2 * splane, fout, sink, ny,
-                 nx, fr, lambda, p, tm, edge, threads, stream);
+                 nx, fr, lambda, p, tm, q, edge, threads, stream);
   if (err != 0) return err;
   return launch_reduce(WPlanes{w, plane},
                        solid + (size_t)kSolidHaloRows * pitch + hx, tile_data,

@@ -43,17 +43,19 @@
 // K8. f, fout: (9, ny, nx) f32 (distinct buffers); eps, usx, usy: (ny, nx)
 // f32 [eps_raw, us_x, us_y]; u_in: (ny,) f32 inlet profile and edge:
 // (9, ny, 2) f32 scratch (both read only when p.open); phi: (2, ny, nx)
-// f32 out [phi_x, phi_y]; tm: the NT blend constant (tau - 1/2, or 3/16 /
-// (tau - 1/2) when lambda = 1); threads: the block size (K2's).
+// f32 out [phi_x, phi_y]; q: the TRT pair form's scalars (d2q9.cuh
+// PairParams; unread under BGK); tm: the NT blend constant (tau - 1/2,
+// or 3/16 / (tau - 1/2) when lambda = 1); threads: the block size
+// (K2's).
 extern "C" int lbm_imb_split_step(const float* f, const float* eps,
                                   const float* usx, const float* usy,
                                   const float* u_in, float* fout, float* phi,
                                   float* edge, int ny, int nx, int lambda,
-                                  FluidParams p, float tm, int threads,
-                                  cudaStream_t stream) {
+                                  FluidParams p, PairParams q, float tm,
+                                  int threads, cudaStream_t stream) {
   return dispatch_coupled_step<float>(f, eps, usx, usy, u_in, fout, edge,
                                       PhiSink{phi, (size_t)ny * nx}, ny, nx,
-                                      lambda, p, tm, threads, stream);
+                                      lambda, p, tm, q, threads, stream);
 }
 
 // K8 on a shard's pre-haloed frame (f32): f (9, ny + 16, pitch) and eps,
@@ -65,13 +67,13 @@ extern "C" int lbm_imb_split_step(const float* f, const float* eps,
 extern "C" int lbm_imb_split_step_prehalo(
     const float* f, const float* eps, const float* usx, const float* usy,
     float* fout, float* phi, float* erow, float* ecol, int ny, int nx,
-    int pitch, int hx, int lambda, FluidParams p, float tm, int threads,
-    cudaStream_t stream) {
+    int pitch, int hx, int lambda, FluidParams p, PairParams q, float tm,
+    int threads, cudaStream_t stream) {
   if (pitch != nx + 2 * hx || (hx != 0 && hx != kHaloCols))
     return (int)cudaErrorInvalidValue;
   return dispatch_coupled_step_prehalo<float>(
       f, eps, usx, usy, fout, PhiSink{phi, (size_t)ny * nx}, ny, nx,
-      Frame{pitch, hx, frame_hy(0)}, lambda, p, tm, EdgePost{erow, ecol},
+      Frame{pitch, hx, frame_hy(0)}, lambda, p, tm, q, EdgePost{erow, ecol},
       threads, stream);
 }
 

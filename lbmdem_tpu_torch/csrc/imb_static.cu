@@ -50,19 +50,20 @@ extern "C" int lbm_imb_static_strip(int threads, int rows) {
 
 // f, out: (9, ny, nx) f32 or shifted bf16 (bf16 = 1; distinct buffers);
 // solid: (3, ny, nx) f32 [eps_raw, us_x, us_y], constant; u_in: (ny,) f32
-// inlet profile (read only when p.open); tm: the NT blend constant
+// inlet profile (read only when p.open); q: the TRT pair form's scalars
+// (d2q9.cuh PairParams; unread under BGK); tm: the NT blend constant
 // (tau - 1/2, or 3/16 / (tau - 1/2) when lambda = 1); 1 <= k <= 8.
 extern "C" int lbm_imb_static_multi(const void* f, const float* solid,
                                     void* out, const float* u_in, int ny,
                                     int nx, int k, int bf16, int lambda,
-                                    FluidParams p, float tm,
+                                    FluidParams p, PairParams q, float tm,
                                     cudaStream_t stream) {
   return bf16 ? dispatch_temporal_block<__nv_bfloat16>(
                     f, solid, u_in, out, NoSink{}, ny, nx, k, lambda, strip,
-                    p, tm, stream)
+                    p, tm, q, stream)
               : dispatch_temporal_block<float>(f, solid, u_in, out, NoSink{},
                                                ny, nx, k, lambda, strip, p, tm,
-                                               stream);
+                                               q, stream);
 }
 
 // K7 on a shard's pre-haloed frame: f (9, ny + 2 hy, pitch) f32 (hy = 8)
@@ -77,16 +78,16 @@ extern "C" int lbm_imb_static_multi_prehalo(const void* f,
                                             const float* u_in, int ny, int nx,
                                             int pitch, int hx, int k,
                                             int bf16, int lambda,
-                                            FluidParams p, float tm,
-                                            cudaStream_t stream) {
+                                            FluidParams p, PairParams q,
+                                            float tm, cudaStream_t stream) {
   if (pitch != nx + 2 * hx || (hx != 0 && hx != kHaloCols) ||
       (p.open && u_in == nullptr))
     return (int)cudaErrorInvalidValue;
   const Frame fr{pitch, hx, frame_hy(bf16)};
 #define LBM_K7P(S, PRE)                                                     \
   dispatch_temporal_block<S, NoSink, PRE>(f, solid, u_in, out, NoSink{},    \
-                                          ny, nx, k, lambda, strip, p, tm,  \
-                                          stream, fr)
+                                          ny, nx, k, lambda, strip, p, tm, \
+                                          q, stream, fr)
   if (bf16)
     return hx ? LBM_K7P(__nv_bfloat16, 2) : LBM_K7P(__nv_bfloat16, 1);
   return hx ? LBM_K7P(float, 2) : LBM_K7P(float, 1);

@@ -127,7 +127,8 @@ struct NoSink {
 // cell is an output cell of the block, at global index `cell`.
 //
 // NTCell (K6, K7): the NT-blended collide of K2 and K8 (imb.cuh
-// collide_cell) and the sink.
+// collide_cell under BGK; the TRT specialization below takes
+// collide_cell_pairs and its scalars q) and the sink.
 template <bool TRT, bool LES, bool LAMBDA, class Sink>
 struct NTCell {
   static constexpr bool kSolid = true;
@@ -139,13 +140,42 @@ struct NTCell {
                                           float sy, const FluidParams& p,
                                           bool out, size_t cell) const {
     float fp[9], phix, phiy;
-    collide_cell<SHIFT, TRT, LES, LAMBDA>(v, e, sx, sy, p, tm, fp, &phix,
-                                          &phiy);
+    collide_cell<SHIFT, LES, LAMBDA>(v, e, sx, sy, p, tm, fp, &phix, &phiy);
     if (out) sink.store(t, cell, e, phix, phiy);
 #pragma unroll
     for (int i = 0; i < 9; ++i) v[i] = fp[i];
   }
 };
+
+template <bool LES, bool LAMBDA, class Sink>
+struct NTCell<true, LES, LAMBDA, Sink> {
+  static constexpr bool kSolid = true;
+  const float* solid;  // (3, ny, nx)
+  Sink sink;
+  float tm;
+  PairParams q;
+  template <bool SHIFT>
+  __device__ __forceinline__ void collide(int t, float* v, float e, float sx,
+                                          float sy, const FluidParams& p,
+                                          bool out, size_t cell) const {
+    float fp[9], phix, phiy;
+    collide_cell_pairs<SHIFT, LES, LAMBDA>(v, e, sx, sy, p, q, tm, fp, &phix,
+                                           &phiy);
+    if (out) sink.store(t, cell, e, phix, phiy);
+#pragma unroll
+    for (int i = 0; i < 9; ++i) v[i] = fp[i];
+  }
+};
+
+// The NTCell of an instantiation: the TRT one carries q
+template <bool TRT, bool LES, bool LAMBDA, class Sink>
+inline NTCell<TRT, LES, LAMBDA, Sink> nt_cell(const float* solid, Sink sink,
+                                              float tm, const PairParams& q) {
+  if constexpr (TRT)
+    return {solid, sink, tm, q};
+  else
+    return {solid, sink, tm};
+}
 
 // FluidCell (K5): the pure-fluid collide of K4 (d2q9.cuh
 // fluid_collide_t) with its scalars q, the options fixed at compile time.
@@ -416,20 +446,21 @@ int launch_temporal_block(const void* f, const float* u_in, void* out,
 }
 
 // K6 and K7: the NTCell instantiation for the options (LAMBDA matters only
-// with LES, else the caller's tm already has the lambda form); 1 <= k <= 8.
-// PRE: 0 on the lattice, 1 ("y") or 2 ("yx") on a shard's frame `fr`,
-// whose solid stack is the 8-row solid window (f32 or bf16 f)
+// with LES, else the caller's tm already has the lambda form; q: the TRT
+// pair form's scalars); 1 <= k <= 8. PRE: 0 on the lattice, 1 ("y") or 2
+// ("yx") on a shard's frame `fr`, whose solid stack is the 8-row solid
+// window (f32 or bf16 f)
 template <typename S, class Sink, int PRE = 0>
 int dispatch_temporal_block(const void* f, const float* solid,
                             const float* u_in, void* out, Sink sink, int ny,
                             int nx, int k, int lambda, StripConfig strip,
                             const FluidParams& p, float tm,
-                            cudaStream_t stream,
+                            const PairParams& q, cudaStream_t stream,
                             Frame fr = Frame{0, 0, 0}) {
 #define LBM_TB(TRT, LES, LAMBDA)                                          \
   launch_temporal_block<S, S, sizeof(S) == 2, 1, (TRT || LES) ? 1 : 2,    \
                         NTCell<TRT, LES, LAMBDA, Sink>, PRE>(             \
-      f, u_in, out, NTCell<TRT, LES, LAMBDA, Sink>{solid, sink, tm}, ny,  \
+      f, u_in, out, nt_cell<TRT, LES, LAMBDA>(solid, sink, tm, q), ny,    \
       nx, k, strip, p, stream, fr)
   if (p.trt) {
     if (!p.les) return LBM_TB(true, false, false);

@@ -72,9 +72,9 @@ class FluidParams(ctypes.Structure):
 
 
 class PairParams(ctypes.Structure):
-    """The pure-fluid collide's scalars without LES (K4/K5, from
-    `ops/fused_fluid.pair_consts`); mirrors `struct PairParams` in
-    csrc/d2q9.cuh field for field."""
+    """The pair-form collide's scalars without LES (K4/K5, and the TRT
+    instantiations of K2, K6, K7, K8; from `ops/fused_fluid.pair_consts`);
+    mirrors `struct PairParams` in csrc/d2q9.cuh field for field."""
 
     _fields_ = [
         ("inv_tau", _F), ("inv_tau_m", _F), ("gw", _F * 5), ("eg9", _F * 4),
@@ -95,16 +95,16 @@ class CovParams(ctypes.Structure):
 
 # C signatures: (name, argtypes)
 _SIGNATURES = {
-    "lbm_stamp": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, CovParams, _F,
-                  _I, _I, _P],
+    "lbm_stamp": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, CovParams, _F, _I,
+                  _I, _P],
     "lbm_imb_step": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                     _I, _I, _I, _I, CovParams, _I, _I, FluidParams, _F, _F,
-                     _I, _P],
+                     _I, _I, _I, _I, CovParams, _I, _I, FluidParams,
+                     PairParams, _F, _F, _I, _P],
     "lbm_imb_multi": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                      _I, _I, _I, CovParams, _I, _I, _I, FluidParams, _F, _F,
-                      _P],
-    "lbm_dem_subcycle": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                         _I, DemParams, _P],
+                      _I, _I, _I, CovParams, _I, _I, _I, FluidParams,
+                      PairParams, _F, _F, _P],
+    "lbm_dem_subcycle": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                         DemParams, _P],
     "lbm_dem_subcycle_window": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                 _I, _I, _I, DemParams, _P],
     "lbm_dem_grid": [_I],
@@ -118,21 +118,22 @@ _SIGNATURES = {
                                 FluidParams, PairParams, _P],
     "lbm_imb_step_prehalo": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                              _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                             CovParams, _I, _I, FluidParams, _F, _F, _I, _P],
-    "lbm_imb_multi_prehalo": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                              _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                              CovParams, _I, _I, _I, FluidParams, _F, _F,
-                              _P],
+                             CovParams, _I, _I, FluidParams, PairParams, _F,
+                             _F, _I, _P],
+    "lbm_imb_multi_prehalo": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                              _I, _I, _I, _I, _I, _I, _I, _I, _I, CovParams,
+                              _I, _I, _I, FluidParams, PairParams, _F, _F, _P],
     "lbm_imb_multi_strip": [_I, _I],
-    "lbm_imb_static_multi": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
-                             FluidParams, _F, _P],
-    "lbm_imb_static_multi_prehalo": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                     _I, _I, FluidParams, _F, _P],
+    "lbm_imb_static_multi": [_P, _P, _P, _P, _I, _I, _I, _I, _I, FluidParams,
+                             PairParams, _F, _P],
+    "lbm_imb_static_multi_prehalo": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                     _I, FluidParams, PairParams, _F, _P],
     "lbm_imb_static_strip": [_I, _I],
     "lbm_imb_split_step": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                           FluidParams, _F, _I, _P],
-    "lbm_imb_split_step_prehalo": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                   _I, _I, _I, FluidParams, _F, _I, _P],
+                           FluidParams, PairParams, _F, _I, _P],
+    "lbm_imb_split_step_prehalo": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                   _I, _I, FluidParams, PairParams, _F, _I,
+                                   _P],
     "lbm_reduce_hydro": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                          _I, _I, CovParams, _F, _P],
 }

@@ -43,7 +43,7 @@ import torch
 
 from lbmdem_tpu_torch import kernels, lattice
 from lbmdem_tpu_torch.config import SimConfig, WALL
-from lbmdem_tpu_torch.ops import lbm
+from lbmdem_tpu_torch.ops import imb, lbm
 from lbmdem_tpu_torch.ops.imb import sqrt_rn
 
 # largest k per pass, the TPU kernel's (on a frame its halo rows): f32 8,
@@ -151,7 +151,8 @@ def pair_consts(cfg: SimConfig, dtype: torch.dtype = torch.float32) -> dict:
     and the double one in float64. Per pair representative k (PAIRS[k][0]):
     eg9 = 9 e.g, w3eg = w 3 e.g, and without LES gw = w force_pref (gw0
     for the rest population) and godd = w3eg opref, opref the odd Guo
-    prefactor (TRT's force_pref_m, else force_pref)."""
+    prefactor (TRT's force_pref_m, else force_pref); tm, the NT blend's
+    tau - 1/2 (or 3/16 / (tau - 1/2)) without LES."""
     dt = np.float32 if dtype == torch.float32 else np.float64
     w = lattice.W.astype(dt)
     tau, trt = cfg.tau, cfg.trt_lambda
@@ -172,7 +173,7 @@ def pair_consts(cfg: SimConfig, dtype: torch.dtype = torch.float32) -> dict:
         half_gx=float(dt(0.5 * cfg.gx)), half_gy=float(dt(0.5 * cfg.gy)),
         gx=float(dt(cfg.gx)), gy=float(dt(cfg.gy)),
         tau=float(dt(tau)), tau_sq=float(dt(tau * tau)),
-        trt=float(dt(trt)),
+        trt=float(dt(trt)), tm=float(dt(imb.nt_tm(tau, cfg.nt_mode))),
         les_c=float(dt(18.0 * np.sqrt(2.0) * cfg.smagorinsky ** 2)),
         w=[float(x) for x in w])
 
@@ -189,10 +190,54 @@ def collide_pairs(g, cfg: SimConfig, shift: float = 0.0):
     populations f - w shift (bf16 storage) and so does the result. g is
     (9, ...) in float32 or float64; returns the post-collision
     populations."""
+    return _collide_window(g, cfg, shift)[0]
+
+
+def collide_imb_pairs(f, eps_raw, us_x, us_y, cfg: SimConfig,
+                      shift: float = 0.0):
+    """The NT-blended collide in the pair form (csrc/imb.cuh
+    collide_cell_pairs for TRT), operation for operation: the coupled
+    branch of the JAX kernels' pallas_lbm._collide_window with eps
+    given. collide_pairs' moments, equilibria and TRT parts, blended
+    with the solid: B = eps tm / ((1 - eps) + tm) (tm = tau - 1/2, or
+    3/16 / (tau - 1/2) under nt_mode="lambda", per cell with LES), the
+    relaxation and Guo's source scaled by 1 - B, and per pair with W + Q
+    = O_s + O - D and P = E_s - E (the equilibria at u_s) the source
+    B (W + Q + P) and B (P - W - Q), phi -= e_i 2 B (W + Q). The plain
+    K2, K6, K7 and K8 take it under TRT; under BGK they keep
+    imb.collide_imb. Returns (f_post, phi_x, phi_y)."""
+    return _collide_window(f, cfg, shift, (eps_raw, us_x, us_y))
+
+
+def coupled_collide(cfg: SimConfig):
+    """The collide of the coupled kernels' plain versions (K2, K6, K7,
+    K8): collide_imb_pairs under TRT (the kernels' pair form), else
+    imb.collide_imb (the kernels' index-order sums). Called as
+    collide(f, eps_raw, us_x, us_y, cfg) -> (f_post, phi_x, phi_y)."""
+    return collide_imb_pairs if cfg.trt_lambda > 0.0 else imb.collide_imb
+
+
+def _eu(i: int, ux, uy):
+    """e_i . u as +-adds (the components are -1, 0, +1)."""
+    ex, ey = int(lattice.E[i, 0]), int(lattice.E[i, 1])
+    t = None
+    if ex:
+        t = ux if ex > 0 else -ux
+    if ey:
+        t = (uy if ey > 0 else -uy) if t is None else (
+            t + uy if ey > 0 else t - uy)
+    return t
+
+
+def _collide_window(g, cfg: SimConfig, shift: float = 0.0, solid=None):
+    """pallas_lbm._collide_window on (9, ...) planes: (post-collision
+    populations, phi_x, phi_y), phi None without a solid (eps_raw, us_x,
+    us_y)."""
     c = pair_consts(cfg, g.dtype)
     w = c["w"]
     les, trt = cfg.smagorinsky > 0.0, cfg.trt_lambda > 0.0
     forced = cfg.gx != 0.0 or cfg.gy != 0.0
+    coupled = solid is not None
     f = g.unbind(0)
     S, D = {}, {}
     rho_g, jx, jy = f[0], None, None
@@ -214,20 +259,17 @@ def collide_pairs(g, cfg: SimConfig, shift: float = 0.0):
     usq = ux * ux + uy * uy
     rho_b = rho_g if shift else rho
     rho3 = 3.0 * rho
+
+    def eo_parts(i, ux_, uy_, m15_):
+        t = _eu(i, ux_, uy_)
+        return (w[i] * (rho_b + rho * (4.5 * (t * t) + m15_)),
+                (w[i] * rho3) * t, t)
+
     m15 = -1.5 * usq
     feq0 = w[0] * (rho_b + rho * m15)
-    eu, E, O = {}, {}, {}
+    E, O, eu = {}, {}, {}
     for i, _ in PAIRS:
-        ex, ey = int(lattice.E[i, 0]), int(lattice.E[i, 1])
-        t = None
-        if ex:
-            t = ux if ex > 0 else -ux
-        if ey:
-            t = (uy if ey > 0 else -uy) if t is None else (
-                t + uy if ey > 0 else t - uy)
-        eu[i] = t
-        E[i] = w[i] * (rho_b + rho * (4.5 * (t * t) + m15))
-        O[i] = (w[i] * rho3) * t
+        E[i], O[i], eu[i] = eo_parts(i, ux, uy, m15)
     tau = c["tau"]
     if les:  # ops/lbm.smagorinsky_tau on the pair-form equilibria
         feq = [feq0] * 9
@@ -245,6 +287,21 @@ def collide_pairs(g, cfg: SimConfig, shift: float = 0.0):
                 pxy = pxy + ne if ex * ey > 0 else pxy - ne
         pnorm = sqrt_rn(pxx * pxx + pyy * pyy + 2.0 * pxy * pxy)
         tau = 0.5 * (tau + sqrt_rn(c["tau_sq"] + c["les_c"] * pnorm / rho))
+    if coupled:
+        eps_raw, usx, usy = solid
+        eps = torch.clamp(eps_raw, 0.0, 1.0)
+        tm = c["tm"]
+        if les:  # imb.nt_weight on the per-cell tau; 3/16 / tm divides
+            tm = tau - 0.5
+            if cfg.nt_mode == "lambda":
+                tm = tm.new_tensor(0.1875) / tm
+        B = eps * tm / ((1.0 - eps) + tm)
+        omb = 1.0 - B
+        m15_s = -1.5 * (usx * usx + usy * usy)
+        feq0_s = w[0] * (rho_b + rho * m15_s)
+        phix = torch.zeros_like(rho)
+        phiy = torch.zeros_like(rho)
+    if les:
         inv_tau = torch.reciprocal(tau)
         force_pref = 1.0 - 0.5 * inv_tau
         if trt:
@@ -258,28 +315,55 @@ def collide_pairs(g, cfg: SimConfig, shift: float = 0.0):
     if forced:
         ug3 = 3.0 * (ux * c["gx"] + uy * c["gy"])
     out = [None] * 9
-    out[0] = f[0] - inv_tau * (f[0] - feq0)
+    relax = omb * inv_tau if coupled else inv_tau
+    out[0] = f[0] - relax * (f[0] - feq0)
+    if coupled:
+        out[0] = out[0] + B * (feq0_s - feq0)
     if forced:
         gw0 = w[0] * force_pref if les else c["gw0"]
-        out[0] = out[0] + gw0 * (-ug3)
+        src0 = gw0 * (-ug3)
+        out[0] = out[0] + (omb * src0 if coupled else src0)
     for k, (i, o) in enumerate(PAIRS):
         if trt:
             ne_e = inv_tau * (0.5 * S[i] - E[i])
             ne_o = inv_tau_m * (0.5 * D[i] - O[i])
-            fi, fo = f[i] - (ne_e + ne_o), f[o] - (ne_e - ne_o)
+            rt_i, rt_o = ne_e + ne_o, ne_e - ne_o
+        if coupled:
+            Es, Os, _ = eo_parts(i, usx, usy, m15_s)
+            P = Es - E[i]
+            WQ = (Os + O[i]) - D[i]
+            if trt:
+                fi = f[i] - omb * rt_i + B * (WQ + P)
+                fo = f[o] - omb * rt_o + B * (P - WQ)
+            else:
+                fi = f[i] - relax * (f[i] - (E[i] + O[i])) + B * (WQ + P)
+                fo = f[o] - relax * (f[o] - (E[i] - O[i])) + B * (P - WQ)
+            pair_phi = (2.0 * B) * WQ
+            ex, ey = int(lattice.E[i, 0]), int(lattice.E[i, 1])
+            if ex:
+                phix = phix - pair_phi if ex > 0 else phix + pair_phi
+            if ey:
+                phiy = phiy - pair_phi if ey > 0 else phiy + pair_phi
+        elif trt:
+            fi, fo = f[i] - rt_i, f[o] - rt_o
         else:
             fi = f[i] - inv_tau * (f[i] - (E[i] + O[i]))
             fo = f[o] - inv_tau * (f[o] - (E[i] - O[i]))
         if forced:
             gw = w[i] * force_pref if les else c["gw"][k]
             even = gw * (c["eg9"][k] * eu[i] - ug3)
+            src_i = src_o = even
             if c["w3eg"][k] != 0.0:
                 odd = c["w3eg"][k] * opref if les else c["godd"][k]
-                fi, fo = fi + (even + odd), fo + (even - odd)
+                src_i, src_o = even + odd, even - odd
+            if coupled:
+                fi, fo = fi + omb * src_i, fo + omb * src_o
             else:
-                fi, fo = fi + even, fo + even
+                fi, fo = fi + src_i, fo + src_o
         out[i], out[o] = fi, fo
-    return torch.stack(out)
+    if not coupled:
+        return torch.stack(out), None, None
+    return torch.stack(out), phix, phiy
 
 
 def compute_form(f, cfg: SimConfig):

@@ -26,8 +26,11 @@ stage-ablation tool (`tools/ablate.py`) runs the pair.
 
 Each wrapper takes its plain version for CPU tensors and its CUDA
 kernel (`csrc/imb_reduce.cu`, `csrc/imb_multi.cu`, `csrc/imb_split.cu`)
-for CUDA tensors. All write the new populations into the caller's second
-f buffer `out`, never into `f`.
+for CUDA tensors. Under TRT the kernels collide in the pair form of the
+JAX kernels' `_collide_window` and so do the plain versions
+(`fused_fluid.coupled_collide`: `collide_imb_pairs`); under BGK both sum
+in index order (`imb.collide_imb`). All write the new populations into
+the caller's second f buffer `out`, never into `f`.
 
 K2, K6 and K8 also take a shard of the lattice mesh (`prehalo` and, for
 K2 and K6, `origin`: the JAX entries' multi-chip arguments): f is the
@@ -74,7 +77,9 @@ STEP_THREADS = 128
 
 def fused_step_imb_reduce_plain(f, solid, tile_data, counts, cfg: SimConfig,
                                 out):
-    """Plain version of K2: from_storage, imb.collide_imb -> lbm.stream ->
+    """Plain version of K2: from_storage, the coupled collide
+    (fused_fluid.coupled_collide: imb.collide_imb, under TRT the pair
+    form collide_imb_pairs) -> lbm.stream ->
     lbm.apply_bounce_back -> lbm.apply_open_boundaries, to_storage into
     `out`, plus the plain per-(tile, slot) reduce. Returns (out,
     partials)."""
@@ -85,15 +90,16 @@ def fused_step_imb_reduce_plain(f, solid, tile_data, counts, cfg: SimConfig,
 
 def fused_step_imb_reduce_multi_plain(f, solid, tile_data, counts,
                                       cfg: SimConfig, k: int, out):
-    """Plain version of K6: from_storage, k x (imb.collide_imb ->
+    """Plain version of K6: from_storage, k x (the coupled collide ->
     lbm.stream -> lbm.apply_bounce_back -> lbm.apply_open_boundaries) over
     the one solid stack with the plain reduce after every collide,
     to_storage. Returns (out, partials (k, n_tiles * cap, 4))."""
     eps, usx, usy = solid[0], solid[1], solid[2]
+    collide = fused_fluid.coupled_collide(cfg)
     g = lbm.from_storage(f, cfg)
     parts = []
     for _ in range(k):
-        fpost, phix, phiy = imb.collide_imb(g, eps, usx, usy, cfg)
+        fpost, phix, phiy = collide(g, eps, usx, usy, cfg)
         g = lbm.apply_open_boundaries(
             lbm.apply_bounce_back(lbm.stream(fpost), fpost, cfg), cfg)
         parts.append(hydro_partials_plain(eps, phix, phiy, tile_data, counts,
@@ -106,7 +112,7 @@ def fused_step_imb_prehalo_plain(f, eps, usx, usy, cfg: SimConfig,
                                  mode: str, out, edge_post=None):
     """Plain version of K8 on a pre-haloed frame (f a frame, the solid
     fields the solid window's planes; the K2 plain version's step, in
-    either storage): imb.collide_imb of the interior and its ring of one
+    either storage): the coupled collide of the interior and its ring of one
     cell, pull streaming, the x walls in "y" mode, into `out` (9, ny,
     nx), the edges' post-collision populations into `edge_post`. Returns
     (out, phi_x, phi_y) of the interior."""
@@ -114,7 +120,7 @@ def fused_step_imb_prehalo_plain(f, eps, usx, usy, cfg: SimConfig,
     rows = slice(hy - 1, hy + h + 1)
     srows = slice(HY - 1, HY + h + 1)
     cols = slice(HX - 1, HX + w + 1) if mode == "yx" else slice(None)
-    fpost, phix, phiy = imb.collide_imb(
+    fpost, phix, phiy = fused_fluid.coupled_collide(cfg)(
         lbm.from_storage(f, cfg)[:, rows, cols], eps[srows, cols],
         usx[srows, cols], usy[srows, cols], cfg)
     fnew = fused_fluid.stream_frame(fpost, mode, h, w)
@@ -147,17 +153,18 @@ def fused_step_imb_reduce_multi_prehalo_plain(f, solid, tile_data, counts,
                                               ny_glob: int, out):
     """Plain version of K6 on a pre-haloed frame (the JAX
     _imb_reduce_multi_kernel with its mesh-position flags):
-    fused_fluid.frame_steps_plain with imb.collide_imb over the solid
+    fused_fluid.frame_steps_plain with the coupled collide over the solid
     window, the plain reduce of the interior's momentum exchange over the
     interior tiles at `origin` after every collide, then the interior
     into `out` (the solid window on the f frame's rows: solid_frame).
     Returns (out, partials (k, n_tiles * cap, 4))."""
     eps_i = fused_fluid.frame_interior(solid, cfg, mode, HY)[0]
     sf = fused_fluid.solid_frame(solid, cfg)
+    coupled = fused_fluid.coupled_collide(cfg)
     parts = []
 
     def collide(g, t):
-        fpost, phix, phiy = imb.collide_imb(g, sf[0], sf[1], sf[2], cfg)
+        fpost, phix, phiy = coupled(g, sf[0], sf[1], sf[2], cfg)
         parts.append(hydro_partials_plain(
             eps_i, fused_fluid.frame_interior(phix[None], cfg, mode)[0],
             fused_fluid.frame_interior(phiy[None], cfg, mode)[0], tile_data,
@@ -217,8 +224,9 @@ def _launch_k2_prehalo(f, solid, tile_data, counts, cfg: SimConfig,
             counts.data_ptr(), out.data_ptr(), w.data_ptr(), erow, ecol,
             partials.data_ptr(), offsets.data_ptr(), *dims,
             int(f.dtype == torch.bfloat16), lam,
-            fused_fluid._params(cfg, 12 if mode == "y" else 0, 0), *tm,
-            STEP_THREADS, kernels.stream())
+            fused_fluid._params(cfg, 12 if mode == "y" else 0, 0),
+            fused_fluid._pair_params(cfg), *tm, STEP_THREADS,
+            kernels.stream())
     kernels.check(code, what)
     return partials
 
@@ -239,8 +247,8 @@ def _launch_k6_prehalo(f, solid, tile_data, counts, cfg: SimConfig,
             f.data_ptr(), solid.data_ptr(), u_in, tile_data.data_ptr(),
             counts.data_ptr(), out.data_ptr(), w.data_ptr(),
             partials.data_ptr(), offsets.data_ptr(), *dims, k,
-            int(f.dtype == torch.bfloat16), lam, p, *tm,
-            kernels.stream())
+            int(f.dtype == torch.bfloat16), lam, p,
+            fused_fluid._pair_params(cfg), *tm, kernels.stream())
     kernels.check(code, what)
     return partials
 
@@ -280,7 +288,7 @@ def _launch(f, solid, tile_data, counts, cfg: SimConfig, k: int, out,
     dims = (cfg.ny, cfg.nx, th, tw, cfg.nx // tw, n_tiles, cap, cfg.window,
             cov_params(cfg))
     tail = (int(want == torch.bfloat16), int(cfg.nt_mode == "lambda"),
-            fused_fluid._params(cfg),
+            fused_fluid._params(cfg), fused_fluid._pair_params(cfg),
             np.float32(imb.nt_tm(cfg.tau, cfg.nt_mode)),
             np.float32(imb._EPS_MIN))
     if k is None:
@@ -407,10 +415,11 @@ def fused_step_imb_reduce_multi(f, solid, tile_data, counts, cfg: SimConfig,
 
 
 def fused_step_imb_plain(f, eps, usx, usy, cfg: SimConfig, out):
-    """Plain version of K8: imb.collide_imb -> lbm.stream ->
+    """Plain version of K8: the coupled collide -> lbm.stream ->
     lbm.apply_bounce_back -> lbm.apply_open_boundaries into `out`, with
     phi from the collide. Returns (out, phi_x, phi_y)."""
-    fpost, phix, phiy = imb.collide_imb(f, eps, usx, usy, cfg)
+    fpost, phix, phiy = fused_fluid.coupled_collide(cfg)(f, eps, usx, usy,
+                                                         cfg)
     out.copy_(lbm.apply_open_boundaries(
         lbm.apply_bounce_back(lbm.stream(fpost), fpost, cfg), cfg))
     return out, phix, phiy
@@ -427,6 +436,7 @@ def _launch_split_prehalo(f, eps, usx, usy, cfg: SimConfig, mode: str, out,
             out.data_ptr(), phi.data_ptr(), erow, ecol, cfg.ny, cfg.nx,
             pitch, hx, int(cfg.nt_mode == "lambda"),
             fused_fluid._params(cfg, 12 if mode == "y" else 0, 0),
+            fused_fluid._pair_params(cfg),
             np.float32(imb.nt_tm(cfg.tau, cfg.nt_mode)), STEP_THREADS,
             kernels.stream())
     kernels.check(code, what)
@@ -487,6 +497,7 @@ def fused_step_imb(f, eps, usx, usy, cfg: SimConfig, out, prehalo=False,
         out.data_ptr(), phi.data_ptr(),
         None if edge is None else edge.data_ptr(), cfg.ny, cfg.nx,
         int(cfg.nt_mode == "lambda"), fused_fluid._params(cfg),
+        fused_fluid._pair_params(cfg),
         np.float32(imb.nt_tm(cfg.tau, cfg.nt_mode)), STEP_THREADS,
         kernels.stream())
     kernels.check(code, what)

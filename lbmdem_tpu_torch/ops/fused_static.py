@@ -54,13 +54,15 @@ def check_static_cfg(cfg: SimConfig, prehalo=False, edges=None,
 
 
 def fused_step_imb_static_multi_plain(f, solid, cfg: SimConfig, k: int, out):
-    """Plain version of K7: from_storage, k x (imb.collide_imb ->
+    """Plain version of K7: from_storage, k x (the coupled collide
+    fused_fluid.coupled_collide ->
     lbm.stream -> lbm.apply_bounce_back -> lbm.apply_open_boundaries),
     to_storage, into `out`."""
     g = lbm.from_storage(f, cfg)
     eps, usx, usy = solid[0], solid[1], solid[2]
+    collide = fused_fluid.coupled_collide(cfg)
     for _ in range(k):
-        fpost, _, _ = imb.collide_imb(g, eps, usx, usy, cfg)
+        fpost, _, _ = collide(g, eps, usx, usy, cfg)
         g = lbm.apply_open_boundaries(
             lbm.apply_bounce_back(lbm.stream(fpost), fpost, cfg), cfg)
     return out.copy_(lbm.to_storage(g, cfg))
@@ -71,13 +73,14 @@ def fused_step_imb_static_multi_prehalo_plain(f, solid, cfg: SimConfig,
                                               ny_glob: int, out):
     """Plain version of K7 on a pre-haloed frame (the JAX
     _imb_static_multi_kernel with its mesh-position flags):
-    fused_fluid.frame_steps_plain with imb.collide_imb over the solid
+    fused_fluid.frame_steps_plain with the coupled collide over the solid
     window on the f frame's rows (fused_fluid.solid_frame), then the
     interior into `out`."""
     sf = fused_fluid.solid_frame(solid, cfg)
+    collide = fused_fluid.coupled_collide(cfg)
     g = fused_fluid.frame_steps_plain(
         lbm.from_storage(f, cfg), cfg, k, mode, edges, ny_glob,
-        lambda g, t: imb.collide_imb(g, sf[0], sf[1], sf[2], cfg)[0])
+        lambda g, t: collide(g, sf[0], sf[1], sf[2], cfg)[0])
     return out.copy_(lbm.to_storage(fused_fluid.frame_interior(g, cfg, mode),
                                     cfg))
 
@@ -123,6 +126,7 @@ def fused_step_imb_static_multi(f, solid, cfg: SimConfig, k: int, out,
         raise ValueError(f"{what}: solid must be float32 on f's device")
     lib = kernels.library()
     tm = np.float32(imb.nt_tm(cfg.tau, cfg.nt_mode))
+    q = fused_fluid._pair_params(cfg)
     lam = int(cfg.nt_mode == "lambda")
     bf16 = int(want == torch.bfloat16)
     kernels.setting("lbm_imb_static_strip", *STRIP)
@@ -132,13 +136,13 @@ def fused_step_imb_static_multi(f, solid, cfg: SimConfig, k: int, out,
         with torch.cuda.device(f.device):
             code = lib.lbm_imb_static_multi_prehalo(
                 f.data_ptr(), solid.data_ptr(), out.data_ptr(), u_in, cfg.ny,
-                cfg.nx, pitch, hx, k, bf16, lam, p, tm, kernels.stream())
+                cfg.nx, pitch, hx, k, bf16, lam, p, q, tm, kernels.stream())
     else:
         u_in = (fused_fluid._inlet_profile(cfg, f.device).data_ptr()
                 if cfg.bc_west == "inlet" else None)
         code = lib.lbm_imb_static_multi(
             f.data_ptr(), solid.data_ptr(), out.data_ptr(), u_in, cfg.ny,
-            cfg.nx, k, bf16, lam, fused_fluid._params(cfg), tm,
+            cfg.nx, k, bf16, lam, fused_fluid._params(cfg), q, tm,
             kernels.stream())
     kernels.check(code, what)
     fused_step_imb_static_multi.launches += 1

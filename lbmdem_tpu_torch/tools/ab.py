@@ -20,8 +20,8 @@ Cases: K4 and K5 (k = 4, 8; bf16 also 16) at 4096^2 (tau 0.8, gx 1e-6,
 periodic x, f = w_i (1 + 0.02 N(0, 1))), f32 and bf16; K1 (the stamp),
 K2 and K6 (k = 4) on the 4096^2 / 10k-disk column packed into contact
 (positions scaled by 0.94) and K7 (k = 4) on a 4096^2 porous bed of
-4096 fixed disks of r = 4, f32 and bf16 (K1 and K8, the split step
-on the packed column, f32 only); K3, K3w, both
+4096 fixed disks of r = 4, f32 and bf16, under BGK and under TRT (K1
+and K8, the split step on the packed column, f32 only); K3, K3w, both
 with springs (kt = 25, two subcycles first so live springs are
 carried), and K3 on a periodic x axis, on the packed column with seeded
 velocities and forces. The inputs are made by each tree's own code and
@@ -105,7 +105,8 @@ def _packed_column():
 
 
 def block_cases():
-    """K1; K2, K6 and K7 (k = 4), f32 and bf16; K8, f32."""
+    """K1; K2, K6 and K7 (k = 4), f32 and bf16, BGK then TRT; K8, f32,
+    BGK and TRT."""
     from lbmdem_tpu_torch import Simulation
     from lbmdem_tpu_torch.models import porous_bed
     from lbmdem_tpu_torch.ops import fused_lbm, fused_static, lbm, stamp
@@ -126,11 +127,12 @@ def block_cases():
 
     yield "K1", (td, cnt), stamp_run, lambda: (stamped["s"],)
     g = torch.Generator(device="cuda").manual_seed(9)
-    for storage in ("float32", "bfloat16"):
+    for storage, coll in (("float32", "bgk"), ("bfloat16", "bgk"),
+                          ("float32", "trt"), ("bfloat16", "trt")):
         for name, c, ins in (("K2", sim.cfg, (solid, td, cnt)),
                              ("K6", sim.cfg, (solid, td, cnt)),
                              ("K7", bed.cfg, (bsolid,))):
-            c = c.replace(f_storage=storage)
+            c = c.replace(f_storage=storage, collision=coll)
             f = lbm.to_storage(lbm.init_equilibrium(c, "cuda") * (
                 1.0 + 0.02 * torch.randn((9, c.ny, c.nx), generator=g,
                                          device="cuda")), c)
@@ -157,7 +159,8 @@ def block_cases():
 
                 def outs(out=out):
                     return (out,)
-            tag = "" if name == "K2" else " k=4"
+            tag = ("" if coll == "bgk" else " trt") + (
+                "" if name == "K2" else " k=4")
             yield f"{name} {storage}{tag}", (f, *ins), run, outs
             if name == "K2" and storage == "float32":
                 res8 = {}
@@ -166,7 +169,8 @@ def block_cases():
                     res["phi"] = fused_lbm.fused_step_imb(
                         f, solid[0], solid[1], solid[2], c, out)[1:]
 
-                yield ("K8 float32", (f, solid), run8,
+                yield (f"K8 float32{'' if coll == 'bgk' else ' trt'}",
+                       (f, solid), run8,
                        lambda out=out, res=res8: (out, *res["phi"]))
 
 

@@ -242,6 +242,14 @@ def periodic(device="cuda"):
             "crosser_x": float(outs[0][0, 0]), "path": describe_path(sim)}
 
 
+def _poiseuille_err(prof, cfg: SimConfig) -> float:
+    """max |u_x(y) - parabola| / max parabola of a body-force channel's
+    mean profile (cell centres at y = j + 1/2, walls at 0 and ny)."""
+    y = np.arange(cfg.ny) + 0.5
+    analytic = cfg.gx / (2.0 * cfg.nu) * y * (cfg.ny - y)
+    return float(np.abs(prof - analytic).max() / analytic.max())
+
+
 def trt(device="cuda"):
     """TRT on the kernels: Lambda = 3/16 pins the bounce-back wall
     exactly mid-link, so body-force Poiseuille sits on the analytic
@@ -257,16 +265,69 @@ def trt(device="cuda"):
             print(f"trt: {describe_path(sim)}")
         sim.run(12000)
         _, ux, _ = sim.macroscopic()
-        y = np.arange(cfg.ny) + 0.5
-        analytic = cfg.gx / (2.0 * cfg.nu) * y * (cfg.ny - y)
-        prof = ux.mean(axis=1)
-        errs[coll] = float(np.abs(prof - analytic).max() / analytic.max())
+        errs[coll] = _poiseuille_err(ux.mean(axis=1), cfg)
     print(f"poiseuille tau=1.5 rel err: trt {errs['trt']:.2e} "
           f"bgk {errs['bgk']:.2e}")
     gate(errs["trt"] < 2e-4, "TRT(3/16) wall not exact")
     gate(errs["bgk"] > 50 * errs["trt"], "BGK/TRT contrast missing")
     print("TRT OK")
     return {**errs, "path": describe_path(sim)}
+
+
+def trt_coupled(device="cuda", kernel: str = "K7"):
+    """The trt leg's deck (128 x 32, tau 1.5, gx 5e-5, float32, 12 000
+    steps) through a coupled kernel over an empty solid, in passes of
+    k = 4: K7 (fused_step_imb_static_multi on a zero solid stack) or K6
+    (fused_step_imb_reduce_multi on a zero solid stack with a binning of
+    no disk). Their collide is the NT-blended one (under TRT the pair
+    form of the TPU kernels), so the same gates hold as on the fluid
+    kernels: TRT (Lambda = 3/16) within 2e-4 of the parabola, BGK more
+    than 50 times off. Returns the errors, the kernel's launches per
+    collision (0 on the CPU: the plain version) and the path."""
+    from lbmdem_tpu_torch.ops import fused_lbm, stamp
+
+    if kernel not in ("K6", "K7"):
+        raise ValueError(f"kernel must be K6 or K7, got {kernel!r}")
+    device = require_device(device)
+    errs, launches = {}, {}
+    wrapper = (fused_lbm.fused_step_imb_reduce_multi if kernel == "K6"
+               else fused_static.fused_step_imb_static_multi)
+    for coll in ("trt", "bgk"):
+        cfg = SimConfig(nx=128, ny=32, tau=1.5, gx=5e-5, dtype="float32",
+                        collision=coll, out_interval=10**9)
+        f = lbm.init_equilibrium(cfg, device)
+        out = torch.empty_like(f)
+        solid = torch.zeros((3, cfg.ny, cfg.nx), device=device)
+        if kernel == "K6":  # the binning of one inactive disk
+            z = torch.zeros((1, 2), device=device)
+            td, cnt, _, _ = stamp.bin_disks_to_tiles(
+                z, z, z[:, 0], z[:, 0] + 1.0,
+                torch.zeros(1, dtype=torch.bool, device=device),
+                cfg.replace(max_disks=1, tile_cap=8))
+
+            def step(f, out):
+                return fused_lbm.fused_step_imb_reduce_multi(
+                    f, solid, td, cnt, cfg, 4, out)[0]
+        else:
+            def step(f, out):
+                return fused_static.fused_step_imb_static_multi(
+                    f, solid, cfg, 4, out)
+        n0 = wrapper.launches
+        for _ in range(12000 // 4):
+            f, out = step(f, out), f
+        launches[coll] = wrapper.launches - n0
+        _, ux, _ = lbm.moments(f, cfg.gx, cfg.gy)
+        errs[coll] = _poiseuille_err(ux.mean(dim=1).double().cpu().numpy(),
+                                     cfg)
+    path = (f"{kernel if device.type == 'cuda' else kernel + ' plain version'}"
+            f" (k = 4) over an empty solid, float32, {device.type}")
+    print(f"trt-coupled: {path}")
+    print(f"poiseuille tau=1.5 rel err: trt {errs['trt']:.2e} "
+          f"bgk {errs['bgk']:.2e}")
+    gate(errs["trt"] < 2e-4, "TRT(3/16) wall not exact")
+    gate(errs["bgk"] > 50 * errs["trt"], "BGK/TRT contrast missing")
+    print("TRT-COUPLED OK")
+    return {**errs, "launches": launches, "path": path}
 
 
 def _cylinder_argv(device, *args):

@@ -25,7 +25,10 @@ boundary matrix with the bars above, and on f32 the row-sweep K5(k),
 K6(k) and K7(k) equal to k chained K4, K2 and K8 steps, bit for bit (K5
 on bf16 3e-4 against its plain version); K5 on frames deeper than one
 sweep equal to the halo-free K5(k) bit for bit; the one-launch K3 and K3w bit
-for bit alike at every cooperative grid, one CUDA launch per call."""
+for bit alike at every cooperative grid, one CUDA launch per call; the
+TRT instantiations of K2, K6, K7 and K8 (the pair-form collide) equal to
+their plain versions on the card under torch.equal on f32, within 3e-4
+on bf16."""
 
 import numpy as np
 import pytest
@@ -1747,3 +1750,97 @@ def test_mesh_bf16_on_one_card(dev):
                                atol=1e-5)
     torch.testing.assert_close(sh.state.disks.v, one.state.disks.v, rtol=0,
                                atol=1e-6)
+
+
+TRT_CASES = {
+    "trt": dict(collision="trt", gy=-1e-5, bc_west="wall", bc_east="wall"),
+    "trt-les": dict(collision="trt", smagorinsky=0.16, gx=1e-5),
+    "all": dict(collision="trt", smagorinsky=0.16, nt_mode="lambda",
+                gx=1e-5, gy=-1e-5, uw_north=0.03, bc_west="inlet",
+                bc_east="outlet", u_inlet=0.05, inlet_profile="poiseuille")}
+
+
+def _trt_same(a, b, storage, what):
+    """f32: torch.equal; bf16: within 3e-4 (the plain versions compute
+    in the physical form, the kernels in the shifted one)."""
+    if storage == "float32":
+        assert torch.equal(a, b), (what, float((a - b).abs().max()))
+    else:
+        err = float((a.float() - b.float()).abs().max())
+        assert err <= 3e-4, (what, err)
+
+
+@pytest.mark.parametrize("storage", ["float32", "bfloat16"])
+@pytest.mark.parametrize("opt", sorted(TRT_CASES))
+def test_coupled_trt_kernels_match_pair_plain(dev, opt, storage):
+    """The TRT instantiations of K2, K6 and K7 (k = 1, 4, 8) and K8 (f32),
+    which collide in the pair form, against their plain versions
+    (fused_fluid.collide_imb_pairs) on the same card input at 256x64
+    with five moving disks: f' (and K2/K6's partials, K8's phi) equal
+    under torch.equal on f32, f' within 3e-4 on bf16; K7 on "y" and "yx"
+    frames with a random solid window and K8 on f32 frames likewise."""
+    from lbmdem_tpu_torch.config import window_for_radius
+
+    cfg = SimConfig(nx=256, ny=64, tau=0.8, dtype="float32", max_disks=5,
+                    window=window_for_radius(5.0), tile_cap=8,
+                    f_storage=storage, **TRT_CASES[opt])
+    x = torch.tensor([[1.2, 20.3], [64.3, 32.1], [128.0, 40.0],
+                      [200.5, 60.2], [240.0, 12.7]], device=dev)
+    v = torch.tensor([[0.01, -0.02], [0.0, 0.01], [-0.02, 0.0],
+                      [0.01, 0.01], [0.0, -0.01]], device=dev)
+    om = torch.tensor([0.005, -0.003, 0.0, 0.002, 0.001], device=dev)
+    r = torch.tensor([4.0, 4.0, 3.0, 5.0, 3.5], device=dev)
+    act = torch.ones(5, dtype=torch.bool, device=dev)
+    td, cnt, _, ovf = stamp.bin_disks_to_tiles(x, v, om, r, act, cfg)
+    assert int(ovf) == 0
+    solid = stamp.stamp_fields(td, cnt, cfg)
+    if cfg.bc_west == "inlet":
+        solid[:, :, 0].zero_()
+        solid[:, :, -1].zero_()
+    f = _fluid_f(cfg, dev, 17)
+    a, b = torch.empty_like(f), torch.empty_like(f)
+    _, pa = fused_lbm.fused_step_imb_reduce(f, solid, td, cnt, cfg, a)
+    _, pb = fused_lbm.fused_step_imb_reduce_plain(f, solid, td, cnt, cfg, b)
+    _trt_same(a, b, storage, "K2")
+    if storage == "float32":
+        assert torch.equal(pa, pb)
+    for k in (1, 4, 8):
+        _, pa = fused_lbm.fused_step_imb_reduce_multi(f, solid, td, cnt, cfg,
+                                                      k, a)
+        _, pb = fused_lbm.fused_step_imb_reduce_multi_plain(
+            f, solid, td, cnt, cfg, k, b)
+        _trt_same(a, b, storage, f"K6 k={k}")
+        if storage == "float32":
+            assert torch.equal(pa, pb), k
+        fused_static.fused_step_imb_static_multi(f, solid, cfg, k, a)
+        fused_static.fused_step_imb_static_multi_plain(f, solid, cfg, k, b)
+        _trt_same(a, b, storage, f"K7 k={k}")
+    if storage == "float32":
+        ka = fused_lbm.fused_step_imb(f, *solid, cfg, a)
+        kb = fused_lbm.fused_step_imb_plain(f, *solid, cfg, b)
+        assert all(map(torch.equal, ka, kb))
+    rng = np.random.default_rng(23)
+    for mode in ("y", "yx"):
+        fr = lbm.to_storage(torch.as_tensor(
+            lattice.W[:, None, None] * (1.0 + 0.05 * rng.standard_normal(
+                fused_fluid.frame_shape(cfg, mode))),
+            dtype=torch.float32, device=dev), cfg)
+        sh = fused_fluid.solid_shape(cfg, mode)
+        eps = rng.uniform(-0.2, 1.2, sh[1:]) * (rng.uniform(size=sh[1:]) > 0.6)
+        sw = torch.as_tensor(np.stack([
+            eps, rng.uniform(-0.03, 0.03, sh[1:]),
+            rng.uniform(-0.03, 0.03, sh[1:])]), dtype=torch.float32,
+            device=dev)
+        out_a = torch.empty((9, cfg.ny, cfg.nx), dtype=f.dtype, device=dev)
+        out_b = torch.empty_like(out_a)
+        edges = (1, 0, 1, 1, 0) if mode == "y" else (0, 1, 0, 1, 192)
+        fused_static.fused_step_imb_static_multi(
+            fr, sw, cfg, 4, out_a, prehalo=mode, edges=edges, ny_glob=256)
+        fused_static.fused_step_imb_static_multi_prehalo_plain(
+            fr, sw, cfg, 4, mode, edges, 256, out_b)
+        _trt_same(out_a, out_b, storage, f"K7 {mode}")
+        if storage == "float32" and cfg.bc_west != "inlet":
+            ka = fused_lbm.fused_step_imb(fr, *sw, cfg, out_a, prehalo=mode)
+            kb = fused_lbm.fused_step_imb_prehalo_plain(fr, *sw, cfg, mode,
+                                                         out_b)
+            assert all(map(torch.equal, ka, kb)), mode
