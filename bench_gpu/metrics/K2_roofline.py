@@ -1,0 +1,8 @@
+"""K2_roofline: K2's share of its roofline in the traced window, in
+percent (bench_gpu/roofline.py; its work in bench_gpu/work/K2.py)."""
+
+from bench_gpu import roofline
+
+
+def read(ctx):
+    return roofline.share(ctx, "K2")

@@ -1,0 +1,8 @@
+"""K3w_roofline: K3w's share of its roofline in the traced window, in
+percent (bench_gpu/roofline.py; its work in bench_gpu/work/K3w.py)."""
+
+from bench_gpu import roofline
+
+
+def read(ctx):
+    return roofline.share(ctx, "K3w")
