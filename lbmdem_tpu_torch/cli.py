@@ -94,7 +94,9 @@ def main(argv=None) -> int:
                          "process's devices and rank 0 writes the files")
     ap.add_argument("--profile", default=None, metavar="LOGDIR",
                     help="record a torch.profiler trace of the run into "
-                         "LOGDIR/trace.json")
+                         "LOGDIR/trace.json, with the program's lbmdem.* "
+                         "spans (lbmdem.sync.* for each wait on the "
+                         "device; their counts: utils/profiling.counters)")
     ap.add_argument("--scenario", default=None,
                     help="run a built-in scenario instead of a paramfile "
                          "(poiseuille|sedimentation|dkt|settling_column|"

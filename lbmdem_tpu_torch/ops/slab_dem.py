@@ -56,6 +56,7 @@ from lbmdem_tpu_torch.ops import dem as dem_ops
 from lbmdem_tpu_torch.ops.dem import DemGrid, DiskState
 from lbmdem_tpu_torch.ops.imb import sqrt_rn
 from lbmdem_tpu_torch.ops.stamp import _segment_ranks
+from lbmdem_tpu_torch.utils import profiling
 
 SLAB_K = 4  # slots per broadphase cell
 
@@ -653,7 +654,7 @@ def _leftover_fallback(new, disks, leftover, overflow, f_hydro, t_hydro,
     for the active disks the slab could not slot. The check of
     `overflow` (the build's count of such disks) reads one scalar from
     the device each step; with no overflow nothing else runs."""
-    if int(overflow) == 0:
+    if profiling.device_wait("slab_fallback", int, overflow) == 0:
         return new
     return _merge(leftover, _fallback_integrate(
         disks, leftover, f_hydro, t_hydro, body_f, cfg), new)
@@ -665,10 +666,12 @@ def dem_subcycle(disks: DiskState, f_hydro, t_hydro, grid: DemGrid,
     _unslab -> leftover fallback. Returns (new disks, overflow () i32,
     n_contacts () i32)."""
     body_f = dem_ops.body_forces(disks, cfg)
-    slabs, slot, ovf_slot, kmax, n_occ, band_offs, j36 = build_slabs(
-        disks, f_hydro, t_hydro, body_f, grid, axis, kt=cfg.kt > 0.0)
+    with profiling.span("lbmdem.dem.build_slabs"):
+        slabs, slot, ovf_slot, kmax, n_occ, band_offs, j36 = build_slabs(
+            disks, f_hydro, t_hydro, body_f, grid, axis, kt=cfg.kt > 0.0)
     out, nc = subcycle_slabs(slabs, kmax, n_occ, band_offs, grid, cfg, axis)
-    new, overflow = _unslab(out, slot, disks, cfg, j36, ovf_slot)
+    with profiling.span("lbmdem.dem.unslab"):
+        new, overflow = _unslab(out, slot, disks, cfg, j36, ovf_slot)
     leftover = disks.active & (slot < 0)
     new = _leftover_fallback(new, disks, leftover, ovf_slot, f_hydro,
                              t_hydro, body_f, cfg)
@@ -693,15 +696,18 @@ def dem_subcycle_window(disks: DiskState, forces, grid: DemGrid,
     overflow once per window (one host sync) and, when some disk was not
     slotted, integrates it per inner step."""
     body_f = dem_ops.body_forces(disks, cfg)
-    slabs, slot, ovf_slot, kmax, n_occ, band_offs, j36 = build_slabs(
-        disks, None, None, body_f, grid, axis, kt=cfg.kt > 0.0,
-        bake_forces=False)
-    f3all = _force_planes_window(slot, forces, body_f, slabs.shape)
+    with profiling.span("lbmdem.dem.build_slabs"):
+        slabs, slot, ovf_slot, kmax, n_occ, band_offs, j36 = build_slabs(
+            disks, None, None, body_f, grid, axis, kt=cfg.kt > 0.0,
+            bake_forces=False)
+        f3all = _force_planes_window(slot, forces, body_f, slabs.shape)
     for t in range(len(forces)):
         slabs, nc = subcycle_slabs_window(slabs, f3all[t], kmax, n_occ,
                                           band_offs, grid, cfg, axis)
-    new, overflow = _unslab(slabs, slot, disks, cfg, j36, ovf_slot, slim=True)
-    if int(ovf_slot) != 0:
+    with profiling.span("lbmdem.dem.unslab"):
+        new, overflow = _unslab(slabs, slot, disks, cfg, j36, ovf_slot,
+                                slim=True)
+    if profiling.device_wait("window_fallback", int, ovf_slot) != 0:
         leftover = disks.active & (slot < 0)
         d_fb = disks
         for f_hydro, t_hydro in forces:

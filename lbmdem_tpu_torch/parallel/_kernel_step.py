@@ -67,6 +67,7 @@ from lbmdem_tpu_torch.parallel.sharding import (
     max_over_shards, mesh_state_ok, on_device, paranoid_commit_mesh,
     per_position, shard_dims, sum_over_shards,
 )
+from lbmdem_tpu_torch.utils import profiling
 
 # stamp tile rows, the coupled lattice tile rows of the JAX chain
 _CANVAS_ROWS = (256, 128, 64, 32, 16, 8)
@@ -625,7 +626,7 @@ def sharded_static_solid(cfg: SimConfig, mesh: Mesh, ms: MeshState):
     rest in `ms` (`_Sharded.static_prep`), after one host check of their
     ghost and binning overflow (as `simulation.static_solid_stack`)."""
     wins, ovf = _Sharded(cfg, None, mesh, "y", "drift").static_prep(ms)
-    if int(ovf) != 0:
+    if profiling.device_wait("static_binning", int, ovf) != 0:
         raise ValueError(
             "static-solid binning overflow: raise cfg.tile_cap (or "
             "cfg.ghost_cap for periodic obstacle arrays)")

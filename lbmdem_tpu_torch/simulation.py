@@ -115,6 +115,7 @@ from lbmdem_tpu_torch.ops import (dem, fused_fluid, fused_lbm, fused_static,
                                   imb, lbm, slab_dem)
 from lbmdem_tpu_torch.ops import stamp
 from lbmdem_tpu_torch.ops.dem import DemGrid, DiskState, make_disk_state
+from lbmdem_tpu_torch.utils import profiling
 
 # Verlet-style cadence for the stamp tile lists (as the JAX driver)
 BIN_CADENCE = 8
@@ -488,9 +489,10 @@ def _kernel_step_fn(cfg: SimConfig, grid: Optional[DemGrid], tile_lists,
 
     def hydro(partials, entry_slots, gparent, n_real: int, dtype):
         """Per-disk (F, T) of one step's partials, ghosts folded in."""
-        fh, th = stamp.gather_partials(partials, entry_slots, dtype)
-        if periodic:
-            fh, th = imb.fold_ghost_forces(fh, th, gparent, n_real)
+        with profiling.span("lbmdem.glue.hydro"):
+            fh, th = stamp.gather_partials(partials, entry_slots, dtype)
+            if periodic:
+                fh, th = imb.fold_ghost_forces(fh, th, gparent, n_real)
         return fh, th
 
     def advance_disks(d: DiskState, fh, th):
@@ -505,8 +507,9 @@ def _kernel_step_fn(cfg: SimConfig, grid: Optional[DemGrid], tile_lists,
         def window_step(state: SimState, f_out: torch.Tensor) -> SimState:
             n_real = state.disks.x.shape[0]
             # window-start coupling inputs, frozen for the k inner steps
-            d, tile_data, counts, entry_slots, bovf, gparent = (
-                coupling_inputs(state.disks))
+            with profiling.span("lbmdem.glue.inputs"):
+                d, tile_data, counts, entry_slots, bovf, gparent = (
+                    coupling_inputs(state.disks))
             solid = stamp_solid(tile_data, counts)
             fnew, parts = fused_lbm.fused_step_imb_reduce_multi(
                 state.f, solid, tile_data, counts, cfg, coupling_k, f_out)
@@ -525,8 +528,9 @@ def _kernel_step_fn(cfg: SimConfig, grid: Optional[DemGrid], tile_lists,
 
     def step(state: SimState, f_out: torch.Tensor) -> SimState:
         n_real = state.disks.x.shape[0]
-        d, tile_data, counts, entry_slots, bovf, gparent = coupling_inputs(
-            state.disks)
+        with profiling.span("lbmdem.glue.inputs"):
+            d, tile_data, counts, entry_slots, bovf, gparent = (
+                coupling_inputs(state.disks))
         solid = stamp_solid(tile_data, counts)
         fnew, partials = fused_lbm.fused_step_imb_reduce(
             state.f, solid, tile_data, counts, cfg, f_out)
@@ -575,7 +579,8 @@ def static_solid_stack(cfg: SimConfig, d: DiskState) -> torch.Tensor:
     if cfg.bc_west == "inlet":
         solid[:, :, 0].zero_()
         solid[:, :, -1].zero_()
-    if int(torch.maximum(ovf, bovf)) != 0:
+    if profiling.device_wait("static_binning", int,
+                             torch.maximum(ovf, bovf)) != 0:
         raise ValueError(
             "static-solid binning overflow: raise cfg.tile_cap "
             "(or cfg.ghost_cap for periodic obstacle arrays)")
@@ -699,9 +704,10 @@ class Simulation:
 
     # --- stepping ---
     def _advance(self, stepfn: Callable) -> None:
-        old_f = self._state.f
-        self._state = stepfn(self._state, self._f_spare)
-        self._f_spare = old_f
+        with profiling.span("lbmdem.step"):
+            old_f = self._state.f
+            self._state = stepfn(self._state, self._f_spare)
+            self._f_spare = old_f
 
     def step(self) -> None:
         """One step (coupled: with a fresh binning, no cadence; all-fixed
@@ -762,7 +768,6 @@ class Simulation:
                 for _ in range(m):
                     self._advance(sstep)
             return
-        periodic = bool(cfg.wrap_lx or cfg.wrap_ly)
         # paranoia="chunk": validate once per cadence block instead of
         # per step (the inner steps run unwrapped)
         par_chunk = cfg.paranoia_mode == "chunk"
@@ -770,14 +775,23 @@ class Simulation:
         done = 0
         while done < n:
             k = min(BIN_CADENCE, n - done)
-            if par_chunk:
-                # the block's steps overwrite both f buffers: keep the
-                # block-start f for a commit that stays frozen
-                st_in = self.state._replace(f=self.state.f.clone())
-            d = self.state.disks
-            gparent = gaxes = None
-            xb, actb = d.x, d.active
-            if periodic:
+            with profiling.span("lbmdem.block"):
+                self._run_block(k, step_cfg, par_chunk)
+            done += k
+
+    def _run_block(self, k: int, step_cfg: SimConfig,
+                   par_chunk: bool) -> None:
+        """One Verlet-cadence block of k coupled steps (`_run_chunk`)."""
+        cfg = self.cfg
+        if par_chunk:
+            # the block's steps overwrite both f buffers: keep the
+            # block-start f for a commit that stays frozen
+            st_in = self.state._replace(f=self.state.f.clone())
+        d = self.state.disks
+        gparent = gaxes = None
+        xb, actb = d.x, d.active
+        with profiling.span("lbmdem.block.bin"):
+            if cfg.wrap_lx or cfg.wrap_ly:
                 # wrap and select ghosts only here, at the rebuild: the
                 # selection carries the lists' BIN_MARGIN slack
                 xw, aug, gparent, gaxes, govf = imb.periodic_ghosts(
@@ -788,25 +802,26 @@ class Simulation:
                     disks=d, overflow=torch.maximum(self.state.overflow, govf))
             lists, counts, entry_slots, bovf = stamp.build_tile_lists(
                 xb, actb, cfg, margin=BIN_MARGIN)
-            self.state = self.state._replace(
-                overflow=torch.maximum(self.state.overflow, bovf))
-            tl = (lists, counts, entry_slots, d.x, gparent, gaxes)
-            ck = cfg.coupling_k
-            nwin, rem = divmod(k, ck)
-            if nwin:
+        self.state = self.state._replace(
+            overflow=torch.maximum(self.state.overflow, bovf))
+        tl = (lists, counts, entry_slots, d.x, gparent, gaxes)
+        ck = cfg.coupling_k
+        nwin, rem = divmod(k, ck)
+        if nwin:
+            with profiling.span("lbmdem.block.closures"):
                 wstep = make_step_fn(step_cfg, self.grid, tl, self.dem_axis,
                                      coupling_k=ck, dem_mode=self.dem_mode)
-                for _ in range(nwin):
-                    self._advance(wstep)
-            if rem:
+            for _ in range(nwin):
+                self._advance(wstep)
+        if rem:
+            with profiling.span("lbmdem.block.closures"):
                 stepfn = make_step_fn(step_cfg, self.grid, tl, self.dem_axis,
                                       dem_mode=self.dem_mode)
-                for _ in range(rem):
-                    self._advance(stepfn)
-            if par_chunk:
-                self.state = paranoid_commit(st_in, self.state,
-                                             state_ok(cfg, self.state))
-            done += k
+            for _ in range(rem):
+                self._advance(stepfn)
+        if par_chunk:
+            self.state = paranoid_commit(st_in, self.state,
+                                         state_ok(cfg, self.state))
 
     def _static_solid_operands(self):
         """The static hoist's solid stack (`static_solid_stack`), or on a
@@ -834,16 +849,18 @@ class Simulation:
         interval = self.cfg.out_interval or steps
         done = 0
         t0 = time.perf_counter()
-        while done < steps:
-            n = min(interval, steps - done)
-            self._run_chunk(n)
-            done += n
-            if self.cfg.paranoia:
-                self.check_health()
-            if callback is not None:
-                self._sync()
-                callback(self)
-        self._sync()
+        with profiling.span("lbmdem.run"):
+            while done < steps:
+                n = min(interval, steps - done)
+                self._run_chunk(n)
+                done += n
+                if self.cfg.paranoia:
+                    self.check_health()
+                if callback is not None:
+                    profiling.device_wait("callback", self._sync)
+                    with profiling.span("lbmdem.callback"):
+                        callback(self)
+            profiling.device_wait("run_end", self._sync)
         dt_s = time.perf_counter() - t0
         self.mlups_last = self.cfg.nx * self.cfg.ny * steps / dt_s / 1e6
         return self.mlups_last
@@ -855,7 +872,7 @@ class Simulation:
         st = self._state
         fail_step, overflow = ((st.fail_step, st.overflow) if self.mesh is None
                                else (st.fail_step[0], st.overflow[0]))
-        fail = int(fail_step)
+        fail = profiling.device_wait("health", int, fail_step)
         if fail >= 0:
             raise SimulationDiverged(
                 f"paranoid check failed at step {fail}: non-finite f, "

@@ -1,8 +1,31 @@
-"""Tracing and timing, as the JAX package's `lbmdem_tpu/utils/
+"""Tracing of the program, as the JAX package's `lbmdem_tpu/utils/
 profiling.py`: `trace()` records a region with torch.profiler (host and,
-on the card, CUDA activity) and exports a Chrome trace; `Timer` gives
-wall timings that end in a device synchronize when given a CUDA tensor;
-`mlups` is the headline throughput metric."""
+on the card, CUDA activity) and exports a Chrome trace.
+
+Inside the program, `span(name)` marks a layer of the work. Under a
+running torch.profiler (`trace()`, or any other) it is a host record of
+the profiler's own timeline, on the device records' clock; otherwise it
+is one check and a shared null context. The spans are named `lbmdem.*`
+and nest:
+
+    lbmdem.run             one Simulation.run call
+      lbmdem.block         one Verlet-cadence block of the coupled chunk
+        lbmdem.block.bin       periodic ghosts and tile lists
+        lbmdem.block.closures  the block's step closures
+      lbmdem.step          one step, coupling window or K5/K7 pass
+        lbmdem.glue.inputs     travel check, ghosts, gather_tile_data
+        lbmdem.glue.hydro      gather_partials and the ghost fold
+        lbmdem.dem.build_slabs / lbmdem.dem.unslab
+      lbmdem.sync.<site>   a wait on the device (device_wait)
+      lbmdem.callback      the user's callback
+
+Every blocking wait that `Simulation.run` makes on the device (a
+device-to-host read or a synchronize, on one device or a mesh) goes
+through `device_wait`, which counts it and its host-clock nanoseconds
+whether or not a profiler runs; `counters()` reads the counts, which
+only grow: take differences around a region. Reads made outside `run`
+(`state`, `disk_arrays`, the snapshot helpers) are not counted.
+"""
 
 from __future__ import annotations
 
@@ -12,12 +35,54 @@ import time
 
 import torch
 
+_NULL = contextlib.nullcontext()
+try:
+    from torch._C._profiler import _RecordFunctionFast
+    _recording = torch.autograd._profiler_enabled
+except ImportError:  # a torch without it records no spans; waits still count
+    def _recording():
+        return False
+# [waits, nanoseconds waited]
+_WAITS = [0, 0]
+
+
+def span(name: str):
+    """A context that records `name` as a host span under a running
+    profiler, and the shared null context otherwise. The span is a plain
+    operator record, not a user annotation: a `record_function` would
+    also put a copy of itself on the device's timeline, where a reader
+    of device records takes it for work."""
+    if not _recording():
+        return _NULL
+    return _RecordFunctionFast(name)
+
+
+def device_wait(site: str, fn, *args):
+    """`fn(*args)`, a call that blocks until the device has caught up,
+    counted as one wait with its host-clock duration, and recorded as
+    the span `lbmdem.sync.<site>` under a running profiler."""
+    t = time.perf_counter_ns()
+    if _recording():
+        with _RecordFunctionFast("lbmdem.sync." + site):
+            out = fn(*args)
+    else:
+        out = fn(*args)
+    _WAITS[1] += time.perf_counter_ns() - t
+    _WAITS[0] += 1
+    return out
+
+
+def counters() -> dict:
+    """The process's waits on the device so far: {"syncs": count,
+    "sync_wait_s": host seconds spent in them}."""
+    return {"syncs": _WAITS[0], "sync_wait_s": _WAITS[1] * 1e-9}
+
 
 @contextlib.contextmanager
 def trace(logdir: str):
     """Profile the region into `logdir/trace.json` (Chrome trace format,
-    readable in Perfetto or chrome://tracing):
-    `with profiling.trace('out/trace'): sim.run(100)`."""
+    readable in Perfetto or chrome://tracing), the program's `lbmdem.*`
+    spans included: `with profiling.trace('out/trace'): sim.run(100)`."""
     acts = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(torch.profiler.ProfilerActivity.CUDA)
@@ -29,28 +94,3 @@ def trace(logdir: str):
     finally:
         prof.stop()
         prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
-
-
-class Timer:
-    """Wall-clock region timer: `with Timer(sync=t) as tm: ...`;
-    tm.seconds after the block. A CUDA tensor in `sync` makes the end of
-    the region wait for its device's queued work."""
-
-    def __init__(self, sync=None):
-        self._sync = sync
-        self.seconds = 0.0
-
-    def __enter__(self):
-        self._t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        if isinstance(self._sync, torch.Tensor) and self._sync.is_cuda:
-            torch.cuda.synchronize(self._sync.device)
-        self.seconds = time.perf_counter() - self._t0
-        return False
-
-
-def mlups(nx: int, ny: int, steps: int, seconds: float) -> float:
-    """Million lattice-site updates per second."""
-    return nx * ny * steps / seconds / 1e6
