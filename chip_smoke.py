@@ -718,7 +718,8 @@ def _wrappers():
             "K3w": slab_dem.subcycle_slabs_window,
             "K7": fused_static.fused_step_imb_static_multi,
             "K8": fused_lbm.fused_step_imb,
-            "K9": stamp.reduce_hydro_forces}
+            "K9": stamp.reduce_hydro_forces,
+            "KL": slab_dem.leftover_verlet}
 
 
 def launch_counts():
@@ -731,14 +732,14 @@ def reset_counts() -> None:
 
 
 # launches of run(100) twice per coupled slice: coupling_k = 1 takes K1,
-# K2 and K3 every step; coupling_k = 4 takes each cadence block of 8
-# steps (and the last block of 4) as windows: K1 and K6 once per window,
-# K3w once per inner step
+# K2, K3 and the leftover fallback (KL) every step; coupling_k = 4 takes
+# each cadence block of 8 steps (and the last block of 4) as windows: K1,
+# K6 and KL once per window, K3w once per inner step
 _NONE = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 0, "K3w": 0,
-         "K7": 0, "K8": 0, "K9": 0}
+         "K7": 0, "K8": 0, "K9": 0, "KL": 0}
 SLICE_COUNTS = {
-    1: {**_NONE, "K1": 200, "K2": 200, "K3": 200},
-    4: {**_NONE, "K1": 50, "K6": 50, "K3w": 200},
+    1: {**_NONE, "K1": 200, "K2": 200, "K3": 200, "KL": 200},
+    4: {**_NONE, "K1": 50, "K6": 50, "K3w": 200, "KL": 50},
 }
 
 
@@ -3093,8 +3094,8 @@ def cli_full_width(smi: str):
     """The user's entry point at full width: `python -m
     lbmdem_tpu_torch.cli examples/column_collapse.par --steps 200 --out
     <tmp>` in this process (auto path: the kernels), with the launch
-    counts zeroed before and read after (K1, K2, K3 200 each, nothing
-    else), the files it writes (metrics.csv, the fluid and particle VTK of
+    counts zeroed before and read after (K1, K2, K3 and KL 200 each,
+    nothing else), the files it writes (metrics.csv, the fluid and particle VTK of
     step 200, trajectories.csv), mass drift < 1e-5 from its metrics row,
     and its step-200 disk state (from trajectories.csv) against an
     in-process Simulation.run(200) of the deck, bit for bit. MLUPS of
@@ -3113,7 +3114,8 @@ def cli_full_width(smi: str):
         rc, text, err, secs = _cli([deck, "--steps", "200", "--out", out])
         counts = launch_counts()
         assert rc == 0 and "note:" not in err, (rc, err)
-        assert counts == {**_NONE, "K1": 200, "K2": 200, "K3": 200}, counts
+        assert counts == {**_NONE, "K1": 200, "K2": 200, "K3": 200,
+                          "KL": 200}, counts
         names = sorted(os.listdir(out))
         want = ["fluid_00000200.vtk", "metrics.csv",
                 "particles_00000200.vtk", "trajectories.csv"]
@@ -3696,8 +3698,8 @@ def mesh_slice(smi: str, dims, devices=None, storage: str = "float32",
 def mesh_chunk_counts(n: int, ck: int, shards: int, replicas: int) -> dict:
     """The launches of a mesh's coupled run(n): Verlet-cadence blocks of
     BIN_CADENCE steps, each b // ck windows (K1 and K6 per shard, K3w per
-    inner step and replica) and b % ck single steps (K1 and K2 per shard,
-    K3 per replica)."""
+    inner step and replica, KL per replica) and b % ck single steps (K1
+    and K2 per shard, K3 and KL per replica)."""
     from lbmdem_tpu_torch.simulation import BIN_CADENCE
 
     wins = singles = 0
@@ -3706,7 +3708,7 @@ def mesh_chunk_counts(n: int, ck: int, shards: int, replicas: int) -> dict:
         wins, singles = wins + nw, singles + r
     return {**_NONE, "K1": (wins + singles) * shards, "K2": singles * shards,
             "K6": wins * shards, "K3": singles * replicas,
-            "K3w": wins * ck * replicas}
+            "K3w": wins * ck * replicas, "KL": (wins + singles) * replicas}
 
 
 def mesh_fluid(smi: str, dims=(2, 2), devices=None, n: int = 4096,
@@ -4806,7 +4808,7 @@ def validation_legs(smi: str) -> None:
                                          f"{r['settled']}")
                 for r in results}
 
-    coupled = ("K1", "K2", "K3")
+    coupled = ("K1", "K2", "K3", "KL")
     legs = [
         ("settling", coupled, lambda: validate.settling("cuda")),
         ("dkt", coupled, lambda: validate.dkt("cuda")),
@@ -4814,7 +4816,7 @@ def validation_legs(smi: str) -> None:
         ("periodic", coupled, lambda: validate.periodic("cuda")),
         ("cavity", ("K5",), lambda: validate.cavity("cuda")),
         ("trt", ("K5",), trt),
-        ("friction", ("K3",), lambda: validate.friction("cuda")),
+        ("friction", ("K3", "KL"), lambda: validate.friction("cuda")),
         ("static", ("K7",), lambda: validate.static_multi("cuda")),
         ("collapse_study --tiny", coupled, collapse_tiny),
         ("benchmark_cylinder --steps 2000", (), cylinder),
@@ -5100,11 +5102,12 @@ TIER_FREE = (5600, 1900)
 
 
 def tier_counts(k: int, chunk: int) -> dict:
-    """The launches of run(chunk) at coupling_k k: K1, K2 and K3 per
-    step; at k > 1 K1 and K6 per window, K3w per inner step."""
+    """The launches of run(chunk) at coupling_k k: K1, K2, K3 and KL per
+    step; at k > 1 K1, K6 and KL per window, K3w per inner step."""
     if k == 1:
-        return {**_NONE, "K1": chunk, "K2": chunk, "K3": chunk}
-    return {**_NONE, "K1": chunk // k, "K6": chunk // k, "K3w": chunk}
+        return {**_NONE, "K1": chunk, "K2": chunk, "K3": chunk, "KL": chunk}
+    return {**_NONE, "K1": chunk // k, "K6": chunk // k, "K3w": chunk,
+            "KL": chunk // k}
 
 
 def tier_stage(smi: str, k: int, storage: str, eps: str, chunk: int):
@@ -5153,9 +5156,9 @@ def tier_vs_plain(k: int, steps: int = 16) -> None:
     """`steps` steps of the f32 8192^2 stage at coupling_k k through the
     kernels against the same steps without them, on the card: k = 1 the
     plain path (Simulation(use_kernels=False): make_plain_step_fn), k > 1
-    the window with K1, K6 and K3w swapped for their plain versions (the
-    plain path takes no window). Bars of the card-against-CPU runs: f
-    1e-5, disk x 1e-4, over the whole lattice and over the rows and
+    the window with K1, K6, K3w and KL swapped for their plain versions
+    (the plain path takes no window). Bars of the card-against-CPU runs:
+    f 1e-5, disk x 1e-4, over the whole lattice and over the rows and
     columns past the occupied bands (the partial-writes check)."""
     from unittest import mock
 
@@ -5180,7 +5183,7 @@ def tier_vs_plain(k: int, steps: int = 16) -> None:
         p.run(steps)
     else:
         p = q.make_sim(k=k)
-        what = "the window with K1, K6 and K3w plain"
+        what = "the window with K1, K6, K3w and KL plain"
         reset_counts()  # the wrappers' counts, before they are swapped
         with mock.patch.object(stamp, "stamp_fields",
                                stamp.stamp_fields_plain), \
@@ -5191,7 +5194,12 @@ def tier_vs_plain(k: int, steps: int = 16) -> None:
                     slab_dem, "subcycle_slabs_window",
                     lambda sl, f3, kmax, n_occ, bands, grid, cfg, axis:
                     slab_dem.subcycle_slabs_plain(sl, kmax, cfg, grid, axis,
-                                                  f3)):
+                                                  f3)), \
+                mock.patch.object(
+                    slab_dem, "leftover_verlet",
+                    lambda new, slot, ovf, forces, body_f, grid, cfg, axis:
+                    slab_dem.leftover_verlet_plain(new, slot, ovf, forces,
+                                                   body_f, cfg)):
             p.run(steps)
     secs = time.perf_counter() - t0
     assert launch_counts() == _NONE, f"{what} launched {launch_counts()}"
@@ -5259,11 +5267,108 @@ def k6_bf16_on_run(sim) -> dict:
                 k * (nt_flops(solid) + cov_flops_of(cfg, cnt)))
 
 
+def leftover_on_run(sim) -> dict:
+    """The leftover fallback kernel (KL) at the main path's shape, on the
+    f32 k = 1 8192^2 stage's disks: one active disk in 64 planted without
+    a slot (overflow > 0; the run itself never overflows) under seeded
+    hydro forces handed as views of (N, 4) rows, as the reduction leaves
+    them; one step and a k = 4 window against the chained plain
+    _fallback_integrate on the card under torch.equal, moving the planted
+    disks and no other; both timed with the planted overflow, and once
+    with none (the cells' early exit), by CUDA events over back-to-back
+    calls (the wrapper's host time paces those) and by the profiler's
+    device time, which the kernel row takes where the profiler kept
+    device records. Operations: the wall tests (9 per
+    enabled wall, a contact more) and force sums (5) of n_sub + 1 force
+    evaluations and 24 per Verlet substep, per planted disk and step.
+    Returns {"KL": work, "KL k=4": work}."""
+    from lbmdem_tpu_torch.ops import dem, slab_dem
+
+    cfg, grid, axis, d = sim.cfg, sim.grid, sim.dem_axis, sim.state.disks
+    n = d.x.shape[0]
+    body_f = dem.body_forces(d, cfg)
+    slot, ovf0 = slab_dem.build_slabs(d, None, None, body_f, grid, axis,
+                                      kt=cfg.kt > 0.0,
+                                      bake_forces=False)[1:3]
+    assert int(ovf0) == 0, f"the run's state overflows: {int(ovf0)}"
+    planted = torch.nonzero(d.active).flatten()[::64]
+    slot = slot.clone()
+    slot[planted] = -1
+    leftover = d.active & (slot < 0)
+    m = int(leftover.sum())
+    ovf = torch.sum(leftover).to(torch.int32)
+    rng = np.random.default_rng(11)
+    rows = torch.as_tensor(rng.uniform(-1e-3, 1e-3, (4, n, 4)),
+                           dtype=torch.float32, device=d.x.device)
+    rows[:, :, 2] *= 0.1
+    walls = sum(slab_dem._dem_params(cfg, grid, axis).wall_on)
+    out = {}
+    for k in (1, 4):
+        forces = [(rows[t, :, :2], rows[t, :, 2]) for t in range(k)]
+        p = d
+        for fh, th in forces:
+            p = slab_dem._fallback_integrate(p, leftover, fh, th, body_f, cfg)
+        want = slab_dem._merge(leftover, p, d)
+
+        def fresh():
+            return d._replace(x=d.x.clone(), v=d.v.clone(),
+                              omega=d.omega.clone(), theta=d.theta.clone())
+
+        got = slab_dem.leftover_verlet(fresh(), slot, ovf, forces, body_f,
+                                       grid, cfg, axis)
+        equal = all(torch.equal(getattr(got, f), getattr(want, f))
+                    for f in ("x", "v", "omega", "theta"))
+        err = max(float((getattr(got, f) - getattr(want, f)).abs().max())
+                  for f in ("x", "v", "omega", "theta"))
+        moved = (got.x != d.x).any(dim=1) | (got.omega != d.omega)
+        tgt = fresh()
+        ms = cuda_ms(lambda: slab_dem.leftover_verlet(
+            tgt, slot, ovf, forces, body_f, grid, cfg, axis), 20)
+        zero = torch.zeros_like(ovf)
+        ms0 = cuda_ms(lambda: slab_dem.leftover_verlet(
+            tgt, slot, zero, forces, body_f, grid, cfg, axis), 20)
+        dev = kernel_device_ms(lambda: slab_dem.leftover_verlet(
+            tgt, slot, ovf, forces, body_f, grid, cfg, axis))
+        dev0 = kernel_device_ms(lambda: slab_dem.leftover_verlet(
+            tgt, slot, zero, forces, body_f, grid, cfg, axis))
+
+        def plain():
+            q = d
+            for fh, th in forces:
+                q = slab_dem._fallback_integrate(q, leftover, fh, th, body_f,
+                                                 cfg)
+            return slab_dem._merge(leftover, q, d)
+
+        pms = cuda_ms(plain, 3)
+        log("kernels", f"8192^2 leftover fallback (KL) k={k}: {n} disk "
+            f"slots, {m} planted without a slot (overflow {int(ovf)}), "
+            f"n_sub {cfg.n_sub}, {walls} walls: equal to {k} chained "
+            f"_fallback_integrate {equal} (max err {err:.3e}); moved "
+            f"{int(moved.sum())} disks, all planted "
+            f"{bool(moved[leftover & d.mobile].all())}, none other "
+            f"{not bool(moved[~leftover].any())}; kernel {ms:.4f} ms, at "
+            f"overflow 0 {ms0:.4f} ms, plain {pms:.4f} ms (CUDA events); "
+            f"device time {dev_str(dev)}, at overflow 0 {dev_str(dev0)}")
+        assert equal, f"KL k={k}: max err {err}"
+        assert bool(moved[leftover & d.mobile].all())
+        assert not bool(moved[~leftover].any())
+        # all threads read active and slot; a planted disk its state
+        # (read and written), masses, body force and each step's forces
+        moved_b = n * 5 + m * (1 + 12 + 8 + 2 * 24) + m * k * 12
+        flops = m * k * ((cfg.n_sub + 1) * (9 * walls + 5)
+                         + 24 * cfg.n_sub)
+        ms = dev.get("leftover_verlet_kernel", ms)
+        out["KL" if k == 1 else "KL k=4"] = work(err, ms, pms, moved_b,
+                                                 flops)
+    return out
+
+
 def tier_8192(smi: str):
     """Phase 52: bench.py's four 8192^2 / 40 000-disk stages through
     qualify_8192/qualify_k8's functions (tier_stage); on the f32 k = 1
     stage's state K1, K2, K3 and K3w against their plain versions and
-    K6(4) equal to 4 chained K2 steps (kernel_checks on the run), on the
+    K6(4) equal to 4 chained K2 steps (kernel_checks on the run), and the
+    leftover fallback kernel with planted overflow (leftover_on_run), on the
     bf16 k = 8 stage's state bf16 K6(8) against its plain version; then
     the f32 k = 1 and k = 4 runs against the plain path on the card
     (tier_vs_plain). Returns (the kernels' work, the stages' launch
@@ -5275,6 +5380,7 @@ def tier_8192(smi: str):
         if (k, storage) == (1, "float32"):
             res.update(kernel_checks(sim.cfg, None, "8192x8192/40000 disks "
                                      "(the run's state)", True, sim=sim))
+            res.update(leftover_on_run(sim))
         elif (k, storage) == (8, "bfloat16"):
             res["K6 bf16 k=8"] = k6_bf16_on_run(sim)
         del sim
@@ -5454,6 +5560,10 @@ def main() -> int:
                "lbmdem_tpu/ops/pallas_lbm.py:1469"),
         "K9": ("reduce_hydro", "lbmdem_tpu_torch/csrc/imb_split.cu",
                "lbmdem_tpu/ops/pallas_stamp.py:474"),
+        # the leftover fallback: an XLA loop in the JAX package, no
+        # pallas_call; on the card a kernel that reads overflow itself
+        "KL": ("leftover_verlet", "lbmdem_tpu_torch/csrc/slab_dem.cu",
+               "lbmdem_tpu/ops/pallas_dem.py:939"),
     }
     k8_mesh = wmcounts["K8"] + smcounts["K8"]
     assert k8_mesh == 0, f"a mesh path launched K8 {k8_mesh} times"
@@ -5499,7 +5609,12 @@ def main() -> int:
               counts8[(4, "float32")]["K6"]),
              ("K3w", "8192", res8["K3w"], counts8[(4, "float32")]["K3w"]),
              ("K6", "8192 bf16 k=8", res8["K6 bf16 k=8"],
-              counts8[(8, "bfloat16")]["K6"])]
+              counts8[(8, "bfloat16")]["K6"]),
+             # the leftover fallback with planted overflow on the f32
+             # k = 1 stage's disks: launches of the k = 1 and k = 4 stages
+             ("KL", "8192", res8["KL"], counts8[(1, "float32")]["KL"]),
+             ("KL", "8192 k=4", res8["KL k=4"],
+              counts8[(4, "float32")]["KL"])]
     kernels = []
     rows = [(k, "", res[k], counts[k]) for k in (
         "K1", "K2", "K3", "K4", "K5", "K6", "K3w", "K7", "K8", "K9")] + extra

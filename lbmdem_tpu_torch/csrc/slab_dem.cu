@@ -18,6 +18,14 @@
 // channel and the first spring channel are launch parameters of the one
 // body.
 //
+// Beside them, the leftover fallback (lbm_dem_leftover, entry
+// dem_subcycle / dem_subcycle_window -> _leftover_fallback, which the TPU
+// runs as an XLA loop whose trip count is 0 without overflow): the
+// contact-free velocity Verlet of the active disks that the slab build
+// could not slot. The host never reads the build's overflow count: every
+// thread reads it on the device and returns at once when it is 0, so
+// without overflow a launch writes nothing and no step waits on the host.
+//
 // Slab layout (ops/slab_dem.build_slabs): channels (NCH, K, R, C), slot
 // (k, s, l) = rank k of broadphase cell (s - 8, l); rows [0, 8) and
 // [R - 8, R) are empty guard rows; empty slots hold r = 0 and every
@@ -90,6 +98,18 @@ struct DemParams {
   int ncs;               // real cell rows (plane rows [8, 8 + ncs))
 };
 
+// The leftover fallback's hydro forces (N, 2) and torques (N,) of each
+// inner step of one launch, passed by value: disk i's force at fh[t] +
+// i * fh_stride (its y one float further), its torque at th[t] + i *
+// th_stride (the strides in floats, the same for every step; views of
+// the hydro reduction's rows need no copy)
+constexpr int kLeftoverSteps = 8;
+struct LeftoverForces {
+  const float* fh[kLeftoverSteps];
+  const float* th[kLeftoverSteps];
+  int fh_stride, th_stride;
+};
+
 namespace {
 
 constexpr int kX = 0, kY = 1, kVX = 2, kVY = 3, kOM = 4, kTH = 5, kR = 6,
@@ -113,8 +133,9 @@ struct Geom {
 // axes (wall mirror points pass false). KT: `xi` holds the carried
 // tangential stretch, advanced by adv (0 evaluates without advancing),
 // and receives the slip-consistently truncated new stretch (0 when the
-// pair does not touch).
-template <bool KT, bool WRAP>
+// pair does not touch). NDIV: the normal as d / dist, as the cell-list
+// law (ops/dem._pair_force) takes it, in place of d * (1 / dist).
+template <bool KT, bool WRAP, bool NDIV = false>
 __device__ __forceinline__ bool pair(float xi, float yi, float vxi, float vyi,
                                      float omi, float ri, float xj, float yj,
                                      float vxj, float vyj, float omj, float rj,
@@ -137,8 +158,15 @@ __device__ __forceinline__ bool pair(float xi, float yi, float vxi, float vyi,
     if constexpr (KT) spring = 0.0f;
     return false;
   }
-  const float inv = 1.0f / dist;
-  const float nx = __fmul_rn(dx, inv), ny = __fmul_rn(dy, inv);
+  float nx, ny;
+  if constexpr (NDIV) {
+    nx = __fdiv_rn(dx, dist);
+    ny = __fdiv_rn(dy, dist);
+  } else {
+    const float inv = 1.0f / dist;
+    nx = __fmul_rn(dx, inv);
+    ny = __fmul_rn(dy, inv);
+  }
   const float tx = -ny, ty = nx;
   const float li = __fsub_rn(ri, __fmul_rn(0.5f, delta));
   const float lj = __fsub_rn(rj, __fmul_rn(0.5f, delta));
@@ -430,6 +458,89 @@ int dispatch(float* slabs, const float* hyd, float* buf, int* counters,
 #undef LBM_DEM
 }
 
+// The wall contacts of one disk (ops/dem.wall_forces): K3's pair law
+// against each enabled wall's mirror point, without history and with
+// h = 0, so with kt > 0 too the tangential force is the dashpot's; the
+// normal as the cell-list law takes it (NDIV)
+__device__ __forceinline__ void wall_forces(float x, float y, float vx,
+                                            float vy, float om, float r,
+                                            const DemParams& p, float& fx,
+                                            float& fy, float& tq) {
+  fx = fy = tq = 0.0f;
+  float spring = 0.0f;  // unused without KT
+  for (int w = 0; w < 4; ++w) {
+    if (!p.wall_on[w]) continue;
+    pair<false, false, true>(x, y, vx, vy, om, r, w < 2 ? p.wall_pos[w] : x,
+                             w < 2 ? y : p.wall_pos[w], 0.f, 0.f, 0.f, 0.f,
+                             true, p, fx, fy, tq, 0.0f, spring);
+  }
+}
+
+constexpr int kLeftoverThreads = 256;
+
+// One thread per disk. With overflow > 0, each active disk with no slot
+// runs n_steps chained steps (hydro force and torque of step t from f),
+// each one force evaluation then n_sub velocity-Verlet substeps under the
+// wall contacts, f_hydro + body_f and t_hydro, in registers, in the
+// order of the plain version (ops/slab_dem._fallback_integrate), and
+// writes its x, v, omega and theta in place; thread 0 adds n_steps to
+// the tally. What bounds it: the launch itself; without overflow a
+// thread makes one load, with it a few disks' arithmetic.
+__global__ void __launch_bounds__(kLeftoverThreads) leftover_verlet_kernel(
+    const int* __restrict__ overflow, const int* __restrict__ slot,
+    const bool* __restrict__ active, const bool* __restrict__ mobile,
+    const float* __restrict__ r, const float* __restrict__ mass,
+    const float* __restrict__ inertia, const float* __restrict__ body_f,
+    LeftoverForces f, int n_steps, float* __restrict__ x,
+    float* __restrict__ v, float* __restrict__ omega,
+    float* __restrict__ theta, int* __restrict__ tally, int n, int n_sub,
+    DemParams p) {
+  if (*overflow == 0) return;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i == 0) *tally += n_steps;
+  if (i >= n || !active[i] || slot[i] >= 0) return;
+  const float ri = r[i];
+  const float inv_m = mobile[i] ? __fdiv_rn(1.0f, mass[i]) : 0.0f;
+  const float inv_i = mobile[i] ? __fdiv_rn(1.0f, inertia[i]) : 0.0f;
+  const float bfx = body_f[2 * i], bfy = body_f[2 * i + 1];
+  float px = x[2 * i], py = x[2 * i + 1], vx = v[2 * i], vy = v[2 * i + 1];
+  float om = omega[i], th = theta[i];
+  for (int t = 0; t < n_steps; ++t) {
+    const float* fh = f.fh[t] + (size_t)i * f.fh_stride;
+    const float fhx = fh[0], fhy = fh[1];
+    const float tht = f.th[t][(size_t)i * f.th_stride];
+    float fx, fy, tq;
+    wall_forces(px, py, vx, vy, om, ri, p, fx, fy, tq);
+    fx = __fadd_rn(__fadd_rn(fx, fhx), bfx);
+    fy = __fadd_rn(__fadd_rn(fy, fhy), bfy);
+    tq = __fadd_rn(tq, tht);
+    for (int s = 0; s < n_sub; ++s) {
+      const float vhx =
+          __fadd_rn(vx, __fmul_rn(__fmul_rn(p.half_h, fx), inv_m));
+      const float vhy =
+          __fadd_rn(vy, __fmul_rn(__fmul_rn(p.half_h, fy), inv_m));
+      const float omh =
+          __fadd_rn(om, __fmul_rn(__fmul_rn(p.half_h, tq), inv_i));
+      px = __fadd_rn(px, __fmul_rn(p.h, vhx));
+      py = __fadd_rn(py, __fmul_rn(p.h, vhy));
+      th = __fadd_rn(th, __fmul_rn(p.h, omh));
+      wall_forces(px, py, vhx, vhy, omh, ri, p, fx, fy, tq);
+      fx = __fadd_rn(__fadd_rn(fx, fhx), bfx);
+      fy = __fadd_rn(__fadd_rn(fy, fhy), bfy);
+      tq = __fadd_rn(tq, tht);
+      vx = __fadd_rn(vhx, __fmul_rn(__fmul_rn(p.half_h, fx), inv_m));
+      vy = __fadd_rn(vhy, __fmul_rn(__fmul_rn(p.half_h, fy), inv_m));
+      om = __fadd_rn(omh, __fmul_rn(__fmul_rn(p.half_h, tq), inv_i));
+    }
+  }
+  x[2 * i] = px;
+  x[2 * i + 1] = py;
+  v[2 * i] = vx;
+  v[2 * i + 1] = vy;
+  omega[i] = om;
+  theta[i] = th;
+}
+
 }  // namespace
 
 // A cap on the cooperative grid of K3 and K3w in blocks (0: the
@@ -471,4 +582,29 @@ extern "C" int lbm_dem_subcycle_window(float* slabs, const float* forces3,
   return dispatch(slabs, forces3, buf, counters, n_contacts, kmax, n_occ,
                   band_offs, nb, K, R, C, ncl, kMINV_SLIM, kXI0_SLIM, n_sub,
                   p, stream);
+}
+
+// The leftover fallback, one launch on the stream. overflow: () i32, the
+// build's count of active disks without a slot; slot: (n,) i32 slot of
+// each disk (-1: none); active, mobile: (n,) bool; r, mass, inertia: (n,)
+// f32; body_f: (n, 2) f32; f: n_steps (1..8) steps' hydro forces (n, 2)
+// and torques (n,) f32, strided; x, v (n, 2), omega, theta (n,) f32, the
+// state, updated in place at the disks it integrates; tally: () i32,
+// += n_steps when overflow > 0. n = 0 launches nothing.
+extern "C" int lbm_dem_leftover(const int* overflow, const int* slot,
+                                const bool* active, const bool* mobile,
+                                const float* r, const float* mass,
+                                const float* inertia, const float* body_f,
+                                LeftoverForces f, int n_steps, float* x,
+                                float* v, float* omega, float* theta,
+                                int* tally, int n, int n_sub, DemParams p,
+                                cudaStream_t stream) {
+  if (n_steps < 1 || n_steps > kLeftoverSteps || n_sub < 1 || n < 0)
+    return (int)cudaErrorInvalidValue;
+  if (n == 0) return 0;
+  leftover_verlet_kernel<<<(n + kLeftoverThreads - 1) / kLeftoverThreads,
+                           kLeftoverThreads, 0, stream>>>(
+      overflow, slot, active, mobile, r, mass, inertia, body_f, f, n_steps, x,
+      v, omega, theta, tally, n, n_sub, p);
+  return (int)cudaGetLastError();
 }

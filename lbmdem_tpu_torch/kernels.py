@@ -56,6 +56,16 @@ class DemParams(ctypes.Structure):
     ]
 
 
+class LeftoverForces(ctypes.Structure):
+    """Device pointers of the leftover fallback's hydro forces (N, 2) and
+    torques (N,), one pair per inner step of a launch (at most 8), and
+    their row strides in floats; mirrors `struct LeftoverForces` in
+    csrc/slab_dem.cu."""
+
+    _fields_ = [("fh", _P * 8), ("th", _P * 8), ("fh_stride", _I),
+                ("th_stride", _I)]
+
+
 class FluidParams(ctypes.Structure):
     """Scalars of the pure-fluid steps (K4/K5) and of the coupled steps
     (K2, K6, K7, K8), those with the NT constant beside it; mirrors
@@ -108,6 +118,8 @@ _SIGNATURES = {
     "lbm_dem_subcycle_window": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                 _I, _I, _I, DemParams, _P],
     "lbm_dem_grid": [_I],
+    "lbm_dem_leftover": [_P, _P, _P, _P, _P, _P, _P, _P, LeftoverForces, _I,
+                         _P, _P, _P, _P, _P, _I, _I, DemParams, _P],
     "lbm_fluid_step": [_P, _P, _P, _I, _I, _I, FluidParams, PairParams, _P],
     "lbm_fluid_multi": [_P, _P, _P, _P, _I, _I, _I, _I, FluidParams,
                         PairParams, _P],

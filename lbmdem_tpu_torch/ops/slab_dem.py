@@ -33,9 +33,10 @@ wraps by modular cell row or lane, and the pair law takes the minimum
 image; partner coordinates stay raw.
 
 `_unslab` gathers the integrated channels 0-5 (the same in both
-layouts) and the springs back to disk order and `_leftover_fallback`
+layouts) and the springs back to disk order and `leftover_verlet`
 integrates, contact-free, the active disks the slab could not slot
-(rank >= SLAB_K).
+(rank >= SLAB_K): on the card a kernel that reads the build's overflow
+count itself, so no step waits on the host.
 
 Cell ranks come from `torch.sort(stable=True)`: within one cell the
 slots follow disk order, where the JAX package's unstable sort may
@@ -650,20 +651,92 @@ def _fallback_integrate(disks, leftover, f_hydro, t_hydro, body_f,
 
 def _leftover_fallback(new, disks, leftover, overflow, f_hydro, t_hydro,
                        body_f, cfg: SimConfig):
-    """Velocity-Verlet without disk-disk contacts (hydro + body + walls)
-    for the active disks the slab could not slot. The check of
-    `overflow` (the build's count of such disks) reads one scalar from
-    the device each step; with no overflow nothing else runs."""
-    if profiling.device_wait("slab_fallback", int, overflow) == 0:
+    """One step of the leftover fallback, as the JAX package's
+    `_leftover_fallback`: velocity-Verlet without disk-disk contacts
+    (hydro + body + walls) of the disks in `leftover` from their state
+    in `disks`, merged into `new`. With `overflow` (the build's count of
+    such disks) 0, `new` itself; otherwise the step counts in
+    `profiling.fallback_steps`. Reads `overflow` on the host."""
+    if int(overflow) == 0:
         return new
+    profiling.fallback_steps(overflow.device).add_(1)
     return _merge(leftover, _fallback_integrate(
         disks, leftover, f_hydro, t_hydro, body_f, cfg), new)
+
+
+def leftover_verlet_plain(new: DiskState, slot, overflow, forces, body_f,
+                          cfg: SimConfig) -> DiskState:
+    """Plain version of `leftover_verlet`: `_leftover_fallback` once per
+    (f_hydro, t_hydro) of `forces`, chained from `new`."""
+    leftover = new.active & (slot < 0)
+    for f_hydro, t_hydro in forces:
+        new = _leftover_fallback(new, new, leftover, overflow, f_hydro,
+                                 t_hydro, body_f, cfg)
+    return new
+
+
+def leftover_verlet(new: DiskState, slot, overflow, forces, body_f,
+                    grid: DemGrid, cfg: SimConfig, axis: str) -> DiskState:
+    """The leftover fallback after `_unslab`: the active disks without a
+    slot (slot < 0), which `new` holds as before the step, integrate
+    contact-free through one step per (f_hydro, t_hydro) of `forces`
+    (a step's one, or a window's inner steps' in turn). Returns the new
+    disks.
+
+    CPU tensors take the plain version (overflow is a CPU scalar there).
+    CUDA tensors take the kernel csrc/slab_dem.cu (lbm_dem_leftover, at
+    most 8 steps a launch), which reads overflow on the device, returns
+    at once when it is 0, and otherwise updates new's x, v, omega and
+    theta IN PLACE (fresh tensors from `_unslab`) and adds the steps to
+    `profiling.fallback_steps`: no host read."""
+    if slot.device.type == "cpu":
+        return leftover_verlet_plain(new, slot, overflow, forces, body_f, cfg)
+    what = "leftover fallback kernel"
+    if not 1 <= len(forces) <= 8:
+        raise ValueError(f"{what}: 1 to 8 steps a launch, not {len(forces)}")
+    kernels.require_cuda_f32(what, new.x, new.v, new.omega, new.theta, slot,
+                             overflow, new.r, new.mass, new.inertia, body_f)
+    for t in (new.active, new.mobile):
+        if (t.dtype != torch.bool or t.device != slot.device
+                or not t.is_contiguous()):
+            raise ValueError(f"{what}: the masks must be contiguous bool on "
+                             f"{slot.device} (got {t.dtype} on {t.device})")
+    n = slot.shape[0]
+    # the kernel reads the forces through their row strides (the hydro
+    # reduction hands out views), so they are copied only where a step's
+    # strides differ from the first's
+    fs = [(fh.expand(n, 2), th.expand(n)) for fh, th in forces]
+    sf, st = fs[0][0].stride(0), fs[0][1].stride(0)
+    if any(fh.stride() != (sf, 1) or th.stride() != (st,) for fh, th in fs):
+        fs = [(fh.contiguous(), th.contiguous()) for fh, th in fs]
+        sf, st = 2, 1
+    for t in (u for pair in fs for u in pair):
+        if t.device != slot.device or t.dtype != torch.float32:
+            raise ValueError(f"{what}: the forces must be float32 on "
+                             f"{slot.device} (got {t.dtype} on {t.device})")
+    ptrs = ctypes.c_void_p * 8
+    f = kernels.LeftoverForces(ptrs(*[fh.data_ptr() for fh, _ in fs]),
+                               ptrs(*[th.data_ptr() for _, th in fs]), sf, st)
+    code = kernels.library().lbm_dem_leftover(
+        overflow.data_ptr(), slot.data_ptr(), new.active.data_ptr(),
+        new.mobile.data_ptr(), new.r.data_ptr(), new.mass.data_ptr(),
+        new.inertia.data_ptr(), body_f.data_ptr(), f, len(fs),
+        new.x.data_ptr(), new.v.data_ptr(), new.omega.data_ptr(),
+        new.theta.data_ptr(),
+        profiling.fallback_steps(slot.device).data_ptr(), n, cfg.n_sub,
+        _dem_params(cfg, grid, axis), kernels.stream())
+    kernels.check(code, what)
+    leftover_verlet.launches += 1
+    return new
+
+
+leftover_verlet.launches = 0
 
 
 def dem_subcycle(disks: DiskState, f_hydro, t_hydro, grid: DemGrid,
                  cfg: SimConfig, axis: str = "y"):
     """One LBM step of DEM on the slab path: build_slabs -> K3 ->
-    _unslab -> leftover fallback. Returns (new disks, overflow () i32,
+    _unslab -> leftover_verlet. Returns (new disks, overflow () i32,
     n_contacts () i32)."""
     body_f = dem_ops.body_forces(disks, cfg)
     with profiling.span("lbmdem.dem.build_slabs"):
@@ -672,9 +745,8 @@ def dem_subcycle(disks: DiskState, f_hydro, t_hydro, grid: DemGrid,
     out, nc = subcycle_slabs(slabs, kmax, n_occ, band_offs, grid, cfg, axis)
     with profiling.span("lbmdem.dem.unslab"):
         new, overflow = _unslab(out, slot, disks, cfg, j36, ovf_slot)
-    leftover = disks.active & (slot < 0)
-    new = _leftover_fallback(new, disks, leftover, ovf_slot, f_hydro,
-                             t_hydro, body_f, cfg)
+    new = leftover_verlet(new, slot, ovf_slot, [(f_hydro, t_hydro)], body_f,
+                          grid, cfg, axis)
     return new, overflow, nc
 
 
@@ -692,9 +764,9 @@ def dem_subcycle_window(disks: DiskState, forces, grid: DemGrid,
     detector counts the active disks that travelled further into
     `overflow` after the fact (the window has already integrated with the
     frozen contact set; a run whose overflow trips should be re-run with
-    a smaller coupling_k). The leftover fallback reads the build's
-    overflow once per window (one host sync) and, when some disk was not
-    slotted, integrates it per inner step."""
+    a smaller coupling_k). `leftover_verlet` integrates the disks the
+    build could not slot through the inner steps in turn, in one launch
+    on the card, with no host read."""
     body_f = dem_ops.body_forces(disks, cfg)
     with profiling.span("lbmdem.dem.build_slabs"):
         slabs, slot, ovf_slot, kmax, n_occ, band_offs, j36 = build_slabs(
@@ -707,13 +779,8 @@ def dem_subcycle_window(disks: DiskState, forces, grid: DemGrid,
     with profiling.span("lbmdem.dem.unslab"):
         new, overflow = _unslab(slabs, slot, disks, cfg, j36, ovf_slot,
                                 slim=True)
-    if profiling.device_wait("window_fallback", int, ovf_slot) != 0:
-        leftover = disks.active & (slot < 0)
-        d_fb = disks
-        for f_hydro, t_hydro in forces:
-            d_fb = _fallback_integrate(d_fb, leftover, f_hydro, t_hydro,
-                                       body_f, cfg)
-        new = _merge(leftover, d_fb, new)
+    new = leftover_verlet(new, slot, ovf_slot, forces, body_f, grid, cfg,
+                          axis)
     trav2 = torch.where(disks.active, torch.sum((new.x - disks.x) ** 2, -1),
                         torch.zeros_like(disks.r))
     stale = torch.sum(trav2 > (0.5 * float(grid.skin)) ** 2).to(torch.int32)

@@ -22,9 +22,19 @@ and nest:
 Every blocking wait that `Simulation.run` makes on the device (a
 device-to-host read or a synchronize, on one device or a mesh) goes
 through `device_wait`, which counts it and its host-clock nanoseconds
-whether or not a profiler runs; `counters()` reads the counts, which
-only grow: take differences around a region. Reads made outside `run`
-(`state`, `disk_arrays`, the snapshot helpers) are not counted.
+whether or not a profiler runs. The sites: `run_end` (the call's last
+synchronize), `callback` (before the user's callback), `health`
+(paranoia's check), `static_binning` (the all-fixed path's one overflow
+check). The coupled step itself makes none: the slab DEM's leftover
+fallback reads its overflow count on the device. `counters()` reads the
+counts, which only grow: take differences around a region. Reads made
+outside `run` (`state`, `disk_arrays`, the snapshot helpers) are not
+counted.
+
+`fallback_steps(device)` is a count on the device that the leftover
+fallback adds its steps to (those in which it integrated some disk)
+without a host read; `counters()` reads it, a wait of its own, so the
+program never calls it inside `run`.
 """
 
 from __future__ import annotations
@@ -44,6 +54,8 @@ except ImportError:  # a torch without it records no spans; waits still count
         return False
 # [waits, nanoseconds waited]
 _WAITS = [0, 0]
+# device -> () int32 count of the leftover fallback's steps
+_FALLBACK_STEPS: dict = {}
 
 
 def span(name: str):
@@ -72,10 +84,22 @@ def device_wait(site: str, fn, *args):
     return out
 
 
+def fallback_steps(device: torch.device) -> torch.Tensor:
+    """The () int32 count of the leftover fallback's steps on `device`,
+    made (zero) at first use, for the fallback to add to in place."""
+    if device not in _FALLBACK_STEPS:
+        _FALLBACK_STEPS[device] = torch.zeros((), dtype=torch.int32,
+                                              device=device)
+    return _FALLBACK_STEPS[device]
+
+
 def counters() -> dict:
-    """The process's waits on the device so far: {"syncs": count,
-    "sync_wait_s": host seconds spent in them}."""
-    return {"syncs": _WAITS[0], "sync_wait_s": _WAITS[1] * 1e-9}
+    """The process's waits on the device so far, {"syncs": count,
+    "sync_wait_s": host seconds spent in them}, and the leftover
+    fallback's steps summed over devices ("fallback_steps"; reading it
+    on the card waits for it)."""
+    return {"syncs": _WAITS[0], "sync_wait_s": _WAITS[1] * 1e-9,
+            "fallback_steps": sum(int(t) for t in _FALLBACK_STEPS.values())}
 
 
 @contextlib.contextmanager

@@ -28,7 +28,8 @@ sweep equal to the halo-free K5(k) bit for bit; the one-launch K3 and K3w bit
 for bit alike at every cooperative grid, one CUDA launch per call; the
 TRT instantiations of K2, K6, K7 and K8 (the pair-form collide) equal to
 their plain versions on the card under torch.equal on f32, within 3e-4
-on bf16."""
+on bf16; the slab DEM's leftover fallback kernel equal to its plain
+version on the card under torch.equal, one launch with no host read."""
 
 import numpy as np
 import pytest
@@ -1844,3 +1845,152 @@ def test_coupled_trt_kernels_match_pair_plain(dev, opt, storage):
             kb = fused_lbm.fused_step_imb_prehalo_plain(fr, *sw, cfg, mode,
                                                          out_b)
             assert all(map(torch.equal, ka, kb)), mode
+
+
+# --- the leftover fallback kernel (lbm_dem_leftover) -----------------------
+
+LEFTOVER_CASES = {"walls": {}, "kt": dict(kt=0.5),
+                  "periodic": dict(bc_west="periodic", bc_east="periodic"),
+                  "window": {}}
+
+
+def _leftover_scene(dev, case):
+    """A 64^2 box with walls (x periodic in "periodic"): disks without a
+    slot touching each wall and a corner, one in the open, one fixed with
+    a prescribed velocity, beside slotted and inactive disks that the
+    fallback leaves alone; seeded hydro forces of 1 step (4 in
+    "window"). Returns (cfg, grid, disks, slot, forces, body_f)."""
+    kw = dict(bc_west="wall", bc_east="wall", bc_south="wall",
+              bc_north="wall")
+    kw.update(LEFTOVER_CASES[case])
+    cfg = SimConfig(nx=64, ny=64, tau=0.8, dtype="float32", max_disks=12,
+                    kn=50.0, gamma_n=2.0, gamma_t=1.0, mu=0.5, rho_s=2.5,
+                    n_sub=10, g_py=-1e-3, buoyancy=True, **kw)
+    specs = [DiskSpec(0.1, 30.0, 1.0, vx=-0.01),             # west
+             DiskSpec(62.8, 20.0, 1.2, vy=0.02),             # east
+             DiskSpec(30.0, 0.2, 1.0, omega=0.01),           # south
+             DiskSpec(20.0, 62.9, 1.1, vx=0.03),             # north
+             DiskSpec(0.3, 0.1, 1.0, vx=-0.02, vy=-0.02),    # a corner
+             DiskSpec(32.0, 32.0, 2.0, vx=0.01, omega=-2e-3),
+             DiskSpec(10.0, 10.0, 1.0, vx=0.01, fixed=True),
+             DiskSpec(0.2, 50.0, 1.0), DiskSpec(40.0, 40.0, 1.0, vy=-0.02)]
+    d = make_disk_state(specs, cfg, device=dev)  # the last 3 inactive
+    slot = torch.tensor([-1] * 7 + [5, 9] + [-1] * 3, dtype=torch.int32,
+                        device=dev)
+    rng = np.random.default_rng(5)
+    forces = []
+    for _ in range(4 if case == "window" else 1):
+        # rows [fx, fy, tq, 0] as the hydro reduction leaves them: the
+        # kernel reads the views through their strides ("kt": copies)
+        rows = torch.as_tensor(rng.uniform(-1e-2, 1e-2, (12, 4)),
+                               dtype=torch.float32, device=dev)
+        rows[:, 2] *= 0.1
+        fh, th = rows[:, :2], rows[:, 2]
+        forces.append((fh.contiguous(), th.contiguous()) if case == "kt"
+                      else (fh, th))
+    return (cfg, dem.DemGrid.build(cfg, 2.0), d, slot, forces,
+            dem.body_forces(d, cfg))
+
+
+def _fresh(d):
+    """`d` with fresh x, v, omega, theta (as `_unslab` returns them)."""
+    return d._replace(x=d.x.clone(), v=d.v.clone(), omega=d.omega.clone(),
+                      theta=d.theta.clone())
+
+
+@pytest.mark.parametrize("case", sorted(LEFTOVER_CASES))
+def test_leftover_kernel_matches_plain(dev, case):
+    """The leftover kernel and `leftover_verlet_plain` against the plain
+    _fallback_integrate, chained once per step's forces, on the card
+    under torch.equal (all take
+    the cell-list wall law, d / dist, under --fmad=false), with overflow
+    > 0: it adds the steps to fallback_steps, moves every leftover disk
+    and no other, and is one CUDA launch with no host read. With overflow
+    0 it changes nothing and counts nothing."""
+    from lbmdem_tpu_torch import kernels
+    from lbmdem_tpu_torch.utils import profiling
+
+    cfg, grid, d, slot, forces, body_f = _leftover_scene(dev, case)
+    leftover = d.active & (slot < 0)
+    ovf = torch.sum(leftover).to(torch.int32)
+    p = d
+    for fh, th in forces:
+        p = slab_dem._fallback_integrate(p, leftover, fh, th, body_f, cfg)
+    want = slab_dem._merge(leftover, p, d)
+    c0 = profiling.counters()["fallback_steps"]
+    n0 = slab_dem.leftover_verlet.launches
+    got = slab_dem.leftover_verlet(_fresh(d), slot, ovf, forces, body_f,
+                                   grid, cfg, "y")
+    assert slab_dem.leftover_verlet.launches == n0 + 1
+    assert profiling.counters()["fallback_steps"] - c0 == len(forces)
+    plain = slab_dem.leftover_verlet_plain(_fresh(d), slot, ovf, forces,
+                                           body_f, cfg)
+    for k in ("x", "v", "omega", "theta"):
+        a, b = getattr(got, k), getattr(want, k)
+        assert torch.equal(a, b), (case, k, float((a - b).abs().max()))
+        assert torch.equal(getattr(plain, k), b), (case, k)
+    moved = (got.x != d.x).any(dim=1)
+    assert moved[:7].all() and not moved[7:].any(), moved
+    new = _fresh(d)
+    ops = kernels.captured_launches(lambda: slab_dem.leftover_verlet(
+        new, slot, ovf, forces, body_f, grid, cfg, "y"))
+    assert ops == {"kernel": 1, "memcpy": 0, "memset": 0}, ops
+    c1 = profiling.counters()["fallback_steps"]
+    new = _fresh(d)
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    slab_dem.leftover_verlet(new, slot, zero, forces, body_f, grid, cfg, "y")
+    for k in ("x", "v", "omega", "theta"):
+        assert torch.equal(getattr(new, k), getattr(d, k)), k
+    assert profiling.counters()["fallback_steps"] == c1
+
+
+@pytest.mark.parametrize("k", [1, 4])
+def test_slab_dem_with_overflow_matches_cpu(dev, k):
+    """Five apart disks in one broadphase cell at a wall (K = 4 slots):
+    dem_subcycle (k = 1) or a k = 4 window on the card against the CPU,
+    the unslotted disk included, at K3's bar (2e-5); overflow 1 on
+    both."""
+    cfg = SimConfig(nx=128, ny=128, tau=0.8, dtype="float32", max_disks=5,
+                    kn=2.0, gamma_n=1.0, gamma_t=0.3, mu=0.4, rho_s=2.0,
+                    n_sub=6, bc_west="wall", bc_east="wall", g_py=-1e-2,
+                    buoyancy=False)
+    specs = [DiskSpec(5.2 - 1.3 * i, 43.0 + 1.3 * i, 0.6, vx=-0.01 * i)
+             for i in range(5)]
+    grid = dem.DemGrid.build(cfg, 3.0)
+    rng = np.random.default_rng(9)
+    forces = [(torch.as_tensor(rng.uniform(-1e-2, 1e-2, (5, 2)),
+                               dtype=torch.float32),
+               torch.as_tensor(rng.uniform(-1e-3, 1e-3, 5),
+                               dtype=torch.float32)) for _ in range(k)]
+    out = []
+    for device in (dev, "cpu"):
+        d = make_disk_state(specs, cfg, device=device)
+        fs = [(fh.to(device), th.to(device)) for fh, th in forces]
+        if k == 1:
+            new, ovf, _ = slab_dem.dem_subcycle(d, *fs[0], grid, cfg, "y")
+        else:
+            new, ovf, _ = slab_dem.dem_subcycle_window(d, fs, grid, cfg, "y")
+        out.append((new, int(ovf), d))
+    (a, ovf_a, da), (b, ovf_b, db) = out
+    assert ovf_a == ovf_b == 1
+    assert not torch.equal(a.x[4].cpu(), da.x[4].cpu())  # it moved
+    for name in ("x", "v", "omega", "theta"):
+        torch.testing.assert_close(getattr(a, name).cpu(), getattr(b, name),
+                                   rtol=0, atol=2e-5)
+
+
+@pytest.mark.parametrize("k", [1, 4])
+def test_coupled_run_waits_once(dev, k):
+    """One sim.run(16) of the coupled slice (coupling_k 1 and 4) waits on
+    the device once, at its end: the leftover fallback reads overflow on
+    the device. fallback_steps stays 0 (every disk slotted)."""
+    from lbmdem_tpu_torch.utils import profiling
+
+    sim, _ = _scene(dev, coupling_k=k)
+    sim.run(4)
+    c0 = profiling.counters()
+    sim.run(16)
+    c1 = profiling.counters()
+    assert c1["syncs"] - c0["syncs"] == 1
+    assert c1["fallback_steps"] == c0["fallback_steps"]
+    assert int(sim.state.overflow) == 0

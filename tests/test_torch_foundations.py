@@ -136,13 +136,14 @@ def test_particle_file_roundtrip(tmp_path):
 
 
 _C_TYPES = {"float*": ctypes.c_void_p, "int*": ctypes.c_void_p,
-            "void*": ctypes.c_void_p,
+            "void*": ctypes.c_void_p, "bool*": ctypes.c_void_p,
             "cudaStream_t": ctypes.c_void_p, "int": ctypes.c_int,
             "float": ctypes.c_float,
             "DemParams": tkernels.DemParams,
             "FluidParams": tkernels.FluidParams,
             "PairParams": tkernels.PairParams,
-            "CovParams": tkernels.CovParams}
+            "CovParams": tkernels.CovParams,
+            "LeftoverForces": tkernels.LeftoverForces}
 
 
 def _c_type(param: str):
@@ -166,6 +167,7 @@ def test_kernel_bindings_match_c_declarations():
     assert ctypes.sizeof(tkernels.FluidParams) == 15 * 4 + 12 * 4 + 5 * 4
     assert ctypes.sizeof(tkernels.PairParams) == 19 * 4
     assert ctypes.sizeof(tkernels.CovParams) == 2 * 4 + 5 * 4
+    assert ctypes.sizeof(tkernels.LeftoverForces) == 2 * 8 * 8 + 2 * 4
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():

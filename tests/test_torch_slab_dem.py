@@ -14,12 +14,14 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from lbmdem_tpu.config import DiskSpec as JDisk, SimConfig as JCfg
 from lbmdem_tpu.ops import dem as jdem, pallas_dem
 from lbmdem_tpu.ops.dem import DemGrid as JGrid
 from lbmdem_tpu_torch.ops import dem as tdem, slab_dem
 from lbmdem_tpu_torch.ops.dem import DemGrid as TGrid
+from lbmdem_tpu_torch.utils import profiling
 
 from torch_parity_util import (DTYPES, jx, npy, to_torch_cfg,
                                to_torch_disks, tt)
@@ -229,6 +231,92 @@ def test_slab_overflow_counted_and_fallback_runs():
                                         to_torch_cfg(cfg), "y")
     assert int(ovf) == 1
     assert (npy(new.x)[:, 1] < npy(td.x)[:, 1]).all()  # every disk fell
+
+
+def _wall_overflow_scene():
+    """Five apart disks in one broadphase cell at the west wall, in disk
+    order away from it: the last, which touches the wall, is the one the
+    slab cannot slot (K = 4)."""
+    cfg = to_torch_cfg(_cfg(max_disks=5, g_py=-1e-2))
+    specs = [JDisk(5.2 - 1.3 * i, 43.0 + 1.3 * i, 0.6, vx=-0.01 * i)
+             for i in range(5)]
+    td = tdem.make_disk_state(to_torch_disks(specs), cfg, "float32")
+    return cfg, td, TGrid.build(cfg, 3.0)
+
+
+def test_window_leftover_moves_as_chained_fallback():
+    """In a coupling_k = 4 window the unslotted disk moves exactly as 4
+    chained _fallback_integrate calls, one per inner step's forces."""
+    cfg, td, grid = _wall_overflow_scene()
+    rng = np.random.default_rng(7)
+    forces = [(tt(rng.uniform(-1e-2, 1e-2, (5, 2)).astype(np.float32)),
+               tt(rng.uniform(-1e-3, 1e-3, 5).astype(np.float32)))
+              for _ in range(4)]
+    body_f = tdem.body_forces(td, cfg)
+    slot = slab_dem.build_slabs(td, None, None, body_f, grid, "y",
+                                bake_forces=False)[1]
+    leftover = td.active & (slot < 0)
+    assert npy(leftover).tolist() == [False] * 4 + [True]
+    new, ovf, _ = slab_dem.dem_subcycle_window(td, forces, grid, cfg, "y")
+    d = td
+    for fh, th in forces:
+        d = slab_dem._fallback_integrate(d, leftover, fh, th, body_f, cfg)
+    assert int(ovf) == 1
+    assert not torch.equal(d.x[4], td.x[4])
+    for k in ("x", "v", "omega", "theta"):
+        assert torch.equal(getattr(new, k)[4], getattr(d, k)[4]), k
+
+
+def test_window_with_overflow_matches_pallas():
+    """The overflow scene's coupling_k = 4 window against the Pallas
+    dem_subcycle_window in interpret mode, which chains the unslotted
+    disk's fallback through the inner steps as well: every disk's x, v,
+    omega and theta at the slab bar (2e-5), overflow 1 on both."""
+    cfg = _cfg(max_disks=5, g_py=-1e-2)
+    specs = [JDisk(5.2 - 1.3 * i, 43.0 + 1.3 * i, 0.6, vx=-0.01 * i)
+             for i in range(5)]
+    jd, td = _states(cfg, specs, "float32")
+    rng = np.random.default_rng(7)
+    forces = [(rng.uniform(-1e-2, 1e-2, (5, 2)).astype(np.float32),
+               rng.uniform(-1e-3, 1e-3, 5).astype(np.float32))
+              for _ in range(4)]
+    jnew, jovf, _ = jax.jit(pallas_dem.dem_subcycle_window,
+                            static_argnums=(2, 3, 4))(
+        jd, [(jx(a), jx(b)) for a, b in forces], JGrid.build(cfg, 3.0), cfg,
+        "y")
+    tnew, tovf, _ = slab_dem.dem_subcycle_window(
+        td, [(tt(a), tt(b)) for a, b in forces],
+        TGrid.build(to_torch_cfg(cfg), 3.0), to_torch_cfg(cfg), "y")
+    assert int(jovf) == int(tovf) == 1
+    assert not torch.equal(tnew.x[4], td.x[4])  # the unslotted disk moved
+    for k in ("x", "v", "omega", "theta"):
+        np.testing.assert_allclose(np.asarray(getattr(jnew, k)),
+                                   npy(getattr(tnew, k)), rtol=0, atol=2e-5,
+                                   err_msg=k)
+
+
+def test_fallback_steps_counts_overflow_steps():
+    """counters()["fallback_steps"] counts the steps in which the
+    fallback integrated a disk: each step of the overflow scene, each
+    inner step of its window, and no step of a scene without overflow."""
+    cfg = _cfg("float64", max_disks=5, g_py=-1e-2)
+    specs = [JDisk(56.0 + 1.2 * i, 57.0 + 1.2 * i, 0.4) for i in range(5)]
+    tcfg = to_torch_cfg(cfg)
+    td = tdem.make_disk_state(to_torch_disks(specs), tcfg, "float64")
+    grid = TGrid.build(tcfg, 3.0)
+    z2, z1 = tt(np.zeros((5, 2))), tt(np.zeros(5))
+    c0 = profiling.counters()["fallback_steps"]
+    d = td
+    for _ in range(3):
+        d, ovf, _ = slab_dem.dem_subcycle(d, z2, z1, grid, tcfg, "y")
+        assert int(ovf) == 1
+    assert profiling.counters()["fallback_steps"] - c0 == 3
+    slab_dem.dem_subcycle_window(d, [(z2, z1)] * 4, grid, tcfg, "y")
+    assert profiling.counters()["fallback_steps"] - c0 == 3 + 4
+    apart = tdem.make_disk_state(to_torch_disks(specs[:4]), tcfg, "float64")
+    _, ovf, _ = slab_dem.dem_subcycle(apart, z2, z1, grid, tcfg, "y")
+    assert int(ovf) == 0
+    assert profiling.counters()["fallback_steps"] - c0 == 3 + 4
 
 
 @pytest.mark.parametrize("kw,what", [

@@ -52,12 +52,10 @@ COUPLED = {"lbmdem.run": 1, "lbmdem.block": 2, "lbmdem.block.bin": 2,
 TREES = {
     "k1": dict(COUPLED, **{
         "lbmdem.step": 16, "lbmdem.glue.inputs": 16, "lbmdem.glue.hydro": 16,
-        "lbmdem.dem.build_slabs": 16, "lbmdem.dem.unslab": 16,
-        "lbmdem.sync.slab_fallback": 16}),
+        "lbmdem.dem.build_slabs": 16, "lbmdem.dem.unslab": 16}),
     "k4": dict(COUPLED, **{
         "lbmdem.step": 4, "lbmdem.glue.inputs": 4, "lbmdem.glue.hydro": 16,
-        "lbmdem.dem.build_slabs": 4, "lbmdem.dem.unslab": 4,
-        "lbmdem.sync.window_fallback": 4}),
+        "lbmdem.dem.build_slabs": 4, "lbmdem.dem.unslab": 4}),
     "fluid": {"lbmdem.run": 1, "lbmdem.step": 2, "lbmdem.sync.run_end": 1},
     "fluid_callback_health": {
         "lbmdem.run": 1, "lbmdem.step": 2, "lbmdem.sync.health": 2,
@@ -70,13 +68,12 @@ PARENT = {"lbmdem.block": "lbmdem.run", "lbmdem.block.bin": "lbmdem.block",
           "lbmdem.glue.hydro": "lbmdem.step",
           "lbmdem.dem.build_slabs": "lbmdem.step",
           "lbmdem.dem.unslab": "lbmdem.step",
-          "lbmdem.sync.slab_fallback": "lbmdem.step",
-          "lbmdem.sync.window_fallback": "lbmdem.step",
           "lbmdem.sync.run_end": "lbmdem.run",
           "lbmdem.sync.health": "lbmdem.run",
           "lbmdem.sync.callback": "lbmdem.run",
           "lbmdem.callback": "lbmdem.run"}
-SYNCS = {"k1": 16 + 1, "k4": 4 + 1, "fluid": 1,
+# the coupled steps wait on nothing: the call's end alone
+SYNCS = {"k1": 1, "k4": 1, "fluid": 1,
          "fluid_callback_health": 2 + 2 + 1}
 
 
