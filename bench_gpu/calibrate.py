@@ -16,6 +16,9 @@ fault on the control seeds:
                configured
     minority   one disk in 64 altered where it is produced: its velocity
                and spin after the checked calls scaled by 1 + 1e-3
+    unfixed    a bed's fixed disks given to the program as mobile ones
+               (the reference keeps them fixed): the program then runs
+               the coupled path with its DEM, not the static hoist
 
 Last, per number, the largest reading of the program's runs (the lower
 reading) and the smallest of the control's and of each fault's. The
@@ -30,6 +33,7 @@ import json
 import sys
 import time
 
+import numpy as np
 import torch
 
 from bench_gpu import run, spec
@@ -42,12 +46,18 @@ def _minority(snap: dict) -> None:
         snap[q][::64] *= 1.0 + 1e-3
 
 
+def _unfixed(scene):
+    return scene._replace(disks=dict(
+        scene.disks, fixed=np.zeros_like(scene.disks["fixed"])))
+
+
 def faults(cell) -> dict:
     """The planted faults: run_cell's keyword arguments by name."""
     sim = cell.config["sim"]
     return {"contact": {"program_sim": {"kn": 1.25 * sim["kn"],
                                         "gamma_n": 1.25 * sim["gamma_n"]}},
-            "minority": {"alter": _minority}}
+            "minority": {"alter": _minority},
+            "unfixed": {"program_scene": _unfixed}}
 
 
 def readings(cell, seeds, seconds: float, label: str, **plant) -> list:

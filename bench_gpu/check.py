@@ -20,11 +20,14 @@ printed as information):
     f_l2          |f - f_ref| / |f_ref - w rho0| in the L2 norm over the
                   lattice after the second call (the error against the
                   departure from rest)
-    v_med, omega_med  the median disk's error over the median disk's
-                  speed (spin)
-    disks_off     the share of disks whose error of v or of omega is
-                  over OFF times the median disk's speed (spin): a fault
-                  in a minority of disks
+    v_med, omega_med  the median mobile disk's error over the median
+                  mobile disk's speed (spin); left out where every disk
+                  is fixed
+    disks_off     the share of mobile disks whose error of v or of omega
+                  is over OFF times the median disk's speed (spin): a
+                  fault in a minority of disks; left out as v_med
+    x_gap         max |x - x_ref| over the fixed disks (where some are):
+                  0 where the bed stayed where it was
     contacts      disk-disk contacts of the last step (the program's)
     contacts_gap  |contacts - the reference's| / the reference's
     overflow      the program's binning and slab overflow at the
@@ -107,8 +110,8 @@ def first_gap(snap: dict, f_ref: torch.Tensor, sim: dict) -> float:
 def compare(snap: dict, f_ref: torch.Tensor, d_ref, contacts_ref,
             sim: dict) -> Tuple[Dict[str, float], Optional[torch.Tensor]]:
     """The numbers of the second call's snapshot against the reference's
-    state, and each disk's larger relative error of v and omega (None
-    without disks)."""
+    state, and each mobile disk's larger relative error of v and omega
+    (None without mobile disks)."""
     dev = f_ref.device
     gap, err2, sig2 = 0.0, 0.0, 0.0
     for i in range(9):
@@ -122,11 +125,19 @@ def compare(snap: dict, f_ref: torch.Tensor, d_ref, contacts_ref,
     if d_ref is None:
         return out, None
     v, om = snap["v"].to(dev), snap["omega"].to(dev)
-    ev, eo = per_disk(v, d_ref.v), per_disk(om, d_ref.omega)
-    worst = torch.maximum(ev, eo)
-    out.update(v_med=float(ev.median()), omega_med=float(eo.median()),
-               disks_off=float((worst > OFF).double().mean()),
-               contacts=float(snap["contacts"]),
+    v_ref, om_ref = d_ref.v, d_ref.omega
+    if d_ref.fixed is not None:
+        fx, mob = d_ref.fixed, ~d_ref.fixed
+        out["x_gap"] = float((snap["x"].to(dev)[fx].double()
+                              - d_ref.x[fx].double()).abs().max())
+        v, om, v_ref, om_ref = v[mob], om[mob], v_ref[mob], om_ref[mob]
+    worst = None
+    if len(v):
+        ev, eo = per_disk(v, v_ref), per_disk(om, om_ref)
+        worst = torch.maximum(ev, eo)
+        out.update(v_med=float(ev.median()), omega_med=float(eo.median()),
+                   disks_off=float((worst > OFF).double().mean()))
+    out.update(contacts=float(snap["contacts"]),
                contacts_gap=abs(snap["contacts"] - contacts_ref)
                / max(contacts_ref, 1))
     return out, worst

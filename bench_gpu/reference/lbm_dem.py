@@ -8,18 +8,22 @@ BGK collide with Guo forcing, pull streaming, half-way bounce-back at
 resting walls; the Noble-Torczynski blend with "sample" coverage, the
 coverage-weighted force and torque gather; the spring-dashpot DEM with
 Coulomb-capped tangential dashpot, wall contacts, gravity with
-buoyancy, n_sub velocity-Verlet substeps on a cell-list broadphase),
-taken from `lbmdem_tpu_torch/ops/{lbm,imb,dem}.py` at commit caccc23.
-It imports neither the program nor JAX.
+buoyancy, n_sub velocity-Verlet substeps on a cell-list broadphase;
+fixed disks, of infinite mass and inertia, which no force moves, and a
+bed of fixed disks at rest, whose solid is stamped once and whose
+forces feed back into nothing), taken from
+`lbmdem_tpu_torch/ops/{lbm,imb,dem}.py` at commit caccc23. It imports
+neither the program nor JAX.
 
-Options outside that set (TRT, LES, history springs, periodic disks,
-open boundaries, moving walls, ramp or exact coverage, the "lambda"
-blend) raise NotImplementedError: a configuration that needs them
-brings a reference of its own.
+Options outside that set (TRT, LES, history springs, disks whose stamp
+window crosses a periodic edge, fixed disks that move, open
+boundaries, moving walls, ramp or exact coverage, the "lambda" blend)
+raise NotImplementedError: a configuration that needs them brings a
+reference of its own.
 
     p = Params.from_sim(sim_dict)
     f = equilibrium_rest(p, device)           # or a given start f
-    disks = make_disks(x, y, r, vx, vy, omega, p, device)
+    disks = make_disks(x, y, r, vx, vy, omega, p, device, fixed=None)
     f, disks, info = advance(f, disks, p, steps, coupling_k)
 """
 
@@ -300,7 +304,8 @@ def hydro_forces(d: "Disks", eps_raw, phix, phiy, p: Params, window: int):
 # --- DEM ---------------------------------------------------------------
 
 class Disks(NamedTuple):
-    """Disk state; every disk active and mobile."""
+    """Disk state; every disk active. `fixed` (N,) bool marks the disks
+    of infinite mass and inertia; None where every disk is mobile."""
 
     x: torch.Tensor  # (N, 2)
     v: torch.Tensor  # (N, 2)
@@ -309,12 +314,15 @@ class Disks(NamedTuple):
     r: torch.Tensor
     mass: torch.Tensor
     inertia: torch.Tensor
+    fixed: Optional[torch.Tensor] = None
 
 
-def make_disks(x, y, r, vx, vy, omega, p: Params, device) -> Disks:
+def make_disks(x, y, r, vx, vy, omega, p: Params, device,
+               fixed=None) -> Disks:
     """Disks from float64 numpy arrays: positions, velocities and spin in
     the configuration's dtype, mass rho_s pi r^2 and inertia m r^2 / 2
-    worked out in float64 and rounded once."""
+    worked out in float64 and rounded once; `fixed`, a bool array, marks
+    fixed disks (kept only where some disk is fixed)."""
     nd = np.dtype({torch.float32: "float32", torch.float64: "float64"}
                   [p.dtype])
     mass = p.rho_s * np.pi * r * r
@@ -324,9 +332,12 @@ def make_disks(x, y, r, vx, vy, omega, p: Params, device) -> Disks:
         return torch.as_tensor(np.asarray(a).astype(nd), device=device)
 
     n = len(x)
+    fixed = (None if fixed is None or not np.any(fixed)
+             else torch.as_tensor(np.asarray(fixed, dtype=bool),
+                                  device=device))
     return Disks(x=t(np.stack([x, y], 1)), v=t(np.stack([vx, vy], 1)),
                  theta=t(np.zeros(n)), omega=t(omega), r=t(r), mass=t(mass),
-                 inertia=t(inertia))
+                 inertia=t(inertia), fixed=fixed)
 
 
 def _sqrt(x):
@@ -434,7 +445,8 @@ def dem_step(d: Disks, fh, th, p: Params):
     """One LBM step of disk motion: n_sub velocity-Verlet substeps of
     kick-drift, force, kick under the hydrodynamic, contact and body
     forces; the neighbour list holds for the step (disks travel far
-    less than the skin). Returns (disks, contacts)."""
+    less than the skin). A fixed disk's inverse mass and inertia are 0.
+    Returns (disks, contacts)."""
     h = 1.0 / p.n_sub
     cand = neighbour_pairs(d)
     body = body_forces(d, p)
@@ -445,6 +457,9 @@ def dem_step(d: Disks, fh, th, p: Params):
 
     inv_m = (1.0 / d.mass)[:, None]
     inv_i = 1.0 / d.inertia
+    if d.fixed is not None:
+        inv_m = torch.where(d.fixed[:, None], 0.0, inv_m)
+        inv_i = torch.where(d.fixed, 0.0, inv_i)
     F, T, nc = force(d)
     for _ in range(p.n_sub):
         vh = d.v + (0.5 * h) * F * inv_m
@@ -459,6 +474,28 @@ def dem_step(d: Disks, fh, th, p: Params):
 
 # --- the run -----------------------------------------------------------
 
+def _fixed_at_rest(d: Disks) -> bool:
+    """Whether every disk is fixed; raises NotImplementedError for a
+    fixed disk that moves (a prescribed motion)."""
+    if d.fixed is None:
+        return False
+    if bool((d.v[d.fixed] != 0).any() | (d.omega[d.fixed] != 0).any()):
+        raise NotImplementedError("reference: fixed disks that move")
+    return bool(d.fixed.all())
+
+
+def _check_seams(d: Disks, p: Params, window: int) -> None:
+    """Raise NotImplementedError where a disk's stamp window crosses a
+    periodic edge (the program would stamp a ghost there)."""
+    half = window // 2
+    for axis, n, periodic in ((0, p.nx, not p.walls[0]),
+                              (1, p.ny, not p.walls[2])):
+        lo = torch.floor(d.x[:, axis] + 0.5) - half
+        if periodic and bool(((lo < 0) | (lo + window > n)).any()):
+            raise NotImplementedError(
+                "reference: a disk's window crosses a periodic edge")
+
+
 def advance(f, d: Optional[Disks], p: Params, steps: int,
             coupling_k: int = 1):
     """`steps` steps from (f, d). Without disks: pure fluid. With disks:
@@ -467,14 +504,25 @@ def advance(f, d: Optional[Disks], p: Params, steps: int,
     solid (collide, stream, bounce back, forces from each step's phi at
     the window-start positions), then coupling_k DEM steps, the t-th
     under the t-th step's forces (coupling_k = 1: exact per-step
-    coupling). Returns (f, d, {"contacts": of the last DEM step})."""
+    coupling). Every disk fixed at rest: one stamp for the whole run and
+    coupled fluid steps over it, with no force gather and no DEM (the
+    forces move nothing). Returns (f, d, {"contacts": of the last DEM
+    step, 0 on a fixed bed})."""
     if d is None:
         for _ in range(steps):
             f = fluid_step(f, p)
         return f, d, {}
+    window = window_cells(float(d.r.max()))
+    _check_seams(d, p, window)
+    if _fixed_at_rest(d):
+        eps, usx, usy = stamp(d, p, window)
+        for _ in range(steps):
+            post, _, _ = collide_nt(f, eps, usx, usy, p)
+            f = bounce_back(stream(post), post, p)
+            del post
+        return f, d, {"contacts": 0}
     if steps % coupling_k:
         raise ValueError("steps must be a multiple of coupling_k")
-    window = window_cells(float(d.r.max()))
     nc = torch.zeros((), dtype=torch.int32, device=f.device)
     for _ in range(steps // coupling_k):
         eps, usx, usy = stamp(d, p, window)

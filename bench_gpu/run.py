@@ -86,7 +86,7 @@ def set_up(cell, sim_kw: dict, scene, device: str, t0: float):
     disks = [] if dk is None else [
         DiskSpec(*row) for row in zip(*(dk[q].tolist() for q in
                                         ("x", "y", "r", "vx", "vy",
-                                         "omega")))]
+                                         "omega", "fixed")))]
     # a start flow is the program's input, like a restart's populations:
     # made before the peak is reset, so that its making does not count
     start = (None if scene.start_f is None
@@ -175,12 +175,14 @@ def per_layer(cell, tr, sim_kw: dict, scene, d0, p, lbm_dem,
 
 def run_cell(cell, seed: int, seconds: float, trace: bool, device: str,
              t0: float, program_sim: Optional[dict] = None,
-             alter: Optional[Callable[[dict], None]] = None) -> dict:
+             alter: Optional[Callable[[dict], None]] = None,
+             program_scene: Optional[Callable] = None) -> dict:
     """One run of `cell` (spec.Cell): the result's fields and the check.
     device "cpu" runs the program's plain versions (the harness's tests);
     the benchmark runs on "cuda". `program_sim` (fields of the program's
-    SimConfig alone) and `alter` (called on the second checked call's
-    snapshot) plant faults for the calibration and the tests."""
+    SimConfig alone), `alter` (called on the second checked call's
+    snapshot) and `program_scene` (scenes.Scene -> the Scene the program
+    alone is given) plant faults for the calibration and the tests."""
     import torch
 
     from bench_gpu import check, scenes
@@ -196,7 +198,8 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device: str,
     first, check_steps = int(w["first_steps"]), int(w["check_steps"])
     scene = scenes.build(cell.config, w, seed)
     sim, (snap1, snap2), setup_s, parts = set_up(
-        cell, dict(sim_kw, **(program_sim or {})), scene, device, t0)
+        cell, dict(sim_kw, **(program_sim or {})),
+        scene if program_scene is None else program_scene(scene), device, t0)
     if alter is not None:
         alter(snap2)
     setup_peak = torch.cuda.max_memory_allocated() if cuda else 0
@@ -223,7 +226,8 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device: str,
     mass0 = check.mass(f0, dict(sim_kw, f_storage="float32"))
     dk = scene.disks
     d0 = None if dk is None else lbm_dem.make_disks(
-        dk["x"], dk["y"], dk["r"], dk["vx"], dk["vy"], dk["omega"], p, device)
+        dk["x"], dk["y"], dk["r"], dk["vx"], dk["vy"], dk["omega"], p, device,
+        fixed=dk["fixed"])
     res = {}
     if rec is not None:
         tr = tracing.reduce(rec, traced[1], traced[0])

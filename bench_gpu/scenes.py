@@ -3,10 +3,11 @@ cell's start state, made from `--seed`.
 
 A frozen copy of the scene settings the program's own scenarios use
 (`lbmdem_tpu_torch/models/scenarios.py` at commit caccc23:
-`_pack_disks`, `column_collapse`; `bench.py`'s fluid stage), so that a
-later change there does not move a workload. Every seed gives the same
-sizes and the same amount of work; the seed draws only the jitter of
-the packing, the disks' start motion and the phases and amplitudes of a
+`_pack_disks`, `column_collapse`; `bench.py`'s fluid stage and the
+packing of its static-hoist stage, `_run_static`), so that a later
+change there does not move a workload. Every seed gives the same sizes
+and the same amount of work; the seed draws only the jitter of the
+packing, the disks' start motion and the phases and amplitudes of a
 start flow.
 
 A configuration file's "scene" table says what is in the domain:
@@ -16,10 +17,23 @@ A configuration file's "scene" table says what is in the domain:
         box x <= x_frac nx, y <= y_frac ny against the west and south
         walls, rows from the bottom, centre pitch pitch * 2r, each disk
         jittered by up to jitter * r on each axis
+    {"kind": "grid_bed", "n_disks": .., "r": .., "margin": ..,
+     "jitter": ..}                              a porous bed: side =
+        ceil(sqrt(n_disks)) columns and rows over the lattice less a
+        margin of margin cells on each side, disk i at the centre of
+        grid cell (i mod side, i div side), each coordinate jittered
+        uniformly in [-jitter, jitter] cells
     {"kind": "fluid"}                           no disks
+
+A disk scene's table may add "fixed": true (default false): every disk
+is then fixed, a solid the forces never move (the program's
+`DiskSpec.fixed`). Fixed disks start at rest: a "disk_motion" start
+with them is refused.
 
 A workload file's "start" table says how the run starts:
 
+    {"kind": "rest"}
+        fluid and disks at rest (the program's own start)
     {"kind": "disk_motion", "speed": s, "spin": w}
         fluid at rest; each disk's velocity components uniform in
         [-s, s] and its spin in [-w, w]
@@ -43,9 +57,10 @@ from bench_gpu.reference import lbm_dem
 
 class Scene(NamedTuple):
     """The inputs both sides are given: disks as float64 numpy arrays
-    (x, y, r, vx, vy, omega; None without disks) and, where the start is
-    not the program's own rest state, a maker of the start populations
-    (device -> (9, ny, nx) tensor in the configuration's dtype)."""
+    (x, y, r, vx, vy, omega) and a bool array (fixed), None without
+    disks; and, where the start is not the program's own rest state, a
+    maker of the start populations (device -> (9, ny, nx) tensor in the
+    configuration's dtype)."""
 
     disks: Optional[dict]
     start_f: Optional[Callable[[object], torch.Tensor]]
@@ -77,6 +92,20 @@ def hex_column(sc: dict, nx: int, ny: int, rng) -> dict:
             "r": np.full(n, r), "vx": z, "vy": z.copy(), "omega": z.copy()}
 
 
+def grid_bed(sc: dict, nx: int, ny: int, rng) -> dict:
+    """A jittered grid of disks at rest over the lattice less a margin
+    (`bench.py`'s static-hoist packing)."""
+    n, r = int(sc["n_disks"]), float(sc["r"])
+    margin, jit = float(sc["margin"]), float(sc["jitter"])
+    side = int(math.ceil(math.sqrt(n)))
+    gy, gx = np.divmod(np.arange(n), side)
+    d = rng.uniform(-jit, jit, (n, 2))
+    z = np.zeros(n)
+    return {"x": margin + (gx + 0.5) * ((nx - 2 * margin) / side) + d[:, 0],
+            "y": margin + (gy + 0.5) * ((ny - 2 * margin) / side) + d[:, 1],
+            "r": np.full(n, r), "vx": z, "vy": z.copy(), "omega": z.copy()}
+
+
 def flow_modes(st: dict, p: lbm_dem.Params, rng):
     """The start populations' maker of a "flow_modes" start."""
     modes = [tuple(m) for m in st["modes"]]
@@ -101,24 +130,31 @@ def flow_modes(st: dict, p: lbm_dem.Params, rng):
     return make
 
 
+PACKINGS = {"hex_column": hex_column, "grid_bed": grid_bed}
+
+
 def build(config: dict, workload: dict, seed: int) -> Scene:
     """The scene of `config` with `workload`'s start, drawn from seed."""
     rng = np.random.default_rng(seed)
     sim = config["sim"]
     sc, st = config["scene"], workload["start"]
     disks = None
-    if sc["kind"] == "hex_column":
-        disks = hex_column(sc, int(sim["nx"]), int(sim["ny"]), rng)
+    if sc["kind"] in PACKINGS:
+        disks = PACKINGS[sc["kind"]](sc, int(sim["nx"]), int(sim["ny"]), rng)
+        disks["fixed"] = np.full(len(disks["x"]), bool(sc.get("fixed")))
     elif sc["kind"] != "fluid":
         raise ValueError(f"unknown scene kind {sc['kind']!r}")
     start_f = None
     if st["kind"] == "disk_motion":
+        if disks["fixed"].any():
+            raise ValueError("a disk_motion start moves disks that the "
+                             "scene fixes")
         n = len(disks["x"])
         v = rng.uniform(-float(st["speed"]), float(st["speed"]), (n, 2))
         disks.update(vx=v[:, 0], vy=v[:, 1], omega=rng.uniform(
             -float(st["spin"]), float(st["spin"]), n))
     elif st["kind"] == "flow_modes":
         start_f = flow_modes(st, lbm_dem.Params.from_sim(sim), rng)
-    else:
+    elif st["kind"] != "rest":
         raise ValueError(f"unknown start kind {st['kind']!r}")
     return Scene(disks, start_f)
