@@ -744,12 +744,16 @@ class Simulation:
             )
 
             if self.static_solid:
-                chunk = make_sharded_static_chunk(
-                    self.cfg, self.mesh, n, self._static_solid_operands())
-            else:
-                chunk = make_sharded_coupled_chunk(
-                    self.cfg, self.grid, self.mesh, n, self.dem_axis,
-                    self.dem_mode)
+                wins = self._static_solid_operands()
+                with profiling.span("lbmdem.static.chunk"):
+                    chunk = make_sharded_static_chunk(self.cfg, self.mesh, n,
+                                                      wins)
+                    self._state, self._f_spare = chunk(self._state,
+                                                       self._f_spare)
+                return
+            chunk = make_sharded_coupled_chunk(
+                self.cfg, self.grid, self.mesh, n, self.dem_axis,
+                self.dem_mode)
             self._state, self._f_spare = chunk(self._state, self._f_spare)
             return
         if self.grid is None:
@@ -763,10 +767,11 @@ class Simulation:
         if self.static_solid and cfg.paranoia_mode != "step":
             solid = self._static_solid_operands()
             passes, singles = divmod(n, TEMPORAL_K)
-            for k, m in ((TEMPORAL_K, passes), (1, singles)):
-                sstep = make_static_step_fn(cfg, solid, k)
-                for _ in range(m):
-                    self._advance(sstep)
+            with profiling.span("lbmdem.static.chunk"):
+                for k, m in ((TEMPORAL_K, passes), (1, singles)):
+                    sstep = make_static_step_fn(cfg, solid, k)
+                    for _ in range(m):
+                        self._advance(sstep)
             return
         # paranoia="chunk": validate once per cadence block instead of
         # per step (the inner steps run unwrapped)
@@ -826,18 +831,21 @@ class Simulation:
     def _static_solid_operands(self):
         """The static hoist's solid stack (`static_solid_stack`), or on a
         mesh the shards' solid windows (`_kernel_step.
-        sharded_static_solid`), stamped once and cached."""
+        sharded_static_solid`), stamped once and cached (again after
+        `load_state`); each stamp is counted (`profiling.static_stamped`)."""
         if self._solid_stack is None:
-            if self.mesh is None:
-                self._solid_stack = static_solid_stack(self.cfg,
-                                                       self.state.disks)
-            else:
-                from lbmdem_tpu_torch.parallel._kernel_step import (
-                    sharded_static_solid,
-                )
+            with profiling.span("lbmdem.static.stamp"):
+                if self.mesh is None:
+                    self._solid_stack = static_solid_stack(self.cfg,
+                                                           self.state.disks)
+                else:
+                    from lbmdem_tpu_torch.parallel._kernel_step import (
+                        sharded_static_solid,
+                    )
 
-                self._solid_stack = sharded_static_solid(
-                    self.cfg, self.mesh, self._state)
+                    self._solid_stack = sharded_static_solid(
+                        self.cfg, self.mesh, self._state)
+            profiling.static_stamped()
         return self._solid_stack
 
     def run(self, steps: Optional[int] = None,

@@ -12,7 +12,12 @@ and nest:
       lbmdem.block         one Verlet-cadence block of the coupled chunk
         lbmdem.block.bin       periodic ghosts and tile lists
         lbmdem.block.closures  the block's step closures
-      lbmdem.step          one step, coupling window or K5/K7 pass
+      lbmdem.static.stamp  the static hoist's one stamp of its solid
+                           stack (K1 and the static_binning wait)
+      lbmdem.static.chunk  the static hoist's chunk: its K7 passes
+      lbmdem.step          one step, coupling window or K5/K7 pass (in
+                           lbmdem.block or lbmdem.static.chunk where
+                           there is one)
         lbmdem.glue.inputs     travel check, ghosts, gather_tile_data
         lbmdem.glue.hydro      gather_partials and the ghost fold
         lbmdem.dem.build_slabs / lbmdem.dem.unslab
@@ -30,6 +35,10 @@ fallback reads its overflow count on the device. `counters()` reads the
 counts, which only grow: take differences around a region. Reads made
 outside `run` (`state`, `disk_arrays`, the snapshot helpers) are not
 counted.
+
+`static_stamped()` counts the solid stacks that the static hoist
+stamps (one per Simulation, and one more after each `load_state`): a
+host integer, which `counters()` reads as "static_stamps".
 
 `fallback_steps(device)` is a count on the device that the leftover
 fallback adds its steps to (those in which it integrated some disk)
@@ -54,6 +63,8 @@ except ImportError:  # a torch without it records no spans; waits still count
         return False
 # [waits, nanoseconds waited]
 _WAITS = [0, 0]
+# [solid stacks the static hoist stamped]
+_STAMPS = [0]
 # device -> () int32 count of the leftover fallback's steps
 _FALLBACK_STEPS: dict = {}
 
@@ -84,6 +95,11 @@ def device_wait(site: str, fn, *args):
     return out
 
 
+def static_stamped() -> None:
+    """Count one stamp of the static hoist's solid stack."""
+    _STAMPS[0] += 1
+
+
 def fallback_steps(device: torch.device) -> torch.Tensor:
     """The () int32 count of the leftover fallback's steps on `device`,
     made (zero) at first use, for the fallback to add to in place."""
@@ -95,10 +111,12 @@ def fallback_steps(device: torch.device) -> torch.Tensor:
 
 def counters() -> dict:
     """The process's waits on the device so far, {"syncs": count,
-    "sync_wait_s": host seconds spent in them}, and the leftover
-    fallback's steps summed over devices ("fallback_steps"; reading it
-    on the card waits for it)."""
+    "sync_wait_s": host seconds spent in them}, the static hoist's
+    stamps ("static_stamps") and the leftover fallback's steps summed
+    over devices ("fallback_steps"; reading it on the card waits for
+    it)."""
     return {"syncs": _WAITS[0], "sync_wait_s": _WAITS[1] * 1e-9,
+            "static_stamps": _STAMPS[0],
             "fallback_steps": sum(int(t) for t in _FALLBACK_STEPS.values())}
 
 

@@ -1,7 +1,8 @@
 """The port's tracing on the CPU: the `lbmdem.*` spans that
 `utils/profiling.span` records under torch.profiler (their tree and
-counts over small coupled and pure-fluid runs), the count of waits on
-the device (`profiling.counters`), and the benchmark's reduction of the
+counts over small coupled, static-bed and pure-fluid runs), the counts
+of waits on the device and of the static hoist's stamps
+(`profiling.counters`), and the benchmark's reduction of the
 spans against device records (`bench_gpu/host_split.py`) on synthetic
 records, beside the benchmark's existing readers on the same records."""
 
@@ -132,6 +133,110 @@ def test_each_calls_spans_lie_inside_its_run_span():
     one.update({"lbmdem.block": 1, "lbmdem.block.bin": 1,
                 "lbmdem.block.closures": 1, "lbmdem.sync.run_end": 1})
     assert [dict(c) for c in per_call] == [one, one]
+
+
+# --- the static hoist's spans and its stamp counter -------------------------
+
+def _static_sim(mesh=None):
+    """A 256 x 128 channel, periodic in x, through two fixed disks at
+    rest: the static hoist (K1 once, then K7 passes of 4)."""
+    from lbmdem_tpu_torch import DiskSpec
+    from lbmdem_tpu_torch.parallel import make_mesh
+
+    cfg = SimConfig(nx=256, ny=128, tau=0.8, gx=1e-6, bc_west="periodic",
+                    bc_east="periodic", max_disks=2)
+    disks = [DiskSpec(60.0, 60.0, 8.0, fixed=True),
+             DiskSpec(180.0, 70.0, 8.0, fixed=True)]
+    sim = Simulation(cfg, disks, device="cpu", mesh=None if mesh is None
+                     else make_mesh(["cpu"] * 4, mesh))
+    assert sim.static_solid
+    return sim
+
+
+def _spans(prof):
+    return [(e.name(), e.start_ns(), e.start_ns() + e.duration_ns())
+            for e in prof.profiler.kineto_results.events()
+            if e.name().startswith("lbmdem.")]
+
+
+def _inside(s, spans, parent):
+    return [p for p in spans if p[0] == parent and p[1] <= s[1]
+            and s[2] <= p[2]]
+
+
+def test_static_spans():
+    """Two run(8) calls: one stamp in the first call, outside its chunk,
+    with the binning's wait inside it; one chunk per call, each holding
+    its two K7 passes' lbmdem.step spans."""
+    sim = _static_sim()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        sim.run(8)
+        sim.run(8)
+    spans = _spans(prof)
+    assert dict(collections.Counter(n for n, _, _ in spans)) == {
+        "lbmdem.run": 2, "lbmdem.static.stamp": 1, "lbmdem.static.chunk": 2,
+        "lbmdem.step": 4, "lbmdem.sync.static_binning": 1,
+        "lbmdem.sync.run_end": 2}
+    runs = sorted(s for s in spans if s[0] == "lbmdem.run")
+    for s in spans:
+        if s[0] == "lbmdem.step":
+            assert len(_inside(s, spans, "lbmdem.static.chunk")) == 1
+        if s[0] in ("lbmdem.static.chunk", "lbmdem.static.stamp"):
+            assert len(_inside(s, spans, "lbmdem.run")) == 1
+        if s[0] == "lbmdem.static.stamp":
+            assert _inside(s, [runs[0]], "lbmdem.run")
+            assert not _inside(s, spans, "lbmdem.static.chunk")
+        if s[0] == "lbmdem.sync.static_binning":
+            assert len(_inside(s, spans, "lbmdem.static.stamp")) == 1
+    for run_span in runs:
+        chunks = [c for c in spans if c[0] == "lbmdem.static.chunk"
+                  and run_span[1] <= c[1] and c[2] <= run_span[2]]
+        assert len(chunks) == 1
+        assert sum(1 for s in spans if s[0] == "lbmdem.step"
+                   and _inside(s, chunks, "lbmdem.static.chunk")) == 2
+
+
+def test_static_stamps_count_each_stamp():
+    """The solid stack is stamped once per Simulation, whatever the
+    calls, and once more after load_state; without a profiler too."""
+    from lbmdem_tpu_torch.interop import state_to_numpy
+
+    sim = _static_sim()
+    c0 = profiling.counters()["static_stamps"]
+    sim.run(8)
+    sim.run(6)
+    assert profiling.counters()["static_stamps"] - c0 == 1
+    sim.load_state(state_to_numpy(sim.state))
+    sim.run(4)
+    sim.run(4)
+    assert profiling.counters()["static_stamps"] - c0 == 2
+
+
+def test_static_spans_on_a_mesh():
+    """On a 2 x 2 mesh: the shards' solid windows stamped once under
+    lbmdem.static.stamp, one lbmdem.static.chunk per call."""
+    sim = _static_sim(mesh=(2, 2))
+    c0 = profiling.counters()["static_stamps"]
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        sim.run(4)
+        sim.run(4)
+    names = collections.Counter(n for n, _, _ in _spans(prof))
+    assert names["lbmdem.static.stamp"] == 1
+    assert names["lbmdem.static.chunk"] == 2
+    assert names["lbmdem.sync.static_binning"] == 1
+    assert profiling.counters()["static_stamps"] - c0 == 1
+
+
+@pytest.mark.parametrize("case", ["k1", "k4", "fluid"])
+def test_other_runs_stamp_nothing(case):
+    """A coupled or fluid-only run records no static span and leaves the
+    stamp counter where it was."""
+    sim, steps, callback = _sim(case)
+    c0 = profiling.counters()["static_stamps"]
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        sim.run(steps, callback=callback)
+    assert not [s for s in _spans(prof) if s[0].startswith("lbmdem.static.")]
+    assert profiling.counters()["static_stamps"] == c0
 
 
 # --- bench_gpu/host_split.py on synthetic records ---------------------------
